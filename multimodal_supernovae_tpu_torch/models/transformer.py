@@ -1,0 +1,267 @@
+"""Sequence encoders (port of multimodal_supernovae_tpu/models/transformer.py).
+
+Transformer over (value, time) sequences with a continuous time/wavelength
+positional encoding, band embeddings and masked aggregation, in eval mode:
+dropout is the identity, so ``SequenceEncoder`` accepts the config's
+``dropout`` and does not use it.
+
+Parameter names are the reference state_dict keys that
+``multimodal_supernovae_tpu/models/torch_export.py`` writes
+(``embedding_mag``, ``band_emb``, ``transformer.tblocks.{i}.attention.
+{tokeys,toqueries,tovalues,unifyheads}``, ``norm1``/``norm2``,
+``ff.0``/``ff.2``, ``query``, ``agg_attn.in_proj_weight``/``in_proj_bias``/
+``out_proj``, ``projection``), so an exported checkpoint loads strictly.
+
+Compute dtype follows flax's rules, which the JAX reference relies on:
+parameters stay float32; a layer given ``dtype`` casts its input and
+parameters to it, and a layer without one computes in the promotion of its
+input and parameters. LayerNorm takes its statistics in float32 in the
+E[x^2] - E[x]^2 form with eps 1e-6 (flax's, not torch's 1e-5) and returns
+its ``dtype``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention
+
+LN_EPS = 1e-6
+
+
+def time_positional_encoding(t: torch.Tensor, d_emb: int, norm: float) -> torch.Tensor:
+    """Sinusoidal encoding of continuous times/wavelengths: even channels
+    sin, odd channels cos, one frequency per pair. t (B, T) -> (B, T, d_emb)."""
+    half = d_emb // 2
+    div = torch.exp(
+        torch.arange(0, d_emb, 2, dtype=torch.float32, device=t.device)
+        * (-math.log(norm) / d_emb))
+    arg = t[..., None] * div
+    pe = torch.stack([torch.sin(arg), torch.cos(arg)], dim=-1)
+    return pe.reshape(*t.shape, 2 * half)
+
+
+def _compute_dtype(x: torch.Tensor, param: torch.Tensor,
+                   dtype: Optional[torch.dtype]) -> torch.dtype:
+    return dtype if dtype is not None else torch.promote_types(x.dtype, param.dtype)
+
+
+def _fan_in_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
+    """Weight (out, in) ~ N(0, 1/in): flax's lecun_normal scale, untruncated."""
+    with torch.no_grad():
+        w.normal_(generator=generator).mul_(w.shape[-1] ** -0.5)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` with a torch ``Linear``'s (out, in) weight layout."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        _fan_in_normal_(self.weight, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(x, self.weight, self.dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: float32 statistics, fast variance, eps 1e-6."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        var = (x32.square().mean(-1, keepdim=True) - mu.square()).clamp_min(0.0)
+        y = (x32 - mu) * (torch.rsqrt(var + LN_EPS) * self.weight) + self.bias
+        return y.to(_compute_dtype(x, self.weight, self.dtype))
+
+
+class SelfAttention(nn.Module):
+    """Bias-free K/Q/V projections, masked attention with the full-emb
+    e**-1/4 scaling (ops/attention.py), biased head unification."""
+
+    def __init__(self, emb: int, heads: int = 2, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if emb % heads:
+            raise ValueError(f"emb {emb} is not a multiple of heads {heads}")
+        self.emb, self.heads = emb, heads
+        self.tokeys = Dense(emb, emb, bias=False, dtype=dtype)
+        self.toqueries = Dense(emb, emb, bias=False, dtype=dtype)
+        self.tovalues = Dense(emb, emb, bias=False, dtype=dtype)
+        self.unifyheads = Dense(emb, emb, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, e = x.shape
+        if e != self.emb:
+            raise ValueError(f"input dim {e} != layer emb {self.emb}")
+        h, s = self.heads, e // self.heads
+
+        def to_heads(a):
+            return a.view(b, t, h, s).transpose(1, 2)
+
+        out = attention(to_heads(self.toqueries(x)), to_heads(self.tokeys(x)),
+                        to_heads(self.tovalues(x)), mask, e)  # (B, H, T, S)
+        return self.unifyheads(out.transpose(1, 2).reshape(b, t, e))
+
+
+class TransformerBlock(nn.Module):
+    """Post-norm block: ``norm1(attn(x) + x)`` then ``norm2(ff(x) + x)`` with
+    a ReLU MLP of width ``ff_hidden_mult * emb``."""
+
+    def __init__(self, emb: int, heads: int, ff_hidden_mult: int = 4,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.attention = SelfAttention(emb, heads, dtype=dtype)
+        self.norm1 = LayerNorm(emb, dtype=dtype)
+        self.ff = nn.Sequential(
+            Dense(emb, ff_hidden_mult * emb, dtype=dtype),
+            nn.ReLU(),
+            Dense(ff_hidden_mult * emb, emb, dtype=dtype),
+        )
+        self.norm2 = LayerNorm(emb, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.norm1(self.attention(x, mask) + x)
+        return self.norm2(self.ff(x) + x)
+
+
+class Transformer(nn.Module):
+    """A stack of post-norm blocks."""
+
+    def __init__(self, emb: int, heads: int, depth: int, ff_hidden_mult: int = 4,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.tblocks = nn.ModuleList(
+            TransformerBlock(emb, heads, ff_hidden_mult, dtype=dtype)
+            for _ in range(depth))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for block in self.tblocks:
+            x = block(x, mask)
+        return x
+
+
+class TorchStyleMHA(nn.Module):
+    """Attention pooling with ``nn.MultiheadAttention`` semantics and
+    parameter names: packed biased in-projection, 1/sqrt(head_dim) scaling,
+    unmasked softmax, biased out-projection. Computes in the promotion of
+    its inputs and float32 parameters, as the flax original does."""
+
+    def __init__(self, emb: int, heads: int = 2):
+        super().__init__()
+        self.emb, self.heads = emb, heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * emb, emb))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * emb))
+        self.out_proj = Dense(emb, emb)
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        for w in self.in_proj_weight.chunk(3):
+            _fan_in_normal_(w, generator)
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        e, h = self.emb, self.heads
+        s = e // h
+        ws = self.in_proj_weight.chunk(3)
+        bs = self.in_proj_bias.chunk(3)
+
+        def proj_heads(x, w, b):
+            dt = _compute_dtype(x, w, None)
+            y = F.linear(x.to(dt), w.to(dt), b.to(dt))
+            return y.view(x.shape[0], x.shape[1], h, s).transpose(1, 2)
+
+        qh, kh, vh = (proj_heads(x, w, b) for x, w, b in zip((q, k, v), ws, bs))
+        scores = torch.einsum("bhts,bhus->bhtu", qh, kh) / math.sqrt(s)
+        out = torch.einsum("bhtu,bhus->bhts", torch.softmax(scores, dim=-1), vh)
+        return self.out_proj(out.transpose(1, 2).reshape(q.shape[0], q.shape[1], e))
+
+
+class SequenceEncoder(nn.Module):
+    """``Dense(1->emb)(value) + time_PE(t) [+ band embedding]`` -> transformer
+    -> zero padded positions -> aggregate -> ``Dense(emb->n_out)`` in float32.
+
+    ``nband > 1`` expects the band-blocked layout (band b occupies positions
+    [b*T/nband, (b+1)*T/nband)). Aggregations: 'mean' (mask-weighted),
+    'max', 'attn' (learned query + TorchStyleMHA) and 'pretraining' (the
+    full pad-zeroed sequence, no projection; ``projection`` still exists, as
+    in the reference, so its state_dict loads strictly)."""
+
+    def __init__(self, n_out: int, emb: int, heads: int = 2, depth: int = 8,
+                 ff_hidden_mult: int = 4, dropout: float = 0.0, nband: int = 1,
+                 agg: str = "mean", time_norm: float = 10000.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if agg not in ("mean", "max", "attn", "pretraining"):
+            raise ValueError(f"unknown agg: {agg}")
+        self.emb, self.nband, self.agg, self.time_norm = emb, nband, agg, time_norm
+        self.embedding_mag = Dense(1, emb, dtype=dtype)
+        if nband > 1:
+            self.band_emb = nn.Embedding(nband, emb)
+        self.transformer = Transformer(emb, heads, depth, ff_hidden_mult,
+                                       dtype=dtype)
+        if agg == "attn":
+            self.query = nn.Parameter(torch.empty(emb))
+            self.agg_attn = TorchStyleMHA(emb, heads=2)
+        self.projection = Dense(emb, n_out)
+
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            if self.nband > 1:
+                self.band_emb.weight.normal_(generator=generator)
+            if self.agg == "attn":
+                self.query.uniform_(generator=generator)  # torch.rand init
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x.dim() == 2:
+            x = x[..., None]  # the value channel
+        h = self.embedding_mag(x)
+        h = h + time_positional_encoding(t, self.emb, self.time_norm).to(h.dtype)
+        if self.nband > 1:
+            band_ids = torch.arange(self.nband, device=h.device).repeat_interleave(
+                h.shape[1] // self.nband)
+            h = h + self.band_emb(band_ids)[None]  # float32: promotes h
+        h = self.transformer(h, mask)
+        if mask is not None:
+            h = h * mask[:, :, None].to(h.dtype)
+
+        if self.agg == "mean":
+            if mask is None:
+                h = h.mean(dim=1)
+            else:
+                h = h.sum(dim=1) / mask.sum(dim=1).to(h.dtype)[:, None]
+        elif self.agg == "max":
+            h = h.amax(dim=1)
+        elif self.agg == "attn":
+            q = self.query[None, None, :].expand(h.shape[0], 1, self.emb)
+            h = self.agg_attn(q, h, h)[:, 0, :]
+        else:  # pretraining
+            return h
+        # float32 projection: the embedding feeds L2 normalisation
+        return self.projection(h.float())
+
+
+def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None):
+    """Draw ``module``'s random parameters from ``generator``: fan-in normal
+    weights (flax's lecun_normal scale), normal band embeddings and a
+    uniform pooling query; biases stay zero and LayerNorm scales one, as
+    constructed."""
+    for m in module.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(generator)

@@ -1,0 +1,66 @@
+"""Attention cores (port of multimodal_supernovae_tpu/ops/attention.py).
+
+``dense_attention`` is the plain PyTorch version of the reference's MHSA
+math over already-projected heads, in the JAX layout (B, H, T, S):
+
+  * q and k are each scaled by ``emb ** -0.25``, with ``emb`` the FULL
+    embedding dim (H * S), not the head dim;
+  * masked KEY positions are set (not added) to -1e7 before the softmax, so
+    a fully masked row gets finite uniform weights over its T keys;
+  * scores and softmax are float32 whatever the input dtype; the weights are
+    cast to ``v.dtype`` before the value product.
+
+``attention`` is the entry the encoders call. It goes through
+``flash_attention`` (ops/flash_attention.py), which launches the CUDA
+kernel for CUDA tensors and takes ``dense_attention`` for CPU tensors. The
+JAX config's ``use_pallas`` is a TPU knob; the port reads it and ignores it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+MASK_FILL = -1e7
+
+
+def dense_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    emb: int,
+) -> torch.Tensor:
+    """Multi-head attention with the reference's scaling and masking.
+
+    Args:
+      q, k, v: (B, H, T, S) projected heads.
+      key_mask: (B, T) bool, True where the KEY position is valid, or None.
+      emb: full embedding dimension (H * S), used for the e**-1/4 scaling.
+
+    Returns:
+      (B, H, T, S) attention output in ``v.dtype``.
+    """
+    scale = emb ** -0.25
+    qs = (q * scale).float()
+    ks = (k * scale).float()
+    scores = torch.einsum("bhts,bhus->bhtu", qs, ks)
+    if key_mask is not None:
+        scores.masked_fill_(~key_mask[:, None, None, :], MASK_FILL)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhtu,bhus->bhts", weights.to(v.dtype), v)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    emb: int,
+) -> torch.Tensor:
+    """Masked attention: the CUDA kernel for CUDA tensors, ``dense_attention``
+    for CPU tensors (the dispatch lives in the kernel's wrapper)."""
+    from .flash_attention import flash_attention
+
+    return flash_attention(q, k, v, key_mask, emb)

@@ -1,0 +1,121 @@
+"""The port's attention ops against the JAX package's, on CPU.
+
+The port's ``dense_attention`` is held against JAX ``dense_attention`` and
+against the JAX Pallas flash kernel run in TPU interpret mode. Tolerances:
+float32 2e-5 (the JAX kernel tests' own); bfloat16 0.05 (both stacks round
+q*scale, the weights and the output to bf16, at different points).
+The CUDA kernel itself is checked against ``dense_attention`` on the card
+(tests/test_torch_flash_kernel.py and chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from multimodal_supernovae_tpu.ops.attention import dense_attention as jax_dense
+from multimodal_supernovae_tpu.ops.pallas_attention import (
+    flash_attention as jax_flash,
+)
+from multimodal_supernovae_tpu_torch.ops import attention, dense_attention
+from multimodal_supernovae_tpu_torch.ops.flash_attention import flash_attention
+
+TOL = {"float32": 2e-5, "bfloat16": 0.05}
+
+
+def _inputs(seed, b=2, h=2, t=13, s=8, mask="ragged"):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, h, t, s)).astype(np.float32) for _ in range(3))
+    if mask is None:
+        m = None
+    else:
+        m = rng.random((b, t)) > 0.3
+        m[:, 0] = True
+        if mask == "full_row":
+            m[-1] = False  # one sample with every key masked
+    return q, k, v, m
+
+
+def _to_jax(q, k, v, m, dtype):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    return ([jnp.asarray(a).astype(jdt) for a in (q, k, v)],
+            None if m is None else jnp.asarray(m))
+
+
+def _to_torch(q, k, v, m, dtype):
+    tdt = getattr(torch, dtype)
+    return ([torch.from_numpy(a).to(tdt) for a in (q, k, v)],
+            None if m is None else torch.from_numpy(m))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", ["ragged", "full_row", None])
+@pytest.mark.parametrize("t", [13, 200])
+def test_dense_matches_jax_dense(dtype, mask, t):
+    q, k, v, m = _inputs(t, t=t, mask=mask)
+    emb = q.shape[1] * q.shape[3]
+    (jq, jk, jv), jm = _to_jax(q, k, v, m, dtype)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, dtype)
+    want = jax_dense(jq, jk, jv, jm, emb)
+    got = dense_attention(tq, tk, tv, tm, emb)
+    assert got.dtype == getattr(torch, dtype) and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", ["ragged", "full_row", None])
+@pytest.mark.parametrize("t", [13, 200])
+def test_dense_matches_jax_flash_kernel(dtype, mask, t):
+    """The plain version equals the TPU kernel it stands for (interpret mode).
+
+    Where T is not a multiple of 8 the TPU kernel pads the keys with masked
+    ones, and a fully masked row then averages over the padded keys too; the
+    port follows ``dense_attention`` (T keys), so that row is left out."""
+    q, k, v, m = _inputs(100 + t, b=2, h=4, t=t, s=8, mask=mask)
+    emb = q.shape[1] * q.shape[3]
+    (jq, jk, jv), jm = _to_jax(q, k, v, m, dtype)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash(jq, jk, jv, jm, emb)
+    got = dense_attention(tq, tk, tv, tm, emb)
+    rows = slice(None, -1) if mask == "full_row" and t % 8 else slice(None)
+    np.testing.assert_allclose(_np(got)[rows], _np(want)[rows],
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_fully_masked_row_is_uniform():
+    """-1e7 is a fill, not -inf: an all-masked row averages every value."""
+    q, k, v, m = _inputs(3, t=13, mask="full_row")
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, "float32")
+    out = dense_attention(tq, tk, tv, tm, 16)
+    np.testing.assert_allclose(
+        out[-1].numpy(), np.broadcast_to(v[-1].mean(axis=1, keepdims=True), v[-1].shape),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    q, k, v, m = _inputs(4, t=37, s=16)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, "float32")
+    before = flash_attention.launches
+    want = dense_attention(tq, tk, tv, tm, 32)
+    for fn in (flash_attention, attention):
+        torch.testing.assert_close(fn(tq, tk, tv, tm, 32), want, rtol=0, atol=0)
+    assert flash_attention.launches == before == 0
+
+
+def test_strided_head_split_is_accepted():
+    """The encoder passes ``view(b, t, h, s).transpose(1, 2)`` views."""
+    rng = np.random.default_rng(5)
+    x = [torch.from_numpy(rng.normal(size=(2, 11, 16)).astype(np.float32))
+         for _ in range(3)]
+    q, k, v = (a.view(2, 11, 2, 8).transpose(1, 2) for a in x)
+    want = dense_attention(q.contiguous(), k.contiguous(), v.contiguous(), None, 16)
+    torch.testing.assert_close(attention(q, k, v, None, 16), want)
