@@ -5,13 +5,19 @@ The JAX package beside it is the reference: every module here mirrors one
 of its modules by name and is held against it by ``tests/test_torch_*.py``.
 This package imports ``torch`` and never ``jax``.
 
-Ported so far (the serving path, eval mode only):
-  ops       dense attention (the plain version) and the flash-attention
-            forward wrapper over a hand-written CUDA kernel
+Ported so far (the serving path and the contrastive training path):
+  ops       dense attention and its autograd (the plain versions), the
+            flash-attention forward and backward over hand-written CUDA
+            kernels in one autograd Function, the losses and metrics
   csrc      CUDA C++ kernel sources, built at first use by ``kernels.build``
-  models    sequence encoder, CLIP model (lightcurve + spectral towers),
-            the JAX-params -> state_dict bridge, run-dir loading
-  data      the synthetic generator (lightcurve + spectral part)
+  models    sequence encoder (train mode with dropout), CLIP model
+            (lightcurve + spectral towers, contrastive ``loss_fn``), the
+            JAX-params -> state_dict bridge, run-dir loading
+  data      the batch contract, device-resident batching and index plans,
+            magnitude/flux noise augmentation, the synthetic generator
+            (lightcurve + spectral part)
+  training  RAdam + StepLR + freezing, the train/eval steps and epoch
+            loops, ``Trainer.fit`` for the contrastive task
   serving   ``load_live``: a run directory served through the JAX package's
             numpy-only dynamic batcher and HTTP daemon
   cli       ``python -m multimodal_supernovae_tpu_torch.cli.serve``

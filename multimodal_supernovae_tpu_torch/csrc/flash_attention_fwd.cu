@@ -28,6 +28,13 @@
 // The LC head_dim (8) is below every MMA tile, so no tensor cores here; a
 // wgmma/TMA version for S >= 16 is later work.
 //
+// Training residual: given a non-null ``stats``, each row also stores its final
+// (max, sum) in float32 as (B*H*T, 2), the log-sum-exp in two parts, for the
+// backward kernel (csrc/flash_attention_bwd.cu) to rebuild P without a second
+// softmax pass. Kept as two numbers, not m + log2(l): a fully masked row has
+// m = -1e7*log2(e), where a float32 has no room left for log2(l). Serving
+// launches pass null and store nothing more.
+//
 // Plain C interface, loaded with ctypes (kernels/build.py): the entry returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape or
 // dtype it does not take. It launches on the given stream, does not
@@ -67,9 +74,9 @@ __device__ __forceinline__ float round_to(float x) {
 template <typename T, int S>
 __global__ void __launch_bounds__(BQ) flash_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int T_len,
-    float scale, int64_t sib, int64_t sih, int64_t sit, int64_t sob,
-    int64_t soh, int64_t sot) {
+    const uint8_t* __restrict__ mask, T* __restrict__ out,
+    float2* __restrict__ stats, int H, int T_len, float scale, int64_t sib,
+    int64_t sih, int64_t sit, int64_t sob, int64_t soh, int64_t sot) {
   static_assert(S % 4 == 0, "head dim must be a multiple of 4");
   __shared__ __align__(16) float ks[BK][S];
   __shared__ __align__(16) float vs[BK][S];
@@ -163,18 +170,19 @@ __global__ void __launch_bounds__(BQ) flash_attention_fwd_kernel(
     const float inv = 1.f / l;
 #pragma unroll
     for (int d = 0; d < S; ++d) o[d] = from_float<T>(acc[d] * inv);
+    if (stats != nullptr) stats[(int64_t)bh * T_len + row] = make_float2(m, l);
   }
 }
 
 template <typename T, int S>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* out, int B, int H, int T_len,
+                   const uint8_t* mask, void* out, float2* stats, int B, int H, int T_len,
                    float scale, int64_t sib, int64_t sih, int64_t sit,
                    int64_t sob, int64_t soh, int64_t sot, cudaStream_t stream) {
   const dim3 grid(B * H, (T_len + BQ - 1) / BQ);
   flash_attention_fwd_kernel<T, S><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), H, T_len, scale,
+      static_cast<const T*>(v), mask, static_cast<T*>(out), stats, H, T_len, scale,
       sib, sih, sit, sob, soh, sot);
   return cudaGetLastError();
 }
@@ -182,19 +190,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_head_dim(int S, const void* q, const void* k,
                               const void* v, const uint8_t* mask, void* out,
+                              float2* stats,
                               int B, int H, int T_len, float scale,
                               int64_t sib, int64_t sih, int64_t sit,
                               int64_t sob, int64_t soh, int64_t sot,
                               cudaStream_t stream) {
   switch (S) {
     case 8:
-      return launch<T, 8>(q, k, v, mask, out, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
+      return launch<T, 8>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
     case 16:
-      return launch<T, 16>(q, k, v, mask, out, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
+      return launch<T, 16>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
     case 32:
-      return launch<T, 32>(q, k, v, mask, out, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
+      return launch<T, 32>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
     case 64:
-      return launch<T, 64>(q, k, v, mask, out, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
+      return launch<T, 64>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -205,19 +214,21 @@ cudaError_t dispatch_head_dim(int S, const void* q, const void* k,
 // dtype: 0 = float32, 1 = bfloat16. q, k, v share the strides (sib, sih, sit)
 // of their (B, H, T) dims and out has (sob, soh, sot); the S dim is contiguous
 // in all four. mask is (B, T) bytes, contiguous, or null for "all valid".
+// stats is null or (B*H*T, 2) float32, contiguous: the rows' (max, sum).
 extern "C" int mmsn_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* out,
-    int B, int H, int T_len, int S, int dtype, float scale, int64_t sib,
+    void* stats, int B, int H, int T_len, int S, int dtype, float scale, int64_t sib,
     int64_t sih, int64_t sit, int64_t sob, int64_t soh, int64_t sot,
     void* stream) {
   if (B < 1 || H < 1 || T_len < 1 || (int64_t)B * H > 0x7fffffff) return cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float2* rs = static_cast<float2*>(stats);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_head_dim<float>(S, q, k, v, m, out, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, st);
+      return dispatch_head_dim<float>(S, q, k, v, m, out, rs, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, st);
     case 1:
-      return dispatch_head_dim<__nv_bfloat16>(S, q, k, v, m, out, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, st);
+      return dispatch_head_dim<__nv_bfloat16>(S, q, k, v, m, out, rs, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -2,9 +2,11 @@
 spectral part of multimodal_supernovae_tpu/data/synthetic.py).
 
 Draws exactly the numbers the JAX package's ``make_synthetic_dataset`` draws
-for the same seed and sizes, and returns them as a plain dict of numpy
-arrays: no dataset class, no jax. Samples share a latent vector across
-modalities, so light curves and spectra of one sample are related.
+for the same seed and sizes: ``make_synthetic_arrays`` returns them as a
+plain dict of numpy arrays, ``make_synthetic_dataset`` as an
+``ArrayDataset`` with the JAX generator's filenames. No jax. Samples share a
+latent vector across modalities, so light curves and spectra of one sample
+are related.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import numpy as np
+
+from .batching import ArrayDataset
 
 SUPPORTED_MODALITIES = ("lightcurve", "spectral")
 
@@ -83,3 +87,9 @@ def make_synthetic_arrays(
         arrays.update(x_sp=x, t_sp=t, mask_sp=m, err_sp=e)
 
     return arrays
+
+
+def make_synthetic_dataset(n: int = 64, **kw) -> ArrayDataset:
+    """``make_synthetic_arrays`` as an ``ArrayDataset`` named ZTFSYN000000..."""
+    return ArrayDataset(make_synthetic_arrays(n=n, **kw),
+                        [f"ZTFSYN{i:06d}" for i in range(n)])

@@ -2,9 +2,12 @@
 
 Ported: the light-curve and spectral towers, their projections to the
 shared ``enc_dim`` space, L2 normalisation and the learnable log
-logit-scale and logit-bias, in eval mode (``encode``). The image and meta
-towers and the supervised heads are not ported yet (ROADMAP.md queue 1,
-item 11) and raise ``NotImplementedError``.
+logit-scale and logit-bias; ``encode`` (the JAX ``__call__``: serving,
+eval mode by default) and the contrastive ``loss_fn`` with the CLIP softmax
+or SigLIP sigmoid loss, in train or eval mode. Dropout in train mode draws
+from an explicit ``torch.Generator``. The image and meta towers and the
+supervised heads are not ported yet (ROADMAP.md queue 1, item 11) and raise
+``NotImplementedError``.
 
 ``CLIPConfig`` is a jax-free copy of the JAX dataclass, with the same fields
 and defaults, so a ``model_config.json`` written by either side parses.
@@ -19,6 +22,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import losses as L
 from .transformer import Dense, SequenceEncoder, init_weights
 
 MODALITIES = ("host_galaxy", "lightcurve", "spectral", "meta")
@@ -137,7 +141,8 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
 class CLIPModel(nn.Module):
     """Per enabled modality a sequence encoder plus a float32 projection to
     ``enc_dim``; ``encode`` returns the L2-normalised embeddings in the
-    canonical modality order. Parameters are drawn from ``generator``."""
+    canonical modality order and ``loss_fn`` the contrastive loss over
+    them. Parameters are drawn from ``generator``."""
 
     def __init__(self, cfg: CLIPConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -162,23 +167,39 @@ class CLIPModel(nn.Module):
             self.spectral_projection = Dense(tsk["n_out"], cfg.enc_dim)
         init_weights(self, generator)
 
-    def embed_lightcurve(self, x, t, mask) -> torch.Tensor:
-        return _l2_normalize(
-            self.lightcurve_projection(self.lightcurve_encoder(x, t, mask)))
+    def embed_lightcurve(self, x, t, mask, train: bool = False,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _l2_normalize(self.lightcurve_projection(
+            self.lightcurve_encoder(x, t, mask, train, generator)))
 
-    def embed_spectral(self, x, t, mask) -> torch.Tensor:
-        return _l2_normalize(
-            self.spectral_projection(self.spectral_encoder(x, t, mask)))
+    def embed_spectral(self, x, t, mask, train: bool = False,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _l2_normalize(self.spectral_projection(
+            self.spectral_encoder(x, t, mask, train, generator)))
 
-    def encode(self, batch: Mapping[str, torch.Tensor]) -> List[torch.Tensor]:
+    def encode(self, batch: Mapping[str, torch.Tensor], train: bool = False,
+               generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """L2-normalised per-modality embeddings in canonical order;
-        ``batch`` holds the serving contract's fields (x_lc, t_lc, mask_lc,
-        x_sp, t_sp, mask_sp)."""
+        ``batch`` holds the fields x_lc, t_lc, mask_lc, x_sp, t_sp, mask_sp
+        (others are ignored). ``train=True`` applies dropout from
+        ``generator``."""
         out = []
         if "lightcurve" in self.cfg.combinations:
             out.append(self.embed_lightcurve(
-                batch["x_lc"], batch["t_lc"], batch["mask_lc"]))
+                batch["x_lc"], batch["t_lc"], batch["mask_lc"], train, generator))
         if "spectral" in self.cfg.combinations:
             out.append(self.embed_spectral(
-                batch["x_sp"], batch["t_sp"], batch["mask_sp"]))
+                batch["x_sp"], batch["t_sp"], batch["mask_sp"], train, generator))
         return out
+
+    def loss_fn(self, batch: Mapping[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The contrastive loss (``cfg.loss``: 'softmax' for CLIP, 'sigmoid'
+        for SigLIP) over all modality pairs, and ``{"embeddings": [...]}``."""
+        out = self.encode(batch, train, generator)
+        pair_loss = {
+            "sigmoid": L.sigmoid_loss_multimodal,
+            "softmax": L.clip_loss_multimodal,
+        }[self.cfg.loss]
+        return pair_loss(out, self.logit_scale, self.logit_bias), {"embeddings": out}

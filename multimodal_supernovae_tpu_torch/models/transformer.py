@@ -1,9 +1,10 @@
 """Sequence encoders (port of multimodal_supernovae_tpu/models/transformer.py).
 
 Transformer over (value, time) sequences with a continuous time/wavelength
-positional encoding, band embeddings and masked aggregation, in eval mode:
-dropout is the identity, so ``SequenceEncoder`` accepts the config's
-``dropout`` and does not use it.
+positional encoding, band embeddings and masked aggregation. ``train=True``
+turns on dropout at the JAX package's three places (the transformer's input,
+after ``norm1`` and after ``norm2`` in each block), drawn from an explicit
+``torch.Generator``; in eval mode (the default) dropout is the identity.
 
 Parameter names are the reference state_dict keys that
 ``multimodal_supernovae_tpu/models/torch_export.py`` writes
@@ -32,6 +33,24 @@ from torch import nn
 from ..ops.attention import attention
 
 LN_EPS = 1e-6
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: in train mode keep each element with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``; otherwise the identity.
+    The keep mask is drawn from ``generator`` (on ``x``'s device)."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep_prob, generator=generator).bool()
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def time_positional_encoding(t: torch.Tensor, d_emb: int, norm: float) -> torch.Tensor:
@@ -122,12 +141,14 @@ class SelfAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Post-norm block: ``norm1(attn(x) + x)`` then ``norm2(ff(x) + x)`` with
-    a ReLU MLP of width ``ff_hidden_mult * emb``."""
+    """Post-norm block: ``norm1(attn(x) + x)`` -> dropout ->
+    ``norm2(ff(x) + x)`` -> dropout, with a ReLU MLP of width
+    ``ff_hidden_mult * emb``."""
 
     def __init__(self, emb: int, heads: int, ff_hidden_mult: int = 4,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dropout = dropout
         self.attention = SelfAttention(emb, heads, dtype=dtype)
         self.norm1 = LayerNorm(emb, dtype=dtype)
         self.ff = nn.Sequential(
@@ -137,24 +158,32 @@ class TransformerBlock(nn.Module):
         )
         self.norm2 = LayerNorm(emb, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.norm1(self.attention(x, mask) + x)
-        return self.norm2(self.ff(x) + x)
+        x = dropout(x, self.dropout, train, generator)
+        x = self.norm2(self.ff(x) + x)
+        return dropout(x, self.dropout, train, generator)
 
 
 class Transformer(nn.Module):
-    """A stack of post-norm blocks."""
+    """Input dropout + a stack of post-norm blocks."""
 
     def __init__(self, emb: int, heads: int, depth: int, ff_hidden_mult: int = 4,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dropout = dropout
         self.tblocks = nn.ModuleList(
-            TransformerBlock(emb, heads, ff_hidden_mult, dtype=dtype)
+            TransformerBlock(emb, heads, ff_hidden_mult, dropout, dtype=dtype)
             for _ in range(depth))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(x, self.dropout, train, generator)
         for block in self.tblocks:
-            x = block(x, mask)
+            x = block(x, mask, train, generator)
         return x
 
 
@@ -214,7 +243,7 @@ class SequenceEncoder(nn.Module):
         if nband > 1:
             self.band_emb = nn.Embedding(nband, emb)
         self.transformer = Transformer(emb, heads, depth, ff_hidden_mult,
-                                       dtype=dtype)
+                                       dropout, dtype=dtype)
         if agg == "attn":
             self.query = nn.Parameter(torch.empty(emb))
             self.agg_attn = TorchStyleMHA(emb, heads=2)
@@ -228,7 +257,9 @@ class SequenceEncoder(nn.Module):
                 self.query.uniform_(generator=generator)  # torch.rand init
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train=True`` applies dropout, drawn from ``generator``."""
         if x.dim() == 2:
             x = x[..., None]  # the value channel
         h = self.embedding_mag(x)
@@ -237,7 +268,7 @@ class SequenceEncoder(nn.Module):
             band_ids = torch.arange(self.nband, device=h.device).repeat_interleave(
                 h.shape[1] // self.nband)
             h = h + self.band_emb(band_ids)[None]  # float32: promotes h
-        h = self.transformer(h, mask)
+        h = self.transformer(h, mask, train, generator)
         if mask is not None:
             h = h * mask[:, :, None].to(h.dtype)
 

@@ -10,15 +10,19 @@ math over already-projected heads, in the JAX layout (B, H, T, S):
   * scores and softmax are float32 whatever the input dtype; the weights are
     cast to ``v.dtype`` before the value product.
 
+``dense_attention_bwd`` is its gradient by torch autograd, the plain
+version of the backward kernel.
+
 ``attention`` is the entry the encoders call. It goes through
 ``flash_attention`` (ops/flash_attention.py), which launches the CUDA
-kernel for CUDA tensors and takes ``dense_attention`` for CPU tensors. The
-JAX config's ``use_pallas`` is a TPU knob; the port reads it and ignores it.
+kernels (forward, and backward when a gradient is needed) for CUDA tensors
+and takes ``dense_attention`` with torch autograd for CPU tensors. The JAX
+config's ``use_pallas`` is a TPU knob; the port reads it and ignores it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,6 +56,23 @@ def dense_attention(
     return torch.einsum("bhtu,bhus->bhts", weights.to(v.dtype), v)
 
 
+def dense_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    g: torch.Tensor,
+    emb: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``dense_attention`` for the cotangent ``g``, by torch
+    autograd: the plain version of the backward kernel. ``masked_fill_``
+    passes zero gradient to masked scores, as the JAX ``where`` does."""
+    with torch.enable_grad():
+        q, k, v = (a.detach().requires_grad_() for a in (q, k, v))
+        out = dense_attention(q, k, v, key_mask, emb)
+        return torch.autograd.grad(out, (q, k, v), g)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -59,8 +80,9 @@ def attention(
     key_mask: Optional[torch.Tensor],
     emb: int,
 ) -> torch.Tensor:
-    """Masked attention: the CUDA kernel for CUDA tensors, ``dense_attention``
-    for CPU tensors (the dispatch lives in the kernel's wrapper)."""
+    """Masked attention, differentiable: the CUDA kernels for CUDA tensors,
+    ``dense_attention`` for CPU tensors (the dispatch lives in the kernels'
+    wrapper)."""
     from .flash_attention import flash_attention
 
     return flash_attention(q, k, v, key_mask, emb)

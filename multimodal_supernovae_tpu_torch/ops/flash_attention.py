@@ -1,67 +1,88 @@
-"""Flash-attention forward: wrapper over the hand-written CUDA kernel
-``csrc/flash_attention_fwd.cu``.
+"""Flash attention, forward and backward: wrappers over the hand-written CUDA
+kernels ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``,
+paired in one ``torch.autograd.Function``.
 
-Replaces the Pallas TPU kernel ``multimodal_supernovae_tpu/ops/
-pallas_attention.py:_fwd_kernel`` (reached through ``flash_attention`` and
-``_flash_fwd_impl``) and computes exactly ``ops.attention.dense_attention``,
-its plain version: q and k scaled by emb**-0.25 with the FULL embedding dim,
-float32 scores, masked keys set to -1e7, probabilities rounded to v's dtype
-before the value product, float32 accumulation, output in the input dtype.
+Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
+pallas_attention.py:_fwd_kernel`` and ``_bwd_kernel`` (the ``custom_vjp``
+``_flash_attention_st``) and computes exactly ``ops.attention.
+dense_attention`` and its autograd gradient, the plain versions: q and k
+scaled by emb**-0.25 with the FULL embedding dim, float32 scores, masked
+keys set to -1e7, probabilities rounded to v's dtype before the value
+product, float32 accumulation, output in the input dtype; in the backward
+dS zeroed at masked keys and rounded to q's dtype, P rounded to v's dtype
+before dv.
 
-What bounds it on an H100: CUDA-core compute. Each (query, key) pair costs
-2*S FMAs and one exponential; q/k/v are read from device memory once per
-128-row query tile and the (T, T) scores never leave the SM. The plain
-version instead writes and re-reads float32 (B, H, T, T) scores, softmax
-weights and their cast (2.1 GB of scores per layer at the spectral serving
-shape B=256, H=2, T=1024). The design: one thread per query row with an
-online softmax in registers, K/V tiles of 32 keys staged in shared memory
-(broadcast reads), so any T fits; no tensor cores, since the light-curve
-head dim of 8 is below every MMA tile.
+What bounds them on an H100: CUDA-core compute. Each (query, key) pair
+costs 2*S FMAs and one exponential in the forward, 7*S and two in the
+backward; q/k/v/g are read from device memory once per tile and the (T, T)
+scores never leave the SM. The plain version instead writes and re-reads
+float32 (B, H, T, T) scores, softmax weights and their casts (2.1 GB of
+scores per layer at the spectral serving shape B=256, H=2, T=1024). The
+design: one thread per query row (forward, dq) or key row (dk/dv) with
+float32 accumulators in registers, the other side staged in shared-memory
+tiles (broadcast reads), so any T fits; no tensor cores, since the
+light-curve head dim of 8 is below every MMA tile.
 
-The TPU kernel's (B*H, S, T) transposes, rows-per-program blocking, VMEM
+The TPU kernels' (B*H, S, T) transposes, rows-per-program blocking, VMEM
 budgets and 8-row padding exist for the TPU's (8, 128) tiling and are not
-carried over. The kernel takes q/k/v by their (B, H, T) strides, so the
+carried over. The kernels take q/k/v by their (B, H, T) strides, so the
 encoder's ``view(b, t, h, s).transpose(1, 2)`` head split is passed with no
-copy, and writes its output in (B, T, H, S) memory order, so the caller's
-head merge is a view as well.
+copy, and write out, dq, dk and dv in (B, T, H, S) memory order, so the
+head merge and its backward are views as well. The cotangent ``g`` is taken
+by its strides too; only one whose head dim is not contiguous is copied.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. ``flash_attention.launches`` counts kernel launches (it is
-bumped only after a launch the runtime accepted).
+Dispatch (``flash_attention``): a CPU tensor takes ``dense_attention``, whose
+torch autograd is the plain backward; a CUDA tensor launches the kernels or
+raises. On CUDA, a call that needs a gradient goes through
+``FlashAttention``: the forward also stores each row's softmax (max, sum)
+and the backward launches ``flash_attention_bwd``; under ``no_grad`` or
+``inference_mode`` the forward runs alone, as in serving.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+kernel launches (bumped only after a launch the runtime accepted).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from .attention import dense_attention
+from .attention import dense_attention, dense_attention_bwd
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+BWD_HEAD_DIMS = (8, 16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_LIB_NAME = "flash_attention_fwd"
-_bound = None
+_bound = {}
 
 
-def _entry():
-    """The C entry point, with its ctypes signature declared once."""
-    global _bound
-    if _bound is None:
+def _entry(name: str):
+    """The C entry point ``mmsn_<name>`` of ``csrc/<name>.cu``, with its
+    ctypes signature declared once."""
+    fn = _bound.get(name)
+    if fn is None:
         from ..kernels.build import load_library
 
-        fn = load_library(_LIB_NAME).mmsn_flash_attention_fwd
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5            # q, k, v, mask, out
-            + [ctypes.c_int] * 5             # B, H, T, S, dtype
-            + [ctypes.c_float]               # scale
-            + [ctypes.c_int64] * 6           # in strides, out strides (b, h, t)
-            + [ctypes.c_void_p]              # stream
-        )
+        fn = getattr(load_library(name), f"mmsn_{name}")
+        if name == "flash_attention_fwd":
+            fn.argtypes = (
+                [ctypes.c_void_p] * 6            # q, k, v, mask, out, stats
+                + [ctypes.c_int] * 5             # B, H, T, S, dtype
+                + [ctypes.c_float]               # scale
+                + [ctypes.c_int64] * 6           # in, out strides (b, h, t)
+                + [ctypes.c_void_p]              # stream
+            )
+        else:
+            fn.argtypes = (
+                [ctypes.c_void_p] * 10           # q k v mask out stats g dq dk dv
+                + [ctypes.c_int] * 5             # B, H, T, S, dtype
+                + [ctypes.c_float]               # scale
+                + [ctypes.c_int64] * 12          # q/k/v, out, g, grads strides
+                + [ctypes.c_void_p]              # stream
+            )
         fn.restype = ctypes.c_int
-        _bound = fn
-    return _bound
+        _bound[name] = fn
+    return fn
 
 
 def _check(q, k, v, key_mask, emb):
@@ -97,31 +118,41 @@ def _check(q, k, v, key_mask, emb):
         raise ValueError(f"emb must be positive, got {emb}")
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_mask: Optional[torch.Tensor],
-    emb: int,
-) -> torch.Tensor:
-    """Masked attention forward, (B, H, T, S) in and out.
+def _check_bwd(q, out, stats, g):
+    s = q.shape[-1]
+    if s not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {s} not supported by the backward {BWD_HEAD_DIMS}")
+    for name, a in (("out", out), ("g", g)):
+        if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
+            raise ValueError(f"{name} must match q in shape, dtype and device")
+        if a.stride(-1) != 1:
+            raise ValueError(f"the head dim of {name} must be contiguous")
+    b, h, t, _ = q.shape
+    if (stats is None or stats.shape != (b, h, t, 2) or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be contiguous float32 ({b}, {h}, {t}, 2) "
+                         f"on {q.device}: the forward's residual")
 
-    CPU tensors go to ``dense_attention``; CUDA tensors launch the kernel
-    (float32 or bfloat16, head dim in {8, 16, 32, 64}, any T >= 1, q/k/v
-    with equal strides and a contiguous head dim) or raise."""
-    if q.device.type == "cpu":
-        return dense_attention(q, k, v, key_mask, emb)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, got {q.device}")
+
+def _empty_heads(q: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, S) output in (B, T, H, S) memory order."""
+    b, h, t, s = q.shape
+    return torch.empty((b, t, h, s), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def _flash_fwd(q, k, v, key_mask, emb, with_stats: bool):
+    """Launch the forward kernel; returns (out, stats or None)."""
     _check(q, k, v, key_mask, emb)
     b, h, t, s = q.shape
-    out = torch.empty((b, t, h, s), dtype=q.dtype, device=q.device).transpose(1, 2)
-    fn = _entry()
+    out = _empty_heads(q)
+    stats = (torch.empty((b, h, t, 2), dtype=torch.float32, device=q.device)
+             if with_stats else None)
+    fn = _entry("flash_attention_fwd")
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_mask is None else key_mask.data_ptr(),
-            out.data_ptr(),
+            out.data_ptr(), None if stats is None else stats.data_ptr(),
             b, h, t, s, _DTYPE_CODES[q.dtype], float(emb) ** -0.25,
             *q.stride()[:3], *out.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -131,7 +162,103 @@ def flash_attention(
             f"flash_attention_fwd launch failed with CUDA error {rc} "
             f"(q {tuple(q.shape)} {q.dtype})")
     flash_attention.launches += 1
-    return out
+    return out, stats
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    out: Optional[torch.Tensor],
+    stats: Optional[torch.Tensor],
+    g: torch.Tensor,
+    emb: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of masked attention for the cotangent ``g``.
+
+    CPU tensors go to ``dense_attention_bwd`` (``out`` and ``stats`` are not
+    read). CUDA tensors launch the backward kernels or raise: ``out`` and
+    ``stats`` are the forward's output and row residual
+    (``_flash_fwd(..., with_stats=True)``), head dim in {8, 16, 32}."""
+    if q.device.type == "cpu":
+        return dense_attention_bwd(q, k, v, key_mask, g, emb)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CUDA or CPU, got {q.device}")
+    _check(q, k, v, key_mask, emb)
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    _check_bwd(q, out, stats, g)
+    b, h, t, s = q.shape
+    dq, dk, dv = _empty_heads(q), _empty_heads(q), _empty_heads(q)
+    fn = _entry("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_mask is None else key_mask.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, t, s, _DTYPE_CODES[q.dtype], float(emb) ** -0.25,
+            *q.stride()[:3], *out.stride()[:3], *g.stride()[:3],
+            *dq.stride()[:3],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed with CUDA error {rc} "
+            f"(q {tuple(q.shape)} {q.dtype})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with its row residual, and the backward kernel as
+    its gradient (the JAX package's ``custom_vjp`` pair). ``key_mask`` and
+    ``emb`` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, emb):
+        if q.shape[-1] not in BWD_HEAD_DIMS:
+            raise ValueError(f"head dim {q.shape[-1]} has no backward kernel "
+                             f"{BWD_HEAD_DIMS}")
+        out, stats = _flash_fwd(q, k, v, key_mask, emb, with_stats=True)
+        ctx.save_for_backward(q, k, v, key_mask, out, stats)
+        ctx.emb = emb
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, key_mask, out, stats = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, out, stats, g, ctx.emb)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    emb: int,
+) -> torch.Tensor:
+    """Masked attention forward, (B, H, T, S) in and out, differentiable.
+
+    CPU tensors go to ``dense_attention``; CUDA tensors launch the kernel
+    (float32 or bfloat16, head dim in {8, 16, 32, 64}, any T >= 1, q/k/v
+    with equal strides and a contiguous head dim) or raise. When autograd
+    needs a gradient of a CUDA call it goes through ``FlashAttention``
+    (head dim in {8, 16, 32})."""
+    if q.device.type == "cpu":
+        return dense_attention(q, k, v, key_mask, emb)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, key_mask, emb)
+    return _flash_fwd(q, k, v, key_mask, emb, with_stats=False)[0]
 
 
 flash_attention.launches = 0

@@ -1,13 +1,16 @@
 """The port's attention ops against the JAX package's, on CPU.
 
-The port's ``dense_attention`` is held against JAX ``dense_attention`` and
-against the JAX Pallas flash kernel run in TPU interpret mode. Tolerances:
-float32 2e-5 (the JAX kernel tests' own); bfloat16 0.05 (both stacks round
-q*scale, the weights and the output to bf16, at different points).
-The CUDA kernel itself is checked against ``dense_attention`` on the card
-(tests/test_torch_flash_kernel.py and chip_smoke.py).
+The port's ``dense_attention`` and the gradient of ``attention`` (torch
+autograd on CPU tensors) are held against JAX ``dense_attention`` and
+against the JAX Pallas flash kernels (forward and backward) run in TPU
+interpret mode. Tolerances: float32 2e-5 forward and 5e-4 gradients (the
+JAX kernel tests' own); bfloat16 0.05 (both stacks round q*scale, the
+weights, dS and the outputs to bf16, at different points).
+The CUDA kernels themselves are checked against ``dense_attention`` and its
+autograd on the card (tests/test_torch_flash_kernel.py and chip_smoke.py).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -19,10 +22,19 @@ from multimodal_supernovae_tpu.ops.attention import dense_attention as jax_dense
 from multimodal_supernovae_tpu.ops.pallas_attention import (
     flash_attention as jax_flash,
 )
-from multimodal_supernovae_tpu_torch.ops import attention, dense_attention
-from multimodal_supernovae_tpu_torch.ops.flash_attention import flash_attention
+from multimodal_supernovae_tpu_torch.ops import (
+    attention,
+    dense_attention,
+    dense_attention_bwd,
+)
+from multimodal_supernovae_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+)
 
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
+GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
 
 
 def _inputs(seed, b=2, h=2, t=13, s=8, mask="ragged"):
@@ -119,3 +131,74 @@ def test_strided_head_split_is_accepted():
     q, k, v = (a.view(2, 11, 2, 8).transpose(1, 2) for a in x)
     want = dense_attention(q.contiguous(), k.contiguous(), v.contiguous(), None, 16)
     torch.testing.assert_close(attention(q, k, v, None, 16), want)
+
+
+def _jax_grads(fn, q, k, v, g):
+    _, vjp = jax.vjp(fn, q, k, v)
+    return vjp(g)
+
+
+def _torch_grads(q, k, v, m, g, emb):
+    q, k, v = (a.clone().requires_grad_() for a in (q, k, v))
+    out = attention(q, k, v, m, emb)
+    out.backward(g)
+    return out, (q.grad, k.grad, v.grad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", ["ragged", "full_row", None])
+@pytest.mark.parametrize("t", [16, 40])
+def test_attention_grads_match_jax_flash_kernel(dtype, mask, t):
+    """Gradients of the port's ``attention`` (autograd through the plain
+    version) against ``jax.vjp`` through the Pallas flash kernels, in
+    interpret mode, and through JAX ``dense_attention``. T is a multiple of
+    8, where a fully masked row means the same in both (ROADMAP §3)."""
+    q, k, v, m = _inputs(200 + t, b=2, h=2, t=t, s=8, mask=mask)
+    g = np.random.default_rng(t).normal(size=q.shape).astype(np.float32)
+    emb = q.shape[1] * q.shape[3]
+    (jq, jk, jv), jm = _to_jax(q, k, v, m, dtype)
+    jg = jnp.asarray(g).astype(jq.dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want_flash = _jax_grads(lambda a, b, c: jax_flash(a, b, c, jm, emb),
+                                jq, jk, jv, jg)
+    want_dense = _jax_grads(lambda a, b, c: jax_dense(a, b, c, jm, emb),
+                            jq, jk, jv, jg)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, dtype)
+    _, got = _torch_grads(tq, tk, tv, tm, torch.from_numpy(g).to(tq.dtype), emb)
+    for name, gt, wf, wd in zip("qkv", got, want_flash, want_dense):
+        assert gt.dtype == tq.dtype and gt.shape == tq.shape
+        for want in (wf, wd):
+            np.testing.assert_allclose(_np(gt), _np(want), rtol=GRAD_TOL[dtype],
+                                       atol=GRAD_TOL[dtype], err_msg=f"d{name}")
+    if mask == "full_row":  # no gradient reaches q or k through masked scores
+        assert np.all(_np(got[0])[-1] == 0) and np.all(_np(got[1])[-1] == 0)
+        assert np.any(_np(got[2])[-1] != 0)  # dv is not zero: P is uniform
+
+
+def test_flash_attention_bwd_on_cpu_is_the_plain_backward():
+    q, k, v, m = _inputs(7, t=19, mask="full_row")
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, "float32")
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=q.shape).astype(np.float32))
+    _, want = _torch_grads(tq, tk, tv, tm, g, 16)
+    before = flash_attention_bwd.launches
+    for got in (dense_attention_bwd(tq, tk, tv, tm, g, 16),
+                flash_attention_bwd(tq, tk, tv, tm, None, None, g, 16)):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert flash_attention_bwd.launches == before == 0
+
+
+def test_no_grad_calls_and_cpu_grads_launch_nothing():
+    q, k, v, m = _inputs(9, t=11)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, "float32")
+    with torch.no_grad():
+        attention(tq, tk, tv, tm, 16)
+    _torch_grads(tq, tk, tv, tm, torch.ones(tq.shape), 16)
+    assert flash_attention.launches == 0 and flash_attention_bwd.launches == 0
+
+
+def test_function_rejects_head_dims_without_a_backward():
+    q, k, v, m = _inputs(10, b=1, h=1, t=5, s=64)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, "float32")
+    with pytest.raises(ValueError, match="no backward kernel"):
+        FlashAttention.apply(tq, tk, tv, tm, 64)

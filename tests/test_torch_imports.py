@@ -1,5 +1,5 @@
-"""The port stands without jax: importing it (serving and the CLI included)
-loads no jax, flax or yaml, which the GPU host does not have. And its
+"""The port stands without jax: importing it (training, serving and the CLI
+included) loads no jax, flax or yaml, which the GPU host does not have. And its
 synthetic generator draws the JAX generator's numbers for the same seed."""
 
 import json
@@ -25,6 +25,13 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.kernels\n"
         "import multimodal_supernovae_tpu_torch.models\n"
         "import multimodal_supernovae_tpu_torch.data\n"
+        "import multimodal_supernovae_tpu_torch.data.augment\n"
+        "import multimodal_supernovae_tpu_torch.data.batching\n"
+        "import multimodal_supernovae_tpu_torch.ops.flash_attention\n"
+        "import multimodal_supernovae_tpu_torch.ops.losses\n"
+        "import multimodal_supernovae_tpu_torch.ops.metrics\n"
+        "import multimodal_supernovae_tpu_torch.training\n"
+        "import multimodal_supernovae_tpu_torch.training.trainer\n"
         "import multimodal_supernovae_tpu_torch.serving\n"
         "import multimodal_supernovae_tpu_torch.cli.serve\n"
         f"print(json.dumps(sorted(m for m in {FORBIDDEN!r} if m in sys.modules)))\n"
