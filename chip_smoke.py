@@ -1,28 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: the maven-lite embedding
 server and the maven-lite contrastive trainer end to end, through the
-hand-written flash-attention kernels (forward and backward).
+hand-written flash-attention kernels (forward and backward), and the same
+server and trainer under ``use_fused_block``, through the fused-block
+kernels (forward and backward) as well.
 
   python3 chip_smoke.py        # from the repository root, one GPU
 
 Phases (each prints a progress line; any failure raises, exit code != 0):
   1. device: CUDA must be present; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for float32 matmuls and convolutions;
-  2. build: compiles csrc/flash_attention_fwd.cu and flash_attention_bwd.cu
-     with nvcc for sm_90a, both at once;
+  2. build: compiles csrc/flash_attention_fwd.cu, flash_attention_bwd.cu,
+     fused_ffn_fwd.cu and fused_ffn_bwd.cu with nvcc for sm_90a, one nvcc
+     each, all started together;
   3. kernel: the forward kernel against its plain version (dense_attention) on
      the card, float32 (atol = rtol = 1e-4: another summation order and the
      online rescale) and bfloat16 (0.05), at the light-curve (256, 8, 200, 8)
      and spectral (256, 2, 1024, 16) serving shapes, T = 220, a batch with a
      fully masked row, key_mask=None and the other head dims; then times
-     both at the two serving shapes (CUDA events, median of 25);
+     both at the two serving shapes (CUDA events, median of 25), and
+     F.scaled_dot_product_attention (scale emb**-0.5, boolean key mask) at
+     the spectral one as the library yardstick (timed only; it differs on
+     fully masked rows, where it gives NaN);
   4. kernel-bwd: the backward kernel's dq/dk/dv against torch autograd
      through dense_attention on the card, float32 (atol = rtol = 5e-4, the
      JAX kernel tests' gradient tolerance) and bfloat16 (0.05), at the
      training shapes LC (256, 8, 200, 8) and SP (256, 2, 220, 16), at SP
      T = 1024, with a fully masked row and leading key tiles masked, and
      key_mask=None; then times kernel and plain backward at LC and SP, bf16
-     (CUDA events, median of 25);
+     (CUDA events, median of 25), and the autograd backward of
+     F.scaled_dot_product_attention at SP as the library yardstick;
+  4b. kernel-ffn: the fused-block forward kernel against its plain version
+     (fused_ffn_block_plain) and the backward kernel against
+     fused_ffn_block_bwd_plain, on the card, at the light-curve tower's rows
+     (N = 256 x 200 = 51,200, E = 64, F = 256), at a ragged N (51,163) and
+     at E = 128, F = 512, float32 and bfloat16. Forward: atol = rtol = 1e-4
+     in float32, 0.05 in bfloat16. Backward: each output within 5e-4 of its
+     largest in float32 (the JAX fused tests use 2e-4 against XLA; here the
+     weight gradients are sums over 51,200 rows taken in block partials,
+     another order than the plain version's matrix products), 0.05 in
+     bfloat16. Times kernel and plain version at the LC shape in both
+     dtypes (CUDA events, median of 25);
   5. serve: a maven-lite CLIPModel with seeded random weights (bf16
      compute) is written as a run directory, served by load_live +
      EmbedServer on 127.0.0.1, and sent concurrent npz and JSON requests of
@@ -30,6 +48,13 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      unit-norm embeddings per modality, 18 kernel launches per device call
      and no plain attention call, answers equal to the same model run
      through the plain attention on the card (bf16 tolerance);
+  5b. serve-fused: the same, with the run directory's transformer_kwargs
+     carrying use_fused_block: true: the LC tower's 5 blocks (E = 64) run
+     fused, in float32 (the band embedding promotes them), the SP tower's 13
+     (E = 32) unfused. Checks 5 fused forward and 18 flash forward launches
+     per device call, no plain call of either, and answers equal to the same
+     model through the plain versions of all kernels (0.02: three times the
+     6.5e-3 that sound runs read on these unit-norm 32-d embeddings);
   6. train: maven-lite at bench.py's shapes (B = 256, T_lc = 2 x 100,
      T_sp = 220, bf16, lr 5e-4, noise_level_mag 1.0, dropout 0) on the
      2048-sample synthetic set, through Trainer.fit for 3 epochs. Checks:
@@ -47,15 +72,28 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      Prints the median train-step time and paired samples/s of both paths
      (bf16, the same batch, host clock around synchronised steps, three
      alternating rounds of 20 steps each) and their peak device memory;
+  6b. train-fused: the same trainer with use_fused_block in the LC tower's
+     kwargs: 5 fused forward + 5 fused backward + 18 flash forward + 18
+     flash backward launches per train step (5 + 18 forward per eval step),
+     no plain call. The trajectory and gradient checks of phase 6 hold the
+     fused kernel path against the fused path through the plain versions of
+     all four kernels; the gradient check must fail when the fused
+     backward's ff.0 weight gradient is scaled by 0.99. Times train steps
+     and peak memory, fused ("fused") against unfused ("kernel"), both on
+     the kernel path;
   7. profile: torch.profiler (device activity) over 5 train steps of each
-     path (bf16, one batch, after 3 warm-up steps): device time per step
+     path (kernel, plain, fused; bf16, one batch, after 3 warm-up steps):
+     device time per step
      (the union of device ops), the trace's wall per step (first device
      op's start to the last one's end), one minus their ratio as the device
      idle share, device ops per step, and device time by kind of kernel
      (flash forward, dq, dk/dv, GEMMs, reductions, ...).
 
 Prints, before the last line, one JSON object {"kernels": [...]} with the
-measured numbers, and as the last line {"ok": true, "device": {...}}.
+measured numbers and each kernel's bound (the larger of its bytes over
+3.35 TB/s and its operations over the peak for its input type: 989 TFLOP/s
+for bfloat16 on the tensor cores, 67 TFLOP/s for float32 on the CUDA cores,
+TF32 being off), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,11 +112,13 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import multimodal_supernovae_tpu_torch.models.transformer as transformer_mod
 import multimodal_supernovae_tpu_torch.ops.flash_attention as flash_mod
+import multimodal_supernovae_tpu_torch.ops.fused_block as ffn_mod
 from multimodal_supernovae_tpu_torch.data import (
     epoch_indices,
     make_synthetic_arrays,
@@ -108,11 +148,20 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                             "multimodal_supernovae_tpu/ops/pallas_attention.py:85"),
     "flash_attention_bwd": ("multimodal_supernovae_tpu_torch/csrc/flash_attention_bwd.cu",
                             "multimodal_supernovae_tpu/ops/pallas_attention.py:108"),
+    "fused_ffn_fwd": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_fwd.cu",
+                      "multimodal_supernovae_tpu/ops/fused_block.py:86"),
+    "fused_ffn_bwd": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_bwd.cu",
+                      "multimodal_supernovae_tpu/ops/fused_block.py:102"),
 }
 TOL = {"float32": 1e-4, "bfloat16": 0.05}
 GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
+SERVE_FUSED_TOL = 0.02  # served vs plain-version embeddings; sound runs read 6.5e-3
 TRAJ_RTOL, GRAD_RTOL = 1e-5, 5e-4
 WRONG_DQ = "kernel, dq x 0.99"
+WRONG_DWF1 = "fused, ff.0 weight grad x 0.99"
+# H100 SXM published peaks (NVIDIA's datasheet), at a 700 W limit
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 LC_LEN, NBAND, SP_LEN, BATCH = 100, 2, 1024, 256
 TRAIN_SP_LEN, TRAIN_N, TRAIN_EPOCHS, TRAJ_STEPS, TIMED_STEPS = 220, 2048, 3, 12, 20
 PROFILED_STEPS = 5
@@ -123,6 +172,9 @@ SEQ_LC = {"n_out": 32, "emb": 64, "heads": 8, "depth": 5, "time_norm": 20583.37,
 SEQ_SP = {"n_out": 32, "emb": 32, "heads": 2, "depth": 13, "time_norm": 17945.14,
           "agg": "mean", "dropout": 0.0}
 LAYERS_PER_CALL = SEQ_LC["depth"] + SEQ_SP["depth"]
+FUSED_PER_CALL = SEQ_LC["depth"]  # E = 64 blocks; the SP tower (E = 32) stays unfused
+FFN_E, FFN_F = SEQ_LC["emb"], 4 * SEQ_LC["emb"]
+FFN_ROWS = BATCH * NBAND * LC_LEN  # the LC tower's (B * T) rows
 
 
 def log(msg: str):
@@ -154,7 +206,7 @@ def phase_build():
         for line in library_path(name).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    log(f"build: both kernels in {time.perf_counter() - t0:.2f} s wall")
+    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s wall")
 
 
 def _heads(gen, b, h, t, s, dtype, model_layout):
@@ -181,6 +233,22 @@ def _time_ms(fn, warmup=3, iters=25):
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in times]))
+
+
+def _bound(flops, nbytes, dtype_name):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the operations over the peak for the
+    input type."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_OPS_S[dtype_name] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _sdpa(q, k, v, mask, emb):
+    """The library call computing the same attention (timed only: it gives
+    NaN where every key of a row is masked, the port uniform weights)."""
+    m = None if mask is None else mask[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=emb ** -0.5)
 
 
 def phase_kernel():
@@ -225,18 +293,24 @@ def phase_kernel():
             if name in ("lc", "sp"):
                 ms = _time_ms(lambda: flash_attention(q, k, v, mask, emb))
                 plain_ms = _time_ms(lambda: dense_attention(q, k, v, mask, emb))
-                timing[(name, dtype_name)] = (ms, plain_ms)
+                lib_ms = _time_ms(lambda: _sdpa(q, k, v, mask, emb))
+                timing[(name, dtype_name)] = (ms, plain_ms, lib_ms)
                 log(f"time {name} {dtype_name} {(b, h, t, s)}: kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms")
+                    f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+                    f"{lib_ms:.4f} ms")
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return max_err, timing
 
 
-def _run_dir(tmp):
+def _seq_lc(fused):
+    return {**SEQ_LC, "use_fused_block": True} if fused else SEQ_LC
+
+
+def _run_dir(tmp, fused=False):
     cfg = CLIPConfig.create(
         combinations=("lightcurve", "spectral"), enc_dim=32, nband=NBAND,
-        logit_scale_init=19.55, loss="softmax", transformer_kwargs=SEQ_LC,
+        logit_scale_init=19.55, loss="softmax", transformer_kwargs=_seq_lc(fused),
         transformer_spectral_kwargs=SEQ_SP, compute_dtype="bfloat16")
     model = CLIPModel(cfg, generator=torch.Generator().manual_seed(0))
     write_model_config(tmp, model)
@@ -318,18 +392,87 @@ def phase_kernel_bwd():
                 plain_out = dense_attention(*leaves, mask, emb)
                 plain_ms = _time_ms(lambda: torch.autograd.grad(
                     plain_out, leaves, g, retain_graph=True))
-                timing[name] = (ms, plain_ms)
+                lib_out = _sdpa(*leaves, mask, emb)
+                lib_ms = _time_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, g, retain_graph=True))
+                timing[name] = (ms, plain_ms, lib_ms)
                 log(f"time-bwd {name} {dtype_name} {(b, h, t, s)}: kernel {ms:.4f} ms, "
-                    f"plain (autograd of dense_attention) {plain_ms:.4f} ms")
-                del leaves, plain_out
+                    f"plain (autograd of dense_attention) {plain_ms:.4f} ms, "
+                    f"autograd of scaled_dot_product_attention {lib_ms:.4f} ms")
+                del leaves, plain_out, lib_out
             del q, k, v, g, out, stats, got, want
     torch.cuda.empty_cache()
     return max_err, timing
 
 
-def phase_serve():
-    flash_attention = flash_mod.flash_attention
+def _ffn_inputs(gen, n, e, f, dtype):
+    """att, x, the ten float32 parameters (a Linear's layout) and a
+    cotangent, on the card."""
+    def t(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to("cuda")
 
+    params = [t(e, e, scale=e ** -0.5), t(e, scale=0.1), t(e, scale=0.1, shift=1.0),
+              t(e, scale=0.1), t(f, e, scale=e ** -0.5), t(f, scale=0.1),
+              t(e, f, scale=f ** -0.5), t(e, scale=0.1), t(e, scale=0.1, shift=1.0),
+              t(e, scale=0.1)]
+    return t(n, e).to(dtype), t(n, e).to(dtype), params, t(n, e).to(dtype)
+
+
+def phase_kernel_ffn():
+    fwd, bwd = ffn_mod._ffn_fwd, ffn_mod.fused_ffn_block_bwd
+    plain, plain_bwd = ffn_mod.fused_ffn_block_plain, ffn_mod.fused_ffn_block_bwd_plain
+    eps = ffn_mod.LN_EPS
+    cases = [("lc", FFN_ROWS, FFN_E, FFN_F), ("ragged", FFN_ROWS - 37, FFN_E, FFN_F),
+             ("e128", FFN_ROWS // 4 - 5, 128, 512)]
+    gen = torch.Generator().manual_seed(4)
+    fwd_err = bwd_err = 0.0
+    timing = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for name, n, e, f in cases:
+            att, x, params, g = _ffn_inputs(gen, n, e, f, dtype)
+            got = fwd(att, x, *params, eps=eps)
+            grads = bwd(att, x, *params, g)
+            torch.cuda.synchronize()
+            want = plain(att, x, *params)
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"ffn {name} {dtype_name}: {got.dtype} {tuple(got.shape)}")
+            err = float((got.float() - want.float()).abs().max())
+            fwd_err = max(fwd_err, err)
+            torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype_name],
+                                       atol=TOL[dtype_name],
+                                       msg=lambda m: f"ffn {name} {dtype_name}: {m}")
+            rel = []
+            for i, (a, w) in enumerate(zip(grads, plain_bwd(att, x, *params, g))):
+                if a.dtype != w.dtype or a.shape != w.shape:
+                    raise AssertionError(f"ffn-bwd {name} {dtype_name} output {i}: "
+                                         f"{a.dtype} {tuple(a.shape)}")
+                d = float((a.float() - w.float()).abs().max())
+                rel.append(d / float(w.float().abs().max()))
+                bwd_err = max(bwd_err, d)
+            log(f"kernel-ffn {name} {dtype_name} (N, E, F) = {(n, e, f)}: forward "
+                f"max|err| {err:.3e} (tol {TOL[dtype_name]}); backward max|err|/max|plain| "
+                f"per output {max(rel):.3e} worst, datt {rel[0]:.3e} dx {rel[1]:.3e} "
+                f"dWu {rel[2]:.3e} dWf1 {rel[6]:.3e} dWf2 {rel[8]:.3e} "
+                f"(tol {GRAD_TOL[dtype_name]})")
+            if max(rel) > GRAD_TOL[dtype_name]:
+                raise AssertionError(f"ffn-bwd {name} {dtype_name}: {rel}")
+            if name == "lc":
+                ms = _time_ms(lambda: fwd(att, x, *params, eps=eps))
+                plain_ms = _time_ms(lambda: plain(att, x, *params))
+                bwd_ms = _time_ms(lambda: bwd(att, x, *params, g))
+                bwd_plain_ms = _time_ms(lambda: plain_bwd(att, x, *params, g))
+                timing[dtype_name] = (ms, plain_ms, bwd_ms, bwd_plain_ms)
+                log(f"time-ffn lc {dtype_name} (N, E, F) = {(n, e, f)}: forward kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms; backward kernel {bwd_ms:.4f} "
+                    f"ms, plain {bwd_plain_ms:.4f} ms")
+            del att, x, params, g, got, grads, want
+    torch.cuda.empty_cache()
+    return fwd_err, bwd_err, timing
+
+
+def phase_serve(fused=False):
+    tag = "serve-fused" if fused else "serve"
     sizes = [(1, False), (37, True), (256, False), (300, False)]  # (n, as JSON)
     syn = make_synthetic_arrays(n=sum(n for n, _ in sizes), n_max_lc=LC_LEN,
                                 nband=NBAND, n_max_sp=SP_LEN, seed=1)
@@ -340,17 +483,11 @@ def phase_serve():
         lo += n
 
     with tempfile.TemporaryDirectory() as tmp:
-        _run_dir(tmp)
-        serving_model = load_live(tmp, BATCH, device="cuda", lc_len=LC_LEN,
+        _run_dir(tmp, fused)
+        serving_model = load_live(tmp, BATCH, device=DEVICE, lc_len=LC_LEN,
                                   sp_len=SP_LEN)
         srv = EmbedServer(serving_model, host="127.0.0.1", port=0,
                           max_wait_ms=50.0)  # warms up: one device call
-        plain_calls = []
-
-        def counting_dense(*args, **kw):
-            plain_calls.append(1)
-            return dense_attention(*args, **kw)
-
         results = [None] * len(sizes)
         try:
             srv.start_background()
@@ -360,8 +497,8 @@ def phase_serve():
                 barrier.wait()
                 results[i] = _post(srv.port, feeds[i], sizes[i][1])
 
-            with mock.patch.object(flash_mod, "dense_attention", counting_dense):
-                flash_attention.launches = 0
+            with _plain_calls() as plain_calls:
+                _zero_counts()
                 t0 = time.perf_counter()
                 threads = [threading.Thread(target=client, args=(i,))
                            for i in range(len(sizes))]
@@ -370,7 +507,7 @@ def phase_serve():
                 for th in threads:
                     th.join(timeout=600)
                 wall = time.perf_counter() - t0
-                launches = flash_attention.launches
+                launches = _counts()
             if any(th.is_alive() for th in threads) or None in results:
                 raise RuntimeError("a client did not finish")
             with urllib.request.urlopen(
@@ -384,17 +521,18 @@ def phase_serve():
                 if r.status != 200:
                     raise AssertionError(f"/stats: {r.status}")
             calls = stats["device_calls"]
-            log(f"serve: {len(sizes)} concurrent requests, "
+            log(f"{tag}: {len(sizes)} concurrent requests, "
                 f"{sum(n for n, _ in sizes)} samples in {wall:.3f} s wall, "
                 f"{calls} device calls, batch_fill {stats.get('batch_fill')}, "
-                f"{launches} kernel launches, {len(plain_calls)} plain attention calls")
+                f"launches (flash fwd, flash bwd, ffn fwd, ffn bwd) {launches}, "
+                f"{len(plain_calls)} plain kernel calls")
             if calls < -(-sum(n for n, _ in sizes) // BATCH):
                 raise AssertionError(f"too few device calls: {calls}")
-            if launches != LAYERS_PER_CALL * calls or plain_calls:
+            want = (LAYERS_PER_CALL * calls, 0, FUSED_PER_CALL * calls * fused, 0)
+            if launches != want or plain_calls:
                 raise AssertionError(
-                    f"expected {LAYERS_PER_CALL} kernel launches per device call "
-                    f"and no plain attention: {launches} launches for {calls} "
-                    f"calls, {len(plain_calls)} plain calls")
+                    f"{tag}: expected launches {want} for {calls} device calls and no "
+                    f"plain call: {launches}, {len(plain_calls)} plain calls")
 
             # per-call time of the served batch (fn ends in a host copy)
             full = {k: syn[k][:BATCH] for k in fields}
@@ -405,20 +543,20 @@ def phase_serve():
                 serving_model.fn(full)
                 per_call.append((time.perf_counter() - t0) * 1e3)
             call_ms = float(np.median(per_call))
-            log(f"serve: device call at B={BATCH}: {call_ms:.3f} ms median of 10 "
+            log(f"{tag}: device call at B={BATCH}: {call_ms:.3f} ms median of 10 "
                 f"({BATCH / call_ms * 1e3:.1f} samples/s), host clock incl. copies")
         finally:
             srv.close()
 
-        # answers against the same model run through the plain attention
-        ref_model, _ = load_model(tmp, "cuda")
+        # answers against the same model run through the plain versions
+        ref_model, _ = load_model(tmp, DEVICE)
+        tol = SERVE_FUSED_TOL if fused else TOL["bfloat16"]
         max_err = 0.0
-        with mock.patch.object(transformer_mod, "attention", dense_attention), \
-                torch.inference_mode():
+        with _plain_kernels(), torch.inference_mode():
             for (n, as_json), feed, (status, out) in zip(sizes, feeds, results):
                 if status != 200:
                     raise AssertionError(f"request n={n}: status {status}")
-                ref = ref_model.encode({k: torch.from_numpy(v).cuda()
+                ref = ref_model.encode({k: torch.from_numpy(v).to(DEVICE)
                                         for k, v in feed.items()})
                 for name, r in zip(("emb_lightcurve", "emb_spectral"), ref):
                     got = out[name]
@@ -431,26 +569,26 @@ def phase_serve():
                                              f"..{norms.max()}")
                     err = float(np.abs(got - r.float().cpu().numpy()).max())
                     max_err = max(max_err, err)
-                    if err > TOL["bfloat16"]:
+                    if err > tol:
                         raise AssertionError(f"{name} n={n} ({'json' if as_json else 'npz'}): "
                                              f"max|served - plain| {err}")
-        log(f"serve: every answer matches the plain-attention model, "
-            f"max|err| {max_err:.3e} (tol {TOL['bfloat16']})")
+        log(f"{tag}: every answer matches the model through the plain versions, "
+            f"max|err| {max_err:.3e} (tol {tol})")
     return launches
 
 
-def _train_model(compute_dtype, seed=0):
+def _train_model(compute_dtype, seed=0, fused=False):
     cfg = CLIPConfig.create(
         combinations=("lightcurve", "spectral"), enc_dim=32, nband=NBAND,
-        logit_scale_init=19.55, loss="softmax", transformer_kwargs=SEQ_LC,
+        logit_scale_init=19.55, loss="softmax", transformer_kwargs=_seq_lc(fused),
         transformer_spectral_kwargs=SEQ_SP, compute_dtype=compute_dtype)
     return CLIPModel(cfg, generator=torch.Generator().manual_seed(seed)).to(DEVICE)
 
 
 @contextlib.contextmanager
 def _plain_calls():
-    """Records each plain attention call (forward or backward) made through
-    the kernels' wrapper module."""
+    """Records each call of a kernel's plain version (forward or backward)
+    made through the kernels' wrappers."""
     calls = []
 
     def counted(fn):
@@ -462,36 +600,97 @@ def _plain_calls():
     with mock.patch.object(flash_mod, "dense_attention",
                            counted(flash_mod.dense_attention)), \
             mock.patch.object(flash_mod, "dense_attention_bwd",
-                              counted(flash_mod.dense_attention_bwd)):
+                              counted(flash_mod.dense_attention_bwd)), \
+            mock.patch.object(ffn_mod, "fused_ffn_block_plain",
+                              counted(ffn_mod.fused_ffn_block_plain)), \
+            mock.patch.object(ffn_mod, "fused_ffn_block_bwd_plain",
+                              counted(ffn_mod.fused_ffn_block_bwd_plain)):
         yield calls
 
 
 def _zero_counts():
     flash_mod.flash_attention.launches = 0
     flash_mod.flash_attention_bwd.launches = 0
+    ffn_mod.fused_ffn_block.launches = 0
+    ffn_mod.fused_ffn_block_bwd.launches = 0
 
 
 def _counts():
-    return flash_mod.flash_attention.launches, flash_mod.flash_attention_bwd.launches
+    """(flash forward, flash backward, fused-block forward, fused-block
+    backward) launches since _zero_counts."""
+    return (flash_mod.flash_attention.launches, flash_mod.flash_attention_bwd.launches,
+            ffn_mod.fused_ffn_block.launches, ffn_mod.fused_ffn_block_bwd.launches)
 
 
-def _attention_path(path):
-    """The kernel path as it is, or the plain path: every encoder layer's
-    attention replaced by dense_attention (with torch autograd)."""
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel replaced by its plain version: the encoders' attention by
+    dense_attention (with torch autograd), the fused block's forward and
+    backward by fused_ffn_block_plain and fused_ffn_block_bwd_plain."""
+    plain_bwd = ffn_mod.fused_ffn_block_bwd_plain
+    with mock.patch.object(transformer_mod, "attention", dense_attention), \
+            mock.patch.object(ffn_mod, "_ffn_fwd", lambda *a, eps: (
+                ffn_mod.fused_ffn_block_plain(*a, eps=eps))), \
+            mock.patch.object(ffn_mod, "fused_ffn_block_bwd", plain_bwd):
+        yield
+
+
+def _wrong_dq():
+    """The kernel path with a wrong backward: every layer's dq off by 1%."""
+    bwd = flash_mod.flash_attention_bwd
+
+    def wrong(*args):
+        dq, dk, dv = bwd(*args)
+        return dq * 0.99, dk, dv
+
+    wrong.launches = 0  # the wrapper counts on the module attribute it replaces
+    return mock.patch.object(flash_mod, "flash_attention_bwd", wrong)
+
+
+def _wrong_dwf1():
+    """The fused kernel path with a wrong backward: every fused block's ff.0
+    weight gradient off by 1%."""
+    bwd = ffn_mod.fused_ffn_block_bwd
+
+    def wrong(*args, **kw):
+        grads = list(bwd(*args, **kw))
+        grads[6] = grads[6] * 0.99  # (datt, dx, dwu, dbu, dg1, db1, dwf1, ...)
+        return tuple(grads)
+
+    wrong.launches = 0  # the wrapper counts on the module attribute it replaces
+    return mock.patch.object(ffn_mod, "fused_ffn_block_bwd", wrong)
+
+
+# name: (use_fused_block, what runs in place of the kernels)
+PATHS = {
+    "kernel": (False, contextlib.nullcontext),
+    "plain": (False, _plain_kernels),
+    WRONG_DQ: (False, _wrong_dq),
+    "fused": (True, contextlib.nullcontext),
+    "fused-plain": (True, _plain_kernels),
+    WRONG_DWF1: (True, _wrong_dwf1),
+}
+
+
+def _step_counts(path):
+    """Launches per train step on ``path``: (flash fwd, flash bwd, ffn fwd,
+    ffn bwd)."""
     if path == "plain":
-        return mock.patch.object(transformer_mod, "attention", dense_attention)
-    return contextlib.nullcontext()
+        return (0, 0, 0, 0)
+    fused = FUSED_PER_CALL if PATHS[path][0] else 0
+    return (LAYERS_PER_CALL, LAYERS_PER_CALL, fused, fused)
 
 
 def _time_train_steps(path, batch):
     """ms of each of TIMED_STEPS train steps (bf16, noise on) on one batch,
     each step ended by a synchronise; their launch counts; peak memory."""
-    model = _train_model("bfloat16")
+    fused, ctx = PATHS[path]
+    model = _train_model("bfloat16", fused=fused)
     opt, _ = build_optimizer(model.named_parameters(), lr=5e-4)
     state = TrainState(model, opt)
     step = make_train_step(model, noise_level_mag=1.0)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    with _attention_path(path):
+    with ctx():
         for _ in range(3):
             step(state, batch, gen)
         torch.cuda.synchronize()
@@ -509,28 +708,13 @@ def _time_train_steps(path, batch):
     return times, counts, torch.cuda.max_memory_allocated() / 2**30
 
 
-def _wrong_dq():
-    """The kernel path with a wrong backward: every layer's dq off by 1%."""
-    bwd = flash_mod.flash_attention_bwd
-
-    def wrong(*args):
-        dq, dk, dv = bwd(*args)
-        return dq * 0.99, dk, dv
-
-    wrong.launches = 0  # the wrapper counts on the module attribute it replaces
-    return mock.patch.object(flash_mod, "flash_attention_bwd", wrong)
-
-
-def _path(path):
-    return _wrong_dq() if path == WRONG_DQ else _attention_path(path)
-
-
 def _trajectory(path, data, plan):
     """Per-step losses of TRAJ_STEPS float32 steps (noise off) from the
     seeded weights over ``plan``."""
-    model = _train_model(None)
+    fused, ctx = PATHS[path]
+    model = _train_model(None, fused=fused)
     opt, _ = build_optimizer(model.named_parameters(), lr=5e-4)
-    with _path(path):
+    with ctx():
         _, losses = make_epoch_runner(model)(TrainState(model, opt), data, plan,
                                              torch.Generator(device=DEVICE))
     return losses.cpu().numpy()
@@ -539,8 +723,9 @@ def _trajectory(path, data, plan):
 def _param_grads(path, batch):
     """Every parameter's gradient of one float32 train-mode loss (noise off)
     from the seeded weights."""
-    model = _train_model(None)
-    with _path(path):
+    fused, ctx = PATHS[path]
+    model = _train_model(None, fused=fused)
+    with ctx():
         loss, _ = model.loss_fn(batch, train=True, generator=torch.Generator(device=DEVICE))
         loss.backward()
     return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
@@ -558,12 +743,18 @@ def _grad_error(got, want):
     return worst, errs[worst]
 
 
-def phase_train():
+def phase_train(fused=False):
+    """Trainer.fit on the kernel path (with use_fused_block when ``fused``),
+    then train-step times and the trajectory and gradient checks."""
+    tag = "train-fused" if fused else "train"
+    main_path, ref_path, wrong_path, other_path = (
+        ("fused", "fused-plain", WRONG_DWF1, "kernel") if fused
+        else ("kernel", "plain", WRONG_DQ, "plain"))
     ds = make_synthetic_dataset(n=TRAIN_N, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     n_train = TRAIN_N - BATCH
     train_ds, val_ds = ds.subset(np.arange(n_train)), ds.subset(np.arange(n_train, TRAIN_N))
-    model = _train_model("bfloat16")
+    model = _train_model("bfloat16", fused=fused)
     trainer = Trainer(model, "contrastive", TrainerConfig(
         epochs=TRAIN_EPOCHS, batch_size=BATCH, lr=5e-4, seed=0, noise_level_mag=1.0))
 
@@ -573,81 +764,86 @@ def phase_train():
         t0 = time.perf_counter()
         result = trainer.fit(train_ds, val_ds)
         wall = time.perf_counter() - t0
-        fwd_launches, bwd_launches = _counts()
+        fit_counts = _counts()
     steps = TRAIN_EPOCHS * -(-n_train // BATCH)
     eval_steps = TRAIN_EPOCHS * -(-len(val_ds) // BATCH)
     rows = result["metric_rows"]
     for row in rows:
-        log(f"train: epoch {row['epoch']} train_loss {row['train_loss']:.5f} "
+        log(f"{tag}: epoch {row['epoch']} train_loss {row['train_loss']:.5f} "
             f"val_loss {row['val_loss']:.5f} AUC_val {row['AUC_val']:.4f} "
             f"step {row['step_time_s'] * 1e3:.2f} ms")
         for key in ("train_loss", "val_loss", "AUC_val"):
             if not np.isfinite(row[key]):
-                raise AssertionError(f"train: non-finite {key} at epoch {row['epoch']}")
+                raise AssertionError(f"{tag}: non-finite {key} at epoch {row['epoch']}")
         if not 0.0 <= row["AUC_val"] <= 1.0:
-            raise AssertionError(f"train: AUC_val {row['AUC_val']}")
-    log(f"train: Trainer.fit {len(rows)} epochs, {steps} train + {eval_steps} eval "
-        f"steps in {wall:.3f} s wall; {fwd_launches} forward and {bwd_launches} "
-        f"backward kernel launches, {len(plain)} plain attention calls")
-    if (result["epochs_run"] != TRAIN_EPOCHS or plain
-            or fwd_launches != LAYERS_PER_CALL * (steps + eval_steps)
-            or bwd_launches != LAYERS_PER_CALL * steps):
+            raise AssertionError(f"{tag}: AUC_val {row['AUC_val']}")
+    per_step = _step_counts(main_path)
+    want = (per_step[0] * (steps + eval_steps), per_step[1] * steps,
+            per_step[2] * (steps + eval_steps), per_step[3] * steps)
+    log(f"{tag}: Trainer.fit {len(rows)} epochs, {steps} train + {eval_steps} eval "
+        f"steps in {wall:.3f} s wall; launches (flash fwd, flash bwd, ffn fwd, ffn bwd) "
+        f"{fit_counts}, {len(plain)} plain kernel calls")
+    if result["epochs_run"] != TRAIN_EPOCHS or plain or fit_counts != want:
         raise AssertionError(
-            f"expected {LAYERS_PER_CALL} forward + {LAYERS_PER_CALL} backward launches "
-            f"per train step, {LAYERS_PER_CALL} forward per eval step, no plain call")
+            f"{tag}: expected launches {want} (per train step {per_step}, forward "
+            f"only per eval step) and no plain call")
 
-    # train-step time, kernel path against plain path, on one batch
+    # train-step time against the other path, on one batch, alternating rounds
     data = ds.to_device(DEVICE)
     batch = take(data, torch.arange(BATCH, device=DEVICE))
-    times = {"kernel": [], "plain": []}
-    for path in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+    times = {main_path: [], other_path: []}
+    for path in (main_path, other_path, other_path, main_path, main_path, other_path):
         ts, counts, peak = _time_train_steps(path, batch)
         times[path] += ts
-        want = ((LAYERS_PER_CALL * TIMED_STEPS,) * 2 if path == "kernel" else (0, 0))
+        want = tuple(c * TIMED_STEPS for c in _step_counts(path))
         if counts != want:
             raise AssertionError(f"{path} path: launches {counts}, want {want}")
         ms = float(np.median(ts))
         log(f"train-step {path}: {ms:.3f} ms median of {TIMED_STEPS} at B={BATCH} bf16 "
             f"({BATCH / ms * 1e3:.1f} paired samples/s), peak {peak:.3f} GiB, "
-            f"launches fwd/bwd {counts}")
+            f"launches {counts}")
     for path, ts in times.items():
         q1, ms, q3 = np.percentile(ts, [25, 50, 75])
         log(f"train-step {path}, all rounds: median {ms:.3f} ms (quartiles {q1:.3f}-"
             f"{q3:.3f}) over {len(ts)} steps, {BATCH / ms * 1e3:.1f} paired samples/s")
 
-    # loss trajectory, kernel path against plain path, float32, noise off
+    # loss trajectory against the plain versions, float32, noise off
     plan = epoch_indices(TRAIN_N, BATCH, rng=np.random.default_rng(0), shuffle=True,
                          pad="drop")
     plan = np.concatenate([plan, plan])[:TRAJ_STEPS]
-    got, want = _trajectory("kernel", data, plan), _trajectory("plain", data, plan)
+    got, want = _trajectory(main_path, data, plan), _trajectory(ref_path, data, plan)
     rel = float((np.abs(got - want) / np.abs(want)).max())
-    log(f"train-trajectory float32, {TRAJ_STEPS} steps: kernel {got.tolist()}")
-    log(f"train-trajectory float32, {TRAJ_STEPS} steps: plain  {want.tolist()}")
-    log(f"train-trajectory: max relative difference {rel:.3e} (tol {TRAJ_RTOL})")
+    log(f"{tag}-trajectory float32, {TRAJ_STEPS} steps: {main_path} {got.tolist()}")
+    log(f"{tag}-trajectory float32, {TRAJ_STEPS} steps: {ref_path} {want.tolist()}")
+    log(f"{tag}-trajectory: max relative difference {rel:.3e} (tol {TRAJ_RTOL})")
     if not (np.isfinite(got).all() and rel <= TRAJ_RTOL):
-        raise AssertionError(f"kernel path's losses leave the plain path's: {rel}")
+        raise AssertionError(f"{main_path} path's losses leave the plain path's: {rel}")
 
     # whole-model parameter gradients on one batch, float32, noise off
-    want = _param_grads("plain", take(data, torch.from_numpy(plan[0]).to(DEVICE)))
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    want = _param_grads(ref_path, one)
     errs = {}
-    for path in ("kernel", WRONG_DQ):
-        got = _param_grads(path, take(data, torch.from_numpy(plan[0]).to(DEVICE)))
+    for path in (main_path, wrong_path):
+        got = _param_grads(path, one)
         if sorted(got) != sorted(want):
             raise AssertionError(f"{path} path: gradients of {sorted(set(got) ^ set(want))}")
         worst, errs[path] = _grad_error(got, want)
-        log(f"train-grads float32, {len(want)} parameters: {path} path, worst "
+        log(f"{tag}-grads float32, {len(want)} parameters: {path} path, worst "
             f"max|diff|/max|plain| {errs[path]:.3e} at {worst} (tol {GRAD_RTOL})")
-    if errs["kernel"] > GRAD_RTOL:
-        raise AssertionError(f"kernel path's gradients leave the plain path's: {errs}")
-    if errs[WRONG_DQ] <= GRAD_RTOL:
-        raise AssertionError(f"the gradient check cannot see a 1% error in dq: {errs}")
-    return fwd_launches, bwd_launches
+    if errs[main_path] > GRAD_RTOL:
+        raise AssertionError(f"{main_path} path's gradients leave the plain path's: {errs}")
+    if errs[wrong_path] <= GRAD_RTOL:
+        raise AssertionError(f"the gradient check cannot see a 1% error: {errs}")
+    return fit_counts
 
 
 def _kind(name):
     """Kind of a device op, by its kernel name."""
     n = name.lower()
-    for word, kind in (("flash_attention_fwd", "flash forward"),
+    for word, kind in (("fused_ffn_fwd", "fused FFN forward"),
+                       ("fused_ffn_bwd", "fused FFN backward"),
+                       ("reduce_partials", "fused FFN backward"),
+                       ("flash_attention_fwd", "flash forward"),
                        ("flash_attention_bwd_dq", "flash backward dq"),
                        ("flash_attention_bwd_dkdv", "flash backward dk/dv"),
                        ("gemm", "GEMM"), ("cutlass", "GEMM"), ("xmma", "GEMM"),
@@ -666,12 +862,13 @@ def _profile_steps(path, batch):
     """torch.profiler over PROFILED_STEPS train steps after 3 warm-up steps;
     returns (device ms, trace wall ms, host-clock ms) per step, the idle
     share, device ops per step and device ms per step by kind."""
-    model = _train_model("bfloat16")
+    fused, ctx = PATHS[path]
+    model = _train_model("bfloat16", fused=fused)
     opt, _ = build_optimizer(model.named_parameters(), lr=5e-4)
     state = TrainState(model, opt)
     step = make_train_step(model, noise_level_mag=1.0)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    with _attention_path(path):
+    with ctx():
         for _ in range(3):
             step(state, batch, gen)
         torch.cuda.synchronize()
@@ -705,7 +902,7 @@ def phase_profile():
     ds = make_synthetic_dataset(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     batch = ds.to_device(DEVICE)
-    for path in ("kernel", "plain"):
+    for path in ("kernel", "plain", "fused"):
         device_ms, wall_ms, host_ms, idle, ops, kinds = _profile_steps(path, batch)
         log(f"profile {path}: {PROFILED_STEPS} train steps at B={BATCH} bf16 under "
             f"torch.profiler: device {device_ms:.3f} ms/step, trace wall "
@@ -716,27 +913,55 @@ def phase_profile():
                 f"({100 * ms / device_ms:.1f}% of device time)")
 
 
+def _kernel_bounds():
+    """(ms, what bounds it) of each kernel at the shapes of its timed case:
+    each input read once and each output written once; operations are the
+    products' multiply-adds (two each), the exponentials left out."""
+    b, h, t, s = BATCH, 2, SP_LEN, 16          # flash forward, SP serving, bf16
+    fwd = _bound(4 * b * h * t * t * s, 4 * b * h * t * s * 2 + b * t, "bfloat16")
+    t = TRAIN_SP_LEN                           # flash backward, SP training, bf16
+    bwd = _bound(10 * b * h * t * t * s,
+                 8 * b * h * t * s * 2 + b * h * t * 2 * 4 + b * t, "bfloat16")
+    n, e, f = FFN_ROWS, FFN_E, FFN_F           # fused block, LC rows, float32
+    p = e * e + 2 * e * f + 6 * e + f          # parameter floats
+    ffn_fwd = _bound(2 * n * (e * e + 2 * e * f), 4 * (3 * n * e + p), "float32")
+    ffn_bwd = _bound(2 * n * (3 * e * e + 6 * e * f), 4 * (5 * n * e + 2 * p), "float32")
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
+            "fused_ffn_fwd": ffn_fwd, "fused_ffn_bwd": ffn_bwd}
+
+
 def main():
     card = phase_device()
     phase_build()
     max_err, timing = phase_kernel()
     bwd_err, bwd_timing = phase_kernel_bwd()
-    serve_launches = phase_serve()
-    train_fwd, train_bwd = phase_train()
+    ffn_err, ffn_bwd_err, ffn_timing = phase_kernel_ffn()
+    serve = phase_serve()
+    serve_fused = phase_serve(fused=True)
+    train = phase_train()
+    train_fused = phase_train(fused=True)
     phase_profile()
-    log(f"kernels line: forward ms/plain_ms at the spectral serving shape "
-        f"(256, 2, 1024, 16), backward at the spectral training shape "
-        f"(256, 2, 220, 16), bfloat16; forward launches are serve "
-        f"({serve_launches}) + train ({train_fwd}); card {card}")
-    measured = {  # name: (launches, max_abs_err, (ms, plain_ms))
-        "flash_attention_fwd": (serve_launches + train_fwd, max_err,
-                                timing[("sp", "bfloat16")]),
-        "flash_attention_bwd": (train_bwd, bwd_err, bwd_timing["sp"]),
+    runs = (serve, serve_fused, train, train_fused)
+    log(f"kernels line: flash forward at the spectral serving shape (256, 2, 1024, "
+        f"16) bf16, flash backward at the spectral training shape (256, 2, 220, 16) "
+        f"bf16, fused block at the LC rows (51200, 64, 256) float32 (the model "
+        f"path's dtype); launches summed over serve, serve-fused, train, "
+        f"train-fused: {runs}; card {card}")
+    lc32 = ffn_timing["float32"]
+    measured = {  # name: (launches, max_abs_err, ms, plain_ms, library_ms)
+        "flash_attention_fwd": (sum(r[0] for r in runs), max_err,
+                                *timing[("sp", "bfloat16")]),
+        "flash_attention_bwd": (sum(r[1] for r in runs), bwd_err, *bwd_timing["sp"]),
+        "fused_ffn_fwd": (sum(r[2] for r in runs), ffn_err, lc32[0], lc32[1], None),
+        "fused_ffn_bwd": (sum(r[3] for r in runs), ffn_bwd_err, lc32[2], lc32[3], None),
     }
+    bounds = _kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": measured[name][0], "max_abs_err": measured[name][1],
-         "ms": measured[name][2][0], "plain_ms": measured[name][2][1]}
+         "ms": measured[name][2], "plain_ms": measured[name][3],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": measured[name][4]}
         for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,8 +52,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed on its source and flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` builds to: keyed on its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

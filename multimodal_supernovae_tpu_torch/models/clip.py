@@ -10,7 +10,10 @@ supervised heads are not ported yet (ROADMAP.md queue 1, item 11) and raise
 ``NotImplementedError``.
 
 ``CLIPConfig`` is a jax-free copy of the JAX dataclass, with the same fields
-and defaults, so a ``model_config.json`` written by either side parses.
+and defaults, so a ``model_config.json`` written by either side parses. Its
+``transformer_kwargs`` / ``transformer_spectral_kwargs`` go to the towers'
+``SequenceEncoder`` as they are, ``use_fused_block`` included (the fused
+block path, models/transformer.py).
 """
 
 from __future__ import annotations

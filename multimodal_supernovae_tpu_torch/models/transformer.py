@@ -19,17 +19,29 @@ parameters to it, and a layer without one computes in the promotion of its
 input and parameters. LayerNorm takes its statistics in float32 in the
 E[x^2] - E[x]^2 form with eps 1e-6 (flax's, not torch's 1e-5) and returns
 its ``dtype``.
+
+``use_fused_block`` routes a block through ``fused_transformer_block`` (q/k/v
+projections, attention, then ``ops/fused_block.py``'s fused
+unify/LayerNorm/FFN/LayerNorm kernels) with the JAX package's rules: ``MMSN_FUSED_BLOCK=0`` turns it off
+even over an explicit ``True``; with ``None`` the env opt-in
+``MMSN_FUSED_BLOCK=1`` engages only for CUDA tensors; an explicit ``True``
+routes on any device (the plain versions on the CPU); only a block whose
+configured dropout rate is 0 (whatever the ``train`` flag) and whose
+widths ``fused_block.supports`` takes is fused. The parameter tree is the
+same either way.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fused_block as _fused
 from ..ops.attention import attention
 
 LN_EPS = 1e-6
@@ -143,12 +155,15 @@ class SelfAttention(nn.Module):
 class TransformerBlock(nn.Module):
     """Post-norm block: ``norm1(attn(x) + x)`` -> dropout ->
     ``norm2(ff(x) + x)`` -> dropout, with a ReLU MLP of width
-    ``ff_hidden_mult * emb``."""
+    ``ff_hidden_mult * emb``. ``use_fused_block``: see the module doc."""
 
     def __init__(self, emb: int, heads: int, ff_hidden_mult: int = 4,
-                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
+                 use_fused_block: Optional[bool] = None):
         super().__init__()
+        self.emb, self.heads, self.ff_hidden_mult = emb, heads, ff_hidden_mult
         self.dropout = dropout
+        self.use_fused_block = use_fused_block
         self.attention = SelfAttention(emb, heads, dtype=dtype)
         self.norm1 = LayerNorm(emb, dtype=dtype)
         self.ff = nn.Sequential(
@@ -161,21 +176,65 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.fused(x):
+            return fused_transformer_block(x, mask, self)
         x = self.norm1(self.attention(x, mask) + x)
         x = dropout(x, self.dropout, train, generator)
         x = self.norm2(self.ff(x) + x)
         return dropout(x, self.dropout, train, generator)
+
+    def fused(self, x: torch.Tensor) -> bool:
+        """Whether this call takes the fused path (the module doc's rules)."""
+        env = os.environ.get("MMSN_FUSED_BLOCK")
+        use = self.use_fused_block
+        if env == "0":
+            use = False  # kill switch, even over an explicit True
+        elif use is None:
+            use = env == "1" and x.is_cuda
+        return bool(use and self.dropout == 0.0
+                    and _fused.supports(self.emb, self.heads, self.ff_hidden_mult))
+
+
+def fused_transformer_block(x: torch.Tensor, mask: Optional[torch.Tensor],
+                            block: TransformerBlock) -> torch.Tensor:
+    """The whole post-norm block of ``block`` over x (B, T, E), computed in
+    ``x``'s dtype as the JAX package does (not in the block's configured
+    dtype): q/k/v projections (plain ``F.linear``, as the JAX package leaves
+    them to XLA), ``attention`` (the flash kernels on CUDA), then
+    ``ops.fused_block.fused_ffn_block`` over the parameters of
+    ``attention.unifyheads``, ``norm1``, ``ff.0``, ``ff.2`` and ``norm2``."""
+    b, t, e = x.shape
+    sa = block.attention
+    h, s = sa.heads, e // sa.heads
+    cdt = x.dtype
+
+    def heads(lin):
+        return F.linear(x, lin.weight.to(cdt)).view(b, t, h, s).transpose(1, 2)
+
+    att = attention(heads(sa.toqueries), heads(sa.tokeys), heads(sa.tovalues),
+                    mask, e)                            # (B, H, T, S)
+    att = att.transpose(1, 2).reshape(b * t, e)
+    ff_in, ff_out = block.ff[0], block.ff[2]
+    out = _fused.fused_ffn_block(
+        att, x.reshape(b * t, e).contiguous(),
+        sa.unifyheads.weight, sa.unifyheads.bias,
+        block.norm1.weight, block.norm1.bias,
+        ff_in.weight, ff_in.bias, ff_out.weight, ff_out.bias,
+        block.norm2.weight, block.norm2.bias)
+    return out.view(b, t, e)
 
 
 class Transformer(nn.Module):
     """Input dropout + a stack of post-norm blocks."""
 
     def __init__(self, emb: int, heads: int, depth: int, ff_hidden_mult: int = 4,
-                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
+                 use_fused_block: Optional[bool] = None):
         super().__init__()
         self.dropout = dropout
         self.tblocks = nn.ModuleList(
-            TransformerBlock(emb, heads, ff_hidden_mult, dropout, dtype=dtype)
+            TransformerBlock(emb, heads, ff_hidden_mult, dropout, dtype=dtype,
+                             use_fused_block=use_fused_block)
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -234,7 +293,8 @@ class SequenceEncoder(nn.Module):
     def __init__(self, n_out: int, emb: int, heads: int = 2, depth: int = 8,
                  ff_hidden_mult: int = 4, dropout: float = 0.0, nband: int = 1,
                  agg: str = "mean", time_norm: float = 10000.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 use_fused_block: Optional[bool] = None):
         super().__init__()
         if agg not in ("mean", "max", "attn", "pretraining"):
             raise ValueError(f"unknown agg: {agg}")
@@ -243,7 +303,8 @@ class SequenceEncoder(nn.Module):
         if nband > 1:
             self.band_emb = nn.Embedding(nband, emb)
         self.transformer = Transformer(emb, heads, depth, ff_hidden_mult,
-                                       dropout, dtype=dtype)
+                                       dropout, dtype=dtype,
+                                       use_fused_block=use_fused_block)
         if agg == "attn":
             self.query = nn.Parameter(torch.empty(emb))
             self.agg_attn = TorchStyleMHA(emb, heads=2)

@@ -1,5 +1,5 @@
-from multimodal_supernovae_tpu.serving.server import EmbedServer, ServingModel, serve
+from .batcher import BatcherStats, DynamicBatcher
+from .server import EmbedServer, ServingModel, input_spec, load_live, serve
 
-from .server import input_spec, load_live
-
-__all__ = ["EmbedServer", "ServingModel", "input_spec", "load_live", "serve"]
+__all__ = ["BatcherStats", "DynamicBatcher", "EmbedServer", "ServingModel",
+           "input_spec", "load_live", "serve"]

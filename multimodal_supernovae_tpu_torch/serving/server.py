@@ -1,30 +1,68 @@
-"""Serve a run directory's embeddings from PyTorch (port of ``load_live``
-in multimodal_supernovae_tpu/serving/server.py).
+"""Serve a run directory's embeddings from PyTorch (port of
+multimodal_supernovae_tpu/serving/server.py).
 
-The host side is the JAX package's numpy-only serving code, imported as it
-is: ``DynamicBatcher`` coalesces requests onto a fixed device batch and
-``EmbedServer`` answers ``/embed``, ``/healthz`` and ``/stats``. Neither
-module imports jax. This module supplies the model: ``load_live`` returns a
-``ServingModel`` whose ``fn`` runs ``CLIPModel.encode`` on ``device``.
+Stdlib-only HTTP host (http.server + npz/json wire formats) over the
+``DynamicBatcher`` (serving/batcher.py). Endpoints, as in the JAX package:
 
-The input contract is the JAX one: ``x_lc, t_lc, mask_lc`` of width
-``nband * lc_len`` and ``x_sp, t_sp, mask_sp`` of width ``sp_len``
-(float32, float32, bool); one float32 ``(n, enc_dim)`` output per modality.
+  * ``GET  /healthz``  -> JSON: status, batch size, modalities, the exact
+    input contract (field -> shape/dtype) and the model's meta.
+  * ``GET  /stats``    -> JSON: request/sample/device-call counters, batch
+    fill, latency percentiles (``BatcherStats``).
+  * ``POST /embed``    -> an ``.npz`` body (``Content-Type:
+    application/x-npz``) or JSON ``{field: nested lists}``; the response
+    mirrors the request format with one ``emb_<modality>`` array per
+    tower. Any leading dim n >= 1 is accepted: the batcher chunks and
+    coalesces onto the fixed device batch.
+
+``load_live`` returns a ``ServingModel`` whose ``fn`` runs
+``CLIPModel.encode`` on ``device``. The input contract is the JAX one:
+``x_lc, t_lc, mask_lc`` of width ``nband * lc_len`` and ``x_sp, t_sp,
+mask_sp`` of width ``sp_len`` (float32, float32, bool); one float32
+``(n, enc_dim)`` output per modality. The JAX package's StableHLO artifact
+is not served here (``torch.export`` takes its place later).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import io
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from multimodal_supernovae_tpu.serving.server import ServingModel
-
 from ..models.clip import MODALITIES
 from ..models.factory import load_model
+from .batcher import DynamicBatcher
 
-__all__ = ["load_live", "input_spec"]
+__all__ = ["EmbedServer", "ServingModel", "input_spec", "load_live", "serve"]
+
+
+class ServingModel:
+    """What the server needs: a fixed-batch callable + its input contract."""
+
+    def __init__(self, fn, input_spec: Dict[str, Tuple[Tuple[int, ...], str]],
+                 batch_size: int, modalities, meta: Optional[Dict] = None):
+        self.fn = fn
+        self.input_spec = {k: (tuple(s), np.dtype(d))
+                           for k, (s, d) in input_spec.items()}
+        self.batch_size = int(batch_size)
+        self.modalities = list(modalities)
+        self.meta = dict(meta or {})
+
+    def warmup(self):
+        """One zero-batch call, so that kernel builds and first-call costs
+        come before traffic."""
+        feed = {k: np.zeros((self.batch_size,) + s, d)
+                for k, (s, d) in self.input_spec.items()}
+        outs = self.fn(feed)
+        if len(outs) != len(self.modalities):
+            raise RuntimeError(
+                f"model returned {len(outs)} outputs for "
+                f"{len(self.modalities)} modalities")
+        float(np.asarray(outs[0]).sum())
 
 
 def input_spec(combinations, nband: int, lc_len: int, sp_len: int) -> Dict:
@@ -72,3 +110,135 @@ def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
         meta={"source": "run_dir", "path": run_dir, "which": which,
               "backend": "torch", "device": str(device)},
     )
+
+
+# --------------------------------------------------------------- wire I/O
+
+def _read_npz(body: bytes) -> Dict[str, np.ndarray]:
+    with np.load(io.BytesIO(body), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _write_npz(arrays: Dict[str, np.ndarray]) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # set on the server instance: .batcher, .model, .quiet
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):
+        if not getattr(self.server, "quiet", True):
+            super().log_message(fmt, *args)
+
+    def _reply(self, code: int, body: bytes, ctype: str):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_json(self, code: int, obj):
+        self._reply(code, (json.dumps(obj) + "\n").encode(),
+                    "application/json")
+
+    def do_GET(self):
+        model: ServingModel = self.server.model
+        if self.path == "/healthz":
+            self._reply_json(200, {
+                "status": "ok",
+                "batch_size": model.batch_size,
+                "max_wait_ms": self.server.batcher.max_wait_s * 1e3,
+                "output_modalities": model.modalities,
+                "input": {k: {"shape": ["n"] + list(s), "dtype": str(d)}
+                          for k, (s, d) in model.input_spec.items()},
+                **model.meta,
+            })
+        elif self.path == "/stats":
+            self._reply_json(200, self.server.batcher.stats.snapshot())
+        else:
+            self._reply_json(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self):
+        if self.path != "/embed":
+            return self._reply_json(404, {"error": f"unknown path {self.path}"})
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(length)
+            ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+            as_json = ctype == "application/json"
+            if as_json:
+                arrays = {k: np.asarray(v)
+                          for k, v in json.loads(body.decode()).items()}
+            else:
+                arrays = _read_npz(body)
+        except Exception as e:
+            return self._reply_json(400, {"error": f"unreadable body: {e}"})
+        try:
+            outs = self.server.batcher.submit(arrays)
+        except ValueError as e:  # contract violation
+            return self._reply_json(400, {"error": str(e)})
+        except RuntimeError as e:  # closed / device failure
+            return self._reply_json(503, {"error": str(e)})
+        named = {f"emb_{m}": o
+                 for m, o in zip(self.server.model.modalities, outs)}
+        if as_json:
+            self._reply_json(200, {k: v.tolist() for k, v in named.items()})
+        else:
+            self._reply(200, _write_npz(named), "application/x-npz")
+
+
+class EmbedServer:
+    """Owns the HTTP server + batcher; usable in-process (tests) or from
+    ``cli/serve.py``. Warms the model up (one device call) before it binds.
+    ``port=0`` binds an ephemeral port (then read ``.port``)."""
+
+    def __init__(self, model: ServingModel, host: str = "127.0.0.1",
+                 port: int = 0, max_wait_ms: float = 5.0,
+                 quiet: bool = True):
+        model.warmup()
+        self.model = model
+        self.batcher = DynamicBatcher(
+            model.fn, {k: (s, d) for k, (s, d) in model.input_spec.items()},
+            model.batch_size, max_wait_ms=max_wait_ms)
+        self.httpd = ThreadingHTTPServer((host, port), _Handler)
+        self.httpd.model = model
+        self.httpd.batcher = self.batcher
+        self.httpd.quiet = quiet
+        self.port = self.httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    def start_background(self):
+        self._thread = threading.Thread(
+            target=self.httpd.serve_forever, name="mmsn-serving-http",
+            daemon=True)
+        self._thread.start()
+        return self
+
+    def serve_forever(self):
+        self.httpd.serve_forever()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.batcher.close()
+        if self._thread:
+            self._thread.join(timeout=10)
+
+
+def serve(model: ServingModel, host: str = "127.0.0.1", port: int = 8000,
+          max_wait_ms: float = 5.0, quiet: bool = False) -> EmbedServer:
+    """Blocking entry used by ``cli/serve.py``."""
+    srv = EmbedServer(model, host=host, port=port, max_wait_ms=max_wait_ms,
+                      quiet=quiet)
+    print(json.dumps({"serving": True, "host": host, "port": srv.port,
+                      "batch_size": model.batch_size,
+                      "output_modalities": model.modalities,
+                      **model.meta}), flush=True)
+    try:
+        srv.serve_forever()
+    finally:
+        srv.close()
+    return srv

@@ -1,20 +1,28 @@
-"""The port stands without jax: importing it (training, serving and the CLI
-included) loads no jax, flax or yaml, which the GPU host does not have. And its
-synthetic generator draws the JAX generator's numbers for the same seed."""
+"""The port stands alone: importing it (training, serving and the CLI
+included) loads no jax, flax or yaml, which the GPU host does not have, and
+nothing of the JAX package; no file of the port, nor chip_smoke.py, imports
+the JAX package. Its synthetic generator draws the JAX generator's numbers
+for the same seed, and its batcher coalesces a feed as the JAX one does."""
 
+import ast
 import json
 import os
 import subprocess
 import sys
+import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from multimodal_supernovae_tpu.data.synthetic import make_synthetic_dataset
+from multimodal_supernovae_tpu.serving.batcher import DynamicBatcher as JaxBatcher
 from multimodal_supernovae_tpu_torch.data import make_synthetic_arrays
+from multimodal_supernovae_tpu_torch.serving.batcher import DynamicBatcher
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
+             "multimodal_supernovae_tpu")
 
 
 def test_port_imports_no_jax():
@@ -32,7 +40,10 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.ops.metrics\n"
         "import multimodal_supernovae_tpu_torch.training\n"
         "import multimodal_supernovae_tpu_torch.training.trainer\n"
+        "import multimodal_supernovae_tpu_torch.ops.fused_block\n"
         "import multimodal_supernovae_tpu_torch.serving\n"
+        "import multimodal_supernovae_tpu_torch.serving.batcher\n"
+        "import multimodal_supernovae_tpu_torch.serving.server\n"
         "import multimodal_supernovae_tpu_torch.cli.serve\n"
         f"print(json.dumps(sorted(m for m in {FORBIDDEN!r} if m in sys.modules)))\n"
     )
@@ -58,3 +69,83 @@ def test_synthetic_matches_jax_generator(seed, modalities):
 def test_synthetic_rejects_unported_modalities():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_synthetic_arrays(n=2, modalities=("host_galaxy",))
+
+
+def _imported_modules(path):
+    """Absolute module names of every import statement in a Python file."""
+    names = []
+    for node in ast.walk(ast.parse(Path(path).read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_no_port_file_imports_the_jax_package():
+    files = sorted(Path(REPO, "multimodal_supernovae_tpu_torch").rglob("*.py"))
+    files.append(Path(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    bad = [(str(f), m) for f in files for m in _imported_modules(f)
+           if m == "multimodal_supernovae_tpu" or m.startswith("multimodal_supernovae_tpu.")]
+    assert bad == []
+
+
+def _echo(feed):
+    """A fixed-batch fn: row i's outputs are functions of row i alone."""
+    x = feed["x"]
+    return [x.sum(axis=1, keepdims=True) * 2.0, x[:, :2] + 1.0]
+
+
+SPEC = {"x": ((3,), "float32")}
+
+
+def _feeds(sizes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"x": rng.normal(size=(n, 3)).astype(np.float32)} for n in sizes]
+
+
+@pytest.mark.parametrize("sizes,batch", [
+    ((1, 2, 3), 8),      # coalesced into one device call
+    ((11,), 4),          # a request larger than the batch: chunked
+    ((3, 5, 4, 1), 4),   # chunks that do not fit start the next batch
+])
+def test_batcher_matches_jax_batcher(sizes, batch):
+    feeds = _feeds(sizes)
+    results = {}
+    for name, cls in (("jax", JaxBatcher), ("port", DynamicBatcher)):
+        b = cls(_echo, SPEC, batch, max_wait_ms=200.0)
+        out = [None] * len(feeds)
+
+        def client(i):
+            out[i] = b.submit(feeds[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(feeds))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        stats = b.stats.snapshot()
+        b.close()
+        results[name] = (out, stats)
+    (jout, jstats), (pout, pstats) = results["jax"], results["port"]
+    for feed, j, p in zip(feeds, jout, pout):
+        for jo, po, want in zip(j, p, _echo(feed)):
+            np.testing.assert_array_equal(po, jo)
+            np.testing.assert_allclose(po, want, rtol=1e-6)
+    for key in ("requests", "samples"):
+        assert pstats[key] == jstats[key] == (len(sizes) if key == "requests" else sum(sizes))
+    assert pstats["device_calls"] >= -(-sum(sizes) // batch)
+    assert pstats["device_calls"] * batch - pstats["padded_samples"] == sum(sizes)
+
+
+def test_batcher_rejects_what_the_jax_batcher_rejects():
+    for cls in (JaxBatcher, DynamicBatcher):
+        b = cls(_echo, SPEC, 4)
+        try:
+            for bad in ({"y": np.zeros((2, 3))}, {"x": np.zeros((2, 4))},
+                        {"x": np.zeros((0, 3))}):
+                with pytest.raises(ValueError):
+                    b.submit(bad)
+        finally:
+            b.close()

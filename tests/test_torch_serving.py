@@ -1,6 +1,6 @@
 """The port's serving path on CPU against the JAX model: the JAX package
 writes a run directory (``model_config.json`` sidecar + a reference-layout
-``.ckpt``), the port serves it through ``load_live`` and the JAX package's
+``.ckpt``), the port serves it through ``load_live`` and its own
 ``EmbedServer``, and every answer equals JAX ``encode`` (float32, 1e-4)."""
 
 import dataclasses
