@@ -3,7 +3,8 @@
 server and the maven-lite contrastive trainer end to end, through the
 hand-written flash-attention kernels (forward and backward), and the same
 server and trainer under ``use_fused_block``, through the fused-block
-kernels (forward and backward) as well.
+kernels (forward and backward) as well, and under ``MMSN_FUSED_QKV=1``,
+through the whole-SelfAttention kernels (forward and backward).
 
   python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -11,8 +12,9 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
   1. device: CUDA must be present; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for float32 matmuls and convolutions;
   2. build: compiles csrc/flash_attention_fwd.cu, flash_attention_bwd.cu,
-     fused_ffn_fwd.cu and fused_ffn_bwd.cu with nvcc for sm_90a, one nvcc
-     each, all started together;
+     fused_ffn_fwd.cu, fused_ffn_bwd.cu, fused_qkv_fwd.cu and
+     fused_qkv_bwd.cu with nvcc for sm_90a, one nvcc each, all started
+     together;
   3. kernel: the forward kernel against its plain version (dense_attention) on
      the card, float32 (atol = rtol = 1e-4: another summation order and the
      online rescale) and bfloat16 (0.05), at the light-curve (256, 8, 200, 8)
@@ -41,6 +43,24 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      another order than the plain version's matrix products), 0.05 in
      bfloat16. Times kernel and plain version at the LC shape in both
      dtypes (CUDA events, median of 25);
+  4c. kernel-qkv: the fused-QKV forward kernel against its plain version
+     (fused_qkv_attention_plain) and the backward kernel (dx, dWqkv, dWu,
+     dbu) against fused_qkv_attention_bwd_plain, on the card, float32
+     (forward atol = rtol = 1e-4; each gradient within 5e-4 of its largest)
+     and bfloat16 (0.05), at LC (B, T, E, H) = (256, 200, 64, 8), SP (256,
+     220, 32, 2), a ragged T = 37, T = 256 (the limit) at both widths, a
+     batch with a fully masked sample, and mask=None. Times (bf16, CUDA
+     events, median of 25) the kernels and their plain versions at LC and
+     SP, and the SelfAttention module forward and forward + backward on the
+     unfused route (three F.linear, the flash kernels, F.linear) and under
+     the opt-in. The library yardstick is F.multi_head_attention_forward
+     (packed in-projection without bias, key_padding_mask, biased
+     out-projection; the q rows of the packed weight times sqrt(head dim) so
+     that its scores equal the kernel's), forward and autograd backward,
+     on bf16 copies of the weights and x in its (T, B, E) layout, both made
+     outside the timed region. It is timed and held to the plain versions
+     off fully masked samples (where it gives NaN), and called nowhere in
+     the port;
   5. serve: a maven-lite CLIPModel with seeded random weights (bf16
      compute) is written as a run directory, served by load_live +
      EmbedServer on 127.0.0.1, and sent concurrent npz and JSON requests of
@@ -55,6 +75,12 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      per device call, no plain call of either, and answers equal to the same
      model through the plain versions of all kernels (0.02: three times the
      6.5e-3 that sound runs read on these unit-norm 32-d embeddings);
+  5c. serve-qkv: phase 5 with MMSN_FUSED_QKV=1 set for the phase and
+     restored after: the LC tower's 5 layers (T = 200) take the fused-QKV
+     forward kernel, the SP tower's 13 (T = 1024 > 256) fall back to the
+     flash forward kernel. Checks 5 + 13 launches per device call, no plain
+     call, and answers within 0.02 of the same model through the plain
+     versions of all kernels (three times the 6.5e-3 that sound runs read);
   6. train: maven-lite at bench.py's shapes (B = 256, T_lc = 2 x 100,
      T_sp = 220, bf16, lr 5e-4, noise_level_mag 1.0, dropout 0) on the
      2048-sample synthetic set, through Trainer.fit for 3 epochs. Checks:
@@ -81,8 +107,15 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      backward's ff.0 weight gradient is scaled by 0.99. Times train steps
      and peak memory, fused ("fused") against unfused ("kernel"), both on
      the kernel path;
+  6c. train-qkv: the same trainer under MMSN_FUSED_QKV=1: 18 fused-QKV
+     forward + 18 backward launches and no flash launch per train step (18
+     forward per eval step), no plain call. The trajectory and gradient
+     checks hold the fused-QKV kernel path against the same path through
+     the plain versions; the gradient check must fail when the query third
+     of every layer's dWqkv is scaled by 0.99. Times train steps and peak
+     memory, the opt-in ("qkv") against the unfused kernel route ("kernel");
   7. profile: torch.profiler (device activity) over 5 train steps of each
-     path (kernel, plain, fused; bf16, one batch, after 3 warm-up steps):
+     path (kernel, plain, fused, qkv; bf16, one batch, after 3 warm-up steps):
      device time per step
      (the union of device ops), the trace's wall per step (first device
      op's start to the last one's end), one minus their ratio as the device
@@ -90,7 +123,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      (flash forward, dq, dk/dv, GEMMs, reductions, ...).
 
 Prints, before the last line, one JSON object {"kernels": [...]} with the
-measured numbers and each kernel's bound (the larger of its bytes over
+measured numbers, the shape they were timed at ("shape"; launches are summed
+over every shape the main paths gave the kernel, and the fused-QKV entries
+carry the times and bound at their second shape under "also_at") and each
+kernel's bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak for its input type: 989 TFLOP/s
 for bfloat16 on the tensor cores, 67 TFLOP/s for float32 on the CUDA cores,
 TF32 being off), and as the last line {"ok": true, "device": {...}}.
@@ -119,6 +155,7 @@ from torch.profiler import ProfilerActivity, profile
 import multimodal_supernovae_tpu_torch.models.transformer as transformer_mod
 import multimodal_supernovae_tpu_torch.ops.flash_attention as flash_mod
 import multimodal_supernovae_tpu_torch.ops.fused_block as ffn_mod
+import multimodal_supernovae_tpu_torch.ops.qkv_attention as qkv_mod
 from multimodal_supernovae_tpu_torch.data import (
     epoch_indices,
     make_synthetic_arrays,
@@ -152,13 +189,20 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                       "multimodal_supernovae_tpu/ops/fused_block.py:86"),
     "fused_ffn_bwd": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_bwd.cu",
                       "multimodal_supernovae_tpu/ops/fused_block.py:102"),
+    "fused_qkv_fwd": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_fwd.cu",
+                      "multimodal_supernovae_tpu/ops/qkv_attention.py:115"),
+    "fused_qkv_bwd": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_bwd.cu",
+                      "multimodal_supernovae_tpu/ops/qkv_attention.py:147"),
 }
 TOL = {"float32": 1e-4, "bfloat16": 0.05}
 GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
-SERVE_FUSED_TOL = 0.02  # served vs plain-version embeddings; sound runs read 6.5e-3
+# served vs plain-version embeddings under either opt-in (use_fused_block,
+# MMSN_FUSED_QKV=1); sound runs of both read 6.5e-3
+SERVE_OPTIN_TOL = 0.02
 TRAJ_RTOL, GRAD_RTOL = 1e-5, 5e-4
 WRONG_DQ = "kernel, dq x 0.99"
 WRONG_DWF1 = "fused, ff.0 weight grad x 0.99"
+WRONG_DWQ = "qkv, query third of dWqkv x 0.99"
 # H100 SXM published peaks (NVIDIA's datasheet), at a 700 W limit
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
@@ -175,6 +219,10 @@ LAYERS_PER_CALL = SEQ_LC["depth"] + SEQ_SP["depth"]
 FUSED_PER_CALL = SEQ_LC["depth"]  # E = 64 blocks; the SP tower (E = 32) stays unfused
 FFN_E, FFN_F = SEQ_LC["emb"], 4 * SEQ_LC["emb"]
 FFN_ROWS = BATCH * NBAND * LC_LEN  # the LC tower's (B * T) rows
+# (B, T, E, heads) of the two towers' SelfAttention at the training shapes
+QKV_LC = (BATCH, NBAND * LC_LEN, SEQ_LC["emb"], SEQ_LC["heads"])
+QKV_SP = (BATCH, TRAIN_SP_LEN, SEQ_SP["emb"], SEQ_SP["heads"])
+COUNT_NAMES = "(flash fwd, flash bwd, ffn fwd, ffn bwd, qkv fwd, qkv bwd)"
 
 
 def log(msg: str):
@@ -471,8 +519,186 @@ def phase_kernel_ffn():
     return fwd_err, bwd_err, timing
 
 
-def phase_serve(fused=False):
-    tag = "serve-fused" if fused else "serve"
+def _qkv_inputs(gen, b, t, e, dtype, mask):
+    """x, the packed weight with the scaling folded in, wu, bu and a
+    cotangent, on the card."""
+    def n(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to("cuda")
+
+    wqkv = n(3 * e, e, scale=e ** -0.5)
+    wqkv[:2 * e] *= e ** -0.25
+    return (n(b, t, e).to(dtype), mask, wqkv, n(e, e, scale=e ** -0.5), n(e, scale=0.1),
+            n(b, t, e).to(dtype))
+
+
+def _time_self_attention(shape, mask, dtype):
+    """ms of the SelfAttention module at ``shape``, forward (no_grad) and
+    forward + backward, on the unfused kernel route (three F.linear, the
+    flash kernels, F.linear) and under MMSN_FUSED_QKV=1."""
+    b, t, e, h = shape
+    gen = torch.Generator().manual_seed(6)
+    sa = transformer_mod.SelfAttention(e, h, dtype=dtype)
+    transformer_mod.init_weights(sa, gen)
+    sa.to(DEVICE)
+    x = torch.randn((b, t, e), generator=gen).to(DEVICE, dtype).requires_grad_()
+    g = torch.randn((b, t, e), generator=gen).to(DEVICE, dtype)
+
+    def fwd():
+        with torch.no_grad():
+            sa(x, mask)
+
+    def both():
+        sa(x, mask).backward(g)
+
+    out = {}
+    for route, ctx in (("unfused", contextlib.nullcontext), ("qkv", _qkv_env),
+                       ("qkv", _qkv_env), ("unfused", contextlib.nullcontext)):
+        with ctx():
+            if sa.fused_qkv(x) != (route == "qkv"):
+                raise AssertionError(f"SelfAttention {shape}: wrong route for {route}")
+            out.setdefault(route, []).append((_time_ms(fwd), _time_ms(both)))
+    return {route: tuple(float(np.mean(c)) for c in zip(*v)) for route, v in out.items()}
+
+
+def _mha_library(x, mask, wqkv, wu, bu, g, heads, want, want_grads):
+    """(forward ms, autograd-backward ms) of F.multi_head_attention_forward,
+    the one PyTorch call computing the fused-QKV function. It scales q by
+    head_dim ** -0.5, so the packed weight's query rows are multiplied by
+    sqrt(head dim) to give the kernel's scores. Weights and x are copied to
+    the call's own dtype and (T, B, E) layout beforehand. Its forward and
+    gradients are held to the plain versions' (``want``, ``want_grads``) at
+    the bf16 tolerance, on the samples with a valid key: on a fully masked
+    one it gives NaN."""
+    b, t, e = x.shape
+    w_in = wqkv.clone()
+    w_in[:e] *= (e // heads) ** 0.5
+    leaves = [a.detach().clone().requires_grad_() for a in
+              (x.transpose(0, 1).contiguous(), w_in.to(x.dtype), wu.to(x.dtype),
+               bu.to(x.dtype))]
+    gt = g.transpose(0, 1).contiguous()
+    pad = None if mask is None else ~mask
+
+    def call():
+        xt, w, wo, bo = leaves
+        return F.multi_head_attention_forward(
+            xt, xt, xt, e, heads, w, None, None, None, False, 0.0, wo, bo,
+            training=False, key_padding_mask=pad, need_weights=False)[0]
+
+    with torch.no_grad():
+        out = call().transpose(0, 1)
+    lib_out = call()
+    grads = torch.autograd.grad(lib_out, leaves, gt, retain_graph=True)
+    valid = torch.ones(b, dtype=torch.bool, device=x.device) if mask is None else mask.any(1)
+    tol = GRAD_TOL["bfloat16"]
+    torch.testing.assert_close(out[valid].float(), want[valid].float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"multi_head_attention_forward: {m}")
+    dx, dw_in, dwu, dbu = grads
+    dw_in = dw_in.float()
+    dw_in[:e] *= (e // heads) ** 0.5   # d/d(wqkv query rows) from d/d(w_in query rows)
+    pairs = [("dx", dx.transpose(0, 1)[valid], want_grads[0][valid])]
+    if bool(valid.all()):
+        pairs += [("dwqkv", dw_in, want_grads[1]), ("dwu", dwu, want_grads[2]),
+                  ("dbu", dbu, want_grads[3])]
+    rel = {}
+    for name, a, w in pairs:
+        rel[name] = float((a.float() - w.float()).abs().max() / w.float().abs().max())
+        if not rel[name] <= tol:
+            raise AssertionError(f"multi_head_attention_forward {name}: {rel[name]:.3e} "
+                                 f"of the plain version's largest (tol {tol})")
+
+    def fwd():
+        with torch.no_grad():
+            call()
+
+    return (_time_ms(fwd),
+            _time_ms(lambda: torch.autograd.grad(lib_out, leaves, gt, retain_graph=True)),
+            float((out[valid].float() - want[valid].float()).abs().max()), rel)
+
+
+def phase_kernel_qkv():
+    fwd, bwd = qkv_mod._qkv_fwd, qkv_mod.fused_qkv_attention_bwd
+    plain, plain_bwd = (qkv_mod.fused_qkv_attention_plain,
+                        qkv_mod.fused_qkv_attention_bwd_plain)
+    syn = make_synthetic_arrays(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
+                                n_max_sp=TRAIN_SP_LEN, seed=5)
+    mask_lc = torch.from_numpy(syn["mask_lc"]).cuda()
+    mask_sp = torch.from_numpy(syn["mask_sp"]).cuda()
+    masked = mask_lc[:16].clone()
+    masked[0] = False          # a fully masked sample: uniform over its T keys
+    masked[1, :100] = False
+    limit = torch.rand((8, 256), generator=torch.Generator().manual_seed(7)).cuda() > 0.3
+    cases = [  # name, (B, T, E, heads), mask
+        ("lc", QKV_LC, mask_lc),
+        ("sp", QKV_SP, mask_sp),
+        ("t37", (16, 37, 64, 8), mask_lc[:16, :37].contiguous()),
+        ("t256", (8, 256, 64, 8), limit),
+        ("t256_sp", (8, 256, 32, 2), limit),
+        ("masked_sample", (16,) + QKV_LC[1:], masked),
+        ("no_mask", QKV_SP, None),
+    ]
+    gen = torch.Generator().manual_seed(5)
+    fwd_err = bwd_err = 0.0
+    timing = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for name, (b, t, e, h), mask in cases:
+            x, mask, wqkv, wu, bu, g = _qkv_inputs(gen, b, t, e, dtype, mask)
+            got = fwd(x, mask, wqkv, wu, bu, h)
+            grads = bwd(x, mask, wqkv, wu, g, h)
+            torch.cuda.synchronize()
+            want = plain(x, mask, wqkv, wu, bu, h)
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"qkv {name} {dtype_name}: {got.dtype} {tuple(got.shape)}")
+            err = float((got.float() - want.float()).abs().max())
+            fwd_err = max(fwd_err, err)
+            torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype_name],
+                                       atol=TOL[dtype_name],
+                                       msg=lambda m: f"qkv {name} {dtype_name}: {m}")
+            rel = []
+            want_grads = plain_bwd(x, mask, wqkv, wu, g, h)
+            for gname, a, w in zip(("dx", "dwqkv", "dwu", "dbu"), grads, want_grads):
+                if a.dtype != w.dtype or a.shape != w.shape:
+                    raise AssertionError(f"qkv-bwd {name} {dtype_name} {gname}: "
+                                         f"{a.dtype} {tuple(a.shape)}")
+                d = float((a.float() - w.float()).abs().max())
+                rel.append(d / float(w.float().abs().max()))
+                bwd_err = max(bwd_err, d)
+            log(f"kernel-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)}: forward "
+                f"max|err| {err:.3e} (tol {TOL[dtype_name]}); backward max|err|/max|plain| "
+                f"dx {rel[0]:.3e} dWqkv {rel[1]:.3e} "
+                f"dWu {rel[2]:.3e} dbu {rel[3]:.3e} (tol {GRAD_TOL[dtype_name]})")
+            if max(rel) > GRAD_TOL[dtype_name]:
+                raise AssertionError(f"qkv-bwd {name} {dtype_name}: {rel}")
+            if name in ("lc", "sp") and dtype_name == "bfloat16":
+                ms = _time_ms(lambda: fwd(x, mask, wqkv, wu, bu, h))
+                plain_ms = _time_ms(lambda: plain(x, mask, wqkv, wu, bu, h))
+                bwd_ms = _time_ms(lambda: bwd(x, mask, wqkv, wu, g, h))
+                bwd_plain_ms = _time_ms(lambda: plain_bwd(x, mask, wqkv, wu, g, h))
+                lib_ms, lib_bwd_ms, lib_err, lib_rel = _mha_library(
+                    x, mask, wqkv, wu, bu, g, h, want, want_grads)
+                module = _time_self_attention((b, t, e, h), mask, dtype)
+                timing[name] = (ms, plain_ms, bwd_ms, bwd_plain_ms, module, lib_ms,
+                                lib_bwd_ms)
+                log(f"time-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)}: forward "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"F.multi_head_attention_forward {lib_ms:.4f} ms; backward kernel "
+                    f"(with its recompute) {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
+                    f"autograd of multi_head_attention_forward (from its saved "
+                    f"activations) {lib_bwd_ms:.4f} ms; the library call against the plain "
+                    f"versions: forward max|err| {lib_err:.3e}, gradients "
+                    f"max|err|/max|plain| "
+                    + " ".join(f"{k} {v:.3e}" for k, v in lib_rel.items()))
+                for route, (f_ms, fb_ms) in module.items():
+                    log(f"time-qkv {name} {dtype_name} SelfAttention module, {route} route: "
+                        f"forward {f_ms:.4f} ms, forward + backward {fb_ms:.4f} ms "
+                        f"(mean of two alternating rounds of medians of 25)")
+            del x, wqkv, wu, bu, g, got, grads, want, want_grads
+    torch.cuda.empty_cache()
+    return fwd_err, bwd_err, timing
+
+
+def phase_serve(fused=False, qkv=False):
+    tag = "serve-fused" if fused else "serve-qkv" if qkv else "serve"
     sizes = [(1, False), (37, True), (256, False), (300, False)]  # (n, as JSON)
     syn = make_synthetic_arrays(n=sum(n for n, _ in sizes), n_max_lc=LC_LEN,
                                 nband=NBAND, n_max_sp=SP_LEN, seed=1)
@@ -482,7 +708,7 @@ def phase_serve(fused=False):
         feeds.append({k: syn[k][lo:lo + n] for k in fields})
         lo += n
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, (_qkv_env if qkv else contextlib.nullcontext)():
         _run_dir(tmp, fused)
         serving_model = load_live(tmp, BATCH, device=DEVICE, lc_len=LC_LEN,
                                   sp_len=SP_LEN)
@@ -524,11 +750,15 @@ def phase_serve(fused=False):
             log(f"{tag}: {len(sizes)} concurrent requests, "
                 f"{sum(n for n, _ in sizes)} samples in {wall:.3f} s wall, "
                 f"{calls} device calls, batch_fill {stats.get('batch_fill')}, "
-                f"launches (flash fwd, flash bwd, ffn fwd, ffn bwd) {launches}, "
+                f"launches {COUNT_NAMES} {launches}, "
                 f"{len(plain_calls)} plain kernel calls")
             if calls < -(-sum(n for n, _ in sizes) // BATCH):
                 raise AssertionError(f"too few device calls: {calls}")
-            want = (LAYERS_PER_CALL * calls, 0, FUSED_PER_CALL * calls * fused, 0)
+            # under the opt-in the LC tower (T = 200) takes the fused-QKV kernel and
+            # the SP tower (T = 1024 > 256) falls back to the flash kernel
+            n_qkv = SEQ_LC["depth"] * qkv
+            want = ((LAYERS_PER_CALL - n_qkv) * calls, 0, FUSED_PER_CALL * calls * fused, 0,
+                    n_qkv * calls, 0)
             if launches != want or plain_calls:
                 raise AssertionError(
                     f"{tag}: expected launches {want} for {calls} device calls and no "
@@ -550,7 +780,7 @@ def phase_serve(fused=False):
 
         # answers against the same model run through the plain versions
         ref_model, _ = load_model(tmp, DEVICE)
-        tol = SERVE_FUSED_TOL if fused else TOL["bfloat16"]
+        tol = SERVE_OPTIN_TOL if fused or qkv else TOL["bfloat16"]
         max_err = 0.0
         with _plain_kernels(), torch.inference_mode():
             for (n, as_json), feed, (status, out) in zip(sizes, feeds, results):
@@ -604,7 +834,11 @@ def _plain_calls():
             mock.patch.object(ffn_mod, "fused_ffn_block_plain",
                               counted(ffn_mod.fused_ffn_block_plain)), \
             mock.patch.object(ffn_mod, "fused_ffn_block_bwd_plain",
-                              counted(ffn_mod.fused_ffn_block_bwd_plain)):
+                              counted(ffn_mod.fused_ffn_block_bwd_plain)), \
+            mock.patch.object(qkv_mod, "fused_qkv_attention_plain",
+                              counted(qkv_mod.fused_qkv_attention_plain)), \
+            mock.patch.object(qkv_mod, "fused_qkv_attention_bwd_plain",
+                              counted(qkv_mod.fused_qkv_attention_bwd_plain)):
         yield calls
 
 
@@ -613,25 +847,47 @@ def _zero_counts():
     flash_mod.flash_attention_bwd.launches = 0
     ffn_mod.fused_ffn_block.launches = 0
     ffn_mod.fused_ffn_block_bwd.launches = 0
+    qkv_mod.fused_qkv_attention.launches = 0
+    qkv_mod.fused_qkv_attention_bwd.launches = 0
 
 
 def _counts():
     """(flash forward, flash backward, fused-block forward, fused-block
-    backward) launches since _zero_counts."""
+    backward, fused-QKV forward, fused-QKV backward) launches since
+    _zero_counts."""
     return (flash_mod.flash_attention.launches, flash_mod.flash_attention_bwd.launches,
-            ffn_mod.fused_ffn_block.launches, ffn_mod.fused_ffn_block_bwd.launches)
+            ffn_mod.fused_ffn_block.launches, ffn_mod.fused_ffn_block_bwd.launches,
+            qkv_mod.fused_qkv_attention.launches, qkv_mod.fused_qkv_attention_bwd.launches)
 
 
 @contextlib.contextmanager
 def _plain_kernels():
     """Every kernel replaced by its plain version: the encoders' attention by
     dense_attention (with torch autograd), the fused block's forward and
-    backward by fused_ffn_block_plain and fused_ffn_block_bwd_plain."""
+    backward by fused_ffn_block_plain and fused_ffn_block_bwd_plain, the
+    fused-QKV forward and backward by fused_qkv_attention_plain and
+    fused_qkv_attention_bwd_plain."""
     plain_bwd = ffn_mod.fused_ffn_block_bwd_plain
     with mock.patch.object(transformer_mod, "attention", dense_attention), \
             mock.patch.object(ffn_mod, "_ffn_fwd", lambda *a, eps: (
                 ffn_mod.fused_ffn_block_plain(*a, eps=eps))), \
-            mock.patch.object(ffn_mod, "fused_ffn_block_bwd", plain_bwd):
+            mock.patch.object(ffn_mod, "fused_ffn_block_bwd", plain_bwd), \
+            mock.patch.object(qkv_mod, "_qkv_fwd", qkv_mod.fused_qkv_attention_plain), \
+            mock.patch.object(qkv_mod, "fused_qkv_attention_bwd",
+                              qkv_mod.fused_qkv_attention_bwd_plain):
+        yield
+
+
+@contextlib.contextmanager
+def _qkv_env():
+    """MMSN_FUSED_QKV=1 for the block, restored after."""
+    with mock.patch.dict(os.environ, {"MMSN_FUSED_QKV": "1"}):
+        yield
+
+
+@contextlib.contextmanager
+def _qkv_plain():
+    with _qkv_env(), _plain_kernels():
         yield
 
 
@@ -661,7 +917,25 @@ def _wrong_dwf1():
     return mock.patch.object(ffn_mod, "fused_ffn_block_bwd", wrong)
 
 
-# name: (use_fused_block, what runs in place of the kernels)
+@contextlib.contextmanager
+def _wrong_dwq():
+    """The fused-QKV kernel path with a wrong backward: the query third of
+    every layer's dWqkv off by 1%."""
+    bwd = qkv_mod.fused_qkv_attention_bwd
+
+    def wrong(x, *args):
+        dx, dwqkv, dwu, dbu = bwd(x, *args)
+        dwqkv = dwqkv.clone()
+        dwqkv[:x.shape[-1]] *= 0.99
+        return dx, dwqkv, dwu, dbu
+
+    wrong.launches = 0  # the wrapper counts on the module attribute it replaces
+    with _qkv_env(), mock.patch.object(qkv_mod, "fused_qkv_attention_bwd", wrong):
+        yield
+
+
+# name: (use_fused_block, the context it runs in: the opt-in, and what runs in
+# place of the kernels)
 PATHS = {
     "kernel": (False, contextlib.nullcontext),
     "plain": (False, _plain_kernels),
@@ -669,16 +943,22 @@ PATHS = {
     "fused": (True, contextlib.nullcontext),
     "fused-plain": (True, _plain_kernels),
     WRONG_DWF1: (True, _wrong_dwf1),
+    "qkv": (False, _qkv_env),
+    "qkv-plain": (False, _qkv_plain),
+    WRONG_DWQ: (False, _wrong_dwq),
 }
 
 
 def _step_counts(path):
-    """Launches per train step on ``path``: (flash fwd, flash bwd, ffn fwd,
-    ffn bwd)."""
+    """Launches per train step on ``path``, in the order of _counts. Under
+    the fused-QKV opt-in both towers (T = 200 and 220) take its kernels and
+    the flash kernels none."""
     if path == "plain":
-        return (0, 0, 0, 0)
+        return (0, 0, 0, 0, 0, 0)
+    if path == "qkv":
+        return (0, 0, 0, 0, LAYERS_PER_CALL, LAYERS_PER_CALL)
     fused = FUSED_PER_CALL if PATHS[path][0] else 0
-    return (LAYERS_PER_CALL, LAYERS_PER_CALL, fused, fused)
+    return (LAYERS_PER_CALL, LAYERS_PER_CALL, fused, fused, 0, 0)
 
 
 def _time_train_steps(path, batch):
@@ -743,13 +1023,20 @@ def _grad_error(got, want):
     return worst, errs[worst]
 
 
-def phase_train(fused=False):
-    """Trainer.fit on the kernel path (with use_fused_block when ``fused``),
-    then train-step times and the trajectory and gradient checks."""
-    tag = "train-fused" if fused else "train"
-    main_path, ref_path, wrong_path, other_path = (
-        ("fused", "fused-plain", WRONG_DWF1, "kernel") if fused
-        else ("kernel", "plain", WRONG_DQ, "plain"))
+# variant: (tag, main path, its reference, its negative control, the path it is timed against)
+TRAIN_VARIANTS = {
+    "kernel": ("train", "kernel", "plain", WRONG_DQ, "plain"),
+    "fused": ("train-fused", "fused", "fused-plain", WRONG_DWF1, "kernel"),
+    "qkv": ("train-qkv", "qkv", "qkv-plain", WRONG_DWQ, "kernel"),
+}
+
+
+def phase_train(variant="kernel"):
+    """Trainer.fit on the kernel path (with use_fused_block for "fused", under
+    MMSN_FUSED_QKV=1 for "qkv"), then train-step times and the trajectory and
+    gradient checks."""
+    tag, main_path, ref_path, wrong_path, other_path = TRAIN_VARIANTS[variant]
+    fused = PATHS[main_path][0]
     ds = make_synthetic_dataset(n=TRAIN_N, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     n_train = TRAIN_N - BATCH
@@ -759,7 +1046,7 @@ def phase_train(fused=False):
         epochs=TRAIN_EPOCHS, batch_size=BATCH, lr=5e-4, seed=0, noise_level_mag=1.0))
 
     # the main path: Trainer.fit, counted from zero
-    with _plain_calls() as plain:
+    with PATHS[main_path][1](), _plain_calls() as plain:
         _zero_counts()
         t0 = time.perf_counter()
         result = trainer.fit(train_ds, val_ds)
@@ -778,10 +1065,11 @@ def phase_train(fused=False):
         if not 0.0 <= row["AUC_val"] <= 1.0:
             raise AssertionError(f"{tag}: AUC_val {row['AUC_val']}")
     per_step = _step_counts(main_path)
-    want = (per_step[0] * (steps + eval_steps), per_step[1] * steps,
-            per_step[2] * (steps + eval_steps), per_step[3] * steps)
+    # forward kernels run in train and eval steps, backward kernels in train steps
+    want = tuple(c * (steps if i % 2 else steps + eval_steps)
+                 for i, c in enumerate(per_step))
     log(f"{tag}: Trainer.fit {len(rows)} epochs, {steps} train + {eval_steps} eval "
-        f"steps in {wall:.3f} s wall; launches (flash fwd, flash bwd, ffn fwd, ffn bwd) "
+        f"steps in {wall:.3f} s wall; launches {COUNT_NAMES} "
         f"{fit_counts}, {len(plain)} plain kernel calls")
     if result["epochs_run"] != TRAIN_EPOCHS or plain or fit_counts != want:
         raise AssertionError(
@@ -840,7 +1128,10 @@ def phase_train(fused=False):
 def _kind(name):
     """Kind of a device op, by its kernel name."""
     n = name.lower()
-    for word, kind in (("fused_ffn_fwd", "fused FFN forward"),
+    for word, kind in (("fused_qkv_fwd", "fused QKV forward"),
+                       ("fused_qkv_bwd", "fused QKV backward"),
+                       ("reduce_qkv_partials", "fused QKV backward"),
+                       ("fused_ffn_fwd", "fused FFN forward"),
                        ("fused_ffn_bwd", "fused FFN backward"),
                        ("reduce_partials", "fused FFN backward"),
                        ("flash_attention_fwd", "flash forward"),
@@ -902,7 +1193,7 @@ def phase_profile():
     ds = make_synthetic_dataset(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     batch = ds.to_device(DEVICE)
-    for path in ("kernel", "plain", "fused"):
+    for path in ("kernel", "plain", "fused", "qkv"):
         device_ms, wall_ms, host_ms, idle, ops, kinds = _profile_steps(path, batch)
         log(f"profile {path}: {PROFILED_STEPS} train steps at B={BATCH} bf16 under "
             f"torch.profiler: device {device_ms:.3f} ms/step, trace wall "
@@ -913,21 +1204,43 @@ def phase_profile():
                 f"({100 * ms / device_ms:.1f}% of device time)")
 
 
+def _flash_bounds(b, h, t, s):
+    """Bounds of the flash forward and backward at (B, H, T, S), bf16."""
+    fwd = _bound(4 * b * h * t * t * s, 4 * b * h * t * s * 2 + b * t, "bfloat16")
+    bwd = _bound(10 * b * h * t * t * s,
+                 8 * b * h * t * s * 2 + b * h * t * 2 * 4 + b * t, "bfloat16")
+    return fwd, bwd
+
+
+def _qkv_bounds(b, t, e, h):
+    """Bounds of the fused-QKV forward and backward at (B, T, E, heads),
+    bf16. Bytes: x and out (backward: x, g and dx) once, the mask, the
+    float32 weights (backward: the weights in and their gradients out).
+    Multiply-adds a row: forward 3E^2 (projection) + 2TE (q.k and p.v, all
+    heads) + E^2 (unify); the backward recomputes the first two and adds
+    E^2 each for datt and dWu, TE each for dP, dq, dk and dv, and 3E^2 each
+    for dx and dWqkv."""
+    n, p = b * t, 4 * e * e + e
+    fwd = _bound(2 * n * (4 * e * e + 2 * t * e), 2 * n * e * 2 + n + 4 * p, "bfloat16")
+    bwd = _bound(2 * n * (11 * e * e + 6 * t * e), 3 * n * e * 2 + n + 8 * p, "bfloat16")
+    return fwd, bwd
+
+
 def _kernel_bounds():
     """(ms, what bounds it) of each kernel at the shapes of its timed case:
     each input read once and each output written once; operations are the
     products' multiply-adds (two each), the exponentials left out."""
-    b, h, t, s = BATCH, 2, SP_LEN, 16          # flash forward, SP serving, bf16
-    fwd = _bound(4 * b * h * t * t * s, 4 * b * h * t * s * 2 + b * t, "bfloat16")
-    t = TRAIN_SP_LEN                           # flash backward, SP training, bf16
-    bwd = _bound(10 * b * h * t * t * s,
-                 8 * b * h * t * s * 2 + b * h * t * 2 * 4 + b * t, "bfloat16")
+    b = BATCH
+    fwd = _flash_bounds(b, 2, SP_LEN, 16)[0]        # flash forward, SP serving, bf16
+    bwd = _flash_bounds(b, 2, TRAIN_SP_LEN, 16)[1]  # flash backward, SP training, bf16
+    qkv_fwd, qkv_bwd = _qkv_bounds(*QKV_LC)         # fused QKV, LC, bf16
     n, e, f = FFN_ROWS, FFN_E, FFN_F           # fused block, LC rows, float32
     p = e * e + 2 * e * f + 6 * e + f          # parameter floats
     ffn_fwd = _bound(2 * n * (e * e + 2 * e * f), 4 * (3 * n * e + p), "float32")
     ffn_bwd = _bound(2 * n * (3 * e * e + 6 * e * f), 4 * (5 * n * e + 2 * p), "float32")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
-            "fused_ffn_fwd": ffn_fwd, "fused_ffn_bwd": ffn_bwd}
+            "fused_ffn_fwd": ffn_fwd, "fused_ffn_bwd": ffn_bwd,
+            "fused_qkv_fwd": qkv_fwd, "fused_qkv_bwd": qkv_bwd}
 
 
 def main():
@@ -936,32 +1249,60 @@ def main():
     max_err, timing = phase_kernel()
     bwd_err, bwd_timing = phase_kernel_bwd()
     ffn_err, ffn_bwd_err, ffn_timing = phase_kernel_ffn()
+    qkv_err, qkv_bwd_err, qkv_timing = phase_kernel_qkv()
     serve = phase_serve()
     serve_fused = phase_serve(fused=True)
+    serve_qkv = phase_serve(qkv=True)
     train = phase_train()
-    train_fused = phase_train(fused=True)
+    train_fused = phase_train("fused")
+    train_qkv = phase_train("qkv")
     phase_profile()
-    runs = (serve, serve_fused, train, train_fused)
-    log(f"kernels line: flash forward at the spectral serving shape (256, 2, 1024, "
-        f"16) bf16, flash backward at the spectral training shape (256, 2, 220, 16) "
-        f"bf16, fused block at the LC rows (51200, 64, 256) float32 (the model "
-        f"path's dtype); launches summed over serve, serve-fused, train, "
-        f"train-fused: {runs}; card {card}")
+    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv)
+    log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
+        f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
+        f"train-qkv, summed in the line: {runs}; card {card}")
+    for name, shape in (("LC (256, 8, 200, 8)", (BATCH, 8, NBAND * LC_LEN, 8)),
+                        ("SP (256, 2, 220, 16)", (BATCH, 2, TRAIN_SP_LEN, 16))):
+        (f_ms, f_by), (b_ms, b_by) = _flash_bounds(*shape)
+        log(f"bounds bf16 at {name}: flash forward {f_ms:.4f} ms ({f_by}), flash "
+            f"backward {b_ms:.4f} ms ({b_by})")
+    for name, shape in (("LC", QKV_LC), ("SP", QKV_SP)):
+        (f_ms, f_by), (b_ms, b_by) = _qkv_bounds(*shape)
+        log(f"bounds bf16 at {name} (B, T, E, H) = {shape}: fused QKV forward "
+            f"{f_ms:.4f} ms ({f_by}), backward {b_ms:.4f} ms ({b_by})")
     lc32 = ffn_timing["float32"]
-    measured = {  # name: (launches, max_abs_err, ms, plain_ms, library_ms)
+    qkv_lc, qkv_sp = qkv_timing["lc"], qkv_timing["sp"]
+    measured = {  # name: (launches, max_abs_err, ms, plain_ms, library_ms, timed shape)
         "flash_attention_fwd": (sum(r[0] for r in runs), max_err,
-                                *timing[("sp", "bfloat16")]),
-        "flash_attention_bwd": (sum(r[1] for r in runs), bwd_err, *bwd_timing["sp"]),
-        "fused_ffn_fwd": (sum(r[2] for r in runs), ffn_err, lc32[0], lc32[1], None),
-        "fused_ffn_bwd": (sum(r[3] for r in runs), ffn_bwd_err, lc32[2], lc32[3], None),
+                                *timing[("sp", "bfloat16")],
+                                f"(B, H, T, S) = {(BATCH, 2, SP_LEN, 16)} bfloat16"),
+        "flash_attention_bwd": (sum(r[1] for r in runs), bwd_err, *bwd_timing["sp"],
+                                f"(B, H, T, S) = {(BATCH, 2, TRAIN_SP_LEN, 16)} bfloat16"),
+        "fused_ffn_fwd": (sum(r[2] for r in runs), ffn_err, lc32[0], lc32[1], None,
+                          f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"),
+        "fused_ffn_bwd": (sum(r[3] for r in runs), ffn_bwd_err, lc32[2], lc32[3], None,
+                          f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"),
+        "fused_qkv_fwd": (sum(r[4] for r in runs), qkv_err, qkv_lc[0], qkv_lc[1],
+                          qkv_lc[5], f"(B, T, E, H) = {QKV_LC} bfloat16"),
+        "fused_qkv_bwd": (sum(r[5] for r in runs), qkv_bwd_err, qkv_lc[2], qkv_lc[3],
+                          qkv_lc[6], f"(B, T, E, H) = {QKV_LC} bfloat16"),
     }
     bounds = _kernel_bounds()
+    sp_fwd, sp_bwd = _qkv_bounds(*QKV_SP)
+    # the fused-QKV kernels' second shape: 13 of a train step's 18 launches
+    also = {name: {"shape": f"(B, T, E, H) = {QKV_SP} bfloat16", "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                   "library_ms": lib_ms}
+            for name, ms, plain_ms, lib_ms, bound in (
+                ("fused_qkv_fwd", qkv_sp[0], qkv_sp[1], qkv_sp[5], sp_fwd),
+                ("fused_qkv_bwd", qkv_sp[2], qkv_sp[3], qkv_sp[6], sp_bwd))}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": measured[name][0], "max_abs_err": measured[name][1],
          "ms": measured[name][2], "plain_ms": measured[name][3],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": measured[name][4]}
+         "library_ms": measured[name][4], "shape": measured[name][5],
+         **({"also_at": also[name]} if name in also else {})}
         for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

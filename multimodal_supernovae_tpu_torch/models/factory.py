@@ -73,10 +73,14 @@ def pick_reference_ckpt(run_dir: str, which: str = "best") -> str:
     return os.path.join(run_dir, epoch_ckpts[0] if epoch_ckpts else ckpts[0])
 
 
-def load_model(run_dir: str, device="cpu",
+def load_model(run_dir: str, device="cuda",
                which: str = "best") -> Tuple[CLIPModel, Dict[str, Any]]:
     """(model in eval mode on ``device``, sidecar extra) from a run dir; the
-    checkpoint loads with ``strict=True``."""
+    checkpoint loads with ``strict=True``. Runs on the card unless the caller
+    asks for the CPU, and raises when CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
     cfg, extra = read_model_config(run_dir)
     model = CLIPModel(cfg)
     ckpt = torch.load(pick_reference_ckpt(run_dir, which), map_location="cpu",

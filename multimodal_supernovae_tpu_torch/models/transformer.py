@@ -29,6 +29,15 @@ routes on any device (the plain versions on the CPU); only a block whose
 configured dropout rate is 0 (whatever the ``train`` flag) and whose
 widths ``fused_block.supports`` takes is fused. The parameter tree is the
 same either way.
+
+``MMSN_FUSED_QKV=1`` routes a ``SelfAttention`` through
+``ops/qkv_attention.py``'s whole-module kernels (packed q/k/v projection,
+attention and unify in one launch, forward and backward) with the JAX
+package's rules: only the environment variable, only for CUDA tensors, only
+where ``qkv_attention.supports`` passes (T <= 256; longer sequences keep the
+flash kernels). A block that runs through ``fused_transformer_block`` never
+reaches ``SelfAttention``, so with both opt-ins the fused block wins in the
+blocks it takes.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_block as _fused
+from ..ops import qkv_attention as _qkv
 from ..ops.attention import attention
 
 LN_EPS = 1e-6
@@ -124,15 +134,21 @@ class LayerNorm(nn.Module):
         return y.to(_compute_dtype(x, self.weight, self.dtype))
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """The device predicate of the ``MMSN_FUSED_QKV`` routing."""
+    return x.is_cuda
+
+
 class SelfAttention(nn.Module):
     """Bias-free K/Q/V projections, masked attention with the full-emb
-    e**-1/4 scaling (ops/attention.py), biased head unification."""
+    e**-1/4 scaling (ops/attention.py), biased head unification; as one
+    kernel under ``MMSN_FUSED_QKV=1`` (see ``fused_qkv``)."""
 
     def __init__(self, emb: int, heads: int = 2, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if emb % heads:
             raise ValueError(f"emb {emb} is not a multiple of heads {heads}")
-        self.emb, self.heads = emb, heads
+        self.emb, self.heads, self.dtype = emb, heads, dtype
         self.tokeys = Dense(emb, emb, bias=False, dtype=dtype)
         self.toqueries = Dense(emb, emb, bias=False, dtype=dtype)
         self.tovalues = Dense(emb, emb, bias=False, dtype=dtype)
@@ -143,6 +159,12 @@ class SelfAttention(nn.Module):
         if e != self.emb:
             raise ValueError(f"input dim {e} != layer emb {self.emb}")
         h, s = self.heads, e // self.heads
+        if self.fused_qkv(x):
+            cdt = self.dtype or x.dtype
+            return _qkv.fused_qkv_attention(
+                x.to(cdt).contiguous(), mask, self.toqueries.weight,
+                self.tokeys.weight, self.tovalues.weight, self.unifyheads.weight,
+                self.unifyheads.bias, heads=h, emb=e)
 
         def to_heads(a):
             return a.view(b, t, h, s).transpose(1, 2)
@@ -150,6 +172,17 @@ class SelfAttention(nn.Module):
         out = attention(to_heads(self.toqueries(x)), to_heads(self.tokeys(x)),
                         to_heads(self.tovalues(x)), mask, e)  # (B, H, T, S)
         return self.unifyheads(out.transpose(1, 2).reshape(b, t, e))
+
+    def fused_qkv(self, x: torch.Tensor) -> bool:
+        """Whether this call takes the whole-module kernels: the environment
+        opt-in ``MMSN_FUSED_QKV=1``, a tensor on the card, and a shape
+        ``qkv_attention.supports`` takes. The fused route computes in the
+        layer's ``dtype`` (``x``'s when it has none) and reads the four
+        ``Dense`` weights and the unify bias as they are. The CPU tests reach
+        the routed module by patching ``_on_card``, the one device
+        predicate."""
+        return bool(os.environ.get("MMSN_FUSED_QKV") == "1" and _on_card(x)
+                    and _qkv.supports(x.shape[1], self.emb, self.heads))
 
 
 class TransformerBlock(nn.Module):

@@ -90,9 +90,7 @@ def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
     arrays, which the batcher's fetcher needs (it calls ``np.asarray`` on
     each output). The copy back is synchronous."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    model, extra = load_model(run_dir, device, which=which)
+    model, extra = load_model(run_dir, device, which=which)  # raises without CUDA
     combos = model.cfg.combinations
     spec = input_spec(
         combos, int(extra.get("nband", model.cfg.nband)),

@@ -41,6 +41,7 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.training\n"
         "import multimodal_supernovae_tpu_torch.training.trainer\n"
         "import multimodal_supernovae_tpu_torch.ops.fused_block\n"
+        "import multimodal_supernovae_tpu_torch.ops.qkv_attention\n"
         "import multimodal_supernovae_tpu_torch.serving\n"
         "import multimodal_supernovae_tpu_torch.serving.batcher\n"
         "import multimodal_supernovae_tpu_torch.serving.server\n"
@@ -89,6 +90,23 @@ def test_no_port_file_imports_the_jax_package():
     bad = [(str(f), m) for f in files for m in _imported_modules(f)
            if m == "multimodal_supernovae_tpu" or m.startswith("multimodal_supernovae_tpu.")]
     assert bad == []
+
+
+def test_entry_points_default_to_the_card():
+    """``load_model``, ``load_live`` and the serving CLI run on the card
+    unless the caller asks for the CPU; without one they raise."""
+    import inspect
+
+    import torch
+
+    from multimodal_supernovae_tpu_torch.models import load_model
+    from multimodal_supernovae_tpu_torch.serving import load_live
+
+    for fn in (load_model, load_live):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load_model("no-such-run-dir")
 
 
 def _echo(feed):
