@@ -1,6 +1,17 @@
 """Flash attention, forward and backward: wrappers over the hand-written CUDA
-kernels ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``,
-paired in one ``torch.autograd.Function``.
+kernels, paired in one ``torch.autograd.Function``. Two routes:
+
+  * ``"mma"``, the tensor cores: ``csrc/flash_attention_fwd_mma.cu`` and
+    ``csrc/flash_attention_bwd_mma.cu`` (shared ``csrc/flash_attention_mma.cuh``),
+    for bfloat16 at head dims 8 and 16 with 16-byte rows: the main path's
+    attention, both towers of maven-lite;
+  * ``"simt"``, the CUDA cores: ``csrc/flash_attention_fwd.cu`` and
+    ``csrc/flash_attention_bwd.cu``, for everything else (float32, head dims
+    32 and 64, rows off 16 bytes).
+
+``_route`` is the one rule that picks between them, a pure function of the
+dtype, the head dim and the tensors' pointers and strides; there is no
+fallback from one route to the other, and a failed build or launch raises.
 
 Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
 pallas_attention.py:_fwd_kernel`` and ``_bwd_kernel`` (the ``custom_vjp``
@@ -12,16 +23,19 @@ product, float32 accumulation, output in the input dtype; in the backward
 dS zeroed at masked keys and rounded to q's dtype, P rounded to v's dtype
 before dv.
 
-What bounds them on an H100: CUDA-core compute. Each (query, key) pair
-costs 2*S FMAs and one exponential in the forward, 7*S and two in the
-backward; q/k/v/g are read from device memory once per tile and the (T, T)
-scores never leave the SM. The plain version instead writes and re-reads
-float32 (B, H, T, T) scores, softmax weights and their casts (2.1 GB of
-scores per layer at the spectral serving shape B=256, H=2, T=1024). The
-design: one thread per query row (forward, dq) or key row (dk/dv) with
-float32 accumulators in registers, the other side staged in shared-memory
-tiles (broadcast reads), so any T fits; no tensor cores, since the
-light-curve head dim of 8 is below every MMA tile.
+What bounds them on an H100: the softmax. Each (query, key) pair costs one
+exponential and a few float32 operations in the forward, two and about a
+dozen in the backward, beside 2*S multiply-adds (7*S in the backward) that
+the CUDA-core kernels run as float32 FMAs and the tensor-core kernels as
+bf16 ``mma.sync``; q/k/v/g are read from device memory once per tile and the
+(T, T) scores never leave the SM. The plain version instead writes and
+re-reads float32 (B, H, T, T) scores, softmax weights and their casts (2.1
+GB of scores per layer at the spectral serving shape B=256, H=2, T=1024).
+The CUDA-core design: one thread per query row (forward, dq) or key row
+(dk/dv) with float32 accumulators in registers, the other side staged in
+shared-memory tiles (broadcast reads). The tensor-core design: a warp per 16
+rows holding its side as mma fragments, the other side streamed in 64-row
+bf16 tiles (cp.async, ldmatrix); see the sources' notes.
 
 The TPU kernels' (B*H, S, T) transposes, rows-per-program blocking, VMEM
 budgets and 8-row padding exist for the TPU's (8, 128) tiling and are not
@@ -38,7 +52,9 @@ raises. On CUDA, a call that needs a gradient goes through
 and the backward launches ``flash_attention_bwd``; under ``no_grad`` or
 ``inference_mode`` the forward runs alone, as in serving.
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches (bumped only after a launch the runtime accepted).
+kernel launches of both routes, ``flash_attention.mma_launches`` and
+``flash_attention_bwd.mma_launches`` those of the tensor-core route (bumped
+only after a launch the runtime accepted).
 """
 
 from __future__ import annotations
@@ -52,7 +68,34 @@ from .attention import dense_attention, dense_attention_bwd
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 BWD_HEAD_DIMS = (8, 16, 32)
+MMA_HEAD_DIMS = (8, 16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = {  # the C entry points' ctypes signatures
+    "flash_attention_fwd": (
+        [ctypes.c_void_p] * 6                # q, k, v, mask, out, stats
+        + [ctypes.c_int] * 5                 # B, H, T, S, dtype
+        + [ctypes.c_float]                   # scale
+        + [ctypes.c_int64] * 6               # in, out strides (b, h, t)
+        + [ctypes.c_void_p]),                # stream
+    "flash_attention_fwd_mma": (
+        [ctypes.c_void_p] * 6                # q, k, v, mask, out, stats
+        + [ctypes.c_int] * 4                 # B, H, T, S
+        + [ctypes.c_float]                   # scale
+        + [ctypes.c_int64] * 6               # in, out strides (b, h, t)
+        + [ctypes.c_void_p]),                # stream
+    "flash_attention_bwd": (
+        [ctypes.c_void_p] * 10               # q k v mask out stats g dq dk dv
+        + [ctypes.c_int] * 5                 # B, H, T, S, dtype
+        + [ctypes.c_float]                   # scale
+        + [ctypes.c_int64] * 12              # q/k/v, out, g, grads strides
+        + [ctypes.c_void_p]),                # stream
+    "flash_attention_bwd_mma": (
+        [ctypes.c_void_p] * 11               # q k v mask out stats g dq dk dv dsum
+        + [ctypes.c_int] * 4                 # B, H, T, S
+        + [ctypes.c_float]                   # scale
+        + [ctypes.c_int64] * 12              # q/k/v, out, g, grads strides
+        + [ctypes.c_void_p]),                # stream
+}
 _bound = {}
 
 
@@ -64,25 +107,32 @@ def _entry(name: str):
         from ..kernels.build import load_library
 
         fn = getattr(load_library(name), f"mmsn_{name}")
-        if name == "flash_attention_fwd":
-            fn.argtypes = (
-                [ctypes.c_void_p] * 6            # q, k, v, mask, out, stats
-                + [ctypes.c_int] * 5             # B, H, T, S, dtype
-                + [ctypes.c_float]               # scale
-                + [ctypes.c_int64] * 6           # in, out strides (b, h, t)
-                + [ctypes.c_void_p]              # stream
-            )
-        else:
-            fn.argtypes = (
-                [ctypes.c_void_p] * 10           # q k v mask out stats g dq dk dv
-                + [ctypes.c_int] * 5             # B, H, T, S, dtype
-                + [ctypes.c_float]               # scale
-                + [ctypes.c_int64] * 12          # q/k/v, out, g, grads strides
-                + [ctypes.c_void_p]              # stream
-            )
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _bound[name] = fn
     return fn
+
+
+def _rows_aligned(a: torch.Tensor) -> bool:
+    """Whether every (b, h, t) row of ``a`` starts on 16 bytes: the data
+    pointer and the first three strides in multiples of 16 bytes."""
+    sb, sh, st = a.stride()[:3]
+    es = a.element_size()
+    return (a.data_ptr() % 16 == 0 and sb * es % 16 == 0 and sh * es % 16 == 0
+            and st * es % 16 == 0)
+
+
+def _route(dtype: torch.dtype, s: int, tensors) -> str:
+    """``"mma"`` (the tensor-core kernels) for bfloat16 at head dim 8 or 16
+    when every tensor of ``tensors`` (q, k, v; the backward adds out and g)
+    has 16-byte rows, which the encoder's (B, T, H, S) views and contiguous
+    (B, H, T, S) tensors both have; ``"simt"`` (the CUDA-core kernels)
+    otherwise. The tensor-core entry points check the same conditions and
+    refuse a launch without them (the wrapper then raises)."""
+    if (dtype == torch.bfloat16 and s in MMA_HEAD_DIMS
+            and all(_rows_aligned(a) for a in tensors)):
+        return "mma"
+    return "simt"
 
 
 def _check(q, k, v, key_mask, emb):
@@ -141,27 +191,31 @@ def _empty_heads(q: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_fwd(q, k, v, key_mask, emb, with_stats: bool):
-    """Launch the forward kernel; returns (out, stats or None)."""
+    """Launch the forward kernel of ``_route``'s route; returns (out, stats
+    or None)."""
     _check(q, k, v, key_mask, emb)
     b, h, t, s = q.shape
     out = _empty_heads(q)
     stats = (torch.empty((b, h, t, 2), dtype=torch.float32, device=q.device)
              if with_stats else None)
-    fn = _entry("flash_attention_fwd")
+    mma = _route(q.dtype, s, (q, k, v)) == "mma"
+    name = "flash_attention_fwd_mma" if mma else "flash_attention_fwd"
+    dtype = () if mma else (_DTYPE_CODES[q.dtype],)
+    fn = _entry(name)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_mask is None else key_mask.data_ptr(),
             out.data_ptr(), None if stats is None else stats.data_ptr(),
-            b, h, t, s, _DTYPE_CODES[q.dtype], float(emb) ** -0.25,
+            b, h, t, s, *dtype, float(emb) ** -0.25,
             *q.stride()[:3], *out.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"flash_attention_fwd launch failed with CUDA error {rc} "
-            f"(q {tuple(q.shape)} {q.dtype})")
+            f"{name} launch failed with CUDA error {rc} (q {tuple(q.shape)} {q.dtype})")
     flash_attention.launches += 1
+    flash_attention.mma_launches += mma
     return out, stats
 
 
@@ -178,9 +232,10 @@ def flash_attention_bwd(
     """(dq, dk, dv) of masked attention for the cotangent ``g``.
 
     CPU tensors go to ``dense_attention_bwd`` (``out`` and ``stats`` are not
-    read). CUDA tensors launch the backward kernels or raise: ``out`` and
-    ``stats`` are the forward's output and row residual
-    (``_flash_fwd(..., with_stats=True)``), head dim in {8, 16, 32}."""
+    read). CUDA tensors launch the backward kernels of ``_route``'s route or
+    raise: ``out`` and ``stats`` are the forward's output and row residual
+    (``_flash_fwd(..., with_stats=True)``, of either route), head dim in
+    {8, 16, 32}."""
     if q.device.type == "cpu":
         return dense_attention_bwd(q, k, v, key_mask, g, emb)
     if q.device.type != "cuda":
@@ -191,27 +246,35 @@ def flash_attention_bwd(
     _check_bwd(q, out, stats, g)
     b, h, t, s = q.shape
     dq, dk, dv = _empty_heads(q), _empty_heads(q), _empty_heads(q)
-    fn = _entry("flash_attention_bwd")
+    mma = _route(q.dtype, s, (q, k, v, out, g)) == "mma"
+    if mma:
+        # D = g . out of each row, written by the dq kernel, read by dk/dv
+        dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        name, extra, dtype = "flash_attention_bwd_mma", (dsum.data_ptr(),), ()
+    else:
+        name, extra, dtype = "flash_attention_bwd", (), (_DTYPE_CODES[q.dtype],)
+    fn = _entry(name)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_mask is None else key_mask.data_ptr(),
             out.data_ptr(), stats.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, t, s, _DTYPE_CODES[q.dtype], float(emb) ** -0.25,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *extra,
+            b, h, t, s, *dtype, float(emb) ** -0.25,
             *q.stride()[:3], *out.stride()[:3], *g.stride()[:3],
             *dq.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"flash_attention_bwd launch failed with CUDA error {rc} "
-            f"(q {tuple(q.shape)} {q.dtype})")
+            f"{name} launch failed with CUDA error {rc} (q {tuple(q.shape)} {q.dtype})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.mma_launches += mma
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.mma_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -247,8 +310,9 @@ def flash_attention(
     """Masked attention forward, (B, H, T, S) in and out, differentiable.
 
     CPU tensors go to ``dense_attention``; CUDA tensors launch the kernel
-    (float32 or bfloat16, head dim in {8, 16, 32, 64}, any T >= 1, q/k/v
-    with equal strides and a contiguous head dim) or raise. When autograd
+    of ``_route``'s route (float32 or bfloat16, head dim in {8, 16, 32, 64},
+    any T >= 1, q/k/v with equal strides and a contiguous head dim) or
+    raise. When autograd
     needs a gradient of a CUDA call it goes through ``FlashAttention``
     (head dim in {8, 16, 32})."""
     if q.device.type == "cpu":
@@ -262,3 +326,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.mma_launches = 0

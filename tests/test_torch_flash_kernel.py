@@ -1,35 +1,50 @@
 """The flash-attention CUDA kernels and their wrappers, without jax.
 
-The ``gpu`` tests hold the kernels against their plain versions on the card
-and skip without one. Forward against ``dense_attention``: float32 at
-atol = rtol = 1e-4 (another summation order and the online-softmax
-rescale), bfloat16 at 0.05. Backward against torch autograd through
-``dense_attention``: float32 at 5e-4 (the JAX kernel tests' gradient
-tolerance), bfloat16 at 0.05. The rest check the wrappers' argument
-validation and the build module's cache key, which need no card. This file
-imports no jax, so the GPU host runs it with ``--noconftest`` (README,
-"PyTorch port").
+The ``gpu`` tests hold the kernels of both routes (the tensor cores for
+bfloat16 at head dims 8 and 16, the CUDA cores otherwise) against their
+plain versions on the card and skip without one. Forward against
+``dense_attention``: float32 at atol = rtol = 1e-4 (another summation order
+and the online-softmax rescale), bfloat16 at 0.05. Backward against torch
+autograd through ``dense_attention``: float32 at 5e-4 (the JAX kernel tests'
+gradient tolerance), bfloat16 at 0.05. Every bfloat16 output (out, dq, dk,
+dv) whose plain value is not all zero is also held to ||got - want|| /
+||want|| <= NORM_TOL: at the spectral
+shapes the values are about 0.05 in size, so 0.05 absolute alone would pass
+an output 20% off, and a tensor-core dq off by 1% must fail this check. The
+rest check the routing rule, the
+wrappers' argument validation, the C entry points' signatures and the build
+module's cache key, which need no card. This file imports no jax, so the GPU
+host runs it with ``--noconftest`` (README, "PyTorch port").
 """
 
+import ctypes
+import importlib
+import re
 import shutil
 
 import numpy as np
 import pytest
 import torch
 
+import multimodal_supernovae_tpu_torch.ops.flash_attention as flash_mod
 from multimodal_supernovae_tpu_torch.kernels import build, library_path
-from multimodal_supernovae_tpu_torch.kernels.build import BUILD_DIR
+from multimodal_supernovae_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR
 from multimodal_supernovae_tpu_torch.ops import dense_attention, dense_attention_bwd
 from multimodal_supernovae_tpu_torch.ops.flash_attention import (
+    _ARGTYPES,
     _check,
     _check_bwd,
     _flash_fwd,
+    _route,
     flash_attention,
     flash_attention_bwd,
 )
 
+# the module, not the ``build`` function that kernels/__init__ re-exports
+build_mod = importlib.import_module("multimodal_supernovae_tpu_torch.kernels.build")
 TOL = {"float32": 1e-4, "bfloat16": 0.05}
 GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
+NORM_TOL = 6e-3  # as chip_smoke.py's (sound runs: PERF.md section 6)
 
 
 def _inputs(seed, b, h, t, s, mask, dtype, device="cpu", model_layout=False):
@@ -51,6 +66,24 @@ def _inputs(seed, b, h, t, s, mask, dtype, device="cpu", model_layout=False):
         m[0] = False            # every key masked: uniform weights
         m[-1, : min(t - 1, 100)] = False  # leading key tiles masked only
     return q, k, v, torch.from_numpy(m).to(device)
+
+
+def _norm_err(got, want):
+    """||got - want|| / ||want|| in float64; None where the plain output is
+    exactly zero (dq and dk at T = 1), which the elementwise limit covers."""
+    norm = float(torch.linalg.vector_norm(want.double().flatten()))
+    diff = float(torch.linalg.vector_norm((got.double() - want.double()).flatten()))
+    return diff / norm if norm else None
+
+
+def _assert_close(got, want, dtype, tol, what=""):
+    """Elementwise within ``tol``; a bfloat16 output also within NORM_TOL
+    in the normalised error."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=lambda e: f"{what}: {e}")
+    if dtype in ("bfloat16", torch.bfloat16):
+        err = _norm_err(got, want)
+        assert err is None or err <= NORM_TOL, f"{what}: ||got - want|| / ||want|| {err:.3e}"
 
 
 def _needs_cuda():
@@ -79,8 +112,7 @@ def test_kernel_matches_plain(dtype, shape, mask, layout):
     assert flash_attention.launches == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
     want = dense_attention(q, k, v, m, h * s)
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    _assert_close(got, want, dtype, TOL[dtype], "out")
 
 
 @pytest.mark.gpu
@@ -157,8 +189,7 @@ def test_backward_kernel_matches_autograd(dtype, shape, mask, layout):
     assert (flash_attention.launches, flash_attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
     for name, leaf, w in zip("qkv", leaves, want):
         assert leaf.grad.dtype == q.dtype and leaf.grad.shape == q.shape
-        torch.testing.assert_close(leaf.grad.float(), w.float(), rtol=GRAD_TOL[dtype],
-                                   atol=GRAD_TOL[dtype], msg=lambda e: f"d{name}: {e}")
+        _assert_close(leaf.grad, w, dtype, GRAD_TOL[dtype], f"d{name}")
     if mask == "masked_rows":  # row 0 is fully masked: no dq/dk, uniform dv
         assert torch.count_nonzero(leaves[0].grad[0]) == 0
         assert torch.count_nonzero(leaves[1].grad[0]) == 0
@@ -237,3 +268,198 @@ def test_build_without_nvcc_says_so(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build("flash_attention_fwd")
+
+
+# ---- the tensor-core route ------------------------------------------------
+
+def _grads_through_flash(q, k, v, m, g, emb):
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*leaves, m, emb)
+    out.backward(g)
+    torch.cuda.synchronize()
+    return out, [leaf.grad for leaf in leaves]
+
+
+def _cotangent(seed, b, h, t, s, dtype):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.normal(size=(b, t, h, s)).astype(np.float32))
+    return g.to("cuda", getattr(torch, dtype)).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mask,layout", [
+    ((16, 8, 200, 8), "ragged", True),          # light-curve tower
+    ((8, 2, 1024, 16), "masked_rows", True),    # spectral serving T
+    ((4, 2, 220, 16), "masked_rows", False),    # spectral training T, contiguous
+    ((4, 8, 200, 8), None, False),              # key_mask=None
+    ((3, 8, 77, 8), "masked_rows", True),       # ragged T
+    ((3, 2, 77, 16), "ragged", False),
+    ((2, 2, 1, 8), None, True),                 # a single key
+    ((2, 2, 1, 16), "ragged", False),
+])
+def test_mma_route_matches_plain(shape, mask, layout):
+    """Forward and backward of a bf16 call at head dim 8 or 16 take the
+    tensor-core kernels (one launch each) and match the plain versions."""
+    _needs_cuda()
+    b, h, t, s = shape
+    q, k, v, m = _inputs(sum(shape) + 2, b, h, t, s, mask, "bfloat16", "cuda", layout)
+    assert _route(q.dtype, s, (q, k, v)) == "mma"
+    g = _cotangent(sum(shape), b, h, t, s, "bfloat16")
+    counts = (flash_attention.mma_launches, flash_attention_bwd.mma_launches)
+    out, grads = _grads_through_flash(q, k, v, m, g, h * s)
+    assert (flash_attention.mma_launches, flash_attention_bwd.mma_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    _assert_close(out, dense_attention(q, k, v, m, h * s), "bfloat16", TOL["bfloat16"],
+                  "out")
+    for name, got, want in zip("qkv", grads, dense_attention_bwd(q, k, v, m, g, h * s)):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        _assert_close(got, want, "bfloat16", GRAD_TOL["bfloat16"], f"d{name}")
+    if mask == "masked_rows":  # row 0 is fully masked: no dq/dk, uniform dv
+        assert torch.count_nonzero(grads[0][0]) == 0
+        assert torch.count_nonzero(grads[1][0]) == 0
+        assert torch.count_nonzero(grads[2][0]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 8, 200, 8), (4, 2, 220, 16)])
+def test_simt_route_keeps_bf16(monkeypatch, shape):
+    """The CUDA-core kernels still compute bf16 when routed there."""
+    _needs_cuda()
+    b, h, t, s = shape
+    q, k, v, m = _inputs(sum(shape), b, h, t, s, "masked_rows", "bfloat16", "cuda", True)
+    g = _cotangent(sum(shape) + 3, b, h, t, s, "bfloat16")
+    monkeypatch.setattr(flash_mod, "_route", lambda *a: "simt")
+    counts = (flash_attention.mma_launches, flash_attention_bwd.mma_launches)
+    out, grads = _grads_through_flash(q, k, v, m, g, h * s)
+    assert (flash_attention.mma_launches, flash_attention_bwd.mma_launches) == counts
+    _assert_close(out, dense_attention(q, k, v, m, h * s), "bfloat16", TOL["bfloat16"],
+                  "out")
+    for name, got, want in zip("qkv", grads, dense_attention_bwd(q, k, v, m, g, h * s)):
+        _assert_close(got, want, "bfloat16", GRAD_TOL["bfloat16"], f"d{name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fwd_route,bwd_route", [("simt", "mma"), ("mma", "simt")])
+def test_either_forward_feeds_either_backward(monkeypatch, fwd_route, bwd_route):
+    """Both routes share the (max, sum) residual and D = g . out."""
+    _needs_cuda()
+    b, h, t, s = 4, 2, 220, 16
+    q, k, v, m = _inputs(5, b, h, t, s, "masked_rows", "bfloat16", "cuda", True)
+    g = _cotangent(6, b, h, t, s, "bfloat16")
+    monkeypatch.setattr(flash_mod, "_route", lambda *a: fwd_route)
+    out, stats = _flash_fwd(q, k, v, m, h * s, with_stats=True)
+    monkeypatch.setattr(flash_mod, "_route", lambda *a: bwd_route)
+    got = flash_attention_bwd(q, k, v, m, out, stats, g, h * s)
+    torch.cuda.synchronize()
+    for name, a, w in zip("qkv", got, dense_attention_bwd(q, k, v, m, g, h * s)):
+        _assert_close(a, w, "bfloat16", GRAD_TOL["bfloat16"], f"d{name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 8, 200, 8), (16, 2, 220, 16)])
+def test_mma_dq_one_percent_off_fails_the_check(shape):
+    """Negative control: the tensor-core dq scaled by 0.99 passes the 0.05
+    elementwise limit but not NORM_TOL."""
+    _needs_cuda()
+    b, h, t, s = shape
+    q, k, v, m = _inputs(sum(shape) + 7, b, h, t, s, "ragged", "bfloat16", "cuda", True)
+    g = _cotangent(sum(shape) + 8, b, h, t, s, "bfloat16")
+    out, stats = _flash_fwd(q, k, v, m, h * s, with_stats=True)
+    before = flash_attention_bwd.mma_launches
+    dq = flash_attention_bwd(q, k, v, m, out, stats, g, h * s)[0]
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.mma_launches == before + 1
+    want = dense_attention_bwd(q, k, v, m, g, h * s)[0]
+    _assert_close(dq, want, "bfloat16", GRAD_TOL["bfloat16"], "dq")
+    torch.testing.assert_close((dq * 0.99).float(), want.float(), rtol=GRAD_TOL["bfloat16"],
+                               atol=GRAD_TOL["bfloat16"])
+    assert _norm_err(dq * 0.99, want) > NORM_TOL
+
+
+@pytest.mark.gpu
+def test_mma_entry_raises_on_rows_off_16_bytes(monkeypatch):
+    """No fallback: the tensor-core entry refuses rows it cannot copy 16
+    bytes at a time, and the wrapper raises."""
+    _needs_cuda()
+    q, k, v, m = _inputs(0, 2, 2, 16, 8, "ragged", "bfloat16", "cuda")
+    # the same values one element past a 16-byte boundary
+    off = [torch.zeros(a.numel() + 1, dtype=a.dtype, device="cuda")[1:].view(a.shape).copy_(a)
+           for a in (q, k, v)]
+    monkeypatch.setattr(flash_mod, "_route", lambda *a: "mma")
+    before = flash_attention.mma_launches
+    with pytest.raises(RuntimeError, match="flash_attention_fwd_mma launch failed"):
+        flash_attention(*off, m, 16)
+    assert flash_attention.mma_launches == before
+
+
+def _heads_like(layout, dtype, s, b=2, h=2, t=16):
+    """(q, k, v) of one layout: the encoder's view of (B, T, H, S), a
+    contiguous (B, H, T, S), one shifted by an element, or one whose rows
+    lie S + 4 elements apart."""
+    dt = getattr(torch, dtype)
+    if layout == "encoder":
+        return [torch.zeros(b, t, h, s, dtype=dt).transpose(1, 2) for _ in range(3)]
+    if layout == "contiguous":
+        return [torch.zeros(b, h, t, s, dtype=dt) for _ in range(3)]
+    if layout == "offset":
+        return [torch.zeros(b * h * t * s + 1, dtype=dt)[1:].view(b, h, t, s)
+                for _ in range(3)]
+    return [torch.zeros(b, h, t, s + 4, dtype=dt)[..., :s] for _ in range(3)]
+
+
+@pytest.mark.parametrize("layout", ["encoder", "contiguous", "offset", "row_stride"])
+@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_route(dtype, s, layout):
+    """The tensor cores take bfloat16 at head dim 8 or 16 with 16-byte rows;
+    the CUDA cores take the rest."""
+    tensors = _heads_like(layout, dtype, s)
+    want = ("mma" if dtype == "bfloat16" and s in (8, 16)
+            and layout in ("encoder", "contiguous") else "simt")
+    assert _route(getattr(torch, dtype), s, tensors) == want
+
+
+@pytest.mark.parametrize("which", ["out", "g"])
+def test_route_backward_needs_every_row_aligned(which):
+    q, k, v = _heads_like("encoder", "bfloat16", 16)
+    out, g = _heads_like("encoder", "bfloat16", 16)[:2]
+    assert _route(torch.bfloat16, 16, (q, k, v, out, g)) == "mma"
+    bad = _heads_like("offset", "bfloat16", 16)[0]
+    tensors = (q, k, v, bad, g) if which == "out" else (q, k, v, out, bad)
+    assert _route(torch.bfloat16, 16, tensors) == "simt"
+
+
+_CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+           "float": ctypes.c_float, "int64_t": ctypes.c_int64}
+
+
+@pytest.mark.parametrize("name", sorted(_ARGTYPES))
+def test_ctypes_signature_matches_the_c_entry(name):
+    """The wrapper's ctypes argument types are the C entry point's, one for
+    one (ctypes would silently cut a pointer passed as an int)."""
+    src = (CSRC_DIR / f"{name}.cu").read_text()
+    sig = re.search(rf'extern "C" int mmsn_{name}\((.*?)\)\s*\{{', src, re.S)
+    assert sig, f"no entry mmsn_{name} in csrc/{name}.cu"
+    params = [" ".join(p.split()[:-1]).replace(" *", "*") for p in sig.group(1).split(",")]
+    assert [_CTYPES[p] for p in params] == list(_ARGTYPES[name])
+
+
+def test_library_path_keys_on_the_mma_sources():
+    fwd, bwd = library_path("flash_attention_fwd_mma"), library_path("flash_attention_bwd_mma")
+    assert fwd.name.startswith("libflash_attention_fwd_mma-")
+    assert bwd.name.startswith("libflash_attention_bwd_mma-")
+    assert len({fwd, bwd, library_path("flash_attention_fwd")}) == 3
+
+
+def test_library_path_keys_on_the_mma_header(monkeypatch, tmp_path):
+    """An edit of csrc/flash_attention_mma.cuh rebuilds both tensor-core
+    kernels."""
+    for f in CSRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build_mod, "CSRC_DIR", tmp_path)
+    names = ("flash_attention_fwd_mma", "flash_attention_bwd_mma")
+    before = [library_path(n) for n in names]
+    header = tmp_path / "flash_attention_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [library_path(n) for n in names]
+    assert all(a != b for a, b in zip(before, after))
