@@ -5,20 +5,23 @@ hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor-core route, float32 on the CUDA-core route), and the same server and
 trainer under ``use_fused_block``, through the fused-block kernels (forward
 and backward) as well, and under ``MMSN_FUSED_QKV=1``, through the
-whole-SelfAttention kernels (forward and backward).
+whole-SelfAttention kernels (forward and backward; bf16 on the tensor-core
+route, float32 on the CUDA-core route).
 
   python3 chip_smoke.py        # from the repository root, one GPU
 
 Phases (each prints a progress line; any failure raises, exit code != 0):
   1. device: CUDA must be present; prints the card's name and power limit
      (nvidia-smi), reads its SM count and maximum SM clock (the
-     exponential floor beside the flash bounds) and turns TF32 off for
-     float32 matmuls and convolutions;
-  2. build: compiles the eight csrc/*.cu sources (flash_attention_fwd,
+     exponential floor beside the flash bounds), turns TF32 off for
+     float32 matmuls and convolutions and prints the float32 matmul
+     precision;
+  2. build: compiles the ten csrc/*.cu sources (flash_attention_fwd,
      flash_attention_bwd and their tensor-core versions
      flash_attention_{fwd,bwd}_mma, fused_ffn_fwd, fused_ffn_bwd,
-     fused_qkv_fwd, fused_qkv_bwd) with nvcc for sm_90a, one nvcc each, all
-     started together, and echoes ptxas's register and spill lines;
+     fused_qkv_fwd, fused_qkv_bwd and their tensor-core versions
+     fused_qkv_{fwd,bwd}_mma) with nvcc for sm_90a, one nvcc each, all
+     started together, and echoes ptxas's entry, register and spill lines;
   3. kernel: the forward kernels against their plain version
      (dense_attention) on the card, float32 (atol = rtol = 1e-4: another
      summation order and the online rescale) and bfloat16 (0.05, and the
@@ -63,17 +66,23 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      another order than the plain version's matrix products), 0.05 in
      bfloat16. Times kernel and plain version at the LC shape in both
      dtypes (CUDA events, median of 25);
-  4c. kernel-qkv: the fused-QKV forward kernel against its plain version
-     (fused_qkv_attention_plain) and the backward kernel (dx, dWqkv, dWu,
-     dbu) against fused_qkv_attention_bwd_plain, on the card, float32
-     (forward atol = rtol = 1e-4; each gradient within 5e-4 of its largest)
-     and bfloat16 (0.05), at LC (B, T, E, H) = (256, 200, 64, 8), SP (256,
-     220, 32, 2), a ragged T = 37, T = 256 (the limit) at both widths, a
-     batch with a fully masked sample, and mask=None. Times (bf16, CUDA
-     events, median of 25) the kernels and their plain versions at LC and
-     SP, and the SelfAttention module forward and forward + backward on the
-     unfused route (three F.linear, the flash kernels, F.linear) and under
-     the opt-in. The library yardstick is F.multi_head_attention_forward
+  4c. kernel-qkv: the fused-QKV forward kernels against their plain version
+     (fused_qkv_attention_plain) and the backward kernels (dx, dWqkv, dWu,
+     dbu) against fused_qkv_attention_bwd_plain, on the card, float32 on the
+     CUDA cores (forward atol = rtol = 1e-4; each gradient within 5e-4 of
+     its largest) and bfloat16 on both routes (the tensor cores as routed,
+     the CUDA cores through a patch of qkv_attention._route; 0.05, and
+     every output within NORM_TOL in the normalised error), at LC (B, T, E,
+     H) = (256, 200, 64, 8), SP (256, 220, 32, 2), a ragged T = 37, T = 256
+     (the limit) at both widths, a batch with a fully masked sample, and
+     mask=None; each call must show its route's launches. At LC and SP the
+     tensor-core dWqkv with its query third x 0.99 must fail the NORM_TOL
+     check. Times (bf16, CUDA events, median of 25) the kernels of both
+     routes (and the wrappers' host time a call, as in phase 3) and the
+     plain versions at LC and SP, and the SelfAttention module forward and
+     forward + backward on the unfused route (three F.linear, the flash
+     kernels, F.linear) and under the opt-in. The library yardstick is
+     F.multi_head_attention_forward
      (packed in-projection without bias, key_padding_mask, biased
      out-projection; the q rows of the packed weight times sqrt(head dim) so
      that its scores equal the kernel's), forward and autograd backward,
@@ -99,10 +108,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      call, no plain call of either, and answers equal to the same
      model through the plain versions of all kernels (SERVE_TOL);
   5c. serve-qkv: phase 5 with MMSN_FUSED_QKV=1 set for the phase and
-     restored after: the LC tower's 5 layers (T = 200) take the fused-QKV
-     forward kernel, the SP tower's 13 (T = 1024 > 256) fall back to the
-     flash forward kernel (tensor cores). Checks 5 + 13 launches per device
-     call, no plain
+     restored after: the LC tower's 5 layers (T = 200) take the tensor-core
+     fused-QKV forward kernel, the SP tower's 13 (T = 1024 > 256) fall back
+     to the flash forward kernel (tensor cores). Checks 5 + 13 launches per
+     device call, no plain
      call, and answers within SERVE_TOL of the same model through the plain
      versions of all kernels;
   6. train: maven-lite at bench.py's shapes (B = 256, T_lc = 2 x 100,
@@ -119,7 +128,15 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      gradient of one float32 loss is held against the plain path's too,
      max|diff| / max|plain| <= 5e-4 per parameter (the gradient tolerance;
      the denominator floored at 1e-3 of the model's largest gradient); the
-     kernel path with every dq off by 1% must fail that check.
+     kernel path with every dq off by 1% must fail that check. Those float32
+     runs count their launches too: every kernel on the CUDA cores, none on
+     the plain path;
+  6a. grad-probe: every attention call of one float32 loss on the plain
+     path is recorded with its cotangent, and each layer's dq, dk, dv from
+     the CUDA-core flash backward and from dense_attention's autograd are
+     read against a float64 reference on those inputs, beside the plain
+     backward's dq with D = g.out and with rowsum(P o dP) (a diagnostic:
+     it logs, it checks nothing);
      Prints the median train-step time and paired samples/s of the kernel
      path, the plain path and the kernel path on the CUDA-core route (bf16,
      the same batch, host clock around synchronised steps, alternating
@@ -136,16 +153,19 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      Times train steps
      and peak memory, fused ("fused") against unfused ("kernel"), both on
      the kernel path;
-  6c. train-qkv: the same trainer under MMSN_FUSED_QKV=1: 18 fused-QKV
-     forward + 18 backward launches and no flash launch per train step (18
-     forward per eval step), no plain call. The trajectory and gradient
-     checks hold the fused-QKV kernel path against the same path through
-     the plain versions; the gradient check must fail when the query third
-     of every layer's dWqkv is scaled by 0.99. Times train steps and peak
-     memory, the opt-in ("qkv") against the unfused kernel route ("kernel");
+  6c. train-qkv: the same trainer under MMSN_FUSED_QKV=1: 18 tensor-core
+     fused-QKV forward + 18 backward launches and no flash launch per train
+     step (18 forward per eval step), no plain call. The float32 trajectory
+     and gradient checks (on the CUDA-core QKV kernels, counted) hold the
+     fused-QKV kernel path against the same path through the plain
+     versions; the gradient check must fail when the query third of every
+     layer's dWqkv is scaled by 0.99. Times train steps and peak memory, the
+     opt-in ("qkv") against the unfused kernel route ("kernel") and the
+     opt-in on the CUDA-core QKV kernels ("qkv-simt");
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
-     plain, fused, qkv; bf16, one batch, after 3 warm-up steps):
+     plain, fused, qkv, qkv-simt: the opt-in on the CUDA-core QKV kernels;
+     bf16, one batch, after 3 warm-up steps):
      device time per step
      (the union of device ops), the trace's wall per step (first device
      op's start to the last one's end), one minus their ratio as the device
@@ -154,8 +174,11 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
 
 Prints, before the last line, one JSON object {"kernels": [...]} with the
 measured numbers, the shape they were timed at ("shape"; launches are summed
-over every shape the main paths gave the kernel, and the flash and fused-QKV
-entries carry the times and bound at their second shape under "also_at")
+over every shape the main paths gave the kernel, the float32 trajectory and
+gradient runs of the train phases included, and the flash and fused-QKV
+entries carry the times and bound at their second shape under "also_at"; the
+fused-QKV entries add their and the library call's device time, "device_ms"
+and "library_device_ms", and the wrapper's host time a call, "host_ms")
 and each kernel's bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak for its input type: 989 TFLOP/s
 for bfloat16 on the tensor cores, 67 TFLOP/s for float32 on the CUDA cores,
@@ -231,6 +254,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                       "multimodal_supernovae_tpu/ops/qkv_attention.py:115"),
     "fused_qkv_bwd": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_bwd.cu",
                       "multimodal_supernovae_tpu/ops/qkv_attention.py:147"),
+    "fused_qkv_fwd_mma": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_fwd_mma.cu",
+                          "multimodal_supernovae_tpu/ops/qkv_attention.py:115"),
+    "fused_qkv_bwd_mma": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_bwd_mma.cu",
+                          "multimodal_supernovae_tpu/ops/qkv_attention.py:147"),
 }
 TOL = {"float32": 1e-4, "bfloat16": 0.05}
 GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
@@ -266,14 +293,18 @@ FFN_ROWS = BATCH * NBAND * LC_LEN  # the LC tower's (B * T) rows
 QKV_LC = (BATCH, NBAND * LC_LEN, SEQ_LC["emb"], SEQ_LC["heads"])
 QKV_SP = (BATCH, TRAIN_SP_LEN, SEQ_SP["emb"], SEQ_SP["heads"])
 COUNT_NAMES = ("(flash fwd CUDA cores, flash bwd CUDA cores, flash fwd tensor cores, "
-               "flash bwd tensor cores, ffn fwd, ffn bwd, qkv fwd, qkv bwd)")
+               "flash bwd tensor cores, ffn fwd, ffn bwd, qkv fwd CUDA cores, qkv bwd CUDA "
+               "cores, qkv fwd tensor cores, qkv bwd tensor cores)")
 # MUFU exponentials a clock on one SM (16), for the exponential floor beside
 # the flash kernels' bound
 EXP_PER_CLOCK_SM = 16
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str):
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke +{time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def phase_device():
@@ -293,6 +324,9 @@ def phase_device():
         f"{exp_per_s:.3e} exponentials/s on the MUFU pipes")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    log(f"device: float32 matmul precision {torch.get_float32_matmul_precision()!r}, "
+        f"TF32 in matmuls {torch.backends.cuda.matmul.allow_tf32}, in convolutions "
+        f"{torch.backends.cudnn.allow_tf32}")
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     return card, exp_per_s
@@ -306,7 +340,7 @@ def phase_build():
     for name, (source, _) in KERNELS.items():
         log(f"build: nvcc {source} -> sm_90a in {seconds[name]:.2f} s")
         for line in library_path(name).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s wall")
 
@@ -758,8 +792,9 @@ def _time_self_attention(shape, mask, dtype):
 
 
 def _mha_library(x, mask, wqkv, wu, bu, g, heads, want, want_grads):
-    """(forward ms, autograd-backward ms) of F.multi_head_attention_forward,
-    the one PyTorch call computing the fused-QKV function. It scales q by
+    """Times of F.multi_head_attention_forward, the one PyTorch call
+    computing the fused-QKV function: forward and autograd backward, by CUDA
+    events and in device time (_device_ms); and its errors. It scales q by
     head_dim ** -0.5, so the packed weight's query rows are multiplied by
     sqrt(head dim) to give the kernel's scores. Weights and x are copied to
     the call's own dtype and (T, B, E) layout beforehand. Its forward and
@@ -807,12 +842,34 @@ def _mha_library(x, mask, wqkv, wu, bu, g, heads, want, want_grads):
         with torch.no_grad():
             call()
 
-    return (_time_ms(fwd),
-            _time_ms(lambda: torch.autograd.grad(lib_out, leaves, gt, retain_graph=True)),
-            float((out[valid].float() - want[valid].float()).abs().max()), rel)
+    def bwd():
+        torch.autograd.grad(lib_out, leaves, gt, retain_graph=True)
+
+    times = {"library": _time_ms(fwd), "library_bwd": _time_ms(bwd),
+             "library_device": _device_ms(fwd), "library_bwd_device": _device_ms(bwd)}
+    return times, float((out[valid].float() - want[valid].float()).abs().max()), rel
+
+
+@contextlib.contextmanager
+def _qkv_simt_route():
+    """Every fused-QKV call of the block on the CUDA-core kernels: the QKV
+    ``_route`` patched (a test-time patch, no user knob)."""
+    with mock.patch.object(qkv_mod, "_route", lambda *a: "simt"):
+        yield
+
+
+QKV_ROUTES = {"mma": contextlib.nullcontext, "simt": _qkv_simt_route}
+
+
+def _qkv_counts():
+    fwd, bwd = qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd
+    return fwd.launches, fwd.mma_launches, bwd.launches, bwd.mma_launches
 
 
 def phase_kernel_qkv():
+    """The fused-QKV kernels of both routes against their plain versions;
+    times at LC and SP. Returns ({route: forward max|err|}, {route: backward
+    max|err|}, {case: times})."""
     fwd, bwd = qkv_mod._qkv_fwd, qkv_mod.fused_qkv_attention_bwd
     plain, plain_bwd = (qkv_mod.fused_qkv_attention_plain,
                         qkv_mod.fused_qkv_attention_bwd_plain)
@@ -834,56 +891,98 @@ def phase_kernel_qkv():
         ("no_mask", QKV_SP, None),
     ]
     gen = torch.Generator().manual_seed(5)
-    fwd_err = bwd_err = 0.0
+    fwd_err, bwd_err = {"mma": 0.0, "simt": 0.0}, {"mma": 0.0, "simt": 0.0}
+    norm_err = {"mma": 0.0, "simt": 0.0}
+    control = {}
     timing = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, (b, t, e, h), mask in cases:
             x, mask, wqkv, wu, bu, g = _qkv_inputs(gen, b, t, e, dtype, mask)
-            got = fwd(x, mask, wqkv, wu, bu, h)
-            grads = bwd(x, mask, wqkv, wu, g, h)
-            torch.cuda.synchronize()
             want = plain(x, mask, wqkv, wu, bu, h)
-            if got.dtype != dtype or got.shape != want.shape:
-                raise AssertionError(f"qkv {name} {dtype_name}: {got.dtype} {tuple(got.shape)}")
-            err = float((got.float() - want.float()).abs().max())
-            fwd_err = max(fwd_err, err)
-            torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype_name],
-                                       atol=TOL[dtype_name],
-                                       msg=lambda m: f"qkv {name} {dtype_name}: {m}")
-            rel = []
             want_grads = plain_bwd(x, mask, wqkv, wu, g, h)
-            for gname, a, w in zip(("dx", "dwqkv", "dwu", "dbu"), grads, want_grads):
-                if a.dtype != w.dtype or a.shape != w.shape:
-                    raise AssertionError(f"qkv-bwd {name} {dtype_name} {gname}: "
-                                         f"{a.dtype} {tuple(a.shape)}")
-                d = float((a.float() - w.float()).abs().max())
-                rel.append(d / float(w.float().abs().max()))
-                bwd_err = max(bwd_err, d)
-            log(f"kernel-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)}: forward "
-                f"max|err| {err:.3e} (tol {TOL[dtype_name]}); backward max|err|/max|plain| "
-                f"dx {rel[0]:.3e} dWqkv {rel[1]:.3e} "
-                f"dWu {rel[2]:.3e} dbu {rel[3]:.3e} (tol {GRAD_TOL[dtype_name]})")
-            if max(rel) > GRAD_TOL[dtype_name]:
-                raise AssertionError(f"qkv-bwd {name} {dtype_name}: {rel}")
+            routes = ("mma", "simt") if qkv_mod._route(dtype, e // h) == "mma" else ("simt",)
+            for route in routes:
+                before = _qkv_counts()
+                with QKV_ROUTES[route]():
+                    got = fwd(x, mask, wqkv, wu, bu, h)
+                    grads = bwd(x, mask, wqkv, wu, g, h)
+                torch.cuda.synchronize()
+                mma = route == "mma"
+                if _qkv_counts() != (before[0] + 1, before[1] + mma, before[2] + 1,
+                                     before[3] + mma):
+                    raise AssertionError(f"qkv {name} {dtype_name}: not on the {route} route")
+                if got.dtype != dtype or got.shape != want.shape:
+                    raise AssertionError(f"qkv {name} {dtype_name}: {got.dtype} "
+                                         f"{tuple(got.shape)}")
+                err = float((got.float() - want.float()).abs().max())
+                fwd_err[route] = max(fwd_err[route], err)
+                torch.testing.assert_close(
+                    got.float(), want.float(), rtol=TOL[dtype_name], atol=TOL[dtype_name],
+                    msg=lambda m: f"qkv {name} {dtype_name} {route}: {m}")
+                rel, norms = [], []
+                outs = (("out", got, want),) + tuple(zip(("dx", "dwqkv", "dwu", "dbu"), grads,
+                                                         want_grads))
+                for gname, a, w in outs[1:]:
+                    if a.dtype != w.dtype or a.shape != w.shape:
+                        raise AssertionError(f"qkv-bwd {name} {dtype_name} {gname}: "
+                                             f"{a.dtype} {tuple(a.shape)}")
+                    d = float((a.float() - w.float()).abs().max())
+                    rel.append(d / float(w.float().abs().max()))
+                    bwd_err[route] = max(bwd_err[route], d)
+                norm = ""
+                if dtype == torch.bfloat16:
+                    norms = [_check_norm(a, w, f"qkv {name} {route} {gname}")
+                             for gname, a, w in outs]
+                    norm_err[route] = max(norm_err[route], *(n or 0.0 for n in norms))
+                    norm = "; ||err||/||plain|| " + " ".join(
+                        f"{o[0]} {_fmt(n)}" for o, n in zip(outs, norms)) + f" (tol {NORM_TOL})"
+                log(f"kernel-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)} {route}: "
+                    f"forward max|err| {err:.3e} (tol {TOL[dtype_name]}); backward "
+                    f"max|err|/max|plain| dx {rel[0]:.3e} dWqkv {rel[1]:.3e} dWu {rel[2]:.3e} "
+                    f"dbu {rel[3]:.3e} (tol {GRAD_TOL[dtype_name]}){norm}")
+                if max(rel) > GRAD_TOL[dtype_name]:
+                    raise AssertionError(f"qkv-bwd {name} {dtype_name} {route}: {rel}")
+                if mma and name in ("lc", "sp"):
+                    # negative control: the tensor-core dWqkv's query third off by 1%
+                    wrong = grads[1].clone()
+                    wrong[:e] *= 0.99
+                    control[name] = _norm_err(wrong, want_grads[1])
+                    log(f"kernel-qkv {name} {dtype_name} {WRONG_DWQ}: ||err||/||plain|| "
+                        f"{control[name]:.3e} (must exceed {NORM_TOL})")
+                    if control[name] <= NORM_TOL:
+                        raise AssertionError(f"qkv {name}: the normalised check cannot see "
+                                             f"a 1% error in dWqkv: {control[name]:.3e}")
             if name in ("lc", "sp") and dtype_name == "bfloat16":
-                ms = _time_ms(lambda: fwd(x, mask, wqkv, wu, bu, h))
-                plain_ms = _time_ms(lambda: plain(x, mask, wqkv, wu, bu, h))
-                bwd_ms = _time_ms(lambda: bwd(x, mask, wqkv, wu, g, h))
-                bwd_plain_ms = _time_ms(lambda: plain_bwd(x, mask, wqkv, wu, g, h))
-                lib_ms, lib_bwd_ms, lib_err, lib_rel = _mha_library(
+                times = {}
+                for route in routes:
+                    with QKV_ROUTES[route]():
+                        times[route] = _time_ms(lambda: fwd(x, mask, wqkv, wu, bu, h))
+                        times[f"{route}_bwd"] = _time_ms(lambda: bwd(x, mask, wqkv, wu, g, h))
+                        times[f"{route}_device"] = _device_ms(
+                            lambda: fwd(x, mask, wqkv, wu, bu, h))
+                        times[f"{route}_bwd_device"] = _device_ms(
+                            lambda: bwd(x, mask, wqkv, wu, g, h))
+                        times[f"{route}_host"] = _host_ms(lambda: fwd(x, mask, wqkv, wu, bu, h))
+                        times[f"{route}_bwd_host"] = _host_ms(
+                            lambda: bwd(x, mask, wqkv, wu, g, h))
+                times["plain"] = _time_ms(lambda: plain(x, mask, wqkv, wu, bu, h))
+                times["plain_bwd"] = _time_ms(lambda: plain_bwd(x, mask, wqkv, wu, g, h))
+                lib_times, lib_err, lib_rel = _mha_library(
                     x, mask, wqkv, wu, bu, g, h, want, want_grads)
+                times.update(lib_times)
                 module = _time_self_attention((b, t, e, h), mask, dtype)
-                timing[name] = (ms, plain_ms, bwd_ms, bwd_plain_ms, module, lib_ms,
-                                lib_bwd_ms)
-                log(f"time-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)}: forward "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"F.multi_head_attention_forward {lib_ms:.4f} ms; backward kernel "
-                    f"(with its recompute) {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
-                    f"autograd of multi_head_attention_forward (from its saved "
-                    f"activations) {lib_bwd_ms:.4f} ms; the library call against the plain "
-                    f"versions: forward max|err| {lib_err:.3e}, gradients "
-                    f"max|err|/max|plain| "
+                timing[name] = times
+                log(f"time-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)}: "
+                    + ", ".join(f"{r} {ms:.4f} ms" for r, ms in times.items())
+                    + " (mma / simt: the tensor-core / CUDA-core forward kernel, *_bwd the "
+                    "backward with its recompute, plain_bwd the plain backward; library: "
+                    "F.multi_head_attention_forward and the autograd of it from its saved "
+                    "activations; *_device: the sum of its device kernels under "
+                    "torch.profiler, 25 calls; *_host: the wrapper's host time a call on an "
+                    "idle card, median of 50); the library call against the plain versions: "
+                    "forward "
+                    f"max|err| {lib_err:.3e}, gradients max|err|/max|plain| "
                     + " ".join(f"{k} {v:.3e}" for k, v in lib_rel.items()))
                 for route, (f_ms, fb_ms) in module.items():
                     log(f"time-qkv {name} {dtype_name} SelfAttention module, {route} route: "
@@ -891,6 +990,10 @@ def phase_kernel_qkv():
                         f"(mean of two alternating rounds of medians of 25)")
             del x, wqkv, wu, bu, g, got, grads, want, want_grads
     torch.cuda.empty_cache()
+    log(f"kernel-qkv: bf16 ||err||/||plain|| largest over the cases and outputs: "
+        + ", ".join(f"{r} {e:.3e}" for r, e in norm_err.items())
+        + f" (tol {NORM_TOL}); {WRONG_DWQ}: " + ", ".join(
+            f"{n} {e:.3e}" for n, e in control.items()))
     return fwd_err, bwd_err, timing
 
 
@@ -954,10 +1057,10 @@ def phase_serve(fused=False, qkv=False):
             # under the opt-in the LC tower (T = 200) takes the fused-QKV kernel and
             # the SP tower (T = 1024 > 256) falls back to the flash kernel; the fused
             # LC blocks compute in float32 (CUDA cores), every other layer in bf16
-            # (tensor cores)
+            # (tensor cores, the fused-QKV layers too)
             n_qkv, n_f32 = SEQ_LC["depth"] * qkv, FUSED_PER_CALL * fused
             want = (n_f32 * calls, 0, (LAYERS_PER_CALL - n_qkv - n_f32) * calls, 0,
-                    FUSED_PER_CALL * calls * fused, 0, n_qkv * calls, 0)
+                    FUSED_PER_CALL * calls * fused, 0, 0, 0, n_qkv * calls, 0)
             if launches != want or plain_calls:
                 raise AssertionError(
                     f"{tag}: expected launches {want} for {calls} device calls and no "
@@ -1058,24 +1161,26 @@ def _plain_calls():
 
 
 def _zero_counts():
-    for fn in (flash_mod.flash_attention, flash_mod.flash_attention_bwd):
+    for fn in (flash_mod.flash_attention, flash_mod.flash_attention_bwd,
+               qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd):
         fn.launches = fn.mma_launches = 0
     ffn_mod.fused_ffn_block.launches = 0
     ffn_mod.fused_ffn_block_bwd.launches = 0
-    qkv_mod.fused_qkv_attention.launches = 0
-    qkv_mod.fused_qkv_attention_bwd.launches = 0
 
 
 def _counts():
     """Launches since _zero_counts, in the order of COUNT_NAMES: the flash
-    forward and backward on the CUDA cores, then on the tensor cores, then
-    the fused-block and fused-QKV forward and backward (forwards at even
+    forward and backward on the CUDA cores, then on the tensor cores, the
+    fused-block forward and backward, then the fused-QKV forward and
+    backward on the CUDA cores and on the tensor cores (forwards at even
     places)."""
     fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
+    qfwd, qbwd = qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd
     return (fwd.launches - fwd.mma_launches, bwd.launches - bwd.mma_launches,
             fwd.mma_launches, bwd.mma_launches,
             ffn_mod.fused_ffn_block.launches, ffn_mod.fused_ffn_block_bwd.launches,
-            qkv_mod.fused_qkv_attention.launches, qkv_mod.fused_qkv_attention_bwd.launches)
+            qfwd.launches - qfwd.mma_launches, qbwd.launches - qbwd.mma_launches,
+            qfwd.mma_launches, qbwd.mma_launches)
 
 
 @contextlib.contextmanager
@@ -1106,6 +1211,13 @@ def _qkv_env():
 @contextlib.contextmanager
 def _qkv_plain():
     with _qkv_env(), _plain_kernels():
+        yield
+
+
+@contextlib.contextmanager
+def _qkv_simt():
+    """The opt-in on the CUDA-core fused-QKV kernels (bf16 too)."""
+    with _qkv_env(), _qkv_simt_route():
         yield
 
 
@@ -1148,7 +1260,8 @@ def _wrong_dwq():
         dwqkv[:x.shape[-1]] *= 0.99
         return dx, dwqkv, dwu, dbu
 
-    wrong.launches = 0  # the wrapper counts on the module attribute it replaces
+    # the wrapper counts on the module attribute it replaces
+    wrong.launches = wrong.mma_launches = 0
     with _qkv_env(), mock.patch.object(qkv_mod, "fused_qkv_attention_bwd", wrong):
         yield
 
@@ -1165,6 +1278,7 @@ PATHS = {
     WRONG_DWF1: (True, _wrong_dwf1),
     "qkv": (False, _qkv_env),
     "qkv-plain": (False, _qkv_plain),
+    "qkv-simt": (False, _qkv_simt),
     WRONG_DWQ: (False, _wrong_dwq),
 }
 
@@ -1177,13 +1291,22 @@ def _step_counts(path):
     kernels and the flash kernels none."""
     n = LAYERS_PER_CALL
     if path == "plain":
-        return (0,) * 8
-    if path == "qkv":
-        return (0, 0, 0, 0, 0, 0, n, n)
+        return (0,) * 10
+    if path == "qkv":  # bf16 at head dims 8 and 16: the tensor-core QKV kernels
+        return (0,) * 8 + (n, n)
     if path == "kernel-simt":
-        return (n, n, 0, 0, 0, 0, 0, 0)
+        return (n, n) + (0,) * 8
+    if path == "qkv-simt":
+        return (0,) * 6 + (n, n, 0, 0)
     f = FUSED_PER_CALL if PATHS[path][0] else 0
-    return (f, f, n - f, n - f, f, f, 0, 0)
+    return (f, f, n - f, n - f, f, f, 0, 0, 0, 0)
+
+
+def _f32_step_counts(path):
+    """Launches per float32 train step on ``path`` (the trajectory and
+    gradient checks): every kernel on the CUDA cores."""
+    c = _step_counts(path)
+    return (c[0] + c[2], c[1] + c[3], 0, 0, c[4], c[5], c[6] + c[8], c[7] + c[9], 0, 0)
 
 
 def _time_train_steps(path, batch):
@@ -1215,25 +1338,42 @@ def _time_train_steps(path, batch):
 
 def _trajectory(path, data, plan):
     """Per-step losses of TRAJ_STEPS float32 steps (noise off) from the
-    seeded weights over ``plan``."""
+    seeded weights over ``plan``, and their launches."""
     fused, ctx = PATHS[path]
     model = _train_model(None, fused=fused)
     opt, _ = build_optimizer(model.named_parameters(), lr=5e-4)
     with ctx():
+        _zero_counts()
         _, losses = make_epoch_runner(model)(TrainState(model, opt), data, plan,
                                              torch.Generator(device=DEVICE))
-    return losses.cpu().numpy()
+        counts = _check_f32_counts(path, len(plan))
+    return losses.cpu().numpy(), counts
+
+
+def _check_f32_counts(path, steps):
+    """The float32 steps' launches: every kernel on the CUDA cores, none on
+    a plain path (the negative controls replace a wrapper and are not
+    counted)."""
+    counts = _counts()
+    if path in (WRONG_DQ, WRONG_DWF1, WRONG_DWQ):
+        return counts
+    want = (0,) * 10 if "plain" in path else tuple(c * steps for c in _f32_step_counts(path))
+    if counts != want:
+        raise AssertionError(f"{path} float32: launches {counts}, want {want}")
+    return counts
 
 
 def _param_grads(path, batch):
     """Every parameter's gradient of one float32 train-mode loss (noise off)
-    from the seeded weights."""
+    from the seeded weights, and the launches."""
     fused, ctx = PATHS[path]
     model = _train_model(None, fused=fused)
     with ctx():
+        _zero_counts()
         loss, _ = model.loss_fn(batch, train=True, generator=torch.Generator(device=DEVICE))
         loss.backward()
-    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+        counts = _check_f32_counts(path, 1)
+    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}, counts
 
 
 def _grad_error(got, want):
@@ -1252,7 +1392,7 @@ def _grad_error(got, want):
 TRAIN_VARIANTS = {
     "kernel": ("train", "kernel", "plain", WRONG_DQ, ("plain", "kernel-simt")),
     "fused": ("train-fused", "fused", "fused-plain", WRONG_DWF1, ("kernel",)),
-    "qkv": ("train-qkv", "qkv", "qkv-plain", WRONG_DWQ, ("kernel",)),
+    "qkv": ("train-qkv", "qkv", "qkv-plain", WRONG_DWQ, ("kernel", "qkv-simt")),
 }
 
 
@@ -1330,7 +1470,8 @@ def phase_train(variant="kernel"):
     plan = epoch_indices(TRAIN_N, BATCH, rng=np.random.default_rng(0), shuffle=True,
                          pad="drop")
     plan = np.concatenate([plan, plan])[:TRAJ_STEPS]
-    got, want = _trajectory(main_path, data, plan), _trajectory(ref_path, data, plan)
+    (got, traj_counts), (want, _) = (_trajectory(main_path, data, plan),
+                                     _trajectory(ref_path, data, plan))
     rel = float((np.abs(got - want) / np.abs(want)).max())
     log(f"{tag}-trajectory float32, {TRAJ_STEPS} steps: {main_path} {got.tolist()}")
     log(f"{tag}-trajectory float32, {TRAJ_STEPS} steps: {ref_path} {want.tolist()}")
@@ -1340,20 +1481,105 @@ def phase_train(variant="kernel"):
 
     # whole-model parameter gradients on one batch, float32, noise off
     one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
-    want = _param_grads(ref_path, one)
-    errs = {}
+    want, _ = _param_grads(ref_path, one)
+    errs, counts = {}, {}
     for path in (main_path, wrong_path):
-        got = _param_grads(path, one)
+        got, counts[path] = _param_grads(path, one)
         if sorted(got) != sorted(want):
             raise AssertionError(f"{path} path: gradients of {sorted(set(got) ^ set(want))}")
         worst, errs[path] = _grad_error(got, want)
         log(f"{tag}-grads float32, {len(want)} parameters: {path} path, worst "
             f"max|diff|/max|plain| {errs[path]:.3e} at {worst} (tol {GRAD_RTOL})")
+    grad_counts = counts[main_path]
     if errs[main_path] > GRAD_RTOL:
         raise AssertionError(f"{main_path} path's gradients leave the plain path's: {errs}")
     if errs[wrong_path] <= GRAD_RTOL:
         raise AssertionError(f"the gradient check cannot see a 1% error: {errs}")
-    return fit_counts
+    total = tuple(a + b + c for a, b, c in zip(fit_counts, traj_counts, grad_counts))
+    log(f"{tag}: launches {COUNT_NAMES} of Trainer.fit (bf16), the float32 trajectory and "
+        f"the float32 gradients: {fit_counts}, {traj_counts}, {grad_counts}")
+    return total
+
+
+def _attention_f64_grads(q, k, v, mask, g, emb):
+    """dq, dk, dv of dense_attention's function in float64 (the reference
+    the two float32 backwards are read against)."""
+    with torch.enable_grad():
+        q, k, v = (a.detach().double().requires_grad_() for a in (q, k, v))
+        c = emb ** -0.25
+        scores = torch.einsum("bhts,bhus->bhtu", q * c, k * c)
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :], -1e7)
+        out = torch.einsum("bhtu,bhus->bhts", torch.softmax(scores, dim=-1), v)
+        return torch.autograd.grad(out, (q, k, v), g.double())
+
+
+def _dq_with_d(q, k, v, mask, g, emb, d_from_out):
+    """dq of the plain float32 backward with D = rowsum(P o dP) (the
+    reference's) or D = g . out (the tensor-core flash kernel's)."""
+    c = emb ** -0.25
+    qs, ks = (q * c).float(), (k * c).float()
+    scores = torch.einsum("bhts,bhus->bhtu", qs, ks)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :], -1e7)
+    p = torch.softmax(scores, dim=-1)
+    dp = torch.einsum("bhts,bhus->bhtu", g, v)
+    if d_from_out:
+        d = (g * torch.einsum("bhtu,bhus->bhts", p, v)).sum(-1, keepdim=True)
+    else:
+        d = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - d)
+    if mask is not None:
+        ds = ds.masked_fill(~mask[:, None, None, :], 0.0)
+    return torch.einsum("bhtu,bhus->bhts", ds, ks) * c
+
+
+def phase_grad_probe():
+    """Where the kernel path's float32 whole-model gradients part from the
+    plain path's (2.2e-4 at the first LC toqueries weight): every attention
+    call of one float32 loss on the plain path is recorded with its
+    cotangent, and on each layer's own inputs the flash backward (CUDA cores,
+    D = rowsum(P o dP)), dense_attention's autograd and the plain backward
+    with either D (g . out, which the CUDA-core kernel took before, or
+    rowsum(P o dP)) are read against a float64 reference. A diagnostic: it
+    logs, it checks nothing."""
+    ds = make_synthetic_dataset(n=TRAIN_N, n_max_lc=LC_LEN, nband=NBAND,
+                                n_max_sp=TRAIN_SP_LEN, seed=0)
+    plan = epoch_indices(TRAIN_N, BATCH, rng=np.random.default_rng(0), shuffle=True,
+                         pad="drop")
+    batch = take(ds.to_device(DEVICE), torch.from_numpy(plan[0]).to(DEVICE))
+    calls = []
+
+    def recording(q, k, v, mask, emb):
+        out = dense_attention(q, k, v, mask, emb)
+        rec = {"qkv": [a.detach() for a in (q, k, v)], "mask": mask, "emb": emb}
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        calls.append(rec)
+        return out
+
+    model = _train_model(None)
+    with mock.patch.object(transformer_mod, "attention", recording):
+        loss, _ = model.loss_fn(batch, train=True, generator=torch.Generator(device=DEVICE))
+        loss.backward()
+
+    def rel(got, ref):
+        return float((got.double() - ref).abs().max() / ref.abs().max())
+
+    for i, rec in enumerate(calls):
+        (q, k, v), mask, emb, g = rec["qkv"], rec["mask"], rec["emb"], rec["g"]
+        ref = _attention_f64_grads(q, k, v, mask, g, emb)
+        plain = dense_attention_bwd(q, k, v, mask, g, emb)
+        out, stats = flash_mod._flash_fwd(q, k, v, mask, emb, with_stats=True)
+        kern = flash_mod.flash_attention_bwd(q, k, v, mask, out, stats, g, emb)
+        d_out = _dq_with_d(q, k, v, mask, g, emb, True)
+        d_rowsum = _dq_with_d(q, k, v, mask, g, emb, False)
+        log(f"grad-probe layer {i} {tuple(q.shape)}: max|x - float64| / max|float64| dq, dk, "
+            f"dv: flash kernel {rel(kern[0], ref[0]):.3e} {rel(kern[1], ref[1]):.3e} "
+            f"{rel(kern[2], ref[2]):.3e}; dense_attention autograd {rel(plain[0], ref[0]):.3e} "
+            f"{rel(plain[1], ref[1]):.3e} {rel(plain[2], ref[2]):.3e}; plain dq with D = g.out "
+            f"{rel(d_out, ref[0]):.3e}, with rowsum(P o dP) {rel(d_rowsum, ref[0]):.3e}")
+        del ref, plain, out, stats, kern, d_out, d_rowsum
+    torch.cuda.empty_cache()
 
 
 def _kind(name):
@@ -1438,7 +1664,7 @@ def phase_profile():
     ds = make_synthetic_dataset(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     batch = ds.to_device(DEVICE)
-    for path in ("kernel", "kernel-simt", "plain", "fused", "qkv"):
+    for path in ("kernel", "kernel-simt", "plain", "fused", "qkv", "qkv-simt"):
         _log_trace(f"profile {path}", "train steps", *_profile_steps(path, batch))
 
 
@@ -1488,7 +1714,8 @@ def _kernel_bounds():
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
             "flash_attention_fwd_mma": fwd, "flash_attention_bwd_mma": bwd,
             "fused_ffn_fwd": ffn_fwd, "fused_ffn_bwd": ffn_bwd,
-            "fused_qkv_fwd": qkv_fwd, "fused_qkv_bwd": qkv_bwd}
+            "fused_qkv_fwd": qkv_fwd, "fused_qkv_bwd": qkv_bwd,
+            "fused_qkv_fwd_mma": qkv_fwd, "fused_qkv_bwd_mma": qkv_bwd}
 
 
 def main():
@@ -1502,6 +1729,7 @@ def main():
     serve_fused = phase_serve(fused=True)
     serve_qkv = phase_serve(qkv=True)
     train = phase_train()
+    phase_grad_probe()
     train_fused = phase_train("fused")
     train_qkv = phase_train("qkv")
     phase_profile()
@@ -1554,19 +1782,24 @@ def main():
             "ms": lc32[2], "plain_ms": lc32[3], "library_ms": None,
             "shape": f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"}),
     }
-    # the fused-QKV kernels' second shape: 13 of a train step's 18 launches
-    sp_qkv_fwd, sp_qkv_bwd = _qkv_bounds(*QKV_SP)
-    for i, (name, lc_t, sp_t, bound) in enumerate((
-            ("fused_qkv_fwd", (qkv_lc[0], qkv_lc[1], qkv_lc[5]),
-             (qkv_sp[0], qkv_sp[1], qkv_sp[5]), sp_qkv_fwd),
-            ("fused_qkv_bwd", (qkv_lc[2], qkv_lc[3], qkv_lc[6]),
-             (qkv_sp[2], qkv_sp[3], qkv_sp[6]), sp_qkv_bwd))):
-        measured[name] = (6 + i, qkv_bwd_err if i else qkv_err, {
-            "ms": lc_t[0], "plain_ms": lc_t[1], "library_ms": lc_t[2],
-            "shape": f"(B, T, E, H) = {QKV_LC} bfloat16",
-            "also_at": {"shape": f"(B, T, E, H) = {QKV_SP} bfloat16", "ms": sp_t[0],
-                        "plain_ms": sp_t[1], "bound_ms": bound[0], "bound_by": bound[1],
-                        "library_ms": sp_t[2]}})
+    # the fused-QKV kernels, timed at LC; their second shape, SP, under also_at (13
+    # of a train step's 18 launches)
+    sp_qkv_bounds = _qkv_bounds(*QKV_SP)
+    for i, name in enumerate(("fused_qkv_fwd", "fused_qkv_bwd", "fused_qkv_fwd_mma",
+                              "fused_qkv_bwd_mma")):
+        route, bwd = ("mma" if i > 1 else "simt"), i % 2
+        key = f"{route}_bwd" if bwd else route
+        suffix = "_bwd" if bwd else ""
+        def entry(tm):
+            return {"ms": tm[key], "plain_ms": tm["plain" + suffix],
+                    "library_ms": tm["library" + suffix], "device_ms": tm[key + "_device"],
+                    "library_device_ms": tm["library" + suffix + "_device"],
+                    "host_ms": tm[key + "_host"]}
+
+        measured[name] = (6 + i, (qkv_bwd_err if bwd else qkv_err)[route], {
+            **entry(qkv_lc), "shape": f"(B, T, E, H) = {QKV_LC} bfloat16",
+            "also_at": {**entry(qkv_sp), "shape": f"(B, T, E, H) = {QKV_SP} bfloat16",
+                        "bound_ms": sp_qkv_bounds[bwd][0], "bound_by": sp_qkv_bounds[bwd][1]}})
     bounds = _kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -6,16 +6,24 @@
 // qs = round(q*c), ks = round(k*c) (rounded to the input dtype, as the forward
 // rounds them), P = softmax(mask(qs . ks)) in float32 with masked keys at -1e7:
 //   dP = g . v^T                         (float32 accumulation)
-//   D  = rowsum(P o dP) = g . out        (see below)
+//   D  = rowsum(P o dP)                  (the reference's; see below)
 //   dS = P o (dP - D), zeroed at masked keys, rounded to q's dtype
 //   dq = dS . ks * c,  dk = dS^T . qs * c,  dv = round(P)^T . g
 // dq/dk/dv are stored in the input dtype. In a fully masked row P is uniform
 // over its T keys, so dv at a masked key is not zero while dk and dq are.
 //
-// D is taken as g . out, with out the forward's stored output: sum_j P_j dP_j
-// = g . (sum_j P_j v_j). In float32 the two differ by summation order only; in
-// bfloat16 out carries the forward's roundings of P and of the output (relative
-// 2^-8), which moves dS by about 2^-8 * |P D|, far inside the 0.05 tolerance.
+// D is rowsum(P o dP), as the reference _bwd_kernel and the plain version
+// take it: the dq kernel sums it in a first pass over the keys and writes it
+// to a float32 scratch that the dk/dv kernel reads. Where a row's values are
+// nearly equal across its keys (deep layers of an encoder), dP - D cancels and
+// any error of D comes through whole. D = g . out (the forward output's
+// rounding) put dq 4-10x farther from a float64 reference than the plain
+// version on the model's own float32 activations, and so did a running
+// float32 sum of P dP over 200 keys, whose error grows with the key count
+// (the plain version sums in a tree). So D is summed as c0 + rowsum(P o (dP -
+// c0)), c0 = dP of key 0: its terms are of the size of dP - D
+// (chip_smoke.py, phase grad-probe; tests/test_torch_flash_kernel.py pins
+// it). This kernel does not read the forward's output.
 //
 // Design. The TPU kernel accumulates dk/dv across q-tiles by revisiting one
 // output block, which relies on the TPU grid running in order. Blocks on this
@@ -23,20 +31,22 @@
 // their outputs and need no atomics (deterministic):
 //   * dq kernel, grid (B*H, ceil(T/BQ)): one thread per query row, shaped like
 //     the forward; it keeps qs, g and the dq accumulator in float32 registers
-//     and walks K/V in BK-key tiles staged in shared memory (broadcast reads);
+//     and walks K/V in BK-key tiles staged in shared memory (broadcast reads),
+//     twice: D first, then dS and dq;
 //   * dk/dv kernel, grid (B*H, ceil(T/BKV)): one thread per key row; it keeps
 //     ks, v and the dk/dv accumulators in registers and walks the queries in
 //     BQT-row tiles of (qs, g, max, 1/sum, D) staged in shared memory.
-// Both rebuild P from the forward's per-row (max, sum) residual, so no softmax
-// pass is repeated. Scores are in the log2 domain (a log2(e) factor on q or
+// Both rebuild P from the forward's per-row (max, sum) residual, so no max or
+// sum pass is repeated. Scores are in the log2 domain (a log2(e) factor on q or
 // k), as in the forward, so every exponential is one exp2f.
 //
 // What bounds it on this card: CUDA-core compute, like the forward. Per (query,
 // key) pair the dq kernel does 3*S FMAs and one exponential, the dk/dv kernel
-// 4*S and one exponential; device memory sees q/k/v/g/out once per tile. The
-// light-curve head dim of 8 is below every MMA tile; an mma.sync/wgmma version
-// for S = 16 is later work. Head dims 8, 16 and 32: at 64 the dk/dv kernel's
-// four S-wide accumulators would exceed the 255-register limit.
+// 4*S and one exponential; device memory sees q/k/v/g once per tile. The
+// D pass adds 2*S FMAs and one exponential a pair to the dq kernel. bf16 at
+// head dims 8 and 16 takes csrc/flash_attention_bwd_mma.cu instead. Head dims
+// 8, 16 and 32: at 64 the dk/dv kernel's four S-wide accumulators would
+// exceed the 255-register limit.
 //
 // Plain C interface, loaded with ctypes (kernels/build.py): the entry launches
 // both kernels on the given stream and returns cudaGetLastError(), or
@@ -89,24 +99,16 @@ struct Args {
   const void* k;
   const void* v;
   const uint8_t* mask;  // (B, T) bytes or null
-  const void* out;
   const float2* stats;  // (B*H*T) rows' (max in the log2 domain, sum)
   const void* g;
   void* dq;
   void* dk;
   void* dv;
+  float* dsum;          // (B*H*T) scratch: D = rowsum(P o dP) of each row
   int H, T_len;
   float scale;
-  Strides sqkv, sout, sg, sgrad;  // sgrad: dq, dk and dv
+  Strides sqkv, sg, sgrad;  // sgrad: dq, dk and dv
 };
-
-template <typename T, int S>
-__device__ __forceinline__ float row_dot(const T* a, const T* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < S; ++d) acc = fmaf(to_float(a[d]), to_float(b[d]), acc);
-  return acc;
-}
 
 template <typename T, int S>
 __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a) {
@@ -126,7 +128,7 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
   const T* vb = static_cast<const T*>(a.v) + a.sqkv.at(b, h, 0);
 
   float qr[S], gr[S], acc[S];
-  float m = 0.f, inv_l = 0.f, D = 0.f;  // inactive rows: p = 0 below
+  float m = 0.f, inv_l = 0.f, D = 0.f, c0 = 0.f;  // inactive rows: p = 0 below
 #pragma unroll
   for (int d = 0; d < S; ++d) {
     qr[d] = 0.f;
@@ -136,72 +138,84 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
   if (active) {
     const T* qrow = q + a.sqkv.at(b, h, row);
     const T* grow = static_cast<const T*>(a.g) + a.sg.at(b, h, row);
-    const T* orow = static_cast<const T*>(a.out) + a.sout.at(b, h, row);
 #pragma unroll
     for (int d = 0; d < S; ++d) {
       qr[d] = round_to<T>(to_float(qrow[d]) * a.scale) * LOG2E;
       gr[d] = to_float(grow[d]);
     }
-    D = row_dot<T, S>(grow, orow);
     const float2 st = a.stats[(int64_t)bh * T_len + row];
     m = st.x;
     inv_l = 1.f / st.y;
+#pragma unroll
+    for (int d = 0; d < S; ++d) c0 = fmaf(gr[d], to_float(vb[d]), c0);  // dP of key 0
   }
 
-  for (int j0 = 0; j0 < T_len; j0 += BK) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int idx = threadIdx.x; idx < BK * S; idx += BQ) {
-      const int j = idx / S;
-      const int d = idx - j * S;
-      const int key = j0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < T_len) {
-        kv = round_to<T>(to_float(kb[key * a.sqkv.t + d]) * a.scale);
-        vv = to_float(vb[key * a.sqkv.t + d]);
+  // pass 0: D = rowsum(P o dP), summed as c0 + rowsum(P o (dP - c0)); pass
+  // 1: dS and dq. A masked key adds nothing: P is 0 there unless the whole row
+  // is masked, whose dS is 0 anyway.
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) D += c0;
+    for (int j0 = 0; j0 < T_len; j0 += BK) {
+      __syncthreads();  // the previous tile has been consumed
+      for (int idx = threadIdx.x; idx < BK * S; idx += BQ) {
+        const int j = idx / S;
+        const int d = idx - j * S;
+        const int key = j0 + j;
+        float kv = 0.f, vv = 0.f;
+        if (key < T_len) {
+          kv = round_to<T>(to_float(kb[key * a.sqkv.t + d]) * a.scale);
+          vv = to_float(vb[key * a.sqkv.t + d]);
+        }
+        ks[j][d] = kv;
+        vs[j][d] = vv;
       }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    if (threadIdx.x < BK) {
-      const int key = j0 + threadIdx.x;
-      kind[threadIdx.x] = key >= T_len ? 2
-          : (a.mask != nullptr && !a.mask[(int64_t)b * T_len + key]) ? 1 : 0;
-    }
-    __syncthreads();
+      if (threadIdx.x < BK) {
+        const int key = j0 + threadIdx.x;
+        kind[threadIdx.x] = key >= T_len ? 2
+            : (a.mask != nullptr && !a.mask[(int64_t)b * T_len + key]) ? 1 : 0;
+      }
+      __syncthreads();
 
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      // dS is zero at a masked key and there is no key past T: the branch is
-      // uniform across the block (kind is per key).
-      if (kind[j] != 0) continue;
-      float s = 0.f, dp = 0.f;
+      for (int j = 0; j < BK; ++j) {
+        // dS is zero at a masked key and there is no key past T: the branch is
+        // uniform across the block (kind is per key).
+        if (kind[j] != 0) continue;
+        float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < S; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
-        s = fmaf(qr[d], kk.x, s);
-        s = fmaf(qr[d + 1], kk.y, s);
-        s = fmaf(qr[d + 2], kk.z, s);
-        s = fmaf(qr[d + 3], kk.w, s);
-        dp = fmaf(gr[d], vv.x, dp);
-        dp = fmaf(gr[d + 1], vv.y, dp);
-        dp = fmaf(gr[d + 2], vv.z, dp);
-        dp = fmaf(gr[d + 3], vv.w, dp);
-      }
-      const float p = exp2f(s - m) * inv_l;
-      const float ds = round_to<T>(p * (dp - D));
+        for (int d = 0; d < S; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
+          const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
+          s = fmaf(qr[d], kk.x, s);
+          s = fmaf(qr[d + 1], kk.y, s);
+          s = fmaf(qr[d + 2], kk.z, s);
+          s = fmaf(qr[d + 3], kk.w, s);
+          dp = fmaf(gr[d], vv.x, dp);
+          dp = fmaf(gr[d + 1], vv.y, dp);
+          dp = fmaf(gr[d + 2], vv.z, dp);
+          dp = fmaf(gr[d + 3], vv.w, dp);
+        }
+        const float p = exp2f(s - m) * inv_l;
+        if (pass == 0) {
+          D = fmaf(p, dp - c0, D);
+          continue;
+        }
+        const float ds = round_to<T>(p * (dp - D));
 #pragma unroll
-      for (int d = 0; d < S; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-        acc[d] = fmaf(ds, kk.x, acc[d]);
-        acc[d + 1] = fmaf(ds, kk.y, acc[d + 1]);
-        acc[d + 2] = fmaf(ds, kk.z, acc[d + 2]);
-        acc[d + 3] = fmaf(ds, kk.w, acc[d + 3]);
+        for (int d = 0; d < S; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
+          acc[d] = fmaf(ds, kk.x, acc[d]);
+          acc[d + 1] = fmaf(ds, kk.y, acc[d + 1]);
+          acc[d + 2] = fmaf(ds, kk.z, acc[d + 2]);
+          acc[d + 3] = fmaf(ds, kk.w, acc[d + 3]);
+        }
       }
     }
   }
 
   if (active) {
+    a.dsum[(int64_t)bh * T_len + row] = D;
     T* o = static_cast<T*>(a.dq) + a.sgrad.at(b, h, row);
 #pragma unroll
     for (int d = 0; d < S; ++d) o[d] = from_float<T>(acc[d] * a.scale);
@@ -226,7 +240,6 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
   const bool valid = active && (a.mask == nullptr || a.mask[(int64_t)b * T_len + key]);
   const T* qb = static_cast<const T*>(a.q) + a.sqkv.at(b, h, 0);
   const T* gb = static_cast<const T*>(a.g) + a.sg.at(b, h, 0);
-  const T* ob = static_cast<const T*>(a.out) + a.sout.at(b, h, 0);
 
   float kr[S], vr[S], dk[S], dv[S];
 #pragma unroll
@@ -267,7 +280,7 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
         const float2 st = a.stats[(int64_t)bh * T_len + row];
         rm = st.x;
         ril = 1.f / st.y;
-        rd = row_dot<T, S>(gb + row * a.sg.t, ob + row * a.sout.t);
+        rd = a.dsum[(int64_t)bh * T_len + row];
       }
       row_m[threadIdx.x] = rm;
       row_inv_l[threadIdx.x] = ril;
@@ -356,35 +369,34 @@ cudaError_t dispatch_head_dim(int S, const Args& a, int B, cudaStream_t stream) 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v share the (b, h, t) strides
-// (sib, sih, sit); out, g and the gradients have their own; the S dim is
+// (sib, sih, sit); g and the gradients have their own; the S dim is
 // contiguous in all. dq, dk and dv share (sdb, sdh, sdt). mask is (B, T) bytes,
 // contiguous, or null for "all valid"; stats is the forward's (B*H*T, 2)
-// float32 residual.
+// float32 residual; dsum is a (B*H*T) float32 scratch.
 extern "C" int mmsn_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* mask,
-    const void* out, const void* stats, const void* g, void* dq, void* dk,
-    void* dv, int B, int H, int T_len, int S, int dtype, float scale,
-    int64_t sib, int64_t sih, int64_t sit, int64_t sob, int64_t soh,
-    int64_t sot, int64_t sgb, int64_t sgh, int64_t sgt, int64_t sdb,
-    int64_t sdh, int64_t sdt, void* stream) {
-  if (B < 1 || H < 1 || T_len < 1 || (int64_t)B * H > 0x7fffffff || stats == nullptr)
+    const void* stats, const void* g, void* dq, void* dk, void* dv, void* dsum,
+    int B, int H, int T_len, int S, int dtype, float scale,
+    int64_t sib, int64_t sih, int64_t sit, int64_t sgb, int64_t sgh, int64_t sgt,
+    int64_t sdb, int64_t sdh, int64_t sdt, void* stream) {
+  if (B < 1 || H < 1 || T_len < 1 || (int64_t)B * H > 0x7fffffff || stats == nullptr ||
+      dsum == nullptr)
     return cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.mask = static_cast<const uint8_t*>(mask);
-  a.out = out;
   a.stats = static_cast<const float2*>(stats);
   a.g = g;
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
+  a.dsum = static_cast<float*>(dsum);
   a.H = H;
   a.T_len = T_len;
   a.scale = scale;
   a.sqkv = Strides{sib, sih, sit};
-  a.sout = Strides{sob, soh, sot};
   a.sg = Strides{sgb, sgh, sgt};
   a.sgrad = Strides{sdb, sdh, sdt};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -14,9 +14,11 @@
 // In a fully masked row P is uniform over its T keys, so dv at a masked key is
 // not zero while dk and dq are. bf16(P) and bf16(dS) are the operand types of
 // mma.sync, so every product is one bf16 mma with float32 accumulation.
-// D = g . out is the contract of the CUDA-core kernel (csrc/flash_attention_bwd.cu
-// says why it is within the bf16 tolerance); either forward's stats and
-// output feed this backward.
+// D = g . out takes one dot product a row. The CUDA-core kernel takes
+// rowsum(P o dP) instead, as the reference does: in float32, where a row's
+// values are nearly equal across its keys, the output's rounding in g . out
+// shows in dq (csrc/flash_attention_bwd.cu). Here the bf16 limits hold it
+// (PERF.md section 6). Either forward's stats and output feed this backward.
 //
 // What bounds it on this card: as in the forward, not the products: per
 // (query, key) pair each of the two kernels rebuilds P with one exponential

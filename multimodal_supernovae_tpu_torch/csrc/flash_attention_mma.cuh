@@ -258,20 +258,21 @@ __device__ __forceinline__ void scale_own_chunks(bf16* xs, float scale, int tid)
 
 // B fragments of shared rows r0 .. r0 + 15 taken as the 16 columns of two
 // 8-column tiles (b[i] for rows r0 + 8i ..), the head dim as k: S . rows^T.
+// rs is the row stride in elements (a tile's by default; the fused-QKV
+// kernels pass their wider rows, with tile pointing at a head's columns).
 template <int S>
 __device__ __forceinline__ void ldsm_rows(uint32_t (&b)[2][S / 8], const bf16* tile, int r0,
-                                          int lane) {
-  using L = Layout<S>;
+                                          int lane, int rs = Layout<S>::RS) {
   if constexpr (S == 16) {
     uint32_t r[4];
-    ldsm_x4(r, tile + (r0 + ((lane >> 4) << 3) + (lane & 7)) * L::RS + 8 * ((lane >> 3) & 1));
+    ldsm_x4(r, tile + (r0 + ((lane >> 4) << 3) + (lane & 7)) * rs + 8 * ((lane >> 3) & 1));
     b[0][0] = r[0];
     b[0][1] = r[1];
     b[1][0] = r[2];
     b[1][1] = r[3];
   } else {
     uint32_t r[2];
-    ldsm_x2(r, tile + (r0 + (lane & 15)) * L::RS);
+    ldsm_x2(r, tile + (r0 + (lane & 15)) * rs);
     b[0][0] = r[0];
     b[1][0] = r[1];
   }
@@ -279,20 +280,20 @@ __device__ __forceinline__ void ldsm_rows(uint32_t (&b)[2][S / 8], const bf16* t
 
 // B fragments of shared rows r0 .. r0 + 15 as the k = 16 of a product whose
 // 8-column tiles n run over the head dim (b[n] = {k 0-7, k 8-15}): P . rows.
+// rs as for ldsm_rows.
 template <int S>
 __device__ __forceinline__ void ldsm_cols(uint32_t (&b)[S / 8][2], const bf16* tile, int r0,
-                                          int lane) {
-  using L = Layout<S>;
+                                          int lane, int rs = Layout<S>::RS) {
   if constexpr (S == 16) {
     uint32_t r[4];
-    ldsm_x4_trans(r, tile + (r0 + (lane & 15)) * L::RS + 8 * (lane >> 4));
+    ldsm_x4_trans(r, tile + (r0 + (lane & 15)) * rs + 8 * (lane >> 4));
     b[0][0] = r[0];
     b[0][1] = r[1];
     b[1][0] = r[2];
     b[1][1] = r[3];
   } else {
     uint32_t r[2];
-    ldsm_x2_trans(r, tile + (r0 + (lane & 15)) * L::RS);
+    ldsm_x2_trans(r, tile + (r0 + (lane & 15)) * rs);
     b[0][0] = r[0];
     b[0][1] = r[1];
   }

@@ -229,16 +229,6 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_kernel(
   }
 }
 
-// grads[p] = sum over blocks b, in order, of partial[b][p].
-__global__ void reduce_qkv_partials(const float* __restrict__ partial, int blocks, int P,
-                                float* __restrict__ grads) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[(int64_t)b * P + p];
-  grads[p] = s;
-}
-
 template <typename T, int S>
 cudaError_t launch(const void* x, const void* mask, const float* wqkv, const float* wu,
                    const void* g, void* dx, float* partial, float* grads, int B, int Tn,

@@ -84,10 +84,10 @@ _ARGTYPES = {  # the C entry points' ctypes signatures
         + [ctypes.c_int64] * 6               # in, out strides (b, h, t)
         + [ctypes.c_void_p]),                # stream
     "flash_attention_bwd": (
-        [ctypes.c_void_p] * 10               # q k v mask out stats g dq dk dv
+        [ctypes.c_void_p] * 10               # q k v mask stats g dq dk dv dsum
         + [ctypes.c_int] * 5                 # B, H, T, S, dtype
         + [ctypes.c_float]                   # scale
-        + [ctypes.c_int64] * 12              # q/k/v, out, g, grads strides
+        + [ctypes.c_int64] * 9               # q/k/v, g, grads strides
         + [ctypes.c_void_p]),                # stream
     "flash_attention_bwd_mma": (
         [ctypes.c_void_p] * 11               # q k v mask out stats g dq dk dv dsum
@@ -234,8 +234,8 @@ def flash_attention_bwd(
     CPU tensors go to ``dense_attention_bwd`` (``out`` and ``stats`` are not
     read). CUDA tensors launch the backward kernels of ``_route``'s route or
     raise: ``out`` and ``stats`` are the forward's output and row residual
-    (``_flash_fwd(..., with_stats=True)``, of either route), head dim in
-    {8, 16, 32}."""
+    (``_flash_fwd(..., with_stats=True)``, of either route; the CUDA-core
+    backward reads only ``stats``), head dim in {8, 16, 32}."""
     if q.device.type == "cpu":
         return dense_attention_bwd(q, k, v, key_mask, g, emb)
     if q.device.type != "cuda":
@@ -246,25 +246,26 @@ def flash_attention_bwd(
     _check_bwd(q, out, stats, g)
     b, h, t, s = q.shape
     dq, dk, dv = _empty_heads(q), _empty_heads(q), _empty_heads(q)
+    # D of each row (tensor cores: g . out; CUDA cores: rowsum(P o dP)),
+    # written by the dq kernel, read by the dk/dv kernel
+    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    mask = None if key_mask is None else key_mask.data_ptr()
     mma = _route(q.dtype, s, (q, k, v, out, g)) == "mma"
     if mma:
-        # D = g . out of each row, written by the dq kernel, read by dk/dv
-        dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-        name, extra, dtype = "flash_attention_bwd_mma", (dsum.data_ptr(),), ()
+        name = "flash_attention_bwd_mma"
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, out.data_ptr(),
+                stats.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), dsum.data_ptr(), b, h, t, s, float(emb) ** -0.25,
+                *q.stride()[:3], *out.stride()[:3], *g.stride()[:3], *dq.stride()[:3])
     else:
-        name, extra, dtype = "flash_attention_bwd", (), (_DTYPE_CODES[q.dtype],)
+        name = "flash_attention_bwd"
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, stats.data_ptr(),
+                g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                dsum.data_ptr(), b, h, t, s, _DTYPE_CODES[q.dtype], float(emb) ** -0.25,
+                *q.stride()[:3], *g.stride()[:3], *dq.stride()[:3])
     fn = _entry(name)
     with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if key_mask is None else key_mask.data_ptr(),
-            out.data_ptr(), stats.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *extra,
-            b, h, t, s, *dtype, float(emb) ** -0.25,
-            *q.stride()[:3], *out.stride()[:3], *g.stride()[:3],
-            *dq.stride()[:3],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} launch failed with CUDA error {rc} (q {tuple(q.shape)} {q.dtype})")

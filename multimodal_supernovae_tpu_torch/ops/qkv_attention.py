@@ -1,6 +1,16 @@
 """The whole ``SelfAttention`` as one kernel, forward and backward: wrappers
-over the hand-written CUDA kernels ``csrc/fused_qkv_fwd.cu`` and
-``csrc/fused_qkv_bwd.cu``, paired in one ``torch.autograd.Function``.
+over the hand-written CUDA kernels, paired in one ``torch.autograd.Function``.
+Two routes, as for flash attention:
+
+  * ``"mma"``, the tensor cores: ``csrc/fused_qkv_fwd_mma.cu`` and
+    ``csrc/fused_qkv_bwd_mma.cu`` (shared ``csrc/fused_qkv_mma.cuh``), for
+    bfloat16 at head dims 8 and 16: both towers of maven-lite;
+  * ``"simt"``, the CUDA cores: ``csrc/fused_qkv_fwd.cu`` and
+    ``csrc/fused_qkv_bwd.cu``, for float32.
+
+``_route`` is the one rule that picks between them, a pure function of the
+dtype and the head dim; there is no fallback from one route to the other, and
+a refused or failed build or launch raises.
 
 Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
 qkv_attention.py:_fwd_kernel`` and ``_bwd_kernel`` (the ``custom_vjp``
@@ -33,16 +43,18 @@ scaled query weight, E..2E-1 the scaled key weight, 2E..3E-1 the value weight
 (the JAX function packs flax (in, out) kernels into (E, 3E), its transpose).
 
 Dispatch: CPU tensors take the plain versions (``fused_qkv_attention_plain``
-and ``fused_qkv_attention_bwd_plain``); CUDA tensors launch the kernels or
-raise. ``fused_qkv_attention.launches`` and
-``fused_qkv_attention_bwd.launches`` count kernel launches (bumped only after
-a launch the runtime accepted).
+and ``fused_qkv_attention_bwd_plain``); CUDA tensors launch the kernels of
+``_route``'s route or raise. ``fused_qkv_attention.launches`` and
+``fused_qkv_attention_bwd.launches`` count kernel launches of both routes,
+``.mma_launches`` those of the tensor-core route (bumped only after a launch
+the runtime accepted).
 
 The TPU kernel's (NB, 3E, Tp) sublane layout, its samples-per-program choice
 and VMEM budgets, the mask pre-broadcast to head rows and the padding of T to
 a multiple of 8 are not carried over: the CUDA kernels take any T <= 256 and
 leave keys past T out. ``supports`` keeps the JAX conditions and adds the
-kernels' own limits.
+kernels' own limits (the CUDA-core backward's shared memory sets them; every
+shape it takes at head dim 8 or 16 the tensor-core kernels take too).
 """
 
 from __future__ import annotations
@@ -58,6 +70,20 @@ HEAD_DIMS = (8, 16)
 COLS = 32          # output columns of one pass over E in the kernels
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = {  # the C entry points' ctypes signatures
+    "fused_qkv_fwd": ([ctypes.c_void_p] * 6       # x mask wqkv wu bu out
+                      + [ctypes.c_int] * 5         # B, T, E, H, dtype
+                      + [ctypes.c_void_p]),        # stream
+    "fused_qkv_fwd_mma": ([ctypes.c_void_p] * 6   # x mask wqkv wu bu out
+                          + [ctypes.c_int] * 4     # B, T, E, H
+                          + [ctypes.c_void_p]),    # stream
+    "fused_qkv_bwd": ([ctypes.c_void_p] * 8       # x mask wqkv wu g dx partial grads
+                      + [ctypes.c_int] * 6         # B, T, E, H, dtype, blocks
+                      + [ctypes.c_void_p]),        # stream
+    "fused_qkv_bwd_mma": ([ctypes.c_void_p] * 8   # x mask wqkv wu g dx partial grads
+                          + [ctypes.c_int] * 5     # B, T, E, H, blocks
+                          + [ctypes.c_void_p]),    # stream
+}
 _bound = {}
 _sm_count = {}     # device index: its number of SMs
 
@@ -180,17 +206,18 @@ def _entry(name: str):
         from ..kernels.build import load_library
 
         fn = getattr(load_library(name), f"mmsn_{name}")
-        if name == "fused_qkv_fwd":
-            fn.argtypes = ([ctypes.c_void_p] * 6       # x mask wqkv wu bu out
-                           + [ctypes.c_int] * 5         # B, T, E, H, dtype
-                           + [ctypes.c_void_p])         # stream
-        else:
-            fn.argtypes = ([ctypes.c_void_p] * 8       # x mask wqkv wu g dx partial grads
-                           + [ctypes.c_int] * 6         # B, T, E, H, dtype, blocks
-                           + [ctypes.c_void_p])         # stream
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _bound[name] = fn
     return fn
+
+
+def _route(dtype: torch.dtype, head_dim: int) -> str:
+    """``"mma"`` (the tensor-core kernels) for bfloat16 at head dim 8 or 16,
+    ``"simt"`` (the CUDA-core kernels) otherwise. The tensor-core entry points
+    also want x, g and the weights on 16 bytes, which fresh tensors are; they
+    refuse a launch without it, and the wrapper then raises."""
+    return "mma" if dtype == torch.bfloat16 and head_dim in HEAD_DIMS else "simt"
 
 
 def _check(x, mask, wqkv, wu, heads):
@@ -231,16 +258,20 @@ def _qkv_fwd(x, mask, wqkv, wu, bu, heads):
             or not bu.is_contiguous()):
         raise ValueError(f"bu must be contiguous float32 ({e},) on {x.device}")
     out = torch.empty_like(x)
-    fn = _entry("fused_qkv_fwd")
+    mma = _route(x.dtype, e // heads) == "mma"
+    name = "fused_qkv_fwd_mma" if mma else "fused_qkv_fwd"
+    dtype = () if mma else (_DTYPE_CODES[x.dtype],)
+    fn = _entry(name)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), None if mask is None else mask.data_ptr(),
                 wqkv.data_ptr(), wu.data_ptr(), bu.data_ptr(), out.data_ptr(),
-                b, t, e, heads, _DTYPE_CODES[x.dtype],
+                b, t, e, heads, *dtype,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_qkv_fwd launch failed with CUDA error {rc} "
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} "
                            f"(B, T, E, heads = {b}, {t}, {e}, {heads}, {x.dtype})")
     fused_qkv_attention.launches += 1
+    fused_qkv_attention.mma_launches += mma
     return out
 
 
@@ -259,9 +290,9 @@ def _bwd_blocks(b: int, device) -> int:
 def fused_qkv_attention_bwd(x, mask, wqkv, wu, g, heads: int
                             ) -> Tuple[torch.Tensor, ...]:
     """(dx, dwqkv, dwu, dbu) for the cotangent ``g``: the plain version for
-    CPU tensors; for CUDA tensors the backward kernel (recompute, backward,
-    per-block float32 partials of the parameter gradients) and its reduce
-    kernel, counted as one launch, or raise."""
+    CPU tensors; for CUDA tensors the backward kernel of ``_route``'s route
+    (recompute, backward, per-block float32 partials of the parameter
+    gradients) and its reduce kernel, counted as one launch, or raise."""
     if x.device.type == "cpu":
         return fused_qkv_attention_bwd_plain(x, mask, wqkv, wu, g, heads)
     if x.device.type != "cuda":
@@ -275,22 +306,26 @@ def fused_qkv_attention_bwd(x, mask, wqkv, wu, g, heads: int
     dx = torch.empty_like(x)
     partial = torch.empty((nblk, sum(sizes)), dtype=torch.float32, device=x.device)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    fn = _entry("fused_qkv_bwd")
+    mma = _route(x.dtype, e // heads) == "mma"
+    name = "fused_qkv_bwd_mma" if mma else "fused_qkv_bwd"
+    dtype = () if mma else (_DTYPE_CODES[x.dtype],)
+    fn = _entry(name)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), None if mask is None else mask.data_ptr(),
                 wqkv.data_ptr(), wu.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                partial.data_ptr(), grads.data_ptr(), b, t, e, heads,
-                _DTYPE_CODES[x.dtype], nblk,
+                partial.data_ptr(), grads.data_ptr(), b, t, e, heads, *dtype, nblk,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_qkv_bwd launch failed with CUDA error {rc} "
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} "
                            f"(B, T, E, heads = {b}, {t}, {e}, {heads}, {x.dtype})")
     fused_qkv_attention_bwd.launches += 1
+    fused_qkv_attention_bwd.mma_launches += mma
     dwqkv, dwu, dbu = grads.split(sizes)
     return dx, dwqkv.view(3 * e, e), dwu.view(e, e), dbu
 
 
 fused_qkv_attention_bwd.launches = 0
+fused_qkv_attention_bwd.mma_launches = 0
 
 
 class FusedQKVAttention(torch.autograd.Function):
@@ -347,3 +382,4 @@ def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 fused_qkv_attention.launches = 0
+fused_qkv_attention.mma_launches = 0

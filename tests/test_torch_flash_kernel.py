@@ -197,6 +197,69 @@ def test_backward_kernel_matches_autograd(dtype, shape, mask, layout):
 
 
 @pytest.mark.gpu
+def test_float32_backward_matches_autograd_at_one_lc_layer():
+    """Pin of the float32 CUDA-core backward (csrc/flash_attention_bwd.cu,
+    P from the forward's log2-domain (max, sum)) against torch autograd
+    through ``dense_attention`` on one light-curve layer's shapes: B = 256,
+    H = 8, T = 200, S = 8 in the encoder's layout, ragged tails, one fully
+    masked sample. Each of dq, dk, dv within 1e-5 of its largest plain
+    value: a summation order difference, not a 2e-4 one."""
+    _needs_cuda()
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, h, t, s = 256, 8, 200, 8
+    q, k, v, m = _inputs(31, b, h, t, s, "masked_rows", "float32", "cuda", True)
+    g = _cotangent(32, b, h, t, s, "float32")
+    want = dense_attention_bwd(q, k, v, m, g, h * s)
+    counts = (flash_attention_bwd.launches, flash_attention_bwd.mma_launches)
+    _, grads = _grads_through_flash(q, k, v, m, g, h * s)
+    assert (flash_attention_bwd.launches, flash_attention_bwd.mma_launches) == (
+        counts[0] + 1, counts[1])
+    for name, got, w in zip("qkv", grads, want):
+        err = float((got - w).abs().max()) / float(w.abs().max())
+        assert err <= 1e-5, f"d{name}: max|got - want| / max|want| {err:.3e}"
+
+
+def _f64_grads(q, k, v, m, g, emb):
+    """dq, dk, dv of dense_attention's function in float64."""
+    with torch.enable_grad():
+        q, k, v = (a.detach().double().requires_grad_() for a in (q, k, v))
+        c = emb ** -0.25
+        scores = torch.einsum("bhts,bhus->bhtu", q * c, k * c)
+        if m is not None:
+            scores = scores.masked_fill(~m[:, None, None, :], -1e7)
+        out = torch.einsum("bhtu,bhus->bhts", torch.softmax(scores, dim=-1), v)
+        return torch.autograd.grad(out, (q, k, v), g.double())
+
+
+@pytest.mark.gpu
+def test_float32_backward_dq_as_accurate_as_plain_on_near_equal_values():
+    """The fault the previous pin could not see: where a row's values are
+    nearly equal across its keys (as in a deep encoder layer), dP - D
+    cancels, and D = g . out (the forward output's rounding) put the kernel's
+    dq several times farther from a float64 reference than the plain
+    version's D = rowsum(P o dP). The kernel's dq, dk and dv must sit within
+    2x the plain float32 version's distance to float64 (plus 1e-7 of the
+    largest value)."""
+    _needs_cuda()
+    b, h, t, s = 64, 8, 200, 8
+    rng = np.random.default_rng(33)
+    q, k, _, m = _inputs(34, b, h, t, s, "masked_rows", "float32", "cuda", True)
+    v0 = rng.normal(size=(b, 1, h, s)) + 0.1 * rng.normal(size=(b, t, h, s))
+    v = torch.from_numpy(v0.astype(np.float32)).to("cuda").transpose(1, 2)
+    g = _cotangent(35, b, h, t, s, "float32")
+    ref = _f64_grads(q, k, v, m, g, h * s)
+    plain = dense_attention_bwd(q, k, v, m, g, h * s)
+    _, grads = _grads_through_flash(q, k, v, m, g, h * s)
+    for name, got, p, r in zip("qkv", grads, plain, ref):
+        top = float(r.abs().max())
+        err = float((got.double() - r).abs().max()) / top
+        plain_err = float((p.double() - r).abs().max()) / top
+        assert err <= 2 * plain_err + 1e-7, (
+            f"d{name}: kernel {err:.3e}, plain {plain_err:.3e} from float64")
+
+
+@pytest.mark.gpu
 def test_backward_wrapper_rejects_unsupported_on_cuda():
     _needs_cuda()
     q, k, v, m = _inputs(0, 2, 1, 16, 64, "ragged", "float32", "cuda")
@@ -341,7 +404,7 @@ def test_simt_route_keeps_bf16(monkeypatch, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("fwd_route,bwd_route", [("simt", "mma"), ("mma", "simt")])
 def test_either_forward_feeds_either_backward(monkeypatch, fwd_route, bwd_route):
-    """Both routes share the (max, sum) residual and D = g . out."""
+    """Both routes share the (max, sum) residual."""
     _needs_cuda()
     b, h, t, s = 4, 2, 220, 16
     q, k, v, m = _inputs(5, b, h, t, s, "masked_rows", "bfloat16", "cuda", True)

@@ -1,23 +1,40 @@
 """The fused-QKV CUDA kernels and their wrappers, without jax.
 
-The ``gpu`` tests hold the kernels against their plain versions on the card
-and skip without one: the forward at atol = rtol = 1e-4 in float32 (another
-summation order) and 0.05 in bfloat16; every backward output within 5e-4 of
-that output's largest in float32 (the weight gradients are sums over B * T
-rows taken in block partials, another order than the plain version's matrix
-products) and 0.05 of it in bfloat16. The rest check the wrappers' dispatch
-and argument validation, which need no card. This file imports no jax, so the
-GPU host runs it with ``--noconftest`` (README, "PyTorch port").
+The ``gpu`` tests hold the kernels of both routes (the tensor cores for
+bfloat16 at head dims 8 and 16, the CUDA cores otherwise) against their plain
+versions on the card and skip without one: the forward at atol = rtol = 1e-4
+in float32 (another summation order) and 0.05 in bfloat16; every backward
+output within 5e-4 of that output's largest in float32 (the weight gradients
+are sums over B * T rows taken in block partials, another order than the
+plain version's matrix products) and 0.05 of it in bfloat16. Every bfloat16
+output (out, dx, dWqkv, dWu, dbu) whose plain value is not all zero is also
+held to ||got - want|| / ||want|| <= NORM_TOL, which a tensor-core dWqkv
+whose query third is off by 1% must fail. The rest check the routing rule,
+the wrappers' dispatch and argument validation, the C entry points'
+signatures and the build key, which need no card. This file imports no jax,
+so the GPU host runs it with ``--noconftest`` (README, "PyTorch port").
 """
+
+import ctypes
+import importlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from multimodal_supernovae_tpu_torch.kernels import library_path
+from multimodal_supernovae_tpu_torch.kernels.build import CSRC_DIR
 from multimodal_supernovae_tpu_torch.ops import qkv_attention as qa
+
+# the module, not the ``build`` function that kernels/__init__ re-exports
+build_mod = importlib.import_module("multimodal_supernovae_tpu_torch.kernels.build")
 
 TOL = {"float32": 1e-4, "bfloat16": 0.05}
 GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
+NORM_TOL = 6e-3  # as chip_smoke.py's (sound runs: PERF.md section 6)
+# (dtype, route) of the card tests: float32 on the CUDA cores, bfloat16 on both
+ROUTED = [("float32", "simt"), ("bfloat16", "simt"), ("bfloat16", "mma")]
 
 
 def _inputs(seed, b, t, e, dtype, device="cpu", mask="random"):
@@ -47,6 +64,28 @@ def _needs_cuda():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
+def _norm_err(got, want):
+    """||got - want|| / ||want|| in float64; None where the plain output is
+    exactly zero, which the elementwise limit covers."""
+    norm = float(torch.linalg.vector_norm(want.double().flatten()))
+    diff = float(torch.linalg.vector_norm((got.double() - want.double()).flatten()))
+    return diff / norm if norm else None
+
+
+def _on_route(monkeypatch, route, dtype, s):
+    """Take ``route``: the tensor cores where ``_route`` picks them, the CUDA
+    cores through a patch of ``_route`` (a test-time patch, no user knob)."""
+    if route == "simt":
+        monkeypatch.setattr(qa, "_route", lambda *a: "simt")
+    else:
+        assert qa._route(getattr(torch, dtype), s) == "mma"
+
+
+def _counts():
+    return (qa.fused_qkv_attention.launches, qa.fused_qkv_attention.mma_launches,
+            qa.fused_qkv_attention_bwd.launches, qa.fused_qkv_attention_bwd.mma_launches)
+
+
 CASES = [  # (B, T, E, heads), mask
     ((256, 200, 64, 8), "random"),          # the light-curve tower
     ((256, 220, 32, 2), "random"),          # the spectral tower at its training length
@@ -61,37 +100,78 @@ CASES = [  # (B, T, E, heads), mask
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,route", ROUTED)
 @pytest.mark.parametrize("shape,mask", CASES)
-def test_forward_kernel_matches_plain(dtype, shape, mask):
+def test_forward_kernel_matches_plain(monkeypatch, dtype, route, shape, mask):
     _needs_cuda()
     b, t, e, h = shape
     x, m, wqkv, wu, bu, _ = _inputs(0, b, t, e, dtype, "cuda", mask)
-    before = qa.fused_qkv_attention.launches
+    _on_route(monkeypatch, route, dtype, e // h)
+    before = _counts()
     got = qa._qkv_fwd(x, m, wqkv, wu, bu, h)
     torch.cuda.synchronize()
-    assert qa.fused_qkv_attention.launches == before + 1
+    assert _counts() == (before[0] + 1, before[1] + (route == "mma")) + before[2:]
     want = qa.fused_qkv_attention_plain(x, m, wqkv, wu, bu, h)
     assert got.dtype == x.dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == "bfloat16":
+        err = _norm_err(got, want)
+        assert err is None or err <= NORM_TOL, err
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,route", ROUTED)
 @pytest.mark.parametrize("shape,mask", CASES)
-def test_backward_kernel_matches_plain(dtype, shape, mask):
+def test_backward_kernel_matches_plain(monkeypatch, dtype, route, shape, mask):
     _needs_cuda()
     b, t, e, h = shape
     x, m, wqkv, wu, _, g = _inputs(1, b, t, e, dtype, "cuda", mask)
-    before = qa.fused_qkv_attention_bwd.launches
+    _on_route(monkeypatch, route, dtype, e // h)
+    before = _counts()
     got = qa.fused_qkv_attention_bwd(x, m, wqkv, wu, g, h)
     torch.cuda.synchronize()
-    assert qa.fused_qkv_attention_bwd.launches == before + 1
+    assert _counts() == before[:2] + (before[2] + 1, before[3] + (route == "mma"))
     want = qa.fused_qkv_attention_bwd_plain(x, m, wqkv, wu, g, h)
     for name, a, w in zip(("dx", "dwqkv", "dwu", "dbu"), got, want):
         assert a.shape == w.shape and a.dtype == w.dtype, name
         err = float((a.float() - w.float()).abs().max())
         assert err <= GRAD_TOL[dtype] * float(w.float().abs().max()), (name, err)
+        if dtype == "bfloat16":
+            rel = _norm_err(a, w)
+            assert rel is None or rel <= NORM_TOL, (name, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 200, 64, 8), (256, 220, 32, 2)])
+def test_mma_dwqkv_one_percent_off_fails_the_check(shape):
+    """Negative control: the tensor-core dWqkv with its query third scaled by
+    0.99 passes the elementwise limit but not NORM_TOL."""
+    _needs_cuda()
+    b, t, e, h = shape
+    x, m, wqkv, wu, _, g = _inputs(6, b, t, e, "bfloat16", "cuda")
+    before = qa.fused_qkv_attention_bwd.mma_launches
+    dwqkv = qa.fused_qkv_attention_bwd(x, m, wqkv, wu, g, h)[1]
+    torch.cuda.synchronize()
+    assert qa.fused_qkv_attention_bwd.mma_launches == before + 1
+    want = qa.fused_qkv_attention_bwd_plain(x, m, wqkv, wu, g, h)[1]
+    assert _norm_err(dwqkv, want) <= NORM_TOL
+    wrong = dwqkv.clone()
+    wrong[:e] *= 0.99
+    assert float((wrong - want).abs().max()) <= GRAD_TOL["bfloat16"] * float(want.abs().max())
+    assert _norm_err(wrong, want) > NORM_TOL
+
+
+@pytest.mark.gpu
+def test_mma_entry_raises_on_x_off_16_bytes():
+    """No fallback: the tensor-core entry refuses an x it cannot copy 16 bytes
+    at a time, and the wrapper raises."""
+    _needs_cuda()
+    x, m, wqkv, wu, bu, _ = _inputs(7, 2, 16, 32, "bfloat16", "cuda")
+    off = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape).copy_(x)
+    before = _counts()
+    with pytest.raises(RuntimeError, match="fused_qkv_fwd_mma launch failed"):
+        qa._qkv_fwd(off, m, wqkv, wu, bu, 2)
+    assert _counts() == before
 
 
 @pytest.mark.gpu
@@ -120,7 +200,7 @@ def test_cpu_takes_the_plain_versions_and_counts_nothing():
     x, m, wqkv, wu, bu, g = _inputs(4, 3, 21, e, "float32", mask="masked_sample")
     scale = e ** -0.25
     wq, wk, wv = wqkv[:e] / scale, wqkv[e:2 * e] / scale, wqkv[2 * e:]
-    f0, b0 = qa.fused_qkv_attention.launches, qa.fused_qkv_attention_bwd.launches
+    before = _counts()
     leaves = [a.clone().requires_grad_() for a in (x, wq, wk, wv, wu, bu)]
     out = qa.fused_qkv_attention(leaves[0], m, *leaves[1:], heads=h, emb=e)
     torch.testing.assert_close(out, qa.fused_qkv_attention_plain(x, m, wqkv, wu, bu, h),
@@ -130,8 +210,26 @@ def test_cpu_takes_the_plain_versions_and_counts_nothing():
     want = (dx, dwqkv[:e] * scale, dwqkv[e:2 * e] * scale, dwqkv[2 * e:], dwu, dbu)
     for leaf, w in zip(leaves, want):
         torch.testing.assert_close(leaf.grad, w, rtol=1e-4, atol=1e-4)
-    assert (qa.fused_qkv_attention.launches,
-            qa.fused_qkv_attention_bwd.launches) == (f0, b0)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("e,h", [(64, 8), (32, 2)])
+def test_cpu_bf16_takes_the_plain_versions_on_the_mma_route(e, h):
+    """A bfloat16 call at head dim 8 or 16 routes to the tensor cores on the
+    card; on the CPU it takes the plain versions and bumps no counter."""
+    x, m, wqkv, wu, bu, g = _inputs(8, 2, 19, e, "bfloat16", mask="masked_sample")
+    assert qa._route(x.dtype, e // h) == "mma"
+    scale = e ** -0.25
+    wq, wk, wv = wqkv[:e] / scale, wqkv[e:2 * e] / scale, wqkv[2 * e:]
+    packed = torch.cat([wq * scale, wk * scale, wv])  # as the wrapper packs them
+    before = _counts()
+    leaves = [a.clone().requires_grad_() for a in (x, wq, wk, wv, wu, bu)]
+    out = qa.fused_qkv_attention(leaves[0], m, *leaves[1:], heads=h, emb=e)
+    assert torch.equal(out, qa.fused_qkv_attention_plain(x, m, packed, wu, bu, h))
+    out.backward(g)
+    dx = qa.fused_qkv_attention_bwd_plain(x, m, packed, wu, g, h)[0]
+    assert torch.equal(leaves[0].grad, dx)
+    assert _counts() == before
 
 
 @pytest.mark.parametrize("bad", ["rank", "dtype", "weight_dtype", "weight_shape", "width",
@@ -169,3 +267,42 @@ def test_smem_formula_matches_the_sources():
                                                     + 4 * 256)
     assert qa._smem_bytes(256, 64, 8, True) <= qa.SMEM_LIMIT < qa._smem_bytes(256, 64, 16, True)
     assert qa._smem_bytes(256, 32, 16, True) <= qa.SMEM_LIMIT < qa._smem_bytes(256, 96, 8, True)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+@pytest.mark.parametrize("s", [4, 8, 16, 32])
+def test_route(dtype, s):
+    """The tensor cores take bfloat16 at head dim 8 or 16; the CUDA cores
+    take the rest (float32; no other dtype or head dim passes _check)."""
+    want = "mma" if dtype == "bfloat16" and s in (8, 16) else "simt"
+    assert qa._route(getattr(torch, dtype), s) == want
+
+
+_CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
+
+
+@pytest.mark.parametrize("name", sorted(qa._ARGTYPES))
+def test_ctypes_signature_matches_the_c_entry(name):
+    """The wrapper's ctypes argument types are the C entry point's, one for
+    one (ctypes would silently cut a pointer passed as an int)."""
+    src = (CSRC_DIR / f"{name}.cu").read_text()
+    sig = re.search(rf'extern "C" int mmsn_{name}\((.*?)\)\s*\{{', src, re.S)
+    assert sig, f"no entry mmsn_{name} in csrc/{name}.cu"
+    params = [" ".join(p.split()[:-1]).replace(" *", "*") for p in sig.group(1).split(",")]
+    assert [_CTYPES[p] for p in params] == list(qa._ARGTYPES[name])
+
+
+def test_library_path_keys_on_the_qkv_mma_header(monkeypatch, tmp_path):
+    """An edit of csrc/fused_qkv_mma.cuh rebuilds both tensor-core kernels,
+    each into a library of its own."""
+    for f in CSRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build_mod, "CSRC_DIR", tmp_path)
+    names = ("fused_qkv_fwd_mma", "fused_qkv_bwd_mma")
+    before = [library_path(n) for n in names]
+    assert before[0] != before[1]
+    assert before[0].name.startswith("libfused_qkv_fwd_mma-")
+    header = tmp_path / "fused_qkv_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [library_path(n) for n in names]
+    assert all(a != b for a, b in zip(before, after))
