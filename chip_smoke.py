@@ -16,9 +16,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      exponential floor beside the flash bounds), turns TF32 off for
      float32 matmuls and convolutions and prints the float32 matmul
      precision;
-  2. build: compiles the ten csrc/*.cu sources (flash_attention_fwd,
+  2. build: compiles the eleven csrc/*.cu sources (flash_attention_fwd,
      flash_attention_bwd and their tensor-core versions
-     flash_attention_{fwd,bwd}_mma, fused_ffn_fwd, fused_ffn_bwd,
+     flash_attention_{fwd,bwd}_mma, fused_ffn_fwd and its tensor-core
+     version fused_ffn_fwd_mma, fused_ffn_bwd,
      fused_qkv_fwd, fused_qkv_bwd and their tensor-core versions
      fused_qkv_{fwd,bwd}_mma) with nvcc for sm_90a, one nvcc each, all
      started together, and echoes ptxas's entry, register and spill lines;
@@ -59,13 +60,21 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      (fused_ffn_block_plain) and the backward kernel against
      fused_ffn_block_bwd_plain, on the card, at the light-curve tower's rows
      (N = 256 x 200 = 51,200, E = 64, F = 256), at a ragged N (51,163) and
-     at E = 128, F = 512, float32 and bfloat16. Forward: atol = rtol = 1e-4
-     in float32, 0.05 in bfloat16. Backward: each output within 5e-4 of its
+     at E = 128, F = 512, float32 and bfloat16. Every float32 forward runs on
+     both routes (the 3xTF32 tensor cores as routed, the CUDA cores through
+     a patch of fused_block._route) and must show one launch on its route
+     and none on the other; bfloat16 runs on the CUDA cores. Forward: atol =
+     rtol = 1e-4 in float32, and the normalised error within FP32_NORM_TOL
+     (1e-5), which the plain version with TF32 matmuls must fail (the
+     control); 0.05 in bfloat16. Backward: each output within 5e-4 of its
      largest in float32 (the JAX fused tests use 2e-4 against XLA; here the
      weight gradients are sums over 51,200 rows taken in block partials,
      another order than the plain version's matrix products), 0.05 in
-     bfloat16. Times kernel and plain version at the LC shape in both
-     dtypes (CUDA events, median of 25);
+     bfloat16. Times the forward of each route, the plain version and the
+     backward at the LC shape in both dtypes (CUDA events, median of 25),
+     and in float32 each forward route's device time (profiler sums over 25
+     calls) and the tensor-core forward's device time at 1, 2 and 3 full
+     waves of blocks (a diagnostic: it logs, it checks nothing);
   4c. kernel-qkv: the fused-QKV forward kernels against their plain version
      (fused_qkv_attention_plain) and the backward kernels (dx, dWqkv, dWu,
      dbu) against fused_qkv_attention_bwd_plain, on the card, float32 on the
@@ -103,7 +112,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
   5b. serve-fused: the same, with the run directory's transformer_kwargs
      carrying use_fused_block: true: the LC tower's 5 blocks (E = 64) run
      fused, in float32 (the band embedding promotes them), the SP tower's 13
-     (E = 32) unfused. Checks 5 fused forward and 18 flash forward launches
+     (E = 32) unfused. Checks 5 fused forward launches, all on the tensor
+     cores (3xTF32), and 18 flash forward launches
      (5 float32 on the CUDA cores, 13 bf16 on the tensor cores) per device
      call, no plain call of either, and answers equal to the same
      model through the plain versions of all kernels (SERVE_TOL);
@@ -143,16 +153,19 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      rounds of 20 steps each: three of the plain path, seven of each flash
      route) and their peak device memory;
   6b. train-fused: the same trainer with use_fused_block in the LC tower's
-     kwargs: 5 fused forward + 5 fused backward + 18 flash forward + 18
-     flash backward launches per train step (5 + 18 forward per eval step),
-     no plain call. The trajectory and gradient checks of phase 6 hold the
+     kwargs: 5 fused forward (all on the tensor cores) + 5 fused backward +
+     18 flash forward + 18 flash backward launches per train step (5 + 18
+     forward per eval step), no plain call; the float32 trajectory and
+     gradient runs take the tensor-core fused forward too (5 a step), their
+     plain path none. The trajectory and gradient checks of phase 6 hold the
      fused kernel path against the fused path through the plain versions of
      all four kernels; the gradient check must fail when the fused
      backward's ff.0 weight gradient is scaled by 0.99. Flash launches: the
      5 float32 LC layers on the CUDA cores, the 13 SP on the tensor cores.
      Times train steps
      and peak memory, fused ("fused") against unfused ("kernel"), both on
-     the kernel path;
+     the kernel path, and the fused path with its forward on the CUDA cores
+     ("fused-simt");
   6c. train-qkv: the same trainer under MMSN_FUSED_QKV=1: 18 tensor-core
      fused-QKV forward + 18 backward launches and no flash launch per train
      step (18 forward per eval step), no plain call. The float32 trajectory
@@ -164,7 +177,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      opt-in on the CUDA-core QKV kernels ("qkv-simt");
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
-     plain, fused, qkv, qkv-simt: the opt-in on the CUDA-core QKV kernels;
+     plain, fused, fused-simt: the fused path with its forward on the CUDA
+     cores, qkv, qkv-simt: the opt-in on the CUDA-core QKV kernels;
      bf16, one batch, after 3 warm-up steps):
      device time per step
      (the union of device ops), the trace's wall per step (first device
@@ -174,16 +188,20 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
 
 Prints, before the last line, one JSON object {"kernels": [...]} with the
 measured numbers, the shape they were timed at ("shape"; launches are summed
-over every shape the main paths gave the kernel, the float32 trajectory and
-gradient runs of the train phases included, and the flash and fused-QKV
+over every shape the main paths gave the kernel: the serve phases' requests,
+and of the train phases Trainer.fit, the timed train-step rounds (the
+CUDA-core route patches included) and the float32 trajectory and gradient
+runs; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
 and "library_device_ms", and the wrapper's host time a call, "host_ms")
 and each kernel's bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak for its input type: 989 TFLOP/s
 for bfloat16 on the tensor cores, 67 TFLOP/s for float32 on the CUDA cores,
-TF32 being off); the flash backward entries add "device_ms" and
-"library_device_ms" (profiler sums). The "bounds" log lines add the flash
+TF32 being off, and for the 3xTF32 fused forward three times its operations
+at 495 TFLOP/s); the flash backward and fused forward entries add
+"device_ms" (profiler sums), the flash backward "library_device_ms", the
+fused forward "norm_err" (float32, its route's worst case). The "bounds" log lines add the flash
 kernels' exponential floor (their exponentials alone at the MUFU pipes'
 rate). The last line is {"ok": true,
 "device": {...}}.
@@ -248,6 +266,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                 "multimodal_supernovae_tpu/ops/pallas_attention.py:108"),
     "fused_ffn_fwd": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_fwd.cu",
                       "multimodal_supernovae_tpu/ops/fused_block.py:86"),
+    "fused_ffn_fwd_mma": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_fwd_mma.cu",
+                          "multimodal_supernovae_tpu/ops/fused_block.py:86"),
     "fused_ffn_bwd": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_bwd.cu",
                       "multimodal_supernovae_tpu/ops/fused_block.py:102"),
     "fused_qkv_fwd": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_fwd.cu",
@@ -267,6 +287,12 @@ GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
 # one 1% off. Sound runs read at most 3.8e-3 on either route (dq, dk; out
 # 3.2e-3), the tensor-core dq x 0.99 1.07e-2 (PERF.md section 6).
 NORM_TOL = 6e-3
+# float32 fused-block forward against its plain version on the same inputs:
+# ||got - want|| / ||want||. A CPU model of the kernel's arithmetic at the LC
+# widths reads 2.2e-7 with 3xTF32 products and 3.2e-4 with one TF32 product
+# (tests/test_torch_fused_block_kernel.py); the plain version with TF32
+# matmuls must fail it.
+FP32_NORM_TOL = 1e-5
 # served vs plain-version embeddings, every serve phase; sound runs read 6.6e-3
 SERVE_TOL = 0.02
 TRAJ_RTOL, GRAD_RTOL = 1e-5, 5e-4
@@ -275,7 +301,8 @@ WRONG_DWF1 = "fused, ff.0 weight grad x 0.99"
 WRONG_DWQ = "qkv, query third of dWqkv x 0.99"
 # H100 SXM published peaks (NVIDIA's datasheet), at a 700 W limit
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+# "tf32x3": 495 TFLOP/s of TF32 over the three products of each 3xTF32 one
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 LC_LEN, NBAND, SP_LEN, BATCH = 100, 2, 1024, 256
 TRAIN_SP_LEN, TRAIN_N, TRAIN_EPOCHS, TRAJ_STEPS, TIMED_STEPS = 220, 2048, 3, 12, 20
 PROFILED_STEPS = 5
@@ -293,8 +320,9 @@ FFN_ROWS = BATCH * NBAND * LC_LEN  # the LC tower's (B * T) rows
 QKV_LC = (BATCH, NBAND * LC_LEN, SEQ_LC["emb"], SEQ_LC["heads"])
 QKV_SP = (BATCH, TRAIN_SP_LEN, SEQ_SP["emb"], SEQ_SP["heads"])
 COUNT_NAMES = ("(flash fwd CUDA cores, flash bwd CUDA cores, flash fwd tensor cores, "
-               "flash bwd tensor cores, ffn fwd, ffn bwd, qkv fwd CUDA cores, qkv bwd CUDA "
-               "cores, qkv fwd tensor cores, qkv bwd tensor cores)")
+               "flash bwd tensor cores, ffn fwd CUDA cores, ffn bwd, qkv fwd CUDA cores, qkv "
+               "bwd CUDA cores, qkv fwd tensor cores, qkv bwd tensor cores, ffn fwd tensor "
+               "cores)")
 # MUFU exponentials a clock on one SM (16), for the exponential floor beside
 # the flash kernels' bound
 EXP_PER_CLOCK_SM = 16
@@ -697,30 +725,72 @@ def _ffn_inputs(gen, n, e, f, dtype):
     return t(n, e).to(dtype), t(n, e).to(dtype), params, t(n, e).to(dtype)
 
 
+@contextlib.contextmanager
+def _ffn_simt_route():
+    """Every fused-block forward of the block on the CUDA-core kernel:
+    ``fused_block._route`` patched (a test-time patch, no user knob)."""
+    with mock.patch.object(ffn_mod, "_route", lambda *a: "simt"):
+        yield
+
+
+FFN_ROUTES = {"mma": contextlib.nullcontext, "simt": _ffn_simt_route}
+
+
+def _ffn_counts():
+    """(CUDA-core, tensor-core) fused forward launches since _zero_counts."""
+    c = ffn_mod.fused_ffn_block
+    return c.launches - c.mma_launches, c.mma_launches
+
+
 def phase_kernel_ffn():
+    """The fused-block forward of both routes and the backward against their
+    plain versions; the TF32 control; times at LC."""
     fwd, bwd = ffn_mod._ffn_fwd, ffn_mod.fused_ffn_block_bwd
     plain, plain_bwd = ffn_mod.fused_ffn_block_plain, ffn_mod.fused_ffn_block_bwd_plain
     eps = ffn_mod.LN_EPS
     cases = [("lc", FFN_ROWS, FFN_E, FFN_F), ("ragged", FFN_ROWS - 37, FFN_E, FFN_F),
              ("e128", FFN_ROWS // 4 - 5, 128, 512)]
     gen = torch.Generator().manual_seed(4)
-    fwd_err = bwd_err = 0.0
+    fwd_err, norm_err, bwd_err = {"mma": 0.0, "simt": 0.0}, {"mma": 0.0, "simt": 0.0}, 0.0
     timing = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, n, e, f in cases:
             att, x, params, g = _ffn_inputs(gen, n, e, f, dtype)
-            got = fwd(att, x, *params, eps=eps)
+            want = plain(att, x, *params)
+            routes = ("mma", "simt") if ffn_mod._route(dtype, e, f) == "mma" else ("simt",)
+            if dtype == torch.float32 and routes != ("mma", "simt"):
+                raise AssertionError(f"ffn {name} float32 (E, F) = {(e, f)}: not routed to "
+                                     "the tensor cores")
+            said = []
+            for route in routes:
+                with FFN_ROUTES[route]():
+                    _zero_counts()
+                    got = fwd(att, x, *params, eps=eps)
+                    torch.cuda.synchronize()
+                    counts = _ffn_counts()
+                if counts != ((0, 1) if route == "mma" else (1, 0)):
+                    raise AssertionError(f"ffn {name} {dtype_name} {route}: launches (CUDA "
+                                         f"cores, tensor cores) {counts}")
+                if got.dtype != dtype or got.shape != want.shape:
+                    raise AssertionError(f"ffn {name} {dtype_name} {route}: {got.dtype} "
+                                         f"{tuple(got.shape)}")
+                err = float((got.float() - want.float()).abs().max())
+                fwd_err[route] = max(fwd_err[route], err)
+                torch.testing.assert_close(
+                    got.float(), want.float(), rtol=TOL[dtype_name], atol=TOL[dtype_name],
+                    msg=lambda m: f"ffn {name} {dtype_name} {route}: {m}")
+                said.append(f"{route} max|err| {err:.3e}")
+                if dtype == torch.float32:
+                    ne = _norm_err(got, want)
+                    norm_err[route] = max(norm_err[route], ne)
+                    said[-1] += f", ||err||/||plain|| {ne:.3e}"
+                    if not ne <= FP32_NORM_TOL:
+                        raise AssertionError(f"ffn {name} float32 {route}: ||got - want|| / "
+                                             f"||want|| {ne:.3e} (tol {FP32_NORM_TOL})")
+                del got
             grads = bwd(att, x, *params, g)
             torch.cuda.synchronize()
-            want = plain(att, x, *params)
-            if got.dtype != dtype or got.shape != want.shape:
-                raise AssertionError(f"ffn {name} {dtype_name}: {got.dtype} {tuple(got.shape)}")
-            err = float((got.float() - want.float()).abs().max())
-            fwd_err = max(fwd_err, err)
-            torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype_name],
-                                       atol=TOL[dtype_name],
-                                       msg=lambda m: f"ffn {name} {dtype_name}: {m}")
             rel = []
             for i, (a, w) in enumerate(zip(grads, plain_bwd(att, x, *params, g))):
                 if a.dtype != w.dtype or a.shape != w.shape:
@@ -730,24 +800,58 @@ def phase_kernel_ffn():
                 rel.append(d / float(w.float().abs().max()))
                 bwd_err = max(bwd_err, d)
             log(f"kernel-ffn {name} {dtype_name} (N, E, F) = {(n, e, f)}: forward "
-                f"max|err| {err:.3e} (tol {TOL[dtype_name]}); backward max|err|/max|plain| "
+                f"{'; '.join(said)} (tol {TOL[dtype_name]}"
+                + (f", FP32_NORM_TOL {FP32_NORM_TOL}" if dtype == torch.float32 else "")
+                + f"); backward max|err|/max|plain| "
                 f"per output {max(rel):.3e} worst, datt {rel[0]:.3e} dx {rel[1]:.3e} "
                 f"dWu {rel[2]:.3e} dWf1 {rel[6]:.3e} dWf2 {rel[8]:.3e} "
                 f"(tol {GRAD_TOL[dtype_name]})")
             if max(rel) > GRAD_TOL[dtype_name]:
                 raise AssertionError(f"ffn-bwd {name} {dtype_name}: {rel}")
+            if dtype == torch.float32 and name == "lc":
+                # the control: TF32 matmuls in the plain version must fail the check
+                saved = torch.backends.cuda.matmul.allow_tf32
+                try:
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    control = _norm_err(plain(att, x, *params), want)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = saved
+                log(f"kernel-ffn control: the plain version with TF32 matmuls, "
+                    f"||err||/||plain|| {control:.3e} (must exceed {FP32_NORM_TOL})")
+                if not control > FP32_NORM_TOL:
+                    raise AssertionError(f"the float32 check cannot see TF32 rounding: {control}")
             if name == "lc":
-                ms = _time_ms(lambda: fwd(att, x, *params, eps=eps))
-                plain_ms = _time_ms(lambda: plain(att, x, *params))
-                bwd_ms = _time_ms(lambda: bwd(att, x, *params, g))
-                bwd_plain_ms = _time_ms(lambda: plain_bwd(att, x, *params, g))
-                timing[dtype_name] = (ms, plain_ms, bwd_ms, bwd_plain_ms)
-                log(f"time-ffn lc {dtype_name} (N, E, F) = {(n, e, f)}: forward kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms; backward kernel {bwd_ms:.4f} "
-                    f"ms, plain {bwd_plain_ms:.4f} ms")
-            del att, x, params, g, got, grads, want
+                tm = {}
+                for route in routes + routes[::-1]:  # mma, simt, simt, mma
+                    with FFN_ROUTES[route]():
+                        tm.setdefault(route, []).append(
+                            _time_ms(lambda: fwd(att, x, *params, eps=eps)))
+                        if dtype == torch.float32 and f"{route}_device" not in tm:
+                            tm[f"{route}_device"] = _device_ms(
+                                lambda: fwd(att, x, *params, eps=eps))
+                for route in routes:
+                    tm[route] = float(np.median(tm[route]))
+                tm["plain"] = _time_ms(lambda: plain(att, x, *params))
+                tm["bwd"] = _time_ms(lambda: bwd(att, x, *params, g))
+                tm["bwd_plain"] = _time_ms(lambda: plain_bwd(att, x, *params, g))
+                timing[dtype_name] = tm
+                log(f"time-ffn lc {dtype_name} (N, E, F) = {(n, e, f)}: forward "
+                    + ", ".join(f"{r} {tm[r]:.4f} ms" + (
+                        f" (device {tm[r + '_device']:.4f} ms)" if r + "_device" in tm else "")
+                        for r in routes)
+                    + f", plain {tm['plain']:.4f} ms; backward kernel {tm['bwd']:.4f} ms, "
+                    f"plain {tm['bwd_plain']:.4f} ms")
+                if dtype == torch.float32:  # what the block count costs: whole waves
+                    wave = (2 * torch.cuda.get_device_properties(0).multi_processor_count
+                            * ffn_mod.MMA_ROWS)  # rows of one wave at 2 blocks an SM
+                    waves = [_device_ms(lambda: fwd(att[:k * wave], x[:k * wave], *params,
+                                                    eps=eps)) for k in (1, 2, 3)]
+                    log(f"time-ffn waves, tensor cores float32: device {waves[0]:.4f} / "
+                        f"{waves[1]:.4f} / {waves[2]:.4f} ms at 1 / 2 / 3 full waves of "
+                        f"{wave} rows (two 64-row blocks an SM); LC is {n / wave:.3f} waves")
+            del att, x, params, g, grads, want
     torch.cuda.empty_cache()
-    return fwd_err, bwd_err, timing
+    return fwd_err, norm_err, bwd_err, timing
 
 
 def _qkv_inputs(gen, b, t, e, dtype, mask):
@@ -1057,10 +1161,11 @@ def phase_serve(fused=False, qkv=False):
             # under the opt-in the LC tower (T = 200) takes the fused-QKV kernel and
             # the SP tower (T = 1024 > 256) falls back to the flash kernel; the fused
             # LC blocks compute in float32 (CUDA cores), every other layer in bf16
-            # (tensor cores, the fused-QKV layers too)
+            # (tensor cores, the fused-QKV layers too); the fused forward takes the
+            # tensor cores (3xTF32)
             n_qkv, n_f32 = SEQ_LC["depth"] * qkv, FUSED_PER_CALL * fused
             want = (n_f32 * calls, 0, (LAYERS_PER_CALL - n_qkv - n_f32) * calls, 0,
-                    FUSED_PER_CALL * calls * fused, 0, 0, 0, n_qkv * calls, 0)
+                    0, 0, 0, 0, n_qkv * calls, 0, FUSED_PER_CALL * calls * fused)
             if launches != want or plain_calls:
                 raise AssertionError(
                     f"{tag}: expected launches {want} for {calls} device calls and no "
@@ -1164,23 +1269,24 @@ def _zero_counts():
     for fn in (flash_mod.flash_attention, flash_mod.flash_attention_bwd,
                qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd):
         fn.launches = fn.mma_launches = 0
-    ffn_mod.fused_ffn_block.launches = 0
+    ffn_mod.fused_ffn_block.launches = ffn_mod.fused_ffn_block.mma_launches = 0
     ffn_mod.fused_ffn_block_bwd.launches = 0
 
 
 def _counts():
     """Launches since _zero_counts, in the order of COUNT_NAMES: the flash
     forward and backward on the CUDA cores, then on the tensor cores, the
-    fused-block forward and backward, then the fused-QKV forward and
-    backward on the CUDA cores and on the tensor cores (forwards at even
-    places)."""
+    fused-block forward on the CUDA cores and the backward, the fused-QKV
+    forward and backward on the CUDA cores and on the tensor cores, then the
+    fused-block forward on the tensor cores (forwards at even places)."""
     fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
     qfwd, qbwd = qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd
+    ffn_simt, ffn_mma = _ffn_counts()
     return (fwd.launches - fwd.mma_launches, bwd.launches - bwd.mma_launches,
             fwd.mma_launches, bwd.mma_launches,
-            ffn_mod.fused_ffn_block.launches, ffn_mod.fused_ffn_block_bwd.launches,
+            ffn_simt, ffn_mod.fused_ffn_block_bwd.launches,
             qfwd.launches - qfwd.mma_launches, qbwd.launches - qbwd.mma_launches,
-            qfwd.mma_launches, qbwd.mma_launches)
+            qfwd.mma_launches, qbwd.mma_launches, ffn_mma)
 
 
 @contextlib.contextmanager
@@ -1275,6 +1381,7 @@ PATHS = {
     WRONG_DQ: (False, _wrong_dq),
     "fused": (True, contextlib.nullcontext),
     "fused-plain": (True, _plain_kernels),
+    "fused-simt": (True, _ffn_simt_route),
     WRONG_DWF1: (True, _wrong_dwf1),
     "qkv": (False, _qkv_env),
     "qkv-plain": (False, _qkv_plain),
@@ -1286,27 +1393,31 @@ PATHS = {
 def _step_counts(path):
     """Launches per train step on ``path``, in the order of _counts. bf16
     flash calls take the tensor cores unless the path patches the route;
-    the fused blocks of the LC tower compute in float32, on the CUDA cores.
-    Under the fused-QKV opt-in both towers (T = 200 and 220) take its
-    kernels and the flash kernels none."""
+    the fused blocks of the LC tower compute in float32: their attention on
+    the CUDA cores, their forward on the tensor cores (3xTF32) unless the
+    path patches the fused route. Under the fused-QKV opt-in both towers (T
+    = 200 and 220) take its kernels and the flash kernels none."""
     n = LAYERS_PER_CALL
     if path == "plain":
-        return (0,) * 10
+        return (0,) * 11
     if path == "qkv":  # bf16 at head dims 8 and 16: the tensor-core QKV kernels
-        return (0,) * 8 + (n, n)
+        return (0,) * 8 + (n, n, 0)
     if path == "kernel-simt":
-        return (n, n) + (0,) * 8
+        return (n, n) + (0,) * 9
     if path == "qkv-simt":
-        return (0,) * 6 + (n, n, 0, 0)
+        return (0,) * 6 + (n, n, 0, 0, 0)
     f = FUSED_PER_CALL if PATHS[path][0] else 0
-    return (f, f, n - f, n - f, f, f, 0, 0, 0, 0)
+    simt = path == "fused-simt"
+    return (f, f, n - f, n - f, f * simt, f, 0, 0, 0, 0, f * (not simt))
 
 
 def _f32_step_counts(path):
     """Launches per float32 train step on ``path`` (the trajectory and
-    gradient checks): every kernel on the CUDA cores."""
+    gradient checks): every kernel on the CUDA cores, the fused forward on
+    the tensor cores (3xTF32 takes float32)."""
     c = _step_counts(path)
-    return (c[0] + c[2], c[1] + c[3], 0, 0, c[4], c[5], c[6] + c[8], c[7] + c[9], 0, 0)
+    return (c[0] + c[2], c[1] + c[3], 0, 0, c[4], c[5], c[6] + c[8], c[7] + c[9], 0, 0,
+            c[10])
 
 
 def _time_train_steps(path, batch):
@@ -1351,13 +1462,13 @@ def _trajectory(path, data, plan):
 
 
 def _check_f32_counts(path, steps):
-    """The float32 steps' launches: every kernel on the CUDA cores, none on
-    a plain path (the negative controls replace a wrapper and are not
+    """The float32 steps' launches: every kernel but the fused forward on
+    the CUDA cores, none on a plain path (the negative controls replace a wrapper and are not
     counted)."""
     counts = _counts()
     if path in (WRONG_DQ, WRONG_DWF1, WRONG_DWQ):
         return counts
-    want = (0,) * 10 if "plain" in path else tuple(c * steps for c in _f32_step_counts(path))
+    want = (0,) * 11 if "plain" in path else tuple(c * steps for c in _f32_step_counts(path))
     if counts != want:
         raise AssertionError(f"{path} float32: launches {counts}, want {want}")
     return counts
@@ -1391,7 +1502,7 @@ def _grad_error(got, want):
 # variant: (tag, main path, its reference, its negative control, the paths it is timed against)
 TRAIN_VARIANTS = {
     "kernel": ("train", "kernel", "plain", WRONG_DQ, ("plain", "kernel-simt")),
-    "fused": ("train-fused", "fused", "fused-plain", WRONG_DWF1, ("kernel",)),
+    "fused": ("train-fused", "fused", "fused-plain", WRONG_DWF1, ("kernel", "fused-simt")),
     "qkv": ("train-qkv", "qkv", "qkv-plain", WRONG_DWQ, ("kernel", "qkv-simt")),
 }
 
@@ -1449,8 +1560,10 @@ def phase_train(variant="kernel"):
         order += ("kernel-simt", "kernel", "kernel", "kernel-simt") * 2
     times = {main_path: [], **{p: [] for p in others}}
     round_ms = {p: [] for p in times}
+    timed_counts = (0,) * 11
     for path in order:
         ts, counts, peak = _time_train_steps(path, batch)
+        timed_counts = tuple(a + b for a, b in zip(timed_counts, counts))
         times[path] += ts
         round_ms[path].append(float(np.median(ts)))
         want = tuple(c * TIMED_STEPS for c in _step_counts(path))
@@ -1495,9 +1608,10 @@ def phase_train(variant="kernel"):
         raise AssertionError(f"{main_path} path's gradients leave the plain path's: {errs}")
     if errs[wrong_path] <= GRAD_RTOL:
         raise AssertionError(f"the gradient check cannot see a 1% error: {errs}")
-    total = tuple(a + b + c for a, b, c in zip(fit_counts, traj_counts, grad_counts))
-    log(f"{tag}: launches {COUNT_NAMES} of Trainer.fit (bf16), the float32 trajectory and "
-        f"the float32 gradients: {fit_counts}, {traj_counts}, {grad_counts}")
+    total = tuple(sum(c) for c in zip(fit_counts, timed_counts, traj_counts, grad_counts))
+    log(f"{tag}: launches {COUNT_NAMES} of Trainer.fit (bf16), the timed rounds (bf16), the "
+        f"float32 trajectory and the float32 gradients: {fit_counts}, {timed_counts}, "
+        f"{traj_counts}, {grad_counts}")
     return total
 
 
@@ -1664,7 +1778,7 @@ def phase_profile():
     ds = make_synthetic_dataset(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     batch = ds.to_device(DEVICE)
-    for path in ("kernel", "kernel-simt", "plain", "fused", "qkv", "qkv-simt"):
+    for path in ("kernel", "kernel-simt", "plain", "fused", "fused-simt", "qkv", "qkv-simt"):
         _log_trace(f"profile {path}", "train steps", *_profile_steps(path, batch))
 
 
@@ -1710,10 +1824,12 @@ def _kernel_bounds():
     n, e, f = FFN_ROWS, FFN_E, FFN_F           # fused block, LC rows, float32
     p = e * e + 2 * e * f + 6 * e + f          # parameter floats
     ffn_fwd = _bound(2 * n * (e * e + 2 * e * f), 4 * (3 * n * e + p), "float32")
+    ffn_fwd_mma = _bound(2 * n * (e * e + 2 * e * f), 4 * (3 * n * e + p), "tf32x3")
     ffn_bwd = _bound(2 * n * (3 * e * e + 6 * e * f), 4 * (5 * n * e + 2 * p), "float32")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
             "flash_attention_fwd_mma": fwd, "flash_attention_bwd_mma": bwd,
-            "fused_ffn_fwd": ffn_fwd, "fused_ffn_bwd": ffn_bwd,
+            "fused_ffn_fwd": ffn_fwd, "fused_ffn_fwd_mma": ffn_fwd_mma,
+            "fused_ffn_bwd": ffn_bwd,
             "fused_qkv_fwd": qkv_fwd, "fused_qkv_bwd": qkv_bwd,
             "fused_qkv_fwd_mma": qkv_fwd, "fused_qkv_bwd_mma": qkv_bwd}
 
@@ -1723,7 +1839,7 @@ def main():
     phase_build()
     fwd_err, timing = phase_kernel()
     bwd_err, bwd_timing = phase_kernel_bwd()
-    ffn_err, ffn_bwd_err, ffn_timing = phase_kernel_ffn()
+    ffn_err, ffn_norm_err, ffn_bwd_err, ffn_timing = phase_kernel_ffn()
     qkv_err, qkv_bwd_err, qkv_timing = phase_kernel_qkv()
     serve = phase_serve()
     serve_fused = phase_serve(fused=True)
@@ -1775,13 +1891,15 @@ def main():
         "flash_attention_bwd": (1, bwd_err["simt"], flash("simt", 1)),
         "flash_attention_fwd_mma": (2, fwd_err["mma"], flash("mma", 0)),
         "flash_attention_bwd_mma": (3, bwd_err["mma"], flash("mma", 1)),
-        "fused_ffn_fwd": (4, ffn_err, {
-            "ms": lc32[0], "plain_ms": lc32[1], "library_ms": None,
-            "shape": f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"}),
         "fused_ffn_bwd": (5, ffn_bwd_err, {
-            "ms": lc32[2], "plain_ms": lc32[3], "library_ms": None,
+            "ms": lc32["bwd"], "plain_ms": lc32["bwd_plain"], "library_ms": None,
             "shape": f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"}),
     }
+    for i, route in ((4, "simt"), (10, "mma")):  # the fused forward's two routes
+        measured["fused_ffn_fwd" + ("_mma" if route == "mma" else "")] = (i, ffn_err[route], {
+            "ms": lc32[route], "device_ms": lc32[route + "_device"], "plain_ms": lc32["plain"],
+            "library_ms": None, "norm_err": ffn_norm_err[route],
+            "shape": f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"})
     # the fused-QKV kernels, timed at LC; their second shape, SP, under also_at (13
     # of a train step's 18 launches)
     sp_qkv_bounds = _qkv_bounds(*QKV_SP)

@@ -1,6 +1,7 @@
 """The fused row-local tail of a post-norm transformer block, forward and
 backward: wrappers over the hand-written CUDA kernels ``csrc/fused_ffn_fwd.cu``
-and ``csrc/fused_ffn_bwd.cu``, paired in one ``torch.autograd.Function``.
+(CUDA cores), ``csrc/fused_ffn_fwd_mma.cu`` (tensor cores, 3xTF32, float32
+only) and ``csrc/fused_ffn_bwd.cu``, paired in one ``torch.autograd.Function``.
 
 Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
 fused_block.py:_ffn_fwd_kernel`` and ``_ffn_bwd_kernel`` (the ``custom_vjp``
@@ -24,9 +25,14 @@ with no copy; biases and LayerNorm scales are 1-D. (flax kernels are
 (in, out): the JAX function takes the transposes.)
 
 Dispatch: CPU tensors take the plain versions (``fused_ffn_block_plain`` and
-``fused_ffn_block_bwd_plain``); CUDA tensors launch the kernels or raise.
-``fused_ffn_block.launches`` and ``fused_ffn_block_bwd.launches`` count kernel
-launches (bumped only after a launch the runtime accepted).
+``fused_ffn_block_bwd_plain``); CUDA tensors launch the kernels or raise. The
+forward has two routes, chosen by ``_route`` from dtype and widths alone:
+float32 at the widths the tensor-core kernel takes goes to it, everything
+else (bfloat16 included) to the CUDA-core kernel; a failed build or launch
+raises and never falls back to the other route. ``fused_ffn_block.launches``
+(both routes), ``fused_ffn_block.mma_launches`` (the tensor cores) and
+``fused_ffn_block_bwd.launches`` count kernel launches (bumped only after a
+launch the runtime accepted).
 
 The whole block (q/k/v projections, attention, then ``fused_ffn_block``) is
 composed in ``models/transformer.py:fused_transformer_block``; this module
@@ -49,8 +55,27 @@ ROWS = 32          # rows per block tile in both kernels
 CHUNK_K = 32       # contraction depth of one staged weight chunk
 CHUNK_LD = 257     # floats per staged chunk row (256 columns + 1 of padding)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+MMA_ROWS = 64      # rows per block tile of the tensor-core forward (4 warps x 16)
+MMA_CHUNK = 64     # hidden columns of one staged chunk in the tensor-core forward
+MMA_PAD = 4        # floats of padding a shared row in the tensor-core forward
+MMA_WIDTHS = (64, 96, 128)  # E the tensor-core forward is built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = {}
+_ARGTYPES = {
+    "fused_ffn_fwd": ([ctypes.c_void_p] * 13       # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 out
+                      + [ctypes.c_int] * 4          # N, E, F, dtype
+                      + [ctypes.c_float]            # eps
+                      + [ctypes.c_void_p]),         # stream
+    "fused_ffn_fwd_mma": ([ctypes.c_void_p] * 13   # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 out
+                          + [ctypes.c_int] * 3      # N, E, F
+                          + [ctypes.c_float]        # eps
+                          + [ctypes.c_void_p]),     # stream
+    "fused_ffn_bwd": ([ctypes.c_void_p] * 13       # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 g
+                      + [ctypes.c_void_p] * 4       # datt dx partial grads
+                      + [ctypes.c_int] * 5          # N, E, F, dtype, blocks
+                      + [ctypes.c_float]            # eps
+                      + [ctypes.c_void_p]),         # stream
+}
 
 
 def _smem_bytes(e: int, f: int, backward: bool) -> int:
@@ -59,6 +84,27 @@ def _smem_bytes(e: int, f: int, backward: bool) -> int:
     one staged weight chunk, all float32."""
     rows = ROWS * (5 * e + f) + 2 * ROWS if backward else ROWS * (2 * e + f)
     return 4 * (rows + CHUNK_K * CHUNK_LD)
+
+
+def _mma_smem_bytes(e: int) -> int:
+    """Dynamic shared memory of one tensor-core forward block, float32: the
+    att / y1 rows and one chunk of h rows, then the larger of Wu and one
+    chunk of Wf1 and Wf2, each split into TF32 hi and lo; every row padded
+    by MMA_PAD floats."""
+    xld, hld = e + MMA_PAD, MMA_CHUNK + MMA_PAD
+    weights = max(2 * e * xld, 2 * MMA_CHUNK * xld + 2 * e * hld)
+    return 4 * (MMA_ROWS * xld + MMA_ROWS * hld + weights)
+
+
+def _route(dtype: torch.dtype, e: int, f: int) -> str:
+    """``"mma"`` (the 3xTF32 tensor-core forward) for float32 at E in
+    MMA_WIDTHS (each within one block's shared memory, ``_mma_smem_bytes``)
+    and F a multiple of MMA_CHUNK; ``"simt"`` (the CUDA-core forward)
+    otherwise, bfloat16 included. The tensor-core entry also wants every
+    pointer on 16 bytes, which fresh tensors are; it refuses a launch
+    without it, and the wrapper then raises."""
+    return ("mma" if dtype == torch.float32 and e in MMA_WIDTHS and f % MMA_CHUNK == 0
+            else "simt")
 
 
 def supports(e: int, heads: int, ff_hidden_mult: int = 4) -> bool:
@@ -166,17 +212,7 @@ def _entry(name: str):
         from ..kernels.build import load_library
 
         fn = getattr(load_library(name), f"mmsn_{name}")
-        if name == "fused_ffn_fwd":
-            fn.argtypes = ([ctypes.c_void_p] * 13      # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 out
-                           + [ctypes.c_int] * 4         # N, E, F, dtype
-                           + [ctypes.c_float]           # eps
-                           + [ctypes.c_void_p])         # stream
-        else:
-            fn.argtypes = ([ctypes.c_void_p] * 13      # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 g
-                           + [ctypes.c_void_p] * 4      # datt dx partial grads
-                           + [ctypes.c_int] * 5         # N, E, F, dtype, blocks
-                           + [ctypes.c_float]           # eps
-                           + [ctypes.c_void_p])         # stream
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _bound[name] = fn
     return fn
@@ -208,22 +244,27 @@ def _check(att, x, params):
 
 
 def _ffn_fwd(att, x, *params, eps):
-    """Launch the forward kernel (CUDA) or run the plain version (CPU)."""
+    """Launch the forward kernel of ``_route``'s choice (CUDA) or run the
+    plain version (CPU)."""
     if x.device.type == "cpu":
         return fused_ffn_block_plain(att, x, *params, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn_block runs on CUDA or CPU, got {x.device}")
     n, e, f = _check(att, x, params)
     out = torch.empty_like(x)
-    fn = _entry("fused_ffn_fwd")
+    mma = _route(x.dtype, e, f) == "mma"
+    name = "fused_ffn_fwd_mma" if mma else "fused_ffn_fwd"
+    shape = (n, e, f) if mma else (n, e, f, _DTYPE_CODES[x.dtype])
+    fn = _entry(name)
     with torch.cuda.device(x.device):
         rc = fn(att.data_ptr(), x.data_ptr(), *(p.data_ptr() for p in params),
-                out.data_ptr(), n, e, f, _DTYPE_CODES[x.dtype], eps,
-                torch.cuda.current_stream(x.device).cuda_stream)
+                out.data_ptr(), *shape, eps, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_ffn_fwd launch failed with CUDA error {rc} "
-                           f"(N, E, F = {n}, {e}, {f}, {x.dtype})")
+        hint = ", every pointer must be on 16 bytes" if mma else ""
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} (N, E, F = {n}, {e}, "
+                           f"{f}, {x.dtype}{hint})")
     fused_ffn_block.launches += 1
+    fused_ffn_block.mma_launches += mma
     return out
 
 
@@ -310,4 +351,4 @@ def fused_ffn_block(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
 
 
 fused_ffn_block.launches = 0
-
+fused_ffn_block.mma_launches = 0
