@@ -16,10 +16,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      exponential floor beside the flash bounds), turns TF32 off for
      float32 matmuls and convolutions and prints the float32 matmul
      precision;
-  2. build: compiles the eleven csrc/*.cu sources (flash_attention_fwd,
+  2. build: compiles the twelve csrc/*.cu sources (flash_attention_fwd,
      flash_attention_bwd and their tensor-core versions
-     flash_attention_{fwd,bwd}_mma, fused_ffn_fwd and its tensor-core
-     version fused_ffn_fwd_mma, fused_ffn_bwd,
+     flash_attention_{fwd,bwd}_mma, fused_ffn_fwd, fused_ffn_bwd and their
+     tensor-core versions fused_ffn_{fwd,bwd}_mma,
      fused_qkv_fwd, fused_qkv_bwd and their tensor-core versions
      fused_qkv_{fwd,bwd}_mma) with nvcc for sm_90a, one nvcc each, all
      started together, and echoes ptxas's entry, register and spill lines;
@@ -60,21 +60,33 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      (fused_ffn_block_plain) and the backward kernel against
      fused_ffn_block_bwd_plain, on the card, at the light-curve tower's rows
      (N = 256 x 200 = 51,200, E = 64, F = 256), at a ragged N (51,163) and
-     at E = 128, F = 512, float32 and bfloat16. Every float32 forward runs on
-     both routes (the 3xTF32 tensor cores as routed, the CUDA cores through
-     a patch of fused_block._route) and must show one launch on its route
-     and none on the other; bfloat16 runs on the CUDA cores. Forward: atol =
-     rtol = 1e-4 in float32, and the normalised error within FP32_NORM_TOL
-     (1e-5), which the plain version with TF32 matmuls must fail (the
-     control); 0.05 in bfloat16. Backward: each output within 5e-4 of its
-     largest in float32 (the JAX fused tests use 2e-4 against XLA; here the
-     weight gradients are sums over 51,200 rows taken in block partials,
-     another order than the plain version's matrix products), 0.05 in
-     bfloat16. Times the forward of each route, the plain version and the
-     backward at the LC shape in both dtypes (CUDA events, median of 25),
-     and in float32 each forward route's device time (profiler sums over 25
-     calls) and the tensor-core forward's device time at 1, 2 and 3 full
-     waves of blocks (a diagnostic: it logs, it checks nothing);
+     at E = 128, F = 512, float32 and bfloat16. Every float32 forward and
+     backward runs on both routes (the 3xTF32 tensor cores as routed, the
+     CUDA cores through a patch of fused_block._route) and must show one
+     launch on its route and none on the other; bfloat16 runs on the CUDA
+     cores. Forward: atol = rtol = 1e-4 in float32, and the normalised
+     error within FP32_NORM_TOL (1e-5), which the plain version with TF32
+     matmuls must fail (the control); 0.05 in bfloat16. Backward: each
+     output within 5e-4 of its largest in float32 (the JAX fused tests use
+     2e-4 against XLA; here the weight gradients are sums over 51,200 rows
+     taken in block partials, another order than the plain version's
+     matrix products) and, but db2 (no product), within FP32_NORM_TOL in the
+     normalised error, which the plain backward with TF32 matmuls must fail
+     in datt, dx, dWu and dWf1; 0.05 in bfloat16. Every row counts. The
+     tensor-core backward is held to the plain version on its own ReLU
+     mask (its h scratch > 0, relu_mask), since where a pre-activation lies
+     within rounding of 0 a kernel and the plain version may take the
+     mask's two sides and one such entry moves a whole dh value; its h is
+     held to the plain h at the forward's 1e-4, and the entries where the
+     masks differ are logged. The CUDA-core backward is held to the plain
+     version as it is. Times at the LC shape the forward
+     of each route, the plain version and the backward of each route in
+     float32 (the CUDA cores in bfloat16) (CUDA events, median of 25), in
+     float32 each route's device time (profiler sums over 25 calls), the
+     tensor-core backward's device time by stage (row kernel,
+     weight-gradient kernel, reduces), and the tensor-core forward's device
+     time at 1, 2 and 3 full waves of blocks (a diagnostic: it logs, it
+     checks nothing);
   4c. kernel-qkv: the fused-QKV forward kernels against their plain version
      (fused_qkv_attention_plain) and the backward kernels (dx, dWqkv, dWu,
      dbu) against fused_qkv_attention_bwd_plain, on the card, float32 on the
@@ -153,19 +165,19 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      rounds of 20 steps each: three of the plain path, seven of each flash
      route) and their peak device memory;
   6b. train-fused: the same trainer with use_fused_block in the LC tower's
-     kwargs: 5 fused forward (all on the tensor cores) + 5 fused backward +
+     kwargs: 5 fused forward + 5 fused backward (all on the tensor cores) +
      18 flash forward + 18 flash backward launches per train step (5 + 18
      forward per eval step), no plain call; the float32 trajectory and
-     gradient runs take the tensor-core fused forward too (5 a step), their
-     plain path none. The trajectory and gradient checks of phase 6 hold the
+     gradient runs take the tensor-core fused forward and backward too (5
+     each a step), their plain path none. The trajectory and gradient checks of phase 6 hold the
      fused kernel path against the fused path through the plain versions of
      all four kernels; the gradient check must fail when the fused
      backward's ff.0 weight gradient is scaled by 0.99. Flash launches: the
      5 float32 LC layers on the CUDA cores, the 13 SP on the tensor cores.
      Times train steps
      and peak memory, fused ("fused") against unfused ("kernel"), both on
-     the kernel path, and the fused path with its forward on the CUDA cores
-     ("fused-simt");
+     the kernel path, and the fused path with both fused kernels on the CUDA
+     cores ("fused-simt");
   6c. train-qkv: the same trainer under MMSN_FUSED_QKV=1: 18 tensor-core
      fused-QKV forward + 18 backward launches and no flash launch per train
      step (18 forward per eval step), no plain call. The float32 trajectory
@@ -177,8 +189,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      opt-in on the CUDA-core QKV kernels ("qkv-simt");
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
-     plain, fused, fused-simt: the fused path with its forward on the CUDA
-     cores, qkv, qkv-simt: the opt-in on the CUDA-core QKV kernels;
+     plain, fused, fused-simt: the fused path with both fused kernels on the
+     CUDA cores, qkv, qkv-simt: the opt-in on the CUDA-core QKV kernels;
      bf16, one batch, after 3 warm-up steps):
      device time per step
      (the union of device ops), the trace's wall per step (first device
@@ -199,9 +211,11 @@ and each kernel's bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak for its input type: 989 TFLOP/s
 for bfloat16 on the tensor cores, 67 TFLOP/s for float32 on the CUDA cores,
 TF32 being off, and for the 3xTF32 fused forward three times its operations
-at 495 TFLOP/s); the flash backward and fused forward entries add
+at 495 TFLOP/s); the flash backward and fused-block entries add
 "device_ms" (profiler sums), the flash backward "library_device_ms", the
-fused forward "norm_err" (float32, its route's worst case). The "bounds" log lines add the flash
+fused-block entries "norm_err" (float32, its route's worst case), and the
+tensor-core fused backward "stage_device_ms" (row kernel, weight-gradient
+kernel, reduces). The "bounds" log lines add the flash
 kernels' exponential floor (their exponentials alone at the MUFU pipes'
 rate). The last line is {"ok": true,
 "device": {...}}.
@@ -270,6 +284,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                           "multimodal_supernovae_tpu/ops/fused_block.py:86"),
     "fused_ffn_bwd": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_bwd.cu",
                       "multimodal_supernovae_tpu/ops/fused_block.py:102"),
+    "fused_ffn_bwd_mma": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_bwd_mma.cu",
+                          "multimodal_supernovae_tpu/ops/fused_block.py:102"),
     "fused_qkv_fwd": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_fwd.cu",
                       "multimodal_supernovae_tpu/ops/qkv_attention.py:115"),
     "fused_qkv_bwd": ("multimodal_supernovae_tpu_torch/csrc/fused_qkv_bwd.cu",
@@ -287,11 +303,13 @@ GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
 # one 1% off. Sound runs read at most 3.8e-3 on either route (dq, dk; out
 # 3.2e-3), the tensor-core dq x 0.99 1.07e-2 (PERF.md section 6).
 NORM_TOL = 6e-3
-# float32 fused-block forward against its plain version on the same inputs:
-# ||got - want|| / ||want||. A CPU model of the kernel's arithmetic at the LC
-# widths reads 2.2e-7 with 3xTF32 products and 3.2e-4 with one TF32 product
-# (tests/test_torch_fused_block_kernel.py); the plain version with TF32
-# matmuls must fail it.
+# float32 fused-block forward and backward against their plain versions on the
+# same inputs: ||got - want|| / ||want||. A CPU model of the kernels'
+# arithmetic reads 2.2e-7 (forward) and at most 4.0e-7 (backward, every row,
+# on the model's own ReLU mask) with 3xTF32 products; 3.2e-4 and 2.6e-4 to
+# 4.7e-4 with one TF32 product (tests/test_torch_fused_block_kernel.py, the
+# backward's printed under -rP); the plain versions with TF32 matmuls must
+# fail it.
 FP32_NORM_TOL = 1e-5
 # served vs plain-version embeddings, every serve phase; sound runs read 6.6e-3
 SERVE_TOL = 0.02
@@ -320,9 +338,12 @@ FFN_ROWS = BATCH * NBAND * LC_LEN  # the LC tower's (B * T) rows
 QKV_LC = (BATCH, NBAND * LC_LEN, SEQ_LC["emb"], SEQ_LC["heads"])
 QKV_SP = (BATCH, TRAIN_SP_LEN, SEQ_SP["emb"], SEQ_SP["heads"])
 COUNT_NAMES = ("(flash fwd CUDA cores, flash bwd CUDA cores, flash fwd tensor cores, "
-               "flash bwd tensor cores, ffn fwd CUDA cores, ffn bwd, qkv fwd CUDA cores, qkv "
-               "bwd CUDA cores, qkv fwd tensor cores, qkv bwd tensor cores, ffn fwd tensor "
-               "cores)")
+               "flash bwd tensor cores, ffn fwd CUDA cores, ffn bwd CUDA cores, qkv fwd CUDA "
+               "cores, qkv bwd CUDA cores, qkv fwd tensor cores, qkv bwd tensor cores, ffn fwd "
+               "tensor cores, ffn bwd tensor cores)")
+# what the fused backward returns, in order
+BWD_NAMES = ("datt", "dx", "dwu", "dbu", "dg1", "db1", "dwf1", "dbf1", "dwf2", "dbf2", "dg2",
+             "db2")
 # MUFU exponentials a clock on one SM (16), for the exponential floor beside
 # the flash kernels' bound
 EXP_PER_CLOCK_SM = 16
@@ -467,19 +488,25 @@ def _routes(dtype, s, tensors):
     return ("mma", "simt") if flash_mod._route(dtype, s, tensors) == "mma" else ("simt",)
 
 
-def _device_ms(fn, iters=25):
-    """ms of device time a call of ``fn``: the sum of its device ops'
-    durations under torch.profiler over ``iters`` calls, after a warm-up.
-    Unlike CUDA events around a call, it leaves out the host's pace."""
+def _device_ops(fn, iters=25):
+    """(kernel name, ms) of each device op of ``iters`` calls of ``fn``
+    under torch.profiler, in the order they started, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    return us / 1e3 / iters
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in
+            sorted(prof.events(), key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def _device_ms(fn, iters=25):
+    """ms of device time a call of ``fn``: the sum of its device ops'
+    durations under torch.profiler over ``iters`` calls, after a warm-up.
+    Unlike CUDA events around a call, it leaves out the host's pace."""
+    return sum(ms for _, ms in _device_ops(fn, iters)) / iters
 
 
 def _flash_cases(mask_lc, mask_sp, t_sp):
@@ -727,7 +754,7 @@ def _ffn_inputs(gen, n, e, f, dtype):
 
 @contextlib.contextmanager
 def _ffn_simt_route():
-    """Every fused-block forward of the block on the CUDA-core kernel:
+    """Every fused-block forward and backward on the CUDA-core kernels:
     ``fused_block._route`` patched (a test-time patch, no user knob)."""
     with mock.patch.object(ffn_mod, "_route", lambda *a: "simt"):
         yield
@@ -736,22 +763,81 @@ def _ffn_simt_route():
 FFN_ROUTES = {"mma": contextlib.nullcontext, "simt": _ffn_simt_route}
 
 
-def _ffn_counts():
-    """(CUDA-core, tensor-core) fused forward launches since _zero_counts."""
-    c = ffn_mod.fused_ffn_block
+@contextlib.contextmanager
+def _ffn_kernel_mask():
+    """Spy on fused_block._bwd_mma: the dict yielded gets the h scratch of
+    each tensor-core backward (its h > 0 is the kernel's ReLU mask, which
+    the plain version takes as ``relu_mask``); a CUDA-core backward leaves
+    it empty."""
+    seen, real = {}, ffn_mod._bwd_mma
+
+    def spy(*args):
+        out = real(*args)
+        seen["h"] = out[3]
+        return out
+
+    with mock.patch.object(ffn_mod, "_bwd_mma", spy):
+        yield seen
+
+
+def _ffn_counts(c=None):
+    """(CUDA-core, tensor-core) fused forward (or, given
+    fused_ffn_block_bwd, backward) launches since _zero_counts."""
+    c = c or ffn_mod.fused_ffn_block
     return c.launches - c.mma_launches, c.mma_launches
 
 
+def _bwd_stages(ops, iters=25):
+    """The tensor-core fused backward's device ms a call by stage, from
+    _device_ops: the row kernel, the weight-gradient kernel (three
+    launches; "wgrad_each" in launch order: dWf2, dWf1, dWu), the five
+    reduces and the rest."""
+    stages = {"rows": 0.0, "wgrad": 0.0, "reduce": 0.0, "other": 0.0}
+    wgrad = []
+    for name, ms in ops:
+        key = next((k for k in ("rows", "wgrad", "reduce") if k in name), "other")
+        stages[key] += ms / iters
+        if key == "wgrad":
+            wgrad.append(ms)
+    stages["wgrad_each"] = [sum(wgrad[i::3]) / iters for i in range(3)]
+    return stages
+
+
+def _ffn_bwd_check(name, dtype_name, route, grads, want):
+    """Each backward output against the plain version: within GRAD_TOL of
+    its largest and, in float32 but db2, within FP32_NORM_TOL in the
+    normalised error. Returns (max|err|, max|err|/max|plain| per output,
+    the largest normalised error or None)."""
+    rel, norms, worst = [], [], 0.0
+    for out, a, w in zip(BWD_NAMES, grads, want):
+        if a.dtype != w.dtype or a.shape != w.shape:
+            raise AssertionError(f"ffn-bwd {name} {dtype_name} {route} {out}: "
+                                 f"{a.dtype} {tuple(a.shape)}")
+        d = float((a.float() - w.float()).abs().max())
+        worst = max(worst, d)
+        rel.append(d / float(w.float().abs().max()))
+        if dtype_name == "float32" and out != "db2":
+            norms.append(_norm_err(a, w))
+    if max(rel) > GRAD_TOL[dtype_name]:
+        raise AssertionError(f"ffn-bwd {name} {dtype_name} {route}: max|err|/max|plain| "
+                             f"{dict(zip(BWD_NAMES, rel))} (tol {GRAD_TOL[dtype_name]})")
+    if norms and not max(norms) <= FP32_NORM_TOL:
+        raise AssertionError(f"ffn-bwd {name} float32 {route}: ||got - want|| / ||want|| "
+                             f"{dict(zip(BWD_NAMES, norms))} (tol {FP32_NORM_TOL})")
+    return worst, rel, max(norms) if norms else None
+
+
 def phase_kernel_ffn():
-    """The fused-block forward of both routes and the backward against their
-    plain versions; the TF32 control; times at LC."""
+    """The fused-block forward and backward of both routes against their
+    plain versions; the TF32 controls; times at LC."""
     fwd, bwd = ffn_mod._ffn_fwd, ffn_mod.fused_ffn_block_bwd
     plain, plain_bwd = ffn_mod.fused_ffn_block_plain, ffn_mod.fused_ffn_block_bwd_plain
     eps = ffn_mod.LN_EPS
     cases = [("lc", FFN_ROWS, FFN_E, FFN_F), ("ragged", FFN_ROWS - 37, FFN_E, FFN_F),
              ("e128", FFN_ROWS // 4 - 5, 128, 512)]
     gen = torch.Generator().manual_seed(4)
-    fwd_err, norm_err, bwd_err = {"mma": 0.0, "simt": 0.0}, {"mma": 0.0, "simt": 0.0}, 0.0
+    fwd_err, norm_err = {"mma": 0.0, "simt": 0.0}, {"mma": 0.0, "simt": 0.0}
+    bwd_err, bwd_norm = {"mma": 0.0, "simt": 0.0}, {"mma": 0.0, "simt": 0.0}
     timing = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -789,37 +875,70 @@ def phase_kernel_ffn():
                         raise AssertionError(f"ffn {name} float32 {route}: ||got - want|| / "
                                              f"||want|| {ne:.3e} (tol {FP32_NORM_TOL})")
                 del got
-            grads = bwd(att, x, *params, g)
-            torch.cuda.synchronize()
-            rel = []
-            for i, (a, w) in enumerate(zip(grads, plain_bwd(att, x, *params, g))):
-                if a.dtype != w.dtype or a.shape != w.shape:
-                    raise AssertionError(f"ffn-bwd {name} {dtype_name} output {i}: "
-                                         f"{a.dtype} {tuple(a.shape)}")
-                d = float((a.float() - w.float()).abs().max())
-                rel.append(d / float(w.float().abs().max()))
-                bwd_err = max(bwd_err, d)
             log(f"kernel-ffn {name} {dtype_name} (N, E, F) = {(n, e, f)}: forward "
                 f"{'; '.join(said)} (tol {TOL[dtype_name]}"
-                + (f", FP32_NORM_TOL {FP32_NORM_TOL}" if dtype == torch.float32 else "")
-                + f"); backward max|err|/max|plain| "
-                f"per output {max(rel):.3e} worst, datt {rel[0]:.3e} dx {rel[1]:.3e} "
-                f"dWu {rel[2]:.3e} dWf1 {rel[6]:.3e} dWf2 {rel[8]:.3e} "
-                f"(tol {GRAD_TOL[dtype_name]})")
-            if max(rel) > GRAD_TOL[dtype_name]:
-                raise AssertionError(f"ffn-bwd {name} {dtype_name}: {rel}")
+                + (f", FP32_NORM_TOL {FP32_NORM_TOL}" if dtype == torch.float32 else "") + ")")
+            want_bwd = plain_bwd(att, x, *params, g)
+            for route in routes:  # one route for the forward and the backward
+                with FFN_ROUTES[route](), _ffn_kernel_mask() as spied:
+                    _zero_counts()
+                    grads = bwd(att, x, *params, g)
+                    torch.cuda.synchronize()
+                    counts = _ffn_counts(ffn_mod.fused_ffn_block_bwd)
+                if counts != ((0, 1) if route == "mma" else (1, 0)):
+                    raise AssertionError(f"ffn-bwd {name} {dtype_name} {route}: launches (CUDA "
+                                         f"cores, tensor cores) {counts}")
+                want_r, said = want_bwd, ""
+                if route == "mma":  # every row, on the kernel's own ReLU mask
+                    pre_h, h = ffn_mod._forward_rows(att, x, *params, eps)[1][3:5]
+                    torch.testing.assert_close(
+                        spied["h"], h, rtol=TOL["float32"], atol=TOL["float32"],
+                        msg=lambda m: f"ffn-bwd {name} float32 mma: recomputed h: {m}")
+                    mask = spied["h"] > 0
+                    flips = mask != (pre_h > 0)
+                    nflip = int(flips.sum())
+                    near = float(pre_h[flips].abs().max()) if nflip else 0.0
+                    said = (f"; h max|err| {float((spied['h'] - h).abs().max()):.3e}, ReLU mask "
+                            f"differs from the plain one at {nflip} of {flips.numel()} "
+                            f"entries (|plain pre-activation| there at most {near:.3e})")
+                    del pre_h, h, flips
+                    want_r = plain_bwd(att, x, *params, g, relu_mask=mask)
+                    del mask
+                spied.clear()
+                worst, rel, ne = _ffn_bwd_check(name, dtype_name, route, grads, want_r)
+                bwd_err[route] = max(bwd_err[route], worst)
+                if ne is not None:
+                    bwd_norm[route] = max(bwd_norm[route], ne)
+                log(f"kernel-ffn {name} {dtype_name} backward {route}: max|err|/max|plain| "
+                    f"worst {max(rel):.3e}, datt {rel[0]:.3e} dx {rel[1]:.3e} dWu {rel[2]:.3e} "
+                    f"dWf1 {rel[6]:.3e} dWf2 {rel[8]:.3e} (tol {GRAD_TOL[dtype_name]})"
+                    + ("" if ne is None else
+                       f"; ||err||/||plain|| worst but db2 {ne:.3e} (tol {FP32_NORM_TOL})")
+                    + said)
+                del grads, want_r
             if dtype == torch.float32 and name == "lc":
-                # the control: TF32 matmuls in the plain version must fail the check
+                # the controls: TF32 matmuls in the plain versions must fail the checks
+                # (the backward's against the float32 plain version on the same,
+                # TF32, ReLU mask, as the kernel is checked)
                 saved = torch.backends.cuda.matmul.allow_tf32
                 try:
                     torch.backends.cuda.matmul.allow_tf32 = True
                     control = _norm_err(plain(att, x, *params), want)
+                    mask = ffn_mod._forward_rows(att, x, *params, eps)[1][4] > 0
+                    tf32_bwd = plain_bwd(att, x, *params, g, relu_mask=mask)
                 finally:
                     torch.backends.cuda.matmul.allow_tf32 = saved
-                log(f"kernel-ffn control: the plain version with TF32 matmuls, "
-                    f"||err||/||plain|| {control:.3e} (must exceed {FP32_NORM_TOL})")
-                if not control > FP32_NORM_TOL:
-                    raise AssertionError(f"the float32 check cannot see TF32 rounding: {control}")
+                control_bwd = [_norm_err(a, w) for a, w in
+                               zip(tf32_bwd, plain_bwd(att, x, *params, g, relu_mask=mask))]
+                del mask, tf32_bwd
+                seen = {k: control_bwd[BWD_NAMES.index(k)] for k in ("datt", "dx", "dwu", "dwf1")}
+                log(f"kernel-ffn control: the plain versions with TF32 matmuls, ||err||/||plain|| "
+                    f"forward {control:.3e}, backward "
+                    + " ".join(f"{k} {v:.3e}" for k, v in seen.items())
+                    + f" (each must exceed {FP32_NORM_TOL})")
+                if not (control > FP32_NORM_TOL and min(seen.values()) > FP32_NORM_TOL):
+                    raise AssertionError(f"the float32 check cannot see TF32 rounding: "
+                                         f"{control}, {seen}")
             if name == "lc":
                 tm = {}
                 for route in routes + routes[::-1]:  # mma, simt, simt, mma
@@ -832,15 +951,37 @@ def phase_kernel_ffn():
                 for route in routes:
                     tm[route] = float(np.median(tm[route]))
                 tm["plain"] = _time_ms(lambda: plain(att, x, *params))
-                tm["bwd"] = _time_ms(lambda: bwd(att, x, *params, g))
+                for route in routes + routes[::-1]:  # mma, simt, simt, mma
+                    with FFN_ROUTES[route]():
+                        tm.setdefault("bwd_" + route, []).append(
+                            _time_ms(lambda: bwd(att, x, *params, g)))
+                        if dtype == torch.float32 and f"bwd_{route}_device" not in tm:
+                            ops = _device_ops(lambda: bwd(att, x, *params, g))
+                            tm[f"bwd_{route}_device"] = sum(ms for _, ms in ops) / 25
+                            if route == "mma":
+                                tm["bwd_mma_stages"] = _bwd_stages(ops)
+                for route in routes:
+                    tm["bwd_" + route] = float(np.median(tm["bwd_" + route]))
                 tm["bwd_plain"] = _time_ms(lambda: plain_bwd(att, x, *params, g))
                 timing[dtype_name] = tm
                 log(f"time-ffn lc {dtype_name} (N, E, F) = {(n, e, f)}: forward "
                     + ", ".join(f"{r} {tm[r]:.4f} ms" + (
                         f" (device {tm[r + '_device']:.4f} ms)" if r + "_device" in tm else "")
                         for r in routes)
-                    + f", plain {tm['plain']:.4f} ms; backward kernel {tm['bwd']:.4f} ms, "
-                    f"plain {tm['bwd_plain']:.4f} ms")
+                    + f", plain {tm['plain']:.4f} ms; backward "
+                    + ", ".join(f"{r} {tm['bwd_' + r]:.4f} ms" + (
+                        f" (device {tm[f'bwd_{r}_device']:.4f} ms)"
+                        if f"bwd_{r}_device" in tm else "") for r in routes)
+                    + f", plain {tm['bwd_plain']:.4f} ms")
+                if "bwd_mma_stages" in tm:
+                    st = tm["bwd_mma_stages"]
+                    log("time-ffn lc float32 tensor-core backward, device ms by stage: "
+                        + ", ".join(f"{k} {st[k]:.4f} ({100 * st[k] / tm['bwd_mma_device']:.1f}%)"
+                                    for k in ("rows", "wgrad", "reduce", "other"))
+                        + " (rows: the row kernel; wgrad: the weight-gradient kernel, three "
+                        "launches, dWf2 / dWf1 / dWu "
+                        + " / ".join(f"{v:.4f}" for v in st["wgrad_each"])
+                        + "; reduce: the five block-order reduces)")
                 if dtype == torch.float32:  # what the block count costs: whole waves
                     wave = (2 * torch.cuda.get_device_properties(0).multi_processor_count
                             * ffn_mod.MMA_ROWS)  # rows of one wave at 2 blocks an SM
@@ -849,9 +990,9 @@ def phase_kernel_ffn():
                     log(f"time-ffn waves, tensor cores float32: device {waves[0]:.4f} / "
                         f"{waves[1]:.4f} / {waves[2]:.4f} ms at 1 / 2 / 3 full waves of "
                         f"{wave} rows (two 64-row blocks an SM); LC is {n / wave:.3f} waves")
-            del att, x, params, g, grads, want
+            del att, x, params, g, want, want_bwd
     torch.cuda.empty_cache()
-    return fwd_err, norm_err, bwd_err, timing
+    return fwd_err, norm_err, bwd_err, bwd_norm, timing
 
 
 def _qkv_inputs(gen, b, t, e, dtype, mask):
@@ -1165,7 +1306,7 @@ def phase_serve(fused=False, qkv=False):
             # tensor cores (3xTF32)
             n_qkv, n_f32 = SEQ_LC["depth"] * qkv, FUSED_PER_CALL * fused
             want = (n_f32 * calls, 0, (LAYERS_PER_CALL - n_qkv - n_f32) * calls, 0,
-                    0, 0, 0, 0, n_qkv * calls, 0, FUSED_PER_CALL * calls * fused)
+                    0, 0, 0, 0, n_qkv * calls, 0, FUSED_PER_CALL * calls * fused, 0)
             if launches != want or plain_calls:
                 raise AssertionError(
                     f"{tag}: expected launches {want} for {calls} device calls and no "
@@ -1267,26 +1408,26 @@ def _plain_calls():
 
 def _zero_counts():
     for fn in (flash_mod.flash_attention, flash_mod.flash_attention_bwd,
-               qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd):
+               qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd,
+               ffn_mod.fused_ffn_block, ffn_mod.fused_ffn_block_bwd):
         fn.launches = fn.mma_launches = 0
-    ffn_mod.fused_ffn_block.launches = ffn_mod.fused_ffn_block.mma_launches = 0
-    ffn_mod.fused_ffn_block_bwd.launches = 0
 
 
 def _counts():
-    """Launches since _zero_counts, in the order of COUNT_NAMES: the flash
-    forward and backward on the CUDA cores, then on the tensor cores, the
-    fused-block forward on the CUDA cores and the backward, the fused-QKV
-    forward and backward on the CUDA cores and on the tensor cores, then the
-    fused-block forward on the tensor cores (forwards at even places)."""
+    """Launches since _zero_counts, 12 numbers in the order of COUNT_NAMES:
+    the flash forward and backward on the CUDA cores, then on the tensor
+    cores, the fused-block forward and backward on the CUDA cores, the
+    fused-QKV forward and backward on the CUDA cores and on the tensor
+    cores, then the fused-block forward and backward on the tensor cores
+    (forwards at even places)."""
     fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
     qfwd, qbwd = qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd
     ffn_simt, ffn_mma = _ffn_counts()
+    ffn_bwd_simt, ffn_bwd_mma = _ffn_counts(ffn_mod.fused_ffn_block_bwd)
     return (fwd.launches - fwd.mma_launches, bwd.launches - bwd.mma_launches,
-            fwd.mma_launches, bwd.mma_launches,
-            ffn_simt, ffn_mod.fused_ffn_block_bwd.launches,
+            fwd.mma_launches, bwd.mma_launches, ffn_simt, ffn_bwd_simt,
             qfwd.launches - qfwd.mma_launches, qbwd.launches - qbwd.mma_launches,
-            qfwd.mma_launches, qbwd.mma_launches, ffn_mma)
+            qfwd.mma_launches, qbwd.mma_launches, ffn_mma, ffn_bwd_mma)
 
 
 @contextlib.contextmanager
@@ -1350,7 +1491,8 @@ def _wrong_dwf1():
         grads[6] = grads[6] * 0.99  # (datt, dx, dwu, dbu, dg1, db1, dwf1, ...)
         return tuple(grads)
 
-    wrong.launches = 0  # the wrapper counts on the module attribute it replaces
+    # the wrapper counts on the module attribute it replaces, on either route
+    wrong.launches = wrong.mma_launches = 0
     return mock.patch.object(ffn_mod, "fused_ffn_block_bwd", wrong)
 
 
@@ -1394,30 +1536,30 @@ def _step_counts(path):
     """Launches per train step on ``path``, in the order of _counts. bf16
     flash calls take the tensor cores unless the path patches the route;
     the fused blocks of the LC tower compute in float32: their attention on
-    the CUDA cores, their forward on the tensor cores (3xTF32) unless the
-    path patches the fused route. Under the fused-QKV opt-in both towers (T
-    = 200 and 220) take its kernels and the flash kernels none."""
+    the CUDA cores, their forward and backward on the tensor cores (3xTF32)
+    unless the path patches the fused route. Under the fused-QKV opt-in both
+    towers (T = 200 and 220) take its kernels and the flash kernels none."""
     n = LAYERS_PER_CALL
     if path == "plain":
-        return (0,) * 11
+        return (0,) * 12
     if path == "qkv":  # bf16 at head dims 8 and 16: the tensor-core QKV kernels
-        return (0,) * 8 + (n, n, 0)
+        return (0,) * 8 + (n, n, 0, 0)
     if path == "kernel-simt":
-        return (n, n) + (0,) * 9
+        return (n, n) + (0,) * 10
     if path == "qkv-simt":
-        return (0,) * 6 + (n, n, 0, 0, 0)
+        return (0,) * 6 + (n, n, 0, 0, 0, 0)
     f = FUSED_PER_CALL if PATHS[path][0] else 0
-    simt = path == "fused-simt"
-    return (f, f, n - f, n - f, f * simt, f, 0, 0, 0, 0, f * (not simt))
+    simt, mma = f * (path == "fused-simt"), f * (path != "fused-simt")
+    return (f, f, n - f, n - f, simt, simt, 0, 0, 0, 0, mma, mma)
 
 
 def _f32_step_counts(path):
     """Launches per float32 train step on ``path`` (the trajectory and
-    gradient checks): every kernel on the CUDA cores, the fused forward on
-    the tensor cores (3xTF32 takes float32)."""
+    gradient checks): every kernel on the CUDA cores, the fused forward and
+    backward on the tensor cores (3xTF32 takes float32)."""
     c = _step_counts(path)
     return (c[0] + c[2], c[1] + c[3], 0, 0, c[4], c[5], c[6] + c[8], c[7] + c[9], 0, 0,
-            c[10])
+            c[10], c[11])
 
 
 def _time_train_steps(path, batch):
@@ -1462,13 +1604,13 @@ def _trajectory(path, data, plan):
 
 
 def _check_f32_counts(path, steps):
-    """The float32 steps' launches: every kernel but the fused forward on
-    the CUDA cores, none on a plain path (the negative controls replace a wrapper and are not
-    counted)."""
+    """The float32 steps' launches: every kernel but the fused forward and
+    backward on the CUDA cores, none on a plain path (the negative controls
+    replace a wrapper and are not counted)."""
     counts = _counts()
     if path in (WRONG_DQ, WRONG_DWF1, WRONG_DWQ):
         return counts
-    want = (0,) * 11 if "plain" in path else tuple(c * steps for c in _f32_step_counts(path))
+    want = (0,) * 12 if "plain" in path else tuple(c * steps for c in _f32_step_counts(path))
     if counts != want:
         raise AssertionError(f"{path} float32: launches {counts}, want {want}")
     return counts
@@ -1560,7 +1702,7 @@ def phase_train(variant="kernel"):
         order += ("kernel-simt", "kernel", "kernel", "kernel-simt") * 2
     times = {main_path: [], **{p: [] for p in others}}
     round_ms = {p: [] for p in times}
-    timed_counts = (0,) * 11
+    timed_counts = (0,) * 12
     for path in order:
         ts, counts, peak = _time_train_steps(path, batch)
         timed_counts = tuple(a + b for a, b in zip(timed_counts, counts))
@@ -1701,10 +1843,9 @@ def _kind(name):
     n = name.lower()
     for word, kind in (("fused_qkv_fwd", "fused QKV forward"),
                        ("fused_qkv_bwd", "fused QKV backward"),
-                       ("reduce_qkv_partials", "fused QKV backward"),
                        ("fused_ffn_fwd", "fused FFN forward"),
                        ("fused_ffn_bwd", "fused FFN backward"),
-                       ("reduce_partials", "fused FFN backward"),
+                       ("reduce_partials", "backward partials reduce"),
                        ("flash_attention_fwd", "flash forward"),
                        ("flash_attention_bwd_dq", "flash backward dq"),
                        ("flash_attention_bwd_dkdv", "flash backward dk/dv"),
@@ -1826,10 +1967,11 @@ def _kernel_bounds():
     ffn_fwd = _bound(2 * n * (e * e + 2 * e * f), 4 * (3 * n * e + p), "float32")
     ffn_fwd_mma = _bound(2 * n * (e * e + 2 * e * f), 4 * (3 * n * e + p), "tf32x3")
     ffn_bwd = _bound(2 * n * (3 * e * e + 6 * e * f), 4 * (5 * n * e + 2 * p), "float32")
+    ffn_bwd_mma = _bound(2 * n * (3 * e * e + 6 * e * f), 4 * (5 * n * e + 2 * p), "tf32x3")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
             "flash_attention_fwd_mma": fwd, "flash_attention_bwd_mma": bwd,
             "fused_ffn_fwd": ffn_fwd, "fused_ffn_fwd_mma": ffn_fwd_mma,
-            "fused_ffn_bwd": ffn_bwd,
+            "fused_ffn_bwd": ffn_bwd, "fused_ffn_bwd_mma": ffn_bwd_mma,
             "fused_qkv_fwd": qkv_fwd, "fused_qkv_bwd": qkv_bwd,
             "fused_qkv_fwd_mma": qkv_fwd, "fused_qkv_bwd_mma": qkv_bwd}
 
@@ -1839,7 +1981,7 @@ def main():
     phase_build()
     fwd_err, timing = phase_kernel()
     bwd_err, bwd_timing = phase_kernel_bwd()
-    ffn_err, ffn_norm_err, ffn_bwd_err, ffn_timing = phase_kernel_ffn()
+    ffn_err, ffn_norm_err, ffn_bwd_err, ffn_bwd_norm, ffn_timing = phase_kernel_ffn()
     qkv_err, qkv_bwd_err, qkv_timing = phase_kernel_qkv()
     serve = phase_serve()
     serve_fused = phase_serve(fused=True)
@@ -1891,10 +2033,15 @@ def main():
         "flash_attention_bwd": (1, bwd_err["simt"], flash("simt", 1)),
         "flash_attention_fwd_mma": (2, fwd_err["mma"], flash("mma", 0)),
         "flash_attention_bwd_mma": (3, bwd_err["mma"], flash("mma", 1)),
-        "fused_ffn_bwd": (5, ffn_bwd_err, {
-            "ms": lc32["bwd"], "plain_ms": lc32["bwd_plain"], "library_ms": None,
-            "shape": f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"}),
     }
+    for i, route in ((5, "simt"), (11, "mma")):  # the fused backward's two routes
+        measured["fused_ffn_bwd" + ("_mma" if route == "mma" else "")] = (
+            i, ffn_bwd_err[route], {
+                "ms": lc32["bwd_" + route], "device_ms": lc32[f"bwd_{route}_device"],
+                "plain_ms": lc32["bwd_plain"], "library_ms": None,
+                "norm_err": ffn_bwd_norm[route],
+                "shape": f"(N, E, F) = {(FFN_ROWS, FFN_E, FFN_F)} float32"})
+    measured["fused_ffn_bwd_mma"][2]["stage_device_ms"] = lc32["bwd_mma_stages"]
     for i, route in ((4, "simt"), (10, "mma")):  # the fused forward's two routes
         measured["fused_ffn_fwd" + ("_mma" if route == "mma" else "")] = (i, ffn_err[route], {
             "ms": lc32[route], "device_ms": lc32[route + "_device"], "plain_ms": lc32["plain"],

@@ -18,8 +18,8 @@
 // schedule: a fixed grid of `blocks` blocks (one per SM) walks the row tiles
 // b, b + blocks, ..., each block adding its tiles' contributions into a
 // float32 partial of its own in device memory (P = E^2 + 2EF + 6E + F floats,
-// 19.8 MB at 132 blocks, E = 64, F = 256); reduce_partials then sums the
-// partials in block order.
+// 19.8 MB at 132 blocks, E = 64, F = 256); reduce_partials
+// (csrc/reduce_partials.cuh) then sums the partials in block order.
 //
 // Per tile of 32 rows, everything stays in shared memory: att, xhat1 (later
 // da), y1, h (later dh, dhc), xhat2 (later df), dr2 (later dy1, dr1) and each
@@ -45,6 +45,7 @@
 // synchronise and allocates nothing.
 
 #include "fused_ffn_common.cuh"
+#include "reduce_partials.cuh"
 
 namespace {
 
@@ -313,16 +314,6 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
   }
 }
 
-// grads[p] = sum over blocks b, in order, of partial[b][p].
-__global__ void reduce_partials(const float* __restrict__ partial, int blocks, int P,
-                                float* __restrict__ grads) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[(int64_t)b * P + p];
-  grads[p] = s;
-}
-
 template <typename T>
 cudaError_t launch(const void* att, const void* x, const float* const* p, const void* g,
                    void* datt, void* dx, float* partial, float* grads, int N, int E, int F,
@@ -338,9 +329,7 @@ cudaError_t launch(const void* att, const void* x, const float* const* p, const 
       static_cast<T*>(dx), partial, N, E, F, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int P = E * E + 2 * E * F + 6 * E + F;
-  reduce_partials<<<(P + 255) / 256, 256, 0, stream>>>(partial, blocks, P, grads);
-  return cudaGetLastError();
+  return partials::reduce(partial, blocks, E * E + 2 * E * F + 6 * E + F, grads, stream);
 }
 
 }  // namespace

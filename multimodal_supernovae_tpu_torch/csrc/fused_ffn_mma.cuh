@@ -26,6 +26,13 @@
 // 32 floats plus 4. A fragment loads (g, t) then fall on bank 4g + t: the 32
 // lanes of a warp hit 32 distinct banks. ldmatrix is built for 16-bit
 // elements, so these are plain 32-bit shared loads.
+//
+// The backward also reads operands stored the other way round, k rows of m
+// (or n) values: a weight W (out, in) taken as B = W itself, and the data
+// tiles of a weight gradient D^T X, where D (rows x m) is A^T and X (rows x
+// n) is B. Those loads take (k0 + t + 4i, m0 + g) and fall on bank 8t + g
+// under a row stride of a multiple of 32 floats plus 8 (PAD_KN): again 32
+// distinct banks.
 
 #pragma once
 
@@ -35,7 +42,8 @@
 
 namespace tf32x3 {
 
-constexpr int PAD = 4;  // floats of padding a shared row: ld = 32m + PAD
+constexpr int PAD = 4;     // floats of padding a shared row: ld = 32m + PAD
+constexpr int PAD_KN = 8;  // the same for tiles stored k rows of m (or n)
 
 // x rounded to TF32, to nearest with ties away from zero (cvt.rna), as bits
 // with the 13 low mantissa bits cleared.
@@ -113,6 +121,52 @@ __device__ __forceinline__ void warp_product(float (&acc)[NT][4], const float* A
     for (int j = 0; j < NT; ++j) {
       FragB b;
       load_b(b, hi, lo, ldw, 8 * j, k0, lane);
+      mma_3xtf32(acc[j], a, b);
+    }
+  }
+}
+
+// The B fragment of columns n0 .. n0 + 7, depth k0 .. k0 + 7, of B = W where
+// hi and lo hold W split, k rows of n (ld a row): b_i = W[k0 + t + 4i][n0 + g].
+__device__ __forceinline__ void load_b_kn(FragB& b, const uint32_t* hi, const uint32_t* lo,
+                                          int ld, int n0, int k0, int lane) {
+  const int i = (k0 + (lane & 3)) * ld + n0 + (lane >> 2);
+  b.hi[0] = hi[i];
+  b.hi[1] = hi[i + 4 * ld];
+  b.lo[0] = lo[i];
+  b.lo[1] = lo[i + 4 * ld];
+}
+
+// The A fragment of rows m0 .. m0 + 15, depth k0 .. k0 + 7, of A = D^T where
+// hi and lo hold D split, k rows of m (ld a row): a (r, c) = D[k0 + c][m0 + r].
+__device__ __forceinline__ void load_a_kn(FragA& a, const uint32_t* hi, const uint32_t* lo,
+                                          int ld, int m0, int k0, int lane) {
+  const int i = (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
+  a.hi[0] = hi[i];
+  a.hi[1] = hi[i + 8];
+  a.hi[2] = hi[i + 4 * ld];
+  a.hi[3] = hi[i + 4 * ld + 8];
+  a.lo[0] = lo[i];
+  a.lo[1] = lo[i + 8];
+  a.lo[2] = lo[i + 4 * ld];
+  a.lo[3] = lo[i + 4 * ld + 8];
+}
+
+// acc (16 x 8 NT, C fragments) += A (16 x K, float32 in shared, lda) . W,
+// W (K x 8 NT) pre-split in shared, k rows of n (hi, lo, ldw): one warp,
+// 3xTF32 (warp_product with B read by load_b_kn).
+template <int NT, int K>
+__device__ __forceinline__ void warp_product_kn(float (&acc)[NT][4], const float* A, int lda,
+                                                const uint32_t* hi, const uint32_t* lo,
+                                                int ldw, int lane) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA a;
+    load_a_split(a, A, lda, k0, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      FragB b;
+      load_b_kn(b, hi, lo, ldw, 8 * j, k0, lane);
       mma_3xtf32(acc[j], a, b);
     }
   }

@@ -22,8 +22,8 @@
 // takes two passes with no atomics and does not depend on the schedule: a
 // fixed grid of `blocks` blocks walks the samples b, b + blocks, ..., each
 // block adding its samples' contributions into a float32 partial of its own in
-// device memory (P = 4 E^2 + E floats), and reduce_qkv_partials sums the partials
-// in block order.
+// device memory (P = 4 E^2 + E floats), and reduce_partials
+// (csrc/reduce_partials.cuh) sums the partials in block order.
 //
 // Sums across positions inside a sample: dq sums over keys, dk and dv over
 // queries. One block holds a whole head of the sample, so thread t first plays
@@ -48,6 +48,7 @@
 // synchronise and allocates nothing.
 
 #include "fused_qkv_common.cuh"
+#include "reduce_partials.cuh"
 
 namespace {
 
@@ -244,9 +245,7 @@ cudaError_t launch(const void* x, const void* mask, const float* wqkv, const flo
       static_cast<const T*>(g), static_cast<T*>(dx), partial, B, Tn, E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int P = 4 * E * E + E;
-  reduce_qkv_partials<<<(P + 255) / 256, 256, 0, stream>>>(partial, blocks, P, grads);
-  return cudaGetLastError();
+  return partials::reduce(partial, blocks, 4 * E * E + E, grads, stream);
 }
 
 template <typename T>

@@ -1,7 +1,7 @@
 // The whole SelfAttention backward on Hopper's tensor cores (sm_90a,
 // mma.sync), bf16 at (E, head dim) = (32, 8), (32, 16) and (64, 8): a kernel
 // that recomputes the forward and takes every gradient of a sample, and the
-// reduce kernel of csrc/fused_qkv_common.cuh.
+// reduce kernel of csrc/reduce_partials.cuh.
 //
 // Replaces the Pallas TPU kernel multimodal_supernovae_tpu/ops/
 // qkv_attention.py (_bwd_kernel, reached through the custom_vjp's _qkv_bwd)
@@ -44,7 +44,7 @@
 //      accumulates its output tiles in registers over all of the block's
 //      samples.
 // At the end each block writes its float32 partial of (dWqkv, dWu, dbu) and
-// reduce_qkv_partials sums the partials in block order: deterministic, no
+// reduce_partials sums the partials in block order: deterministic, no
 // atomics, as in the CUDA-core kernel.
 //
 // What bounds it on this card: at the light-curve shape (256, 200, 64, 8) the
@@ -63,6 +63,7 @@
 // synchronise and allocates nothing (the partials are the caller's).
 
 #include "fused_qkv_mma.cuh"
+#include "reduce_partials.cuh"
 
 #include <cmath>
 
@@ -432,9 +433,7 @@ cudaError_t launch(const BwdArgs& a, float* grads, int blocks, cudaStream_t stre
   fused_qkv_bwd_mma_kernel<E, S><<<blocks, THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int P = 4 * E * E + E;
-  qkv::reduce_qkv_partials<<<(P + 255) / 256, 256, 0, stream>>>(a.partial, blocks, P, grads);
-  return cudaGetLastError();
+  return partials::reduce(a.partial, blocks, 4 * E * E + E, grads, stream);
 }
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }

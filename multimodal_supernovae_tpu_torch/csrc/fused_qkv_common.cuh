@@ -1,7 +1,6 @@
 // Shared device code of csrc/fused_qkv_fwd.cu and csrc/fused_qkv_bwd.cu: dtype
 // rounding, the staging of a weight slice in shared memory, the product of a
-// thread's row with the staged slice, and head-dim dot products; and the
-// reduce kernel that csrc/fused_qkv_bwd_mma.cu shares.
+// thread's row with the staged slice, and head-dim dot products.
 //
 // One block works on one sample and thread t owns sequence position t in every
 // row-local step (T <= THREADS), so nothing but the staged weights and the
@@ -138,18 +137,6 @@ __device__ __forceinline__ void project_head(const float* XS, int ldx, int E, in
       for (int j = 0; j < S; ++j) dst[t * S + j] = round_to<T>(acc[j]);
     }
   }
-}
-
-// grads[p] = sum over blocks b, in order, of partial[b][p]: the second pass of
-// both backward kernels' parameter gradients (csrc/fused_qkv_bwd.cu,
-// csrc/fused_qkv_bwd_mma.cu), deterministic, no atomics.
-__global__ void reduce_qkv_partials(const float* __restrict__ partial, int blocks, int P,
-                                    float* __restrict__ grads) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[(int64_t)b * P + p];
-  grads[p] = s;
 }
 
 }  // namespace qkv

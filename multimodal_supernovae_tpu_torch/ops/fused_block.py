@@ -1,7 +1,8 @@
 """The fused row-local tail of a post-norm transformer block, forward and
 backward: wrappers over the hand-written CUDA kernels ``csrc/fused_ffn_fwd.cu``
-(CUDA cores), ``csrc/fused_ffn_fwd_mma.cu`` (tensor cores, 3xTF32, float32
-only) and ``csrc/fused_ffn_bwd.cu``, paired in one ``torch.autograd.Function``.
+and ``csrc/fused_ffn_bwd.cu`` (CUDA cores), ``csrc/fused_ffn_fwd_mma.cu`` and
+``csrc/fused_ffn_bwd_mma.cu`` (tensor cores, 3xTF32, float32 only), paired in
+one ``torch.autograd.Function``.
 
 Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
 fused_block.py:_ffn_fwd_kernel`` and ``_ffn_bwd_kernel`` (the ``custom_vjp``
@@ -26,13 +27,14 @@ with no copy; biases and LayerNorm scales are 1-D. (flax kernels are
 
 Dispatch: CPU tensors take the plain versions (``fused_ffn_block_plain`` and
 ``fused_ffn_block_bwd_plain``); CUDA tensors launch the kernels or raise. The
-forward has two routes, chosen by ``_route`` from dtype and widths alone:
-float32 at the widths the tensor-core kernel takes goes to it, everything
-else (bfloat16 included) to the CUDA-core kernel; a failed build or launch
-raises and never falls back to the other route. ``fused_ffn_block.launches``
-(both routes), ``fused_ffn_block.mma_launches`` (the tensor cores) and
-``fused_ffn_block_bwd.launches`` count kernel launches (bumped only after a
-launch the runtime accepted).
+forward and the backward each have two routes, one ``_route`` for both,
+chosen from dtype and widths alone: float32 at the widths the tensor-core
+kernels take goes to them, everything else (bfloat16 included) to the
+CUDA-core kernels; a failed build or launch raises and never falls back to
+the other route.
+``fused_ffn_block.launches`` and ``fused_ffn_block_bwd.launches`` (both
+routes) and their ``.mma_launches`` (the tensor cores) count kernel calls
+(bumped only after a launch the runtime accepted).
 
 The whole block (q/k/v projections, attention, then ``fused_ffn_block``) is
 composed in ``models/transformer.py:fused_transformer_block``; this module
@@ -46,7 +48,7 @@ own limits instead.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,10 +57,13 @@ ROWS = 32          # rows per block tile in both kernels
 CHUNK_K = 32       # contraction depth of one staged weight chunk
 CHUNK_LD = 257     # floats per staged chunk row (256 columns + 1 of padding)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+SM_SMEM = 233472     # bytes of shared memory an SM has (1,024 of them reserved a block)
 MMA_ROWS = 64      # rows per block tile of the tensor-core forward (4 warps x 16)
 MMA_CHUNK = 64     # hidden columns of one staged chunk in the tensor-core forward
 MMA_PAD = 4        # floats of padding a shared row in the tensor-core forward
-MMA_WIDTHS = (64, 96, 128)  # E the tensor-core forward is built for
+MMA_WIDTHS = (64, 96, 128)  # E the tensor-core kernels are built for
+BWD_MMA_CHUNK = 32  # hidden columns of one staged chunk in the tensor-core backward
+BWD_MMA_ROWS = 32   # rows of one step of its weight-gradient kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = {}
 _ARGTYPES = {
@@ -75,6 +80,12 @@ _ARGTYPES = {
                       + [ctypes.c_int] * 5          # N, E, F, dtype, blocks
                       + [ctypes.c_float]            # eps
                       + [ctypes.c_void_p]),         # stream
+    "fused_ffn_bwd_mma": ([ctypes.c_void_p] * 13   # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 g
+                          + [ctypes.c_void_p] * 3   # datt dx grads
+                          + [ctypes.c_void_p] * 6   # dr2 h dh y1 ln_partial w_partial
+                          + [ctypes.c_int] * 5      # N, E, F, blocks, splits
+                          + [ctypes.c_float]        # eps
+                          + [ctypes.c_void_p]),     # stream
 }
 
 
@@ -96,15 +107,32 @@ def _mma_smem_bytes(e: int) -> int:
     return 4 * (MMA_ROWS * xld + MMA_ROWS * hld + weights)
 
 
+def _bwd_mma_smem_bytes(e: int, f: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core backward's row
+    kernel, as its source states it: float32 rows of 4 warps x 16 (att, y1,
+    dr2 and dr1; one chunk of h and dh; xhat1), the largest of the weights
+    it stages split into TF32 hi and lo (Wu; a chunk of Wf1 and Wf2 either
+    way round), the LayerNorm sums of each warp, and 2 bytes of relu' bits a
+    chunk, warp and lane."""
+    rows, fc = MMA_ROWS, BWD_MMA_CHUNK
+    xld, hld = e + MMA_PAD, fc + MMA_PAD
+    weights = max(e * (e + 8), fc * xld + e * hld, e * (fc + 8) + fc * (e + 8))
+    floats = rows * (xld + hld + e) + 2 * weights + 16 * e
+    return 4 * floats + 8 * f
+
+
 def _route(dtype: torch.dtype, e: int, f: int) -> str:
-    """``"mma"`` (the 3xTF32 tensor-core forward) for float32 at E in
-    MMA_WIDTHS (each within one block's shared memory, ``_mma_smem_bytes``)
-    and F a multiple of MMA_CHUNK; ``"simt"`` (the CUDA-core forward)
-    otherwise, bfloat16 included. The tensor-core entry also wants every
-    pointer on 16 bytes, which fresh tensors are; it refuses a launch
-    without it, and the wrapper then raises."""
+    """``"mma"`` (the 3xTF32 tensor-core kernels, forward and backward) for
+    float32 at E in MMA_WIDTHS and F a multiple of MMA_CHUNK, where both
+    kernels fit one block's shared memory (``_mma_smem_bytes``,
+    ``_bwd_mma_smem_bytes``); ``"simt"`` (the CUDA-core kernels) otherwise,
+    bfloat16 included. So a block's forward and backward always take one
+    route. The tensor-core entries also want every pointer on 16 bytes,
+    which fresh tensors are; they refuse a launch without it, and the
+    wrapper then raises."""
+    fits = max(_mma_smem_bytes(e), _bwd_mma_smem_bytes(e, f)) <= SMEM_LIMIT
     return ("mma" if dtype == torch.float32 and e in MMA_WIDTHS and f % MMA_CHUNK == 0
-            else "simt")
+            and fits else "simt")
 
 
 def supports(e: int, heads: int, ff_hidden_mult: int = 4) -> bool:
@@ -132,6 +160,11 @@ def _mm(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """a @ w^T with operands in ``cdt``, float32 accumulation, one rounding
     to ``cdt``; ``w`` is (out, in)."""
     return (a.to(cdt).float() @ w.to(cdt).float().t()).to(cdt)
+
+
+def _mmf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two float32 matrices: the backward's six products."""
+    return a @ b
 
 
 def _layernorm_rows(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float):
@@ -175,11 +208,19 @@ def fused_ffn_block_plain(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
 
 
 def fused_ffn_block_bwd_plain(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
-                              g, eps: float = LN_EPS) -> Tuple[torch.Tensor, ...]:
+                              g, eps: float = LN_EPS,
+                              relu_mask: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
     """The plain PyTorch version of the backward kernel: the JAX kernel's
     recompute and backward, op for op. Returns (datt, dx, dwu, dbu, dg1,
     db1, dwf1, dbf1, dwf2, dbf2, dg2, db2), weight gradients in the (out,
-    in) layout, all parameter gradients float32."""
+    in) layout, all parameter gradients float32.
+
+    ``relu_mask`` ((N, F) bool) replaces the ReLU's mask, pre-activation > 0.
+    Where a pre-activation lies within rounding of 0, two float32
+    computations of it (a kernel's, this one's) may take the mask's two
+    sides, and one such entry moves a whole dh value; given a kernel's own
+    mask (its h > 0), this version is that kernel's function on every row."""
     cdt = x.dtype
     _, (xhat1, rstd1, y1, pre_h, h, xhat2, rstd2) = _forward_rows(
         att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps)
@@ -187,17 +228,18 @@ def fused_ffn_block_bwd_plain(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2
     dr2, dg2, db2 = _ln_bwd_rows(g.float(), xhat2, rstd2, g2)
     df = dr2.to(cdt).float()
     dbf2 = dr2.sum(0)
-    dwf2 = df.t() @ h.float()                          # (E, F)
-    dh = torch.where(pre_h.float() > 0, df @ wf2_c, 0.0)
+    dwf2 = _mmf(df.t(), h.float())                     # (E, F)
+    mask = pre_h.float() > 0 if relu_mask is None else relu_mask
+    dh = torch.where(mask, _mmf(df, wf2_c), 0.0)
     dhc = dh.to(cdt).float()
     dbf1 = dh.sum(0)
-    dwf1 = dhc.t() @ y1.float()                        # (F, E)
-    dy1 = dr2 + dhc @ wf1_c
+    dwf1 = _mmf(dhc.t(), y1.float())                   # (F, E)
+    dy1 = dr2 + _mmf(dhc, wf1_c)
     dr1, dg1, db1 = _ln_bwd_rows(dy1, xhat1, rstd1, g1)
     da = dr1.to(cdt).float()
     dbu = dr1.sum(0)
-    dwu = da.t() @ att.to(cdt).float()                 # (E, E)
-    datt = (da @ wu_c).to(att.dtype)
+    dwu = _mmf(da.t(), att.to(cdt).float())            # (E, E)
+    datt = _mmf(da, wu_c).to(att.dtype)
     return (datt, dr1.to(x.dtype), dwu, dbu, dg1, db1, dwf1, dbf1, dwf2, dbf2,
             dg2, db2)
 
@@ -277,12 +319,52 @@ def _bwd_blocks(n: int, device) -> int:
     return max(1, min(-(-n // ROWS), sms))
 
 
+def _bwd_mma_grid(n: int, e: int, f: int, device) -> Tuple[int, int]:
+    """(blocks, splits) of the tensor-core backward: the row kernel's fixed
+    grid, as many blocks as fit on the SMs at once (two an SM where two
+    blocks' shared memory fits), at most one per 64-row tile; and the row
+    splits of its weight-gradient kernel, one per SM, at most one per 32-row
+    step. Each block or split writes one float32 partial, which the reduce
+    kernel sums in order."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = 2 if 2 * (_bwd_mma_smem_bytes(e, f) + 1024) <= SM_SMEM else 1
+    blocks = max(1, min(-(-n // MMA_ROWS), sms * per_sm))
+    return blocks, max(1, min(-(-n // BWD_MMA_ROWS), sms))
+
+
+def _bwd_mma(att, x, params, g, n, e, f, eps):
+    """Launch the tensor-core backward: row kernel, weight-gradient kernel
+    three times and their reduces, with float32 scratch for the row
+    gradients (dr2, h, dh, y1) and the partials. Returns (datt, dx, grads,
+    h); h > 0 is the kernel's ReLU mask."""
+    blocks, splits = _bwd_mma_grid(n, e, f, x.device)
+    datt, dx = torch.empty_like(att), torch.empty_like(x)
+    grads = torch.empty(sum(p.numel() for p in params), dtype=torch.float32, device=x.device)
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    bufs = (scratch(n, e), scratch(n, f), scratch(n, f), scratch(n, e),
+            scratch(2, blocks, 2 * e), scratch(splits, e * f + f))
+    fn = _entry("fused_ffn_bwd_mma")
+    with torch.cuda.device(x.device):
+        rc = fn(att.data_ptr(), x.data_ptr(), *(p.data_ptr() for p in params), g.data_ptr(),
+                datt.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+                *(b.data_ptr() for b in bufs), n, e, f, blocks, splits, eps,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_ffn_bwd_mma launch failed with CUDA error {rc} (N, E, F = "
+                           f"{n}, {e}, {f}, {x.dtype}, every pointer must be on 16 bytes)")
+    return datt, dx, grads, bufs[1]
+
+
 def fused_ffn_block_bwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, g,
                         eps: float = LN_EPS) -> Tuple[torch.Tensor, ...]:
     """(datt, dx, dwu, dbu, dg1, db1, dwf1, dbf1, dwf2, dbf2, dg2, db2) for
     the cotangent ``g``: the plain version for CPU tensors; for CUDA tensors
-    the backward kernel (recompute, backward, per-block float32 partials of
-    the parameter gradients) and its reduce kernel, or raise."""
+    the backward kernels of ``_route``'s choice (recompute, backward,
+    float32 partials of the parameter gradients, and their reduce), or
+    raise."""
     params = (wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2)
     if x.device.type == "cpu":
         return fused_ffn_block_bwd_plain(att, x, *params, g, eps=eps)
@@ -292,26 +374,33 @@ def fused_ffn_block_bwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, g,
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must be {tuple(x.shape)} on {x.device}")
     g = g.to(x.dtype).contiguous()
-    nblk = _bwd_blocks(n, x.device)
-    sizes = [p.numel() for p in params]
-    datt, dx = torch.empty_like(att), torch.empty_like(x)
-    partial = torch.empty((nblk, sum(sizes)), dtype=torch.float32, device=x.device)
-    grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    fn = _entry("fused_ffn_bwd")
-    with torch.cuda.device(x.device):
-        rc = fn(att.data_ptr(), x.data_ptr(), *(p.data_ptr() for p in params),
-                g.data_ptr(), datt.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                grads.data_ptr(), n, e, f, _DTYPE_CODES[x.dtype], nblk, eps,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_ffn_bwd launch failed with CUDA error {rc} "
-                           f"(N, E, F = {n}, {e}, {f}, {x.dtype})")
+    mma = _route(x.dtype, e, f) == "mma"
+    if mma:
+        datt, dx, grads, _ = _bwd_mma(att, x, params, g, n, e, f, eps)
+    else:
+        nblk = _bwd_blocks(n, x.device)
+        datt, dx = torch.empty_like(att), torch.empty_like(x)
+        total = sum(p.numel() for p in params)
+        partial = torch.empty((nblk, total), dtype=torch.float32, device=x.device)
+        grads = torch.empty(total, dtype=torch.float32, device=x.device)
+        fn = _entry("fused_ffn_bwd")
+        with torch.cuda.device(x.device):
+            rc = fn(att.data_ptr(), x.data_ptr(), *(p.data_ptr() for p in params),
+                    g.data_ptr(), datt.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                    grads.data_ptr(), n, e, f, _DTYPE_CODES[x.dtype], nblk, eps,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_ffn_bwd launch failed with CUDA error {rc} "
+                               f"(N, E, F = {n}, {e}, {f}, {x.dtype})")
     fused_ffn_block_bwd.launches += 1
+    fused_ffn_block_bwd.mma_launches += mma
+    sizes = [p.numel() for p in params]
     pgrads = [gr.view_as(p) for gr, p in zip(grads.split(sizes), params)]
     return (datt, dx, *pgrads)
 
 
 fused_ffn_block_bwd.launches = 0
+fused_ffn_block_bwd.mma_launches = 0
 
 
 class FusedFFNBlock(torch.autograd.Function):

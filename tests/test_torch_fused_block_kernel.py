@@ -5,15 +5,23 @@ and skip without one: the forward at atol = rtol = 1e-4 in float32 (another
 summation order) and 0.05 in bfloat16; every backward output within 5e-4 of
 that output's largest in float32 (the weight gradients are sums over N rows,
 taken in another order than the plain version's matrix products) and 0.05
-of it in bfloat16. The float32 forward of either route (the 3xTF32 tensor
-cores as routed, the CUDA cores through a patch of ``_route``) is also held
-to ||got - want|| / ||want|| <= FP32_NORM_TOL, which the plain version with
-TF32 matmuls must fail. The rest run on the CPU: a model of the 3xTF32
-arithmetic (``cvt.rna.tf32`` on the int32 view) that puts FP32_NORM_TOL
-between the 3xTF32 and the 1xTF32 errors, the routing rule, the
-shared-memory formulas, the C entry points' signatures, the build key, and
-the wrappers' dispatch and argument validation. This file imports no jax, so
-the GPU host runs it with ``--noconftest`` (README, "PyTorch port").
+of it in bfloat16. The float32 forward and backward of either route (the
+3xTF32 tensor cores as routed, the CUDA cores through a patch of
+``_route``) are also held to ||got - want|| / ||want|| <= FP32_NORM_TOL
+(every backward output but db2, which takes no product), which the plain
+version with TF32 matmuls must fail. Every row counts. The tensor-core
+backward is held to the plain version on the kernel's own ReLU mask (its h
+scratch > 0, ``relu_mask``): where a pre-activation lies within rounding of
+0, the kernel and the plain version may take the mask's two sides, and one
+such entry moves a whole dh value; its h is held to the plain h as the
+forward is. The CUDA-core route is held to the plain version as it is. The
+rest run on the CPU: a model of
+the 3xTF32 arithmetic (``cvt.rna.tf32`` on the int32 view) that puts
+FP32_NORM_TOL between the 3xTF32 and the 1xTF32 errors of the forward and
+the backward, the routing rule, the shared-memory formulas, the C entry
+points' signatures, the build keys, and the wrappers' dispatch and argument
+validation. This file imports no jax, so the GPU host runs it with
+``--noconftest`` (README, "PyTorch port").
 """
 
 import ctypes
@@ -81,20 +89,49 @@ def _split(a):
     return hi, _tf32(a.float() - hi)
 
 
-def _mm_tf32(passes):
-    """A stand-in for fused_block._mm (float32 only) on the tensor cores'
+def _kernel_mask(monkeypatch):
+    """Spy on fused_block._bwd_mma: the dict returned gets the h scratch of
+    each tensor-core backward (``"h"``) and its ReLU mask, h > 0
+    (``"mask"``). A CUDA-core backward leaves it empty, and
+    ``seen.get("mask")`` is then None: the plain version's own mask."""
+    seen, real = {}, fb._bwd_mma
+
+    def spy(*args):
+        out = real(*args)
+        seen["h"], seen["mask"] = out[3], out[3] > 0
+        return out
+
+    monkeypatch.setattr(fb, "_bwd_mma", spy)
+    return seen
+
+
+def _mmf_tf32(passes):
+    """A stand-in for fused_block._mmf (a @ b, float32) on the tensor cores'
     arithmetic: TF32 operands, products exact (float64 here), one float32
     rounding of the sum; 3 passes (lo.hi + hi.lo + hi.hi) or 1 (hi.hi)."""
-    def mm(a, w, cdt):
-        assert cdt == torch.float32
-        (ah, al), (wh, wl) = _split(a), _split(w)
+    def mmf(a, b):
+        (ah, al), (bh, bl) = _split(a), _split(b)
 
         def prod(u, v):
-            return u.double() @ v.double().t()
+            return u.double() @ v.double()
 
-        out = prod(ah, wh) if passes == 1 else prod(al, wh) + prod(ah, wl) + prod(ah, wh)
+        out = prod(ah, bh) if passes == 1 else prod(al, bh) + prod(ah, bl) + prod(ah, bh)
         return out.float()
+    return mmf
+
+
+def _mm_tf32(passes):
+    """A stand-in for fused_block._mm (a @ w^T, float32 only) on the same
+    arithmetic as _mmf_tf32."""
+    def mm(a, w, cdt):
+        assert cdt == torch.float32
+        return _mmf_tf32(passes)(a, w.t())
     return mm
+
+
+# what the backward returns, in order (weight gradients in the (out, in) layout)
+BWD_NAMES = ("datt", "dx", "dwu", "dbu", "dg1", "db1", "dwf1", "dbf1", "dwf2", "dbf2",
+             "dg2", "db2")
 
 
 def test_tf32_emulation_rounds_to_nearest_ties_away():
@@ -132,6 +169,59 @@ def test_tf32x3_model_holds_the_block_to_float32(monkeypatch):
         f"(FP32_NORM_TOL {FP32_NORM_TOL})")
 
 
+def test_tf32x3_model_holds_the_backward_to_float32(monkeypatch):
+    """fused_ffn_block_bwd_plain with its nine products (the recompute's
+    three, the backward's six) in the kernel's 3xTF32 arithmetic stays within
+    FP32_NORM_TOL of the float32 plain version in every output but db2 (no
+    product); with one TF32 product datt, dx, dWu and dWf1 do not. Every
+    row counts: the float32 version takes the model's own ReLU mask, as the
+    card's checks take the kernel's. On one mask, one TF32 product reads
+    about 3e-4 here, as in the forward; a mask of its own would add its
+    flips."""
+    att, x, params, g = _inputs(9, 2048, 64, 256, "float32")
+    errs = {}
+    for passes in (3, 1):
+        monkeypatch.setattr(fb, "_mm", _mm_tf32(passes))
+        monkeypatch.setattr(fb, "_mmf", _mmf_tf32(passes))
+        mask = fb._forward_rows(att, x, *params, fb.LN_EPS)[1][4] > 0  # the model's h > 0
+        got = fb.fused_ffn_block_bwd_plain(att, x, *params, g)
+        monkeypatch.undo()
+        want = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=mask)
+        errs[passes] = {k: _norm_err(a, w) for k, a, w in zip(BWD_NAMES, got, want)}
+        print(f"{passes}xTF32 ||err|| / ||plain||:",
+              " ".join(f"{k} {v:.2e}" for k, v in errs[passes].items()))  # shown by -rP
+    worst3 = max(v for k, v in errs[3].items() if k != "db2")
+    assert worst3 <= FP32_NORM_TOL, errs[3]
+    for k in ("datt", "dx", "dwu", "dwf1"):
+        assert errs[1][k] > FP32_NORM_TOL, (k, errs[1][k])
+
+
+def test_plain_backward_takes_a_given_relu_mask():
+    """relu_mask replaces pre-activation > 0 and nothing else: its own mask
+    gives the plain version's gradients exactly; one entry flipped moves
+    that entry's dh, (dr2 . Wf2)[i, j], into dbf1 and changes no other row's
+    dx or datt."""
+    att, x, params, g = _inputs(10, 256, 64, 256, "float32")
+    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g)
+    _, (xhat1, rstd1, y1, pre_h, h, xhat2, rstd2) = fb._forward_rows(
+        att, x, *params, fb.LN_EPS)
+    for a, w in zip(fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=pre_h > 0),
+                    want):
+        assert torch.equal(a, w)
+    i, j = 7, int(pre_h[7].abs().argmin())
+    mask = pre_h > 0
+    mask[i, j] = ~mask[i, j]
+    got = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=mask)
+    dr2 = fb._ln_bwd_rows(g, xhat2, rstd2, params[8])[0]
+    moved = float(dr2[i] @ params[6][:, j]) * (1 if mask[i, j] else -1)
+    dbf1 = BWD_NAMES.index("dbf1")
+    assert float(got[dbf1][j] - want[dbf1][j]) == pytest.approx(moved, rel=1e-3, abs=1e-6)
+    rest = torch.arange(len(x)) != i
+    for k in (0, 1):  # datt, dx: row-local
+        assert torch.equal(got[k][rest], want[k][rest])
+        assert not torch.equal(got[k][i], want[k][i])
+
+
 @pytest.mark.parametrize("e,f,want", [(64, 256, "mma"), (128, 512, "mma"), (96, 384, "mma"),
                                       (64, 128, "mma"), (32, 128, "simt"), (160, 640, "simt"),
                                       (64, 96, "simt")])
@@ -140,6 +230,19 @@ def test_route(dtype, e, f, want):
     """The tensor cores take float32 at E 64, 96 or 128 and F a multiple of
     64; the CUDA cores take the rest, bfloat16 always."""
     assert fb._route(getattr(torch, dtype), e, f) == (want if dtype == "float32" else "simt")
+
+
+@pytest.mark.parametrize("e,f,want", [(64, 256, "mma"), (128, 512, "mma"), (96, 384, "mma"),
+                                      (64, 128, "mma"), (128, 1152, "mma"), (128, 1216, "simt"),
+                                      (32, 128, "simt"), (160, 640, "simt"), (64, 96, "simt")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_needs_both_kernels_to_fit(dtype, e, f, want):
+    """One route for the forward and the backward: float32 at E 64, 96 or
+    128 and F a multiple of 64 where both kernels fit one block's shared
+    memory (the backward's row kernel is the larger: at E = 128 not past F
+    = 1152); bfloat16 always on the CUDA cores."""
+    assert fb._route(getattr(torch, dtype), e, f) == (
+        want if dtype == "float32" else "simt")
 
 
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
@@ -167,6 +270,28 @@ def test_library_path_keys_on_the_ffn_mma_header(monkeypatch, tmp_path):
     header = tmp_path / "fused_ffn_mma.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert library_path("fused_ffn_fwd_mma") != before
+
+
+@pytest.mark.parametrize("name", ["fused_ffn_bwd", "fused_ffn_bwd_mma", "fused_qkv_bwd",
+                                  "fused_qkv_bwd_mma"])
+def test_library_path_keys_on_the_reduce_header(name, monkeypatch, tmp_path):
+    """An edit of csrc/reduce_partials.cuh, the one reduce kernel, rebuilds
+    every backward that includes it."""
+    for f in CSRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build_mod, "CSRC_DIR", tmp_path)
+    assert '#include "reduce_partials.cuh"' in (tmp_path / f"{name}.cu").read_text()
+    before = library_path(name)
+    header = tmp_path / "reduce_partials.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert library_path(name) != before
+
+
+def test_one_reduce_kernel():
+    """reduce_partials is defined once, in csrc/reduce_partials.cuh."""
+    defined = [f.name for f in sorted(CSRC_DIR.iterdir())
+               if re.search(r"__global__ void reduce_\w*partials", f.read_text())]
+    assert defined == ["reduce_partials.cuh"]
 
 
 CASES = [(51200, 64, 256), (51200 - 37, 64, 256), (4096 - 5, 128, 512), (33, 64, 128)]
@@ -256,14 +381,19 @@ def test_mma_entry_raises_on_x_off_16_bytes():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,e,f", CASES)
-def test_backward_kernel_matches_plain(dtype, n, e, f):
+def test_backward_kernel_matches_plain(dtype, n, e, f, monkeypatch):
+    """Each output within GRAD_TOL of its largest, every row; the
+    tensor-core route (float32) against the plain version on its own ReLU
+    mask (_kernel_mask)."""
     _needs_cuda()
     att, x, params, g = _inputs(1, n, e, f, dtype, "cuda")
+    seen = _kernel_mask(monkeypatch)
     before = fb.fused_ffn_block_bwd.launches
     got = fb.fused_ffn_block_bwd(att, x, *params, g)
     torch.cuda.synchronize()
     assert fb.fused_ffn_block_bwd.launches == before + 1
-    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g)
+    assert ("mask" in seen) == (dtype == "float32")
+    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=seen.get("mask"))
     for i, (a, w) in enumerate(zip(got, want)):
         assert a.shape == w.shape and a.dtype == w.dtype, i
         err = float((a.float() - w.float()).abs().max())
@@ -271,28 +401,146 @@ def test_backward_kernel_matches_plain(dtype, n, e, f):
 
 
 @pytest.mark.gpu
-def test_autograd_function_launches_both_kernels():
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("n,e,f", CASES)
+def test_float32_backward_routes_match_plain_in_the_norm(route, n, e, f, monkeypatch):
+    """Both float32 backward routes, every row: every output within
+    GRAD_TOL of its largest and, but db2, within FP32_NORM_TOL in the
+    normalised error; the tensor cores against the plain version on their
+    own ReLU mask, the CUDA cores against it as it is; each call counted on
+    its own route."""
+    _needs_cuda()
+    if route == "simt":
+        monkeypatch.setattr(fb, "_route", lambda *a: "simt")
+    assert fb._route(torch.float32, e, f) == route
+    att, x, params, g = _inputs(11, n, e, f, "float32", "cuda")
+    seen = _kernel_mask(monkeypatch)
+    before = (fb.fused_ffn_block_bwd.launches, fb.fused_ffn_block_bwd.mma_launches)
+    got = fb.fused_ffn_block_bwd(att, x, *params, g)
+    torch.cuda.synchronize()
+    assert (fb.fused_ffn_block_bwd.launches, fb.fused_ffn_block_bwd.mma_launches) == (
+        before[0] + 1, before[1] + (route == "mma"))
+    assert ("mask" in seen) == (route == "mma")
+    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=seen.get("mask"))
+    for name, a, w in zip(BWD_NAMES, got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        err = float((a - w).abs().max())
+        assert err <= GRAD_TOL["float32"] * float(w.abs().max()), (route, name, err)
+        if name != "db2":
+            ne = _norm_err(a, w)
+            assert ne <= FP32_NORM_TOL, f"{route} {name}: ||err|| / ||plain|| {ne:.3e}"
+
+
+@pytest.mark.gpu
+def test_tf32_plain_backward_fails_the_norm_check():
+    """The control: the plain backward with TF32 matmuls reads above
+    FP32_NORM_TOL in datt, dx, dWu and dWf1, against the float32 plain
+    version on the same (TF32) ReLU mask, as the kernel is checked."""
+    _needs_cuda()
+    att, x, params, g = _inputs(0, 51200, 64, 256, "float32", "cuda")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        mask = fb._forward_rows(att, x, *params, fb.LN_EPS)[1][4] > 0
+        tf32 = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=mask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=mask)
+    errs = {k: _norm_err(a, w) for k, a, w in zip(BWD_NAMES, tf32, want)}
+    assert all(errs[k] > FP32_NORM_TOL for k in ("datt", "dx", "dwu", "dwf1")), errs
+
+
+@pytest.mark.gpu
+def test_routed_float32_backward_never_reaches_the_cuda_core_entry(monkeypatch):
+    _needs_cuda()
+
+    def refuse(*args):
+        raise AssertionError("the CUDA-core backward was called on the tensor-core route")
+
+    monkeypatch.setitem(fb._bound, "fused_ffn_bwd", refuse)
+    att, x, params, g = _inputs(12, 1000, 64, 256, "float32", "cuda")
+    seen = _kernel_mask(monkeypatch)
+    got = fb.fused_ffn_block_bwd(att, x, *params, g)
+    torch.cuda.synchronize()
+    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=seen["mask"])
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= GRAD_TOL["float32"] * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,f", CASES)
+def test_mma_backward_h_matches_the_plain_forward(n, e, f, monkeypatch):
+    """The tensor-core backward's recomputed h (its scratch, whose > 0 is
+    the mask the other checks hand the plain version) within the forward's
+    float32 tolerance of the plain h: so its mask differs from the plain
+    one only where the plain pre-activation is within that of 0."""
+    _needs_cuda()
+    att, x, params, g = _inputs(15, n, e, f, "float32", "cuda")
+    seen = _kernel_mask(monkeypatch)
+    fb.fused_ffn_block_bwd(att, x, *params, g)
+    torch.cuda.synchronize()
+    pre_h, h = fb._forward_rows(att, x, *params, fb.LN_EPS)[1][3:5]
+    torch.testing.assert_close(seen["h"], h, rtol=TOL["float32"], atol=TOL["float32"])
+    flips = seen["mask"] != (pre_h > 0)
+    assert int(flips.sum()) < 1e-4 * flips.numel()
+
+
+@pytest.mark.gpu
+def test_mma_backward_entry_raises_on_x_off_16_bytes():
+    _needs_cuda()
+    att, x, params, g = _inputs(13, 100, 64, 256, "float32", "cuda")
+    buf = torch.empty(100 * 64 + 1, device="cuda")
+    x_off = buf[1:].view(100, 64)
+    x_off.copy_(x)
+    before = (fb.fused_ffn_block_bwd.launches, fb.fused_ffn_block_bwd.mma_launches)
+    with pytest.raises(RuntimeError, match="16 bytes"):
+        fb.fused_ffn_block_bwd(att, x_off, *params, g)
+    assert (fb.fused_ffn_block_bwd.launches, fb.fused_ffn_block_bwd.mma_launches) == before
+
+
+@pytest.mark.gpu
+def test_bfloat16_backward_stays_on_the_cuda_cores(monkeypatch):
+    _needs_cuda()
+
+    def refuse(*args):
+        raise AssertionError("the tensor-core backward was called for bfloat16")
+
+    monkeypatch.setitem(fb._bound, "fused_ffn_bwd_mma", refuse)
+    att, x, params, g = _inputs(14, 1000, 64, 256, "bfloat16", "cuda")
+    before = (fb.fused_ffn_block_bwd.launches, fb.fused_ffn_block_bwd.mma_launches)
+    fb.fused_ffn_block_bwd(att, x, *params, g)
+    torch.cuda.synchronize()
+    assert (fb.fused_ffn_block_bwd.launches, fb.fused_ffn_block_bwd.mma_launches) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.gpu
+def test_autograd_function_launches_both_kernels(monkeypatch):
     _needs_cuda()
     att, x, params, g = _inputs(2, 1000, 64, 256, "float32", "cuda")
+    seen = _kernel_mask(monkeypatch)
     leaves = [a.clone().requires_grad_() for a in [att, x] + params]
     f0, b0 = fb.fused_ffn_block.launches, fb.fused_ffn_block_bwd.launches
+    m0 = fb.fused_ffn_block_bwd.mma_launches
     fb.fused_ffn_block(*leaves).backward(g)
     assert (fb.fused_ffn_block.launches, fb.fused_ffn_block_bwd.launches) == (f0 + 1, b0 + 1)
-    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g)
+    assert fb.fused_ffn_block_bwd.mma_launches == m0 + 1
+    want = fb.fused_ffn_block_bwd_plain(att, x, *params, g, relu_mask=seen["mask"])
     for leaf, w in zip(leaves, want):
         assert float((leaf.grad - w).abs().max()) <= 5e-4 * float(w.abs().max())
 
 
 def test_cpu_takes_the_plain_versions_and_counts_nothing():
     att, x, params, g = _inputs(3, 40, 64, 256, "float32")
-    f0, b0 = fb.fused_ffn_block.launches, fb.fused_ffn_block_bwd.launches
+    counters = (fb.fused_ffn_block, fb.fused_ffn_block_bwd)
+    before = [(c.launches, c.mma_launches) for c in counters]
     leaves = [a.clone().requires_grad_() for a in [att, x] + params]
     out = fb.fused_ffn_block(*leaves)
     torch.testing.assert_close(out, fb.fused_ffn_block_plain(att, x, *params))
     out.backward(g)
     for leaf, w in zip(leaves, fb.fused_ffn_block_bwd_plain(att, x, *params, g)):
         torch.testing.assert_close(leaf.grad, w)
-    assert (fb.fused_ffn_block.launches, fb.fused_ffn_block_bwd.launches) == (f0, b0)
+    assert [(c.launches, c.mma_launches) for c in counters] == before
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "param_dtype", "width", "contiguous"])
@@ -326,3 +574,22 @@ def test_smem_formula_matches_the_sources():
         assert f"{fb._mma_smem_bytes(e):,} " in src
     assert 2 * (fb._mma_smem_bytes(64) + 1024) <= 233472  # two blocks an SM at E = 64
     assert max(fb._mma_smem_bytes(e) for e in fb.MMA_WIDTHS) <= fb.SMEM_LIMIT
+
+
+def test_bwd_mma_smem_formula_matches_the_source():
+    """The tensor-core backward's row kernel: 64 (E + 4) + 64 (32 + 4) +
+    64 E + 2 max(E (E + 8), 32 (E + 4) + E (32 + 4), E (32 + 8) + 32 (E + 8))
+    + 16 E floats and 8 F bytes, as csrc/fused_ffn_bwd_mma.cu states them;
+    two blocks an SM at the light-curve widths, one at E = 128."""
+    def floats(e):
+        return (64 * (e + 4) + 64 * 36 + 64 * e
+                + 2 * max(e * (e + 8), 32 * (e + 4) + e * 36, e * 40 + 32 * (e + 8)) + 16 * e)
+
+    for e, f in ((64, 256), (96, 384), (128, 512)):
+        assert fb._bwd_mma_smem_bytes(e, f) == 4 * floats(e) + 8 * f
+    src = (CSRC_DIR / "fused_ffn_bwd_mma.cu").read_text()
+    for e, f in ((64, 256), (128, 512)):
+        assert f"{fb._bwd_mma_smem_bytes(e, f):,} " in src
+    assert 2 * (fb._bwd_mma_smem_bytes(64, 256) + 1024) <= fb.SM_SMEM
+    assert 2 * (fb._bwd_mma_smem_bytes(128, 512) + 1024) > fb.SM_SMEM
+    assert fb._bwd_mma_smem_bytes(128, 512) <= fb.SMEM_LIMIT
