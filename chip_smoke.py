@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: the maven-lite embedding
-server and the maven-lite contrastive trainer end to end, through the
+server and the maven-lite contrastive trainer end to end (and maven-lite
+from its own config, trained into run directories, resumed and served),
+through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor-core route, float32 on the CUDA-core route), and the same server and
 trainer under ``use_fused_block``, through the fused-block kernels (forward
@@ -157,8 +159,12 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      path is recorded with its cotangent, and each layer's dq, dk, dv from
      the CUDA-core flash backward and from dense_attention's autograd are
      read against a float64 reference on those inputs, beside the plain
-     backward's dq with D = g.out and with rowsum(P o dP) (a diagnostic:
-     it logs, it checks nothing);
+     backward's dq with D = g.out and with rowsum(P o dP); then, under
+     MMSN_FUSED_QKV=1, every fused-QKV layer's inputs and cotangent are
+     recorded the same way and its dx and dWqkv from the CUDA-core fused-QKV
+     backward (float32) and from its plain version are read against float64,
+     with the ratio of the two distances (a diagnostic: it logs, it checks
+     nothing);
      Prints the median train-step time and paired samples/s of the kernel
      path, the plain path and the kernel path on the CUDA-core route (bf16,
      the same batch, host clock around synchronised steps, alternating
@@ -187,6 +193,29 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      layer's dWqkv is scaled by 0.99. Times train steps and peak memory, the
      opt-in ("qkv") against the unfused kernel route ("kernel") and the
      opt-in on the CUDA-core QKV kernels ("qkv-simt");
+  6d. run-dir: maven-lite built by the port from the first grid point of
+     configs/maven-lite.yaml (its own reader, build_clip_config(nband=2),
+     build_trainer_config): LC emb 64, 8 heads, 5 blocks, agg attn; SP emb
+     32, 2 heads, 13 blocks, agg mean; n_out 32, enc_dim 128 (the
+     reference's default), lr 3.7e-5, B = 32, float32, softmax loss,
+     noise_level_mag 1.0, dropout 2.2e-4; only the epochs are overridden
+     (3, logged). On the 640-sample synthetic set at 2 x 100 light-curve
+     points and T_sp = 1024 (max_spectral_data_len), split 512/128
+     (val_fraction 0.2): Trainer.fit into run directory A (3 epochs), into
+     B (2 epochs), then a new Trainer with resume=True on B (to 3). Each fit
+     counts 18 flash forward launches a train and an eval step and 18
+     backward a train step, all on the CUDA cores (float32), and no plain
+     call. Both directories must hold config.yaml (the port's reader parses
+     it to the dump), the two manifests (512 and 128 lines),
+     model_config.json, metrics.jsonl (epochs 0, 1, 2; B's third row from
+     the resumed run), summary.json, the two best epoch= files and
+     last.ckpt. B's resumed epoch must give A's epoch 2: train and
+     validation loss within relative 1e-5, every parameter within 1e-5 of
+     its largest absolute value. load_model(A, which="last") and
+     load_live(A, batch_size=32) serve 32 validation samples, and
+     get_embeddings reads all 128, each within 1e-6 absolute of the
+     in-memory final model's encode on the same samples (18 forward
+     launches a call);
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -203,7 +232,7 @@ measured numbers, the shape they were timed at ("shape"; launches are summed
 over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
-runs; the flash and fused-QKV
+runs, and every call of the run-dir phase; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
 and "library_device_ms", and the wrapper's host time a call, "host_ms")
@@ -224,6 +253,7 @@ rate). The last line is {"ok": true,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -245,12 +275,20 @@ import multimodal_supernovae_tpu_torch.models.transformer as transformer_mod
 import multimodal_supernovae_tpu_torch.ops.flash_attention as flash_mod
 import multimodal_supernovae_tpu_torch.ops.fused_block as ffn_mod
 import multimodal_supernovae_tpu_torch.ops.qkv_attention as qkv_mod
+from multimodal_supernovae_tpu_torch.config import (
+    build_clip_config,
+    build_trainer_config,
+    expand_grid,
+    load_sweep,
+    safe_load,
+)
 from multimodal_supernovae_tpu_torch.data import (
     epoch_indices,
     make_synthetic_arrays,
     make_synthetic_dataset,
     take,
 )
+from multimodal_supernovae_tpu_torch.evaluation import get_embeddings
 from multimodal_supernovae_tpu_torch.kernels import build, library_path
 from multimodal_supernovae_tpu_torch.models import (
     CLIPConfig,
@@ -347,6 +385,16 @@ BWD_NAMES = ("datt", "dx", "dwu", "dbu", "dg1", "db1", "dwf1", "dbf1", "dwf2", "
 # MUFU exponentials a clock on one SM (16), for the exponential floor beside
 # the flash kernels' bound
 EXP_PER_CLOCK_SM = 16
+# phase run-dir: maven-lite from its own config, trained into run directories
+MAVEN_LITE = "configs/maven-lite.yaml"
+RUN_DIR_N, RUN_DIR_EPOCHS = 640, 3
+# the resumed epoch against the straight run's, float32 on the card: the losses
+# in relative terms, every parameter against its largest absolute value
+RESUME_RTOL, RESUME_PARAM_TOL = 1e-5, 1e-5
+# served and get_embeddings outputs against the in-memory model's encode
+RUN_DIR_EMBED_TOL = 1e-6
+RUN_DIR_FILES = ("config.yaml", "train_filenames.txt", "val_filenames.txt",
+                 "model_config.json", "metrics.jsonl", "summary.json", "last.ckpt")
 
 
 _T0 = time.perf_counter()
@@ -1790,20 +1838,30 @@ def _dq_with_d(q, k, v, mask, g, emb, d_from_out):
     return torch.einsum("bhtu,bhus->bhts", ds, ks) * c
 
 
-def phase_grad_probe():
-    """Where the kernel path's float32 whole-model gradients part from the
-    plain path's (2.2e-4 at the first LC toqueries weight): every attention
-    call of one float32 loss on the plain path is recorded with its
-    cotangent, and on each layer's own inputs the flash backward (CUDA cores,
-    D = rowsum(P o dP)), dense_attention's autograd and the plain backward
-    with either D (g . out, which the CUDA-core kernel took before, or
-    rowsum(P o dP)) are read against a float64 reference. A diagnostic: it
-    logs, it checks nothing."""
+def _rel_f64(got, ref):
+    """max|got - ref| / max|ref| against a float64 reference."""
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def _probe_batch():
+    """The first batch of the float32 trajectory's plan, on the card."""
     ds = make_synthetic_dataset(n=TRAIN_N, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     plan = epoch_indices(TRAIN_N, BATCH, rng=np.random.default_rng(0), shuffle=True,
                          pad="drop")
-    batch = take(ds.to_device(DEVICE), torch.from_numpy(plan[0]).to(DEVICE))
+    return take(ds.to_device(DEVICE), torch.from_numpy(plan[0]).to(DEVICE))
+
+
+def phase_grad_probe():
+    """Where the kernel paths' float32 whole-model gradients part from the
+    plain path's. Flash: every attention call of one float32 loss on the
+    plain path is recorded with its cotangent, and on each layer's own inputs
+    the flash backward (CUDA cores, D = rowsum(P o dP)), dense_attention's
+    autograd and the plain backward with either D (g . out, which the
+    CUDA-core kernel took before, or rowsum(P o dP)) are read against a
+    float64 reference. Fused QKV: _qkv_grad_probe. A diagnostic: it logs, it
+    checks nothing; returns the fused-QKV readings."""
+    batch = _probe_batch()
     calls = []
 
     def recording(q, k, v, mask, emb):
@@ -1818,9 +1876,7 @@ def phase_grad_probe():
         loss, _ = model.loss_fn(batch, train=True, generator=torch.Generator(device=DEVICE))
         loss.backward()
 
-    def rel(got, ref):
-        return float((got.double() - ref).abs().max() / ref.abs().max())
-
+    rel = _rel_f64
     for i, rec in enumerate(calls):
         (q, k, v), mask, emb, g = rec["qkv"], rec["mask"], rec["emb"], rec["g"]
         ref = _attention_f64_grads(q, k, v, mask, g, emb)
@@ -1835,7 +1891,263 @@ def phase_grad_probe():
             f"{rel(plain[1], ref[1]):.3e} {rel(plain[2], ref[2]):.3e}; plain dq with D = g.out "
             f"{rel(d_out, ref[0]):.3e}, with rowsum(P o dP) {rel(d_rowsum, ref[0]):.3e}")
         del ref, plain, out, stats, kern, d_out, d_rowsum
+    del calls, model
     torch.cuda.empty_cache()
+    return _qkv_grad_probe(batch)
+
+
+def _qkv_f64_grads(x, mask, wqkv, wu, g, heads):
+    """dx and dWqkv of the whole SelfAttention's function (packed projection,
+    masked attention, unify) in float64, the reference the fused-QKV
+    backwards are read against."""
+    with torch.enable_grad():
+        x64 = x.detach().double().requires_grad_()
+        w64 = wqkv.detach().double().requires_grad_()
+        b, t, e = x.shape
+        q, k, v = (a.reshape(b, t, heads, e // heads).transpose(1, 2)
+                   for a in (x64 @ w64.t()).chunk(3, dim=-1))
+        scores = q @ k.transpose(-1, -2)
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :], -1e7)
+        att = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(b, t, e)
+        out = att @ wu.detach().double().t()
+        return torch.autograd.grad(out, (x64, w64), g.double())
+
+
+def _qkv_grad_probe(batch):
+    """Every fused-QKV layer of one float32 loss under MMSN_FUSED_QKV=1 (all
+    18 SelfAttention layers), its inputs and cotangent recorded on the plain
+    path: dx and dWqkv of the CUDA-core backward (csrc/fused_qkv_bwd.cu) and of
+    the plain version, each against float64. Returns, for dx and dWqkv, the
+    largest ratio of the kernel's distance to the plain version's over the
+    layers, and at which layer."""
+    calls = []
+
+    def recording(x, mask, wqkv, wu, g, heads):
+        calls.append((x.detach(), mask, wqkv.detach(), wu.detach(), g.detach(), heads))
+        return qkv_mod.fused_qkv_attention_bwd_plain(x, mask, wqkv, wu, g, heads)
+
+    kernel_bwd = qkv_mod.fused_qkv_attention_bwd
+    model = _train_model(None)
+    with _qkv_plain(), mock.patch.object(qkv_mod, "fused_qkv_attention_bwd", recording):
+        loss, _ = model.loss_fn(batch, train=True, generator=torch.Generator(device=DEVICE))
+        loss.backward()
+    if len(calls) != LAYERS_PER_CALL:
+        raise AssertionError(f"grad-probe qkv: {len(calls)} fused-QKV layers recorded, "
+                             f"want {LAYERS_PER_CALL}")
+    worst = {"dx": (0.0, -1), "dwqkv": (0.0, -1)}
+    for i, (x, mask, wqkv, wu, g, heads) in enumerate(calls):
+        ref = _qkv_f64_grads(x, mask, wqkv, wu, g, heads)
+        _zero_counts()
+        kern = kernel_bwd(x, mask, wqkv, wu, g, heads)
+        if _counts()[7] != 1:
+            raise AssertionError(f"grad-probe qkv: launches {_counts()}, want one "
+                                 "CUDA-core fused-QKV backward")
+        plain = qkv_mod.fused_qkv_attention_bwd_plain(x, mask, wqkv, wu, g, heads)
+        parts = []
+        for j, name in enumerate(("dx", "dwqkv")):
+            k_err, p_err = _rel_f64(kern[j], ref[j]), _rel_f64(plain[j], ref[j])
+            ratio = k_err / max(p_err, 1e-30)
+            worst[name] = max(worst[name], (ratio, i))
+            parts.append(f"{name} kernel {k_err:.3e}, plain {p_err:.3e} ({ratio:.2f}x)")
+        log(f"grad-probe qkv layer {i} {tuple(x.shape)} heads {heads}: max|x - float64| / "
+            f"max|float64|: {'; '.join(parts)}")
+        del ref, kern, plain
+    del calls, model
+    torch.cuda.empty_cache()
+    log(f"grad-probe qkv: the CUDA-core backward's distance to float64 over the plain "
+        f"version's, worst over the layers: dx {worst['dx'][0]:.2f}x (layer "
+        f"{worst['dx'][1]}), dWqkv {worst['dwqkv'][0]:.2f}x (layer {worst['dwqkv'][1]})")
+    return worst
+
+
+def _run_dir_fit(clip_cfg, tcfg, run_dir, train_ds, val_ds, dump, resume=False, seed=0):
+    """Trainer.fit of a fresh maven-lite model (seeded weights) into
+    ``run_dir`` on the card, counted from zero; returns the result, the
+    launches and the wall seconds."""
+    model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+    trainer = Trainer(model, "contrastive", tcfg, run_dir=run_dir)
+    with _plain_calls() as plain:
+        _zero_counts()
+        t0 = time.perf_counter()
+        result = trainer.fit(train_ds, val_ds, config_dump=dump, resume=resume)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    if plain:
+        raise AssertionError(f"run-dir: {len(plain)} plain kernel calls in Trainer.fit")
+    return result, counts, wall
+
+
+def _check_run_dir(path, dump, n_train, n_val, epochs):
+    """Every file of the run directory, as described: config.yaml that the
+    port's reader parses to the dump, the manifests, the sidecar, one metrics
+    row an epoch (``epochs``, in order), the summary, the best two epoch=
+    files and last.ckpt."""
+    files = set(os.listdir(path))
+    missing = [f for f in RUN_DIR_FILES if f not in files]
+    kept = sorted(f for f in files if f.startswith("epoch=") and f.endswith(".ckpt"))
+    with open(os.path.join(path, "config.yaml")) as f:
+        config = safe_load(f.read())
+    lines = {}
+    for name in ("train_filenames.txt", "val_filenames.txt"):
+        with open(os.path.join(path, name)) as f:
+            lines[name] = len(f.read().splitlines())
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(path, "summary.json")) as f:
+        summary = json.load(f)
+    log(f"run-dir {os.path.basename(path)}: files {sorted(files)}; manifests {lines}; "
+        f"metrics rows of epochs {[r['epoch'] for r in rows]}; summary {summary}")
+    want_summary = {"best_val_loss", "best_epoch", "best_ckpt_epoch", "best_auc"}
+    if (missing or len(kept) != 2 or config != dump
+            or lines != {"train_filenames.txt": n_train, "val_filenames.txt": n_val}
+            or [r["epoch"] for r in rows] != epochs or not want_summary <= set(summary)):
+        raise AssertionError(f"run-dir {path}: missing {missing}, kept {kept}, config "
+                             f"equal to the dump {config == dump}, manifests {lines}, rows "
+                             f"{[r['epoch'] for r in rows]} (want {epochs}), summary {summary}")
+
+
+def phase_run_dir():
+    """maven-lite from the first grid point of its own config, read by the
+    port, trained on the card into run directory A (3 epochs) and into B (2
+    epochs, then a new Trainer resumed to 3); both directories checked file by
+    file; B's resumed epoch held to A's epoch 2; A served by load_model and
+    load_live and read by get_embeddings, each held to the in-memory model's
+    encode. Returns the launches of every call."""
+    t_phase = time.perf_counter()
+    sweep = load_sweep(MAVEN_LITE)
+    point = next(expand_grid(sweep))
+    extra = sweep.extra_args
+    clip_cfg = build_clip_config(point, extra, nband=NBAND)
+    tcfg = build_trainer_config(point, extra)
+    log(f"run-dir: {MAVEN_LITE}, first of {sweep.n_points} grid points; override: epochs "
+        f"{tcfg.epochs} -> {RUN_DIR_EPOCHS}")
+    tcfg = dataclasses.replace(tcfg, epochs=RUN_DIR_EPOCHS)
+    dump = dict(point, epochs=RUN_DIR_EPOCHS)
+    tk, tsk = clip_cfg.tk(), clip_cfg.tsk()
+    log(f"run-dir: LC {tk}; SP {tsk}; enc_dim {clip_cfg.enc_dim}, loss {clip_cfg.loss}, "
+        f"compute dtype {clip_cfg.compute_dtype or 'float32'}; trainer {tcfg}")
+    stated = ((tk["emb"], tk["heads"], tk["depth"], tk["agg"], tk["n_out"]),
+              (tsk["emb"], tsk["heads"], tsk["depth"], tsk["agg"]),
+              (tcfg.batch_size, clip_cfg.compute_dtype, clip_cfg.loss, tcfg.noise_level_mag))
+    if stated != ((64, 8, 5, "attn", 32), (32, 2, 13, "mean"), (32, None, "softmax", 1.0)):
+        raise AssertionError(f"run-dir: {MAVEN_LITE} does not give maven-lite: {stated}")
+    sp_len, batch = int(extra["max_spectral_data_len"]), tcfg.batch_size
+    ds = make_synthetic_dataset(n=RUN_DIR_N, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=sp_len,
+                                seed=0)
+    n_val = int(round(RUN_DIR_N * float(extra["val_fraction"])))
+    n_train = RUN_DIR_N - n_val
+    train_ds = ds.subset(np.arange(n_train))
+    val_ds = ds.subset(np.arange(n_train, RUN_DIR_N))
+    train_steps, eval_steps = -(-n_train // batch), -(-n_val // batch)
+
+    def want(epochs):  # every layer float32: the flash kernels on the CUDA cores
+        return ((LAYERS_PER_CALL * epochs * (train_steps + eval_steps),
+                 LAYERS_PER_CALL * epochs * train_steps) + (0,) * 10)
+
+    total = (0,) * 12
+    with tempfile.TemporaryDirectory() as tmp:
+        dir_a, dir_b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+        fits = {}
+        for tag, path, epochs, resume, seed in (("A", dir_a, 3, False, 0),
+                                                ("B", dir_b, 2, False, 0),
+                                                ("B resumed", dir_b, 3, True, 1)):
+            result, counts, wall = _run_dir_fit(
+                clip_cfg, dataclasses.replace(tcfg, epochs=epochs), path, train_ds, val_ds,
+                dump, resume=resume, seed=seed)
+            ran = epochs - (2 if resume else 0)
+            for row in result["metric_rows"][-ran:]:
+                log(f"run-dir {tag}: epoch {row['epoch']} train_loss {row['train_loss']:.7f} "
+                    f"val_loss {row['val_loss']:.7f} AUC_val {row['AUC_val']:.4f} step "
+                    f"{row['step_time_s'] * 1e3:.2f} ms")
+            log(f"run-dir {tag}: Trainer.fit {ran} epochs ({ran * train_steps} train + "
+                f"{ran * eval_steps} eval steps at B={batch}, T_sp={sp_len}, float32) in "
+                f"{wall:.3f} s; launches {COUNT_NAMES} {counts}")
+            if counts != want(ran) or result["epochs_run"] != epochs:
+                raise AssertionError(f"run-dir {tag}: launches {counts}, want {want(ran)}; "
+                                     f"epochs run {result['epochs_run']}")
+            total = tuple(a + b for a, b in zip(total, counts))
+            if tag == "B":  # the first model of B goes before the resumed one is built
+                del result
+                torch.cuda.empty_cache()
+            else:
+                fits[tag] = result
+        _check_run_dir(dir_a, dump, n_train, n_val, [0, 1, 2])
+        _check_run_dir(dir_b, dump, n_train, n_val, [0, 1, 2])
+
+        # B's resumed epoch against A's epoch 2
+        a, b = fits["A"], fits["B resumed"]
+        rels = {k: abs(b["metric_rows"][2][k] - a["metric_rows"][2][k])
+                / abs(a["metric_rows"][2][k]) for k in ("train_loss", "val_loss")}
+        params_a = a["state"].model.state_dict()
+        params_b = b["state"].model.state_dict()
+        perr = {n: float((params_b[n] - p).abs().max() / p.abs().max())
+                for n, p in params_a.items()}
+        worst = max(perr, key=perr.get)
+        n_equal = sum(torch.equal(params_b[n], p) for n, p in params_a.items())
+        log(f"run-dir resume: epoch 2 of B (resumed) against A: train_loss relative "
+            f"{rels['train_loss']:.3e}, val_loss {rels['val_loss']:.3e} (tol {RESUME_RTOL}); "
+            f"parameters max|B - A| / max|A| worst {perr[worst]:.3e} at {worst} (tol "
+            f"{RESUME_PARAM_TOL}), {n_equal} of {len(perr)} bitwise equal; global step "
+            f"{b['state'].step} and {a['state'].step}")
+        if (max(rels.values()) > RESUME_RTOL or perr[worst] > RESUME_PARAM_TOL
+                or b["state"].step != a["state"].step):
+            raise AssertionError(f"run-dir: the resumed run leaves the straight one: {rels}, "
+                                 f"{worst} {perr[worst]}")
+        del b, params_a, params_b, fits["B resumed"]
+        torch.cuda.empty_cache()
+
+        # serving A, and its embeddings, against the in-memory final model
+        model_a = a["state"].model.eval()
+        fields = ("x_lc", "t_lc", "mask_lc", "x_sp", "t_sp", "mask_sp")
+        feed = {k: val_ds.arrays[k][:batch] for k in fields}
+        with torch.no_grad():
+            want_emb = [e.float().cpu().numpy() for e in model_a.encode(
+                {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()})]
+        loaded, _ = load_model(dir_a, DEVICE, which="last")
+        serving_model = load_live(dir_a, batch, device=DEVICE, which="last", lc_len=LC_LEN,
+                                  sp_len=sp_len)
+        with _plain_calls() as plain, torch.no_grad():
+            _zero_counts()
+            got_loaded = [e.float().cpu().numpy() for e in loaded.encode(
+                {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()})]
+            served = serving_model.fn(feed)
+            serve_counts = _counts()
+        errs = {"load_model": max(float(np.abs(g - w).max())
+                                  for g, w in zip(got_loaded, want_emb)),
+                "load_live": max(float(np.abs(g - w).max()) for g, w in zip(served, want_emb))}
+        shapes = [s.shape for s in served]
+        want_serve = (2 * LAYERS_PER_CALL,) + (0,) * 11
+        log(f"run-dir serve: load_model and load_live of A (last.ckpt), {batch} validation "
+            f"samples: {shapes}, max|x - encode| {errs} (tol {RUN_DIR_EMBED_TOL}); launches "
+            f"{serve_counts}, {len(plain)} plain kernel calls")
+        if (max(errs.values()) > RUN_DIR_EMBED_TOL or plain or serve_counts != want_serve
+                or shapes != [(min(batch, n_val), clip_cfg.enc_dim)] * 2):
+            raise AssertionError(f"run-dir serve: {errs}, launches {serve_counts} (want "
+                                 f"{want_serve}), {len(plain)} plain calls, shapes {shapes}")
+
+        with _plain_calls() as plain:
+            _zero_counts()
+            embs, names = get_embeddings(model_a, val_ds, batch_size=batch, device=DEVICE)
+            emb_counts = _counts()
+        val_data = val_ds.to_device(DEVICE)
+        with torch.no_grad():
+            per_batch = [model_a.encode(take(val_data, idx)) for idx in
+                         torch.arange(n_val, device=DEVICE).split(batch)]
+        want_all = [torch.cat([p[i] for p in per_batch]).float().cpu().numpy()
+                    for i in range(2)]
+        err = max(float(np.abs(g - w).max()) for g, w in zip(embs, want_all))
+        want_emb_counts = (LAYERS_PER_CALL * eval_steps,) + (0,) * 11
+        log(f"run-dir get_embeddings: {names} {[e.shape for e in embs]} over the {n_val} "
+            f"validation samples, max|x - per-batch encode| {err:.3e} (tol "
+            f"{RUN_DIR_EMBED_TOL}); launches {emb_counts}, {len(plain)} plain kernel calls")
+        if (err > RUN_DIR_EMBED_TOL or names != ["lightcurve", "spectral"] or plain
+                or emb_counts != want_emb_counts):
+            raise AssertionError(f"run-dir get_embeddings: {err}, {names}, launches "
+                                 f"{emb_counts} (want {want_emb_counts})")
+        total = tuple(a + b + c for a, b, c in zip(total, serve_counts, emb_counts))
+    log(f"run-dir: phase done in {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
 
 
 def _kind(name):
@@ -1990,11 +2302,12 @@ def main():
     phase_grad_probe()
     train_fused = phase_train("fused")
     train_qkv = phase_train("qkv")
+    run_dir = phase_run_dir()
     phase_profile()
-    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv)
+    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, summed in the line: {runs}; card {card}")
+        f"train-qkv, run-dir, summed in the line: {runs}; card {card}")
     lc, sp_fwd, sp_bwd = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                           (BATCH, 2, TRAIN_SP_LEN, 16))
     for name, shape in (("LC", lc), ("SP serving", sp_fwd), ("SP training", sp_bwd)):

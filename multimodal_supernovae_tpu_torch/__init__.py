@@ -5,7 +5,8 @@ The JAX package beside it is the reference: every module here mirrors one
 of its modules by name and is held against it by ``tests/test_torch_*.py``.
 This package imports ``torch`` and never ``jax``.
 
-Ported so far (the serving path and the contrastive training path):
+Ported so far (the serving path, the contrastive training path and its run
+directories):
   ops       dense attention and its autograd (the plain versions), the
             flash-attention forward and backward over hand-written CUDA
             kernels in one autograd Function, the losses and metrics
@@ -16,9 +17,14 @@ Ported so far (the serving path and the contrastive training path):
   data      the batch contract, device-resident batching and index plans,
             magnitude/flux noise augmentation, the synthetic generator
             (lightcurve + spectral part)
+  config    the sweep files of configs/ (a YAML reader of its own, the
+            grid, the model and trainer config builders)
   training  RAdam + StepLR + freezing, the train/eval steps and epoch
-            loops, ``Trainer.fit`` for the contrastive task
-  serving   ``load_live``: a run directory served through the JAX package's
+            loops, ``Trainer.fit`` for the contrastive task with run
+            directories, best-k and last checkpoints and resume
+  evaluation ``get_embeddings``
+  utils     ``MetricsLogger`` (metrics.jsonl, summary.json)
+  serving   ``load_live``: a run directory served through the port's
             numpy-only dynamic batcher and HTTP daemon
   cli       ``python -m multimodal_supernovae_tpu_torch.cli.serve``
 """

@@ -6,9 +6,12 @@ multimodal_supernovae_tpu/cli/serve.py, live path).
   python -m multimodal_supernovae_tpu_torch.cli.serve \\
       --run-dir RUN --batch-size 256 --max-wait-ms 5
 
-RUN holds ``model_config.json`` and a reference-layout ``*.ckpt``. For a run
-trained by the JAX package: ``mmsn-export-torch`` writes the ``.ckpt``, then
-copy the run's ``model_config.json`` beside it. ``--device`` defaults to
+RUN holds ``model_config.json`` and a reference-layout ``*.ckpt``. A run dir
+that the port's ``Trainer.fit(run_dir=RUN)`` wrote serves as it is (``--which
+last`` takes ``last.ckpt``; ``best``, the reference's rule, the smallest-epoch
+``epoch=`` file of the kept best). For a run trained by the JAX package:
+``mmsn-export-torch`` writes the ``.ckpt``, then copy the run's
+``model_config.json`` beside it. ``--device`` defaults to
 ``cuda`` and the server refuses to start when CUDA is absent; it never falls
 back to the CPU on its own (pass ``--device cpu`` for that). The JAX CLI's
 ``--artifact`` (StableHLO) path is not ported; ``torch.export`` takes its
@@ -24,7 +27,8 @@ import argparse
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--run-dir", required=True,
-                    help="run directory: model_config.json + a .ckpt")
+                    help="run directory: model_config.json + a .ckpt (a port-trained "
+                         "run dir serves as it is)")
     ap.add_argument("--batch-size", type=int, default=256,
                     help="fixed device batch requests are coalesced onto")
     ap.add_argument("--which", choices=["best", "last"], default="best")

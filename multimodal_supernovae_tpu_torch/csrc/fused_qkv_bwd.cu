@@ -36,6 +36,18 @@
 // g is read from device memory where it is needed (a row a thread, or a column
 // in the dWu and dbu sums): a fourth whole-sample buffer does not fit.
 //
+// D of a query row is summed as c0 + rowsum(P o (dP - c0)), c0 = dP of the
+// row's highest-scoring key. Where a row's positions are nearly equal (deep
+// layers), dP - D cancels and an error of D comes through whole: one running
+// float32 sum of P dP, whose terms carry D itself and whose P sum to 1 only
+// up to rounding, put dx 2.5x farther from float64 than the plain version on
+// the model's own layers and 3.3x on near-equal inputs; around c0 the terms
+// are of the size of dP - D and the P's rounding multiplies D - c0, not D. The
+// flash kernel's c0, key 0, did worse here: it took the first light-curve
+// block's dWqkv from 1.5x to 2.5x; the highest-scoring key's dP carries the
+// most weight in D (chip_smoke.py phase grad-probe; PERF.md section 6;
+// tests/test_torch_qkv_attention_kernel.py pins it).
+//
 // What bounds it on this card: CUDA-core work at low occupancy. Per head and
 // thread the walks cost about 12 S multiply-adds and 4 exponentials a key; one
 // block of 256 threads and up to 190 KB of shared memory runs on an SM.
@@ -121,9 +133,14 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_kernel(
         load_row<S>(Q + t * S, q);
         load_row<S>(GH + t * S, gh);
         float m = -INFINITY;
+        int um = 0;  // the highest-scoring key
         for (int u = 0; u < Tn; ++u) {
           load_row<S>(K + u * S, r);
-          m = fmaxf(m, VAL[u] != 0.f ? dot<S>(q, r) : MASK_FILL);
+          const float s = VAL[u] != 0.f ? dot<S>(q, r) : MASK_FILL;
+          if (s > m) {
+            m = s;
+            um = u;
+          }
         }
         float l = 0.f;
         for (int u = 0; u < Tn; ++u) {
@@ -134,14 +151,17 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_kernel(
         float acc[S];
 #pragma unroll
         for (int j = 0; j < S; ++j) acc[j] = 0.f;
+        load_row<S>(V + um * S, r);
+        const float c0 = dot<S>(gh, r);  // dP of the highest-scoring key
         float d = 0.f;
-        for (int u = 0; u < Tn; ++u) {  // att = round(P) v, D = rowsum(P * dP)
+        for (int u = 0; u < Tn; ++u) {  // att = round(P) v, D = c0 + rowsum(P * (dP - c0))
           load_row<S>(K + u * S, r);
           const float p = __expf((VAL[u] != 0.f ? dot<S>(q, r) : MASK_FILL) - m) * rl;
           load_row<S>(V + u * S, r);
           axpy<S>(round_to<T>(p), r, acc);
-          d = fmaf(p, dot<S>(gh, r), d);
+          d = fmaf(p, dot<S>(gh, r) - c0, d);
         }
+        d += c0;
 #pragma unroll
         for (int j = 0; j < S; ++j) {
           AT[t * S + j] = round_to<T>(acc[j]);

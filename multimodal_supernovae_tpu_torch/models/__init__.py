@@ -1,7 +1,9 @@
 from .clip import CLIPConfig, CLIPModel
 from .convert import seq_encoder_state_dict, state_dict_from_jax
 from .factory import (
+    initialize_from_run_dir,
     load_model,
+    load_run_config,
     pick_reference_ckpt,
     read_model_config,
     write_model_config,
@@ -25,7 +27,9 @@ __all__ = [
     "Transformer",
     "TransformerBlock",
     "init_weights",
+    "initialize_from_run_dir",
     "load_model",
+    "load_run_config",
     "pick_reference_ckpt",
     "read_model_config",
     "seq_encoder_state_dict",

@@ -7,9 +7,16 @@ A servable run directory holds:
     "extra": {...}}`` (read with ``json``; no YAML);
   * a reference-layout ``*.ckpt`` (``torch.save`` of ``{"state_dict": ...}``).
 
-A run trained by the JAX package becomes one in two steps: ``mmsn-export-torch``
-writes the ``.ckpt`` into an output directory, then the run's
-``model_config.json`` is copied beside it.
+``Trainer.fit(run_dir=...)`` writes both (``epoch=E-step=S.ckpt`` for the
+best epochs, ``last.ckpt`` for the latest), so a run the port trained serves
+as it is. A run trained by the JAX package becomes one in two steps:
+``mmsn-export-torch`` writes the ``.ckpt`` into an output directory, then the
+run's ``model_config.json`` is copied beside it.
+
+``pick_reference_ckpt(which="best")`` keeps the reference's rule, the
+smallest-epoch ``epoch=`` file, which with two kept is the earlier of the two
+and not always the better one; ``training.checkpoint.CheckpointManager.
+restore(which="best")`` restores the monitored best.
 """
 
 from __future__ import annotations
@@ -21,9 +28,25 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..config.yaml_subset import load as load_yaml
 from .clip import CLIPConfig, CLIPModel
 
 MODEL_CONFIG_SIDECAR = "model_config.json"
+
+
+def load_run_config(run_dir: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(flattened run config, sweep extra_args) of a run directory: its own
+    ``config.yaml`` and the parent sweep directory's ``sweep_config.yaml``,
+    or, for a run without a sweep directory, the ``extra`` of its
+    ``model_config.json`` sidecar."""
+    run_cfg = load_yaml(os.path.join(run_dir, "config.yaml"))
+    sweep_path = os.path.join(os.path.dirname(os.path.abspath(run_dir)),
+                              "sweep_config.yaml")
+    sidecar = os.path.join(run_dir, MODEL_CONFIG_SIDECAR)
+    if not os.path.exists(sweep_path) and os.path.exists(sidecar):
+        with open(sidecar) as f:
+            return run_cfg, json.load(f).get("extra", {})
+    return run_cfg, load_yaml(sweep_path).get("extra_args", {})
 
 
 def read_model_config(run_dir: str) -> Tuple[CLIPConfig, Dict[str, Any]]:
@@ -31,8 +54,9 @@ def read_model_config(run_dir: str) -> Tuple[CLIPConfig, Dict[str, Any]]:
     path = os.path.join(run_dir, MODEL_CONFIG_SIDECAR)
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"{path} not found: copy the JAX run's {MODEL_CONFIG_SIDECAR} "
-            "beside its exported .ckpt")
+            f"{path} not found: a run dir that Trainer.fit(run_dir=...) wrote has "
+            f"one; for a JAX run, copy its {MODEL_CONFIG_SIDECAR} beside the "
+            ".ckpt that mmsn-export-torch wrote")
     with open(path) as f:
         payload = json.load(f)
     if payload.get("model") != "CLIPModel":
@@ -40,6 +64,30 @@ def read_model_config(run_dir: str) -> Tuple[CLIPConfig, Dict[str, Any]]:
             f"model family {payload.get('model')!r} is not ported yet "
             "(ROADMAP.md queue 1, items 12-13); the port serves CLIPModel")
     return CLIPConfig.from_dict(payload["config"]), dict(payload.get("extra", {}))
+
+
+def initialize_from_run_dir(run_dir: str, combinations=None
+                            ) -> Tuple[CLIPModel, Dict[str, Any], Dict[str, Any]]:
+    """(a model with fresh weights, the run config, the sidecar's extra) from
+    a run directory's ``model_config.json``: the exact configuration, no
+    sweep directory needed. ``combinations`` rebuilds it with other towers.
+    The run config is the run's ``config.yaml`` (empty without one) with
+    ``enc_dim`` filled in from the model, as the JAX package fills it.
+
+    Run directories without the sidecar (the reference's own, rebuilt from
+    their sweep config) are not ported yet (ROADMAP.md queue 1, item 14)."""
+    if not os.path.exists(os.path.join(run_dir, MODEL_CONFIG_SIDECAR)):
+        raise NotImplementedError(
+            f"{run_dir} has no {MODEL_CONFIG_SIDECAR}: rebuilding a reference run "
+            "dir from its sweep config is not ported yet (ROADMAP.md queue 1, item 14)")
+    cfg, extra = read_model_config(run_dir)
+    if combinations is not None:
+        cfg = dataclasses.replace(cfg, combinations=tuple(combinations))
+        extra = dict(extra, combinations=list(combinations))
+    cfg_path = os.path.join(run_dir, "config.yaml")
+    run_cfg = (load_yaml(cfg_path) or {}) if os.path.exists(cfg_path) else {}
+    run_cfg.setdefault("enc_dim", int(cfg.enc_dim))
+    return CLIPModel(cfg), run_cfg, extra
 
 
 def write_model_config(run_dir: str, model: CLIPModel):

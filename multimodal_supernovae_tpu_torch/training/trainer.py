@@ -1,6 +1,5 @@
 """The training loop (port of ``Trainer.fit`` in
-multimodal_supernovae_tpu/training/trainer.py, for the contrastive task
-without a run directory):
+multimodal_supernovae_tpu/training/trainer.py, for the contrastive task):
 
   host                          device
   ----                          ------
@@ -11,12 +10,21 @@ without a run directory):
 
 Per epoch the host reads the mean train loss (and aborts on a non-finite
 one), the validation loss and the retrieval ``AUC_val``, and stops early when
-``val_loss`` has not improved for ``patience`` epochs.
+the monitored metric (``val_loss`` by default) has not improved for
+``patience`` epochs.
 
-Not ported yet, and raising ``NotImplementedError``: run directories,
-checkpoints, resume, metric logging and ``fit_sharded`` (ROADMAP.md queue 1,
-item 10), a device mesh (item 15), and the supervised and masked tasks
-(items 11-12).
+With a ``run_dir`` the run directory is the JAX package's: the sidecars
+(``config.yaml``, the split manifests, ``model_config.json``), a
+``metrics.jsonl`` row an epoch and ``summary.json`` (utils/logging.py), and
+the best ``keep_best`` checkpoints plus ``last.ckpt`` (training/checkpoint.py).
+``fit(resume=True)`` continues the run from ``last.ckpt``: the model, the
+optimizer, the scheduler, the epoch counter, both random streams and the
+early-stopping state, so that it replays what the run would have done had it
+not stopped.
+
+Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
+(ROADMAP.md queue 1, item 17), a device mesh (item 15), and the supervised
+and masked tasks (items 11-12).
 """
 
 from __future__ import annotations
@@ -29,12 +37,13 @@ import numpy as np
 import torch
 
 from ..data.batching import ArrayDataset, epoch_indices
+from ..models.factory import write_model_config
 from ..ops.metrics import retrieval_auc
+from ..utils.logging import MetricsLogger
+from .checkpoint import CheckpointManager, save_run_sidecars
 from .optim import build_optimizer
 from .state import TrainState
 from .step import make_epoch_runner, make_eval_runner
-
-_ITEM10 = "not ported yet (ROADMAP.md queue 1, item 10: trainer and checkpoints)"
 
 
 @dataclasses.dataclass
@@ -43,12 +52,18 @@ class TrainerConfig:
     batch_size: int = 32
     lr: float = 1e-4
     weight_decay: float = 0.0
-    patience: int = 10**9  # early stopping on val_loss (epochs)
+    patience: int = 10**9  # early-stopping patience (epochs)
     seed: int = 0
+    noise_level_img: float = 0.0  # the image tower's (item 11)
     noise_level_mag: float = 0.0
+    rotate_images: bool = True  # the image tower's (item 11)
     # lr schedule (masked pretraining's StepLR)
     step_size: Optional[int] = None
     gamma: Optional[float] = None
+    # monitored metric for checkpoints and early stopping: None = val_loss, min
+    monitor: Optional[str] = None
+    mode: Optional[str] = None  # 'min' | 'max'
+    keep_best: int = 2
     eval_every_epochs: int = 1
 
 
@@ -63,15 +78,19 @@ class Trainer:
             raise NotImplementedError(
                 f"task {task!r} is not ported yet (ROADMAP.md queue 1, items "
                 "11-12: supervised heads and masked pretraining)")
-        if run_dir is not None or use_wandb:
-            raise NotImplementedError(f"run directories and logging are {_ITEM10}")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP.md queue 1, item 15)")
         self.model = model
         self.task = task
         self.cfg = cfg
+        self.run_dir = run_dir
         self.freeze = freeze
+        self.use_wandb = use_wandb
+        # the contrastive task's monitor (the JAX package's default for
+        # every task but classification)
+        self.monitor = cfg.monitor or "val_loss"
+        self.mode = cfg.mode or "min"
         # set from the training set size before init_state so epoch-based lr
         # schedules (StepLR) convert to optimizer steps correctly
         self._steps_per_epoch = 1
@@ -93,24 +112,60 @@ class Trainer:
             freeze=self.freeze)
         return TrainState(self.model, opt, sched)
 
+    def _better(self, current: float, best: Optional[float]) -> bool:
+        return (best is None or (self.mode == "min" and current < best)
+                or (self.mode == "max" and current > best))
+
     def fit(self, train_ds: ArrayDataset, val_ds: ArrayDataset,
+            config_dump: Optional[Dict[str, Any]] = None,
             state: Optional[TrainState] = None, resume: bool = False) -> Dict[str, Any]:
         """Train for ``cfg.epochs`` epochs with early stopping. Returns the
         state, the per-epoch ``history``, ``metric_rows`` (train_loss,
         step_time_s, samples_per_s, val_loss, AUC_val), ``best``,
-        ``epochs_run`` and ``wall_time_s``."""
-        if resume:
-            raise NotImplementedError(f"resume is {_ITEM10}")
+        ``epochs_run``, ``wall_time_s`` and, with a run directory,
+        ``best_ckpt_epoch``. ``config_dump`` is what ``config.yaml`` records
+        (default: the trainer config). ``resume=True`` continues the run in
+        ``run_dir`` from its ``last.ckpt`` (from the start when it has none);
+        the history, rows and best then cover the whole run."""
+        if resume and not self.run_dir:
+            raise ValueError("resume=True needs the run_dir of the run to continue")
+        if not self.run_dir:
+            return self._fit(train_ds, val_ds, state, resume, None, None)
+        cfg = self.cfg
+        save_run_sidecars(self.run_dir, config_dump or dataclasses.asdict(cfg),
+                          train_ds.filenames, val_ds.filenames)
+        write_model_config(self.run_dir, self.model)
+        ckpts = CheckpointManager(self.run_dir, self.monitor, self.mode, cfg.keep_best)
+        logger = MetricsLogger(self.run_dir, use_wandb=self.use_wandb)
+        try:
+            return self._fit(train_ds, val_ds, state, resume, logger, ckpts)
+        finally:
+            logger.close()
+
+    def _fit(self, train_ds, val_ds, state, resume, logger, ckpts):
         cfg = self.cfg
         device = self.device
         rng = np.random.default_rng(cfg.seed)
         generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
-
         self.set_dataset_size(len(train_ds))
         train_data = train_ds.to_device(device)
         val_data = val_ds.to_device(device)
         if state is None:
             state = self.init_state()
+        history: Dict[str, List[float]] = {"train_loss": [], "val_loss": []}
+        metric_rows: List[Dict[str, float]] = []
+        best = {"value": None, "epoch": -1}
+        since_best = 0
+        start_epoch = 0
+        if resume:
+            restored = ckpts.try_restore_last(state)
+            if restored is not None:
+                state, last_epoch, loop = restored
+                start_epoch = last_epoch + 1
+                rng.bit_generator.state = loop["numpy_rng"]
+                generator.set_state(loop["torch_rng"])
+                history, metric_rows = loop["history"], loop["metric_rows"]
+                best, since_best = loop["best"], loop["since_best"]
         run_epoch = make_epoch_runner(self.model, noise_level_mag=cfg.noise_level_mag)
         run_eval = make_eval_runner(self.model)
         # fixed-shape eval plan: sequential, the tail repeats the last sample
@@ -118,21 +173,21 @@ class Trainer:
         val_plan = torch.from_numpy(epoch_indices(
             len(val_ds), cfg.batch_size, shuffle=False, pad="repeat_last")).to(device)
         n_val = len(val_ds)
-
-        history: Dict[str, List[float]] = {"train_loss": [], "val_loss": []}
-        metric_rows: List[Dict[str, float]] = []
-        best = {"value": None, "epoch": -1}
-        since_best = 0
         t_start = time.perf_counter()
 
-        epoch = -1
-        for epoch in range(cfg.epochs):
+        epoch = start_epoch - 1  # when already complete, no epochs run
+        # a run that had stopped early stays stopped
+        epochs = range(start_epoch, cfg.epochs if since_best < cfg.patience else 0)
+        for epoch in epochs:
             plan = epoch_indices(len(train_ds), cfg.batch_size, rng=rng,
                                  shuffle=True, pad="wrap")
             t0 = time.perf_counter()
             state, losses = run_epoch(state, train_data, plan, generator)
             train_loss = float(losses.mean())  # waits for the epoch's steps
             if not np.isfinite(train_loss):
+                if logger:
+                    logger.log({"epoch": epoch, "train_loss": train_loss,
+                                "aborted": "non-finite loss"}, step=epoch)
                 raise FloatingPointError(
                     f"non-finite training loss at epoch {epoch}; last finite "
                     f"epoch metrics: {metric_rows[-1] if metric_rows else None}")
@@ -150,19 +205,26 @@ class Trainer:
                 history["val_loss"].append(metrics["val_loss"])
                 metrics.update(compute_task_metrics(aux, n_val))
             metric_rows.append(metrics)
+            if logger:
+                logger.log(metrics, step=epoch)
 
-            # early stopping on val_loss (the contrastive task's monitor)
-            if "val_loss" in metrics:
-                current = metrics["val_loss"]
-                if best["value"] is None or current < best["value"]:
-                    best = {"value": current, "epoch": epoch}
+            # early stopping on the monitored metric
+            if self.monitor in metrics:
+                if self._better(metrics[self.monitor], best["value"]):
+                    best = {"value": metrics[self.monitor], "epoch": epoch}
                     since_best = 0
                 else:
                     since_best += 1
-                if since_best >= cfg.patience:
-                    break
+            if ckpts:
+                ckpts.save(epoch, state, metrics, loop={
+                    "numpy_rng": rng.bit_generator.state,
+                    "torch_rng": generator.get_state(),
+                    "history": history, "metric_rows": metric_rows,
+                    "best": best, "since_best": since_best})
+            if since_best >= cfg.patience:  # Lightning's wait_count >= patience
+                break
 
-        return {
+        result = {
             "state": state,
             "history": history,
             "metric_rows": metric_rows,
@@ -170,9 +232,27 @@ class Trainer:
             "epochs_run": epoch + 1,
             "wall_time_s": time.perf_counter() - t_start,
         }
+        if ckpts:
+            result["best_ckpt_epoch"] = ckpts.best_epoch()
+        if logger:
+            # the run summary of the JAX trainer (the reference's
+            # script_wandb.py:248-253)
+            summary = {
+                f"best_{self.monitor}": best["value"],
+                "best_epoch": best["epoch"],
+                "best_ckpt_epoch": result["best_ckpt_epoch"],
+            }
+            if history["val_loss"]:
+                summary["best_val_loss"] = float(np.min(history["val_loss"]))
+            aucs = [m["AUC_val"] for m in metric_rows if "AUC_val" in m]
+            if aucs:
+                summary["best_auc"] = float(np.max(aucs))
+            logger.set_summary(**summary)
+        return result
 
     def fit_sharded(self, *args, **kwargs):
-        raise NotImplementedError(f"fit_sharded is {_ITEM10}")
+        raise NotImplementedError(
+            "fit_sharded is not ported yet (ROADMAP.md queue 1, item 17: streaming)")
 
 
 def compute_task_metrics(aux: Dict[str, Any], n_val: int) -> Dict[str, float]:

@@ -161,6 +161,56 @@ def test_mma_dwqkv_one_percent_off_fails_the_check(shape):
     assert _norm_err(wrong, want) > NORM_TOL
 
 
+def _f64_grads(x, m, wqkv, wu, g, heads):
+    """dx and dWqkv of the whole SelfAttention's function in float64."""
+    with torch.enable_grad():
+        x64 = x.double().requires_grad_()
+        w64 = wqkv.double().requires_grad_()
+        b, t, e = x.shape
+        q, k, v = (a.reshape(b, t, heads, e // heads).transpose(1, 2)
+                   for a in (x64 @ w64.t()).chunk(3, dim=-1))
+        scores = q @ k.transpose(-1, -2)
+        if m is not None:
+            scores = scores.masked_fill(~m[:, None, None, :], qa.MASK_FILL)
+        att = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(b, t, e)
+        return torch.autograd.grad(att @ wu.double().t(), (x64, w64), g.double())
+
+
+def _near_equal_errors(shape, seed):
+    """{dx, dwqkv: (kernel's, plain version's max|x - float64| / max|float64|)}
+    of the float32 backward on inputs whose positions are nearly equal, as in
+    a deep encoder layer: there dP - D cancels, and an error of D = rowsum(P o
+    dP) comes through whole."""
+    b, t, e, h = shape
+    x, m, wqkv, wu, _, g = _inputs(seed, b, t, e, "float32", "cuda")
+    rng = np.random.default_rng(seed + 1)
+    x0 = rng.normal(size=(b, 1, e)) + 0.1 * rng.normal(size=(b, t, e))
+    x = torch.from_numpy(x0.astype(np.float32)).cuda()
+    ref = _f64_grads(x, m, wqkv, wu, g, h)
+    kern = qa.fused_qkv_attention_bwd(x, m, wqkv, wu, g, h)
+    plain = qa.fused_qkv_attention_bwd_plain(x, m, wqkv, wu, g, h)
+    out = {}
+    for i, name in enumerate(("dx", "dwqkv")):
+        top = float(ref[i].abs().max())
+        out[name] = tuple(float((a[i].double() - ref[i]).abs().max()) / top
+                          for a in (kern, plain))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 200, 64, 8), (64, 220, 32, 2)])
+def test_float32_backward_as_accurate_as_plain_on_near_equal_values(shape):
+    """The CUDA-core backward (float32) must keep dx and dWqkv within 2x the
+    plain float32 version's distance to float64 (plus 1e-7 of the largest
+    value) where a row's positions are nearly equal: a running float32 sum
+    of D over 200 keys, whose error grows with the key count, put it
+    farther (ROADMAP section 3a; chip_smoke.py phase grad-probe)."""
+    _needs_cuda()
+    for name, (err, plain_err) in _near_equal_errors(shape, 40).items():
+        assert err <= 2 * plain_err + 1e-7, (
+            f"{name}: kernel {err:.3e}, plain {plain_err:.3e} from float64")
+
+
 @pytest.mark.gpu
 def test_mma_entry_raises_on_x_off_16_bytes():
     """No fallback: the tensor-core entry refuses an x it cannot copy 16 bytes
