@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: the maven-lite embedding
 server and the maven-lite contrastive trainer end to end (and maven-lite
-from its own config, trained into run directories, resumed and served),
-through the
+from its own config, trained into run directories, resumed and served; and
+the image and meta towers and the supervised heads: trimodal from its own
+config, quadrimodal, redshift regression and classification), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor-core route, float32 on the CUDA-core route), and the same server and
 trainer under ``use_fused_block``, through the fused-block kernels (forward
@@ -31,7 +32,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      normalised error ||got - want|| / ||want|| within NORM_TOL, which sees
      an output 1% off where 0.05 absolute cannot), at the
      light-curve (256, 8, 200, 8) and spectral (256, 2, 1024, 16) serving
-     shapes in the encoder's layout and contiguous, T = 220, a batch with a
+     shapes in the encoder's layout and contiguous, the light curve at 2
+     heads of 16 (config_grid's heads), T = 220, a batch with a
      fully masked row and leading masked key tiles, key_mask=None, ragged
      T = 1 and T = 77 at head dims 8 and 16, and the other head dims. Every
      bf16 case at head dim 8 or 16 runs on both routes (the tensor cores as
@@ -216,6 +218,38 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      get_embeddings reads all 128, each within 1e-6 absolute of the
      in-memory final model's encode on the same samples (18 forward
      launches a call);
+  6e. towers: trimodal built by the port from the first grid point of
+     configs/trimodal.yaml (ConvMixer dim 32, depth 8, kernel 5, patch 10,
+     n_out 32; LC emb 64, 8 heads, 5 blocks, agg mean; SP emb 32, 2 heads,
+     13 blocks, agg mean, T_sp = 1024; B = 32, float32, image and
+     magnitude noise 1.0; only the epochs cut, 1000 to 2) on the
+     640-sample synthetic set with 60 x 60 images, split 512/128:
+     Trainer.fit into a run directory with 18 + 18 CUDA-core flash launches
+     a train step (18 an eval step, _f32_step_counts), no plain call;
+     every BatchNorm buffer of last.ckpt finite and moved from its start,
+     num_batches_tracked the train steps; AUC_val1..3 and AUC_val_mean in
+     metrics.jsonl; load_live serving x_img within 1e-6 of the in-memory
+     encode; 6 float32 steps (noise and rotation on, the same draws) on the
+     kernel path within relative 1e-5 of the plain path's; every
+     parameter's float32 gradient on one batch within 5e-4 of the plain
+     path's (relative to the parameter's largest, floored at 1e-3 of the
+     model's largest), the kernel path on the plain path's ReLU masks (a
+     unit at the kink takes either side on two float32 forwards), and the
+     same check failing with every dq off by 1%;
+     the step's host
+     time (median of 10) and one torch.profiler breakdown (ConvMixer
+     convolutions and BatchNorm, flash, the rest). Then quadrimodal (the
+     conv and meta kwargs of benchmarks/profile_tpu.py, maven-lite's
+     towers, bf16, B = 256, 60 x 60 images): image and meta towers and
+     every embedding float32, 12 train steps on the tensor-core flash
+     routes (18 + 18 a step), a finite loss, the step's host time. Then
+     configs/config_grid.yaml's light-curve redshift regression (emb 32, 2
+     heads, 9 blocks, B = 256, float32) and the same towers with a 5-class
+     head: one epoch of Trainer.fit each (9 + 9 CUDA-core launches a train
+     step), R2_val and f1_val finite, predict_supervised equal to the eval
+     head's output (9 launches a call), every parameter's float32
+     gradient at B = 256 held to the plain path's as above, the step's
+     host time;
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -232,7 +266,7 @@ measured numbers, the shape they were timed at ("shape"; launches are summed
 over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
-runs, and every call of the run-dir phase; the flash and fused-QKV
+runs, and every counted call of the run-dir and towers phases; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
 and "library_device_ms", and the wrapper's host time a call, "host_ms")
@@ -288,7 +322,7 @@ from multimodal_supernovae_tpu_torch.data import (
     make_synthetic_dataset,
     take,
 )
-from multimodal_supernovae_tpu_torch.evaluation import get_embeddings
+from multimodal_supernovae_tpu_torch.evaluation import get_embeddings, predict_supervised
 from multimodal_supernovae_tpu_torch.kernels import build, library_path
 from multimodal_supernovae_tpu_torch.models import (
     CLIPConfig,
@@ -395,6 +429,22 @@ RESUME_RTOL, RESUME_PARAM_TOL = 1e-5, 1e-5
 RUN_DIR_EMBED_TOL = 1e-6
 RUN_DIR_FILES = ("config.yaml", "train_filenames.txt", "val_filenames.txt",
                  "model_config.json", "metrics.jsonl", "summary.json", "last.ckpt")
+# phase towers: trimodal from its own config, quadrimodal bf16 (the conv and
+# meta kwargs of benchmarks/profile_tpu.py:112-115), the supervised heads of
+# configs/config_grid.yaml
+TRIMODAL, GRID = "configs/trimodal.yaml", "configs/config_grid.yaml"
+TOWERS_N, TOWERS_EPOCHS, IMAGE_SIZE, HEADS_EPOCHS = 640, 2, 60, 1
+TOWERS_TRAJ_STEPS, TOWERS_TIMED = 6, 10
+QUAD = ("host_galaxy", "lightcurve", "spectral", "meta")
+QUAD_CONV = {"dim": 32, "depth": 8, "kernel_size": 5, "patch_size": 10, "n_out": 32,
+             "dropout_prob": 0.0}
+QUAD_META = {"input_dim": 128, "hidden_dim": 128, "num_layers": 2}
+# what the two configs must give: ConvMixer (dim, depth, kernel, patch, n_out), LC
+# and SP (emb, heads, depth, agg[, T_sp]), (B, compute dtype, image and magnitude
+# noise, towers); the head's LC, towers, regression, B, compute dtype
+TRIMODAL_STATED = ((32, 8, 5, 10, 32), (64, 8, 5, "mean"), (32, 2, 13, "mean", 1024),
+                   (32, None, 1.0, 1.0, ("host_galaxy", "lightcurve", "spectral")))
+HEADS_STATED = ((32, 2, 9, "mean"), ("lightcurve",), True, 256, None)
 
 
 _T0 = time.perf_counter()
@@ -559,7 +609,8 @@ def _device_ms(fn, iters=25):
 
 def _flash_cases(mask_lc, mask_sp, t_sp):
     """(name, (B, H, T, S), mask, encoder layout) of the flash checks: the
-    two towers' shapes in the encoder's layout and contiguous, a fully
+    two towers' shapes in the encoder's layout and contiguous, the light
+    curve at config_grid's 2 heads of 16, a fully
     masked row with leading masked key tiles, no mask, ragged T = 1 and 77
     at both head dims, and the CUDA-core kernels' other head dims."""
     masked = mask_sp[:16].clone()
@@ -571,6 +622,7 @@ def _flash_cases(mask_lc, mask_sp, t_sp):
     return [
         ("lc", (BATCH, 8, 2 * LC_LEN, 8), mask_lc, True),
         ("lc_contig", (BATCH, 8, 2 * LC_LEN, 8), mask_lc, False),
+        ("lc_h2", (BATCH, 2, 2 * LC_LEN, 16), mask_lc, True),
         ("sp", (BATCH, 2, t_sp, 16), mask_sp[:, :t_sp].contiguous(), True),
         ("sp_contig", (BATCH, 2, 220, 16), mask_sp[:, -220:].contiguous(), False),
         ("masked_rows", (16, 2, SP_LEN, 16), masked, False),
@@ -2035,10 +2087,8 @@ def phase_run_dir():
     sp_len, batch = int(extra["max_spectral_data_len"]), tcfg.batch_size
     ds = make_synthetic_dataset(n=RUN_DIR_N, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=sp_len,
                                 seed=0)
-    n_val = int(round(RUN_DIR_N * float(extra["val_fraction"])))
-    n_train = RUN_DIR_N - n_val
-    train_ds = ds.subset(np.arange(n_train))
-    val_ds = ds.subset(np.arange(n_train, RUN_DIR_N))
+    train_ds, val_ds = _split(ds, extra["val_fraction"])
+    n_train, n_val = len(train_ds), len(val_ds)
     train_steps, eval_steps = -(-n_train // batch), -(-n_val // batch)
 
     def want(epochs):  # every layer float32: the flash kernels on the CUDA cores
@@ -2150,6 +2200,410 @@ def phase_run_dir():
     return total
 
 
+def _host_step_ms(step, state, batch, gen, n):
+    """Host-clock ms of each of ``n`` train steps, each ended by a
+    synchronise, after 2 warm-up steps; and the last loss."""
+    for _ in range(2):
+        step(state, batch, gen)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, loss
+
+
+def _check_counts(tag, counts, want):
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}")
+
+
+def _bn_buffers_moved(tag, sd, steps):
+    """Every BatchNorm buffer of the image tower finite and away from its
+    initial value (running mean 0, variance 1, count 0); the count equals the
+    train steps."""
+    bufs = {k: v for k, v in sd.items() if k.startswith("image_encoder.")
+            and ("running" in k or "num_batches" in k)}
+    bad = [k for k, v in bufs.items() if not torch.isfinite(v.float()).all()
+           or (("running_mean" in k and not v.abs().max() > 0)
+               or ("running_var" in k and not (v - 1).abs().max() > 0)
+               or ("num_batches" in k and int(v) != steps))]
+    log(f"{tag}: {len(bufs)} BatchNorm buffers in last.ckpt, every one finite and moved "
+        f"from its start: {not bad}; running_var range [{min(float(v.min()) for k, v in bufs.items() if 'var' in k):.4g}, "
+        f"{max(float(v.max()) for k, v in bufs.items() if 'var' in k):.4g}]")
+    if bad or not bufs:
+        raise AssertionError(f"{tag}: BatchNorm buffers not finite or not moved: {bad}")
+
+
+@contextlib.contextmanager
+def _relu_masks(model, masks):
+    """With ``masks`` empty, records the mask (input > 0) of each nn.ReLU call
+    of ``model`` into it; else applies those masks, in call order, in place of
+    the calls' own and yields the list of how many units each call would have
+    put on the other side. Two float32 paths whose forwards differ by rounding
+    can put a unit on either side of the kink, which moves its weight and bias
+    gradients by a finite amount whatever the kernels' accuracy."""
+    replay, flips = bool(masks), []
+
+    def hook(module, inputs, out):
+        if not replay:
+            masks.append(out > 0)
+            return None
+        mask = masks[len(flips)]
+        flips.append(int(((inputs[0] > 0) != mask).sum()))
+        return inputs[0] * mask
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.ReLU)]
+    try:
+        yield flips
+    finally:
+        for h in hooks:
+            h.remove()
+    if replay and len(flips) != len(masks):
+        raise AssertionError(f"ReLU calls {len(flips)}, recorded {len(masks)}")
+
+
+def _towers_grads(tag, cfg, batch, per_step):
+    """Every parameter's gradient of one float32 train-mode loss (noise off)
+    from ``cfg``'s seeded weights on ``batch``: the kernel path held to the
+    plain path, and the kernel path with every dq off by 1% shown to fail
+    the same check, as phase_train holds them. Both take the plain path's
+    ReLU masks (_relu_masks); the kernel path on its own masks is logged,
+    not held. Returns the kernel path's launches, which must be
+    ``per_step``."""
+    grads, counts, masks, flips = {}, {}, [], {}
+    for name, path in (("plain", "plain"), ("kernel", "kernel"), (WRONG_DQ, WRONG_DQ),
+                       ("kernel, own masks", "kernel")):
+        model = CLIPModel(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        replay = [] if name == "kernel, own masks" else masks
+        with PATHS[path][1](), _relu_masks(model, replay) as flips[name]:
+            _zero_counts()
+            loss, _ = model.loss_fn(batch, train=True,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(4))
+            loss.backward()
+            counts[name] = _counts()
+        grads[name] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+        del model
+    _check_counts(f"{tag} grads plain", counts["plain"], (0,) * 12)
+    _check_counts(f"{tag} grads", counts["kernel"], per_step)
+    want, errs, b = grads["plain"], {}, len(next(iter(batch.values())))
+    for name in ("kernel", WRONG_DQ, "kernel, own masks"):
+        if sorted(grads[name]) != sorted(want):
+            raise AssertionError(f"{tag} {name}: gradients of "
+                                 f"{sorted(set(grads[name]) ^ set(want))}")
+        worst, errs[name] = _grad_error(grads[name], want)
+        masks_of = ("its own ReLU masks (not held)" if name == "kernel, own masks" else
+                    f"the plain path's masks of {len(masks)} ReLU calls (units its own "
+                    f"forward would flip: {sum(flips[name])})")
+        log(f"{tag} grads float32, {len(want)} parameters at B={b}: {name!r} on "
+            f"{masks_of}, worst max|diff|/max|plain| {errs[name]:.3e} at {worst} (tol "
+            f"{GRAD_RTOL})")
+    if errs["kernel"] > GRAD_RTOL:
+        raise AssertionError(f"{tag}: the kernel path's gradients leave the plain path's: "
+                             f"{errs}")
+    if errs[WRONG_DQ] <= GRAD_RTOL:
+        raise AssertionError(f"{tag}: the gradient check cannot see a 1% error: {errs}")
+    return counts["kernel"]
+
+
+def _split(ds, val_fraction):
+    n_val = int(round(len(ds) * float(val_fraction)))
+    n_train = len(ds) - n_val
+    return ds.subset(np.arange(n_train)), ds.subset(np.arange(n_train, len(ds)))
+
+
+def _towers_trimodal(card):
+    """trimodal from the first grid point of configs/trimodal.yaml: fit into a
+    run dir, BN buffers, task metrics, serving with images, the float32
+    trajectory and parameter gradients against the plain path, step time and
+    a profile."""
+    sweep = load_sweep(TRIMODAL)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    clip_cfg = build_clip_config(point, extra, nband=NBAND)
+    tcfg = build_trainer_config(point, extra)
+    log(f"towers trimodal: {TRIMODAL}, first of {sweep.n_points} grid points; override: "
+        f"epochs {tcfg.epochs} -> {TOWERS_EPOCHS}")
+    tcfg = dataclasses.replace(tcfg, epochs=TOWERS_EPOCHS)
+    tk, tsk, ck = clip_cfg.tk(), clip_cfg.tsk(), clip_cfg.ck()
+    sp_len = int(extra["max_spectral_data_len"])
+    stated = ((ck["dim"], ck["depth"], ck["kernel_size"], ck["patch_size"], ck["n_out"]),
+              (tk["emb"], tk["heads"], tk["depth"], tk["agg"]),
+              (tsk["emb"], tsk["heads"], tsk["depth"], tsk["agg"], sp_len),
+              (tcfg.batch_size, clip_cfg.compute_dtype, tcfg.noise_level_img,
+               tcfg.noise_level_mag, clip_cfg.combinations))
+    log(f"towers trimodal: ConvMixer {ck}; LC {tk}; SP {tsk}; enc_dim {clip_cfg.enc_dim}; "
+        f"trainer {tcfg}")
+    if stated != TRIMODAL_STATED:
+        raise AssertionError(f"towers: {TRIMODAL} does not give the stated widths: {stated}")
+    ds = make_synthetic_dataset(n=TOWERS_N, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=sp_len,
+                                image_size=IMAGE_SIZE, modalities=clip_cfg.combinations,
+                                seed=0)
+    train_ds, val_ds = _split(ds, extra["val_fraction"])
+    batch = tcfg.batch_size
+    train_steps, eval_steps = -(-len(train_ds) // batch), -(-len(val_ds) // batch)
+    per_step = _f32_step_counts("kernel")  # float32: the CUDA-core flash kernels
+    epochs = TOWERS_EPOCHS
+    want_fit = tuple(a * epochs * (train_steps + eval_steps) if i % 2 == 0 else
+                     a * epochs * train_steps for i, a in enumerate(per_step))
+    total = (0,) * 12
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "trimodal")
+        model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        trainer = Trainer(model, "contrastive", tcfg, run_dir=run_dir)
+        with _plain_calls() as plain:
+            _zero_counts()
+            t0 = time.perf_counter()
+            result = trainer.fit(train_ds, val_ds, config_dump=dict(point, epochs=epochs))
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        log(f"towers trimodal: Trainer.fit {epochs} epochs ({epochs * train_steps} train + "
+            f"{epochs * eval_steps} eval steps at B={batch}, {IMAGE_SIZE}x{IMAGE_SIZE} images, "
+            f"T_sp={sp_len}, float32) in {wall:.3f} s; launches {counts}, {len(plain)} plain "
+            "kernel calls")
+        _check_counts("towers trimodal fit", counts, want_fit)
+        if plain:
+            raise AssertionError(f"towers trimodal: {len(plain)} plain kernel calls")
+        total = tuple(a + b for a, b in zip(total, counts))
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        keys = ("train_loss", "val_loss", "AUC_val1", "AUC_val2", "AUC_val3", "AUC_val_mean")
+        for row in rows:
+            log(f"towers trimodal: epoch {row['epoch']} " + ", ".join(
+                f"{k} {row.get(k, float('nan')):.6f}" for k in keys)
+                + f", step {row['step_time_s'] * 1e3:.2f} ms")
+        if len(rows) != epochs or not all(
+                k in r and np.isfinite(r[k]) for r in rows for k in keys):
+            raise AssertionError(f"towers trimodal: metrics.jsonl rows {rows}")
+        ckpt = torch.load(os.path.join(run_dir, "last.ckpt"), map_location="cpu",
+                          weights_only=True)
+        _bn_buffers_moved("towers trimodal", ckpt["state_dict"], epochs * train_steps)
+
+        # serving the run dir with images, against the in-memory model's encode
+        model = result["state"].model.eval()
+        fields = ("x_img", "x_lc", "t_lc", "mask_lc", "x_sp", "t_sp", "mask_sp")
+        feed = {k: val_ds.arrays[k][:batch] for k in fields}
+        with torch.no_grad():
+            want_emb = [e.float().cpu().numpy() for e in model.encode(
+                {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()})]
+        served = load_live(run_dir, batch, device=DEVICE, which="last", lc_len=LC_LEN,
+                           sp_len=sp_len, image_size=IMAGE_SIZE)
+        with _plain_calls() as plain, torch.no_grad():
+            _zero_counts()
+            got = served.fn(feed)
+            serve_counts = _counts()
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want_emb))
+        log(f"towers trimodal serve: load_live (x_img {served.input_spec['x_img'][0]}), "
+            f"{batch} samples: {[g.shape for g in got]}, max|served - encode| {err:.3e} (tol "
+            f"{RUN_DIR_EMBED_TOL}); launches {serve_counts}, {len(plain)} plain calls")
+        _check_counts("towers trimodal serve", serve_counts,
+                      (LAYERS_PER_CALL,) + (0,) * 11)
+        if (err > RUN_DIR_EMBED_TOL or plain or len(got) != 3
+                or served.input_spec["x_img"][0] != feed["x_img"].shape[1:]):
+            raise AssertionError(f"towers trimodal serve: {err}, {len(plain)} plain calls")
+        total = tuple(a + b for a, b in zip(total, serve_counts))
+        del result, trainer, model, served
+
+    # the float32 trajectory on the kernel path against the plain path
+    plan = epoch_indices(len(train_ds), batch, rng=np.random.default_rng(1), shuffle=True,
+                         pad="wrap")[:TOWERS_TRAJ_STEPS]
+    data = train_ds.to_device(DEVICE)
+    losses = {}
+    for path in ("kernel", "plain"):
+        model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                                 weight_decay=tcfg.weight_decay)
+        run = make_epoch_runner(model, tcfg.noise_level_mag,
+                                noise_level_img=tcfg.noise_level_img)
+        with PATHS[path][1]():
+            _zero_counts()
+            _, got = run(TrainState(model, opt), data, plan,
+                         torch.Generator(device=DEVICE).manual_seed(2))
+            counts = _check_f32_counts(path, len(plan))
+        losses[path] = got.cpu().numpy()
+        total = tuple(a + b for a, b in zip(total, counts))
+    rel = np.abs(losses["kernel"] - losses["plain"]) / np.abs(losses["plain"])
+    log(f"towers trimodal trajectory: {len(plan)} float32 steps (noise and rotation on, the "
+        f"same draws), kernel {losses['kernel'].tolist()}, plain {losses['plain'].tolist()}, "
+        f"worst relative difference {rel.max():.3e} (tol {TRAJ_RTOL})")
+    if not np.all(np.isfinite(losses["kernel"])) or rel.max() > TRAJ_RTOL:
+        raise AssertionError(f"towers trimodal: the kernel path's trajectory leaves the plain "
+                             f"path's: {rel}")
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    counts = _towers_grads("towers trimodal", clip_cfg, one, per_step)
+    total = tuple(a + b for a, b in zip(total, counts))
+
+    # step time by the host clock and one profile of the trimodal step
+    model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr)
+    state = TrainState(model, opt)
+    step = make_train_step(model, tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    tbatch = take(data, torch.arange(batch, device=DEVICE))
+    _zero_counts()
+    times, loss = _host_step_ms(step, state, tbatch, gen, TOWERS_TIMED)
+    counts = _counts()
+    _check_counts("towers trimodal timed steps", counts,
+                  tuple(c * (TOWERS_TIMED + 2) for c in per_step))
+    total = tuple(a + b for a, b in zip(total, counts))
+    log(f"towers trimodal: train step (B={batch}, float32) host clock median "
+        f"{np.median(times):.3f} ms (quartiles {np.percentile(times, 25):.3f}-"
+        f"{np.percentile(times, 75):.3f}) over {TOWERS_TIMED}; loss {float(loss):.5f}; card {card}")
+    traced = _trace(lambda: step(state, tbatch, gen), PROFILED_STEPS)
+    _log_trace("towers profile trimodal", "train steps", *traced, at=f"B={batch} float32")
+    kinds = traced[-1]
+    conv = sum(ms for k, ms in kinds.items() if k in ("convolution", "BatchNorm"))
+    flash = sum(ms for k, ms in kinds.items() if k.startswith("flash"))
+    log(f"towers profile trimodal: ConvMixer convolutions and BatchNorm {conv:.3f} ms, flash "
+        f"kernels (CUDA cores, float32) {flash:.3f} ms, the rest {traced[0] - conv - flash:.3f} "
+        f"ms of {traced[0]:.3f} ms device time a step; card {card}")
+    return total, (batch, float(np.median(times)))
+
+
+def _towers_quadrimodal(card):
+    """quadrimodal in bf16 at B = 256 (profile_tpu's recipe): a few train
+    steps on the tensor-core flash routes; the image and meta towers stay
+    float32."""
+    cfg = CLIPConfig.create(
+        combinations=QUAD, enc_dim=32, nband=NBAND, logit_scale_init=19.55, loss="softmax",
+        transformer_kwargs=SEQ_LC, transformer_spectral_kwargs=SEQ_SP, conv_kwargs=QUAD_CONV,
+        meta_kwargs=QUAD_META, compute_dtype="bfloat16")
+    model = CLIPModel(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    ds = make_synthetic_dataset(n=BATCH, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=TRAIN_SP_LEN,
+                                image_size=IMAGE_SIZE, modalities=QUAD, seed=0)
+    batch = ds.to_device(DEVICE)
+    with torch.no_grad():
+        img = model.image_encoder(batch["x_img"])
+        meta = model.embed_meta(batch["label"], batch["redshift"], normalize=False)
+        embs = model.encode(batch)
+    dtypes = [str(t.dtype) for t in [img, meta] + embs]
+    log(f"towers quadrimodal: bf16 compute, B={BATCH}; image tower out {img.dtype} "
+        f"{tuple(img.shape)}, meta tower out {meta.dtype}, embeddings {dtypes[2:]}")
+    if set(dtypes) != {"torch.float32"}:
+        raise AssertionError(f"towers quadrimodal: towers not float32: {dtypes}")
+    opt, _ = build_optimizer(model.named_parameters(), lr=5e-4)
+    step = make_train_step(model, 1.0, noise_level_img=1.0)
+    _zero_counts()
+    times, loss = _host_step_ms(step, TrainState(model, opt), batch,
+                                torch.Generator(device=DEVICE).manual_seed(3), TOWERS_TIMED)
+    counts = _counts()
+    log(f"towers quadrimodal: train step (B={BATCH}, bf16, {IMAGE_SIZE}x{IMAGE_SIZE} images, "
+        f"T_lc={NBAND * LC_LEN}, "
+        f"T_sp={TRAIN_SP_LEN}) host clock median {np.median(times):.3f} ms (quartiles "
+        f"{np.percentile(times, 25):.3f}-{np.percentile(times, 75):.3f}) over "
+        f"{TOWERS_TIMED}; loss {float(loss):.5f}; launches {counts}; card {card}")
+    _check_counts("towers quadrimodal", counts,
+                  tuple(c * (TOWERS_TIMED + 2) for c in _step_counts("kernel")))
+    if not torch.isfinite(loss):
+        raise AssertionError(f"towers quadrimodal: loss {loss}")
+    return counts, float(np.median(times))
+
+
+def _towers_heads(card):
+    """config_grid.yaml's light-curve redshift regression and the same towers
+    with a 5-class head: a few steps each through Trainer.fit, the task
+    metric finite, predict_supervised equal to the eval head's output, the
+    parameter gradients at B = 256 held to the plain path's."""
+    sweep = load_sweep(GRID)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    reg_cfg = build_clip_config(point, extra, nband=NBAND)
+    tcfg = dataclasses.replace(build_trainer_config(point, extra), epochs=HEADS_EPOCHS)
+    tk = reg_cfg.tk()
+    stated = ((tk["emb"], tk["heads"], tk["depth"], tk["agg"]), reg_cfg.combinations,
+              reg_cfg.regression, tcfg.batch_size, reg_cfg.compute_dtype)
+    log(f"towers heads: {GRID}, first of {sweep.n_points} grid points; override: epochs "
+        f"-> {HEADS_EPOCHS}; LC {tk}; trainer {tcfg}")
+    if stated != HEADS_STATED:
+        raise AssertionError(f"towers: {GRID} does not give the stated head: {stated}")
+    ds = make_synthetic_dataset(n=TOWERS_N, n_max_lc=LC_LEN, nband=NBAND,
+                                modalities=reg_cfg.combinations, seed=0)
+    train_ds, val_ds = _split(ds, extra["val_fraction"])
+    batch = tcfg.batch_size
+    train_steps, eval_steps = -(-len(train_ds) // batch), -(-len(val_ds) // batch)
+    depth = tk["depth"]
+    total, step_ms = (0,) * 12, {"batch": batch}
+    tbatch = take(train_ds.to_device(DEVICE), torch.arange(batch, device=DEVICE))
+    cls_cfg = dataclasses.replace(reg_cfg, regression=False, classification=True, n_classes=5)
+    for task, cfg, metric in (("regression", reg_cfg, "R2_val"),
+                              ("classification", cls_cfg, "f1_val")):
+        model = CLIPModel(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        trainer = Trainer(model, task, tcfg)
+        with _plain_calls() as plain:
+            _zero_counts()
+            t0 = time.perf_counter()
+            result = trainer.fit(train_ds, val_ds)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        row = result["metric_rows"][-1]
+        log(f"towers {task}: Trainer.fit {HEADS_EPOCHS} epoch ({train_steps} train + "
+            f"{eval_steps} eval steps at B={batch}, float32) in {wall:.3f} s: train_loss "
+            f"{row['train_loss']:.6f}, val_loss {row['val_loss']:.6f}, {metric} "
+            f"{row[metric]:.6f}, step {row['step_time_s'] * 1e3:.2f} ms (the epoch's mean); "
+            f"monitor {trainer.monitor}/{trainer.mode}; launches {counts}; card {card}")
+        _check_counts(f"towers {task} fit", counts,
+                      (depth * HEADS_EPOCHS * (train_steps + eval_steps),
+                       depth * HEADS_EPOCHS * train_steps) + (0,) * 10)
+        if plain or not np.isfinite(row[metric]):
+            raise AssertionError(f"towers {task}: {metric} {row[metric]}, {len(plain)} plain")
+        model = result["state"].model
+        with _plain_calls() as plain:
+            _zero_counts()
+            pred = predict_supervised(model, val_ds, batch_size=batch, device=DEVICE)
+            pred_counts = _counts()
+        val_data = val_ds.to_device(DEVICE)
+        with torch.no_grad():
+            want = torch.cat([model.eval()(take(val_data, idx)) for idx in
+                              torch.arange(len(val_ds), device=DEVICE).split(batch)])
+        err = float(np.abs(pred - want.float().cpu().numpy()).max())
+        log(f"towers {task}: predict_supervised {pred.shape} against the eval head, max "
+            f"difference {err:.3e}; launches {pred_counts}")
+        _check_counts(f"towers {task} predict", pred_counts,
+                      (depth * eval_steps,) + (0,) * 11)
+        if err > RUN_DIR_EMBED_TOL or pred.shape != (len(val_ds), cfg.head_out):
+            raise AssertionError(f"towers {task}: predict_supervised {pred.shape} off by {err}")
+        opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr)
+        step = make_train_step(model, tcfg.noise_level_mag)
+        _zero_counts()
+        times, loss = _host_step_ms(step, TrainState(model, opt), tbatch,
+                                    torch.Generator(device=DEVICE).manual_seed(3),
+                                    TOWERS_TIMED)
+        timed_counts = _counts()
+        log(f"towers {task}: train step (B={batch}, float32) host clock median "
+            f"{np.median(times):.3f} ms (quartiles {np.percentile(times, 25):.3f}-"
+            f"{np.percentile(times, 75):.3f}) over {TOWERS_TIMED}; loss {float(loss):.5f}; "
+            f"card {card}")
+        _check_counts(f"towers {task} timed steps", timed_counts,
+                      (depth * (TOWERS_TIMED + 2),) * 2 + (0,) * 10)
+        del result, trainer, model, opt, step
+        grad_counts = _towers_grads(f"towers {task}", cfg, tbatch,
+                                    (depth, depth) + (0,) * 10)
+        total = tuple(sum(c) for c in
+                      zip(total, counts, pred_counts, timed_counts, grad_counts))
+        step_ms[task] = float(np.median(times))
+    return total, step_ms
+
+
+def phase_towers(card):
+    """The image and meta towers and the supervised heads on the card:
+    trimodal, quadrimodal bf16 and the heads. Returns the launches of every
+    counted call."""
+    t_phase = time.perf_counter()
+    tri, tri_ms = _towers_trimodal(card)
+    torch.cuda.empty_cache()
+    quad, quad_ms = _towers_quadrimodal(card)
+    torch.cuda.empty_cache()
+    heads, heads_ms = _towers_heads(card)
+    total = tuple(a + b + c for a, b, c in zip(tri, quad, heads))
+    log(f"towers: step time by the host clock: trimodal (B={tri_ms[0]}, float32) "
+        f"{tri_ms[1]:.3f} ms, quadrimodal (B={BATCH}, bf16) {quad_ms:.3f} ms, regression and "
+        f"classification (B={heads_ms['batch']}, float32) {heads_ms['regression']:.3f} and "
+        f"{heads_ms['classification']:.3f} ms; card {card}")
+    log(f"towers: phase done in {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 def _kind(name):
     """Kind of a device op, by its kernel name."""
     n = name.lower()
@@ -2161,6 +2615,10 @@ def _kind(name):
                        ("flash_attention_fwd", "flash forward"),
                        ("flash_attention_bwd_dq", "flash backward dq"),
                        ("flash_attention_bwd_dkdv", "flash backward dk/dv"),
+                       ("fprop", "convolution"), ("dgrad", "convolution"),
+                       ("wgrad", "convolution"), ("conv", "convolution"),
+                       ("batch_norm", "BatchNorm"), ("bn_fw", "BatchNorm"),
+                       ("bn_bw", "BatchNorm"),
                        ("gemm", "GEMM"), ("cutlass", "GEMM"), ("xmma", "GEMM"),
                        ("sm90", "GEMM"), ("gemv", "GEMM"), ("softmax", "softmax"),
                        ("reduce", "reductions"), ("multi_tensor", "RAdam (foreach)"),
@@ -2203,8 +2661,9 @@ def _trace(fn, n):
     return busy / 1e3 / n, wall / 1e3 / n, host_ms, 1 - busy / wall, len(dev) / n, kinds
 
 
-def _log_trace(tag, unit, device_ms, wall_ms, host_ms, idle, ops, kinds):
-    log(f"{tag}: {PROFILED_STEPS} {unit} at B={BATCH} bf16 under torch.profiler: device "
+def _log_trace(tag, unit, device_ms, wall_ms, host_ms, idle, ops, kinds,
+               at=f"B={BATCH} bf16"):
+    log(f"{tag}: {PROFILED_STEPS} {unit} at {at} under torch.profiler: device "
         f"{device_ms:.3f} ms each, trace wall {wall_ms:.3f} ms (host clock {host_ms:.3f}), "
         f"device idle share {idle:.3f}, {ops:.0f} device ops each")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
@@ -2303,11 +2762,12 @@ def main():
     train_fused = phase_train("fused")
     train_qkv = phase_train("qkv")
     run_dir = phase_run_dir()
+    towers = phase_towers(card)
     phase_profile()
-    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir)
+    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, summed in the line: {runs}; card {card}")
+        f"train-qkv, run-dir, towers, summed in the line: {runs}; card {card}")
     lc, sp_fwd, sp_bwd = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                           (BATCH, 2, TRAIN_SP_LEN, 16))
     for name, shape in (("LC", lc), ("SP serving", sp_fwd), ("SP training", sp_bwd)):

@@ -36,6 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-band light-curve length (default: run config, else 100)")
     ap.add_argument("--sp-len", type=int, default=None,
                     help="spectrum length (default: run config, else 1000)")
+    ap.add_argument("--image-size", type=int, default=None,
+                    help="host-galaxy image side (default: run config, else 60)")
     ap.add_argument("--max-wait-ms", type=float, default=5.0,
                     help="batching window after the first queued request")
     ap.add_argument("--host", default="127.0.0.1")
@@ -54,7 +56,8 @@ def main(argv=None):
     from multimodal_supernovae_tpu_torch.serving import load_live, serve
 
     model = load_live(args.run_dir, args.batch_size, device=args.device,
-                      which=args.which, lc_len=args.lc_len, sp_len=args.sp_len)
+                      which=args.which, lc_len=args.lc_len, sp_len=args.sp_len,
+                      image_size=args.image_size)
     serve(model, host=args.host, port=args.port,
           max_wait_ms=args.max_wait_ms, quiet=args.quiet)
 

@@ -1,4 +1,4 @@
-from .augment import augment_batch, noise_from_error
+from .augment import augment_batch, image_uniform_noise, noise_from_error, random_rot90
 from .batching import (
     BATCH_FIELDS,
     ArrayDataset,
@@ -13,9 +13,11 @@ __all__ = [
     "BATCH_FIELDS",
     "augment_batch",
     "epoch_indices",
+    "image_uniform_noise",
     "make_synthetic_arrays",
     "make_synthetic_dataset",
     "noise_from_error",
+    "random_rot90",
     "tail_valid_mask",
     "take",
 ]

@@ -1,11 +1,16 @@
-"""On-device data augmentation (port of the light-curve and spectral part of
+"""On-device data augmentation (port of the augmentation half of
 multimodal_supernovae_tpu/data/augment.py).
 
-Sequence noise is ``x + N(0, 1) * err * level``, the standard-normal draw
-coming from an explicit ``torch.Generator`` on the batch's device, or
-handed in as a tensor (tests give both stacks the same numbers that way).
-Image noise and rotation wait for the image tower (ROADMAP.md queue 1,
-item 11) and raise ``NotImplementedError``.
+  * sequence noise: ``x + N(0, 1) * err * level`` on ``x_lc`` and ``x_sp``;
+  * image noise: uniform in ``+- level * std(batch)``, the standard
+    deviation being the biased one over the WHOLE batch, as in the JAX
+    package and the reference;
+  * image rotation: each NHWC image by its own random multiple of 90
+    degrees (square images).
+
+Every draw comes from an explicit ``torch.Generator`` on the batch's device
+or is handed in as a tensor (tests give both stacks the same numbers that
+way). The masked-pretraining masks wait for item 12 (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -14,8 +19,11 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-_NO_IMAGES = ("image augmentation is not ported yet (ROADMAP.md queue 1, "
-              "item 11: image and meta towers)")
+
+def _need(generator: Optional[torch.Generator], what: str) -> torch.Generator:
+    if generator is None:
+        raise ValueError(f"{what} needs a generator or a handed-in draw")
+    return generator
 
 
 def noise_from_error(x: torch.Tensor, err: torch.Tensor, level,
@@ -25,11 +33,37 @@ def noise_from_error(x: torch.Tensor, err: torch.Tensor, level,
     is the standard-normal draw; without it one is drawn from
     ``generator``."""
     if normal is None:
-        if generator is None:
-            raise ValueError("noise_from_error needs a generator or a normal draw")
-        normal = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                             device=x.device)
+        normal = torch.randn(x.shape, generator=_need(generator, "noise_from_error"),
+                             dtype=x.dtype, device=x.device)
     return x + normal * err * level
+
+
+def image_uniform_noise(img: torch.Tensor, level,
+                        generator: Optional[torch.Generator] = None,
+                        uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``img + u * level * std(img)`` with u uniform in [-1, 1) per element
+    and the biased standard deviation of the whole batch (``jnp.std``).
+    ``uniform`` is u; without it one is drawn from ``generator``."""
+    noise_range = level * torch.std(img, correction=0)
+    if uniform is None:
+        uniform = torch.rand(img.shape, generator=_need(generator, "image noise"),
+                             dtype=img.dtype, device=img.device) * 2.0 - 1.0
+    return img + uniform * noise_range
+
+
+def random_rot90(img: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotate each NHWC image by ``k[i]`` quarter turns (``jnp.rot90(im, k,
+    axes=(0, 1))`` on one HWC image). ``k`` (B,) in {0..3}; without it one
+    is drawn from ``generator``. H == W (host cutouts are square), so the
+    four rotations share a shape and each image takes its own from a stack
+    without leaving the device."""
+    b = img.shape[0]
+    if k is None:
+        k = torch.randint(0, 4, (b,), generator=_need(generator, "image rotation"),
+                          device=img.device)
+    turns = torch.stack([torch.rot90(img, i, dims=(1, 2)) for i in range(4)])
+    return turns[k.to(img.device).long(), torch.arange(b, device=img.device)]
 
 
 def augment_batch(
@@ -37,14 +71,32 @@ def augment_batch(
     generator: Optional[torch.Generator] = None,
     noise_level_mag: float = 0.0,
     normals: Optional[Mapping[str, torch.Tensor]] = None,
+    noise_level_img: float = 0.0,
+    rotate_images: bool = True,
+    img_uniform: Optional[torch.Tensor] = None,
+    img_k: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Magnitude/flux noise on ``x_lc`` and ``x_sp`` at ``noise_level_mag``
-    (a zero level leaves the batch as it is). ``normals`` may give the
-    standard-normal draw per field (``x_lc``, ``x_sp``); the rest are drawn
-    from ``generator``, light curve first. A batch with images raises."""
-    if "x_img" in batch:
-        raise NotImplementedError(_NO_IMAGES)
+    """The JAX package's recipe on whatever modalities are present: image
+    noise at ``noise_level_img`` then rotation (``rotate_images``), and
+    magnitude/flux noise on ``x_lc`` and ``x_sp`` at ``noise_level_mag``. A
+    zero level leaves its fields as they are.
+
+    ``rotate_images`` defaults to True and rotates even at noise level 0:
+    the reference's loader rotates images whenever they are present, and
+    the JAX package keeps that (pass False for deterministic batches).
+
+    ``normals`` may give the standard-normal draw per field (``x_lc``,
+    ``x_sp``), ``img_uniform`` the image noise's u and ``img_k`` the
+    quarter turns; the rest are drawn from ``generator`` in the order image
+    noise, rotation, light curve, spectrum."""
     out = dict(batch)
+    if "x_img" in batch:
+        img = batch["x_img"]
+        if noise_level_img:
+            img = image_uniform_noise(img, noise_level_img, generator, img_uniform)
+        if rotate_images:
+            img = random_rot90(img, generator, img_k)
+        out["x_img"] = img
     if not noise_level_mag:
         return out
     normals = normals or {}

@@ -1,12 +1,13 @@
-"""Synthetic supernova-like light curves and spectra (the lightcurve and
-spectral part of multimodal_supernovae_tpu/data/synthetic.py).
+"""Synthetic supernova-like light curves, spectra and host-galaxy images
+(port of multimodal_supernovae_tpu/data/synthetic.py).
 
 Draws exactly the numbers the JAX package's ``make_synthetic_dataset`` draws
-for the same seed and sizes: ``make_synthetic_arrays`` returns them as a
-plain dict of numpy arrays, ``make_synthetic_dataset`` as an
+for the same seed, sizes and modalities: ``make_synthetic_arrays`` returns
+them as a plain dict of numpy arrays, ``make_synthetic_dataset`` as an
 ``ArrayDataset`` with the JAX generator's filenames. No jax. Samples share a
-latent vector across modalities, so light curves and spectra of one sample
-are related.
+latent vector across modalities, so light curves, spectra, images, redshift
+and class of one sample are related. Images are drawn after the spectra
+from the same generator, as the JAX generator draws them.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 
 from .batching import ArrayDataset
 
-SUPPORTED_MODALITIES = ("lightcurve", "spectral")
+SUPPORTED_MODALITIES = ("host_galaxy", "lightcurve", "spectral", "meta")
 
 
 def make_synthetic_arrays(
@@ -25,17 +26,19 @@ def make_synthetic_arrays(
     n_max_lc: int = 20,
     nband: int = 2,
     n_max_sp: int = 32,
+    image_size: int = 20,
     n_classes: int = 5,
     modalities: Sequence[str] = ("lightcurve", "spectral"),
     seed: int = 0,
 ) -> Dict[str, np.ndarray]:
-    """Fields ``redshift``, ``label`` and, per modality, ``x/t/mask/err``
-    (``_lc`` with (n, nband * n_max_lc) band-blocked rows, ``_sp`` with
-    (n, n_max_sp) rows, some with ragged masked tails)."""
-    unsupported = sorted(set(modalities) - set(SUPPORTED_MODALITIES))
-    if unsupported:
-        raise NotImplementedError(
-            f"synthetic {unsupported} not ported yet (ROADMAP.md queue 1, item 11)")
+    """Fields ``redshift``, ``label`` (the meta modality's inputs, always
+    present) and, per modality, ``x/t/mask/err`` (``_lc`` with (n, nband *
+    n_max_lc) band-blocked rows, ``_sp`` with (n, n_max_sp) rows, some with
+    ragged masked tails) and ``x_img`` ((n, image_size, image_size, 3) NHWC
+    in [0, 1])."""
+    unknown = sorted(set(modalities) - set(SUPPORTED_MODALITIES))
+    if unknown:
+        raise ValueError(f"unknown modalities {unknown}")
     rng = np.random.default_rng(seed)
     latent = rng.normal(size=(n, 4)).astype(np.float32)
     label = rng.integers(0, n_classes, size=n).astype(np.int32)
@@ -85,6 +88,20 @@ def make_synthetic_arrays(
                 x[i, cut:] = 0.0
                 t[i, cut:] = 0.0
         arrays.update(x_sp=x, t_sp=t, mask_sp=m, err_sp=e)
+
+    if "host_galaxy" in modalities:
+        imgs = np.zeros((n, image_size, image_size, 3), np.float32)
+        yy, xx = np.mgrid[0:image_size, 0:image_size]
+        for i in range(n):
+            cx = image_size / 2 + latent[i, 0]
+            cy = image_size / 2 + latent[i, 1]
+            r2 = (xx - cx) ** 2 + (yy - cy) ** 2
+            base = np.exp(-r2 / (2 * (2 + abs(latent[i, 2])) ** 2))
+            for c in range(3):
+                imgs[i, :, :, c] = np.clip(
+                    base * (0.5 + 0.2 * latent[i, 3] + 0.1 * c)
+                    + 0.05 * rng.random((image_size, image_size)), 0, 1)
+        arrays["x_img"] = imgs
 
     return arrays
 

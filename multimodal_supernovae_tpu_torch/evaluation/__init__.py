@@ -1,3 +1,3 @@
-from .embeddings import get_embeddings
+from .embeddings import get_embeddings, predict_supervised
 
-__all__ = ["get_embeddings"]
+__all__ = ["get_embeddings", "predict_supervised"]

@@ -1,17 +1,17 @@
-"""Embeddings of a whole dataset (port of
-multimodal_supernovae_tpu/evaluation/embeddings.py, ``get_embeddings``).
+"""Embeddings and supervised predictions of a whole dataset (port of
+multimodal_supernovae_tpu/evaluation/embeddings.py, ``get_embeddings`` and
+``predict_supervised``).
 
-The frozen model runs over every sample in one fixed-shape plan on the
-device-resident dataset: sequential batches whose tail repeats the last
-sample, trimmed to the dataset's size afterwards.
+The frozen model runs in eval mode over every sample in one fixed-shape
+plan on the device-resident dataset: sequential batches whose tail repeats
+the last sample, trimmed to the dataset's size afterwards.
 
-Not ported yet: ``masked_reconstruction_mse`` (ROADMAP.md queue 1, item 12)
-and ``predict_supervised`` (item 11).
+Not ported yet: ``masked_reconstruction_mse`` (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -20,16 +20,10 @@ from ..data.batching import ArrayDataset, epoch_indices, take
 from ..models.clip import MODALITIES
 
 
-def get_embeddings(model, ds: ArrayDataset, batch_size: int = 256,
-                   device="cuda") -> Tuple[List[np.ndarray], List[str]]:
-    """Per-modality L2-normalised embeddings of every sample of ``ds``, in
-    the dataset's order, as float32 (n, enc_dim) arrays, and the modality
-    names in canonical order.
-
-    Runs ``model.encode`` in eval mode under ``torch.no_grad()`` on
-    ``device``, where the model's parameters must be; runs on the card
-    unless the caller asks for the CPU, and raises when CUDA is asked for
-    and absent."""
+def _run_frozen(model, ds: ArrayDataset, batch_size: int, device,
+                fn: Callable) -> List:
+    """``fn(batch)`` in eval mode without gradients over every fixed-shape
+    batch of ``ds`` on ``device``, where the model's parameters must be."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
@@ -46,10 +40,35 @@ def get_embeddings(model, ds: ArrayDataset, batch_size: int = 256,
     model.eval()
     try:
         with torch.no_grad():
-            stacked = [model.encode(take(data, idx)) for idx in plan]
+            return [fn(take(data, idx)) for idx in plan]
     finally:
         model.train(was_training)
+
+
+def get_embeddings(model, ds: ArrayDataset, batch_size: int = 256,
+                   device="cuda") -> Tuple[List[np.ndarray], List[str]]:
+    """Per-modality L2-normalised embeddings of every sample of ``ds``, in
+    the dataset's order, as float32 (n, enc_dim) arrays, and the modality
+    names in canonical order.
+
+    Runs ``model.encode`` in eval mode under ``torch.no_grad()`` on
+    ``device``, where the model's parameters must be; runs on the card
+    unless the caller asks for the CPU, and raises when CUDA is asked for
+    and absent."""
+    stacked = _run_frozen(model, ds, batch_size, device, model.encode)
+    n = len(ds)
     out = [torch.cat([s[i] for s in stacked]).float()[:n].cpu().numpy()
            for i in range(len(stacked[0]))]
     names = [m for m in MODALITIES if m in model.cfg.combinations]
     return out, names
+
+
+def predict_supervised(model, ds: ArrayDataset, batch_size: int = 256,
+                       device="cuda") -> np.ndarray:
+    """The regression or classification head's (n, head_out) float32 output
+    for every sample of ``ds`` in eval mode (the JAX
+    ``predict_supervised``), on ``device`` as ``get_embeddings`` runs."""
+    if not model.cfg.supervised:
+        raise ValueError("predict_supervised needs a regression or classification model")
+    stacked = _run_frozen(model, ds, batch_size, device, model)
+    return torch.cat(stacked).float()[:len(ds)].cpu().numpy()

@@ -1,12 +1,25 @@
 """The multimodal CLIP model (port of multimodal_supernovae_tpu/models/clip.py).
 
-Ported: the light-curve and spectral towers, their projections to the
-shared ``enc_dim`` space, L2 normalisation and the learnable log
-logit-scale and logit-bias; ``encode`` (the JAX ``__call__``: serving,
-eval mode by default) and the contrastive ``loss_fn`` with the CLIP softmax
-or SigLIP sigmoid loss, in train or eval mode. Dropout in train mode draws
-from an explicit ``torch.Generator``. The image and meta towers and the
-supervised heads are not ported yet (ROADMAP.md queue 1, item 11) and raise
+Per enabled modality an encoder plus a float32 projection to the shared
+``enc_dim`` space: the ConvMixer image tower (host_galaxy), the light-curve
+and spectral sequence encoders, and the meta tower (a class embedding beside
+the repeated redshift, through an MLP). Three modes, as in the JAX package:
+
+  * contrastive (default): ``encode`` returns the L2-normalised embeddings
+    in the canonical order (host_galaxy, lightcurve, spectral, meta) and
+    ``loss_fn`` the CLIP softmax or SigLIP sigmoid loss summed over every
+    modality pair, with a learnable log logit-scale and logit-bias;
+  * regression: the unnormalised embeddings, concatenated, through one
+    Linear to a redshift, trained with the MSE;
+  * classification: the same concatenation to ``n_classes`` logits, trained
+    with the reference's class-weighted cross entropy.
+
+``train=True`` applies dropout drawn from an explicit ``torch.Generator``
+and puts the image tower's BatchNorm in batch-statistics mode, updating its
+running statistics; eval mode (the default) uses the running ones. The
+image and meta towers and the head compute in float32 whatever
+``compute_dtype`` says (the JAX package builds them without a dtype). The
+ViT image tower is not ported yet (ROADMAP.md queue 1, item 14) and raises
 ``NotImplementedError``.
 
 ``CLIPConfig`` is a jax-free copy of the JAX dataclass, with the same fields
@@ -25,12 +38,13 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..data.transforms import CLASS_WEIGHTS
 from ..ops import losses as L
+from .convmixer import ConvMixer
+from .mlp import MLP
 from .transformer import Dense, SequenceEncoder, init_weights
 
 MODALITIES = ("host_galaxy", "lightcurve", "spectral", "meta")
-PORTED_MODALITIES = ("lightcurve", "spectral")
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 11: image and meta towers)"
 
 
 def _default_seq_kwargs() -> Dict[str, Any]:
@@ -132,6 +146,16 @@ class CLIPConfig:
     def tsk(self) -> Dict[str, Any]:
         return dict(self.transformer_spectral_kwargs)
 
+    def ck(self) -> Dict[str, Any]:
+        return dict(self.conv_kwargs)
+
+    def mk(self) -> Dict[str, Any]:
+        return dict(self.meta_kwargs)
+
+    @property
+    def head_out(self) -> int:
+        return self.n_classes if self.classification else 1
+
     @property
     def supervised(self) -> bool:
         return self.regression or self.classification
@@ -142,67 +166,142 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPModel(nn.Module):
-    """Per enabled modality a sequence encoder plus a float32 projection to
-    ``enc_dim``; ``encode`` returns the L2-normalised embeddings in the
-    canonical modality order and ``loss_fn`` the contrastive loss over
-    them. Parameters are drawn from ``generator``."""
+    """The towers of ``cfg.combinations``, each with its float32 projection
+    to ``enc_dim``, and, for a supervised config, the ``linear`` head.
+    Parameters are drawn from ``generator``."""
 
     def __init__(self, cfg: CLIPConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        missing = sorted(set(cfg.combinations) - set(PORTED_MODALITIES))
-        if missing:
-            raise NotImplementedError(f"towers {missing} are {_NOT_PORTED}")
-        if cfg.supervised:
-            raise NotImplementedError(f"supervised heads are {_NOT_PORTED}")
+        combos = set(cfg.combinations)
         self.logit_scale = nn.Parameter(
             torch.tensor(math.log(cfg.logit_scale_init), dtype=torch.float32))
         self.logit_bias = nn.Parameter(
             torch.tensor(cfg.logit_bias_init, dtype=torch.float32))
-        if "lightcurve" in cfg.combinations:
+        if "lightcurve" in combos:
             tk = cfg.tk()
             self.lightcurve_encoder = SequenceEncoder(
                 nband=cfg.nband, dtype=cfg.dtype, **tk)
             self.lightcurve_projection = Dense(tk["n_out"], cfg.enc_dim)
-        if "spectral" in cfg.combinations:
+        if "spectral" in combos:
             tsk = cfg.tsk()
             self.spectral_encoder = SequenceEncoder(nband=1, dtype=cfg.dtype, **tsk)
             self.spectral_projection = Dense(tsk["n_out"], cfg.enc_dim)
+        if "host_galaxy" in combos:
+            if cfg.image_encoder == "vit":
+                raise NotImplementedError(
+                    "image_encoder='vit' is not ported yet (ROADMAP.md queue 1, "
+                    "item 14: the ViT tower)")
+            if cfg.image_encoder != "convmixer":
+                raise ValueError(f"unknown image_encoder {cfg.image_encoder!r}: "
+                                 "expected 'convmixer' or 'vit'")
+            ck = cfg.ck()
+            self.image_encoder = ConvMixer(**ck)
+            self.image_projection = Dense(ck["n_out"], cfg.enc_dim)
+        if "meta" in combos:
+            mk = cfg.mk()
+            half = mk["input_dim"] // 2
+            self.class_emb = nn.Embedding(cfg.n_classes, half)
+            self.meta_encoder = MLP(2 * half, mk["hidden_dim"], cfg.enc_dim,
+                                    mk["num_layers"], mk.get("dropout", 0.0))
+        if cfg.supervised:
+            self.linear = Dense(cfg.enc_dim * len(combos), cfg.head_out)
+        if cfg.classification and cfg.n_classes in CLASS_WEIGHTS:
+            self.register_buffer("class_weights", torch.from_numpy(
+                CLASS_WEIGHTS[cfg.n_classes]), persistent=False)
+        else:
+            self.class_weights = None
         init_weights(self, generator)
+        if "meta" in combos:
+            with torch.no_grad():  # torch.nn.Embedding's N(0, 1), from generator
+                self.class_emb.weight.normal_(generator=generator)
+
+    # -- per-modality embeddings (projection included) ---------------------
+
+    def embed_image(self, x_img, train: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    normalize: bool = True) -> torch.Tensor:
+        h = self.image_projection(self.image_encoder(x_img, train, generator))
+        return _l2_normalize(h) if normalize else h
 
     def embed_lightcurve(self, x, t, mask, train: bool = False,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return _l2_normalize(self.lightcurve_projection(
-            self.lightcurve_encoder(x, t, mask, train, generator)))
+                         generator: Optional[torch.Generator] = None,
+                         normalize: bool = True) -> torch.Tensor:
+        h = self.lightcurve_projection(
+            self.lightcurve_encoder(x, t, mask, train, generator))
+        return _l2_normalize(h) if normalize else h
 
     def embed_spectral(self, x, t, mask, train: bool = False,
-                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return _l2_normalize(self.spectral_projection(
-            self.spectral_encoder(x, t, mask, train, generator)))
+                       generator: Optional[torch.Generator] = None,
+                       normalize: bool = True) -> torch.Tensor:
+        h = self.spectral_projection(self.spectral_encoder(x, t, mask, train, generator))
+        return _l2_normalize(h) if normalize else h
+
+    def embed_meta(self, label, redshift, train: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   normalize: bool = True) -> torch.Tensor:
+        """Half class embedding, half the redshift repeated."""
+        ce = self.class_emb(label.long())
+        rz = redshift[:, None].to(ce.dtype).expand(-1, ce.shape[-1])
+        h = self.meta_encoder(torch.cat([ce, rz], dim=-1), train, generator)
+        return _l2_normalize(h) if normalize else h
+
+    # -- forward -------------------------------------------------------------
 
     def encode(self, batch: Mapping[str, torch.Tensor], train: bool = False,
-               generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
-        """L2-normalised per-modality embeddings in canonical order;
-        ``batch`` holds the fields x_lc, t_lc, mask_lc, x_sp, t_sp, mask_sp
-        (others are ignored). ``train=True`` applies dropout from
-        ``generator``."""
+               generator: Optional[torch.Generator] = None,
+               normalize: bool = True) -> List[torch.Tensor]:
+        """Per-modality projected embeddings in canonical order (L2-normalised
+        unless ``normalize=False``). ``batch`` holds the fields the towers
+        read: x_img; x_lc, t_lc, mask_lc; x_sp, t_sp, mask_sp; label,
+        redshift (others are ignored). ``train=True`` applies dropout from
+        ``generator`` and BatchNorm's batch statistics."""
+        combos = self.cfg.combinations
         out = []
-        if "lightcurve" in self.cfg.combinations:
+        if "host_galaxy" in combos:
+            out.append(self.embed_image(batch["x_img"], train, generator, normalize))
+        if "lightcurve" in combos:
             out.append(self.embed_lightcurve(
-                batch["x_lc"], batch["t_lc"], batch["mask_lc"], train, generator))
-        if "spectral" in self.cfg.combinations:
+                batch["x_lc"], batch["t_lc"], batch["mask_lc"], train, generator,
+                normalize))
+        if "spectral" in combos:
             out.append(self.embed_spectral(
-                batch["x_sp"], batch["t_sp"], batch["mask_sp"], train, generator))
+                batch["x_sp"], batch["t_sp"], batch["mask_sp"], train, generator,
+                normalize))
+        if "meta" in combos:
+            out.append(self.embed_meta(batch["label"], batch["redshift"], train,
+                                       generator, normalize))
         return out
+
+    def forward(self, batch: Mapping[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """The JAX ``__call__``. Contrastive: the list of normalised
+        embeddings. Supervised: (B, head_out) from the concatenated
+        unnormalised embeddings."""
+        if self.cfg.supervised:
+            embs = self.encode(batch, train, generator, normalize=False)
+            return self.linear(torch.cat(embs, dim=-1))
+        return self.encode(batch, train, generator)
 
     def loss_fn(self, batch: Mapping[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """The contrastive loss (``cfg.loss``: 'softmax' for CLIP, 'sigmoid'
-        for SigLIP) over all modality pairs, and ``{"embeddings": [...]}``."""
-        out = self.encode(batch, train, generator)
+        """The training loss and the auxiliary outputs: regression, the MSE on
+        ``redshift`` and ``{"pred": (B,)}``; classification, the
+        class-weighted cross entropy on ``label`` and ``{"logits": ...}``;
+        otherwise the contrastive loss (``cfg.loss``: 'softmax' for CLIP,
+        'sigmoid' for SigLIP) over every modality pair and
+        ``{"embeddings": [...]}``."""
+        cfg = self.cfg
+        out = self(batch, train, generator)
+        if cfg.regression:
+            pred = out[:, 0]
+            return L.mse_loss(pred, batch["redshift"]), {"pred": pred}
+        if cfg.classification:
+            return (L.weighted_cross_entropy(out, batch["label"], self.class_weights),
+                    {"logits": out})
         pair_loss = {
             "sigmoid": L.sigmoid_loss_multimodal,
             "softmax": L.clip_loss_multimodal,
-        }[self.cfg.loss]
+        }[cfg.loss]
         return pair_loss(out, self.logit_scale, self.logit_bias), {"embeddings": out}

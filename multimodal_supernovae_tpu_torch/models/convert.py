@@ -1,21 +1,26 @@
 """JAX parameters -> this package's state_dict (numpy only).
 
-The lc/sp CLIP subset of ``multimodal_supernovae_tpu/models/torch_export.py``
-(``_export_seq_encoder`` and ``export_reference_state_dict``): a flax
-parameter tree, as nested dicts of arrays, becomes the reference-layout
-state_dict that ``CLIPModel.load_state_dict(strict=True)`` takes. Dense
-kernels (in, out) become Linear weights (out, in); the attention-pooling
-q/k/v projections are packed into ``in_proj_weight``/``in_proj_bias``. It
-is the weight bridge the port's tests hold against the JAX package.
+The CLIP part of ``multimodal_supernovae_tpu/models/torch_export.py``
+(``_export_seq_encoder``, ``_export_convmixer``, ``_export_mlp`` and
+``export_reference_state_dict``): a flax parameter tree (and, for a
+ConvMixer, its ``batch_stats`` collection), as nested dicts of arrays,
+becomes the reference-layout state_dict that
+``CLIPModel.load_state_dict(strict=True)`` takes. Dense kernels (in, out)
+become Linear weights (out, in); conv kernels (kh, kw, in / groups, out)
+become (out, in / groups, kh, kw), a depthwise (k, k, 1, C) one (C, 1, k,
+k); the attention-pooling q/k/v projections are packed into
+``in_proj_weight``/``in_proj_bias``. It is the weight bridge the port's
+tests hold against the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
-__all__ = ["seq_encoder_state_dict", "state_dict_from_jax"]
+__all__ = ["convmixer_state_dict", "mlp_state_dict", "seq_encoder_state_dict",
+           "state_dict_from_jax"]
 
 
 def _w(kernel) -> np.ndarray:
@@ -63,22 +68,89 @@ def seq_encoder_state_dict(p: Dict[str, Any], prefix: str = "") -> Dict[str, np.
     return sd
 
 
-def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """A JAX ``CLIPModel``'s params (lightcurve/spectral towers) -> the
-    port's ``CLIPModel`` state_dict, as numpy arrays."""
-    unported = sorted(set(params) & {"image_encoder", "class_emb", "linear",
-                                     "clip_model", "net"})
+def _conv_w(kernel) -> np.ndarray:
+    """flax conv kernel (kh, kw, in / groups, out) -> torch (out, in / groups,
+    kh, kw)."""
+    return np.ascontiguousarray(np.asarray(kernel, dtype=np.float32).transpose(3, 2, 0, 1))
+
+
+def convmixer_state_dict(p: Dict[str, Any], stats: Dict[str, Any],
+                         prefix: str = "") -> Dict[str, np.ndarray]:
+    """ConvMixer params and batch_stats -> ``ConvMixer`` state_dict entries.
+    ``num_batches_tracked``, a torch buffer with no flax counterpart, is 0,
+    as the JAX exporter writes it."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def bn(ours: str, key: str):
+        sd[key + ".weight"] = _a(p[ours]["scale"])
+        sd[key + ".bias"] = _a(p[ours]["bias"])
+        sd[key + ".running_mean"] = _a(stats[ours]["mean"])
+        sd[key + ".running_var"] = _a(stats[ours]["var"])
+        sd[key + ".num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+
+    sd[prefix + "net.0.weight"] = _conv_w(p["patch_embed"]["kernel"])
+    bn("patch_bn", prefix + "net.2")
+    i = 0
+    while f"dw_conv_{i}" in p:
+        blk = f"{prefix}net.{3 + i}"
+        sd[blk + ".0.fn.0.weight"] = _conv_w(p[f"dw_conv_{i}"]["kernel"])
+        sd[blk + ".0.fn.0.bias"] = _a(p[f"dw_conv_{i}"]["bias"])
+        bn(f"dw_bn_{i}", blk + ".0.fn.2")
+        sd[blk + ".1.weight"] = _conv_w(p[f"pw_conv_{i}"]["kernel"])
+        sd[blk + ".1.bias"] = _a(p[f"pw_conv_{i}"]["bias"])
+        bn(f"pw_bn_{i}", blk + ".3")
+        i += 1
+    _dense(sd, prefix + "projection.2", p["head_fc1"])
+    _dense(sd, prefix + "projection.5", p["head_fc2"])
+    return sd
+
+
+def mlp_state_dict(p: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """MLP params (hidden_0 .. hidden_{n-1}, out) -> ``MLP`` state_dict
+    entries (Linears at layers.0, 3, 6, ..., the head last)."""
+    sd: Dict[str, np.ndarray] = {}
+    n = 0
+    while f"hidden_{n}" in p:
+        _dense(sd, f"{prefix}layers.{3 * n}", p[f"hidden_{n}"])
+        n += 1
+    _dense(sd, f"{prefix}layers.{3 * n}", p["out"])
+    return sd
+
+
+def state_dict_from_jax(params: Dict[str, Any],
+                        batch_stats: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, np.ndarray]:
+    """A JAX ``CLIPModel``'s params (and ``batch_stats``, which a ConvMixer
+    image tower needs) -> the port's ``CLIPModel`` state_dict, as numpy
+    arrays."""
+    unported = sorted(set(params) & {"clip_model", "net"})
     if unported:
         raise NotImplementedError(
-            f"parameters {unported} belong to towers or heads the port does "
-            "not have yet (ROADMAP.md queue 1, items 11-13)")
+            f"parameters {unported} belong to models the port does not have yet "
+            "(ROADMAP.md queue 1, items 12-13)")
     sd: Dict[str, np.ndarray] = {
         "logit_scale": _a(params["logit_scale"]),
         "logit_bias": _a(params["logit_bias"]),
     }
+    if "image_encoder" in params:
+        if "patch_bn" not in params["image_encoder"]:
+            raise NotImplementedError(
+                "the image tower is not a ConvMixer: the ViT is not ported yet "
+                "(ROADMAP.md queue 1, item 14)")
+        stats = (batch_stats or {}).get("image_encoder")
+        if stats is None:
+            raise ValueError("a ConvMixer image tower needs the batch_stats "
+                             "collection (BatchNorm running statistics)")
+        sd.update(convmixer_state_dict(params["image_encoder"], stats, "image_encoder."))
+        _dense(sd, "image_projection", params["image_projection"])
     for tower in ("lightcurve", "spectral"):
         if f"{tower}_encoder" in params:
             sd.update(seq_encoder_state_dict(
                 params[f"{tower}_encoder"], f"{tower}_encoder."))
             _dense(sd, f"{tower}_projection", params[f"{tower}_projection"])
+    if "class_emb" in params:
+        sd["class_emb.weight"] = _a(params["class_emb"]["embedding"])
+        sd.update(mlp_state_dict(params["meta_encoder"], "meta_encoder."))
+    if "linear" in params:
+        _dense(sd, "linear", params["linear"])
     return sd

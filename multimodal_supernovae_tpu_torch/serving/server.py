@@ -15,9 +15,11 @@ Stdlib-only HTTP host (http.server + npz/json wire formats) over the
     coalesces onto the fixed device batch.
 
 ``load_live`` returns a ``ServingModel`` whose ``fn`` runs
-``CLIPModel.encode`` on ``device``. The input contract is the JAX one:
+``CLIPModel.encode`` on ``device``. The input contract is the JAX one, per
+modality: ``x_img`` (image_size, image_size, channels) float32 NHWC;
 ``x_lc, t_lc, mask_lc`` of width ``nband * lc_len`` and ``x_sp, t_sp,
-mask_sp`` of width ``sp_len`` (float32, float32, bool); one float32
+mask_sp`` of width ``sp_len`` (float32, float32, bool); ``label`` int32
+and ``redshift`` float32 per sample for the meta tower; one float32
 ``(n, enc_dim)`` output per modality. The JAX package's StableHLO artifact
 is not served here (``torch.export`` takes its place later).
 """
@@ -65,9 +67,12 @@ class ServingModel:
         float(np.asarray(outs[0]).sum())
 
 
-def input_spec(combinations, nband: int, lc_len: int, sp_len: int) -> Dict:
+def input_spec(combinations, nband: int, lc_len: int, sp_len: int,
+               image_size: int = 60, channels: int = 3) -> Dict:
     """``{field: (trailing shape, dtype)}`` of the fields encode reads."""
     spec = {}
+    if "host_galaxy" in combinations:
+        spec["x_img"] = ((image_size, image_size, channels), "float32")
     if "lightcurve" in combinations:
         w = nband * lc_len
         spec.update(x_lc=((w,), "float32"), t_lc=((w,), "float32"),
@@ -75,14 +80,18 @@ def input_spec(combinations, nband: int, lc_len: int, sp_len: int) -> Dict:
     if "spectral" in combinations:
         spec.update(x_sp=((sp_len,), "float32"), t_sp=((sp_len,), "float32"),
                     mask_sp=((sp_len,), "bool"))
+    if "meta" in combinations:
+        spec.update(label=((), "int32"), redshift=((), "float32"))
     return spec
 
 
 def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
-              lc_len: Optional[int] = None,
-              sp_len: Optional[int] = None) -> ServingModel:
+              lc_len: Optional[int] = None, sp_len: Optional[int] = None,
+              image_size: Optional[int] = None) -> ServingModel:
     """Serve straight from a run directory (``model_config.json`` + a
-    reference-layout ``.ckpt``) on ``device``.
+    reference-layout ``.ckpt``) on ``device``. Each size comes from its
+    flag, else the sidecar's ``extra``, else the real-data serving default
+    (100, 1000, 60), as in the JAX package.
 
     ``fn`` moves the numpy feed to ``device``, runs ``encode`` under
     ``torch.inference_mode()`` (inside ``fn``: the batcher calls it from its
@@ -95,7 +104,9 @@ def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
     spec = input_spec(
         combos, int(extra.get("nband", model.cfg.nband)),
         lc_len or int(extra.get("max_lightcurve_data_len", 100)),
-        sp_len or int(extra.get("max_spectral_data_len", 1000)))
+        sp_len or int(extra.get("max_spectral_data_len", 1000)),
+        image_size or int(extra.get("image_size", 60)),
+        int(model.cfg.ck().get("channels", 3)))
 
     def fn(feed: Dict[str, np.ndarray]) -> List[np.ndarray]:
         with torch.inference_mode():

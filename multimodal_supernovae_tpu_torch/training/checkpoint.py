@@ -14,10 +14,12 @@ A run directory holds:
     (Lightning's) layout, so ``models.factory.load_model`` here and the JAX
     package's ``load_model`` both read them. Each is a ``torch.save`` of
     tensors and plain containers only (``torch.load(weights_only=True)``
-    reads it): ``state_dict``, ``optimizer_states`` and ``lr_schedulers``
-    (one each), ``epoch``, ``global_step``, the epoch's finite ``metrics``,
-    and ``loop``, what the trainer needs to continue the run as if it had
-    not stopped (its random streams and early-stopping state).
+    reads it): ``state_dict`` (parameters and buffers, the image tower's
+    BatchNorm running statistics and counts included), ``optimizer_states``
+    and ``lr_schedulers`` (one each), ``epoch``, ``global_step``, the
+    epoch's finite ``metrics``, and ``loop``, what the trainer needs to
+    continue the run as if it had not stopped (its random streams and
+    early-stopping state).
 
 Files are written to a temporary name and renamed, so a process killed
 mid-save leaves the previous file whole.

@@ -10,7 +10,7 @@ until the caller reads them, so the loop does not wait for the device.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -19,14 +19,19 @@ from ..data.batching import take
 from .state import TrainState
 
 
-def make_train_step(model, noise_level_mag: float = 0.0) -> Callable:
+def make_train_step(model, noise_level_mag: float = 0.0, *,
+                    noise_level_img: float = 0.0, rotate_images: bool = True) -> Callable:
     """One optimizer step: augment -> ``model.loss_fn`` -> backward -> update.
 
     Returns ``train_step(state, batch, generator) -> (state, loss)``; the
-    noise and the dropout masks are drawn from ``generator``."""
+    noise, the image rotations and the dropout masks are drawn from
+    ``generator``. A train-mode loss also moves the image tower's BatchNorm
+    running statistics."""
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
-        batch = augment_batch(batch, generator, noise_level_mag)
+        batch = augment_batch(batch, generator, noise_level_mag,
+                              noise_level_img=noise_level_img,
+                              rotate_images=rotate_images)
         state.optimizer.zero_grad(set_to_none=True)
         loss, _ = model.loss_fn(batch, train=True, generator=generator)
         loss.backward()
@@ -43,11 +48,13 @@ def _plan_on(index_plan, device) -> torch.Tensor:
     return torch.as_tensor(index_plan).to(device)
 
 
-def make_epoch_runner(model, noise_level_mag: float = 0.0) -> Callable:
+def make_epoch_runner(model, noise_level_mag: float = 0.0, *,
+                      noise_level_img: float = 0.0, rotate_images: bool = True) -> Callable:
     """``run_epoch(state, data, index_plan, generator) -> (state, losses)``:
     one train step per row of ``index_plan`` over the device-resident
     ``data``; ``losses`` is a (steps,) tensor on the device."""
-    step = make_train_step(model, noise_level_mag)
+    step = make_train_step(model, noise_level_mag, noise_level_img=noise_level_img,
+                           rotate_images=rotate_images)
 
     def run_epoch(state: TrainState, data: Dict[str, torch.Tensor], index_plan,
                   generator: torch.Generator) -> Tuple[TrainState, torch.Tensor]:
@@ -74,19 +81,25 @@ def _stack_aux(auxes: List[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
-def make_eval_runner(model) -> Callable:
-    """``run_eval(state, data, index_plan) -> (losses, aux)``: per-step loss
-    and the model's auxiliary outputs (embeddings), stacked over steps, in
-    eval mode and without gradients. Eval batches are not augmented: with
-    no image tower, the JAX eval augmentation (rotation only) is the
-    identity."""
+def make_eval_runner(model, rotate_images: bool = True) -> Callable:
+    """``run_eval(state, data, index_plan, generator=None) -> (losses, aux)``:
+    per-step loss and the model's auxiliary outputs (embeddings, pred or
+    logits), stacked over steps, in eval mode and without gradients.
 
-    def run_eval(state: TrainState, data: Dict[str, torch.Tensor], index_plan):
+    Images are rotated (``rotate_images``), with the turns drawn from
+    ``generator``, as the JAX eval runner does: the reference validates on
+    loaders that rotate images at noise level 0. Batches without images are
+    not augmented and need no generator."""
+
+    def run_eval(state: TrainState, data: Dict[str, torch.Tensor], index_plan,
+                 generator: Optional[torch.Generator] = None):
         device = next(iter(data.values())).device
         losses, auxes = [], []
         with torch.no_grad():
             for idx in _plan_on(index_plan, device):
-                loss, aux = model.loss_fn(take(data, idx), train=False)
+                batch = augment_batch(take(data, idx), generator,
+                                      rotate_images=rotate_images)
+                loss, aux = model.loss_fn(batch, train=False)
                 losses.append(loss)
                 auxes.append(aux)
         return torch.stack(losses), _stack_aux(auxes)

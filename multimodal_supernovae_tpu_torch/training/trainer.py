@@ -1,30 +1,37 @@
 """The training loop (port of ``Trainer.fit`` in
-multimodal_supernovae_tpu/training/trainer.py, for the contrastive task):
+multimodal_supernovae_tpu/training/trainer.py, for the contrastive,
+regression and classification tasks):
 
   host                          device
   ----                          ------
   epoch index plan       ->     per step: gather the batch from the
   (shuffled, wrapped)             device-resident dataset, augment,
                                   loss, backward, RAdam update
-  epoch metrics          <-     per-step losses, eval embeddings
+  epoch metrics          <-     per-step losses, eval embeddings /
+                                  predictions / logits
 
 Per epoch the host reads the mean train loss (and aborts on a non-finite
-one), the validation loss and the retrieval ``AUC_val``, and stops early when
-the monitored metric (``val_loss`` by default) has not improved for
-``patience`` epochs.
+one), the validation loss and the task's metrics (``compute_task_metrics``:
+the retrieval ``AUC_val`` of two modalities, ``AUC_val1..k`` and
+``AUC_val_mean`` of more, ``R2_val``, ``f1_val``), and stops early when the
+monitored metric (``val_loss``/min by default, ``f1_val``/max for
+classification) has not improved for ``patience`` epochs. Validation
+batches with images are rotated, with turns drawn from a generator of the
+trainer's own.
 
 With a ``run_dir`` the run directory is the JAX package's: the sidecars
 (``config.yaml``, the split manifests, ``model_config.json``), a
 ``metrics.jsonl`` row an epoch and ``summary.json`` (utils/logging.py), and
 the best ``keep_best`` checkpoints plus ``last.ckpt`` (training/checkpoint.py).
-``fit(resume=True)`` continues the run from ``last.ckpt``: the model, the
-optimizer, the scheduler, the epoch counter, both random streams and the
-early-stopping state, so that it replays what the run would have done had it
-not stopped.
+``fit(resume=True)`` continues the run from ``last.ckpt``: the model (its
+BatchNorm running statistics included), the optimizer, the scheduler, the
+epoch counter, the three random streams (shuffles, training draws,
+validation rotations) and the early-stopping state, so that it replays what
+the run would have done had it not stopped.
 
 Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
-(ROADMAP.md queue 1, item 17), a device mesh (item 15), and the supervised
-and masked tasks (items 11-12).
+(ROADMAP.md queue 1, item 17), a device mesh (item 15), and the masked
+task (item 12).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 
 from ..data.batching import ArrayDataset, epoch_indices
 from ..models.factory import write_model_config
-from ..ops.metrics import retrieval_auc
+from ..ops.metrics import macro_f1, r2_score, retrieval_auc
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, save_run_sidecars
 from .optim import build_optimizer
@@ -54,9 +61,9 @@ class TrainerConfig:
     weight_decay: float = 0.0
     patience: int = 10**9  # early-stopping patience (epochs)
     seed: int = 0
-    noise_level_img: float = 0.0  # the image tower's (item 11)
+    noise_level_img: float = 0.0
     noise_level_mag: float = 0.0
-    rotate_images: bool = True  # the image tower's (item 11)
+    rotate_images: bool = True  # train and eval batches with images
     # lr schedule (masked pretraining's StepLR)
     step_size: Optional[int] = None
     gamma: Optional[float] = None
@@ -67,17 +74,22 @@ class TrainerConfig:
     eval_every_epochs: int = 1
 
 
+TASKS = ("contrastive", "regression", "classification")
+
+
 class Trainer:
     """Trains a module exposing ``loss_fn(batch, train, generator)`` on the
     device its parameters are on."""
 
     def __init__(self, model, task: str, cfg: TrainerConfig,
                  run_dir: Optional[str] = None, mesh=None, freeze=None,
-                 use_wandb: bool = False):
-        if task != "contrastive":
+                 use_wandb: bool = False, n_classes: Optional[int] = None):
+        if task == "masked":
             raise NotImplementedError(
-                f"task {task!r} is not ported yet (ROADMAP.md queue 1, items "
-                "11-12: supervised heads and masked pretraining)")
+                "task 'masked' is not ported yet (ROADMAP.md queue 1, item 12: "
+                "masked pretraining)")
+        if task not in TASKS:
+            raise ValueError(f"unknown task {task!r}: expected one of {TASKS}")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP.md queue 1, item 15)")
@@ -87,10 +99,18 @@ class Trainer:
         self.run_dir = run_dir
         self.freeze = freeze
         self.use_wandb = use_wandb
-        # the contrastive task's monitor (the JAX package's default for
-        # every task but classification)
-        self.monitor = cfg.monitor or "val_loss"
-        self.mode = cfg.mode or "min"
+        # the classes f1_val averages over are the model's own; the argument
+        # (kept for the JAX Trainer's signature) may only restate them
+        own = getattr(getattr(model, "cfg", None), "n_classes", None)
+        if n_classes is not None and own is not None and n_classes != own:
+            raise ValueError(f"n_classes={n_classes} disagrees with the model's "
+                             f"config, n_classes={own}")
+        self.n_classes = n_classes or own or 5
+        # the reference's defaults: classification monitors f1_val (max),
+        # every other task val_loss (min)
+        monitor, mode = ("f1_val", "max") if task == "classification" else ("val_loss", "min")
+        self.monitor = cfg.monitor or monitor
+        self.mode = cfg.mode or mode
         # set from the training set size before init_state so epoch-based lr
         # schedules (StepLR) convert to optimizer steps correctly
         self._steps_per_epoch = 1
@@ -121,7 +141,7 @@ class Trainer:
             state: Optional[TrainState] = None, resume: bool = False) -> Dict[str, Any]:
         """Train for ``cfg.epochs`` epochs with early stopping. Returns the
         state, the per-epoch ``history``, ``metric_rows`` (train_loss,
-        step_time_s, samples_per_s, val_loss, AUC_val), ``best``,
+        step_time_s, samples_per_s, val_loss and the task's metrics), ``best``,
         ``epochs_run``, ``wall_time_s`` and, with a run directory,
         ``best_ckpt_epoch``. ``config_dump`` is what ``config.yaml`` records
         (default: the trainer config). ``resume=True`` continues the run in
@@ -147,6 +167,7 @@ class Trainer:
         device = self.device
         rng = np.random.default_rng(cfg.seed)
         generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        eval_generator = torch.Generator(device=device).manual_seed(cfg.seed + 2)
         self.set_dataset_size(len(train_ds))
         train_data = train_ds.to_device(device)
         val_data = val_ds.to_device(device)
@@ -164,10 +185,14 @@ class Trainer:
                 start_epoch = last_epoch + 1
                 rng.bit_generator.state = loop["numpy_rng"]
                 generator.set_state(loop["torch_rng"])
+                if "eval_torch_rng" in loop:
+                    eval_generator.set_state(loop["eval_torch_rng"])
                 history, metric_rows = loop["history"], loop["metric_rows"]
                 best, since_best = loop["best"], loop["since_best"]
-        run_epoch = make_epoch_runner(self.model, noise_level_mag=cfg.noise_level_mag)
-        run_eval = make_eval_runner(self.model)
+        run_epoch = make_epoch_runner(
+            self.model, cfg.noise_level_mag, noise_level_img=cfg.noise_level_img,
+            rotate_images=cfg.rotate_images)
+        run_eval = make_eval_runner(self.model, rotate_images=cfg.rotate_images)
         # fixed-shape eval plan: sequential, the tail repeats the last sample
         # and is trimmed after flattening
         val_plan = torch.from_numpy(epoch_indices(
@@ -200,10 +225,11 @@ class Trainer:
                 "samples_per_s": plan.shape[1] / max(step_time, 1e-9),
             }
             if epoch % cfg.eval_every_epochs == 0:
-                val_losses, aux = run_eval(state, val_data, val_plan)
+                val_losses, aux = run_eval(state, val_data, val_plan, eval_generator)
                 metrics["val_loss"] = float(val_losses.mean())
                 history["val_loss"].append(metrics["val_loss"])
-                metrics.update(compute_task_metrics(aux, n_val))
+                metrics.update(compute_task_metrics(self.task, aux, val_ds, n_val,
+                                                    self.n_classes))
             metric_rows.append(metrics)
             if logger:
                 logger.log(metrics, step=epoch)
@@ -219,6 +245,7 @@ class Trainer:
                 ckpts.save(epoch, state, metrics, loop={
                     "numpy_rng": rng.bit_generator.state,
                     "torch_rng": generator.get_state(),
+                    "eval_torch_rng": eval_generator.get_state(),
                     "history": history, "metric_rows": metric_rows,
                     "best": best, "since_best": since_best})
             if since_best >= cfg.patience:  # Lightning's wait_count >= patience
@@ -255,9 +282,31 @@ class Trainer:
             "fit_sharded is not ported yet (ROADMAP.md queue 1, item 17: streaming)")
 
 
-def compute_task_metrics(aux: Dict[str, Any], n_val: int) -> Dict[str, float]:
-    """``AUC_val``, the light-curve/spectral retrieval AUC of the eval loop's
-    stacked embeddings trimmed to ``n_val`` (the contrastive two-modality
-    case of the JAX ``compute_task_metrics``)."""
-    lc, sp = (e.reshape(-1, e.shape[-1])[:n_val] for e in aux["embeddings"])
-    return {"AUC_val": float(retrieval_auc(lc, sp))}
+def compute_task_metrics(task: str, aux: Dict[str, Any], val_ds: ArrayDataset,
+                         n_val: int, n_classes: int = 5) -> Dict[str, float]:
+    """Per-task validation metrics from the eval loop's stacked auxiliary
+    outputs, trimmed to ``n_val`` (the JAX ``compute_task_metrics``):
+    contrastive, the retrieval ``AUC_val`` of two modalities, or
+    ``AUC_val1..k`` over every pair (i < j, in order) and their mean
+    ``AUC_val_mean``; regression, ``R2_val`` against ``val_ds``'s redshift;
+    classification, the macro ``f1_val`` of the argmax against its labels."""
+    out: Dict[str, float] = {}
+    if task == "contrastive":
+        embs = [e.reshape(-1, e.shape[-1])[:n_val] for e in aux["embeddings"]]
+        if len(embs) == 2:
+            out["AUC_val"] = float(retrieval_auc(embs[0], embs[1]))
+        else:
+            aucs = [float(retrieval_auc(embs[i], embs[j]))
+                    for i in range(len(embs) - 1) for j in range(i + 1, len(embs))]
+            out.update({f"AUC_val{n + 1}": a for n, a in enumerate(aucs)})
+            out["AUC_val_mean"] = float(np.mean(aucs))
+    elif task == "regression":
+        pred = aux["pred"].reshape(-1)[:n_val]
+        true = torch.from_numpy(val_ds.arrays["redshift"][:n_val]).to(pred.device)
+        out["R2_val"] = float(r2_score(true, pred))
+    elif task == "classification":
+        logits = aux["logits"]
+        pred = logits.reshape(-1, logits.shape[-1])[:n_val].argmax(dim=-1)
+        true = torch.from_numpy(val_ds.arrays["label"][:n_val]).to(pred.device)
+        out["f1_val"] = float(macro_f1(true, pred, n_classes))
+    return out

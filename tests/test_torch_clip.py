@@ -119,10 +119,18 @@ def test_seeded_init_is_reproducible():
     assert a["logit_scale"].item() == pytest.approx(np.log(19.55))
 
 
-@pytest.mark.parametrize("kw", [{"combinations": ("host_galaxy", "spectral")},
+@pytest.mark.parametrize("kw", [{"combinations": ("host_galaxy", "spectral"),
+                                 "image_encoder": "vit"},
                                 {"regression": True}])
 def test_unported_towers_and_heads_raise(kw):
+    """The ViT image tower still raises (item 14); the supervised heads are
+    ported: a regression model builds its head over both towers."""
     base = small_cfg_kwargs()
     base.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CLIPModel(CLIPConfig.create(**base))
+    cfg = CLIPConfig.create(**base)
+    if cfg.image_encoder == "vit":
+        with pytest.raises(NotImplementedError, match="item 14"):
+            CLIPModel(cfg)
+        return
+    model = CLIPModel(cfg)
+    assert model.linear.weight.shape == (1, 2 * cfg.enc_dim)

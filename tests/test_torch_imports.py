@@ -32,6 +32,10 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.ops\n"
         "import multimodal_supernovae_tpu_torch.kernels\n"
         "import multimodal_supernovae_tpu_torch.models\n"
+        "import multimodal_supernovae_tpu_torch.models.convmixer\n"
+        "import multimodal_supernovae_tpu_torch.models.mlp\n"
+        "import multimodal_supernovae_tpu_torch.data.transforms\n"
+        "import multimodal_supernovae_tpu_torch.evaluation\n"
         "import multimodal_supernovae_tpu_torch.data\n"
         "import multimodal_supernovae_tpu_torch.data.augment\n"
         "import multimodal_supernovae_tpu_torch.data.batching\n"
@@ -55,10 +59,14 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("seed,modalities", [
-    (0, ("lightcurve", "spectral")), (7, ("lightcurve",)), (3, ("spectral",))])
+    (0, ("lightcurve", "spectral")), (7, ("lightcurve",)), (3, ("spectral",)),
+    (1, ("host_galaxy", "lightcurve", "spectral")), (5, ("host_galaxy",)),
+    (2, ("host_galaxy", "spectral", "meta"))])
 def test_synthetic_matches_jax_generator(seed, modalities):
     kw = dict(n=9, n_max_lc=10, nband=2, n_max_sp=16, modalities=modalities,
               seed=seed)
+    if "host_galaxy" in modalities:
+        kw["image_size"] = 12 + seed  # images drawn after the spectra
     want = make_synthetic_dataset(**kw).arrays
     got = make_synthetic_arrays(**kw)
     assert sorted(got) == sorted(want)
@@ -68,8 +76,13 @@ def test_synthetic_matches_jax_generator(seed, modalities):
 
 
 def test_synthetic_rejects_unported_modalities():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_synthetic_arrays(n=2, modalities=("host_galaxy",))
+    """Every modality of the JAX generator is ported (images at the JAX
+    default side of 20); an unknown one raises."""
+    got = make_synthetic_arrays(n=2, modalities=("host_galaxy",))
+    assert got["x_img"].shape == (2, 20, 20, 3) and got["x_img"].dtype == np.float32
+    assert 0.0 <= got["x_img"].min() and got["x_img"].max() <= 1.0
+    with pytest.raises(ValueError, match="unknown modalities"):
+        make_synthetic_arrays(n=2, modalities=("radio",))
 
 
 def _imported_modules(path):
@@ -99,10 +112,11 @@ def test_entry_points_default_to_the_card():
 
     import torch
 
+    from multimodal_supernovae_tpu_torch.evaluation import get_embeddings, predict_supervised
     from multimodal_supernovae_tpu_torch.models import load_model
     from multimodal_supernovae_tpu_torch.serving import load_live
 
-    for fn in (load_model, load_live):
+    for fn in (load_model, load_live, get_embeddings, predict_supervised):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

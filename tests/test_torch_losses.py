@@ -139,6 +139,7 @@ def test_compute_task_metrics_matches_jax(steps, b, n_val):
     want = jax_compute_task_metrics("contrastive",
                                     jax.tree_util.tree_map(jnp.asarray, aux),
                                     JaxArrayDataset(arrays), n_val)
-    got = compute_task_metrics(jax.tree_util.tree_map(torch.from_numpy, aux), n_val)
+    got = compute_task_metrics("contrastive", jax.tree_util.tree_map(torch.from_numpy, aux),
+                               None, n_val)
     assert sorted(got) == sorted(want) == ["AUC_val"]
     _close(got["AUC_val"], want["AUC_val"])
