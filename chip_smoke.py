@@ -5,7 +5,8 @@ from its own config, trained into run directories, resumed and served; and
 the image and meta towers and the supervised heads: trimodal from its own
 config, quadrimodal, redshift regression and classification), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
-tensor-core route, float32 on the CUDA-core route), and the same server and
+tensor cores, float32 on the tensor cores in 3xTF32, head dims 32/64 and rows
+off 16 bytes on the CUDA cores), and the same server and
 trainer under ``use_fused_block``, through the fused-block kernels (forward
 and backward) as well, and under ``MMSN_FUSED_QKV=1``, through the
 whole-SelfAttention kernels (forward and backward; bf16 on the tensor-core
@@ -19,9 +20,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      exponential floor beside the flash bounds), turns TF32 off for
      float32 matmuls and convolutions and prints the float32 matmul
      precision;
-  2. build: compiles the twelve csrc/*.cu sources (flash_attention_fwd,
+  2. build: compiles the fourteen csrc/*.cu sources (flash_attention_fwd,
      flash_attention_bwd and their tensor-core versions
-     flash_attention_{fwd,bwd}_mma, fused_ffn_fwd, fused_ffn_bwd and their
+     flash_attention_{fwd,bwd}_mma (bf16) and flash_attention_{fwd,bwd}_tf32
+     (float32, 3xTF32), fused_ffn_fwd, fused_ffn_bwd and their
      tensor-core versions fused_ffn_{fwd,bwd}_mma,
      fused_qkv_fwd, fused_qkv_bwd and their tensor-core versions
      fused_qkv_{fwd,bwd}_mma) with nvcc for sm_90a, one nvcc each, all
@@ -35,31 +37,43 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      shapes in the encoder's layout and contiguous, the light curve at 2
      heads of 16 (config_grid's heads), T = 220, a batch with a
      fully masked row and leading masked key tiles, key_mask=None, ragged
-     T = 1 and T = 77 at head dims 8 and 16, and the other head dims. Every
-     bf16 case at head dim 8 or 16 runs on both routes (the tensor cores as
-     routed, the CUDA cores through a patch of flash_attention._route) and
-     must show one tensor-core launch on the first; every other case runs
-     on the CUDA cores. Then times the routes at the two serving shapes
-     (CUDA events, median of 25; and the wrapper's host time a call,
-     perf_counter around a call made on an idle card, median of 50), the
-     plain version, and
+     T = 1 and T = 77 at head dims 8 and 16, the trimodal spectral shape
+     (32, 2, 1024, 16), and the other head dims. Every case at head dim 8
+     or 16 runs on both of its dtype's routes (the tensor cores as routed:
+     bf16, or 3xTF32 for float32; the CUDA cores through a patch of
+     flash_attention._route) and must show one launch on the first's
+     counter; every other case runs on the CUDA cores. The 3xTF32 route is
+     also held to FP32_NORM_TOL (1e-5) in the normalised error, which the
+     plain version with TF32 matmuls must fail (the control). Then times
+     the routes at the two serving shapes (CUDA events, median of 25; and
+     the wrapper's host time a call, perf_counter around a call made on an
+     idle card, median of 50), the plain version, and
      F.scaled_dot_product_attention (scale emb**-0.5, boolean key mask) as
      the library yardstick (timed only; it differs on fully masked rows,
-     where it gives NaN);
+     where it gives NaN), in both dtypes (float32 with TF32 off), and in
+     float32 at the training and trimodal spectral shapes too, each route
+     and the library call also by device time (profiler sums);
   4. kernel-bwd: the backward kernels' dq/dk/dv against torch autograd
      through dense_attention on the card, float32 (atol = rtol = 5e-4, the
      JAX kernel tests' gradient tolerance) and bfloat16 (0.05 and NORM_TOL
      on each of dq, dk, dv whose plain value is not all zero), at the cases
      of phase 3 with SP at the training T = 220, plus SP T = 1024, both
      routes as in phase 3 from one forward's output and stats (either
-     forward feeds either backward); a fully masked row must give dq = dk =
-     0 and dv != 0; at LC and SP the tensor-core dq x 0.99 (_wrong_dq) must
-     fail the NORM_TOL check. Then times both routes (and their host time
-     a call, as in phase 3), the plain backward and the
-     autograd backward of F.scaled_dot_product_attention at LC and SP, bf16
-     (CUDA events, median of 25), and, beside the events, each kernel's and
-     the library call's device time (the sum of their device kernels under
-     torch.profiler over 25 calls), which the host's pace does not move;
+     forward feeds either backward); the 3xTF32 route also within
+     FP32_NORM_TOL, which the plain backward with TF32 matmuls must fail; a
+     fully masked row must give dq = dk = 0 and dv != 0; at LC and SP the
+     tensor-core dq x 0.99 (_wrong_dq) must fail the normalised check of
+     its route (NORM_TOL for bf16, FP32_NORM_TOL for 3xTF32); on nearly
+     equal values (64, 8, 200, 8) the 3xTF32 dq, dk and dv must each sit
+     within 2x the plain float32 version's distance to float64 (plus 1e-7
+     of the largest value). Then times
+     both routes (and their host time a call, as in phase 3), the plain
+     backward and the autograd backward of F.scaled_dot_product_attention
+     at LC and SP, bf16 and float32 (and float32 at SP T = 1024 and the
+     trimodal (32, 2, 1024, 16)) (CUDA events, median of 25), and, beside
+     the events, each kernel's and the library call's device time (the sum
+     of their device kernels under torch.profiler over 25 calls), which the
+     host's pace does not move;
   4b. kernel-ffn: the fused-block forward kernel against its plain version
      (fused_ffn_block_plain) and the backward kernel against
      fused_ffn_block_bwd_plain, on the card, at the light-curve tower's rows
@@ -130,7 +144,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      fused, in float32 (the band embedding promotes them), the SP tower's 13
      (E = 32) unfused. Checks 5 fused forward launches, all on the tensor
      cores (3xTF32), and 18 flash forward launches
-     (5 float32 on the CUDA cores, 13 bf16 on the tensor cores) per device
+     (5 float32 on the 3xTF32 route, 13 bf16 on the tensor cores) per device
      call, no plain call of either, and answers equal to the same
      model through the plain versions of all kernels (SERVE_TOL);
   5c. serve-qkv: phase 5 with MMSN_FUSED_QKV=1 set for the phase and
@@ -146,7 +160,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      every loss finite, AUC_val in [0, 1], 18 forward and 18 backward
      tensor-core flash launches per train step (18 forward per eval step)
      and no plain attention call. Then, from the same seeded float32 weights
-     (the CUDA-core route) with the
+     (the 3xTF32 route) with the
      noise off, 12 steps on the kernel path and 12 on the plain path over
      one index plan: the per-step losses agree to relative 1e-5 (sound runs
      differ by about 1e-7: summation order). At lr 5e-4 the loss moves
@@ -155,12 +169,13 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      max|diff| / max|plain| <= 5e-4 per parameter (the gradient tolerance;
      the denominator floored at 1e-3 of the model's largest gradient); the
      kernel path with every dq off by 1% must fail that check. Those float32
-     runs count their launches too: every kernel on the CUDA cores, none on
-     the plain path;
+     runs count their launches too: the flash kernels on the 3xTF32 route,
+     the fused-QKV ones on the CUDA cores, none on the plain path;
   6a. grad-probe: every attention call of one float32 loss on the plain
      path is recorded with its cotangent, and each layer's dq, dk, dv from
-     the CUDA-core flash backward and from dense_attention's autograd are
-     read against a float64 reference on those inputs, beside the plain
+     the 3xTF32 flash backward, the CUDA-core one and dense_attention's
+     autograd are read against a float64 reference on those inputs, beside
+     the plain
      backward's dq with D = g.out and with rowsum(P o dP); then, under
      MMSN_FUSED_QKV=1, every fused-QKV layer's inputs and cotangent are
      recorded the same way and its dx and dWqkv from the CUDA-core fused-QKV
@@ -181,7 +196,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      fused kernel path against the fused path through the plain versions of
      all four kernels; the gradient check must fail when the fused
      backward's ff.0 weight gradient is scaled by 0.99. Flash launches: the
-     5 float32 LC layers on the CUDA cores, the 13 SP on the tensor cores.
+     5 float32 LC layers on the 3xTF32 route, the 13 SP on the bf16 tensor
+     cores.
      Times train steps
      and peak memory, fused ("fused") against unfused ("kernel"), both on
      the kernel path, and the fused path with both fused kernels on the CUDA
@@ -206,7 +222,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      (val_fraction 0.2): Trainer.fit into run directory A (3 epochs), into
      B (2 epochs), then a new Trainer with resume=True on B (to 3). Each fit
      counts 18 flash forward launches a train and an eval step and 18
-     backward a train step, all on the CUDA cores (float32), and no plain
+     backward a train step, all on the 3xTF32 route (float32), and no plain
      call. Both directories must hold config.yaml (the port's reader parses
      it to the dump), the two manifests (512 and 128 lines),
      model_config.json, metrics.jsonl (epochs 0, 1, 2; B's third row from
@@ -224,8 +240,9 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      13 blocks, agg mean, T_sp = 1024; B = 32, float32, image and
      magnitude noise 1.0; only the epochs cut, 1000 to 2) on the
      640-sample synthetic set with 60 x 60 images, split 512/128:
-     Trainer.fit into a run directory with 18 + 18 CUDA-core flash launches
-     a train step (18 an eval step, _f32_step_counts), no plain call;
+     Trainer.fit into a run directory with 18 + 18 3xTF32 flash launches
+     a train step (18 an eval step, _f32_step_counts) and none on the CUDA
+     cores, no plain call;
      every BatchNorm buffer of last.ckpt finite and moved from its start,
      num_batches_tracked the train steps; AUC_val1..3 and AUC_val_mean in
      metrics.jsonl; load_live serving x_img within 1e-6 of the in-memory
@@ -245,7 +262,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      routes (18 + 18 a step), a finite loss, the step's host time. Then
      configs/config_grid.yaml's light-curve redshift regression (emb 32, 2
      heads, 9 blocks, B = 256, float32) and the same towers with a 5-class
-     head: one epoch of Trainer.fit each (9 + 9 CUDA-core launches a train
+     head: one epoch of Trainer.fit each (9 + 9 3xTF32 launches a train
      step), R2_val and f1_val finite, predict_supervised equal to the eval
      head's output (9 launches a call), every parameter's float32
      gradient at B = 256 held to the plain path's as above, the step's
@@ -273,8 +290,11 @@ and "library_device_ms", and the wrapper's host time a call, "host_ms")
 and each kernel's bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak for its input type: 989 TFLOP/s
 for bfloat16 on the tensor cores, 67 TFLOP/s for float32 on the CUDA cores,
-TF32 being off, and for the 3xTF32 fused forward three times its operations
-at 495 TFLOP/s); the flash backward and fused-block entries add
+TF32 being off, and for the 3xTF32 kernels three times their operations
+at 495 TFLOP/s); the flash entries of the CUDA cores and of 3xTF32 carry
+their float32 times under "float32" (the 3xTF32 ones at the top level),
+with the trimodal spectral shape under "also_at_trimodal"; the flash
+backward and fused-block entries add
 "device_ms" (profiler sums), the flash backward "library_device_ms", the
 fused-block entries "norm_err" (float32, its route's worst case), and the
 tensor-core fused backward "stage_device_ms" (row kernel, weight-gradient
@@ -350,6 +370,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                 "multimodal_supernovae_tpu/ops/pallas_attention.py:85"),
     "flash_attention_bwd_mma": ("multimodal_supernovae_tpu_torch/csrc/flash_attention_bwd_mma.cu",
                                 "multimodal_supernovae_tpu/ops/pallas_attention.py:108"),
+    "flash_attention_fwd_tf32": ("multimodal_supernovae_tpu_torch/csrc/flash_attention_fwd_tf32.cu",
+                                 "multimodal_supernovae_tpu/ops/pallas_attention.py:85"),
+    "flash_attention_bwd_tf32": ("multimodal_supernovae_tpu_torch/csrc/flash_attention_bwd_tf32.cu",
+                                 "multimodal_supernovae_tpu/ops/pallas_attention.py:108"),
     "fused_ffn_fwd": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_fwd.cu",
                       "multimodal_supernovae_tpu/ops/fused_block.py:86"),
     "fused_ffn_fwd_mma": ("multimodal_supernovae_tpu_torch/csrc/fused_ffn_fwd_mma.cu",
@@ -375,13 +399,14 @@ GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
 # one 1% off. Sound runs read at most 3.8e-3 on either route (dq, dk; out
 # 3.2e-3), the tensor-core dq x 0.99 1.07e-2 (PERF.md section 6).
 NORM_TOL = 6e-3
-# float32 fused-block forward and backward against their plain versions on the
-# same inputs: ||got - want|| / ||want||. A CPU model of the kernels'
-# arithmetic reads 2.2e-7 (forward) and at most 4.0e-7 (backward, every row,
-# on the model's own ReLU mask) with 3xTF32 products; 3.2e-4 and 2.6e-4 to
-# 4.7e-4 with one TF32 product (tests/test_torch_fused_block_kernel.py, the
-# backward's printed under -rP); the plain versions with TF32 matmuls must
-# fail it.
+# float32 fused-block and 3xTF32 flash outputs against their plain versions on
+# the same inputs: ||got - want|| / ||want||. A CPU model of the fused-block
+# kernels' arithmetic reads 2.2e-7 (forward) and at most 4.0e-7 (backward,
+# every row, on the model's own ReLU mask) with 3xTF32 products; 3.2e-4 and
+# 2.6e-4 to 4.7e-4 with one TF32 product (tests/test_torch_fused_block_kernel.py,
+# the backward's printed under -rP); the flash model 2.1-2.3e-7 against
+# 3.6-4.0e-4 (tests/test_torch_flash_tf32.py); the plain versions with TF32
+# matmuls must fail it.
 FP32_NORM_TOL = 1e-5
 # served vs plain-version embeddings, every serve phase; sound runs read 6.6e-3
 SERVE_TOL = 0.02
@@ -412,7 +437,14 @@ QKV_SP = (BATCH, TRAIN_SP_LEN, SEQ_SP["emb"], SEQ_SP["heads"])
 COUNT_NAMES = ("(flash fwd CUDA cores, flash bwd CUDA cores, flash fwd tensor cores, "
                "flash bwd tensor cores, ffn fwd CUDA cores, ffn bwd CUDA cores, qkv fwd CUDA "
                "cores, qkv bwd CUDA cores, qkv fwd tensor cores, qkv bwd tensor cores, ffn fwd "
-               "tensor cores, ffn bwd tensor cores)")
+               "tensor cores, ffn bwd tensor cores, flash fwd 3xTF32, flash bwd 3xTF32)")
+NONE = (0,) * 14  # no launch, in the order of COUNT_NAMES
+
+
+def _tf32_flash(fwd, bwd):
+    """Counts with ``fwd`` and ``bwd`` flash launches on the 3xTF32 route and
+    none elsewhere: a float32 model whose every layer takes it."""
+    return (0,) * 12 + (fwd, bwd)
 # what the fused backward returns, in order
 BWD_NAMES = ("datt", "dx", "dwu", "dbu", "dg1", "db1", "dwf1", "dbf1", "dwf2", "dbf2", "dg2",
              "db2")
@@ -540,12 +572,34 @@ def _norm_err(got, want):
     return diff / norm if norm else None
 
 
-def _check_norm(got, want, what):
-    """The normalised error of a bf16 output (None where the plain output is
-    zero); raises above NORM_TOL."""
+def _check_norm(got, want, what, tol=NORM_TOL):
+    """The normalised error of an output (None where the plain output is
+    zero); raises above ``tol`` (NORM_TOL for bf16 outputs)."""
     err = _norm_err(got, want)
-    if err is not None and not err <= NORM_TOL:
-        raise AssertionError(f"{what}: ||got - want|| / ||want|| {err:.3e} (tol {NORM_TOL})")
+    if err is not None and not err <= tol:
+        raise AssertionError(f"{what}: ||got - want|| / ||want|| {err:.3e} (tol {tol})")
+    return err
+
+
+def _route_norm(got, want, dtype, route, what):
+    """The normalised error of a flash output and its limit where the route
+    has one: NORM_TOL for bf16, FP32_NORM_TOL for the 3xTF32 route (the
+    float32 CUDA-core route is logged, not held); raises above it."""
+    tol = (NORM_TOL if dtype == torch.bfloat16 else FP32_NORM_TOL if route == "tf32"
+           else None)
+    if tol is None:
+        return _norm_err(got, want), None
+    return _check_norm(got, want, what, tol), tol
+
+
+def _tf32_control(what, got, want):
+    """The control of FP32_NORM_TOL: the plain output with TF32 matmuls
+    (``got``) must fail it against the float32 plain output ``want``."""
+    err = _norm_err(got, want)
+    log(f"{what}: the plain version with TF32 matmuls, ||err||/||plain|| {err:.3e} (must "
+        f"exceed {FP32_NORM_TOL})")
+    if not err > FP32_NORM_TOL:
+        raise AssertionError(f"{what}: FP32_NORM_TOL cannot see TF32 products: {err:.3e}")
     return err
 
 
@@ -577,13 +631,36 @@ def _simt_route():
         yield
 
 
-ROUTES = {"mma": contextlib.nullcontext, "simt": _simt_route}
+ROUTES = {"mma": contextlib.nullcontext, "tf32": contextlib.nullcontext, "simt": _simt_route}
 
 
 def _routes(dtype, s, tensors):
     """The routes a case is checked on: both where ``_route`` takes the
-    tensor cores, the CUDA cores alone elsewhere."""
-    return ("mma", "simt") if flash_mod._route(dtype, s, tensors) == "mma" else ("simt",)
+    tensor cores (bf16 or 3xTF32), the CUDA cores alone elsewhere."""
+    route = flash_mod._route(dtype, s, tensors)
+    return (route, "simt") if route != "simt" else ("simt",)
+
+
+def _route_counts(fn):
+    """(bf16 tensor-core, 3xTF32) launches of a flash wrapper so far."""
+    return fn.mma_launches, fn.tf32_launches
+
+
+def _on_route(fn, before, route):
+    """Whether one call of ``fn`` since ``before`` (_route_counts) took
+    ``route``."""
+    mma, tf32 = _route_counts(fn)
+    return (mma - before[0], tf32 - before[1]) == (route == "mma", route == "tf32")
+
+
+@contextlib.contextmanager
+def _tf32_matmuls():
+    """float32 matmuls in TF32 for the block (the controls), restored after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _device_ops(fn, iters=25):
@@ -635,33 +712,53 @@ def _flash_cases(mask_lc, mask_sp, t_sp):
     ]
 
 
+# the flash timings: (case, dtype) of the forward and backward phases (the
+# serving and training shapes in both dtypes; the trimodal spectral shape, and
+# the backward's spectral serving T, in float32, the trimodal step's dtype)
+FWD_TIMED = {("lc", "bfloat16"), ("sp", "bfloat16"), ("lc", "float32"), ("sp", "float32"),
+             ("sp_train", "float32"), ("sp_tri", "float32")}
+BWD_TIMED = {("lc", "bfloat16"), ("sp", "bfloat16"), ("lc", "float32"), ("sp", "float32"),
+             ("sp_t1024", "float32"), ("sp_tri", "float32")}
+TIMING_NOTE = ("(plain: dense_attention, its autograd for the backward; library: "
+               "scaled_dot_product_attention, its autograd for the backward; *_device: the "
+               "sum of its device kernels under torch.profiler, 25 calls; *_host: the "
+               "wrapper's host time a call on an idle card, median of 50; float32 with TF32 "
+               "off)")
+
+
 def phase_kernel():
-    """The forward kernels of both routes against dense_attention; times at
-    the serving shapes. Returns ({route: max|err|}, {(case, dtype): times})."""
+    """The forward kernels of every route against dense_attention; times at
+    the serving, training and trimodal shapes. Returns ({route: max|err|},
+    {(case, dtype): times}, {route: largest normalised error})."""
     flash_attention = flash_mod.flash_attention
     syn = make_synthetic_arrays(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=SP_LEN, seed=0)
     mask_lc = torch.from_numpy(syn["mask_lc"]).cuda()
     mask_sp = torch.from_numpy(syn["mask_sp"]).cuda()
     cases = _flash_cases(mask_lc, mask_sp, SP_LEN) + [
+        ("sp_train", (BATCH, 2, TRAIN_SP_LEN, 16), mask_sp[:, :TRAIN_SP_LEN].contiguous(),
+         True),
+        ("sp_tri", (32, 2, SP_LEN, 16), mask_sp[:32].contiguous(), True),
         ("s64", (8, 1, 77, 64), mask_sp[:8, -77:].contiguous(), False)]
     gen = torch.Generator().manual_seed(0)
-    max_err = {"mma": 0.0, "simt": 0.0}
-    norm_err = {"mma": 0.0, "simt": 0.0}
+    max_err = {r: 0.0 for r in ROUTES}
+    norm_err = {(r, d): 0.0 for r in ROUTES for d in ("float32", "bfloat16")}
     timing = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, (b, h, t, s), mask, layout in cases:
+            if name in ("sp_train", "sp_tri") and dtype_name == "bfloat16":
+                continue  # float32 timing shapes
             q, k, v = _heads(gen, b, h, t, s, dtype, layout)
             emb = h * s
             want = dense_attention(q, k, v, mask, emb)
             routes = _routes(dtype, s, (q, k, v))
             for route in routes:
-                before = flash_attention.mma_launches
+                before = _route_counts(flash_attention)
                 with ROUTES[route]():
                     got = flash_attention(q, k, v, mask, emb)
                 torch.cuda.synchronize()
-                if flash_attention.mma_launches - before != (route == "mma"):
+                if not _on_route(flash_attention, before, route):
                     raise AssertionError(f"{name} {dtype_name}: not on the {route} route")
                 if got.dtype != dtype or got.shape != want.shape:
                     raise AssertionError(f"{name} {dtype_name}: got {got.dtype} "
@@ -671,32 +768,38 @@ def phase_kernel():
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=TOL[dtype_name], atol=TOL[dtype_name],
                                            msg=lambda m: f"{name} {dtype_name} {route}: {m}")
-                norm = ""
-                if dtype == torch.bfloat16:
-                    rel = _check_norm(got, want, f"{name} {dtype_name} {route}")
-                    norm_err[route] = max(norm_err[route], rel or 0.0)
-                    norm = f", ||err||/||plain|| {_fmt(rel)} (tol {NORM_TOL})"
+                rel, tol = _route_norm(got, want, dtype, route, f"{name} {dtype_name} {route}")
+                norm_err[(route, dtype_name)] = max(norm_err[(route, dtype_name)], rel or 0.0)
                 log(f"kernel {name} {dtype_name} {(b, h, t, s)} {route}: max|err| "
-                    f"{err:.3e} (tol {TOL[dtype_name]}){norm}")
-            if name in ("lc", "sp"):
+                    f"{err:.3e} (tol {TOL[dtype_name]}), ||err||/||plain|| {_fmt(rel)} (tol "
+                    f"{tol})")
+            if dtype == torch.float32 and name in ("lc", "sp"):
+                with _tf32_matmuls():
+                    control = dense_attention(q, k, v, mask, emb)
+                _tf32_control(f"kernel {name} float32", control, want)
+                del control
+            if (name, dtype_name) in FWD_TIMED:
                 times = {}
                 for route in routes:
                     with ROUTES[route]():
                         times[route] = _time_ms(lambda: flash_attention(q, k, v, mask, emb))
+                        times[f"{route}_device"] = _device_ms(
+                            lambda: flash_attention(q, k, v, mask, emb))
                         times[f"{route}_host"] = _host_ms(
                             lambda: flash_attention(q, k, v, mask, emb))
                 times["plain"] = _time_ms(lambda: dense_attention(q, k, v, mask, emb))
                 times["library"] = _time_ms(lambda: _sdpa(q, k, v, mask, emb))
+                times["library_device"] = _device_ms(lambda: _sdpa(q, k, v, mask, emb))
                 timing[(name, dtype_name)] = times
                 log(f"time {name} {dtype_name} {(b, h, t, s)}: "
                     + ", ".join(f"{r} {ms:.4f} ms" for r, ms in times.items())
-                    + " (library: scaled_dot_product_attention; *_host: the wrapper's "
-                    "host time a call on an idle card, median of 50)")
+                    + " " + TIMING_NOTE)
             del q, k, v, got, want
     torch.cuda.empty_cache()
-    log(f"kernel: bf16 ||err||/||plain|| largest over the cases: " + ", ".join(
-        f"{r} {e:.3e}" for r, e in norm_err.items()) + f" (tol {NORM_TOL})")
-    return max_err, timing
+    log(f"kernel: ||err||/||plain|| largest over the cases: " + ", ".join(
+        f"{r} {d} {e:.3e}" for (r, d), e in norm_err.items() if e)
+        + f" (tol: bf16 {NORM_TOL}, 3xTF32 {FP32_NORM_TOL})")
+    return max_err, timing, norm_err
 
 
 def _seq_lc(fused):
@@ -735,26 +838,31 @@ def _post(port, feed, as_json):
 
 
 def phase_kernel_bwd():
-    """The backward kernels of both routes against torch autograd through
+    """The backward kernels of every route against torch autograd through
     dense_attention (from one forward's output and stats: either forward
-    feeds either backward); times at the training shapes. Returns ({route:
-    max|err|}, {case: times})."""
+    feeds either backward); times at the training, serving and trimodal
+    shapes. Returns ({route: max|err|}, {(case, dtype): times}, {route:
+    largest normalised error}, {(case, dtype): the dq x 0.99 control's
+    normalised error})."""
     fwd, bwd = flash_mod._flash_fwd, flash_mod.flash_attention_bwd
     syn = make_synthetic_arrays(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=SP_LEN, seed=2)
     mask_lc = torch.from_numpy(syn["mask_lc"]).cuda()
     mask_sp = torch.from_numpy(syn["mask_sp"]).cuda()
     cases = _flash_cases(mask_lc, mask_sp, TRAIN_SP_LEN) + [
-        ("sp_t1024", (BATCH, 2, SP_LEN, 16), mask_sp, True)]
+        ("sp_t1024", (BATCH, 2, SP_LEN, 16), mask_sp, True),
+        ("sp_tri", (32, 2, SP_LEN, 16), mask_sp[:32].contiguous(), True)]
     gen = torch.Generator().manual_seed(1)
-    max_err = {"mma": 0.0, "simt": 0.0}
-    norm_err = {"mma": 0.0, "simt": 0.0}
+    max_err = {r: 0.0 for r in ROUTES}
+    norm_err = {(r, d): 0.0 for r in ROUTES for d in ("float32", "bfloat16")}
     control = {}
     timing = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         tol = GRAD_TOL[dtype_name]
         for name, (b, h, t, s), mask, layout in cases:
+            if name == "sp_tri" and dtype_name == "bfloat16":
+                continue  # a float32 timing shape
             q, k, v = _heads(gen, b, h, t, s, dtype, layout)
             # the cotangent in the head merge's (B, T, H, S) memory order
             g = torch.randn((b, t, h, s), generator=gen).to("cuda", dtype).transpose(1, 2)
@@ -763,11 +871,11 @@ def phase_kernel_bwd():
             want = dense_attention_bwd(q, k, v, mask, g, emb)
             routes = _routes(dtype, s, (q, k, v, out, g))
             for route in routes:
-                before = flash_mod.flash_attention_bwd.mma_launches
+                before = _route_counts(flash_mod.flash_attention_bwd)
                 with ROUTES[route]():
                     got = bwd(q, k, v, mask, out, stats, g, emb)
                 torch.cuda.synchronize()
-                if flash_mod.flash_attention_bwd.mma_launches - before != (route == "mma"):
+                if not _on_route(flash_mod.flash_attention_bwd, before, route):
                     raise AssertionError(f"{name} {dtype_name}: not on the {route} route")
                 errs, norms = [], []
                 for gname, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -778,33 +886,40 @@ def phase_kernel_bwd():
                     torch.testing.assert_close(
                         a.float(), w.float(), rtol=tol, atol=tol,
                         msg=lambda m: f"{name} {dtype_name} {route} {gname}: {m}")
-                    if dtype == torch.bfloat16:
-                        norms.append(_check_norm(a, w, f"{name} {dtype_name} {route} {gname}"))
+                    rel, ntol = _route_norm(a, w, dtype, route,
+                                            f"{name} {dtype_name} {route} {gname}")
+                    norms.append(rel)
                 if (name in ("masked_rows", "t77_s8", "t77_s16")
                         and (got[0][0].any() or got[1][0].any() or not got[2][0].any())):
                     raise AssertionError(f"{name} {route}: fully masked row: want dq = dk = 0, "
                                          "dv != 0")
                 max_err[route] = max(max_err[route], *errs)
-                norm = ""
-                if norms:
-                    norm_err[route] = max(norm_err[route], *(e or 0.0 for e in norms))
-                    norm = (f"; ||err||/||plain|| dq {_fmt(norms[0])} dk {_fmt(norms[1])} "
-                            f"dv {_fmt(norms[2])} (tol {NORM_TOL})")
+                norm_err[(route, dtype_name)] = max(norm_err[(route, dtype_name)],
+                                                    *(e or 0.0 for e in norms))
                 log(f"kernel-bwd {name} {dtype_name} {(b, h, t, s)} {route}: max|err| dq "
-                    f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {tol}){norm}")
-                if route == "mma" and name in ("lc", "sp"):
+                    f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {tol}); "
+                    f"||err||/||plain|| dq {_fmt(norms[0])} dk {_fmt(norms[1])} dv "
+                    f"{_fmt(norms[2])} (tol {ntol})")
+                if route != "simt" and name in ("lc", "sp"):
                     # negative control: the tensor-core dq off by 1% must fail
                     with _wrong_dq() as wrong_bwd:
                         wrong = wrong_bwd(q, k, v, mask, out, stats, g, emb)
-                    if wrong_bwd.mma_launches != 1:
-                        raise AssertionError(f"{name}: the control left the tensor cores")
-                    control[name] = _norm_err(wrong[0], want[0])
-                    log(f"kernel-bwd {name} {dtype_name} {WRONG_DQ}: ||err||/||plain|| dq "
-                        f"{control[name]:.3e} (must exceed {NORM_TOL})")
-                    if control[name] <= NORM_TOL:
+                    if _route_counts(wrong_bwd) != (route == "mma", route == "tf32"):
+                        raise AssertionError(f"{name}: the control left the {route} route")
+                    ctol = NORM_TOL if route == "mma" else FP32_NORM_TOL
+                    err = control[(name, dtype_name)] = _norm_err(wrong[0], want[0])
+                    log(f"kernel-bwd {name} {dtype_name} {WRONG_DQ} on the {route} route: "
+                        f"||err||/||plain|| dq {err:.3e} (must exceed {ctol})")
+                    if err <= ctol:
                         raise AssertionError(f"{name}: the normalised check cannot see a 1% "
-                                             f"error in dq: {control[name]:.3e}")
-            if name in ("lc", "sp") and dtype_name == "bfloat16":
+                                             f"error in dq: {err:.3e}")
+            if dtype == torch.float32 and name in ("lc", "sp"):
+                with _tf32_matmuls():
+                    ctl = dense_attention_bwd(q, k, v, mask, g, emb)
+                for gname, a, w in zip(("dq", "dk", "dv"), ctl, want):
+                    _tf32_control(f"kernel-bwd {name} float32 {gname}", a, w)
+                del ctl
+            if (name, dtype_name) in BWD_TIMED:
                 times = {}
                 for route in routes:
                     with ROUTES[route]():
@@ -822,21 +937,53 @@ def phase_kernel_bwd():
                     lib_out, leaves, g, retain_graph=True))
                 times["library_device"] = _device_ms(lambda: torch.autograd.grad(
                     lib_out, leaves, g, retain_graph=True))
-                timing[name] = times
+                timing[(name, dtype_name)] = times
                 log(f"time-bwd {name} {dtype_name} {(b, h, t, s)}: "
                     + ", ".join(f"{r} {ms:.4f} ms" for r, ms in times.items())
-                    + " (plain: autograd of dense_attention; library: autograd of "
-                    "scaled_dot_product_attention; *_device: the sum of its device "
-                    "kernels under torch.profiler, 25 calls; *_host: the wrapper's host "
-                    "time a call on an idle card, median of 50)")
+                    + " " + TIMING_NOTE)
                 del leaves, plain_out, lib_out
             del q, k, v, g, out, stats, got, want
+    _near_equal_check(gen)
     torch.cuda.empty_cache()
-    log(f"kernel-bwd: bf16 ||err||/||plain|| largest over the cases and dq/dk/dv: "
-        + ", ".join(f"{r} {e:.3e}" for r, e in norm_err.items())
-        + f" (tol {NORM_TOL}); {WRONG_DQ}: " + ", ".join(
-            f"{n} {e:.3e}" for n, e in control.items()))
-    return max_err, timing
+    log(f"kernel-bwd: ||err||/||plain|| largest over the cases and dq/dk/dv: "
+        + ", ".join(f"{r} {d} {e:.3e}" for (r, d), e in norm_err.items() if e)
+        + f" (tol: bf16 {NORM_TOL}, 3xTF32 {FP32_NORM_TOL}); {WRONG_DQ}: " + ", ".join(
+            f"{n} {d} {e:.3e}" for (n, d), e in control.items()))
+    return max_err, timing, norm_err, control
+
+
+def _near_equal_check(gen):
+    """Where a row's values are nearly equal across its keys (a deep encoder
+    layer), dP - D cancels: on (64, 8, 200, 8) float32 with v = v0 + 0.1
+    noise, the 3xTF32 backward's dq, dk and dv must each sit within 2x the
+    plain float32 version's distance to float64, plus 1e-7 of the largest
+    value (the CUDA-core route's logged beside it)."""
+    b, h, t, s = 64, 8, 2 * LC_LEN, 8
+    q, k, _ = _heads(gen, b, h, t, s, torch.float32, True)
+    v = (torch.randn((b, 1, h, s), generator=gen)
+         + 0.1 * torch.randn((b, t, h, s), generator=gen)).cuda().transpose(1, 2)
+    mask = torch.rand((b, t), generator=gen).cuda() > 0.3
+    mask[:, 0] = True
+    mask[0] = False
+    g = torch.randn((b, t, h, s), generator=gen).cuda().transpose(1, 2)
+    emb = h * s
+    ref = _attention_f64_grads(q, k, v, mask, g, emb)
+    plain = dense_attention_bwd(q, k, v, mask, g, emb)
+    out, stats = flash_mod._flash_fwd(q, k, v, mask, emb, with_stats=True)
+    if flash_mod._route(q.dtype, s, (q, k, v, out, g)) != "tf32":
+        raise AssertionError("near-equal case: not on the 3xTF32 route")
+    got = {"tf32": flash_mod.flash_attention_bwd(q, k, v, mask, out, stats, g, emb)}
+    with _simt_route():
+        got["simt"] = flash_mod.flash_attention_bwd(q, k, v, mask, out, stats, g, emb)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        plain_err = _rel_f64(plain[i], ref[i])
+        errs = {r: _rel_f64(a[i], ref[i]) for r, a in got.items()}
+        log(f"kernel-bwd near-equal values {(b, h, t, s)} float32 {name}: max|x - float64| / "
+            f"max|float64|: 3xTF32 {errs['tf32']:.3e}, CUDA cores {errs['simt']:.3e}, plain "
+            f"{plain_err:.3e} (3xTF32 limit 2x plain + 1e-7)")
+        if not errs["tf32"] <= 2 * plain_err + 1e-7:
+            raise AssertionError(f"near-equal {name}: 3xTF32 {errs['tf32']:.3e} against "
+                                 f"plain {plain_err:.3e}")
 
 
 def _ffn_inputs(gen, n, e, f, dtype):
@@ -1401,12 +1548,13 @@ def phase_serve(fused=False, qkv=False):
                 raise AssertionError(f"too few device calls: {calls}")
             # under the opt-in the LC tower (T = 200) takes the fused-QKV kernel and
             # the SP tower (T = 1024 > 256) falls back to the flash kernel; the fused
-            # LC blocks compute in float32 (CUDA cores), every other layer in bf16
-            # (tensor cores, the fused-QKV layers too); the fused forward takes the
-            # tensor cores (3xTF32)
+            # LC blocks compute in float32 (their attention on the 3xTF32 route),
+            # every other layer in bf16 (tensor cores, the fused-QKV layers too);
+            # the fused forward takes the tensor cores (3xTF32)
             n_qkv, n_f32 = SEQ_LC["depth"] * qkv, FUSED_PER_CALL * fused
-            want = (n_f32 * calls, 0, (LAYERS_PER_CALL - n_qkv - n_f32) * calls, 0,
-                    0, 0, 0, 0, n_qkv * calls, 0, FUSED_PER_CALL * calls * fused, 0)
+            want = (0, 0, (LAYERS_PER_CALL - n_qkv - n_f32) * calls, 0,
+                    0, 0, 0, 0, n_qkv * calls, 0, FUSED_PER_CALL * calls * fused, 0,
+                    n_f32 * calls, 0)
             if launches != want or plain_calls:
                 raise AssertionError(
                     f"{tag}: expected launches {want} for {calls} device calls and no "
@@ -1511,23 +1659,29 @@ def _zero_counts():
                qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd,
                ffn_mod.fused_ffn_block, ffn_mod.fused_ffn_block_bwd):
         fn.launches = fn.mma_launches = 0
+    for fn in (flash_mod.flash_attention, flash_mod.flash_attention_bwd):
+        fn.tf32_launches = 0
 
 
 def _counts():
-    """Launches since _zero_counts, 12 numbers in the order of COUNT_NAMES:
-    the flash forward and backward on the CUDA cores, then on the tensor
-    cores, the fused-block forward and backward on the CUDA cores, the
-    fused-QKV forward and backward on the CUDA cores and on the tensor
-    cores, then the fused-block forward and backward on the tensor cores
-    (forwards at even places)."""
+    """Launches since _zero_counts, 14 numbers in the order of COUNT_NAMES:
+    the flash forward and backward on the CUDA cores, then on the bf16
+    tensor cores, the fused-block forward and backward on the CUDA cores,
+    the fused-QKV forward and backward on the CUDA cores and on the tensor
+    cores, the fused-block forward and backward on the tensor cores, then
+    the flash forward and backward on the 3xTF32 tensor cores (forwards at
+    even places). A route's CUDA-core count is its launches less those of
+    its tensor-core routes."""
     fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
     qfwd, qbwd = qkv_mod.fused_qkv_attention, qkv_mod.fused_qkv_attention_bwd
     ffn_simt, ffn_mma = _ffn_counts()
     ffn_bwd_simt, ffn_bwd_mma = _ffn_counts(ffn_mod.fused_ffn_block_bwd)
-    return (fwd.launches - fwd.mma_launches, bwd.launches - bwd.mma_launches,
+    return (fwd.launches - fwd.mma_launches - fwd.tf32_launches,
+            bwd.launches - bwd.mma_launches - bwd.tf32_launches,
             fwd.mma_launches, bwd.mma_launches, ffn_simt, ffn_bwd_simt,
             qfwd.launches - qfwd.mma_launches, qbwd.launches - qbwd.mma_launches,
-            qfwd.mma_launches, qbwd.mma_launches, ffn_mma, ffn_bwd_mma)
+            qfwd.mma_launches, qbwd.mma_launches, ffn_mma, ffn_bwd_mma,
+            fwd.tf32_launches, bwd.tf32_launches)
 
 
 @contextlib.contextmanager
@@ -1577,7 +1731,7 @@ def _wrong_dq():
         return dq * 0.99, dk, dv
 
     # the wrapper counts on the module attribute it replaces
-    wrong.launches = wrong.mma_launches = 0
+    wrong.launches = wrong.mma_launches = wrong.tf32_launches = 0
     return mock.patch.object(flash_mod, "flash_attention_bwd", wrong)
 
 
@@ -1636,30 +1790,33 @@ def _step_counts(path):
     """Launches per train step on ``path``, in the order of _counts. bf16
     flash calls take the tensor cores unless the path patches the route;
     the fused blocks of the LC tower compute in float32: their attention on
-    the CUDA cores, their forward and backward on the tensor cores (3xTF32)
-    unless the path patches the fused route. Under the fused-QKV opt-in both
-    towers (T = 200 and 220) take its kernels and the flash kernels none."""
+    the 3xTF32 route unless the path patches the flash route, their forward
+    and backward on the tensor cores (3xTF32) unless the path patches the
+    fused route. Under the fused-QKV opt-in both towers (T = 200 and 220)
+    take its kernels and the flash kernels none."""
     n = LAYERS_PER_CALL
     if path == "plain":
-        return (0,) * 12
+        return NONE
     if path == "qkv":  # bf16 at head dims 8 and 16: the tensor-core QKV kernels
-        return (0,) * 8 + (n, n, 0, 0)
+        return (0,) * 8 + (n, n, 0, 0, 0, 0)
     if path == "kernel-simt":
-        return (n, n) + (0,) * 10
+        return (n, n) + (0,) * 12
     if path == "qkv-simt":
-        return (0,) * 6 + (n, n, 0, 0, 0, 0)
+        return (0,) * 6 + (n, n) + (0,) * 6
     f = FUSED_PER_CALL if PATHS[path][0] else 0
     simt, mma = f * (path == "fused-simt"), f * (path != "fused-simt")
-    return (f, f, n - f, n - f, simt, simt, 0, 0, 0, 0, mma, mma)
+    return (0, 0, n - f, n - f, simt, simt, 0, 0, 0, 0, mma, mma, f, f)
 
 
 def _f32_step_counts(path):
     """Launches per float32 train step on ``path`` (the trajectory and
-    gradient checks): every kernel on the CUDA cores, the fused forward and
-    backward on the tensor cores (3xTF32 takes float32)."""
+    gradient checks): the flash kernels on the 3xTF32 route (the CUDA cores
+    where the path patches the route), the fused-QKV ones on the CUDA cores,
+    the fused forward and backward on the tensor cores (3xTF32 takes
+    float32)."""
     c = _step_counts(path)
-    return (c[0] + c[2], c[1] + c[3], 0, 0, c[4], c[5], c[6] + c[8], c[7] + c[9], 0, 0,
-            c[10], c[11])
+    return (c[0], c[1], 0, 0, c[4], c[5], c[6] + c[8], c[7] + c[9], 0, 0, c[10], c[11],
+            c[2] + c[12], c[3] + c[13])
 
 
 def _time_train_steps(path, batch):
@@ -1704,13 +1861,12 @@ def _trajectory(path, data, plan):
 
 
 def _check_f32_counts(path, steps):
-    """The float32 steps' launches: every kernel but the fused forward and
-    backward on the CUDA cores, none on a plain path (the negative controls
-    replace a wrapper and are not counted)."""
+    """The float32 steps' launches (_f32_step_counts), none on a plain path
+    (the negative controls replace a wrapper and are not counted)."""
     counts = _counts()
     if path in (WRONG_DQ, WRONG_DWF1, WRONG_DWQ):
         return counts
-    want = (0,) * 12 if "plain" in path else tuple(c * steps for c in _f32_step_counts(path))
+    want = NONE if "plain" in path else tuple(c * steps for c in _f32_step_counts(path))
     if counts != want:
         raise AssertionError(f"{path} float32: launches {counts}, want {want}")
     return counts
@@ -1802,7 +1958,7 @@ def phase_train(variant="kernel"):
         order += ("kernel-simt", "kernel", "kernel", "kernel-simt") * 2
     times = {main_path: [], **{p: [] for p in others}}
     round_ms = {p: [] for p in times}
-    timed_counts = (0,) * 12
+    timed_counts = NONE
     for path in order:
         ts, counts, peak = _time_train_steps(path, batch)
         timed_counts = tuple(a + b for a, b in zip(timed_counts, counts))
@@ -1908,11 +2064,12 @@ def phase_grad_probe():
     """Where the kernel paths' float32 whole-model gradients part from the
     plain path's. Flash: every attention call of one float32 loss on the
     plain path is recorded with its cotangent, and on each layer's own inputs
-    the flash backward (CUDA cores, D = rowsum(P o dP)), dense_attention's
-    autograd and the plain backward with either D (g . out, which the
-    CUDA-core kernel took before, or rowsum(P o dP)) are read against a
-    float64 reference. Fused QKV: _qkv_grad_probe. A diagnostic: it logs, it
-    checks nothing; returns the fused-QKV readings."""
+    the flash backward of both float32 routes (3xTF32 as routed, D - c0 as
+    rowsum(P o g . (v - v0)); the CUDA cores, D as c0 + rowsum(P o (dP -
+    c0))), dense_attention's autograd and the plain backward with either D
+    (g . out, which the CUDA-core kernel took before, or rowsum(P o dP)) are
+    read against a float64 reference. Fused QKV: _qkv_grad_probe. A
+    diagnostic: it logs, it checks nothing; returns the fused-QKV readings."""
     batch = _probe_batch()
     calls = []
 
@@ -1934,15 +2091,21 @@ def phase_grad_probe():
         ref = _attention_f64_grads(q, k, v, mask, g, emb)
         plain = dense_attention_bwd(q, k, v, mask, g, emb)
         out, stats = flash_mod._flash_fwd(q, k, v, mask, emb, with_stats=True)
+        route = flash_mod._route(q.dtype, q.shape[-1], (q, k, v, out, g))
         kern = flash_mod.flash_attention_bwd(q, k, v, mask, out, stats, g, emb)
+        with _simt_route():
+            simt = flash_mod.flash_attention_bwd(q, k, v, mask, out, stats, g, emb)
         d_out = _dq_with_d(q, k, v, mask, g, emb, True)
         d_rowsum = _dq_with_d(q, k, v, mask, g, emb, False)
         log(f"grad-probe layer {i} {tuple(q.shape)}: max|x - float64| / max|float64| dq, dk, "
-            f"dv: flash kernel {rel(kern[0], ref[0]):.3e} {rel(kern[1], ref[1]):.3e} "
-            f"{rel(kern[2], ref[2]):.3e}; dense_attention autograd {rel(plain[0], ref[0]):.3e} "
+            f"dv: flash kernel ({route} route) {rel(kern[0], ref[0]):.3e} "
+            f"{rel(kern[1], ref[1]):.3e} {rel(kern[2], ref[2]):.3e}; CUDA-core flash kernel "
+            f"{rel(simt[0], ref[0]):.3e} {rel(simt[1], ref[1]):.3e} "
+            f"{rel(simt[2], ref[2]):.3e}; "
+            f"dense_attention autograd {rel(plain[0], ref[0]):.3e} "
             f"{rel(plain[1], ref[1]):.3e} {rel(plain[2], ref[2]):.3e}; plain dq with D = g.out "
             f"{rel(d_out, ref[0]):.3e}, with rowsum(P o dP) {rel(d_rowsum, ref[0]):.3e}")
-        del ref, plain, out, stats, kern, d_out, d_rowsum
+        del ref, plain, out, stats, kern, simt, d_out, d_rowsum
     del calls, model
     torch.cuda.empty_cache()
     return _qkv_grad_probe(batch)
@@ -2091,11 +2254,11 @@ def phase_run_dir():
     n_train, n_val = len(train_ds), len(val_ds)
     train_steps, eval_steps = -(-n_train // batch), -(-n_val // batch)
 
-    def want(epochs):  # every layer float32: the flash kernels on the CUDA cores
-        return ((LAYERS_PER_CALL * epochs * (train_steps + eval_steps),
-                 LAYERS_PER_CALL * epochs * train_steps) + (0,) * 10)
+    def want(epochs):  # every layer float32: the flash kernels on the 3xTF32 route
+        return _tf32_flash(LAYERS_PER_CALL * epochs * (train_steps + eval_steps),
+                           LAYERS_PER_CALL * epochs * train_steps)
 
-    total = (0,) * 12
+    total = NONE
     with tempfile.TemporaryDirectory() as tmp:
         dir_a, dir_b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
         fits = {}
@@ -2167,7 +2330,7 @@ def phase_run_dir():
                                   for g, w in zip(got_loaded, want_emb)),
                 "load_live": max(float(np.abs(g - w).max()) for g, w in zip(served, want_emb))}
         shapes = [s.shape for s in served]
-        want_serve = (2 * LAYERS_PER_CALL,) + (0,) * 11
+        want_serve = _tf32_flash(2 * LAYERS_PER_CALL, 0)
         log(f"run-dir serve: load_model and load_live of A (last.ckpt), {batch} validation "
             f"samples: {shapes}, max|x - encode| {errs} (tol {RUN_DIR_EMBED_TOL}); launches "
             f"{serve_counts}, {len(plain)} plain kernel calls")
@@ -2187,7 +2350,7 @@ def phase_run_dir():
         want_all = [torch.cat([p[i] for p in per_batch]).float().cpu().numpy()
                     for i in range(2)]
         err = max(float(np.abs(g - w).max()) for g, w in zip(embs, want_all))
-        want_emb_counts = (LAYERS_PER_CALL * eval_steps,) + (0,) * 11
+        want_emb_counts = _tf32_flash(LAYERS_PER_CALL * eval_steps, 0)
         log(f"run-dir get_embeddings: {names} {[e.shape for e in embs]} over the {n_val} "
             f"validation samples, max|x - per-batch encode| {err:.3e} (tol "
             f"{RUN_DIR_EMBED_TOL}); launches {emb_counts}, {len(plain)} plain kernel calls")
@@ -2287,7 +2450,7 @@ def _towers_grads(tag, cfg, batch, per_step):
             counts[name] = _counts()
         grads[name] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
         del model
-    _check_counts(f"{tag} grads plain", counts["plain"], (0,) * 12)
+    _check_counts(f"{tag} grads plain", counts["plain"], NONE)
     _check_counts(f"{tag} grads", counts["kernel"], per_step)
     want, errs, b = grads["plain"], {}, len(next(iter(batch.values())))
     for name in ("kernel", WRONG_DQ, "kernel, own masks"):
@@ -2344,11 +2507,11 @@ def _towers_trimodal(card):
     train_ds, val_ds = _split(ds, extra["val_fraction"])
     batch = tcfg.batch_size
     train_steps, eval_steps = -(-len(train_ds) // batch), -(-len(val_ds) // batch)
-    per_step = _f32_step_counts("kernel")  # float32: the CUDA-core flash kernels
+    per_step = _f32_step_counts("kernel")  # float32: the 3xTF32 flash kernels
     epochs = TOWERS_EPOCHS
     want_fit = tuple(a * epochs * (train_steps + eval_steps) if i % 2 == 0 else
                      a * epochs * train_steps for i, a in enumerate(per_step))
-    total = (0,) * 12
+    total = NONE
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "trimodal")
         model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
@@ -2398,8 +2561,7 @@ def _towers_trimodal(card):
         log(f"towers trimodal serve: load_live (x_img {served.input_spec['x_img'][0]}), "
             f"{batch} samples: {[g.shape for g in got]}, max|served - encode| {err:.3e} (tol "
             f"{RUN_DIR_EMBED_TOL}); launches {serve_counts}, {len(plain)} plain calls")
-        _check_counts("towers trimodal serve", serve_counts,
-                      (LAYERS_PER_CALL,) + (0,) * 11)
+        _check_counts("towers trimodal serve", serve_counts, _tf32_flash(LAYERS_PER_CALL, 0))
         if (err > RUN_DIR_EMBED_TOL or plain or len(got) != 3
                 or served.input_spec["x_img"][0] != feed["x_img"].shape[1:]):
             raise AssertionError(f"towers trimodal serve: {err}, {len(plain)} plain calls")
@@ -2457,8 +2619,9 @@ def _towers_trimodal(card):
     conv = sum(ms for k, ms in kinds.items() if k in ("convolution", "BatchNorm"))
     flash = sum(ms for k, ms in kinds.items() if k.startswith("flash"))
     log(f"towers profile trimodal: ConvMixer convolutions and BatchNorm {conv:.3f} ms, flash "
-        f"kernels (CUDA cores, float32) {flash:.3f} ms, the rest {traced[0] - conv - flash:.3f} "
-        f"ms of {traced[0]:.3f} ms device time a step; card {card}")
+        f"kernels (3xTF32 tensor cores, float32) {flash:.3f} ms, the rest "
+        f"{traced[0] - conv - flash:.3f} ms of {traced[0]:.3f} ms device time a step; card "
+        f"{card}")
     return total, (batch, float(np.median(times)))
 
 
@@ -2523,7 +2686,7 @@ def _towers_heads(card):
     batch = tcfg.batch_size
     train_steps, eval_steps = -(-len(train_ds) // batch), -(-len(val_ds) // batch)
     depth = tk["depth"]
-    total, step_ms = (0,) * 12, {"batch": batch}
+    total, step_ms = NONE, {"batch": batch}
     tbatch = take(train_ds.to_device(DEVICE), torch.arange(batch, device=DEVICE))
     cls_cfg = dataclasses.replace(reg_cfg, regression=False, classification=True, n_classes=5)
     for task, cfg, metric in (("regression", reg_cfg, "R2_val"),
@@ -2543,8 +2706,8 @@ def _towers_heads(card):
             f"{row[metric]:.6f}, step {row['step_time_s'] * 1e3:.2f} ms (the epoch's mean); "
             f"monitor {trainer.monitor}/{trainer.mode}; launches {counts}; card {card}")
         _check_counts(f"towers {task} fit", counts,
-                      (depth * HEADS_EPOCHS * (train_steps + eval_steps),
-                       depth * HEADS_EPOCHS * train_steps) + (0,) * 10)
+                      _tf32_flash(depth * HEADS_EPOCHS * (train_steps + eval_steps),
+                                  depth * HEADS_EPOCHS * train_steps))
         if plain or not np.isfinite(row[metric]):
             raise AssertionError(f"towers {task}: {metric} {row[metric]}, {len(plain)} plain")
         model = result["state"].model
@@ -2559,8 +2722,7 @@ def _towers_heads(card):
         err = float(np.abs(pred - want.float().cpu().numpy()).max())
         log(f"towers {task}: predict_supervised {pred.shape} against the eval head, max "
             f"difference {err:.3e}; launches {pred_counts}")
-        _check_counts(f"towers {task} predict", pred_counts,
-                      (depth * eval_steps,) + (0,) * 11)
+        _check_counts(f"towers {task} predict", pred_counts, _tf32_flash(depth * eval_steps, 0))
         if err > RUN_DIR_EMBED_TOL or pred.shape != (len(val_ds), cfg.head_out):
             raise AssertionError(f"towers {task}: predict_supervised {pred.shape} off by {err}")
         opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr)
@@ -2575,10 +2737,9 @@ def _towers_heads(card):
             f"{np.percentile(times, 75):.3f}) over {TOWERS_TIMED}; loss {float(loss):.5f}; "
             f"card {card}")
         _check_counts(f"towers {task} timed steps", timed_counts,
-                      (depth * (TOWERS_TIMED + 2),) * 2 + (0,) * 10)
+                      _tf32_flash(depth * (TOWERS_TIMED + 2), depth * (TOWERS_TIMED + 2)))
         del result, trainer, model, opt, step
-        grad_counts = _towers_grads(f"towers {task}", cfg, tbatch,
-                                    (depth, depth) + (0,) * 10)
+        grad_counts = _towers_grads(f"towers {task}", cfg, tbatch, _tf32_flash(depth, depth))
         total = tuple(sum(c) for c in
                       zip(total, counts, pred_counts, timed_counts, grad_counts))
         step_ms[task] = float(np.median(times))
@@ -2694,11 +2855,17 @@ def phase_profile():
         _log_trace(f"profile {path}", "train steps", *_profile_steps(path, batch))
 
 
-def _flash_bounds(b, h, t, s):
-    """Bounds of the flash forward and backward at (B, H, T, S), bf16."""
-    fwd = _bound(4 * b * h * t * t * s, 4 * b * h * t * s * 2 + b * t, "bfloat16")
+def _flash_bounds(b, h, t, s, peak="bfloat16"):
+    """Bounds of the flash forward and backward at (B, H, T, S): bf16 on the
+    tensor cores, or float32 (``peak`` "tf32x3": three TF32 passes of each
+    product; "float32": the CUDA cores). Operations: the products' least
+    multiply-adds a (query, key) pair, 2S forward (S, P . V) and 5S backward
+    (S, dP, dq, dk, dv); the kernels' dq and dk/dv kernels each recompute S
+    and dP, 7S."""
+    size = 2 if peak == "bfloat16" else 4
+    fwd = _bound(4 * b * h * t * t * s, 4 * b * h * t * s * size + b * t, peak)
     bwd = _bound(10 * b * h * t * t * s,
-                 8 * b * h * t * s * 2 + b * h * t * 2 * 4 + b * t, "bfloat16")
+                 8 * b * h * t * s * size + b * h * t * 2 * 4 + b * t, peak)
     return fwd, bwd
 
 
@@ -2732,6 +2899,8 @@ def _kernel_bounds():
     b = BATCH
     fwd = _flash_bounds(b, 2, SP_LEN, 16)[0]        # flash forward, SP serving, bf16
     bwd = _flash_bounds(b, 2, TRAIN_SP_LEN, 16)[1]  # flash backward, SP training, bf16
+    fwd_tf32 = _flash_bounds(b, 2, SP_LEN, 16, "tf32x3")[0]        # the same, float32
+    bwd_tf32 = _flash_bounds(b, 2, TRAIN_SP_LEN, 16, "tf32x3")[1]
     qkv_fwd, qkv_bwd = _qkv_bounds(*QKV_LC)         # fused QKV, LC, bf16
     n, e, f = FFN_ROWS, FFN_E, FFN_F           # fused block, LC rows, float32
     p = e * e + 2 * e * f + 6 * e + f          # parameter floats
@@ -2741,6 +2910,7 @@ def _kernel_bounds():
     ffn_bwd_mma = _bound(2 * n * (3 * e * e + 6 * e * f), 4 * (5 * n * e + 2 * p), "tf32x3")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
             "flash_attention_fwd_mma": fwd, "flash_attention_bwd_mma": bwd,
+            "flash_attention_fwd_tf32": fwd_tf32, "flash_attention_bwd_tf32": bwd_tf32,
             "fused_ffn_fwd": ffn_fwd, "fused_ffn_fwd_mma": ffn_fwd_mma,
             "fused_ffn_bwd": ffn_bwd, "fused_ffn_bwd_mma": ffn_bwd_mma,
             "fused_qkv_fwd": qkv_fwd, "fused_qkv_bwd": qkv_bwd,
@@ -2750,8 +2920,8 @@ def _kernel_bounds():
 def main():
     card, exp_per_s = phase_device()
     phase_build()
-    fwd_err, timing = phase_kernel()
-    bwd_err, bwd_timing = phase_kernel_bwd()
+    fwd_err, timing, fwd_norm = phase_kernel()
+    bwd_err, bwd_timing, bwd_norm, bwd_control = phase_kernel_bwd()
     ffn_err, ffn_norm_err, ffn_bwd_err, ffn_bwd_norm, ffn_timing = phase_kernel_ffn()
     qkv_err, qkv_bwd_err, qkv_timing = phase_kernel_qkv()
     serve = phase_serve()
@@ -2768,14 +2938,18 @@ def main():
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
         f"train-qkv, run-dir, towers, summed in the line: {runs}; card {card}")
-    lc, sp_fwd, sp_bwd = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
-                          (BATCH, 2, TRAIN_SP_LEN, 16))
-    for name, shape in (("LC", lc), ("SP serving", sp_fwd), ("SP training", sp_bwd)):
-        (f_ms, f_by), (b_ms, b_by) = _flash_bounds(*shape)
+    lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
+                               (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
+    for name, shape in (("LC", lc), ("SP serving", sp_fwd), ("SP training", sp_bwd),
+                        ("SP trimodal", tri)):
         e_fwd, e_bwd = _exp_floor_ms(*shape[:3], exp_per_s)
-        log(f"bounds bf16 at {name} {shape}: flash forward {f_ms:.4f} ms ({f_by}), flash "
-            f"backward {b_ms:.4f} ms ({b_by}); exponentials alone: forward {e_fwd:.4f} ms, "
-            f"backward {e_bwd:.4f} ms")
+        for peak in ("bfloat16", "tf32x3", "float32"):
+            (f_ms, f_by), (b_ms, b_by) = _flash_bounds(*shape, peak)
+            ops_7s = _bound(14 * np.prod(shape, dtype=np.int64) * shape[2], 0, peak)[0]
+            log(f"bounds {peak} at {name} {shape}: flash forward {f_ms:.4f} ms ({f_by}), "
+                f"flash backward {b_ms:.4f} ms ({b_by}; the kernels' 7S products alone "
+                f"{ops_7s:.4f} ms); exponentials alone: forward {e_fwd:.4f} ms, backward "
+                f"{e_bwd:.4f} ms")
     for name, shape in (("LC", QKV_LC), ("SP", QKV_SP)):
         (f_ms, f_by), (b_ms, b_by) = _qkv_bounds(*shape)
         log(f"bounds bf16 at {name} (B, T, E, H) = {shape}: fused QKV forward "
@@ -2783,29 +2957,49 @@ def main():
     lc32 = ffn_timing["float32"]
     qkv_lc, qkv_sp = qkv_timing["lc"], qkv_timing["sp"]
 
-    def flash(route, bwd):
-        """The flash entry of ``route``: SP timed, LC under also_at."""
-        times = ((bwd_timing["sp"], bwd_timing["lc"]) if bwd else
-                 (timing[("sp", "bfloat16")], timing[("lc", "bfloat16")]))
-        shapes = (sp_bwd if bwd else sp_fwd, lc)
-        entries = []
-        for tm, shape in zip(times, shapes):
-            bound = _flash_bounds(*shape)[bwd]
-            entry = {"ms": tm[route], "plain_ms": tm["plain"], "bound_ms": bound[0],
-                     "bound_by": bound[1], "library_ms": tm["library"],
-                     "shape": f"(B, H, T, S) = {shape} bfloat16"}
-            if bwd:
-                entry.update(device_ms=tm[f"{route}_device"],
-                             library_device_ms=tm["library_device"])
-            entries.append(entry)
-        entries[0]["also_at"] = entries[1]
-        return entries[0]
+    def flash(route, bwd, dtype="bfloat16"):
+        """The flash entry of ``route`` in ``dtype``: SP timed (serving T
+        forward, training T backward), LC under also_at; in float32 the
+        trimodal SP under also_at_trimodal and the other SP T under
+        also_at_training (forward) or also_at_serving (backward)."""
+        tm = bwd_timing if bwd else timing
+        peak = "bfloat16" if dtype == "bfloat16" else "tf32x3" if route == "tf32" else "float32"
+        shapes = {"sp": sp_bwd if bwd else sp_fwd, "lc": lc, "sp_tri": tri,
+                  "sp_train": sp_bwd, "sp_t1024": sp_fwd}
+
+        def entry(case):
+            t, shape = tm[(case, dtype)], shapes[case]
+            bound = _flash_bounds(*shape, peak)[bwd]
+            return {"ms": t[route], "device_ms": t[f"{route}_device"],
+                    "host_ms": t[f"{route}_host"], "plain_ms": t["plain"],
+                    "bound_ms": bound[0], "bound_by": bound[1], "library_ms": t["library"],
+                    "library_device_ms": t["library_device"],
+                    "shape": f"(B, H, T, S) = {shape} {dtype}"}
+
+        top = {**entry("sp"), "also_at": entry("lc")}
+        if dtype == "float32":
+            top["also_at_trimodal"] = entry("sp_tri")
+            other = "also_at_serving" if bwd else "also_at_training"
+            top[other] = entry("sp_t1024" if bwd else "sp_train")
+        return top
 
     measured = {  # name: (launches, max_abs_err, the rest of the entry)
-        "flash_attention_fwd": (0, fwd_err["simt"], flash("simt", 0)),
-        "flash_attention_bwd": (1, bwd_err["simt"], flash("simt", 1)),
-        "flash_attention_fwd_mma": (2, fwd_err["mma"], flash("mma", 0)),
-        "flash_attention_bwd_mma": (3, bwd_err["mma"], flash("mma", 1)),
+        "flash_attention_fwd": (0, fwd_err["simt"], {
+            **flash("simt", 0), "float32": flash("simt", 0, "float32"),
+            "norm_err_float32": fwd_norm[("simt", "float32")]}),
+        "flash_attention_bwd": (1, bwd_err["simt"], {
+            **flash("simt", 1), "float32": flash("simt", 1, "float32"),
+            "norm_err_float32": bwd_norm[("simt", "float32")]}),
+        "flash_attention_fwd_mma": (2, fwd_err["mma"], {
+            **flash("mma", 0), "norm_err": fwd_norm[("mma", "bfloat16")]}),
+        "flash_attention_bwd_mma": (3, bwd_err["mma"], {
+            **flash("mma", 1), "norm_err": bwd_norm[("mma", "bfloat16")]}),
+        "flash_attention_fwd_tf32": (12, fwd_err["tf32"], {
+            **flash("tf32", 0, "float32"), "norm_err": fwd_norm[("tf32", "float32")]}),
+        "flash_attention_bwd_tf32": (13, bwd_err["tf32"], {
+            **flash("tf32", 1, "float32"), "norm_err": bwd_norm[("tf32", "float32")],
+            "wrong_dq_norm_err": {n: e for (n, d), e in bwd_control.items()
+                                  if d == "float32"}}),
     }
     for i, route in ((5, "simt"), (11, "mma")):  # the fused backward's two routes
         measured["fused_ffn_bwd" + ("_mma" if route == "mma" else "")] = (

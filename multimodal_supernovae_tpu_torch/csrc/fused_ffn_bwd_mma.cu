@@ -15,7 +15,7 @@
 //   dWu = dr1^T att, dbu = sum dr1;  dg2, db2, dg1, db1 the LayerNorm sums,
 // weights in a Linear's (out, in) layout. Every product, the recompute's
 // three and the backward's six, is 3xTF32 with float32 accumulation
-// (csrc/fused_ffn_mma.cuh): about float32 accuracy on the tensor cores.
+// (csrc/tf32x3.cuh): about float32 accuracy on the tensor cores.
 //
 // What bounds it on this card: at the light-curve shape (N = 51,200, E = 64,
 // F = 256) a call does 2 N (3 E^2 + 6 E F) = 11.32 GFLOP, three TF32 passes of
@@ -68,7 +68,7 @@
 // or alignment it does not take. It launches on the given stream, does not
 // synchronise and allocates nothing: the caller gives every scratch buffer.
 
-#include "fused_ffn_mma.cuh"
+#include "tf32x3.cuh"
 #include "reduce_partials.cuh"
 
 namespace {

@@ -11,7 +11,7 @@
 //   r2 = (h @ Wf2^T + bf2) + y1;         out = LN2(r2)
 // LayerNorm takes float32 statistics in the E[x^2] - E[x]^2 form, eps given,
 // no clamp. Every product is 3xTF32 with float32 accumulation
-// (csrc/fused_ffn_mma.cuh): about float32 accuracy on the tensor cores.
+// (csrc/tf32x3.cuh): about float32 accuracy on the tensor cores.
 //
 // What bounds it on this card: at the light-curve shape (N = 51,200, E = 64,
 // F = 256) a launch does 2 N (E^2 + 2 E F) = 3.775 GFLOP, three TF32 passes of
@@ -47,7 +47,7 @@
 // alignment it does not take. It launches on the given stream, does not
 // synchronise and allocates nothing.
 
-#include "fused_ffn_mma.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 

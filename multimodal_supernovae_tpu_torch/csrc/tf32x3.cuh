@@ -19,7 +19,13 @@
 //   C (16 x 8, float32): c0, c1 (g, 2t .. 2t + 1), c2, c3 (g + 8, 2t .. 2t + 1).
 // Unlike bf16 m16n8k16 (csrc/flash_attention_mma.cuh), a C fragment does not
 // hold the values an A fragment of the next product needs in the same lanes:
-// a product's output goes through shared memory before it feeds another.
+// the fused-FFN kernels take a product's output through shared memory before
+// it feeds another. Where the next product sums over the C fragment's
+// columns, the flash kernels instead permute that summed index within each
+// 8-wide step (csrc/flash_attention_tf32.cuh).
+//
+// Used by the fused-FFN kernels (csrc/fused_ffn_{fwd,bwd}_mma.cu) and the
+// float32 flash-attention kernels (csrc/flash_attention_{fwd,bwd}_tf32.cu).
 //
 // Shared tiles are float32 (A) or pre-split TF32 bit patterns (B, stored as
 // B^T: n rows of k values), row-major with a row stride ld of a multiple of

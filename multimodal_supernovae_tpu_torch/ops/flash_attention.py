@@ -1,17 +1,23 @@
 """Flash attention, forward and backward: wrappers over the hand-written CUDA
-kernels, paired in one ``torch.autograd.Function``. Two routes:
+kernels, paired in one ``torch.autograd.Function``. Three routes:
 
-  * ``"mma"``, the tensor cores: ``csrc/flash_attention_fwd_mma.cu`` and
-    ``csrc/flash_attention_bwd_mma.cu`` (shared ``csrc/flash_attention_mma.cuh``),
-    for bfloat16 at head dims 8 and 16 with 16-byte rows: the main path's
-    attention, both towers of maven-lite;
+  * ``"mma"``, the tensor cores in bf16: ``csrc/flash_attention_fwd_mma.cu``
+    and ``csrc/flash_attention_bwd_mma.cu`` (shared
+    ``csrc/flash_attention_mma.cuh``), for bfloat16 at head dims 8 and 16
+    with 16-byte rows: both towers of maven-lite under ``compute_dtype``
+    bfloat16;
+  * ``"tf32"``, the tensor cores in 3xTF32: ``csrc/flash_attention_fwd_tf32.cu``
+    and ``csrc/flash_attention_bwd_tf32.cu`` (shared
+    ``csrc/flash_attention_tf32.cuh`` and ``csrc/tf32x3.cuh``), for float32
+    at head dims 8 and 16 with 16-byte rows: the route every shipped
+    configuration (float32, heads 64/8 and 32/2) trains on;
   * ``"simt"``, the CUDA cores: ``csrc/flash_attention_fwd.cu`` and
-    ``csrc/flash_attention_bwd.cu``, for everything else (float32, head dims
-    32 and 64, rows off 16 bytes).
+    ``csrc/flash_attention_bwd.cu``, for everything else (head dims 32 and
+    64, rows off 16 bytes).
 
-``_route`` is the one rule that picks between them, a pure function of the
+``_route`` is the one rule that picks among them, a pure function of the
 dtype, the head dim and the tensors' pointers and strides; there is no
-fallback from one route to the other, and a failed build or launch raises.
+fallback from one route to another, and a failed build or launch raises.
 
 Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
 pallas_attention.py:_fwd_kernel`` and ``_bwd_kernel`` (the ``custom_vjp``
@@ -27,15 +33,17 @@ What bounds them on an H100: the softmax. Each (query, key) pair costs one
 exponential and a few float32 operations in the forward, two and about a
 dozen in the backward, beside 2*S multiply-adds (7*S in the backward) that
 the CUDA-core kernels run as float32 FMAs and the tensor-core kernels as
-bf16 ``mma.sync``; q/k/v/g are read from device memory once per tile and the
-(T, T) scores never leave the SM. The plain version instead writes and
+bf16 ``mma.sync`` or, for float32, three TF32 ``mma.sync``; q/k/v/g are
+read from device memory once per tile and the (T, T) scores never leave
+the SM. The plain version instead writes and
 re-reads float32 (B, H, T, T) scores, softmax weights and their casts (2.1
 GB of scores per layer at the spectral serving shape B=256, H=2, T=1024).
 The CUDA-core design: one thread per query row (forward, dq) or key row
 (dk/dv) with float32 accumulators in registers, the other side staged in
-shared-memory tiles (broadcast reads). The tensor-core design: a warp per 16
-rows holding its side as mma fragments, the other side streamed in 64-row
-bf16 tiles (cp.async, ldmatrix); see the sources' notes.
+shared-memory tiles (broadcast reads). The tensor-core designs: a warp per
+16 rows holding its side as mma fragments, the other side streamed in 64-row
+tiles (cp.async; bf16 read by ldmatrix, float32 split into TF32 halves once a
+block); see the sources' notes.
 
 The TPU kernels' (B*H, S, T) transposes, rows-per-program blocking, VMEM
 budgets and 8-row padding exist for the TPU's (8, 128) tiling and are not
@@ -52,9 +60,10 @@ raises. On CUDA, a call that needs a gradient goes through
 and the backward launches ``flash_attention_bwd``; under ``no_grad`` or
 ``inference_mode`` the forward runs alone, as in serving.
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches of both routes, ``flash_attention.mma_launches`` and
-``flash_attention_bwd.mma_launches`` those of the tensor-core route (bumped
-only after a launch the runtime accepted).
+kernel launches of every route, ``.mma_launches`` those of the bf16
+tensor-core route and ``.tf32_launches`` those of the 3xTF32 route (each
+bumped only after a launch the runtime accepted); the CUDA-core route's are
+``launches - mma_launches - tf32_launches``.
 """
 
 from __future__ import annotations
@@ -68,7 +77,7 @@ from .attention import dense_attention, dense_attention_bwd
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 BWD_HEAD_DIMS = (8, 16, 32)
-MMA_HEAD_DIMS = (8, 16)
+MMA_HEAD_DIMS = (8, 16)  # both tensor-core routes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {  # the C entry points' ctypes signatures
     "flash_attention_fwd": (
@@ -78,6 +87,12 @@ _ARGTYPES = {  # the C entry points' ctypes signatures
         + [ctypes.c_int64] * 6               # in, out strides (b, h, t)
         + [ctypes.c_void_p]),                # stream
     "flash_attention_fwd_mma": (
+        [ctypes.c_void_p] * 6                # q, k, v, mask, out, stats
+        + [ctypes.c_int] * 4                 # B, H, T, S
+        + [ctypes.c_float]                   # scale
+        + [ctypes.c_int64] * 6               # in, out strides (b, h, t)
+        + [ctypes.c_void_p]),                # stream
+    "flash_attention_fwd_tf32": (
         [ctypes.c_void_p] * 6                # q, k, v, mask, out, stats
         + [ctypes.c_int] * 4                 # B, H, T, S
         + [ctypes.c_float]                   # scale
@@ -94,6 +109,12 @@ _ARGTYPES = {  # the C entry points' ctypes signatures
         + [ctypes.c_int] * 4                 # B, H, T, S
         + [ctypes.c_float]                   # scale
         + [ctypes.c_int64] * 12              # q/k/v, out, g, grads strides
+        + [ctypes.c_void_p]),                # stream
+    "flash_attention_bwd_tf32": (
+        [ctypes.c_void_p] * 10               # q k v mask stats g dq dk dv dsum
+        + [ctypes.c_int] * 4                 # B, H, T, S
+        + [ctypes.c_float]                   # scale
+        + [ctypes.c_int64] * 9               # q/k/v, g, grads strides
         + [ctypes.c_void_p]),                # stream
 }
 _bound = {}
@@ -123,15 +144,18 @@ def _rows_aligned(a: torch.Tensor) -> bool:
 
 
 def _route(dtype: torch.dtype, s: int, tensors) -> str:
-    """``"mma"`` (the tensor-core kernels) for bfloat16 at head dim 8 or 16
-    when every tensor of ``tensors`` (q, k, v; the backward adds out and g)
-    has 16-byte rows, which the encoder's (B, T, H, S) views and contiguous
-    (B, H, T, S) tensors both have; ``"simt"`` (the CUDA-core kernels)
+    """At head dim 8 or 16, when every tensor of ``tensors`` (q, k, v; the
+    backward adds out and g) has 16-byte rows, which the encoder's (B, T, H,
+    S) views and contiguous (B, H, T, S) tensors both have: ``"mma"`` (the
+    bf16 tensor-core kernels) for bfloat16, ``"tf32"`` (the 3xTF32
+    tensor-core kernels) for float32. ``"simt"`` (the CUDA-core kernels)
     otherwise. The tensor-core entry points check the same conditions and
     refuse a launch without them (the wrapper then raises)."""
-    if (dtype == torch.bfloat16 and s in MMA_HEAD_DIMS
-            and all(_rows_aligned(a) for a in tensors)):
-        return "mma"
+    if s in MMA_HEAD_DIMS and all(_rows_aligned(a) for a in tensors):
+        if dtype == torch.bfloat16:
+            return "mma"
+        if dtype == torch.float32:
+            return "tf32"
     return "simt"
 
 
@@ -198,9 +222,9 @@ def _flash_fwd(q, k, v, key_mask, emb, with_stats: bool):
     out = _empty_heads(q)
     stats = (torch.empty((b, h, t, 2), dtype=torch.float32, device=q.device)
              if with_stats else None)
-    mma = _route(q.dtype, s, (q, k, v)) == "mma"
-    name = "flash_attention_fwd_mma" if mma else "flash_attention_fwd"
-    dtype = () if mma else (_DTYPE_CODES[q.dtype],)
+    route = _route(q.dtype, s, (q, k, v))
+    name = "flash_attention_fwd" if route == "simt" else f"flash_attention_fwd_{route}"
+    dtype = (_DTYPE_CODES[q.dtype],) if route == "simt" else ()
     fn = _entry(name)
     with torch.cuda.device(q.device):
         rc = fn(
@@ -215,7 +239,8 @@ def _flash_fwd(q, k, v, key_mask, emb, with_stats: bool):
         raise RuntimeError(
             f"{name} launch failed with CUDA error {rc} (q {tuple(q.shape)} {q.dtype})")
     flash_attention.launches += 1
-    flash_attention.mma_launches += mma
+    flash_attention.mma_launches += route == "mma"
+    flash_attention.tf32_launches += route == "tf32"
     return out, stats
 
 
@@ -234,8 +259,8 @@ def flash_attention_bwd(
     CPU tensors go to ``dense_attention_bwd`` (``out`` and ``stats`` are not
     read). CUDA tensors launch the backward kernels of ``_route``'s route or
     raise: ``out`` and ``stats`` are the forward's output and row residual
-    (``_flash_fwd(..., with_stats=True)``, of either route; the CUDA-core
-    backward reads only ``stats``), head dim in {8, 16, 32}."""
+    (``_flash_fwd(..., with_stats=True)``, of any route; the CUDA-core and
+    3xTF32 backwards read only ``stats``), head dim in {8, 16, 32}."""
     if q.device.type == "cpu":
         return dense_attention_bwd(q, k, v, key_mask, g, emb)
     if q.device.type != "cuda":
@@ -246,22 +271,24 @@ def flash_attention_bwd(
     _check_bwd(q, out, stats, g)
     b, h, t, s = q.shape
     dq, dk, dv = _empty_heads(q), _empty_heads(q), _empty_heads(q)
-    # D of each row (tensor cores: g . out; CUDA cores: rowsum(P o dP)),
-    # written by the dq kernel, read by the dk/dv kernel
+    # D of each row (bf16 tensor cores: g . out; CUDA cores: rowsum(P o dP);
+    # 3xTF32: rowsum(P o dP) less key 0's dP), written by the dq kernel, read
+    # by the dk/dv kernel
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     mask = None if key_mask is None else key_mask.data_ptr()
-    mma = _route(q.dtype, s, (q, k, v, out, g)) == "mma"
-    if mma:
+    route = _route(q.dtype, s, (q, k, v, out, g))
+    if route == "mma":
         name = "flash_attention_bwd_mma"
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, out.data_ptr(),
                 stats.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), dsum.data_ptr(), b, h, t, s, float(emb) ** -0.25,
                 *q.stride()[:3], *out.stride()[:3], *g.stride()[:3], *dq.stride()[:3])
-    else:
-        name = "flash_attention_bwd"
+    else:  # the CUDA cores and 3xTF32 take the same arguments, but the dtype
+        name = "flash_attention_bwd" if route == "simt" else "flash_attention_bwd_tf32"
+        dtype = (_DTYPE_CODES[q.dtype],) if route == "simt" else ()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, stats.data_ptr(),
                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                dsum.data_ptr(), b, h, t, s, _DTYPE_CODES[q.dtype], float(emb) ** -0.25,
+                dsum.data_ptr(), b, h, t, s, *dtype, float(emb) ** -0.25,
                 *q.stride()[:3], *g.stride()[:3], *dq.stride()[:3])
     fn = _entry(name)
     with torch.cuda.device(q.device):
@@ -270,12 +297,14 @@ def flash_attention_bwd(
         raise RuntimeError(
             f"{name} launch failed with CUDA error {rc} (q {tuple(q.shape)} {q.dtype})")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.mma_launches += mma
+    flash_attention_bwd.mma_launches += route == "mma"
+    flash_attention_bwd.tf32_launches += route == "tf32"
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.mma_launches = 0
+flash_attention_bwd.tf32_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -328,3 +357,4 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.mma_launches = 0
+flash_attention.tf32_launches = 0

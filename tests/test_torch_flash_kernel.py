@@ -1,8 +1,9 @@
 """The flash-attention CUDA kernels and their wrappers, without jax.
 
-The ``gpu`` tests hold the kernels of both routes (the tensor cores for
-bfloat16 at head dims 8 and 16, the CUDA cores otherwise) against their
-plain versions on the card and skip without one. Forward against
+The ``gpu`` tests hold the kernels of the three routes (the bf16 tensor
+cores for bfloat16 and the 3xTF32 tensor cores for float32 at head dims 8
+and 16, the CUDA cores otherwise) against their plain versions on the card
+and skip without one. Forward against
 ``dense_attention``: float32 at atol = rtol = 1e-4 (another summation order
 and the online-softmax rescale), bfloat16 at 0.05. Backward against torch
 autograd through ``dense_attention``: float32 at 5e-4 (the JAX kernel tests'
@@ -10,7 +11,9 @@ gradient tolerance), bfloat16 at 0.05. Every bfloat16 output (out, dq, dk,
 dv) whose plain value is not all zero is also held to ||got - want|| /
 ||want|| <= NORM_TOL: at the spectral
 shapes the values are about 0.05 in size, so 0.05 absolute alone would pass
-an output 20% off, and a tensor-core dq off by 1% must fail this check. The
+an output 20% off, and a tensor-core dq off by 1% must fail this check.
+Every float32 output of the 3xTF32 route is held to FP32_NORM_TOL in the
+same measure, which its dq off by 1% must fail too. The
 rest check the routing rule, the
 wrappers' argument validation, the C entry points' signatures and the build
 module's cache key, which need no card. This file imports no jax, so the GPU
@@ -45,6 +48,10 @@ build_mod = importlib.import_module("multimodal_supernovae_tpu_torch.kernels.bui
 TOL = {"float32": 1e-4, "bfloat16": 0.05}
 GRAD_TOL = {"float32": 5e-4, "bfloat16": 0.05}
 NORM_TOL = 6e-3  # as chip_smoke.py's (sound runs: PERF.md section 6)
+# float32 outputs of the 3xTF32 route against the plain versions, as
+# chip_smoke.py's: between a CPU model's 3xTF32 and 1xTF32 readings
+# (tests/test_torch_flash_tf32.py)
+FP32_NORM_TOL = 1e-5
 
 
 def _inputs(seed, b, h, t, s, mask, dtype, device="cpu", model_layout=False):
@@ -76,14 +83,42 @@ def _norm_err(got, want):
     return diff / norm if norm else None
 
 
-def _assert_close(got, want, dtype, tol, what=""):
+def _assert_close(got, want, dtype, tol, what="", norm_tol=None):
     """Elementwise within ``tol``; a bfloat16 output also within NORM_TOL
-    in the normalised error."""
+    in the normalised error, any output within ``norm_tol`` where given."""
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
                                msg=lambda e: f"{what}: {e}")
-    if dtype in ("bfloat16", torch.bfloat16):
+    if norm_tol is None and dtype in ("bfloat16", torch.bfloat16):
+        norm_tol = NORM_TOL
+    if norm_tol is not None:
         err = _norm_err(got, want)
-        assert err is None or err <= NORM_TOL, f"{what}: ||got - want|| / ||want|| {err:.3e}"
+        assert err is None or err <= norm_tol, f"{what}: ||got - want|| / ||want|| {err:.3e}"
+
+
+def _launch_counts():
+    """(launches, mma_launches, tf32_launches) of the forward and of the
+    backward wrapper."""
+    return tuple((fn.launches, fn.mma_launches, fn.tf32_launches)
+                 for fn in (flash_attention, flash_attention_bwd))
+
+
+def _route_of(monkeypatch, route, q, k, v):
+    """Patch ``_route`` to the CUDA cores for route "simt"; returns the route
+    the call takes."""
+    if route == "simt":
+        monkeypatch.setattr(flash_mod, "_route", lambda *a: "simt")
+        return "simt"
+    return _route(q.dtype, q.shape[-1], (q, k, v))
+
+
+def _count_of(route):
+    """The launch counts one call on ``route`` adds, as _launch_counts per
+    wrapper."""
+    return (1, route == "mma", route == "tf32")
+
+
+def _tf32_norm(route):
+    return FP32_NORM_TOL if route == "tf32" else None
 
 
 def _needs_cuda():
@@ -91,8 +126,13 @@ def _needs_cuda():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
+# float32 on both of its routes (as routed: the 3xTF32 tensor cores at head
+# dims 8 and 16; the CUDA cores through a patch of _route), bfloat16 as routed
+DTYPE_ROUTES = [("float32", "routed"), ("float32", "simt"), ("bfloat16", "routed")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,route", DTYPE_ROUTES)
 @pytest.mark.parametrize("shape,mask,layout", [
     ((16, 8, 200, 8), "ragged", True),          # light-curve tower
     ((8, 2, 1024, 16), "masked_rows", True),    # spectral tower
@@ -102,17 +142,18 @@ def _needs_cuda():
     ((2, 1, 5, 64), "ragged", False),
     ((2, 2, 1, 8), None, False),                # a single key
 ])
-def test_kernel_matches_plain(dtype, shape, mask, layout):
+def test_kernel_matches_plain(monkeypatch, dtype, route, shape, mask, layout):
     _needs_cuda()
     b, h, t, s = shape
     q, k, v, m = _inputs(sum(shape), b, h, t, s, mask, dtype, "cuda", layout)
-    before = flash_attention.launches
+    route = _route_of(monkeypatch, route, q, k, v)
+    before = _launch_counts()[0]
     got = flash_attention(q, k, v, m, h * s)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert _launch_counts()[0] == tuple(a + c for a, c in zip(before, _count_of(route)))
     assert got.dtype == q.dtype and got.shape == q.shape
     want = dense_attention(q, k, v, m, h * s)
-    _assert_close(got, want, dtype, TOL[dtype], "out")
+    _assert_close(got, want, dtype, TOL[dtype], "out", _tf32_norm(route))
 
 
 @pytest.mark.gpu
@@ -161,7 +202,7 @@ def test_wrapper_validation(bad, match):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,route", DTYPE_ROUTES)
 @pytest.mark.parametrize("shape,mask,layout", [
     ((16, 8, 200, 8), "ragged", True),          # light-curve tower
     ((16, 2, 220, 16), "masked_rows", True),    # spectral tower, training T
@@ -170,7 +211,7 @@ def test_wrapper_validation(bad, match):
     ((3, 2, 77, 32), "ragged", False),
     ((2, 2, 1, 8), None, False),                # a single key
 ])
-def test_backward_kernel_matches_autograd(dtype, shape, mask, layout):
+def test_backward_kernel_matches_autograd(monkeypatch, dtype, route, shape, mask, layout):
     """dq, dk, dv through ``flash_attention``'s autograd Function against
     torch autograd through ``dense_attention``, with the cotangent in the
     head merge's (B, T, H, S) memory order, as the encoder hands it back."""
@@ -181,15 +222,17 @@ def test_backward_kernel_matches_autograd(dtype, shape, mask, layout):
     g = torch.from_numpy(rng.normal(size=(b, t, h, s)).astype(np.float32))
     g = g.to("cuda", q.dtype).transpose(1, 2)
     want = dense_attention_bwd(q, k, v, m, g, h * s)
+    route = _route_of(monkeypatch, route, q, k, v)
     leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
-    fwd0, bwd0 = flash_attention.launches, flash_attention_bwd.launches
+    before = _launch_counts()
     out = flash_attention(*leaves, m, h * s)
     out.backward(g)
     torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    assert _launch_counts() == tuple(tuple(a + c for a, c in zip(x, _count_of(route)))
+                                     for x in before)
     for name, leaf, w in zip("qkv", leaves, want):
         assert leaf.grad.dtype == q.dtype and leaf.grad.shape == q.shape
-        _assert_close(leaf.grad, w, dtype, GRAD_TOL[dtype], f"d{name}")
+        _assert_close(leaf.grad, w, dtype, GRAD_TOL[dtype], f"d{name}", _tf32_norm(route))
     if mask == "masked_rows":  # row 0 is fully masked: no dq/dk, uniform dv
         assert torch.count_nonzero(leaves[0].grad[0]) == 0
         assert torch.count_nonzero(leaves[1].grad[0]) == 0
@@ -197,13 +240,15 @@ def test_backward_kernel_matches_autograd(dtype, shape, mask, layout):
 
 
 @pytest.mark.gpu
-def test_float32_backward_matches_autograd_at_one_lc_layer():
-    """Pin of the float32 CUDA-core backward (csrc/flash_attention_bwd.cu,
-    P from the forward's log2-domain (max, sum)) against torch autograd
-    through ``dense_attention`` on one light-curve layer's shapes: B = 256,
-    H = 8, T = 200, S = 8 in the encoder's layout, ragged tails, one fully
-    masked sample. Each of dq, dk, dv within 1e-5 of its largest plain
-    value: a summation order difference, not a 2e-4 one."""
+@pytest.mark.parametrize("route", ["tf32", "simt"])
+def test_float32_backward_matches_autograd_at_one_lc_layer(monkeypatch, route):
+    """Pin of the float32 backwards, 3xTF32 (csrc/flash_attention_bwd_tf32.cu,
+    as routed) and CUDA-core (csrc/flash_attention_bwd.cu, through a patch of
+    _route), each with P from the forward's log2-domain (max, sum), against
+    torch autograd through ``dense_attention`` on one light-curve layer's
+    shapes: B = 256, H = 8, T = 200, S = 8 in the encoder's layout, ragged
+    tails, one fully masked sample. Each of dq, dk, dv within 1e-5 of its
+    largest plain value: a summation order difference, not a 2e-4 one."""
     _needs_cuda()
     assert torch.get_float32_matmul_precision() == "highest"
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -211,10 +256,10 @@ def test_float32_backward_matches_autograd_at_one_lc_layer():
     q, k, v, m = _inputs(31, b, h, t, s, "masked_rows", "float32", "cuda", True)
     g = _cotangent(32, b, h, t, s, "float32")
     want = dense_attention_bwd(q, k, v, m, g, h * s)
-    counts = (flash_attention_bwd.launches, flash_attention_bwd.mma_launches)
+    assert _route_of(monkeypatch, route, q, k, v) == route
+    counts = _launch_counts()[1]
     _, grads = _grads_through_flash(q, k, v, m, g, h * s)
-    assert (flash_attention_bwd.launches, flash_attention_bwd.mma_launches) == (
-        counts[0] + 1, counts[1])
+    assert _launch_counts()[1] == tuple(a + c for a, c in zip(counts, _count_of(route)))
     for name, got, w in zip("qkv", grads, want):
         err = float((got - w).abs().max()) / float(w.abs().max())
         assert err <= 1e-5, f"d{name}: max|got - want| / max|want| {err:.3e}"
@@ -233,14 +278,16 @@ def _f64_grads(q, k, v, m, g, emb):
 
 
 @pytest.mark.gpu
-def test_float32_backward_dq_as_accurate_as_plain_on_near_equal_values():
+@pytest.mark.parametrize("route", ["tf32", "simt"])
+def test_float32_backward_dq_as_accurate_as_plain_on_near_equal_values(monkeypatch, route):
     """The fault the previous pin could not see: where a row's values are
     nearly equal across its keys (as in a deep encoder layer), dP - D
     cancels, and D = g . out (the forward output's rounding) put the kernel's
     dq several times farther from a float64 reference than the plain
     version's D = rowsum(P o dP). The kernel's dq, dk and dv must sit within
     2x the plain float32 version's distance to float64 (plus 1e-7 of the
-    largest value)."""
+    largest value), on the 3xTF32 route (as routed) and on the CUDA cores
+    (through a patch of _route)."""
     _needs_cuda()
     b, h, t, s = 64, 8, 200, 8
     rng = np.random.default_rng(33)
@@ -250,7 +297,10 @@ def test_float32_backward_dq_as_accurate_as_plain_on_near_equal_values():
     g = _cotangent(35, b, h, t, s, "float32")
     ref = _f64_grads(q, k, v, m, g, h * s)
     plain = dense_attention_bwd(q, k, v, m, g, h * s)
+    assert _route_of(monkeypatch, route, q, k, v) == route
+    counts = _launch_counts()[1]
     _, grads = _grads_through_flash(q, k, v, m, g, h * s)
+    assert _launch_counts()[1] == tuple(a + c for a, c in zip(counts, _count_of(route)))
     for name, got, p, r in zip("qkv", grads, plain, ref):
         top = float(r.abs().max())
         err = float((got.double() - r).abs().max()) / top
@@ -402,57 +452,70 @@ def test_simt_route_keeps_bf16(monkeypatch, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fwd_route,bwd_route", [("simt", "mma"), ("mma", "simt")])
-def test_either_forward_feeds_either_backward(monkeypatch, fwd_route, bwd_route):
-    """Both routes share the (max, sum) residual."""
+@pytest.mark.parametrize("dtype,fwd_route,bwd_route", [
+    ("bfloat16", "simt", "mma"), ("bfloat16", "mma", "simt"),
+    ("float32", "simt", "tf32"), ("float32", "tf32", "simt")])
+def test_either_forward_feeds_either_backward(monkeypatch, dtype, fwd_route, bwd_route):
+    """The routes of a dtype share the (max, sum) residual."""
     _needs_cuda()
     b, h, t, s = 4, 2, 220, 16
-    q, k, v, m = _inputs(5, b, h, t, s, "masked_rows", "bfloat16", "cuda", True)
-    g = _cotangent(6, b, h, t, s, "bfloat16")
+    q, k, v, m = _inputs(5, b, h, t, s, "masked_rows", dtype, "cuda", True)
+    g = _cotangent(6, b, h, t, s, dtype)
     monkeypatch.setattr(flash_mod, "_route", lambda *a: fwd_route)
     out, stats = _flash_fwd(q, k, v, m, h * s, with_stats=True)
     monkeypatch.setattr(flash_mod, "_route", lambda *a: bwd_route)
+    before = _launch_counts()[1]
     got = flash_attention_bwd(q, k, v, m, out, stats, g, h * s)
     torch.cuda.synchronize()
+    assert _launch_counts()[1] == tuple(a + c for a, c in zip(before, _count_of(bwd_route)))
+    norm_tol = FP32_NORM_TOL if dtype == "float32" else None
     for name, a, w in zip("qkv", got, dense_attention_bwd(q, k, v, m, g, h * s)):
-        _assert_close(a, w, "bfloat16", GRAD_TOL["bfloat16"], f"d{name}")
+        _assert_close(a, w, dtype, GRAD_TOL[dtype], f"d{name}", norm_tol)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [(16, 8, 200, 8), (16, 2, 220, 16)])
-def test_mma_dq_one_percent_off_fails_the_check(shape):
-    """Negative control: the tensor-core dq scaled by 0.99 passes the 0.05
-    elementwise limit but not NORM_TOL."""
+def test_mma_dq_one_percent_off_fails_the_check(dtype, shape):
+    """Negative control: the tensor-core dq scaled by 0.99 fails the
+    normalised check of its route, NORM_TOL for the bf16 kernels (while it
+    passes their 0.05 elementwise limit) and FP32_NORM_TOL for the 3xTF32
+    ones."""
     _needs_cuda()
     b, h, t, s = shape
-    q, k, v, m = _inputs(sum(shape) + 7, b, h, t, s, "ragged", "bfloat16", "cuda", True)
-    g = _cotangent(sum(shape) + 8, b, h, t, s, "bfloat16")
+    q, k, v, m = _inputs(sum(shape) + 7, b, h, t, s, "ragged", dtype, "cuda", True)
+    g = _cotangent(sum(shape) + 8, b, h, t, s, dtype)
+    route = _route(q.dtype, s, (q, k, v))
+    assert route == ("mma" if dtype == "bfloat16" else "tf32")
+    norm_tol = NORM_TOL if route == "mma" else FP32_NORM_TOL
     out, stats = _flash_fwd(q, k, v, m, h * s, with_stats=True)
-    before = flash_attention_bwd.mma_launches
+    before = _launch_counts()[1]
     dq = flash_attention_bwd(q, k, v, m, out, stats, g, h * s)[0]
     torch.cuda.synchronize()
-    assert flash_attention_bwd.mma_launches == before + 1
+    assert _launch_counts()[1] == tuple(a + c for a, c in zip(before, _count_of(route)))
     want = dense_attention_bwd(q, k, v, m, g, h * s)[0]
-    _assert_close(dq, want, "bfloat16", GRAD_TOL["bfloat16"], "dq")
-    torch.testing.assert_close((dq * 0.99).float(), want.float(), rtol=GRAD_TOL["bfloat16"],
-                               atol=GRAD_TOL["bfloat16"])
-    assert _norm_err(dq * 0.99, want) > NORM_TOL
+    _assert_close(dq, want, dtype, GRAD_TOL[dtype], "dq", norm_tol)
+    if route == "mma":
+        torch.testing.assert_close((dq * 0.99).float(), want.float(),
+                                   rtol=GRAD_TOL["bfloat16"], atol=GRAD_TOL["bfloat16"])
+    assert _norm_err(dq * 0.99, want) > norm_tol
 
 
 @pytest.mark.gpu
-def test_mma_entry_raises_on_rows_off_16_bytes(monkeypatch):
-    """No fallback: the tensor-core entry refuses rows it cannot copy 16
+@pytest.mark.parametrize("route,dtype", [("mma", "bfloat16"), ("tf32", "float32")])
+def test_mma_entry_raises_on_rows_off_16_bytes(monkeypatch, route, dtype):
+    """No fallback: each tensor-core entry refuses rows it cannot copy 16
     bytes at a time, and the wrapper raises."""
     _needs_cuda()
-    q, k, v, m = _inputs(0, 2, 2, 16, 8, "ragged", "bfloat16", "cuda")
+    q, k, v, m = _inputs(0, 2, 2, 16, 8, "ragged", dtype, "cuda")
     # the same values one element past a 16-byte boundary
     off = [torch.zeros(a.numel() + 1, dtype=a.dtype, device="cuda")[1:].view(a.shape).copy_(a)
            for a in (q, k, v)]
-    monkeypatch.setattr(flash_mod, "_route", lambda *a: "mma")
-    before = flash_attention.mma_launches
-    with pytest.raises(RuntimeError, match="flash_attention_fwd_mma launch failed"):
+    monkeypatch.setattr(flash_mod, "_route", lambda *a: route)
+    before = _launch_counts()[0]
+    with pytest.raises(RuntimeError, match=f"flash_attention_fwd_{route} launch failed"):
         flash_attention(*off, m, 16)
-    assert flash_attention.mma_launches == before
+    assert _launch_counts()[0] == before
 
 
 def _heads_like(layout, dtype, s, b=2, h=2, t=16):
@@ -474,11 +537,14 @@ def _heads_like(layout, dtype, s, b=2, h=2, t=16):
 @pytest.mark.parametrize("s", [8, 16, 32])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_route(dtype, s, layout):
-    """The tensor cores take bfloat16 at head dim 8 or 16 with 16-byte rows;
-    the CUDA cores take the rest."""
+    """The tensor cores take head dim 8 or 16 with 16-byte rows, bfloat16 on
+    the bf16 route and float32 on the 3xTF32 one; the CUDA cores take the
+    rest."""
     tensors = _heads_like(layout, dtype, s)
-    want = ("mma" if dtype == "bfloat16" and s in (8, 16)
-            and layout in ("encoder", "contiguous") else "simt")
+    # S + 4 elements apart is 16 bytes apart in float32 (48 or 80), not in bf16
+    aligned = ("encoder", "contiguous") + (("row_stride",) if dtype == "float32" else ())
+    tensor_cores = s in (8, 16) and layout in aligned
+    want = {"bfloat16": "mma", "float32": "tf32"}[dtype] if tensor_cores else "simt"
     assert _route(getattr(torch, dtype), s, tensors) == want
 
 

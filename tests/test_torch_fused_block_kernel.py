@@ -84,7 +84,7 @@ def _tf32(a):
 
 
 def _split(a):
-    """(hi, lo), each a TF32 value, as csrc/fused_ffn_mma.cuh:split_tf32."""
+    """(hi, lo), each a TF32 value, as csrc/tf32x3.cuh:split_tf32."""
     hi = _tf32(a)
     return hi, _tf32(a.float() - hi)
 
@@ -261,13 +261,13 @@ def test_ctypes_signature_matches_the_c_entry(name):
 
 
 def test_library_path_keys_on_the_ffn_mma_header(monkeypatch, tmp_path):
-    """An edit of csrc/fused_ffn_mma.cuh rebuilds the tensor-core forward."""
+    """An edit of csrc/tf32x3.cuh rebuilds the tensor-core forward."""
     for f in CSRC_DIR.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build_mod, "CSRC_DIR", tmp_path)
     before = library_path("fused_ffn_fwd_mma")
     assert before.name.startswith("libfused_ffn_fwd_mma-")
-    header = tmp_path / "fused_ffn_mma.cuh"
+    header = tmp_path / "tf32x3.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert library_path("fused_ffn_fwd_mma") != before
 
