@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: the maven-lite embedding
 server and the maven-lite contrastive trainer end to end (and maven-lite
-from its own config, trained into run directories, resumed and served; and
-the image and meta towers and the supervised heads: trimodal from its own
-config, quadrimodal, redshift regression and classification), through the
+from its own config, trained into run directories, resumed and served; the
+image and meta towers and the supervised heads: trimodal from its own
+config, quadrimodal, redshift regression and classification; and masked
+pretraining, its graft into a CLIP light-curve tower, and Maven's
+pretraining and fine-tuning, each from its shipped config), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor cores, float32 on the tensor cores in 3xTF32, head dims 32/64 and rows
 off 16 bytes on the CUDA cores), and the same server and
@@ -38,7 +40,9 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      heads of 16 (config_grid's heads), T = 220, a batch with a
      fully masked row and leading masked key tiles, key_mask=None, ragged
      T = 1 and T = 77 at head dims 8 and 16, the trimodal spectral shape
-     (32, 2, 1024, 16), and the other head dims. Every case at head dim 8
+     (32, 2, 1024, 16), Maven pretraining's float32 light curve (1024, 8,
+     200, 8) and spectrum (1024, 2, 220, 16), and the other head
+     dims. Every case at head dim 8
      or 16 runs on both of its dtype's routes (the tensor cores as routed:
      bf16, or 3xTF32 for float32; the CUDA cores through a patch of
      flash_attention._route) and must show one launch on the first's
@@ -51,7 +55,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      F.scaled_dot_product_attention (scale emb**-0.5, boolean key mask) as
      the library yardstick (timed only; it differs on fully masked rows,
      where it gives NaN), in both dtypes (float32 with TF32 off), and in
-     float32 at the training and trimodal spectral shapes too, each route
+     float32 at the training, trimodal and Maven shapes too, each route
      and the library call also by device time (profiler sums);
   4. kernel-bwd: the backward kernels' dq/dk/dv against torch autograd
      through dense_attention on the card, float32 (atol = rtol = 5e-4, the
@@ -69,8 +73,9 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      of the largest value). Then times
      both routes (and their host time a call, as in phase 3), the plain
      backward and the autograd backward of F.scaled_dot_product_attention
-     at LC and SP, bf16 and float32 (and float32 at SP T = 1024 and the
-     trimodal (32, 2, 1024, 16)) (CUDA events, median of 25), and, beside
+     at LC and SP, bf16 and float32 (and float32 at SP T = 1024, the
+     trimodal (32, 2, 1024, 16) and Maven's two B = 1024 shapes) (CUDA
+     events, median of 25), and, beside
      the events, each kernel's and the library call's device time (the sum
      of their device kernels under torch.profiler over 25 calls), which the
      host's pace does not move;
@@ -267,6 +272,42 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      head's output (9 launches a call), every parameter's float32
      gradient at B = 256 held to the plain path's as above, the step's
      host time;
+  6f. maven: four stages from the shipped configs, each through
+     training/experiment.py:_build_run, float32, every attention layer on
+     the 3xTF32 flash route, no plain call, launches counted and asserted
+     per fit (forwards a train and an eval step, backwards a train step);
+     each stage's train-step host time (median of 10) and one
+     torch.profiler breakdown. Cuts, and nothing else: the epochs (3000 to
+     3 for (a), 1000 to 2 for (c) and (d), the head 1), synthetic sets for
+     the corpora, val_fraction for the fold split, nruns 1.
+     (a) masked pretraining, configs/config_grid.yaml's first point
+     through masked_model_builder (emb 32, 2 heads, 9 blocks, n_out 1,
+     f_mask 0.15, contiguous spans; B = 256, lr 5e-4, StepLR 2 epochs x
+     0.1, magnitude noise 1.0) on 2048 light curves (val_fraction 0.05):
+     run dir M (3 epochs) and R (2, then a new model and Trainer resumed to
+     3): R bitwise equal to M (every state_dict tensor, every epoch's
+     losses), the lr at each epoch's start equal to optax's staircase;
+     load_model(M) a MaskedLightCurveEncoder whose
+     masked_reconstruction_mse equals the in-memory model's (1e-6); 6
+     float32 steps (noise, dropout and masks on, the same draws) within
+     relative 1e-5 of the plain path's; every parameter gradient within
+     5e-4 on the plain path's ReLU masks, and the dq x 0.99 control failing;
+     (b) the graft: the same point with pretrain_lc_path = M's monitored
+     best epoch= file and freeze_backbone_lc, 2 epochs of regression: the
+     light-curve tower but its projection bitwise M's net.* after the graft
+     and after training, its projection and the head moved, R2_val finite;
+     (c) Maven pretraining, configs/maven_pretrain.yaml's first point (LC
+     emb 64, 8 heads, 5 blocks; SP emb 32, 2 heads, 13 blocks; agg mean;
+     enc_dim 128, the reference's default; B = 1024, T_sp = 220) on 4096
+     pairs (val_fraction 0.05), 2 epochs into run dir P;
+     (d) Maven fine-tuning, configs/maven_finetune.yaml's first point with
+     pretrain_path = P through finetune_model_builder, on 640 pairs
+     (val_fraction 0.2), B = 32: the initial weights bitwise P's monitored
+     best, 2 contrastive epochs, 6 float32 steps within relative 1e-5 of
+     the plain path's; then classification with freeze_backbone, a 5-class
+     ClipMLPHead, 1 epoch: the frozen encoders bitwise unchanged,
+     predict_supervised of load_model of its run dir equal to the
+     in-memory head's (1e-6);
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -283,7 +324,7 @@ measured numbers, the shape they were timed at ("shape"; launches are summed
 over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
-runs, and every counted call of the run-dir and towers phases; the flash and fused-QKV
+runs, and every counted call of the run-dir, towers and maven phases; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
 and "library_device_ms", and the wrapper's host time a call, "host_ms")
@@ -293,7 +334,8 @@ for bfloat16 on the tensor cores, 67 TFLOP/s for float32 on the CUDA cores,
 TF32 being off, and for the 3xTF32 kernels three times their operations
 at 495 TFLOP/s); the flash entries of the CUDA cores and of 3xTF32 carry
 their float32 times under "float32" (the 3xTF32 ones at the top level),
-with the trimodal spectral shape under "also_at_trimodal"; the flash
+with the trimodal spectral shape under "also_at_trimodal" and Maven
+pretraining's under "also_at_maven_lc" and "also_at_maven_sp"; the flash
 backward and fused-block entries add
 "device_ms" (profiler sums), the flash backward "library_device_ms", the
 fused-block entries "norm_err" (float32, its route's worst case), and the
@@ -329,6 +371,7 @@ import multimodal_supernovae_tpu_torch.models.transformer as transformer_mod
 import multimodal_supernovae_tpu_torch.ops.flash_attention as flash_mod
 import multimodal_supernovae_tpu_torch.ops.fused_block as ffn_mod
 import multimodal_supernovae_tpu_torch.ops.qkv_attention as qkv_mod
+import multimodal_supernovae_tpu_torch.training.trainer as trainer_mod
 from multimodal_supernovae_tpu_torch.config import (
     build_clip_config,
     build_trainer_config,
@@ -342,12 +385,20 @@ from multimodal_supernovae_tpu_torch.data import (
     make_synthetic_dataset,
     take,
 )
-from multimodal_supernovae_tpu_torch.evaluation import get_embeddings, predict_supervised
+from multimodal_supernovae_tpu_torch.evaluation import (
+    get_embeddings,
+    masked_reconstruction_mse,
+    predict_supervised,
+)
 from multimodal_supernovae_tpu_torch.kernels import build, library_path
 from multimodal_supernovae_tpu_torch.models import (
     CLIPConfig,
     CLIPModel,
+    ClipMLPHead,
+    finetune_model_builder,
     load_model,
+    masked_model_builder,
+    pick_reference_ckpt,
     write_model_config,
 )
 from multimodal_supernovae_tpu_torch.ops import dense_attention, dense_attention_bwd
@@ -356,10 +407,12 @@ from multimodal_supernovae_tpu_torch.training import (
     Trainer,
     TrainerConfig,
     TrainState,
+    best_ckpt_path,
     build_optimizer,
     make_epoch_runner,
     make_train_step,
 )
+from multimodal_supernovae_tpu_torch.training.experiment import _build_run
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_attention_fwd": ("multimodal_supernovae_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -477,6 +530,24 @@ QUAD_META = {"input_dim": 128, "hidden_dim": 128, "num_layers": 2}
 TRIMODAL_STATED = ((32, 8, 5, 10, 32), (64, 8, 5, "mean"), (32, 2, 13, "mean", 1024),
                    (32, None, 1.0, 1.0, ("host_galaxy", "lightcurve", "spectral")))
 HEADS_STATED = ((32, 2, 9, "mean"), ("lightcurve",), True, 256, None)
+# phase maven: masked pretraining from config_grid.yaml, the graft into its
+# regression point, then Maven's pretraining and fine-tuning from their configs,
+# each on a synthetic set; the epochs cut (3000 -> 3, 1000 -> 2, the head 1)
+MAVEN_PRETRAIN, MAVEN_FINETUNE = "configs/maven_pretrain.yaml", "configs/maven_finetune.yaml"
+MASKED_N, MASKED_EPOCHS, GRAFT_EPOCHS = 2048, 3, 2
+MAVEN_N, MAVEN_EPOCHS, FINETUNE_N, HEAD_EPOCHS = 4096, 2, 640, 1
+MAVEN_TRAJ_STEPS, MAVEN_TIMED = 6, 10
+# masked_reconstruction_mse of load_model(M) against the in-memory model
+MSE_TOL = 1e-6
+# what the configs must give: the masked model (emb, heads, depth, n_out, f_mask,
+# contiguous), what masked_model_builder returns beside it (task, freeze,
+# surgery), (B, lr, step_size, gamma);
+# Maven's LC and SP (emb, heads, depth, agg), enc_dim (the reference's default,
+# the config names none), towers, compute dtype, B, T_sp, (task, freeze, surgery)
+MASKED_STATED = ((32, 2, 9, 1, 0.15, True), ("masked", None, None), (256, 0.0005, 2, 0.1))
+MAVEN_STATED = ((64, 8, 5, "mean"), (32, 2, 13, "mean"), 128, ("lightcurve", "spectral"),
+                None, 1024, 220, ("contrastive", None, None))
+FINETUNE_STATED = ("contrastive", None, 32)  # task, freeze, B
 
 
 _T0 = time.perf_counter()
@@ -712,13 +783,25 @@ def _flash_cases(mask_lc, mask_sp, t_sp):
     ]
 
 
+def _maven_cases(mask_lc, mask_sp):
+    """The float32 shapes of Maven pretraining (phase maven, B = 1024): the
+    light curve and the spectrum at T = 220, the masks tiled 4 times."""
+    return [("maven_lc", (4 * BATCH, 8, 2 * LC_LEN, 8), mask_lc.repeat(4, 1), True),
+            ("maven_sp", (4 * BATCH, 2, TRAIN_SP_LEN, 16),
+             mask_sp[:, :TRAIN_SP_LEN].repeat(4, 1), True)]
+
+
+MAVEN_CASES = ("maven_lc", "maven_sp")
 # the flash timings: (case, dtype) of the forward and backward phases (the
-# serving and training shapes in both dtypes; the trimodal spectral shape, and
-# the backward's spectral serving T, in float32, the trimodal step's dtype)
+# serving and training shapes in both dtypes; the trimodal spectral shape, the
+# backward's spectral serving T and Maven pretraining's shapes in float32, the
+# dtype of those steps)
 FWD_TIMED = {("lc", "bfloat16"), ("sp", "bfloat16"), ("lc", "float32"), ("sp", "float32"),
-             ("sp_train", "float32"), ("sp_tri", "float32")}
+             ("sp_train", "float32"), ("sp_tri", "float32"), ("maven_lc", "float32"),
+             ("maven_sp", "float32")}
 BWD_TIMED = {("lc", "bfloat16"), ("sp", "bfloat16"), ("lc", "float32"), ("sp", "float32"),
-             ("sp_t1024", "float32"), ("sp_tri", "float32")}
+             ("sp_t1024", "float32"), ("sp_tri", "float32"), ("maven_lc", "float32"),
+             ("maven_sp", "float32")}
 TIMING_NOTE = ("(plain: dense_attention, its autograd for the backward; library: "
                "scaled_dot_product_attention, its autograd for the backward; *_device: the "
                "sum of its device kernels under torch.profiler, 25 calls; *_host: the "
@@ -739,7 +822,8 @@ def phase_kernel():
         ("sp_train", (BATCH, 2, TRAIN_SP_LEN, 16), mask_sp[:, :TRAIN_SP_LEN].contiguous(),
          True),
         ("sp_tri", (32, 2, SP_LEN, 16), mask_sp[:32].contiguous(), True),
-        ("s64", (8, 1, 77, 64), mask_sp[:8, -77:].contiguous(), False)]
+        ("s64", (8, 1, 77, 64), mask_sp[:8, -77:].contiguous(), False)] + _maven_cases(
+        mask_lc, mask_sp)
     gen = torch.Generator().manual_seed(0)
     max_err = {r: 0.0 for r in ROUTES}
     norm_err = {(r, d): 0.0 for r in ROUTES for d in ("float32", "bfloat16")}
@@ -747,8 +831,8 @@ def phase_kernel():
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, (b, h, t, s), mask, layout in cases:
-            if name in ("sp_train", "sp_tri") and dtype_name == "bfloat16":
-                continue  # float32 timing shapes
+            if name in ("sp_train", "sp_tri", *MAVEN_CASES) and dtype_name == "bfloat16":
+                continue  # float32 shapes
             q, k, v = _heads(gen, b, h, t, s, dtype, layout)
             emb = h * s
             want = dense_attention(q, k, v, mask, emb)
@@ -851,7 +935,8 @@ def phase_kernel_bwd():
     mask_sp = torch.from_numpy(syn["mask_sp"]).cuda()
     cases = _flash_cases(mask_lc, mask_sp, TRAIN_SP_LEN) + [
         ("sp_t1024", (BATCH, 2, SP_LEN, 16), mask_sp, True),
-        ("sp_tri", (32, 2, SP_LEN, 16), mask_sp[:32].contiguous(), True)]
+        ("sp_tri", (32, 2, SP_LEN, 16), mask_sp[:32].contiguous(), True)] + _maven_cases(
+        mask_lc, mask_sp)
     gen = torch.Generator().manual_seed(1)
     max_err = {r: 0.0 for r in ROUTES}
     norm_err = {(r, d): 0.0 for r in ROUTES for d in ("float32", "bfloat16")}
@@ -861,8 +946,8 @@ def phase_kernel_bwd():
         dtype = getattr(torch, dtype_name)
         tol = GRAD_TOL[dtype_name]
         for name, (b, h, t, s), mask, layout in cases:
-            if name == "sp_tri" and dtype_name == "bfloat16":
-                continue  # a float32 timing shape
+            if name in ("sp_tri", *MAVEN_CASES) and dtype_name == "bfloat16":
+                continue  # float32 shapes
             q, k, v = _heads(gen, b, h, t, s, dtype, layout)
             # the cotangent in the head merge's (B, T, H, S) memory order
             g = torch.randn((b, t, h, s), generator=gen).to("cuda", dtype).transpose(1, 2)
@@ -2429,18 +2514,20 @@ def _relu_masks(model, masks):
         raise AssertionError(f"ReLU calls {len(flips)}, recorded {len(masks)}")
 
 
-def _towers_grads(tag, cfg, batch, per_step):
+def _towers_grads(tag, cfg, batch, per_step, make=None):
     """Every parameter's gradient of one float32 train-mode loss (noise off)
     from ``cfg``'s seeded weights on ``batch``: the kernel path held to the
     plain path, and the kernel path with every dq off by 1% shown to fail
     the same check, as phase_train holds them. Both take the plain path's
     ReLU masks (_relu_masks); the kernel path on its own masks is logged,
-    not held. Returns the kernel path's launches, which must be
+    not held. ``make()``, where given, builds the model in place of ``cfg``'s
+    CLIPModel. Returns the kernel path's launches, which must be
     ``per_step``."""
     grads, counts, masks, flips = {}, {}, [], {}
     for name, path in (("plain", "plain"), ("kernel", "kernel"), (WRONG_DQ, WRONG_DQ),
                        ("kernel, own masks", "kernel")):
-        model = CLIPModel(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        model = (make() if make is not None else
+                 CLIPModel(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE))
         replay = [] if name == "kernel, own masks" else masks
         with PATHS[path][1](), _relu_masks(model, replay) as flips[name]:
             _zero_counts()
@@ -2765,6 +2852,451 @@ def phase_towers(card):
     return total
 
 
+def _maven_split(n, sp_len, modalities, val_fraction):
+    """The synthetic set of a stage (2 x LC_LEN light-curve points, T_sp =
+    ``sp_len``), split at the config's val_fraction."""
+    sp = {} if sp_len is None else {"n_max_sp": sp_len}
+    ds = make_synthetic_dataset(n=n, n_max_lc=LC_LEN, nband=NBAND, modalities=modalities,
+                                seed=0, **sp)
+    return _split(ds, val_fraction)
+
+
+def _fit_counted(tag, trainer, train_ds, val_ds, want, **kw):
+    """Trainer.fit counted from zero: the launches must be ``want`` and no
+    plain version may run. Returns the result and the launches."""
+    with _plain_calls() as plain:
+        _zero_counts()
+        t0 = time.perf_counter()
+        result = trainer.fit(train_ds, val_ds, **kw)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    for row in result["metric_rows"]:
+        log(f"{tag}: epoch {row['epoch']} " + ", ".join(
+            f"{k} {v:.7g}" for k, v in row.items()
+            if k not in ("epoch", "step_time_s", "samples_per_s"))
+            + f", step {row['step_time_s'] * 1e3:.2f} ms (the epoch's mean)")
+    log(f"{tag}: Trainer.fit in {wall:.3f} s; launches {counts} (want {want}), "
+        f"{len(plain)} plain kernel calls")
+    if counts != want or plain:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}; {len(plain)} plain")
+    return result, counts
+
+
+def _fit_want(per_step, epochs, train_steps, eval_steps):
+    """Launches of ``epochs`` epochs: forwards in train and eval steps,
+    backwards in train steps (per_step of a float32 model: _tf32_flash)."""
+    return tuple(c * epochs * (train_steps if i % 2 else train_steps + eval_steps)
+                 for i, c in enumerate(per_step))
+
+
+def _maven_trajectory(tag, make, tcfg, data, plan, per_step, freeze=None):
+    """MAVEN_TRAJ_STEPS float32 steps (the config's noise, dropout, masks and
+    schedule, the same draws) from ``make()``'s weights on the kernel path
+    and the plain path; per-step losses within relative TRAJ_RTOL. Returns
+    the kernel path's launches."""
+    losses, counts = {}, {}
+    for path in ("kernel", "plain"):
+        model = make()
+        opt, sched = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                                     weight_decay=tcfg.weight_decay, step_size=tcfg.step_size,
+                                     gamma=tcfg.gamma, steps_per_epoch=len(plan),
+                                     freeze=freeze)
+        with PATHS[path][1](), _plain_calls() as plain:
+            _zero_counts()
+            _, got = make_epoch_runner(model, tcfg.noise_level_mag)(
+                TrainState(model, opt, sched), data, plan,
+                torch.Generator(device=DEVICE).manual_seed(2))
+            counts[path] = _counts()
+        want = NONE if path == "plain" else tuple(c * len(plan) for c in per_step)
+        if counts[path] != want or (plain and path == "kernel"):
+            raise AssertionError(f"{tag} trajectory {path}: launches {counts[path]}, want "
+                                 f"{want}; {len(plain)} plain calls")
+        losses[path] = got.cpu().numpy()
+        del model, opt
+    rel = np.abs(losses["kernel"] - losses["plain"]) / np.abs(losses["plain"])
+    log(f"{tag} trajectory: {len(plan)} float32 steps (the same draws), kernel "
+        f"{losses['kernel'].tolist()}, plain {losses['plain'].tolist()}, worst relative "
+        f"difference {rel.max():.3e} (tol {TRAJ_RTOL})")
+    if not np.all(np.isfinite(losses["kernel"])) or rel.max() > TRAJ_RTOL:
+        raise AssertionError(f"{tag}: the kernel path's trajectory leaves the plain path's: "
+                             f"{rel}")
+    return counts["kernel"]
+
+
+def _maven_timing(tag, model, tcfg, batch, per_step, card, freeze=None):
+    """The train step of ``model`` (the config's noise and lr, ``freeze``) on
+    one batch: host-clock ms over MAVEN_TIMED steps after 2 warm-up steps,
+    then one profile of PROFILED_STEPS steps. Returns the launches, the
+    median host ms and the device ms a step."""
+    opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                             weight_decay=tcfg.weight_decay, freeze=freeze)
+    state = TrainState(model, opt)
+    step = make_train_step(model, tcfg.noise_level_mag)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    _zero_counts()
+    times, loss = _host_step_ms(step, state, batch, gen, MAVEN_TIMED)
+    traced = _trace(lambda: step(state, batch, gen), PROFILED_STEPS)
+    counts = _counts()
+    b = len(next(iter(batch.values())))
+    _check_counts(f"{tag} timed steps", counts,
+                  tuple(c * (MAVEN_TIMED + 2 + PROFILED_STEPS) for c in per_step))
+    ms = float(np.median(times))
+    log(f"{tag}: train step (B={b}, float32) host clock median {ms:.3f} ms (quartiles "
+        f"{np.percentile(times, 25):.3f}-{np.percentile(times, 75):.3f}) over "
+        f"{MAVEN_TIMED}; loss {float(loss):.6g}; card {card}")
+    _log_trace(f"{tag} profile", "train steps", *traced, at=f"B={b} float32")
+    if not torch.isfinite(loss):
+        raise AssertionError(f"{tag}: loss {loss}")
+    return counts, ms, traced[0]
+
+
+def _unchanged(tag, before, sd, names):
+    """``names`` of state_dict ``sd`` bitwise equal to ``before``."""
+    moved = [k for k in names if not torch.equal(before[k].to(sd[k].device), sd[k])]
+    log(f"{tag}: {len(names) - len(moved)} of {len(names)} tensors bitwise unchanged")
+    if moved or not names:
+        raise AssertionError(f"{tag}: {moved} changed")
+
+
+def _maven_masked(card, tmp):
+    """Stage (a): masked light-curve pretraining from config_grid.yaml's first
+    point. Returns the launches, the run dir, the config point, the data and
+    the stage's times."""
+    sweep = load_sweep(GRID)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    builder = masked_model_builder(extra)
+    model, task, freeze, override, tcfg = _build_run(point, extra, NBAND, builder,
+                                                     MASKED_EPOCHS)
+    tk = model.cfg.tk()
+    stated = ((tk["emb"], tk["heads"], tk["depth"], tk["n_out"], model.cfg.f_mask,
+               model.cfg.contiguous), (task, freeze, override),
+              (tcfg.batch_size, tcfg.lr, tcfg.step_size, tcfg.gamma))
+    log(f"maven masked: {GRID}, first of {sweep.n_points} grid points; cuts: epochs "
+        f"{point['epochs']} -> {MASKED_EPOCHS}, the synthetic light-curve set ({MASKED_N} "
+        f"samples, 2 x {LC_LEN} points) for the simulated corpus, val_fraction "
+        f"{extra['val_fraction']} for the fold split, nruns {extra['nruns']} -> 1; "
+        f"MaskedEncoderConfig {model.cfg}; trainer {tcfg}")
+    if stated != MASKED_STATED:
+        raise AssertionError(f"maven masked: {GRID} does not give the stated model: {stated}")
+    train_ds, val_ds = _maven_split(MASKED_N, None, ("lightcurve",), extra["val_fraction"])
+    b = tcfg.batch_size
+    train_steps, eval_steps = -(-len(train_ds) // b), -(-len(val_ds) // b)
+    depth = tk["depth"]
+    per_step = _tf32_flash(depth, depth)
+    dump = dict(point, epochs=MASKED_EPOCHS)
+
+    # straight run M, and run R: 2 epochs, then a new model and Trainer resumed to 3
+    fits, lrs, total = {}, {}, NONE
+    real_runner = trainer_mod.make_epoch_runner
+
+    def recording(tag):
+        def make(*a, **kw):
+            run = real_runner(*a, **kw)
+
+            def run_epoch(state, *args):
+                lrs[tag].append(state.optimizer.param_groups[0]["lr"])
+                return run(state, *args)
+            return run_epoch
+        return make
+
+    m_dir, r_dir = os.path.join(tmp, "M"), os.path.join(tmp, "R")
+    for tag, path, epochs, resume in (("M", m_dir, MASKED_EPOCHS, False),
+                                      ("R", r_dir, MASKED_EPOCHS - 1, False),
+                                      ("R resumed", r_dir, MASKED_EPOCHS, True)):
+        model = builder(point, extra, NBAND)[0].to(DEVICE)
+        trainer = Trainer(model, "masked", dataclasses.replace(tcfg, epochs=epochs),
+                          run_dir=path)
+        lrs[tag] = []
+        ran = epochs - (MASKED_EPOCHS - 1 if resume else 0)
+        with mock.patch.object(trainer_mod, "make_epoch_runner", recording(tag)):
+            result, counts = _fit_counted(f"maven masked {tag}", trainer, train_ds, val_ds,
+                                          _fit_want(per_step, ran, train_steps, eval_steps),
+                                          config_dump=dump, resume=resume)
+        total = tuple(a + c for a, c in zip(total, counts))
+        if set(result["metric_rows"][-1]) != {"epoch", "train_loss", "step_time_s",
+                                              "samples_per_s", "val_loss"}:
+            raise AssertionError(f"maven masked {tag}: metrics {result['metric_rows'][-1]}")
+        fits[tag] = result
+    spe = train_steps
+    staircase = [tcfg.lr * tcfg.gamma ** ((e * spe) // (tcfg.step_size * spe))
+                 for e in range(MASKED_EPOCHS)]
+    log(f"maven masked: lr at the start of each epoch ({spe} steps an epoch, StepLR "
+        f"step_size {tcfg.step_size} epochs, gamma {tcfg.gamma}): M {lrs['M']}, R "
+        f"{lrs['R']} then resumed {lrs['R resumed']}; optax's staircase {staircase}")
+    if (not np.allclose(lrs["M"], staircase, rtol=1e-12, atol=0)
+            or lrs["R"] + lrs["R resumed"] != lrs["M"]):
+        raise AssertionError(f"maven masked: lr {lrs} against the staircase {staircase}")
+    a, r = fits["M"], fits["R resumed"]
+    sd_a, sd_r = a["state"].model.state_dict(), r["state"].model.state_dict()
+    n_equal = sum(torch.equal(sd_r[k], v) for k, v in sd_a.items())
+    same_rows = all(ra[k] == rr[k] for ra, rr in zip(a["metric_rows"], r["metric_rows"])
+                    for k in ("train_loss", "val_loss"))
+    log(f"maven masked resume: R's resumed epoch {MASKED_EPOCHS - 1} against M: "
+        f"{n_equal} of {len(sd_a)} state_dict tensors bitwise equal, losses of every epoch "
+        f"equal {same_rows}, global steps {r['state'].step} and {a['state'].step}")
+    if n_equal != len(sd_a) or not same_rows or r["state"].step != a["state"].step:
+        raise AssertionError("maven masked: the resumed run is not bitwise the straight one")
+    del fits["R resumed"], r, sd_r
+
+    # load_model(M) and the anomaly score against the in-memory model
+    in_memory = a["state"].model.eval()
+    loaded, extra_m = load_model(m_dir, DEVICE, which="last")
+    steps_mse = -(-len(val_ds) // min(b, len(val_ds)))
+    scores = {}
+    with _plain_calls() as plain:
+        _zero_counts()
+        for name, m in (("load_model", loaded), ("in memory", in_memory)):
+            scores[name] = masked_reconstruction_mse(
+                m, val_ds, torch.Generator(device=DEVICE).manual_seed(5), batch_size=b,
+                device=DEVICE)
+        mse_counts = _counts()
+    err = float(np.abs(scores["load_model"] - scores["in memory"]).max())
+    want_mse = _tf32_flash(2 * depth * steps_mse, 0)
+    log(f"maven masked: load_model(M) {type(loaded).__name__} (extra {extra_m}); "
+        f"masked_reconstruction_mse of the {len(val_ds)} validation samples, mean "
+        f"{scores['in memory'].mean():.6g}, max|loaded - in memory| {err:.3e} (tol "
+        f"{MSE_TOL}); launches {mse_counts}, {len(plain)} plain calls")
+    if (err > MSE_TOL or plain or mse_counts != want_mse
+            or scores["load_model"].shape != (len(val_ds),)
+            or not np.isfinite(scores["load_model"]).all()):
+        raise AssertionError(f"maven masked: reconstruction scores off by {err}, launches "
+                             f"{mse_counts} (want {want_mse})")
+    total = tuple(x + y for x, y in zip(total, mse_counts))
+    del a, fits, in_memory, loaded
+
+    # the kernel path against the plain path: trajectory and gradients
+    data = train_ds.to_device(DEVICE)
+    plan = epoch_indices(len(train_ds), b, rng=np.random.default_rng(1), shuffle=True,
+                         pad="wrap")[:MAVEN_TRAJ_STEPS]
+
+    def make():
+        return builder(point, extra, NBAND)[0].to(DEVICE)
+
+    traj = _maven_trajectory("maven masked", make, tcfg, data, plan, per_step)
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    grads = _towers_grads("maven masked", None, one, per_step, make=make)
+    timed, ms, dev_ms = _maven_timing("maven masked", make(), tcfg, one, per_step, card)
+    total = tuple(sum(c) for c in zip(total, traj, grads, timed))
+    return total, m_dir, (point, extra), (train_ds, val_ds), (ms, dev_ms)
+
+
+def _maven_graft(card, m_dir, grid, data):
+    """Stage (b): config_grid.yaml's regression point with pretrain_lc_path =
+    M's monitored best and freeze_backbone_lc, through _build_run."""
+    point, extra = grid
+    train_ds, val_ds = data
+    best = best_ckpt_path(m_dir)
+    run_extra = dict(extra, pretrain_lc_path=best, freeze_backbone_lc=True)
+    model, task, freeze, override, tcfg = _build_run(point, run_extra, NBAND, None,
+                                                     GRAFT_EPOCHS)
+    log(f"maven graft: {GRID}, first grid point, overrides pretrain_lc_path {best} (M's "
+        f"monitored best; the smallest kept epoch is "
+        f"{os.path.basename(pick_reference_ckpt(m_dir))}), freeze_backbone_lc true; cuts: "
+        f"epochs {point['epochs']} -> {GRAFT_EPOCHS}; task {task}; trainer {tcfg}")
+    if task != "regression" or freeze is None or override is None:
+        raise AssertionError(f"maven graft: task {task}, freeze {freeze}, override {override}")
+    masked_sd = torch.load(best, map_location="cpu", weights_only=True)["state_dict"]
+    model.load_state_dict(override(model.state_dict()), strict=True)
+    grafted = {k: v.clone() for k, v in model.state_dict().items()}
+    frozen = sorted(k for k in grafted if k.startswith("lightcurve_encoder.")
+                    and ".projection." not in k)
+    _unchanged("maven graft: lightcurve_encoder.* but projection against M's net.*",
+               {k: masked_sd["net." + k[len("lightcurve_encoder."):]] for k in frozen},
+               grafted, frozen)
+    depth = model.cfg.tk()["depth"]
+    per_step = _tf32_flash(depth, depth)  # the frozen tower still runs its backward
+    b = tcfg.batch_size
+    train_steps, eval_steps = -(-len(train_ds) // b), -(-len(val_ds) // b)
+    model = model.to(DEVICE)
+    trainer = Trainer(model, task, tcfg, freeze=freeze)
+    result, counts = _fit_counted("maven graft", trainer, train_ds, val_ds,
+                                  _fit_want(per_step, GRAFT_EPOCHS, train_steps, eval_steps))
+    sd = model.state_dict()
+    _unchanged("maven graft after training: the frozen tower", grafted, sd, frozen)
+    trained = [k for k in sd if k.startswith(("lightcurve_encoder.projection.",
+                                              "lightcurve_projection.", "linear."))]
+    still = [k for k in trained if torch.equal(grafted[k].to(DEVICE), sd[k])]
+    r2 = result["metric_rows"][-1]["R2_val"]
+    log(f"maven graft: {len(trained) - len(still)} of {len(trained)} projection and head "
+        f"tensors moved; R2_val {r2:.6g}")
+    if still or not np.isfinite(r2):
+        raise AssertionError(f"maven graft: {still} did not move; R2_val {r2}")
+    one = take(train_ds.to_device(DEVICE), torch.arange(b, device=DEVICE))
+    timed, ms, dev_ms = _maven_timing("maven graft", model, tcfg, one, per_step, card,
+                                      freeze=freeze)
+    return tuple(a + c for a, c in zip(counts, timed)), (ms, dev_ms)
+
+
+def _maven_pretrain(card, tmp):
+    """Stage (c): Maven pretraining from maven_pretrain.yaml's first point
+    into run dir P."""
+    sweep = load_sweep(MAVEN_PRETRAIN)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    model, task, freeze, override, tcfg = _build_run(point, extra, NBAND, None, MAVEN_EPOCHS)
+    cfg, tk, tsk = model.cfg, model.cfg.tk(), model.cfg.tsk()
+    sp_len = int(extra["max_spectral_data_len"])
+    stated = ((tk["emb"], tk["heads"], tk["depth"], tk["agg"]),
+              (tsk["emb"], tsk["heads"], tsk["depth"], tsk["agg"]), cfg.enc_dim,
+              cfg.combinations, cfg.compute_dtype, tcfg.batch_size, sp_len,
+              (task, freeze, override))
+    log(f"maven pretrain: {MAVEN_PRETRAIN}, first of {sweep.n_points} grid points; cuts: "
+        f"epochs {point['epochs']} -> {MAVEN_EPOCHS}, the synthetic set ({MAVEN_N} samples, "
+        f"2 x {LC_LEN} light-curve points, T_sp = {sp_len}) for "
+        f"{extra['filename_trainset']}, nruns {extra['nruns']}; LC {tk}; SP {tsk}; enc_dim "
+        f"{cfg.enc_dim}; trainer {tcfg}")
+    if stated != MAVEN_STATED:
+        raise AssertionError(f"maven pretrain: {MAVEN_PRETRAIN} gives {stated}")
+    train_ds, val_ds = _maven_split(MAVEN_N, sp_len, cfg.combinations, extra["val_fraction"])
+    b = tcfg.batch_size
+    train_steps, eval_steps = -(-len(train_ds) // b), -(-len(val_ds) // b)
+    layers = tk["depth"] + tsk["depth"]
+    per_step = _tf32_flash(layers, layers)
+    p_dir = os.path.join(tmp, "P")
+    trainer = Trainer(model.to(DEVICE), task, tcfg, run_dir=p_dir)
+    result, counts = _fit_counted("maven pretrain", trainer, train_ds, val_ds,
+                                  _fit_want(per_step, MAVEN_EPOCHS, train_steps, eval_steps),
+                                  config_dump=dict(point, epochs=MAVEN_EPOCHS))
+    if not all(np.isfinite(r["AUC_val"]) for r in result["metric_rows"]):
+        raise AssertionError(f"maven pretrain: {result['metric_rows']}")
+    one = take(train_ds.to_device(DEVICE), torch.arange(b, device=DEVICE))
+    timed, ms, dev_ms = _maven_timing("maven pretrain", model, tcfg, one, per_step, card)
+    del result, trainer, model
+    return tuple(a + c for a, c in zip(counts, timed)), p_dir, (ms, dev_ms)
+
+
+def _maven_finetune(card, tmp, p_dir):
+    """Stage (d): maven_finetune.yaml's first point from run dir P, once
+    contrastive and once as a 5-class ClipMLPHead with freeze_backbone."""
+    sweep = load_sweep(MAVEN_FINETUNE)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    fextra = dict(extra, pretrain_path=p_dir)
+    best = best_ckpt_path(p_dir)
+    best_sd = torch.load(best, map_location="cpu", weights_only=True)["state_dict"]
+    sp_len = int(extra["max_spectral_data_len"])
+    train_ds, val_ds = _maven_split(FINETUNE_N, sp_len, ("lightcurve", "spectral"),
+                                    extra["val_fraction"])
+    total, times = NONE, {}
+
+    # contrastive
+    builder = finetune_model_builder(fextra)
+    model, task, freeze, override, tcfg = _build_run(point, fextra, NBAND, builder,
+                                                     MAVEN_EPOCHS)
+    layers = model.cfg.tk()["depth"] + model.cfg.tsk()["depth"]
+    per_step = _tf32_flash(layers, layers)
+    log(f"maven finetune: {MAVEN_FINETUNE}, first of {sweep.n_points} grid points "
+        f"(foldnumber {point['foldnumber']}), pretrain_path P (monitored best "
+        f"{os.path.basename(best)}); cuts: epochs {point['epochs']} -> {MAVEN_EPOCHS}, the "
+        f"{FINETUNE_N}-sample synthetic set at val_fraction {extra['val_fraction']} for the "
+        f"{extra['kfolds']}-fold split of ZTF BTS, nruns {extra['nruns']} -> 1; task {task}; "
+        f"the architecture of P's sidecar {model.cfg.tk()} / {model.cfg.tsk()}; trainer "
+        f"{tcfg}")
+    if (task, freeze, tcfg.batch_size) != FINETUNE_STATED:
+        raise AssertionError(f"maven finetune: task {task}, freeze {freeze}, B "
+                             f"{tcfg.batch_size}")
+    model.load_state_dict(override(model.state_dict()), strict=True)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    _unchanged("maven finetune: initial weights against P's best", best_sd, start,
+               sorted(start))
+    b = tcfg.batch_size
+    train_steps, eval_steps = -(-len(train_ds) // b), -(-len(val_ds) // b)
+    trainer = Trainer(model.to(DEVICE), task, tcfg, run_dir=os.path.join(tmp, "F"))
+    result, counts = _fit_counted("maven finetune", trainer, train_ds, val_ds,
+                                  _fit_want(per_step, MAVEN_EPOCHS, train_steps, eval_steps),
+                                  config_dump=dict(point, epochs=MAVEN_EPOCHS))
+    total = tuple(a + c for a, c in zip(total, counts))
+    if not all(np.isfinite(r["AUC_val"]) for r in result["metric_rows"]):
+        raise AssertionError(f"maven finetune: {result['metric_rows']}")
+    del result, trainer
+
+    def make():
+        fresh = builder(point, fextra, NBAND)[0]
+        fresh.load_state_dict(start, strict=True)
+        return fresh.to(DEVICE)
+
+    data = train_ds.to_device(DEVICE)
+    plan = epoch_indices(len(train_ds), b, rng=np.random.default_rng(1), shuffle=True,
+                         pad="wrap")[:MAVEN_TRAJ_STEPS]
+    traj = _maven_trajectory("maven finetune", make, tcfg, data, plan, per_step)
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    timed, times["contrastive"], dev = _maven_timing("maven finetune", model, tcfg, one,
+                                                     per_step, card)
+    times["contrastive device"] = dev
+    total = tuple(sum(c) for c in zip(total, traj, timed))
+    del model
+
+    # a 5-class ClipMLPHead on the frozen encoders
+    cextra = dict(fextra, classification=True, freeze_backbone=True)
+    head, task, freeze, override, tcfg = _build_run(point, cextra, NBAND,
+                                                    finetune_model_builder(cextra),
+                                                    HEAD_EPOCHS)
+    log(f"maven head: the same point with classification and freeze_backbone: "
+        f"{type(head).__name__} {head.cfg.combinations}, hidden {head.cfg.hidden_dim} x "
+        f"{head.cfg.num_layers}, dropout {head.cfg.dropout}, {head.cfg.head_out} classes; "
+        f"task {task}; epochs {point['epochs']} -> {HEAD_EPOCHS}")
+    if not isinstance(head, ClipMLPHead) or task != "classification" or freeze is None:
+        raise AssertionError(f"maven head: {type(head).__name__}, {task}, {freeze}")
+    head.load_state_dict(override(head.state_dict()), strict=True)
+    before = {k: v.clone() for k, v in head.state_dict().items()}
+    _unchanged("maven head: clip_model.* against P's best",
+               {k: best_sd[k[len("clip_model."):]] for k in before
+                if k.startswith("clip_model.")}, before,
+               sorted(k for k in before if k.startswith("clip_model.")))
+    frozen = sorted(k for k in before if k.startswith(
+        ("clip_model.lightcurve_encoder.", "clip_model.spectral_encoder."))
+        and ".projection." not in k)
+    h_dir = os.path.join(tmp, "H")
+    trainer = Trainer(head.to(DEVICE), task, tcfg, run_dir=h_dir, freeze=freeze)
+    result, counts = _fit_counted("maven head", trainer, train_ds, val_ds,
+                                  _fit_want(per_step, HEAD_EPOCHS, train_steps, eval_steps),
+                                  config_dump=dict(point, epochs=HEAD_EPOCHS))
+    total = tuple(a + c for a, c in zip(total, counts))
+    _unchanged("maven head after training: the frozen encoders", before, head.state_dict(),
+               frozen)
+    loaded, _ = load_model(h_dir, DEVICE, which="last")
+    with _plain_calls() as plain:
+        _zero_counts()
+        got = predict_supervised(loaded, val_ds, batch_size=b, device=DEVICE)
+        want = predict_supervised(head, val_ds, batch_size=b, device=DEVICE)
+        pred_counts = _counts()
+    err = float(np.abs(got - want).max())
+    f1 = result["metric_rows"][-1]["f1_val"]
+    want_pred = _tf32_flash(2 * layers * eval_steps, 0)
+    log(f"maven head: f1_val {f1:.6g}; predict_supervised of load_model(H) "
+        f"({type(loaded).__name__}) {got.shape} against the in-memory head, max difference "
+        f"{err:.3e} (tol {RUN_DIR_EMBED_TOL}); launches {pred_counts}, {len(plain)} plain")
+    if (err > RUN_DIR_EMBED_TOL or got.shape != (len(val_ds), 5) or plain
+            or pred_counts != want_pred or not np.isfinite(f1)):
+        raise AssertionError(f"maven head: predictions off by {err}, launches {pred_counts} "
+                             f"(want {want_pred})")
+    total = tuple(a + c for a, c in zip(total, pred_counts))
+    timed, times["head"], times["head device"] = _maven_timing(
+        "maven head", head, tcfg, one, per_step, card, freeze=freeze)
+    return tuple(a + c for a, c in zip(total, timed)), times
+
+
+def phase_maven(card):
+    """Masked pretraining, the graft, and Maven's two stages from the shipped
+    configs on the card. Returns the launches of every counted call."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        masked, m_dir, grid, data, masked_ms = _maven_masked(card, tmp)
+        torch.cuda.empty_cache()
+        graft, graft_ms = _maven_graft(card, m_dir, grid, data)
+        del data
+        torch.cuda.empty_cache()
+        pre, p_dir, pre_ms = _maven_pretrain(card, tmp)
+        torch.cuda.empty_cache()
+        fine, fine_ms = _maven_finetune(card, tmp, p_dir)
+    total = tuple(sum(c) for c in zip(masked, graft, pre, fine))
+    log(f"maven: train step host clock / device ms (float32): masked (a) "
+        f"{masked_ms[0]:.3f} / {masked_ms[1]:.3f}, graft (b) {graft_ms[0]:.3f} / "
+        f"{graft_ms[1]:.3f}, Maven pretrain (c) {pre_ms[0]:.3f} / {pre_ms[1]:.3f}, finetune "
+        f"(d) {fine_ms['contrastive']:.3f} / {fine_ms['contrastive device']:.3f}, head (d) "
+        f"{fine_ms['head']:.3f} / {fine_ms['head device']:.3f}; card {card}")
+    log(f"maven: phase done in {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 def _kind(name):
     """Kind of a device op, by its kernel name."""
     n = name.lower()
@@ -2933,15 +3465,18 @@ def main():
     train_qkv = phase_train("qkv")
     run_dir = phase_run_dir()
     towers = phase_towers(card)
+    maven = phase_maven(card)
     phase_profile()
-    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers)
+    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
+            maven)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, summed in the line: {runs}; card {card}")
+        f"train-qkv, run-dir, towers, maven, summed in the line: {runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
+    maven_lc, maven_sp = (4 * BATCH, 8, NBAND * LC_LEN, 8), (4 * BATCH, 2, TRAIN_SP_LEN, 16)
     for name, shape in (("LC", lc), ("SP serving", sp_fwd), ("SP training", sp_bwd),
-                        ("SP trimodal", tri)):
+                        ("SP trimodal", tri), ("Maven LC", maven_lc), ("Maven SP", maven_sp)):
         e_fwd, e_bwd = _exp_floor_ms(*shape[:3], exp_per_s)
         for peak in ("bfloat16", "tf32x3", "float32"):
             (f_ms, f_by), (b_ms, b_by) = _flash_bounds(*shape, peak)
@@ -2960,12 +3495,14 @@ def main():
     def flash(route, bwd, dtype="bfloat16"):
         """The flash entry of ``route`` in ``dtype``: SP timed (serving T
         forward, training T backward), LC under also_at; in float32 the
-        trimodal SP under also_at_trimodal and the other SP T under
-        also_at_training (forward) or also_at_serving (backward)."""
+        trimodal SP under also_at_trimodal, Maven pretraining's B = 1024
+        shapes under also_at_maven_lc and also_at_maven_sp, and the other SP
+        T under also_at_training (forward) or also_at_serving (backward)."""
         tm = bwd_timing if bwd else timing
         peak = "bfloat16" if dtype == "bfloat16" else "tf32x3" if route == "tf32" else "float32"
         shapes = {"sp": sp_bwd if bwd else sp_fwd, "lc": lc, "sp_tri": tri,
-                  "sp_train": sp_bwd, "sp_t1024": sp_fwd}
+                  "sp_train": sp_bwd, "sp_t1024": sp_fwd, "maven_lc": maven_lc,
+                  "maven_sp": maven_sp}
 
         def entry(case):
             t, shape = tm[(case, dtype)], shapes[case]
@@ -2979,6 +3516,8 @@ def main():
         top = {**entry("sp"), "also_at": entry("lc")}
         if dtype == "float32":
             top["also_at_trimodal"] = entry("sp_tri")
+            top["also_at_maven_lc"] = entry("maven_lc")
+            top["also_at_maven_sp"] = entry("maven_sp")
             other = "also_at_serving" if bwd else "also_at_training"
             top[other] = entry("sp_t1024" if bwd else "sp_train")
         return top

@@ -1,4 +1,11 @@
-from .augment import augment_batch, image_uniform_noise, noise_from_error, random_rot90
+from .augment import (
+    augment_batch,
+    contiguous_span_mask,
+    image_uniform_noise,
+    noise_from_error,
+    random_rot90,
+    random_subset_mask,
+)
 from .batching import (
     BATCH_FIELDS,
     ArrayDataset,
@@ -12,12 +19,14 @@ __all__ = [
     "ArrayDataset",
     "BATCH_FIELDS",
     "augment_batch",
+    "contiguous_span_mask",
     "epoch_indices",
     "image_uniform_noise",
     "make_synthetic_arrays",
     "make_synthetic_dataset",
     "noise_from_error",
     "random_rot90",
+    "random_subset_mask",
     "tail_valid_mask",
     "take",
 ]

@@ -6,16 +6,19 @@ multimodal_supernovae_tpu/data/augment.py).
     deviation being the biased one over the WHOLE batch, as in the JAX
     package and the reference;
   * image rotation: each NHWC image by its own random multiple of 90
-    degrees (square images).
+    degrees (square images);
+  * the masked-pretraining masks: a uniform random subset of each sample's
+    valid positions (``random_subset_mask``) or one contiguous span per
+    band (``contiguous_span_mask``).
 
 Every draw comes from an explicit ``torch.Generator`` on the batch's device
 or is handed in as a tensor (tests give both stacks the same numbers that
-way). The masked-pretraining masks wait for item 12 (ROADMAP.md queue 1).
+way).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -105,3 +108,53 @@ def augment_batch(
             out[x] = noise_from_error(batch[x], batch[err], noise_level_mag,
                                       generator, normals.get(x))
     return out
+
+
+# -- masked-pretraining masks (the JAX package's data/augment.py:98-151) ------
+
+
+def random_subset_mask(padding_mask: torch.Tensor, f_mask: float,
+                       generator: Optional[torch.Generator] = None,
+                       uniform: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hide ``int(n_obs * f_mask)`` of each sample's valid positions, chosen
+    uniformly without replacement: the positions of the smallest uniforms,
+    padding ranked last (+inf). ``uniform`` (B, T) is the draw; without it
+    one is drawn from ``generator``. Returns (mask_keep, mask_pred): the
+    valid positions the model sees and the ones it predicts."""
+    pm = padding_mask.bool()
+    n_obs = pm.sum(dim=1)
+    n_mask = (n_obs.float() * f_mask).int()  # float32, truncated, as JAX's
+    if uniform is None:
+        uniform = torch.rand(pm.shape, generator=_need(generator, "random_subset_mask"),
+                             device=pm.device)
+    u = torch.where(pm, uniform, torch.full_like(uniform, float("inf")))
+    # the rank of each entry: JAX's argsort of argsort, both stable
+    ranks = torch.argsort(torch.argsort(u, dim=1, stable=True), dim=1, stable=True)
+    pred = (ranks < n_mask[:, None]) & pm
+    return pm & ~pred, pred
+
+
+def contiguous_span_mask(padding_mask: torch.Tensor, nband: int, f_mask: float,
+                         generator: Optional[torch.Generator] = None,
+                         uniform: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hide one contiguous span per band of the band-blocked layout, whose
+    valid observations are a prefix of each band block: the span holds
+    ``int(n_obs * f_mask)`` observations and starts at ``floor(u * (n_obs -
+    span + 1))``, both in float32 as in the JAX package. ``uniform``
+    (B, nband) is u; without it one is drawn from ``generator``. Returns
+    (mask_keep, mask_pred)."""
+    pm = padding_mask.bool()
+    b, t = pm.shape
+    bands = pm.reshape(b, nband, t // nband)
+    n_obs = bands.sum(dim=2)
+    span = (n_obs.float() * f_mask).int()
+    if uniform is None:
+        uniform = torch.rand((b, nband), generator=_need(generator, "contiguous_span_mask"),
+                             device=pm.device)
+    start = torch.floor(uniform * (n_obs - span + 1).float()).int()
+    pos = torch.arange(t // nband, device=pm.device)[None, None, :]
+    in_span = (pos >= start[..., None]) & (pos < (start + span)[..., None])
+    pred = (in_span & bands).reshape(b, t)
+    return pm & ~pred, pred

@@ -1,3 +1,3 @@
-from .embeddings import get_embeddings, predict_supervised
+from .embeddings import get_embeddings, masked_reconstruction_mse, predict_supervised
 
-__all__ = ["get_embeddings", "predict_supervised"]
+__all__ = ["get_embeddings", "masked_reconstruction_mse", "predict_supervised"]

@@ -1,17 +1,15 @@
-"""Embeddings and supervised predictions of a whole dataset (port of
-multimodal_supernovae_tpu/evaluation/embeddings.py, ``get_embeddings`` and
-``predict_supervised``).
+"""Embeddings, supervised predictions and masked-reconstruction scores of a
+whole dataset (port of multimodal_supernovae_tpu/evaluation/embeddings.py,
+``get_embeddings``, ``predict_supervised`` and ``masked_reconstruction_mse``).
 
 The frozen model runs in eval mode over every sample in one fixed-shape
 plan on the device-resident dataset: sequential batches whose tail repeats
 the last sample, trimmed to the dataset's size afterwards.
-
-Not ported yet: ``masked_reconstruction_mse`` (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,4 +69,36 @@ def predict_supervised(model, ds: ArrayDataset, batch_size: int = 256,
     if not model.cfg.supervised:
         raise ValueError("predict_supervised needs a regression or classification model")
     stacked = _run_frozen(model, ds, batch_size, device, model)
+    return torch.cat(stacked).float()[:len(ds)].cpu().numpy()
+
+
+def masked_reconstruction_mse(model, ds: ArrayDataset,
+                              generator: Optional[torch.Generator] = None,
+                              uniforms: Optional[Sequence[torch.Tensor]] = None,
+                              batch_size: int = 256, device="cuda") -> np.ndarray:
+    """Per-sample MSE of a ``MaskedLightCurveEncoder``'s reconstruction over
+    a seeded random hidden span (an anomaly score), float32 (n,), in the
+    dataset's order. Each batch's mask is drawn from ``generator`` (on
+    ``device``), or taken from ``uniforms``: one ``masked_pred`` draw per
+    batch of the fixed-shape plan, ceil(n / min(batch_size, n)) of them. Runs on
+    ``device`` as ``get_embeddings`` does: on the card unless the caller
+    asks for the CPU."""
+    if generator is None and uniforms is None:
+        raise ValueError("masked_reconstruction_mse needs a generator or the uniforms")
+    draws = None
+    if uniforms is not None:
+        steps = -(-len(ds) // min(batch_size, len(ds)))
+        if len(uniforms) != steps:
+            raise ValueError(f"{len(uniforms)} uniforms for a plan of {steps} batches")
+        draws = iter(uniforms)
+
+    def mse(batch):
+        u = None if draws is None else next(draws).to(batch["x_lc"].device)
+        truth, pred, pmask = model.masked_pred(batch["x_lc"], batch["t_lc"],
+                                               batch["mask_lc"], generator=generator,
+                                               uniform=u)
+        w = pmask.to(pred.dtype)
+        return ((pred - truth) ** 2 * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
+
+    stacked = _run_frozen(model, ds, batch_size, device, mse)
     return torch.cat(stacked).float()[:len(ds)].cpu().numpy()

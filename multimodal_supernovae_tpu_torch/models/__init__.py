@@ -1,4 +1,5 @@
 from .clip import CLIPConfig, CLIPModel
+from .clip_mlp import ClipMLPConfig, ClipMLPHead
 from .convert import (
     convmixer_state_dict,
     mlp_state_dict,
@@ -7,14 +8,17 @@ from .convert import (
 )
 from .convmixer import ConvMixer
 from .factory import (
+    finetune_model_builder,
     initialize_from_run_dir,
     load_model,
     load_run_config,
+    masked_model_builder,
     pick_reference_ckpt,
     read_model_config,
     write_model_config,
 )
 from .mlp import MLP
+from .pretraining import MaskedEncoderConfig, MaskedLightCurveEncoder
 from .transformer import (
     SelfAttention,
     SequenceEncoder,
@@ -28,8 +32,12 @@ from .transformer import (
 __all__ = [
     "CLIPConfig",
     "CLIPModel",
+    "ClipMLPConfig",
+    "ClipMLPHead",
     "ConvMixer",
     "MLP",
+    "MaskedEncoderConfig",
+    "MaskedLightCurveEncoder",
     "SelfAttention",
     "SequenceEncoder",
     "TorchStyleMHA",
@@ -37,9 +45,11 @@ __all__ = [
     "TransformerBlock",
     "init_weights",
     "convmixer_state_dict",
+    "finetune_model_builder",
     "initialize_from_run_dir",
     "load_model",
     "load_run_config",
+    "masked_model_builder",
     "mlp_state_dict",
     "pick_reference_ckpt",
     "read_model_config",

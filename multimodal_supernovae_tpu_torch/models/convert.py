@@ -1,11 +1,13 @@
 """JAX parameters -> this package's state_dict (numpy only).
 
-The CLIP part of ``multimodal_supernovae_tpu/models/torch_export.py``
+A copy of ``multimodal_supernovae_tpu/models/torch_export.py``
 (``_export_seq_encoder``, ``_export_convmixer``, ``_export_mlp`` and
-``export_reference_state_dict``): a flax parameter tree (and, for a
-ConvMixer, its ``batch_stats`` collection), as nested dicts of arrays,
-becomes the reference-layout state_dict that
-``CLIPModel.load_state_dict(strict=True)`` takes. Dense kernels (in, out)
+``export_reference_state_dict``) for the three model families: a flax
+parameter tree (and, for a ConvMixer, its ``batch_stats`` collection), as
+nested dicts of arrays, becomes the reference-layout state_dict that the
+port's ``CLIPModel``, ``MaskedLightCurveEncoder`` (``net.*`` and
+``last_layer.*``) or ``ClipMLPHead`` (``clip_model.*`` and ``mlp_model.*``)
+takes with ``load_state_dict(strict=True)``. Dense kernels (in, out)
 become Linear weights (out, in); conv kernels (kh, kw, in / groups, out)
 become (out, in / groups, kh, kw), a depthwise (k, k, 1, C) one (C, 1, k,
 k); the attention-pooling q/k/v projections are packed into
@@ -38,11 +40,23 @@ def _dense(sd, key: str, p: Dict[str, Any]):
         sd[key + ".bias"] = _a(p["bias"])
 
 
-def seq_encoder_state_dict(p: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    """SequenceEncoder params -> ``SequenceEncoder`` state_dict entries."""
+def seq_encoder_state_dict(p: Dict[str, Any], prefix: str = "",
+                           n_out: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """SequenceEncoder params -> ``SequenceEncoder`` state_dict entries. A
+    pretraining tower has no ``projection``; its dead keys are written as
+    zeros of shape (n_out, emb), as the JAX exporter writes them, and then
+    ``n_out`` must be given."""
     sd: Dict[str, np.ndarray] = {}
     _dense(sd, prefix + "embedding_mag", p["embedding_mag"])
-    _dense(sd, prefix + "projection", p["projection"])
+    if "projection" in p:
+        _dense(sd, prefix + "projection", p["projection"])
+    else:
+        if n_out is None:
+            raise ValueError(f"{prefix}: the params carry no projection (a pretraining "
+                             "tower); pass n_out for its zero keys")
+        emb = np.asarray(p["embedding_mag"]["kernel"]).shape[1]
+        sd[prefix + "projection.weight"] = np.zeros((int(n_out), emb), np.float32)
+        sd[prefix + "projection.bias"] = np.zeros(int(n_out), np.float32)
     if "band_emb" in p:
         sd[prefix + "band_emb.weight"] = _a(p["band_emb"]["embedding"])
     i = 0
@@ -118,16 +132,23 @@ def mlp_state_dict(p: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 
 def state_dict_from_jax(params: Dict[str, Any],
-                        batch_stats: Optional[Dict[str, Any]] = None
-                        ) -> Dict[str, np.ndarray]:
-    """A JAX ``CLIPModel``'s params (and ``batch_stats``, which a ConvMixer
-    image tower needs) -> the port's ``CLIPModel`` state_dict, as numpy
-    arrays."""
-    unported = sorted(set(params) & {"clip_model", "net"})
-    if unported:
-        raise NotImplementedError(
-            f"parameters {unported} belong to models the port does not have yet "
-            "(ROADMAP.md queue 1, items 12-13)")
+                        batch_stats: Optional[Dict[str, Any]] = None,
+                        n_out: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """A JAX model's params (and ``batch_stats``, which a ConvMixer image
+    tower needs) -> the port's state_dict of the same family, as numpy
+    arrays: a ``CLIPModel``; a ``MaskedLightCurveEncoder`` (a ``net``
+    tree), whose dead projection keys take ``n_out`` (its config's,
+    ``transformer_kwargs["n_out"]``); a ``ClipMLPHead`` (a ``clip_model``
+    tree, its statistics under ``batch_stats["clip_model"]``)."""
+    if "clip_model" in params:
+        sd = {"clip_model." + k: v for k, v in state_dict_from_jax(
+            params["clip_model"], (batch_stats or {}).get("clip_model")).items()}
+        sd.update(mlp_state_dict(params["mlp_model"], "mlp_model."))
+        return sd
+    if "net" in params:
+        sd = seq_encoder_state_dict(params["net"], "net.", n_out=n_out)
+        _dense(sd, "last_layer", params["last_layer"])
+        return sd
     sd: Dict[str, np.ndarray] = {
         "logit_scale": _a(params["logit_scale"]),
         "logit_bias": _a(params["logit_bias"]),

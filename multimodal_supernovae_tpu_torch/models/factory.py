@@ -1,10 +1,12 @@
-"""Rebuild a model from a run directory (port of the run-dir half of
+"""Rebuild a model from a run directory, and the builders of the two-stage
+recipe (port of the run-dir and builder halves of
 multimodal_supernovae_tpu/models/factory.py).
 
 A servable run directory holds:
   * ``model_config.json``, the JAX package's self-describing sidecar,
-    ``{"model": "CLIPModel", "config": {...CLIPConfig fields...},
-    "extra": {...}}`` (read with ``json``; no YAML);
+    ``{"model": ..., "config": {...}, "extra": {...}}`` for one of three
+    families, ``CLIPModel``, ``MaskedLightCurveEncoder`` and ``ClipMLPHead``
+    (read with ``json``; no YAML);
   * a reference-layout ``*.ckpt`` (``torch.save`` of ``{"state_dict": ...}``).
 
 ``Trainer.fit(run_dir=...)`` writes both (``epoch=E-step=S.ckpt`` for the
@@ -13,10 +15,19 @@ as it is. A run trained by the JAX package becomes one in two steps:
 ``mmsn-export-torch`` writes the ``.ckpt`` into an output directory, then the
 run's ``model_config.json`` is copied beside it.
 
-``pick_reference_ckpt(which="best")`` keeps the reference's rule, the
-smallest-epoch ``epoch=`` file, which with two kept is the earlier of the two
-and not always the better one; ``training.checkpoint.CheckpointManager.
-restore(which="best")`` restores the monitored best.
+"Best" means two things. ``pick_reference_ckpt(which="best")``, and so
+``load_model``, keeps the reference's rule, the smallest-epoch ``epoch=``
+file, which with two kept is the earlier of the two and not always the
+better one. ``training.checkpoint.best_ckpt_path`` is the monitored best
+(``summary.json``'s ``best_ckpt_epoch``), which the fine-tune builder and
+the pretrained-weight surgery load, as the JAX package's
+``restore_run_variables(which="best")`` does.
+
+The builders (``masked_model_builder``, ``finetune_model_builder``) return
+``builder(run_cfg, extra, nband) -> (model, task, freeze, override)``:
+``freeze`` a parameter-path predicate for the optimizer or None,
+``override(state_dict) -> state_dict`` the weight surgery or None
+(training/experiment.py applies both).
 """
 
 from __future__ import annotations
@@ -24,12 +35,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..config.yaml_subset import load as load_yaml
 from .clip import CLIPConfig, CLIPModel
+from .clip_mlp import ClipMLPConfig, ClipMLPHead
+from .pretraining import MaskedEncoderConfig, MaskedLightCurveEncoder
 
 MODEL_CONFIG_SIDECAR = "model_config.json"
 
@@ -49,8 +62,15 @@ def load_run_config(run_dir: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return run_cfg, load_yaml(sweep_path).get("extra_args", {})
 
 
-def read_model_config(run_dir: str) -> Tuple[CLIPConfig, Dict[str, Any]]:
-    """(config, extra) from the run directory's sidecar."""
+# sidecar name: (model class, config class), the JAX package's three families
+FAMILIES = {"CLIPModel": (CLIPModel, CLIPConfig),
+            "MaskedLightCurveEncoder": (MaskedLightCurveEncoder, MaskedEncoderConfig),
+            "ClipMLPHead": (ClipMLPHead, ClipMLPConfig)}
+
+
+def read_model_config(run_dir: str) -> Tuple[Any, Dict[str, Any]]:
+    """(config, extra) from the run directory's sidecar: a ``CLIPConfig``,
+    ``MaskedEncoderConfig`` or ``ClipMLPConfig``, as the sidecar names."""
     path = os.path.join(run_dir, MODEL_CONFIG_SIDECAR)
     if not os.path.exists(path):
         raise FileNotFoundError(
@@ -59,20 +79,30 @@ def read_model_config(run_dir: str) -> Tuple[CLIPConfig, Dict[str, Any]]:
             ".ckpt that mmsn-export-torch wrote")
     with open(path) as f:
         payload = json.load(f)
-    if payload.get("model") != "CLIPModel":
-        raise NotImplementedError(
-            f"model family {payload.get('model')!r} is not ported yet "
-            "(ROADMAP.md queue 1, items 12-13); the port serves CLIPModel")
-    return CLIPConfig.from_dict(payload["config"]), dict(payload.get("extra", {}))
+    if payload.get("model") not in FAMILIES:
+        raise ValueError(f"unknown model family {payload.get('model')!r} in {path}: "
+                         f"expected one of {sorted(FAMILIES)}")
+    cfg_cls = FAMILIES[payload["model"]][1]
+    return cfg_cls.from_dict(payload["config"]), dict(payload.get("extra", {}))
+
+
+def model_of(cfg, generator: Optional[torch.Generator] = None):
+    """The model of a config read from a sidecar, with fresh weights."""
+    for model_cls, cfg_cls in FAMILIES.values():
+        if isinstance(cfg, cfg_cls):
+            return model_cls(cfg, generator)
+    raise TypeError(f"no model family takes a {type(cfg).__name__}")
 
 
 def initialize_from_run_dir(run_dir: str, combinations=None
-                            ) -> Tuple[CLIPModel, Dict[str, Any], Dict[str, Any]]:
+                            ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """(a model with fresh weights, the run config, the sidecar's extra) from
-    a run directory's ``model_config.json``: the exact configuration, no
-    sweep directory needed. ``combinations`` rebuilds it with other towers.
-    The run config is the run's ``config.yaml`` (empty without one) with
-    ``enc_dim`` filled in from the model, as the JAX package fills it.
+    a run directory's ``model_config.json``: the exact configuration of any
+    of the three families, no sweep directory needed. ``combinations``
+    rebuilds a ``CLIPModel`` with other towers; the other families must
+    already have them. The run config is the run's ``config.yaml`` (empty
+    without one) with the facts the JAX package fills in: ``enc_dim`` from
+    the CLIP config, and for a masked run ``f_mask`` and ``n_out``.
 
     Run directories without the sidecar (the reference's own, rebuilt from
     their sweep config) are not ported yet (ROADMAP.md queue 1, item 14)."""
@@ -82,28 +112,47 @@ def initialize_from_run_dir(run_dir: str, combinations=None
             "dir from its sweep config is not ported yet (ROADMAP.md queue 1, item 14)")
     cfg, extra = read_model_config(run_dir)
     if combinations is not None:
-        cfg = dataclasses.replace(cfg, combinations=tuple(combinations))
-        extra = dict(extra, combinations=list(combinations))
+        if isinstance(cfg, CLIPConfig):
+            cfg = dataclasses.replace(cfg, combinations=tuple(combinations))
+            extra = dict(extra, combinations=list(combinations))
+        elif sorted(combinations) != sorted(extra.get("combinations", [])):
+            raise NotImplementedError(
+                f"{run_dir} holds a {type(cfg).__name__} of {extra.get('combinations')}; "
+                f"rebuilding it with {list(combinations)} from its sweep config is not "
+                "ported yet (ROADMAP.md queue 1, item 14)")
     cfg_path = os.path.join(run_dir, "config.yaml")
     run_cfg = (load_yaml(cfg_path) or {}) if os.path.exists(cfg_path) else {}
-    run_cfg.setdefault("enc_dim", int(cfg.enc_dim))
-    return CLIPModel(cfg), run_cfg, extra
+    base = getattr(cfg, "clip", cfg)
+    if hasattr(base, "enc_dim"):
+        run_cfg.setdefault("enc_dim", int(base.enc_dim))
+    if hasattr(cfg, "f_mask"):
+        run_cfg.setdefault("f_mask", float(cfg.f_mask))
+        run_cfg.setdefault("n_out", int(cfg.tk().get("n_out", 1)))
+    return model_of(cfg), run_cfg, extra
 
 
-def write_model_config(run_dir: str, model: CLIPModel):
-    """Write the sidecar in the JAX package's schema, so either side reads it."""
+def write_model_config(run_dir: str, model) -> bool:
+    """Write the sidecar in the JAX package's schema (``dump_model_config``),
+    so either side reads it: the family's name, its config and the
+    ``extra`` its consumers read. Returns False, writing nothing, for a
+    module of no family (its run dir then needs its sweep config)."""
+    name = type(model).__name__
+    if name not in FAMILIES:
+        return False
     cfg = model.cfg
-    payload = {
-        "model": "CLIPModel",
-        "config": dataclasses.asdict(cfg),
-        "extra": {"combinations": list(cfg.combinations), "nband": int(cfg.nband),
-                  "regression": bool(cfg.regression),
-                  "classification": bool(cfg.classification),
-                  "n_classes": int(cfg.n_classes)},
-    }
+    if name == "MaskedLightCurveEncoder":
+        extra = {"combinations": ["lightcurve"], "nband": int(cfg.nband)}
+    else:
+        extra = {"combinations": list(cfg.combinations),
+                 "nband": int(getattr(cfg, "clip", cfg).nband),
+                 "regression": bool(cfg.regression),
+                 "classification": bool(cfg.classification),
+                 "n_classes": int(cfg.n_classes)}
+    payload = {"model": name, "config": dataclasses.asdict(cfg), "extra": extra}
     with open(os.path.join(run_dir, MODEL_CONFIG_SIDECAR), "w") as f:
         json.dump(payload, f, indent=1)
         f.write("\n")
+    return True
 
 
 def pick_reference_ckpt(run_dir: str, which: str = "best") -> str:
@@ -121,17 +170,102 @@ def pick_reference_ckpt(run_dir: str, which: str = "best") -> str:
     return os.path.join(run_dir, epoch_ckpts[0] if epoch_ckpts else ckpts[0])
 
 
-def load_model(run_dir: str, device="cuda",
-               which: str = "best") -> Tuple[CLIPModel, Dict[str, Any]]:
-    """(model in eval mode on ``device``, sidecar extra) from a run dir; the
-    checkpoint loads with ``strict=True``. Runs on the card unless the caller
-    asks for the CPU, and raises when CUDA is asked for and absent."""
+def load_model(run_dir: str, device="cuda", which: str = "best") -> Tuple[Any, Dict[str, Any]]:
+    """(model in eval mode on ``device``, sidecar extra) from a run dir: the
+    ``CLIPModel``, ``MaskedLightCurveEncoder`` or ``ClipMLPHead`` its sidecar
+    names, from ``pick_reference_ckpt(run_dir, which)`` loaded with
+    ``strict=True``. Runs on the card unless the caller asks for the CPU,
+    and raises when CUDA is asked for and absent."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     cfg, extra = read_model_config(run_dir)
-    model = CLIPModel(cfg)
+    model = model_of(cfg)
     ckpt = torch.load(pick_reference_ckpt(run_dir, which), map_location="cpu",
                       weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
     return model.to(device).eval(), extra
+
+
+# -- model builders for the entry points -----------------------------------
+
+
+def _load_pretrained_params(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict, on the host, of a pretrained port run dir's monitored
+    best checkpoint (``training.checkpoint.best_ckpt_path``), or of the
+    ``.ckpt`` file ``path``."""
+    from ..training.checkpoint import best_ckpt_path
+
+    ckpt = best_ckpt_path(path) if os.path.isdir(path) else path
+    return torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
+
+
+def _seeded(run_cfg: Dict[str, Any]) -> torch.Generator:
+    return torch.Generator().manual_seed(int(run_cfg.get("seed", 0)))
+
+
+def finetune_model_builder(extra: Dict[str, Any]):
+    """The fine-tune builder (the JAX package's, for the CLIP fine-tune
+    entry point): ``builder(run_cfg, extra, nband) -> (model, task, freeze,
+    override)``. The architecture comes from the pretrained run dir
+    ``extra["pretrain_path"]`` (its sidecar, with ``extra``'s
+    combinations), its monitored best weights load non-strictly through
+    ``override(state_dict) -> state_dict``. With ``regression`` or
+    ``classification`` the model is a ``ClipMLPHead`` (``hidden_dim``,
+    ``num_layers`` and ``dropout`` from the run config, its MLP drawn from
+    the run's seed) whose ``clip_model.*`` is merged from the pretrained
+    run; otherwise contrastive training continues. ``freeze_backbone``
+    freezes both sequence encoders but their projections."""
+    from ..training.checkpoint import merge_params_nonstrict
+    from ..training.optim import freeze_encoders_except_projection
+
+    pretrain_dir = extra["pretrain_path"]
+    regression = bool(extra.get("regression", False))
+    classification = bool(extra.get("classification", False))
+    freeze = (freeze_encoders_except_projection(["lightcurve_encoder", "spectral_encoder"])
+              if extra.get("freeze_backbone") else None)
+
+    def builder(run_cfg, _extra, nband):
+        model, _, _ = initialize_from_run_dir(pretrain_dir, combinations=extra["combinations"])
+        pre = _load_pretrained_params(pretrain_dir)
+        if not (regression or classification):
+            return model, "contrastive", freeze, lambda sd: merge_params_nonstrict(sd, pre)
+        head = ClipMLPHead(ClipMLPConfig(
+            clip=model.cfg, combinations=tuple(extra["combinations"]),
+            hidden_dim=int(run_cfg.get("hidden_dim", 32)),
+            num_layers=int(run_cfg.get("num_layers", 2)),
+            dropout=float(run_cfg.get("dropout", 0.0)), regression=regression,
+            classification=classification, n_classes=int(extra.get("n_classes", 5))),
+            generator=_seeded(run_cfg))
+
+        def override(sd):
+            clip = {k[len("clip_model."):]: v for k, v in sd.items()
+                    if k.startswith("clip_model.")}
+            merged = merge_params_nonstrict(clip, pre)
+            return {**sd, **{"clip_model." + k: v for k, v in merged.items()}}
+
+        return head, "regression" if regression else "classification", freeze, override
+
+    return builder
+
+
+def masked_model_builder(extra: Dict[str, Any]):
+    """The masked-pretraining builder: a ``MaskedLightCurveEncoder`` from the
+    grid's ``f_mask`` (0.15 when absent), ``emb``, ``heads``,
+    ``transformer_depth``, ``dropout`` and ``time_norm`` keys, n_out 1, its
+    weights drawn from the run's seed."""
+
+    def builder(run_cfg, _extra, nband):
+        cfg = MaskedEncoderConfig.create(
+            f_mask=float(run_cfg.get("f_mask", 0.15)), nband=nband,
+            transformer_kwargs={
+                "n_out": 1,
+                "emb": int(run_cfg.get("emb", 128)),
+                "heads": int(run_cfg.get("heads", 2)),
+                "depth": int(run_cfg.get("transformer_depth", 4)),
+                "dropout": float(run_cfg.get("dropout", 0.0)),
+                "time_norm": float(run_cfg.get("time_norm", 10000.0)),
+            })
+        return MaskedLightCurveEncoder(cfg, _seeded(run_cfg)), "masked", None, None
+
+    return builder

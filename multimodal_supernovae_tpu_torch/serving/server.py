@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.clip import MODALITIES
+from ..models.clip import MODALITIES, CLIPModel
 from ..models.factory import load_model
 from .batcher import DynamicBatcher
 
@@ -100,6 +100,9 @@ def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
     each output). The copy back is synchronous."""
     device = torch.device(device)
     model, extra = load_model(run_dir, device, which=which)  # raises without CUDA
+    if not isinstance(model, CLIPModel):
+        raise ValueError(f"{run_dir} holds a {type(model).__name__}: load_live serves a "
+                         "CLIPModel's embeddings")
     combos = model.cfg.combinations
     spec = input_spec(
         combos, int(extra.get("nband", model.cfg.nband)),

@@ -1,8 +1,10 @@
 from .optim import (
     build_optimizer,
     freeze_encoder_except_projection,
+    freeze_encoders_except_projection,
     freeze_mask,
 )
+from .checkpoint import best_ckpt_path
 from .state import TrainState
 from .step import (
     make_epoch_runner,
@@ -15,9 +17,11 @@ __all__ = [
     "TrainState",
     "Trainer",
     "TrainerConfig",
+    "best_ckpt_path",
     "build_optimizer",
     "compute_task_metrics",
     "freeze_encoder_except_projection",
+    "freeze_encoders_except_projection",
     "freeze_mask",
     "make_epoch_runner",
     "make_eval_runner",

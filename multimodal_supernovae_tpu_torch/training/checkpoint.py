@@ -29,13 +29,17 @@ from ``try_restore_last``, this one returns ``(state, epoch, loop)``: the
 JAX trainer re-draws its host random numbers for the completed epochs, this
 one restores the generators' states.
 
-Not ported yet: ``StreamCursor`` (ROADMAP.md queue 1, item 17, streaming),
-``merge_params_nonstrict`` and ``graft_masked_pretrain_into_clip`` (item
-13, the two-stage model).
+The weight surgery of the two-stage recipe works on state_dicts:
+``merge_params_nonstrict`` copies what fits, ``graft_masked_pretrain_into_clip``
+puts a masked pretrainer's encoder into a CLIP light-curve tower;
+``best_ckpt_path`` names the monitored best checkpoint that it loads.
+
+Not ported yet: ``StreamCursor`` (ROADMAP.md queue 1, item 17, streaming).
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import re
@@ -206,6 +210,31 @@ def _restore_into(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     return state
 
 
+def best_ckpt_path(run_dir: str) -> str:
+    """The monitored best checkpoint of a run dir: the ``epoch=`` file
+    of ``summary.json``'s ``best_ckpt_epoch`` (what the JAX package's
+    ``restore_run_variables(which="best")`` restores), or, for a run without
+    that summary yet, its latest kept ``epoch=`` file. Not
+    ``pick_reference_ckpt``'s smallest epoch."""
+    kept = {}
+    for name in os.listdir(run_dir):
+        m = _EPOCH_FILE.match(name)
+        if m:
+            kept[int(m.group(1))] = name
+    if not kept:
+        raise FileNotFoundError(f"no epoch= checkpoint in {run_dir}")
+    epoch = None
+    summary = os.path.join(run_dir, "summary.json")
+    if os.path.exists(summary):
+        with open(summary) as f:
+            epoch = json.load(f).get("best_ckpt_epoch")
+    epoch = max(kept) if epoch is None else int(epoch)
+    if epoch not in kept:
+        raise FileNotFoundError(f"{run_dir}: the best epoch {epoch} has no epoch= file "
+                                f"(kept: {sorted(kept)})")
+    return os.path.join(run_dir, kept[epoch])
+
+
 # -- parameters only (evaluation and transfer) ---------------------------------
 
 
@@ -219,3 +248,32 @@ def load_params(path: str, model: nn.Module) -> nn.Module:
     ``model``, strictly."""
     model.load_state_dict(_load(path)["state_dict"], strict=True)
     return model
+
+
+# -- weight surgery ------------------------------------------------------------
+
+
+def merge_params_nonstrict(target: Dict[str, torch.Tensor],
+                           source: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A copy of ``target`` with every ``source`` tensor whose name it has and
+    whose shape matches: the JAX package's ``merge_params_nonstrict`` (the
+    reference's ``load_state_dict(strict=False)``, which, unlike torch's,
+    skips a shape mismatch instead of raising). The result loads with
+    ``strict=True``."""
+    out = dict(target)
+    for name, value in source.items():
+        if name in out and tuple(out[name].shape) == tuple(value.shape):
+            out[name] = value
+    return out
+
+
+def graft_masked_pretrain_into_clip(clip_sd: Dict[str, torch.Tensor],
+                                    masked_sd: Dict[str, torch.Tensor]
+                                    ) -> Dict[str, torch.Tensor]:
+    """A CLIP state_dict whose ``lightcurve_encoder.*`` takes a masked
+    pretrainer's ``net.*`` (the reference's ``net.``-prefix transfer),
+    merged non-strictly. The pretrainer's dead ``net.projection.*`` (absent
+    from the JAX tree) and its ``last_layer.*`` are not carried over."""
+    encoder = {"lightcurve_encoder." + k[len("net."):]: v for k, v in masked_sd.items()
+               if k.startswith("net.") and not k.startswith("net.projection.")}
+    return merge_params_nonstrict(clip_sd, encoder)

@@ -15,7 +15,7 @@ multimodal_supernovae_tpu/training/optim.py).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -62,5 +62,16 @@ def freeze_encoder_except_projection(encoder_name: str) -> Callable[[Path], bool
 
     def pred(path: Path) -> bool:
         return encoder_name in path and "projection" not in path
+
+    return pred
+
+
+def freeze_encoders_except_projection(encoder_names: Sequence[str]) -> Callable[[Path], bool]:
+    """The same for several encoders (both sequence towers of a pretrained
+    CLIP model)."""
+    names = set(encoder_names)
+
+    def pred(path: Path) -> bool:
+        return bool(names.intersection(path)) and "projection" not in path
 
     return pred

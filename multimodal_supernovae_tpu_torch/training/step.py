@@ -88,8 +88,10 @@ def make_eval_runner(model, rotate_images: bool = True) -> Callable:
 
     Images are rotated (``rotate_images``), with the turns drawn from
     ``generator``, as the JAX eval runner does: the reference validates on
-    loaders that rotate images at noise level 0. Batches without images are
-    not augmented and need no generator."""
+    loaders that rotate images at noise level 0. ``generator`` also goes to
+    ``model.loss_fn``, where masked pretraining draws its validation masks
+    (the JAX runner hands each step a fresh key); a model without images or
+    masks draws nothing from it and may run without one."""
 
     def run_eval(state: TrainState, data: Dict[str, torch.Tensor], index_plan,
                  generator: Optional[torch.Generator] = None):
@@ -99,7 +101,7 @@ def make_eval_runner(model, rotate_images: bool = True) -> Callable:
             for idx in _plan_on(index_plan, device):
                 batch = augment_batch(take(data, idx), generator,
                                       rotate_images=rotate_images)
-                loss, aux = model.loss_fn(batch, train=False)
+                loss, aux = model.loss_fn(batch, train=False, generator=generator)
                 losses.append(loss)
                 auxes.append(aux)
         return torch.stack(losses), _stack_aux(auxes)

@@ -1,6 +1,6 @@
 """The training loop (port of ``Trainer.fit`` in
 multimodal_supernovae_tpu/training/trainer.py, for the contrastive,
-regression and classification tasks):
+regression, classification and masked-pretraining tasks):
 
   host                          device
   ----                          ------
@@ -13,11 +13,13 @@ regression and classification tasks):
 Per epoch the host reads the mean train loss (and aborts on a non-finite
 one), the validation loss and the task's metrics (``compute_task_metrics``:
 the retrieval ``AUC_val`` of two modalities, ``AUC_val1..k`` and
-``AUC_val_mean`` of more, ``R2_val``, ``f1_val``), and stops early when the
-monitored metric (``val_loss``/min by default, ``f1_val``/max for
-classification) has not improved for ``patience`` epochs. Validation
-batches with images are rotated, with turns drawn from a generator of the
-trainer's own.
+``AUC_val_mean`` of more, ``R2_val``, ``f1_val``; the masked task has the
+validation loss only), and stops early when the monitored metric
+(``val_loss``/min by default, ``f1_val``/max for classification) has not
+improved for ``patience`` epochs. Validation batches with images are
+rotated, and masked pretraining's validation masks drawn, from a generator
+of the trainer's own; its training masks come from the training generator
+with the noise and dropout.
 
 With a ``run_dir`` the run directory is the JAX package's: the sidecars
 (``config.yaml``, the split manifests, ``model_config.json``), a
@@ -29,9 +31,11 @@ epoch counter, the three random streams (shuffles, training draws,
 validation rotations) and the early-stopping state, so that it replays what
 the run would have done had it not stopped.
 
+``freeze`` is a predicate over parameter paths (training/optim.py): the
+parameters it picks stay out of the optimizer.
+
 Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
-(ROADMAP.md queue 1, item 17), a device mesh (item 15), and the masked
-task (item 12).
+(ROADMAP.md queue 1, item 17) and a device mesh (item 15).
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ class TrainerConfig:
     eval_every_epochs: int = 1
 
 
-TASKS = ("contrastive", "regression", "classification")
+TASKS = ("contrastive", "regression", "classification", "masked")
 
 
 class Trainer:
@@ -84,10 +88,6 @@ class Trainer:
     def __init__(self, model, task: str, cfg: TrainerConfig,
                  run_dir: Optional[str] = None, mesh=None, freeze=None,
                  use_wandb: bool = False, n_classes: Optional[int] = None):
-        if task == "masked":
-            raise NotImplementedError(
-                "task 'masked' is not ported yet (ROADMAP.md queue 1, item 12: "
-                "masked pretraining)")
         if task not in TASKS:
             raise ValueError(f"unknown task {task!r}: expected one of {TASKS}")
         if mesh is not None:
@@ -289,7 +289,8 @@ def compute_task_metrics(task: str, aux: Dict[str, Any], val_ds: ArrayDataset,
     contrastive, the retrieval ``AUC_val`` of two modalities, or
     ``AUC_val1..k`` over every pair (i < j, in order) and their mean
     ``AUC_val_mean``; regression, ``R2_val`` against ``val_ds``'s redshift;
-    classification, the macro ``f1_val`` of the argmax against its labels."""
+    classification, the macro ``f1_val`` of the argmax against its labels;
+    masked, none (the validation loss only)."""
     out: Dict[str, float] = {}
     if task == "contrastive":
         embs = [e.reshape(-1, e.shape[-1])[:n_val] for e in aux["embeddings"]]

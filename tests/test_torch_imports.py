@@ -34,6 +34,8 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.models\n"
         "import multimodal_supernovae_tpu_torch.models.convmixer\n"
         "import multimodal_supernovae_tpu_torch.models.mlp\n"
+        "import multimodal_supernovae_tpu_torch.models.pretraining\n"
+        "import multimodal_supernovae_tpu_torch.models.clip_mlp\n"
         "import multimodal_supernovae_tpu_torch.data.transforms\n"
         "import multimodal_supernovae_tpu_torch.evaluation\n"
         "import multimodal_supernovae_tpu_torch.data\n"
@@ -44,6 +46,7 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.ops.metrics\n"
         "import multimodal_supernovae_tpu_torch.training\n"
         "import multimodal_supernovae_tpu_torch.training.trainer\n"
+        "import multimodal_supernovae_tpu_torch.training.experiment\n"
         "import multimodal_supernovae_tpu_torch.ops.fused_block\n"
         "import multimodal_supernovae_tpu_torch.ops.qkv_attention\n"
         "import multimodal_supernovae_tpu_torch.serving\n"
@@ -106,17 +109,23 @@ def test_no_port_file_imports_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    """``load_model``, ``load_live`` and the serving CLI run on the card
-    unless the caller asks for the CPU; without one they raise."""
+    """``load_model``, ``load_live``, the evaluation functions and the
+    serving CLI run on the card unless the caller asks for the CPU; without
+    one they raise."""
     import inspect
 
     import torch
 
-    from multimodal_supernovae_tpu_torch.evaluation import get_embeddings, predict_supervised
+    from multimodal_supernovae_tpu_torch.evaluation import (
+        get_embeddings,
+        masked_reconstruction_mse,
+        predict_supervised,
+    )
     from multimodal_supernovae_tpu_torch.models import load_model
     from multimodal_supernovae_tpu_torch.serving import load_live
 
-    for fn in (load_model, load_live, get_embeddings, predict_supervised):
+    for fn in (load_model, load_live, get_embeddings, predict_supervised,
+               masked_reconstruction_mse):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -41,7 +41,13 @@ from multimodal_supernovae_tpu_torch.data import (
     tail_valid_mask,
     take,
 )
-from multimodal_supernovae_tpu_torch.models import CLIPConfig, CLIPModel, state_dict_from_jax
+from multimodal_supernovae_tpu_torch.models import (
+    CLIPConfig,
+    CLIPModel,
+    MaskedEncoderConfig,
+    MaskedLightCurveEncoder,
+    state_dict_from_jax,
+)
 from multimodal_supernovae_tpu_torch.models.transformer import dropout
 from multimodal_supernovae_tpu_torch.training import (
     Trainer,
@@ -320,17 +326,22 @@ def test_trainer_stops_early_and_aborts_on_non_finite_loss():
 
 @pytest.mark.parametrize("kw,match", [
     ({"task": "classification"}, None),
-    ({"task": "masked"}, "item 12"),
+    ({"task": "masked"}, None),
     ({"mesh": object()}, "item 15"),
     ({"task": "regression"}, None),
 ])
 def test_trainer_raises_for_what_is_not_ported(kw, match):
-    """The masked task and a mesh still raise; the supervised tasks are
-    ported: one epoch of each reports its metric (f1_val, monitored for the
-    maximum, or R2_val)."""
+    """A mesh still raises; the supervised and masked tasks are ported: one
+    epoch of each reports its metric (f1_val, monitored for the maximum, or
+    R2_val), a MaskedLightCurveEncoder the validation loss only."""
     task = kw.get("task")
-    model = CLIPModel(CLIPConfig.create(**small_cfg_kwargs(), regression=task == "regression",
-                                        classification=task == "classification"))
+    if task == "masked":
+        model = MaskedLightCurveEncoder(MaskedEncoderConfig.create(
+            nband=2, transformer_kwargs={"emb": 16, "heads": 2, "depth": 1}))
+    else:
+        model = CLIPModel(CLIPConfig.create(**small_cfg_kwargs(),
+                                            regression=task == "regression",
+                                            classification=task == "classification"))
     args = dict(task="contrastive", cfg=TrainerConfig(epochs=1, batch_size=8))
     args.update(kw)
     ds = make_synthetic_dataset(n=8, seed=0, **SYN)
@@ -340,6 +351,11 @@ def test_trainer_raises_for_what_is_not_ported(kw, match):
         return
     trainer = Trainer(model, **args)
     row = trainer.fit(ds, ds)["metric_rows"][0]
+    if task == "masked":
+        assert set(row) == {"epoch", "train_loss", "step_time_s", "samples_per_s",
+                            "val_loss"} and np.isfinite(row["val_loss"])
+        assert (trainer.monitor, trainer.mode) == ("val_loss", "min")
+        return
     metric = {"classification": "f1_val", "regression": "R2_val"}[task]
     assert np.isfinite(row[metric]) and np.isfinite(row["val_loss"])
     assert (trainer.monitor, trainer.mode) == (
