@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: the maven-lite embedding
 server and the maven-lite contrastive trainer end to end (and maven-lite
-from its own config, trained into run directories, resumed and served; the
+from its own config, trained into run directories, resumed and served, and
+trained from a ZTF BTS data directory through the training CLIs; the
 image and meta towers and the supervised heads: trimodal from its own
 config, quadrimodal, redshift regression and classification; and masked
 pretraining, its graft into a CLIP light-curve tower, and Maven's
@@ -125,13 +126,14 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      routes (and the wrappers' host time a call, as in phase 3) and the
      plain versions at LC and SP, and the SelfAttention module forward and
      forward + backward on the unfused route (three F.linear, the flash
-     kernels, F.linear) and under the opt-in. The library yardstick is
-     F.multi_head_attention_forward
+     kernels, F.linear) and under the opt-in; and in float32 the CUDA-core
+     kernels, the plain versions and the library call at LC and SP. The
+     library yardstick is F.multi_head_attention_forward
      (packed in-projection without bias, key_padding_mask, biased
      out-projection; the q rows of the packed weight times sqrt(head dim) so
      that its scores equal the kernel's), forward and autograd backward,
-     on bf16 copies of the weights and x in its (T, B, E) layout, both made
-     outside the timed region. It is timed and held to the plain versions
+     on copies of the weights and x in the call's type and its (T, B, E)
+     layout, made outside the timed region. It is timed and held to the plain versions
      off fully masked samples (where it gives NaN), and called nowhere in
      the port;
   5. serve: a maven-lite CLIPModel with seeded random weights (bf16
@@ -308,6 +310,33 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      ClipMLPHead, 1 epoch: the frozen encoders bitwise unchanged,
      predict_supervised of load_model of its run dir equal to the
      in-memory head's (1e-6);
+  6g. ingest: a ZTF BTS tree of 4702 transients (the corpus's candidate
+     count) written with numpy and zlib into chiprun_out/ in the corpus's
+     layout and formats (_write_tree: the transient table with the
+     reference's type strings and about 1% empty redshifts, 10-300
+     light-curve points a band, 400-4000 spectral rows for about 90%, half
+     with error columns holding empty cells, 60 x 60 host PNGs for about
+     99% with mixed row filters and some palette and RGBA files; synthetic
+     choices), then: fastcsv against its plain version on every CSV
+     (numeric columns bitwise, NaN in the same places, strings equal); every
+     PNG decoded bitwise to the array written, and the native and numpy
+     unfilters timed; load_or_ingest of maven-lite's ingest config timed on
+     a cache miss and a hit, the hit bitwise the miss; the stratified folds'
+     invariants (test indices partition the set, per-class counts of two
+     folds within 1). Then cli.train.main on configs/maven-lite.yaml in
+     process (its full width; epochs 1000 -> 2, nruns 5 -> 2: folds 0 and
+     1): each run dir the contract's files, its config.yaml the grid point,
+     its split manifests the names of stratified_kfolds(labels, 5)[fold],
+     every attention launch on the 3xTF32 route (exactly 18 + 18 a train
+     step, 18 an eval step), no plain call; fold 0's first 5 steps on the
+     kernel and plain paths from the run's initial weights within relative
+     1e-5; its step's host clock (median of 10) and device time and idle
+     share (one profile of 5 steps); cli.train --resume: no launch, every
+     file of the sweep untouched, the cache hit; cli.finetune_clip on a copy
+     of configs/maven_finetune.yaml whose pretrain_path is phase 6f's run P
+     (1 epoch, 1 run) and cli.pretrain_masked --source real on
+     configs/config_grid.yaml (1 epoch, 1 run): 3xTF32 launches only,
+     finite losses. The tree is deleted after the phase;
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -324,7 +353,9 @@ measured numbers, the shape they were timed at ("shape"; launches are summed
 over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
-runs, and every counted call of the run-dir, towers and maven phases; the flash and fused-QKV
+runs, and every counted call of the run-dir, towers, maven and ingest
+phases; the CUDA-core fused-QKV entries carry their float32 times, library
+times and bounds at LC and SP under "float32"; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
 and "library_device_ms", and the wrapper's host time a call, "host_ms")
@@ -350,14 +381,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
+import shutil
+import struct
 import subprocess
 import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -372,6 +407,10 @@ import multimodal_supernovae_tpu_torch.ops.flash_attention as flash_mod
 import multimodal_supernovae_tpu_torch.ops.fused_block as ffn_mod
 import multimodal_supernovae_tpu_torch.ops.qkv_attention as qkv_mod
 import multimodal_supernovae_tpu_torch.training.trainer as trainer_mod
+from multimodal_supernovae_tpu_torch.cli import common as cli_common
+from multimodal_supernovae_tpu_torch.cli import finetune_clip as cli_finetune
+from multimodal_supernovae_tpu_torch.cli import pretrain_masked as cli_masked
+from multimodal_supernovae_tpu_torch.cli import train as cli_train
 from multimodal_supernovae_tpu_torch.config import (
     build_clip_config,
     build_trainer_config,
@@ -385,6 +424,12 @@ from multimodal_supernovae_tpu_torch.data import (
     make_synthetic_dataset,
     take,
 )
+from multimodal_supernovae_tpu_torch.config.yaml_subset import dump as dump_yaml
+from multimodal_supernovae_tpu_torch.data.cache import load_or_ingest
+from multimodal_supernovae_tpu_torch.data.folds import stratified_kfolds
+from multimodal_supernovae_tpu_torch.data.native import read_csv, read_csv_plain
+from multimodal_supernovae_tpu_torch.data.png import decode, unfilter_numpy
+from multimodal_supernovae_tpu_torch.data.ztfbts import load_images, load_ztfbts
 from multimodal_supernovae_tpu_torch.evaluation import (
     get_embeddings,
     masked_reconstruction_mse,
@@ -1530,7 +1575,7 @@ def phase_kernel_qkv():
                     if control[name] <= NORM_TOL:
                         raise AssertionError(f"qkv {name}: the normalised check cannot see "
                                              f"a 1% error in dWqkv: {control[name]:.3e}")
-            if name in ("lc", "sp") and dtype_name == "bfloat16":
+            if name in ("lc", "sp"):
                 times = {}
                 for route in routes:
                     with QKV_ROUTES[route]():
@@ -1548,8 +1593,9 @@ def phase_kernel_qkv():
                 lib_times, lib_err, lib_rel = _mha_library(
                     x, mask, wqkv, wu, bu, g, h, want, want_grads)
                 times.update(lib_times)
-                module = _time_self_attention((b, t, e, h), mask, dtype)
-                timing[name] = times
+                module = (_time_self_attention((b, t, e, h), mask, dtype)
+                          if dtype_name == "bfloat16" else {})
+                timing[name if dtype_name == "bfloat16" else name + "_f32"] = times
                 log(f"time-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)}: "
                     + ", ".join(f"{r} {ms:.4f} ms" for r, ms in times.items())
                     + " (mma / simt: the tensor-core / CUDA-core forward kernel, *_bwd the "
@@ -3274,9 +3320,10 @@ def _maven_finetune(card, tmp, p_dir):
     return tuple(a + c for a, c in zip(total, timed)), times
 
 
-def phase_maven(card):
+def phase_maven(card, keep_p=None):
     """Masked pretraining, the graft, and Maven's two stages from the shipped
-    configs on the card. Returns the launches of every counted call."""
+    configs on the card; run dir P (Maven pretraining) is copied to
+    ``keep_p`` when given. Returns the launches of every counted call."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         masked, m_dir, grid, data, masked_ms = _maven_masked(card, tmp)
@@ -3285,6 +3332,8 @@ def phase_maven(card):
         del data
         torch.cuda.empty_cache()
         pre, p_dir, pre_ms = _maven_pretrain(card, tmp)
+        if keep_p:
+            shutil.copytree(p_dir, keep_p)
         torch.cuda.empty_cache()
         fine, fine_ms = _maven_finetune(card, tmp, p_dir)
     total = tuple(sum(c) for c in zip(masked, graft, pre, fine))
@@ -3294,6 +3343,409 @@ def phase_maven(card):
         f"(d) {fine_ms['contrastive']:.3f} / {fine_ms['contrastive device']:.3f}, head (d) "
         f"{fine_ms['head']:.3f} / {fine_ms['head device']:.3f}; card {card}")
     log(f"maven: phase done in {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
+# phase ingest: a ZTF BTS tree in the corpus's layout, written here, ingested
+# by the port's reader and trained from through the port's CLIs
+INGEST_N = 4702  # the corpus's candidates (SURVEY.md section 0; its data/AAA_README.txt:2)
+INGEST_EPOCHS, INGEST_RUNS, INGEST_TRAJ_STEPS, INGEST_TIMED = 2, 2, 5, 10
+INGEST_IMAGE = 60  # the side phase towers uses
+# the reference's type strings (its merges included) at rough BTS shares; the
+# last five fall outside the 5-way classes and are dropped
+INGEST_TYPES = (("SN Ia", 0.70), ("SN II", 0.10), ("SN IIP", 0.03), ("SN Ib", 0.015),
+                ("SN Ic", 0.015), ("SN Ib/c", 0.01), ("SN IIn", 0.03), ("SLSN-I", 0.02),
+                ("SN Ia-91T", 0.02), ("SN IIb", 0.02), ("TDE", 0.02), ("SLSN-II", 0.01),
+                ("CV", 0.01))
+INGEST_UNFILTER_SAMPLE = 100  # images decoded by both unfilters for their times
+_PNG_COLOUR = {1: 0, 2: 4, 3: 2, 4: 6}  # samples a pixel -> colour type
+
+
+def _png_chunk(ctype, body):
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body)))
+
+
+def write_png(path, pixels, filters=(0,), palette=None, interlace=0):
+    """Write ``pixels`` as an 8-bit PNG with numpy and zlib: (H, W) grey,
+    (H, W, 2) grey and alpha, (H, W, 3) RGB, (H, W, 4) RGBA, or, with
+    ``palette`` ((n, 3) uint8), (H, W) palette indices. Row r is filtered
+    with ``filters[r % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average, 4
+    Paeth). ``interlace`` is written into the header only (a file a
+    decoder must refuse)."""
+    x = np.asarray(pixels, dtype=np.uint8)
+    x = x[..., None] if x.ndim == 2 else x
+    h, w, bpp = x.shape
+    colour = 3 if palette is not None else _PNG_COLOUR[bpp]
+    raw = x.reshape(h, w * bpp).astype(np.int32)
+    a, b, c = np.zeros_like(raw), np.zeros_like(raw), np.zeros_like(raw)
+    a[:, bpp:], b[1:], c[1:, bpp:] = raw[:, :-bpp], raw[:-1], raw[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(raw), a, b, (a + b) >> 1, paeth])
+    ftype = np.resize(np.asarray(filters, dtype=np.uint8), h)
+    filt = ((raw - preds[ftype, np.arange(h)]) & 255).astype(np.uint8)
+    data = np.concatenate([ftype[:, None], filt], axis=1).tobytes()
+    body = (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, interlace))
+            + (b"" if palette is None else _png_chunk(b"PLTE", np.asarray(
+                palette, dtype=np.uint8).tobytes()))
+            + _png_chunk(b"IDAT", zlib.compress(data, 6)) + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(body)
+
+
+def _write_tree(root, n, seed=0):
+    """A ZTF BTS tree of ``n`` transients in the corpus's layout and formats
+    (tests/fixtures.py:write_mini_ztfbts), from ``seed``: the transient table
+    (about 1% of redshifts empty), a light curve each (10-300 points a band,
+    bands interleaved), a headerless spectrum for about 90% (400-4000 rows;
+    half with an error column, about 2% of its cells empty), a 60 x 60 host
+    image for about 99% (row filters mixed; every 50th a palette file, every
+    50th from the 25th RGBA). Returns the two directories and the RGB array
+    each image should decode to."""
+    rng = np.random.default_rng(seed)
+    data_dir, spectra_dir = os.path.join(root, "ZTFBTS"), os.path.join(root, "ZTFBTS_spectra")
+    for d in (os.path.join(data_dir, "light-curves"), os.path.join(data_dir, "hostImgs"),
+              spectra_dir):
+        os.makedirs(d)
+    ids = [f"ZTF{18 + i % 6}a{i:06d}" for i in range(n)]
+    names, shares = zip(*INGEST_TYPES)
+    types = rng.choice(names, size=n, p=shares)
+    z, av = rng.uniform(0.005, 0.2, n), rng.uniform(0.0, 0.5, n)
+    no_z, no_sp, no_img = rng.random(n) < 0.01, rng.random(n) < 0.10, rng.random(n) < 0.01
+    rows = ["ZTFID,redshift,type,A_V"] + [
+        f"{sid},{'' if no_z[i] else f'{z[i]:.5f}'},{types[i]},{av[i]:.4f}"
+        for i, sid in enumerate(ids)]
+    with open(os.path.join(data_dir, "ZTFBTS_TransientTable.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    images = {}
+    for i, sid in enumerate(ids):
+        n_r, n_g = (int(v) for v in rng.integers(10, 301, 2))
+        m = n_r + n_g
+        t = 58000.0 + np.sort(rng.uniform(0.0, 300.0, m))
+        bands = np.where(rng.permutation(m) < n_r, "R", "g")
+        mag, err = 19.0 + rng.normal(0.0, 1.0, m), 0.02 + 0.1 * rng.random(m)
+        with open(os.path.join(data_dir, "light-curves", f"{sid}.csv"), "w") as f:
+            f.write("time,mag,magerr,band\n" + ("%.4f,%.4f,%.4f,%s\n" * m) % tuple(
+                v for row in zip(t.tolist(), mag.tolist(), err.tolist(), bands.tolist())
+                for v in row))
+        if not no_sp[i]:
+            m = int(rng.integers(400, 4001))
+            wl = np.sort(rng.uniform(3500.0, 9500.0, m))
+            flux = 1e-14 * (1.0 + 0.3 * rng.random(m))
+            if i % 2:
+                text = ("%.2f,%.6e\n" * m) % tuple(np.column_stack([wl, flux]).ravel())
+            else:
+                empty = rng.random(m) < 0.02
+                fmt = "".join(np.where(empty, "%.2f,%.6e,\n", "%.2f,%.6e,%.6e\n").tolist())
+                vals = np.column_stack([wl, flux, 0.05 * flux])
+                keep = np.ones_like(vals, dtype=bool)
+                keep[empty, 2] = False
+                text = fmt % tuple(vals[keep].tolist())
+            with open(os.path.join(spectra_dir, f"{sid}.csv"), "w") as f:
+                f.write(text)
+        if not no_img[i]:
+            shape = (INGEST_IMAGE, INGEST_IMAGE)
+            filters = rng.integers(0, 5, INGEST_IMAGE)
+            path = os.path.join(data_dir, "hostImgs", f"{sid}.host.png")
+            if i % 50 == 0:
+                palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+                idx = rng.integers(0, 256, shape, dtype=np.uint8)
+                write_png(path, idx, filters, palette=palette)
+                images[sid] = palette[idx]
+            else:
+                pix = rng.integers(0, 256, shape + ((4,) if i % 50 == 25 else (3,)),
+                                   dtype=np.uint8)
+                write_png(path, pix, filters)
+                images[sid] = pix[..., :3]
+    return data_dir, spectra_dir, images
+
+
+def _csv_equal(got, want):
+    """fastcsv's columns against the plain reader's: the same names and
+    types, numeric columns bitwise with NaN in the same places, strings
+    equal."""
+    if list(got) != list(want):
+        return False
+    for k, g in got.items():
+        w = want[k]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return False
+        if g.dtype == object:
+            if g.tolist() != w.tolist():
+                return False
+        elif not (np.array_equal(np.isnan(g), np.isnan(w))
+                  and np.array_equal(g[~np.isnan(g)].view(np.int64),
+                                     w[~np.isnan(w)].view(np.int64))):
+            return False
+    return True
+
+
+def _ingest_checks(data_dir, spectra_dir, images):
+    """The native reader against the plain one on every CSV of the tree, every
+    PNG decoded against the array written, and the two unfilters timed.
+    Returns the seconds of the decode alone (load_images of every image)."""
+    files = ([(os.path.join(data_dir, "ZTFBTS_TransientTable.csv"), True)]
+             + [(os.path.join(data_dir, "light-curves", f), True)
+                for f in sorted(os.listdir(os.path.join(data_dir, "light-curves")))]
+             + [(os.path.join(spectra_dir, f), False) for f in sorted(os.listdir(spectra_dir))])
+    t0 = time.perf_counter()
+    bad = [p for p, header in files
+           if not _csv_equal(read_csv(p, header), read_csv_plain(p, header))]
+    log(f"ingest: fastcsv against the plain reader on all {len(files)} CSVs (the table, "
+        f"light curves, spectra) in {time.perf_counter() - t0:.2f} s: {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"ingest: fastcsv differs from the plain reader on {bad[:5]}")
+
+    t0 = time.perf_counter()
+    decoded, names = load_images(data_dir)
+    decode_s = time.perf_counter() - t0
+    # x / 255 in float32 is one-to-one on 0..255: equal floats are equal bytes
+    wrong = [n for n, img in zip(names, decoded)
+             if not np.array_equal(img, np.asarray(images[n], dtype=np.float32) / 255.0)]
+    log(f"ingest: load_images decoded {len(names)} PNGs ({decoded.shape}) in {decode_s:.3f} "
+        f"s ({decode_s / len(names) * 1e3:.4f} ms each); every one against the array written "
+        f"(/ 255): {len(wrong)} differ; names match the files written: "
+        f"{sorted(images) == names}")
+    if wrong or sorted(images) != names:
+        raise AssertionError(f"ingest: PNG decode differs on {wrong[:5]}")
+    sample = [open(os.path.join(data_dir, "hostImgs", f"{n}.host.png"), "rb").read()
+              for n in names[:INGEST_UNFILTER_SAMPLE]]
+    ms = {}
+    for name, fn in (("native", None), ("numpy", unfilter_numpy)):
+        t0 = time.perf_counter()
+        out = [decode(b, fn) for b in sample]
+        ms[name] = (time.perf_counter() - t0) / len(sample) * 1e3
+        if any(not np.array_equal(o, images[n]) for o, n in zip(out, names)):
+            raise AssertionError(f"ingest: the {name} unfilter decodes wrongly")
+    log(f"ingest: PNG decode a {INGEST_IMAGE} x {INGEST_IMAGE} image, over "
+        f"{len(sample)} images: native unfilter (csrc/fastcsv.cpp) {ms['native']:.4f} ms, "
+        f"numpy unfilter (data/png.py:unfilter_numpy) {ms['numpy']:.4f} ms "
+        f"({ms['numpy'] / ms['native']:.1f}x)")
+    return decode_s
+
+
+def _tree_files(path):
+    """{relative path: (size, mtime_ns, sha256)} of every file under ``path``."""
+    out = {}
+    for root, _, files in os.walk(path):
+        for f in files:
+            p = os.path.join(root, f)
+            st = os.stat(p)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, path)] = (st.st_size, st.st_mtime_ns,
+                                                 hashlib.sha256(fh.read()).hexdigest())
+    return out
+
+
+def _cli_counted(tag, main, argv):
+    """``main(argv)`` in process, counted from zero; no plain version may
+    run. Returns the launches, the wall seconds and what it printed."""
+    out = io.StringIO()
+    with _plain_calls() as plain, contextlib.redirect_stdout(out):
+        _zero_counts()
+        t0 = time.perf_counter()
+        main(argv)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    for line in out.getvalue().splitlines():
+        log(f"{tag}: | {line}")
+    log(f"{tag}: {wall:.3f} s; launches {counts}, {len(plain)} plain kernel calls")
+    if plain:
+        raise AssertionError(f"{tag}: {len(plain)} plain kernel calls")
+    return counts, wall, out.getvalue()
+
+
+def _tf32_only(tag, counts):
+    if counts[:12] != (0,) * 12 or min(counts[12:]) <= 0:
+        raise AssertionError(f"{tag}: launches {counts}: not all on the 3xTF32 flash route")
+
+
+def _metric_rows(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_ingest(card, tmp):
+    """A ZTF BTS tree written under ``tmp``; the native reader, the decoder,
+    the folds and the cache; then maven-lite trained from it through
+    cli.train (2 folds, 2 epochs) and resumed, cli.finetune_clip from run dir
+    ``tmp/P`` (phase maven's Maven pretraining run) and cli.pretrain_masked
+    --source real. Returns the launches of every counted call."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data_dir, spectra_dir, images = _write_tree(tmp, INGEST_N)
+    log(f"ingest: wrote a tree of {INGEST_N} transients ({len(os.listdir(spectra_dir))} "
+        f"spectra, {len(images)} images) in {time.perf_counter() - t0:.2f} s")
+    decode_s = _ingest_checks(data_dir, spectra_dir, images)
+
+    # the cache: a miss, then a hit that must equal it
+    sweep = load_sweep(MAVEN_LITE)
+    extra = sweep.extra_args
+    cache_dir, analysis = os.path.join(tmp, "cache"), os.path.join(tmp, "analysis")
+    config = cli_common.ingest_config(data_dir, spectra_dir, extra, 1000)
+    times, sets = {}, {}
+    for tag in ("miss", "hit"):
+        t0 = time.perf_counter()
+        sets[tag], hit = load_or_ingest(cache_dir, lambda: load_ztfbts(kfolds=None, **config)[0],
+                                        **config)
+        times[tag] = time.perf_counter() - t0
+        if hit != (tag == "hit"):
+            raise AssertionError(f"ingest: cache {tag} read hit={hit}")
+    ds, miss = sets["hit"], sets["miss"]
+    same = (ds.filenames == miss.filenames and sorted(ds.arrays) == sorted(miss.arrays)
+            and all(ds.arrays[k].dtype == v.dtype and np.array_equal(
+                np.asarray(ds.arrays[k]).view(np.uint8), v.view(np.uint8))
+                for k, v in miss.arrays.items()))
+    log(f"ingest: load_or_ingest of maven-lite's config ({config}): miss {times['miss']:.3f} "
+        f"s, {INGEST_N / times['miss']:.1f} transients/s; hit {times['hit']:.4f} s; "
+        f"{len(ds)} samples, fields {sorted(ds.arrays)}; the hit bitwise the miss: {same}")
+    log(f"ingest: decode share: {decode_s:.3f} s of host-image decoding beside the "
+        f"{times['miss']:.3f} s miss, {decode_s / (decode_s + times['miss']):.3f} of an "
+        f"ingest with images; card {card}")
+    if not same or len(ds) < INGEST_N // 2:
+        raise AssertionError("ingest: the cache hit differs from the miss")
+    labels = np.asarray(ds.arrays["label"])
+    folds = stratified_kfolds(labels, int(extra["kfolds"]))
+    tests = np.sort(np.concatenate([f["test_indices"] for f in folds]))
+    per_class = np.array([np.bincount(labels[f["test_indices"]], minlength=5) for f in folds])
+    spread = int((per_class.max(axis=0) - per_class.min(axis=0)).max())
+    log(f"ingest: {len(folds)} stratified folds, class counts per fold {per_class.tolist()}, "
+        f"largest spread {spread}; test indices partition the set: "
+        f"{np.array_equal(tests, np.arange(len(ds)))}")
+    if not np.array_equal(tests, np.arange(len(ds))) or spread > 1:
+        raise AssertionError("ingest: the folds break their invariants")
+
+    # cli.train: maven-lite from its own config, two folds, two epochs
+    argv = ["--data-dir", data_dir, "--spectra-dir", spectra_dir, "--cache-dir", cache_dir,
+            "--analysis-path", analysis, "--device", DEVICE]
+    points = list(expand_grid(sweep))[:INGEST_RUNS]
+    model, _, _, _, tcfg = _build_run(points[0], extra, NBAND, None, INGEST_EPOCHS)
+    layers = model.cfg.tk()["depth"] + model.cfg.tsk()["depth"]
+    per_step, b = _tf32_flash(layers, layers), tcfg.batch_size
+    want = NONE
+    for p in points:
+        f = folds[p["foldnumber"]]
+        want = tuple(a + c for a, c in zip(want, _fit_want(
+            per_step, INGEST_EPOCHS, -(-len(f["train_indices"]) // b),
+            -(-len(f["test_indices"]) // b))))
+    log(f"ingest train: cli.train {MAVEN_LITE}: cuts: epochs {points[0]['epochs']} -> "
+        f"{INGEST_EPOCHS}, nruns {extra['nruns']} -> {INGEST_RUNS} (folds 0 and 1); LC "
+        f"{model.cfg.tk()}; SP {model.cfg.tsk()}; trainer {tcfg}")
+    counts, wall, _ = _cli_counted("ingest train", cli_train.main, [
+        MAVEN_LITE, *argv, "--epochs", str(INGEST_EPOCHS), "--max-runs", str(INGEST_RUNS)])
+    if counts != want:
+        raise AssertionError(f"ingest train: launches {counts}, want {want}")
+    total = counts
+    sweep_dir = os.path.join(analysis, "maven-lite")
+    for k, p in enumerate(points):
+        run = os.path.join(sweep_dir, f"run-{k}")
+        files = set(os.listdir(run))
+        kept = sorted(f for f in files if f.startswith("epoch="))
+        rows = _metric_rows(run)
+        with open(os.path.join(run, "config.yaml")) as fh:
+            dumped = safe_load(fh.read())
+        f = folds[p["foldnumber"]]
+        manifests = {}
+        for name in ("train_filenames.txt", "val_filenames.txt"):
+            with open(os.path.join(run, name)) as fh:
+                manifests[name] = fh.read().splitlines()
+        want_names = {"train_filenames.txt": [ds.filenames[i] for i in f["train_indices"]],
+                      "val_filenames.txt": [ds.filenames[i] for i in f["test_indices"]]}
+        log(f"ingest train run-{k} (fold {p['foldnumber']}): files {sorted(files)}; manifests "
+            f"{len(manifests['train_filenames.txt'])} / {len(manifests['val_filenames.txt'])} "
+            f"names, the fold's: {manifests == want_names}; " + "; ".join(
+                f"epoch {r['epoch']} train_loss {r['train_loss']:.7f} val_loss "
+                f"{r['val_loss']:.7f} AUC_val {r['AUC_val']:.4f} step "
+                f"{r['step_time_s'] * 1e3:.3f} ms" for r in rows))
+        if (not set(RUN_DIR_FILES) <= files or len(kept) != 2 or manifests != want_names
+                or dumped != p or [r["epoch"] for r in rows] != list(range(INGEST_EPOCHS))
+                or not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+                           for r in rows)):
+            raise AssertionError(f"ingest train run-{k}: files {sorted(files)}, kept {kept}, "
+                                 f"manifests the fold's {manifests == want_names}, config "
+                                 f"{dumped == p}, rows {rows}")
+
+    # fold 0's first steps on the kernel and the plain path, and its step's time
+    f0 = folds[points[0]["foldnumber"]]
+    train0 = ds.subset(f0["train_indices"])
+    data = train0.to_device(DEVICE)
+    plan = epoch_indices(len(train0), b, rng=np.random.default_rng(tcfg.seed), shuffle=True,
+                         pad="wrap")[:INGEST_TRAJ_STEPS]
+
+    def make():
+        return _build_run(points[0], extra, NBAND, None, None)[0].to(DEVICE)
+
+    traj = _maven_trajectory("ingest train fold 0", make, tcfg, data, plan, per_step)
+    model = make()
+    opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                             weight_decay=tcfg.weight_decay)
+    state, step = TrainState(model, opt), make_train_step(model, tcfg.noise_level_mag)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    _zero_counts()
+    host, loss = _host_step_ms(step, state, one, gen, INGEST_TIMED)
+    dev_ms, wall_ms, host_ms, idle, ops, kinds = _trace(lambda: step(state, one, gen),
+                                                       PROFILED_STEPS)
+    timed = _counts()
+    _check_counts("ingest timed steps", timed,
+                  tuple(c * (INGEST_TIMED + 2 + PROFILED_STEPS) for c in per_step))
+    step_ms = float(np.median(host))
+    cli_steps = [r["step_time_s"] * 1e3 for r in _metric_rows(os.path.join(sweep_dir, "run-0"))]
+    log(f"ingest train: maven-lite step (B={b}, float32, real-layout data of fold 0): host "
+        f"clock median {step_ms:.3f} ms (quartiles {np.percentile(host, 25):.3f}-"
+        f"{np.percentile(host, 75):.3f}) over {INGEST_TIMED}; the CLI run's epoch means "
+        f"{', '.join(f'{s:.3f}' for s in cli_steps)} ms; device {dev_ms:.3f} ms a step, idle "
+        f"share {idle:.3f} (one profile of {PROFILED_STEPS} steps); loss {float(loss):.6g}; "
+        f"card {card}")
+    _log_trace("ingest train profile", "train steps", dev_ms, wall_ms, host_ms, idle, ops,
+               kinds, at=f"B={b} float32")
+    total = tuple(sum(c) for c in zip(total, traj, timed))
+    del model, opt, state, data
+    torch.cuda.empty_cache()
+
+    # --resume: the completed runs are skipped, the cache hits
+    before = _tree_files(sweep_dir)
+    counts, _, out = _cli_counted("ingest resume", cli_train.main, [
+        sweep_dir, *argv, "--epochs", str(INGEST_EPOCHS), "--max-runs", str(INGEST_RUNS),
+        "--resume"])
+    after = _tree_files(sweep_dir)
+    log(f"ingest resume: {len(after)} files of the sweep, unchanged: {before == after}; "
+        f"cache hit: {'cache=hit' in out}")
+    if counts != NONE or before != after or "cache=hit" not in out:
+        raise AssertionError(f"ingest resume: launches {counts}, files unchanged "
+                             f"{before == after}, output {out!r}")
+
+    # cli.finetune_clip from phase maven's run P, one run, one epoch
+    raw = load_sweep(MAVEN_FINETUNE).raw
+    ft_cfg = os.path.join(tmp, "maven_finetune.yaml")
+    with open(ft_cfg, "w") as fh:
+        fh.write(dump_yaml(dict(raw, extra_args=dict(raw["extra_args"],
+                                                      pretrain_path=os.path.join(tmp, "P")))))
+    counts, _, _ = _cli_counted("ingest finetune", cli_finetune.main, [
+        ft_cfg, *argv, "--epochs", "1", "--max-runs", "1"])
+    rows = _metric_rows(os.path.join(analysis, "maven_finetune", "run-0"))
+    log(f"ingest finetune: a copy of {MAVEN_FINETUNE} with pretrain_path = P; cuts: epochs "
+        f"1000 -> 1, nruns 5 -> 1: {rows}")
+    _tf32_only("ingest finetune", counts)
+    total = tuple(a + c for a, c in zip(total, counts))
+
+    # cli.pretrain_masked --source real, one run, one epoch
+    counts, _, _ = _cli_counted("ingest masked", cli_masked.main, [
+        GRID, "--source", "real", "--data-dir", data_dir, "--cache-dir", cache_dir,
+        "--analysis-path", analysis, "--device", DEVICE, "--epochs", "1", "--max-runs", "1"])
+    masked_rows = _metric_rows(os.path.join(analysis, "config_grid-masked", "run-0"))
+    log(f"ingest masked: {GRID} --source real; cuts: epochs 3000 -> 1, nruns 20 -> 1: "
+        f"{masked_rows}")
+    _tf32_only("ingest masked", counts)
+    if not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+               for r in rows + masked_rows):
+        raise AssertionError(f"ingest: a non-finite loss: {rows + masked_rows}")
+    total = tuple(a + c for a, c in zip(total, counts))
+    log(f"ingest: launches per route {COUNT_NAMES}: {total}; card {card}")
+    log(f"ingest: phase done in {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -3401,17 +3853,18 @@ def _flash_bounds(b, h, t, s, peak="bfloat16"):
     return fwd, bwd
 
 
-def _qkv_bounds(b, t, e, h):
-    """Bounds of the fused-QKV forward and backward at (B, T, E, heads),
-    bf16. Bytes: x and out (backward: x, g and dx) once, the mask, the
-    float32 weights (backward: the weights in and their gradients out).
+def _qkv_bounds(b, t, e, h, dtype_name="bfloat16"):
+    """Bounds of the fused-QKV forward and backward at (B, T, E, heads), in
+    bf16 on the tensor cores or float32 on the CUDA cores. Bytes: x and out
+    (backward: x, g and dx) once, the mask, the float32 weights (backward:
+    the weights in and their gradients out).
     Multiply-adds a row: forward 3E^2 (projection) + 2TE (q.k and p.v, all
     heads) + E^2 (unify); the backward recomputes the first two and adds
     E^2 each for datt and dWu, TE each for dP, dq, dk and dv, and 3E^2 each
     for dx and dWqkv."""
-    n, p = b * t, 4 * e * e + e
-    fwd = _bound(2 * n * (4 * e * e + 2 * t * e), 2 * n * e * 2 + n + 4 * p, "bfloat16")
-    bwd = _bound(2 * n * (11 * e * e + 6 * t * e), 3 * n * e * 2 + n + 8 * p, "bfloat16")
+    n, p, size = b * t, 4 * e * e + e, 2 if dtype_name == "bfloat16" else 4
+    fwd = _bound(2 * n * (4 * e * e + 2 * t * e), 2 * n * e * size + n + 4 * p, dtype_name)
+    bwd = _bound(2 * n * (11 * e * e + 6 * t * e), 3 * n * e * size + n + 8 * p, dtype_name)
     return fwd, bwd
 
 
@@ -3465,13 +3918,16 @@ def main():
     train_qkv = phase_train("qkv")
     run_dir = phase_run_dir()
     towers = phase_towers(card)
-    maven = phase_maven(card)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out", prefix="ingest-") as tmp:
+        maven = phase_maven(card, keep_p=os.path.join(tmp, "P"))
+        ingest = phase_ingest(card, tmp)
     phase_profile()
     runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            maven)
+            maven, ingest)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, maven, summed in the line: {runs}; card {card}")
+        f"train-qkv, run-dir, towers, maven, ingest, summed in the line: {runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
     maven_lc, maven_sp = (4 * BATCH, 8, NBAND * LC_LEN, 8), (4 * BATCH, 2, TRAIN_SP_LEN, 16)
@@ -3486,9 +3942,10 @@ def main():
                 f"{ops_7s:.4f} ms); exponentials alone: forward {e_fwd:.4f} ms, backward "
                 f"{e_bwd:.4f} ms")
     for name, shape in (("LC", QKV_LC), ("SP", QKV_SP)):
-        (f_ms, f_by), (b_ms, b_by) = _qkv_bounds(*shape)
-        log(f"bounds bf16 at {name} (B, T, E, H) = {shape}: fused QKV forward "
-            f"{f_ms:.4f} ms ({f_by}), backward {b_ms:.4f} ms ({b_by})")
+        for dtype_name in ("bfloat16", "float32"):
+            (f_ms, f_by), (b_ms, b_by) = _qkv_bounds(*shape, dtype_name)
+            log(f"bounds {dtype_name} at {name} (B, T, E, H) = {shape}: fused QKV forward "
+                f"{f_ms:.4f} ms ({f_by}), backward {b_ms:.4f} ms ({b_by})")
     lc32 = ffn_timing["float32"]
     qkv_lc, qkv_sp = qkv_timing["lc"], qkv_timing["sp"]
 
@@ -3556,6 +4013,7 @@ def main():
     # the fused-QKV kernels, timed at LC; their second shape, SP, under also_at (13
     # of a train step's 18 launches)
     sp_qkv_bounds = _qkv_bounds(*QKV_SP)
+    f32_bounds = {"lc": _qkv_bounds(*QKV_LC, "float32"), "sp": _qkv_bounds(*QKV_SP, "float32")}
     for i, name in enumerate(("fused_qkv_fwd", "fused_qkv_bwd", "fused_qkv_fwd_mma",
                               "fused_qkv_bwd_mma")):
         route, bwd = ("mma" if i > 1 else "simt"), i % 2
@@ -3571,6 +4029,13 @@ def main():
             **entry(qkv_lc), "shape": f"(B, T, E, H) = {QKV_LC} bfloat16",
             "also_at": {**entry(qkv_sp), "shape": f"(B, T, E, H) = {QKV_SP} bfloat16",
                         "bound_ms": sp_qkv_bounds[bwd][0], "bound_by": sp_qkv_bounds[bwd][1]}})
+        if route == "simt":  # float32, the route's own type, at both shapes
+            measured[name][2]["float32"] = {
+                case: {**entry(qkv_timing[case + "_f32"]),
+                       "shape": f"(B, T, E, H) = {shape} float32",
+                       "bound_ms": f32_bounds[case][bwd][0],
+                       "bound_by": f32_bounds[case][bwd][1]}
+                for case, shape in (("lc", QKV_LC), ("sp", QKV_SP))}
     bounds = _kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -5,8 +5,9 @@ The JAX package beside it is the reference: every module here mirrors one
 of its modules by name and is held against it by ``tests/test_torch_*.py``.
 This package imports ``torch`` and never ``jax``.
 
-Ported so far (the serving path, the contrastive and supervised training
-paths and their run directories):
+Ported so far (the serving path, the contrastive, supervised and masked
+training paths and their run directories, and training from a ZTF BTS data
+directory through the CLIs):
   ops       dense attention and its autograd (the plain versions), the
             flash-attention forward and backward over hand-written CUDA
             kernels in one autograd Function, the losses and metrics
@@ -18,18 +19,23 @@ paths and their run directories):
             run-dir loading
   data      the batch contract, device-resident batching and index plans,
             magnitude/flux noise and image noise and rotation, the
-            synthetic generator, the classification head's class weights
+            synthetic generator, the ZTF BTS ingest (a native CSV reader
+            in csrc/fastcsv.cpp, a PNG decoder, extinction, transforms),
+            the stratified folds and random split, the array cache
   config    the sweep files of configs/ (a YAML reader of its own, the
-            grid, the model and trainer config builders)
+            grid, the schedulers, the model and trainer config builders)
   training  RAdam + StepLR + freezing, the train/eval steps and epoch
             loops, ``Trainer.fit`` for the contrastive, regression and
             classification tasks with run directories, best-k and last
-            checkpoints (BatchNorm buffers included) and resume
+            checkpoints (BatchNorm buffers included) and resume, the
+            sequential sweep runner (``run_sweep``)
   evaluation ``get_embeddings``, ``predict_supervised``
-  utils     ``MetricsLogger`` (metrics.jsonl, summary.json)
+  utils     ``MetricsLogger`` (metrics.jsonl, summary.json), IO helpers,
+            seeding
   serving   ``load_live``: a run directory served through the port's
             numpy-only dynamic batcher and HTTP daemon
-  cli       ``python -m multimodal_supernovae_tpu_torch.cli.serve``
+  cli       ``python -m multimodal_supernovae_tpu_torch.cli.<name>``: serve,
+            train, finetune_clip, pretrain_masked, supervise
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,111 @@
+"""What the training CLIs share: their arguments, the flags whose modules
+are not ported yet, the data directories and the cached ZTF BTS ingest."""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Any, Dict, Sequence
+
+import torch
+
+DATA_DIRS = ("ZTFBTS/", "data/ZTFBTS/", "../data/ZTFBTS/")
+SPECTRA_DIRS = ("ZTFBTS_spectra/", "data/ZTFBTS_spectra/", "../data/ZTFBTS_spectra/")
+
+
+def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True) -> None:
+    """The arguments of every training CLI (those of the JAX CLIs, with
+    ``--device`` for ``--platform``; no ``--mesh``/``--tp``)."""
+    ap.add_argument("--analysis-path", default="./analysis")
+    ap.add_argument("--data-dir", default=None, help="ZTF BTS directory (default: ZTFBTS/, "
+                    "data/ZTFBTS/ or ../data/ZTFBTS/, the first that exists)")
+    if spectra:
+        ap.add_argument("--spectra-dir", default=None,
+                        help="spectra directory (default: ZTFBTS_spectra/ beside ZTFBTS/)")
+    ap.add_argument("--cache-dir", default="./data_cache",
+                    help="ingest cache (data/cache.py), keyed by the ingest config")
+    ap.add_argument("--epochs", type=int, default=None, help="override epochs")
+    ap.add_argument("--max-runs", type=int, default=None)
+    ap.add_argument("--wandb", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue each unfinished run from its last.ckpt; completed "
+                         "runs (summary.json present) are skipped")
+    ap.add_argument("--check", action="store_true",
+                    help="validate the sweep without training (not ported yet)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default: cuda)")
+
+
+def add_parallel_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--parallel-folds", action="store_true",
+                    help="grid points that differ only in foldnumber as one program "
+                         "(not ported yet)")
+    ap.add_argument("--parallel-members", action="store_true",
+                    help="like --parallel-folds across seed and lr too (not ported yet)")
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError``, naming the ROADMAP item, for a flag
+    whose module is not ported yet."""
+    if args.check:
+        raise NotImplementedError(
+            "--check is not ported yet (ROADMAP.md queue 1, item 16: training/preflight.py)")
+    if getattr(args, "parallel_folds", False) or getattr(args, "parallel_members", False):
+        raise NotImplementedError(
+            "--parallel-folds/--parallel-members are not ported yet (ROADMAP.md queue 1, "
+            "item 15: training/ensemble.py)")
+    if getattr(args, "profile_dir", None):
+        raise NotImplementedError(
+            "--profile-dir is not ported yet (ROADMAP.md queue 1, item 19: "
+            "utils/profiling.py)")
+
+
+def check_device(device: str) -> None:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+
+
+def data_dirs(ap: argparse.ArgumentParser, args: argparse.Namespace,
+              combinations: Sequence[str]):
+    """(data_dir, spectra_dir or None) from the arguments or the defaults."""
+    from ..utils.io import get_valid_dir
+
+    if args.data_dir and not os.path.isdir(args.data_dir):
+        ap.error(f"--data-dir {args.data_dir} does not exist")
+    data_dir = args.data_dir or get_valid_dir(DATA_DIRS)
+    spectra_dir = getattr(args, "spectra_dir", None)
+    if spectra_dir is None and "spectral" in combinations:
+        spectra_dir = get_valid_dir(SPECTRA_DIRS)
+    return data_dir, spectra_dir
+
+
+def ingest_config(data_dir: str, spectra_dir, extra: Dict[str, Any],
+                  sp_default: int) -> Dict[str, Any]:
+    """The ingest configuration the cache key hashes (the JAX CLIs')."""
+    return dict(
+        data_dir=data_dir,
+        spectra_dir=spectra_dir,
+        combinations=tuple(extra["combinations"]),
+        max_data_len_lc=int(extra.get("max_lightcurve_data_len", 100)),
+        max_data_len_spec=int(extra.get("max_spectral_data_len", sp_default)),
+        n_classes=int(extra.get("n_classes", 5)),
+        spectral_rescalefactor=float(extra.get("spectral_rescalefactor", 1e14)),
+    )
+
+
+def load_cached(cache_dir: str, config: Dict[str, Any], **key_extra):
+    """The ZTF BTS dataset of ``config`` through the ingest cache; prints its
+    size and whether the cache hit."""
+    from ..data.cache import load_or_ingest
+    from ..data.ztfbts import load_ztfbts
+
+    dataset, hit = load_or_ingest(
+        cache_dir, lambda: load_ztfbts(kfolds=None, **config)[0], **key_extra, **config)
+    print(f"dataset: {len(dataset)} samples (cache={'hit' if hit else 'miss'})", flush=True)
+    return dataset
+
+
+def print_results(results) -> None:
+    for r in results:
+        print(f"{r['run_dir']}: best {r['best']} epochs={r['epochs_run']} "
+              f"wall={r['wall_time_s']:.1f}s", flush=True)

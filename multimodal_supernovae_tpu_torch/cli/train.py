@@ -1,0 +1,73 @@
+#!/usr/bin/env python
+"""Train CLIP or a supervised head on real ZTF BTS data on one GPU (port of
+multimodal_supernovae_tpu/cli/train.py, the reference's script_wandb.py).
+
+One positional argument: a sweep YAML, or an existing sweep directory under
+``--analysis-path`` to continue. The dataset is ingested once (cached in
+``--cache-dir``), split by the stratified folds when the sweep has
+``kfolds`` and ``foldnumber`` (else by a seeded random split), and every
+grid point is trained into ``<analysis>/<sweep>/run-<k>/``::
+
+  python -m multimodal_supernovae_tpu_torch.cli.train configs/maven-lite.yaml \\
+      --data-dir ZTFBTS/ --spectra-dir ZTFBTS_spectra/
+  python -m multimodal_supernovae_tpu_torch.cli.train analysis/maven-lite --resume
+
+``--device`` defaults to ``cuda`` and training refuses to start without it
+(pass ``--device cpu`` for the CPU). Not ported yet, and raising
+``NotImplementedError``: ``--check`` (ROADMAP.md item 16),
+``--parallel-folds``/``--parallel-members`` (item 15), ``--profile-dir``
+(item 19); the post-fit plots are not made (item 18).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from . import common
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("config", help="sweep YAML path or existing sweep dir")
+    common.add_sweep_args(ap)
+    common.add_parallel_args(ap)
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a profiler trace of training here (not ported yet)")
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    common.refuse_unported(args)
+    common.check_device(args.device)
+
+    from ..config import load_sweep
+    from ..data.folds import stratified_kfolds
+    from ..training.experiment import make_sweep_dir, run_sweep
+
+    if os.path.isdir(args.config):  # continue an existing sweep
+        sweep_dir = args.config
+        sweep = load_sweep(os.path.join(sweep_dir, "sweep_config.yaml"))
+    else:
+        sweep = load_sweep(args.config)
+        name = os.path.splitext(os.path.basename(args.config))[0]
+        sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
+
+    extra = sweep.extra_args
+    combinations = tuple(extra["combinations"])
+    data_dir, spectra_dir = common.data_dirs(ap, args, combinations)
+    dataset = common.load_cached(
+        args.cache_dir, common.ingest_config(data_dir, spectra_dir, extra, 1000))
+    kfolds = extra.get("kfolds")
+    folds = stratified_kfolds(dataset.arrays["label"], kfolds) if kfolds else None
+    results = run_sweep(
+        sweep, dataset, 2 if "lightcurve" in combinations else 1, folds, sweep_dir,
+        use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
+        epochs_override=args.epochs, resume=args.resume, device=args.device)
+    common.print_results(results)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,7 @@
 from .config import (
+    BayesSearch,
     SweepConfig,
+    SweepScheduler,
     build_clip_config,
     build_trainer_config,
     expand_grid,
@@ -7,5 +9,6 @@ from .config import (
 )
 from .yaml_subset import YAMLSubsetError, safe_load
 
-__all__ = ["SweepConfig", "YAMLSubsetError", "build_clip_config", "build_trainer_config",
-           "expand_grid", "load_sweep", "safe_load"]
+__all__ = ["BayesSearch", "SweepConfig", "SweepScheduler", "YAMLSubsetError",
+           "build_clip_config", "build_trainer_config", "expand_grid", "load_sweep",
+           "safe_load"]

@@ -1,6 +1,19 @@
-"""One grid point of a sweep: model, task, freezing, weight surgery and
-trainer config (port of ``task_of``, ``_build_run`` and
-``_default_pretrain_surgery`` in multimodal_supernovae_tpu/training/experiment.py).
+"""Sweeps: the sweep directory, the sequential sweep runner, and one grid
+point's model, task, freezing, weight surgery and trainer config (port of
+multimodal_supernovae_tpu/training/experiment.py).
+
+A sweep writes the JAX package's on-disk contract::
+
+  <analysis>/<sweep_name>/sweep_config.yaml          (JSON, which YAML reads)
+  <analysis>/<sweep_name>/run-<k>/config.yaml, {train,val}_filenames.txt,
+      model_config.json, metrics.jsonl, summary.json, epoch=*.ckpt, last.ckpt
+
+``run_sweep`` trains the grid points one after another: seed, fold or
+random split (``data/folds.py:split_for_run``), model, surgery, then
+``Trainer.fit`` on the device asked for. With ``resume`` a grid point whose
+run directory holds ``summary.json`` is skipped (the reference's
+continue-sweep semantics) and its recorded objective still feeds the
+scheduler; an unfinished one continues from its ``last.ckpt``.
 
 The pretrained-weight paths of a sweep's ``extra_args`` name a port run
 directory, whose monitored best checkpoint is loaded
@@ -15,22 +28,177 @@ state_dict, and the caller applies it::
         model.load_state_dict(override(model.state_dict()), strict=True)
     Trainer(model, task, tcfg, freeze=freeze, ...).fit(...)
 
-Not ported yet: ``run_sweep``, the sweep directories and the post-fit reports
-(ROADMAP.md queue 1, item 16), which need the data ingest and the fold
-split (item 17).
+Not ported yet: the post-fit reports (loss history and retrieval-curve
+plots; ROADMAP.md queue 1, item 18: they need matplotlib, which the GPU
+host does not have), so ``run_sweep`` writes none; the parallel folds and
+members (item 15, ``training/ensemble.py``) and ``run_sweep_streaming``
+(item 17, streaming), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..config.config import build_clip_config, build_trainer_config
+from ..config.config import (
+    SweepConfig,
+    SweepScheduler,
+    build_clip_config,
+    build_trainer_config,
+)
+from ..config.yaml_subset import dump as dump_yaml
+from ..data.batching import ArrayDataset
+from ..data.folds import split_for_run
 from ..models.clip import CLIPModel
 from ..models.factory import _load_pretrained_params
+from ..utils.seed import set_seed
 from .checkpoint import graft_masked_pretrain_into_clip, merge_params_nonstrict
 from .optim import freeze_encoder_except_projection, freeze_encoders_except_projection
+from .trainer import Trainer
+
+
+def make_sweep_dir(sweep: SweepConfig, analysis_path: str, name: str) -> str:
+    """``<analysis_path>/<name>/`` holding ``sweep_config.yaml``, the sweep
+    file as read (written as JSON, which YAML readers take)."""
+    sweep_dir = os.path.join(analysis_path, name)
+    os.makedirs(sweep_dir, exist_ok=True)
+    with open(os.path.join(sweep_dir, "sweep_config.yaml"), "w") as f:
+        f.write(dump_yaml(sweep.raw))
+    return sweep_dir
+
+
+def completed_summary(run_dir: str) -> Optional[Dict[str, Any]]:
+    """The run's ``summary.json`` if the run completed (the trainer writes
+    it once, after the last epoch), else None: the continue-sweep marker."""
+    path = os.path.join(run_dir, "summary.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _objective_from_summary(summary: Dict[str, Any], sweep: SweepConfig) -> Optional[float]:
+    """The sweep objective of a completed run, from its summary, so that a
+    resumed random or bayes schedule still observes the skipped run."""
+    name = (sweep.metric or {}).get("name", "best_val_loss")
+    if summary.get(name) is not None:
+        return float(summary[name])
+    if summary.get("best_val_loss") is not None:
+        return float(summary["best_val_loss"])
+    return None
+
+
+def _skipped_result(run_dir: str, run_cfg, summary: Dict[str, Any]) -> Dict[str, Any]:
+    """Result row of a run skipped because it already completed."""
+    value = next(
+        (v for k, v in summary.items()
+         if k.startswith("best_")
+         and k not in ("best_epoch", "best_ckpt_epoch", "best_val_loss", "best_auc")
+         and v is not None),
+        summary.get("best_val_loss"),
+    )
+    return {
+        "run_dir": run_dir,
+        "run_cfg": run_cfg,
+        "skipped": True,
+        "summary": summary,
+        "best": {"value": value, "epoch": summary.get("best_epoch", -1)},
+        "history": {"train_loss": [], "val_loss": []},
+        "epochs_run": 0,
+        "wall_time_s": 0.0,
+    }
+
+
+def _sweep_objective(res: Dict[str, Any], sweep: SweepConfig) -> Optional[float]:
+    """The value a bayes schedule optimises: the least validation loss for
+    ``best_val_loss`` (every shipped config's metric), else the trainer's
+    monitored best."""
+    name = (sweep.metric or {}).get("name", "best_val_loss")
+    if name == "best_val_loss" and res["history"].get("val_loss"):
+        return float(np.min(res["history"]["val_loss"]))
+    best = res.get("best", {}).get("value")
+    return None if best is None else float(best)
+
+
+def run_sweep(
+    sweep: SweepConfig,
+    dataset: ArrayDataset,
+    nband: int,
+    folds,
+    sweep_dir: str,
+    model_builder: Optional[Callable] = None,
+    mesh=None,
+    use_wandb: bool = False,
+    max_runs: Optional[int] = None,
+    epochs_override: Optional[int] = None,
+    resume: bool = False,
+    parallel_folds: bool = False,
+    parallel_members: bool = False,
+    device="cuda",
+):
+    """Train the sweep's grid points in turn into ``sweep_dir/run-<k>`` (the
+    wandb.agent loop, script_wandb.py:339) on ``device``; returns the
+    per-run result dicts (``Trainer.fit``'s, with ``run_dir`` and
+    ``run_cfg``; a skipped run's carries ``skipped`` and its summary).
+
+    ``model_builder(run_cfg, extra, nband) -> (model, task, freeze,
+    override)`` builds each model (``models.factory``'s builders); the
+    default is a ``CLIPModel`` of the grid point with the default surgery.
+    Runs on the card unless ``device`` says otherwise, and raises when CUDA
+    is asked for and absent. The post-fit plots of the JAX runner are not
+    made (they need matplotlib; ROADMAP.md item 18)."""
+    if parallel_folds or parallel_members:
+        raise NotImplementedError(
+            "parallel folds/members are not ported yet (ROADMAP.md queue 1, item 15: "
+            "training/ensemble.py)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    extra = sweep.extra_args
+    n_classes = int(extra.get("n_classes", 5))
+    results = []
+    scheduler = SweepScheduler(sweep, max_runs=max_runs)
+    for k in range(scheduler.n_runs):
+        run_cfg = scheduler.suggest()
+        if run_cfg is None:
+            break
+        run_dir = os.path.join(sweep_dir, f"run-{k}")
+        if resume:
+            summary = completed_summary(run_dir)
+            if summary is not None:
+                # a finished grid point is not re-walked (no upload, no model),
+                # but its recorded objective still feeds the scheduler
+                results.append(_skipped_result(run_dir, run_cfg, summary))
+                scheduler.observe(run_cfg, _objective_from_summary(summary, sweep))
+                continue
+        set_seed(int(run_cfg.get("seed", 0)))
+        inds_train, inds_val = split_for_run(
+            len(dataset), float(extra.get("val_fraction", 0.2)), int(run_cfg.get("seed", 0)),
+            folds=folds, foldnumber=run_cfg.get("foldnumber"))
+        train_ds, val_ds = dataset.subset(inds_train), dataset.subset(inds_val)
+
+        model, task, freeze, override, tcfg = _build_run(
+            run_cfg, extra, nband, model_builder, epochs_override)
+        if override is not None:
+            model.load_state_dict(override(model.state_dict()), strict=True)
+        trainer = Trainer(model.to(device), task=task, cfg=tcfg, run_dir=run_dir,
+                          mesh=mesh, freeze=freeze, use_wandb=use_wandb,
+                          n_classes=n_classes)
+        res = trainer.fit(train_ds, val_ds, config_dump=dict(run_cfg), resume=resume)
+        res["run_dir"] = run_dir
+        res["run_cfg"] = run_cfg
+        results.append(res)
+        scheduler.observe(run_cfg, _sweep_objective(res, sweep))
+    return results
+
+
+def run_sweep_streaming(*args, **kwargs):
+    raise NotImplementedError(
+        "run_sweep_streaming is not ported yet (ROADMAP.md queue 1, item 17: streaming)")
 
 
 def task_of(extra: Dict[str, Any]) -> str:

@@ -22,7 +22,7 @@ from multimodal_supernovae_tpu_torch.serving.batcher import DynamicBatcher
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
-             "multimodal_supernovae_tpu")
+             "multimodal_supernovae_tpu", "pandas", "PIL", "sklearn", "h5py", "matplotlib")
 
 
 def test_port_imports_no_jax():
@@ -53,6 +53,20 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.serving.batcher\n"
         "import multimodal_supernovae_tpu_torch.serving.server\n"
         "import multimodal_supernovae_tpu_torch.cli.serve\n"
+        "import multimodal_supernovae_tpu_torch.cli.common\n"
+        "import multimodal_supernovae_tpu_torch.cli.train\n"
+        "import multimodal_supernovae_tpu_torch.cli.finetune_clip\n"
+        "import multimodal_supernovae_tpu_torch.cli.pretrain_masked\n"
+        "import multimodal_supernovae_tpu_torch.cli.supervise\n"
+        "import multimodal_supernovae_tpu_torch.config.config\n"
+        "import multimodal_supernovae_tpu_torch.data.cache\n"
+        "import multimodal_supernovae_tpu_torch.data.extinction\n"
+        "import multimodal_supernovae_tpu_torch.data.folds\n"
+        "import multimodal_supernovae_tpu_torch.data.native\n"
+        "import multimodal_supernovae_tpu_torch.data.png\n"
+        "import multimodal_supernovae_tpu_torch.data.ztfbts\n"
+        "import multimodal_supernovae_tpu_torch.utils.io\n"
+        "import multimodal_supernovae_tpu_torch.utils.seed\n"
         f"print(json.dumps(sorted(m for m in {FORBIDDEN!r} if m in sys.modules)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -109,9 +123,9 @@ def test_no_port_file_imports_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    """``load_model``, ``load_live``, the evaluation functions and the
-    serving CLI run on the card unless the caller asks for the CPU; without
-    one they raise."""
+    """``load_model``, ``load_live``, the evaluation functions, the sweep
+    runner and the serving and training CLIs run on the card unless the
+    caller asks for the CPU; without one they raise."""
     import inspect
 
     import torch
@@ -122,11 +136,15 @@ def test_entry_points_default_to_the_card():
         predict_supervised,
     )
     from multimodal_supernovae_tpu_torch.models import load_model
+    from multimodal_supernovae_tpu_torch.cli import finetune_clip, pretrain_masked, serve, train
     from multimodal_supernovae_tpu_torch.serving import load_live
+    from multimodal_supernovae_tpu_torch.training.experiment import run_sweep
 
     for fn in (load_model, load_live, get_embeddings, predict_supervised,
-               masked_reconstruction_mse):
+               masked_reconstruction_mse, run_sweep):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    for cli in (serve, train, finetune_clip, pretrain_masked):
+        assert cli.build_parser().get_default("device") == "cuda", cli
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             load_model("no-such-run-dir")
