@@ -336,7 +336,31 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      of configs/maven_finetune.yaml whose pretrain_path is phase 6f's run P
      (1 epoch, 1 run) and cli.pretrain_masked --source real on
      configs/config_grid.yaml (1 epoch, 1 run): 3xTF32 launches only,
-     finite losses. The tree is deleted after the phase;
+     finite losses;
+  6h. evaluate: on phase 6g's tree and run dirs, cli.evaluate on the two
+     maven-lite fold runs (--max-spec-len 1024 --rescale 1, their config's;
+     the JAX package cannot load their attention aggregation): exactly 18
+     3xTF32 flash forwards an embedding batch and no backward, 48 regression
+     and 96 classification rows in the pickles, finite, the LaTeX logged;
+     the kernel path's embeddings of each split against the plain path's
+     (float32 tolerance 1e-4), and every probe (linear, LinearSVC, KNN; each
+     modality and the pair; redshift, 5-way, 3-way) on both: regression
+     within 1e-4 of the largest prediction, the classifiers equal, except on
+     rows near a tie on the kernel path (LinearSVC top-two margin under
+     1e-4, k-th and (k+1)-th distances within 1e-5), whose number is
+     logged; the host clock an embedding batch and the seconds by probe
+     family. A 1-epoch cli.supervise -- cli.train configs/config_grid.yaml
+     child process (its launches uncounted), then cli.evaluate of that run
+     (the supervised branch); cli.export_embeddings (maven-lite run-0's val
+     split) and cli.infer (the fine-tuned run's embeddings, the supervised
+     run's predictions, the masked run's scores at seed 7) equal to
+     get_embeddings, predict_supervised and masked_reconstruction_mse called
+     directly; --check of cli.train (maven-lite), cli.finetune_clip (the
+     phase's copy of maven_finetune), cli.pretrain_masked (config_grid) and
+     cli.supervise -- cli.train (config_grid): exit 0 and run-0's n_params
+     the parameters (those that take gradients) of the model trained on the
+     card; a copy of maven-lite with heads 3 exits 1, naming run-0 and the
+     key. The tree is deleted after the phase;
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -385,9 +409,12 @@ import hashlib
 import io
 import json
 import os
+import pickle
+import re
 import shutil
 import struct
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -408,8 +435,12 @@ import multimodal_supernovae_tpu_torch.ops.fused_block as ffn_mod
 import multimodal_supernovae_tpu_torch.ops.qkv_attention as qkv_mod
 import multimodal_supernovae_tpu_torch.training.trainer as trainer_mod
 from multimodal_supernovae_tpu_torch.cli import common as cli_common
+from multimodal_supernovae_tpu_torch.cli import evaluate as cli_evaluate
+from multimodal_supernovae_tpu_torch.cli import export_embeddings as cli_export
 from multimodal_supernovae_tpu_torch.cli import finetune_clip as cli_finetune
+from multimodal_supernovae_tpu_torch.cli import infer as cli_infer
 from multimodal_supernovae_tpu_torch.cli import pretrain_masked as cli_masked
+from multimodal_supernovae_tpu_torch.cli import supervise as cli_supervise
 from multimodal_supernovae_tpu_torch.cli import train as cli_train
 from multimodal_supernovae_tpu_torch.config import (
     build_clip_config,
@@ -434,6 +465,7 @@ from multimodal_supernovae_tpu_torch.evaluation import (
     get_embeddings,
     masked_reconstruction_mse,
     predict_supervised,
+    probes,
 )
 from multimodal_supernovae_tpu_torch.kernels import build, library_path
 from multimodal_supernovae_tpu_torch.models import (
@@ -442,6 +474,7 @@ from multimodal_supernovae_tpu_torch.models import (
     ClipMLPHead,
     finetune_model_builder,
     load_model,
+    load_run_config,
     masked_model_builder,
     pick_reference_ckpt,
     write_model_config,
@@ -3749,6 +3782,307 @@ def phase_ingest(card, tmp):
     return total
 
 
+# phase evaluate: the evaluation CLIs and --check on phase ingest's tree and run dirs
+EVAL_B = 256  # the evaluation CLIs' default batch
+# the probes on the kernel path's embeddings against the plain path's: regression
+# predictions within EVAL_REG_RTOL of the largest, the classifiers' equal, but on the
+# rows that sit near a tie on the kernel path's embeddings
+EVAL_REG_RTOL, EVAL_MARGIN, EVAL_GAP = 1e-4, 1e-4, 1e-5
+EVAL_SEED = 7  # infer --seed of the masked run's anomaly scores
+_PARAMS_LINE = re.compile(r"^run-0: .*\| ([\d,]+) params", re.M)
+
+
+def _exit_code(tag, main, argv):
+    """``main(argv)`` in process with its output captured and logged:
+    (its exit code, what it printed)."""
+    out, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(out):
+        try:
+            main(argv)
+        except SystemExit as e:
+            code = e.code or 0
+    for line in out.getvalue().splitlines():
+        log(f"{tag}: | {line}")
+    return code, out.getvalue()
+
+
+def _attention_layers(model):
+    return sum(isinstance(m, transformer_mod.SelfAttention) for m in model.modules())
+
+
+def _trained_params(model):
+    """The parameters the preflight counts: those that take gradients."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+
+def _fwd_counted(tag, main, argv, layers, n):
+    """``main(argv)`` counted: every launch a 3xTF32 flash forward, ``layers``
+    of them for each of the ceil(n / EVAL_B) batches."""
+    counts, wall, _ = _cli_counted(tag, main, argv)
+    want = _tf32_flash(layers * -(-n // EVAL_B), 0)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}")
+    return counts, wall
+
+
+def _probe_family(kind):
+    """'Linear', 'KNN', 'Linear-five', 'KNN-five', ... of a probe kind."""
+    return ("Linear" if kind.startswith("Linear") else "KNN") + kind[kind.find("-"):] * (
+        "-" in kind)
+
+
+def _probes_against_plain(tag, names, kern, plain, z, y, seconds):
+    """Every probe of ``run_probes`` on the kernel path's (train, val)
+    embeddings against the same probe on the plain path's. Adds each probe
+    family's seconds (kernel-path inputs) to ``seconds``, and logs each
+    input's rank (the singular values of its centred train rows above the
+    linear regression's cutoff) and the regressions' largest relative
+    difference; returns (rows compared, rows near a tie, near-tie rows that
+    differ)."""
+    rows = near_rows = differ = 0
+    kern_in, plain_in = (cli_evaluate.probe_inputs(names, *e) for e in (kern, plain))
+    for combo, (xt, xv) in kern_in.items():
+        near = cli_evaluate.near_ties(xt, xv, y, EVAL_MARGIN, EVAL_GAP)
+        sv = np.linalg.svd(xt - xt.mean(axis=0, dtype=np.float64), compute_uv=False)
+        worst = {}
+        got, t0 = [], time.perf_counter()
+        for kind, task, pred, _ in cli_evaluate.run_probes(xt, xv, z, y):
+            t1 = time.perf_counter()
+            fam = _probe_family(kind)
+            seconds[fam] = seconds.get(fam, 0.0) + t1 - t0
+            got.append((kind, task, pred))
+            t0 = time.perf_counter()
+        want = [(k, p) for k, _, p, _ in cli_evaluate.run_probes(*plain_in[combo], z, y)]
+        for (kind, task, a), (kind_w, b) in zip(got, want):
+            if kind != kind_w or a.shape != b.shape:
+                raise AssertionError(f"{tag} {combo} {kind}: {kind_w}, {a.shape} {b.shape}")
+            if task == "regression":
+                rel = np.abs(a - b) / np.max(np.abs(b))
+                fam = _probe_family(kind)
+                worst[fam] = max(worst.get(fam, 0.0), float(np.max(rel[~near[kind]])))
+                diff = rel > EVAL_REG_RTOL
+            else:
+                diff = a != b
+            if (diff & ~near[kind]).any():
+                raise AssertionError(f"{tag} {combo} {kind}: {int((diff & ~near[kind]).sum())} "
+                                     f"rows differ off the near ties")
+            rows += len(a)
+            near_rows += int(near[kind].sum())
+            differ += int(diff.sum())
+        rank = int((sv > probes.LSTSQ_RCOND * sv[0]).sum())
+        log(f"{tag} {combo}: train rows {xt.shape}, rank {rank} above the linear "
+            f"regression's cutoff {probes.LSTSQ_RCOND} (smallest singular value "
+            f"{sv[-1] / sv[0]:.3e} of the largest); regression against the plain path, largest "
+            f"relative difference off near ties: " + ", ".join(
+                f"{f} {w:.3e}" for f, w in worst.items()))
+    return rows, near_rows, differ
+
+
+def phase_evaluate(card, tmp):
+    """Phase ingest's run dirs and tree evaluated through the evaluation
+    CLIs: cli.evaluate on the two maven-lite fold runs (every embedding batch
+    18 3xTF32 flash forwards, the kernel path's embeddings and every probe
+    against the plain path's), a 1-epoch cli.supervise run of
+    configs/config_grid.yaml and cli.evaluate on it (the supervised
+    branch), cli.export_embeddings and cli.infer against the direct calls,
+    and --check of the four training CLIs. Returns the launches of every
+    counted call."""
+    t_phase = time.perf_counter()
+    data_dir, spectra_dir = os.path.join(tmp, "ZTFBTS"), os.path.join(tmp, "ZTFBTS_spectra")
+    cache_dir, analysis = os.path.join(tmp, "cache"), os.path.join(tmp, "analysis")
+    sweep = load_sweep(MAVEN_LITE)
+    extra = sweep.extra_args
+    runs = [os.path.join(analysis, "maven-lite", f"run-{k}") for k in range(INGEST_RUNS)]
+    ds = cli_common.load_cached(cache_dir, cli_common.ingest_config(data_dir, spectra_dir,
+                                                                    extra, 1000))
+    total = NONE
+
+    # (a) cli.evaluate on both fold runs, full width, as the JAX package cannot
+    models = [load_model(r, DEVICE)[0] for r in runs]
+    layers = _attention_layers(models[0])
+    splits = [cli_evaluate.split_datasets(r, ds) for r in runs]
+    n_rows = sum(len(s) for pair in splits for s in pair)
+    batches = sum(-(-len(s) // EVAL_B) for pair in splits for s in pair)
+    out_dir = os.path.join(tmp, "evaluation")
+    counts, wall, _ = _cli_counted("evaluate cli", cli_evaluate.main, [
+        "--runs", *runs, "--data-dir", data_dir, "--spectra-dir", spectra_dir,
+        "--out-dir", out_dir, "--max-spec-len", str(extra["max_spectral_data_len"]),
+        "--rescale", str(extra["spectral_rescalefactor"]), "--device", DEVICE])
+    want = _tf32_flash(layers * batches, 0)
+    if layers != 18 or counts != want:
+        raise AssertionError(f"evaluate cli: {layers} layers, launches {counts}, want {want}")
+    total = tuple(a + c for a, c in zip(total, counts))
+    pickles = {}
+    for task, n_kinds in (("regression", 8), ("classification", 16)):
+        with open(os.path.join(out_dir, f"{task}_metrics_list.pkl"), "rb") as f:
+            pickles[task] = pickle.load(f)
+        vals = [v for r in pickles[task] for v in r.values() if isinstance(v, float)]
+        if len(pickles[task]) != len(runs) * 3 * n_kinds or not np.all(np.isfinite(vals)):
+            raise AssertionError(f"evaluate cli: {task} rows {pickles[task]}")
+    log(f"evaluate cli: {len(runs)} maven-lite fold runs, {n_rows} rows in {batches} "
+        f"embedding batches of {EVAL_B}: {wall:.3f} s (its ingest included); launches "
+        f"{counts[12]} = {layers} x {batches}, all 3xTF32 forwards; pickles: "
+        f"{len(pickles['regression'])} regression, {len(pickles['classification'])} "
+        f"classification rows, finite; card {card}")
+
+    # (b) the kernel path's embeddings and probes against the plain path's
+    seconds, probe_rows = {}, [0, 0, 0]
+    emb_ms, worst, worst_norm = [], 0.0, 0.0
+    for k, (run, model, (train_ds, val_ds)) in enumerate(zip(runs, models, splits)):
+        kern, plain = [], []
+        for part in (train_ds, val_ds):
+            _zero_counts()
+            t0 = time.perf_counter()
+            embs, names = get_embeddings(model, part, EVAL_B, DEVICE)
+            emb_ms.append((time.perf_counter() - t0) * 1e3 / -(-len(part) // EVAL_B))
+            if _counts() != _tf32_flash(layers * -(-len(part) // EVAL_B), 0):
+                raise AssertionError(f"evaluate run-{k}: launches {_counts()}")
+            with _plain_kernels():
+                want_embs, _ = get_embeddings(model, part, EVAL_B, DEVICE)
+            for g, w in zip(embs, want_embs):
+                err = float(np.max(np.abs(g - w)))
+                worst = max(worst, err)
+                worst_norm = max(worst_norm, float(np.linalg.norm(g - w) / np.linalg.norm(w)))
+                if err > TOL["float32"]:
+                    raise AssertionError(f"evaluate run-{k}: embeddings {err:.3e} off the plain "
+                                         f"path's")
+            kern.append(embs)
+            plain.append(want_embs)
+        z = (train_ds.arrays["redshift"], val_ds.arrays["redshift"])
+        y = (train_ds.arrays["label"], val_ds.arrays["label"])
+        got = _probes_against_plain(f"evaluate run-{k}", names, kern, plain, z, y, seconds)
+        probe_rows = [a + b for a, b in zip(probe_rows, got)]
+    log(f"evaluate: embeddings, kernel path against the plain path: max abs {worst:.3e} (tol "
+        f"{TOL['float32']}), normalised {worst_norm:.3e}; host clock an embedding batch "
+        f"(B = {EVAL_B}, float32, the split's tail batch included) median "
+        f"{np.median(emb_ms):.3f} ms ({', '.join(f'{m:.3f}' for m in emb_ms)}); card {card}")
+    log(f"evaluate: every probe on both paths' embeddings: {probe_rows[0]} predictions, "
+        f"{probe_rows[1]} of them near a tie (LinearSVC margin < {EVAL_MARGIN}, KNN gap <= "
+        f"{EVAL_GAP}), {probe_rows[2]} differing, all near ties; regression within "
+        f"{EVAL_REG_RTOL} of the largest; host seconds by probe family (both runs, three "
+        f"inputs each): " + ", ".join(f"{f} {s:.3f}" for f, s in seconds.items()))
+
+    # (c) a 1-epoch supervised run through the supervisor, then its evaluation
+    grid = load_sweep(GRID)
+    sup_argv = [sys.executable, "-m", "multimodal_supernovae_tpu_torch.cli.train", GRID,
+                "--data-dir", data_dir, "--spectra-dir", spectra_dir, "--cache-dir",
+                cache_dir, "--analysis-path", analysis, "--device", DEVICE]
+    t0 = time.perf_counter()
+    code, _ = _exit_code("evaluate supervise", cli_supervise.main, [
+        "--max-restarts", "0", "--", *sup_argv, "--epochs", "1", "--max-runs", "1"])
+    sup_run = os.path.join(analysis, "config_grid", "run-0")
+    rows = _metric_rows(sup_run)
+    log(f"evaluate supervise: cli.supervise -- cli.train {GRID} (regression; cuts: epochs "
+        f"{next(expand_grid(grid))['epochs']} -> 1, nruns {grid.extra_args['nruns']} -> 1) in "
+        f"a child process (its launches uncounted): exit {code} in "
+        f"{time.perf_counter() - t0:.1f} s; {rows}")
+    if code != 0 or not all(np.isfinite(r["train_loss"]) for r in rows):
+        raise AssertionError(f"evaluate supervise: exit {code}, rows {rows}")
+    sup_model = load_model(sup_run, DEVICE)[0]
+    lc_ds = cli_common.load_cached(cache_dir, cli_common.ingest_config(
+        data_dir, spectra_dir, grid.extra_args, 1000))
+    _, sup_val = cli_evaluate.split_datasets(sup_run, lc_ds)
+    sup_out = os.path.join(tmp, "evaluation-supervised")
+    counts, _ = _fwd_counted("evaluate supervised", cli_evaluate.main, [
+        "--runs", sup_run, "--data-dir", data_dir, "--spectra-dir", spectra_dir,
+        "--out-dir", sup_out, "--device", DEVICE], _attention_layers(sup_model), len(sup_val))
+    total = tuple(a + c for a, c in zip(total, counts))
+    with open(os.path.join(sup_out, "regression_metrics_list.pkl"), "rb") as f:
+        sup_rows = pickle.load(f)
+    if len(sup_rows) != 1 or not np.isfinite(sup_rows[0]["R2"]):
+        raise AssertionError(f"evaluate supervised: {sup_rows}")
+
+    # (d) export_embeddings and infer against the direct calls
+    ft_run = os.path.join(analysis, "maven_finetune", "run-0")
+    masked_run = os.path.join(analysis, "config_grid-masked", "run-0")
+    npz = os.path.join(tmp, "exported.npz")
+    counts, _ = _fwd_counted("evaluate export", cli_export.main, [
+        "--run", runs[0], "--data-dir", data_dir, "--spectra-dir", spectra_dir, "--out", npz,
+        "--split", "val", "--max-spec-len", str(extra["max_spectral_data_len"]),
+        "--rescale", str(extra["spectral_rescalefactor"]), "--device", DEVICE],
+        layers, len(splits[0][1]))
+    total = tuple(a + c for a, c in zip(total, counts))
+    got = np.load(npz)
+    direct, names = get_embeddings(models[0], splits[0][1], EVAL_B, DEVICE)
+    same = (all(np.array_equal(got[f"emb_{n}"], e) for n, e in zip(names, direct))
+            and got["filenames"].tolist() == splits[0][1].filenames)
+    log(f"evaluate export: run-0's val split, {sorted(got.files)}: equal to get_embeddings "
+        f"{same}")
+    if not same:
+        raise AssertionError("evaluate export: the .npz differs from get_embeddings")
+    infer_cases = (  # run, what infer writes, the direct call
+        ("finetune", ft_run, "emb_", lambda m, d: (lambda e: {
+            f"emb_{n}": v for v, n in zip(*e)})(get_embeddings(m, d, EVAL_B, DEVICE))),
+        ("supervised", sup_run, "pred", lambda m, d: {"pred": predict_supervised(
+            m, d, EVAL_B, DEVICE)}),
+        ("masked", masked_run, "recon_mse", lambda m, d: {
+            "recon_mse": masked_reconstruction_mse(m, d, generator=torch.Generator(
+                device=DEVICE).manual_seed(EVAL_SEED), batch_size=EVAL_B, device=DEVICE)}))
+    for tag, run, key, direct_call in infer_cases:
+        model = load_model(run, DEVICE)[0]
+        run_extra = load_run_config(run)[1]
+        run_ds = cli_common.load_cached(cache_dir, cli_common.ingest_config(
+            data_dir, spectra_dir, dict(run_extra, combinations=run_extra.get(
+                "combinations", ("lightcurve",))), 1000))
+        out = os.path.join(tmp, f"infer-{tag}.npz")
+        counts, _ = _fwd_counted(f"evaluate infer {tag}", cli_infer.main, [
+            run, "--data-dir", data_dir, "--spectra-dir", spectra_dir, "--cache-dir", cache_dir,
+            "--out", out, "--seed", str(EVAL_SEED), "--device", DEVICE],
+            _attention_layers(model), len(run_ds))
+        total = tuple(a + c for a, c in zip(total, counts))
+        got, want = np.load(out), direct_call(model, run_ds)
+        with open(os.path.splitext(out)[0] + ".json") as f:
+            manifest = json.load(f)
+        same = (all(np.array_equal(got[k], v) for k, v in want.items())
+                and sorted(k for k in got.files if k.startswith(key)) == sorted(want)
+                and got["filenames"].tolist() == run_ds.filenames)
+        log(f"evaluate infer {tag}: {run}: {sorted(got.files)} of {len(run_ds)} rows, equal "
+            f"to the direct call {same}; manifest {manifest}")
+        if not same or manifest["backend"] != torch.device(DEVICE).type:
+            raise AssertionError(f"evaluate infer {tag}: the .npz differs from the direct call")
+
+    # (e) --check of the four training CLIs on their shipped configs
+    ft_cfg = os.path.join(tmp, "maven_finetune.yaml")  # phase ingest's copy, pretrain_path P
+    sup_check = [sys.executable, "-m", "multimodal_supernovae_tpu_torch.cli.supervise",
+                 "--check", "--", *sup_argv[:4]]
+    checks = (("train", cli_train.main, [MAVEN_LITE, "--check"], models[0]),
+              ("finetune_clip", cli_finetune.main, [ft_cfg, "--check"],
+               load_model(ft_run, DEVICE)[0]),
+              ("pretrain_masked", cli_masked.main, [GRID, "--check", "--source", "real"],
+               load_model(masked_run, DEVICE)[0]),
+              ("supervise", None, sup_check, sup_model))
+    for name, main, argv, model in checks:
+        t0 = time.perf_counter()
+        if main is None:  # the supervisor runs the training CLI's preflight in a child
+            proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+            code, text = proc.returncode, proc.stdout
+            for line in text.splitlines():
+                log(f"evaluate check {name}: | {line}")
+        else:
+            code, text = _exit_code(f"evaluate check {name}", main, argv)
+        m = _PARAMS_LINE.search(text)
+        n_params = int(m.group(1).replace(",", "")) if m else None
+        log(f"evaluate check {name}: exit {code} in {time.perf_counter() - t0:.2f} s; run-0 "
+            f"n_params {n_params}, the card's model {_trained_params(model)}")
+        if code != 0 or n_params != _trained_params(model):
+            raise AssertionError(f"evaluate check {name}: exit {code}, n_params {n_params}")
+    broken = os.path.join(tmp, "broken.yaml")
+    with open(broken, "w") as f:
+        f.write(dump_yaml(dict(sweep.raw, parameters=dict(sweep.raw["parameters"],
+                                                          heads={"values": [3]}))))
+    code, text = _exit_code("evaluate check broken", cli_train.main,
+                            [broken, "--check", "--max-runs", "1"])
+    errors = [line for line in text.splitlines() if line.startswith("ERROR: run-0 {")]
+    if code == 0 or not errors or "'heads': 3" not in errors[0] or "heads 3" not in errors[0]:
+        raise AssertionError(f"evaluate check broken: exit {code}, {text!r}")
+    log(f"evaluate check broken: a copy of {MAVEN_LITE} with heads 3: exit {code}")
+    del models, sup_model
+    torch.cuda.empty_cache()
+    log(f"evaluate: launches per route {COUNT_NAMES}: {total}; card {card}")
+    log(f"evaluate: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def _kind(name):
     """Kind of a device op, by its kernel name."""
     n = name.lower()
@@ -3922,12 +4256,14 @@ def main():
     with tempfile.TemporaryDirectory(dir="chiprun_out", prefix="ingest-") as tmp:
         maven = phase_maven(card, keep_p=os.path.join(tmp, "P"))
         ingest = phase_ingest(card, tmp)
+        evaluation = phase_evaluate(card, tmp)
     phase_profile()
     runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            maven, ingest)
+            maven, ingest, evaluation)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, maven, ingest, summed in the line: {runs}; card {card}")
+        f"train-qkv, run-dir, towers, maven, ingest, evaluate, summed in the line: {runs}; "
+        f"card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
     maven_lc, maven_sp = (4 * BATCH, 8, NBAND * LC_LEN, 8), (4 * BATCH, 2, TRAIN_SP_LEN, 16)
@@ -4037,6 +4373,7 @@ def main():
                        "bound_by": f32_bounds[case][bwd][1]}
                 for case, shape in (("lc", QKV_LC), ("sp", QKV_SP))}
     bounds = _kernel_bounds()
+    log(f"smoke: every phase passed in {time.perf_counter() - _T0:.1f} s of wall")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(r[measured[name][0]] for r in runs),

@@ -1,11 +1,13 @@
 """What the training CLIs share: their arguments, the flags whose modules
-are not ported yet, the data directories and the cached ZTF BTS ingest."""
+are not ported yet, the ``--check`` preflight, the data directories and the
+cached ZTF BTS ingest."""
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Any, Dict, Sequence
+import sys
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -15,7 +17,10 @@ SPECTRA_DIRS = ("ZTFBTS_spectra/", "data/ZTFBTS_spectra/", "../data/ZTFBTS_spect
 
 def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True) -> None:
     """The arguments of every training CLI (those of the JAX CLIs, with
-    ``--device`` for ``--platform``; no ``--mesh``/``--tp``)."""
+    ``--device`` for ``--platform``; ``--mesh``, ``--tp`` and
+    ``--check-devices`` are refused)."""
+    from ..training.preflight import add_check_args
+
     ap.add_argument("--analysis-path", default="./analysis")
     ap.add_argument("--data-dir", default=None, help="ZTF BTS directory (default: ZTFBTS/, "
                     "data/ZTFBTS/ or ../data/ZTFBTS/, the first that exists)")
@@ -30,8 +35,7 @@ def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True) -> None:
     ap.add_argument("--resume", action="store_true",
                     help="continue each unfinished run from its last.ckpt; completed "
                          "runs (summary.json present) are skipped")
-    ap.add_argument("--check", action="store_true",
-                    help="validate the sweep without training (not ported yet)")
+    add_check_args(ap)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: cuda)")
 
@@ -47,9 +51,9 @@ def add_parallel_args(ap: argparse.ArgumentParser) -> None:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item, for a flag
     whose module is not ported yet."""
-    if args.check:
-        raise NotImplementedError(
-            "--check is not ported yet (ROADMAP.md queue 1, item 16: training/preflight.py)")
+    from ..training.preflight import refuse_mesh
+
+    refuse_mesh(args)
     if getattr(args, "parallel_folds", False) or getattr(args, "parallel_members", False):
         raise NotImplementedError(
             "--parallel-folds/--parallel-members are not ported yet (ROADMAP.md queue 1, "
@@ -58,6 +62,21 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             "--profile-dir is not ported yet (ROADMAP.md queue 1, item 19: "
             "utils/profiling.py)")
+
+
+def run_check(args: argparse.Namespace, sweep, nband: int, sp_default: int,
+              model_builder: Optional[Callable] = None,
+              combinations: Optional[Tuple[str, ...]] = None) -> None:
+    """``--check``: preflight every grid point of ``sweep`` on the meta
+    device (``training/preflight.py``), print the report and exit 0 when
+    every point validated, else 1. Needs no data and no card."""
+    from ..training.preflight import run_cli_check
+
+    extra = sweep.extra_args
+    sys.exit(run_cli_check(
+        sweep, nband=nband, lc_len=2 * int(extra.get("max_lightcurve_data_len", 100)),
+        sp_len=int(extra.get("max_spectral_data_len", sp_default)), args=args,
+        model_builder=model_builder, combinations=combinations))
 
 
 def check_device(device: str) -> None:

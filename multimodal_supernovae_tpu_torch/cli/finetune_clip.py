@@ -12,8 +12,10 @@ is trained on it (``models/factory.py:finetune_model_builder``)::
   python -m multimodal_supernovae_tpu_torch.cli.finetune_clip configs/maven_finetune.yaml \\
       --data-dir ZTFBTS/ --spectra-dir ZTFBTS_spectra/
 
-``--device`` defaults to ``cuda``. Not ported yet: ``--check`` (ROADMAP.md
-item 16), ``--parallel-folds``/``--parallel-members`` (item 15).
+``--device`` defaults to ``cuda``. ``--check`` validates every grid point on
+the meta device instead of training (the pretrained run dir's config and
+weights are read, and the report counts the entries they fill). Not ported
+yet: ``--parallel-folds``/``--parallel-members`` (ROADMAP.md item 15).
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
     common.refuse_unported(args)
-    common.check_device(args.device)
 
     from ..config import load_sweep
     from ..data.folds import stratified_kfolds
@@ -45,6 +46,9 @@ def main(argv=None) -> None:
 
     sweep = load_sweep(args.config)
     extra = sweep.extra_args
+    if args.check:
+        common.run_check(args, sweep, 2, 220, model_builder=finetune_model_builder(extra))
+    common.check_device(args.device)
     name = os.path.splitext(os.path.basename(args.config))[0]
     sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
     data_dir, spectra_dir = common.data_dirs(ap, args, tuple(extra["combinations"]))

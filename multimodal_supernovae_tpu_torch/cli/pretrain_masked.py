@@ -11,8 +11,8 @@ ZTF BTS light curves (``--source real``) split at random by
 
 ``--source sim`` (the simulated HDF5 corpus) raises ``NotImplementedError``:
 the port has no HDF5 reader yet (ROADMAP.md item 17; the GPU host has no
-h5py). ``--device`` defaults to ``cuda``. ``--check`` is not ported yet
-(item 16).
+h5py). ``--device`` defaults to ``cuda``. ``--check`` validates every grid
+point on the meta device instead of training (light curves only).
 """
 
 from __future__ import annotations
@@ -35,11 +35,6 @@ def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
     common.refuse_unported(args)
-    if args.source == "sim":
-        raise NotImplementedError(
-            "--source sim needs the simulated HDF5 corpus's reader, which is not ported yet "
-            "(ROADMAP.md queue 1, item 17: data/simulation.py); use --source real")
-    common.check_device(args.device)
 
     from ..config import load_sweep
     from ..models.factory import masked_model_builder
@@ -47,6 +42,15 @@ def main(argv=None) -> None:
 
     sweep = load_sweep(args.config)
     extra = sweep.extra_args
+    if args.check:
+        common.run_check(args, sweep, 2, 220, model_builder=masked_model_builder(extra),
+                         combinations=("lightcurve",))
+    if args.source == "sim":
+        raise NotImplementedError(
+            "--source sim needs the simulated HDF5 corpus's reader, which is not ported yet "
+            "(ROADMAP.md queue 1, item 17: data/simulation.py); use --source real")
+    common.check_device(args.device)
+
     name = os.path.splitext(os.path.basename(args.config))[0] + "-masked"
     sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
     data_dir, _ = common.data_dirs(ap, args, ("lightcurve",))

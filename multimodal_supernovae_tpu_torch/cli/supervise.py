@@ -15,6 +15,10 @@ Behaviour: run the command; exit 0 ends supervision with 0. Any other exit
 after ``--backoff`` seconds with ``--resume`` appended (once), up to
 ``--max-restarts`` times. The resumed run redoes at most the epoch in
 flight when the child died.
+
+``--check`` preflights the supervised sweep instead: the command runs once
+with ``--check`` appended (the training CLIs' meta-device preflight, no
+restart) and supervision exits with its code.
 """
 
 from __future__ import annotations
@@ -67,12 +71,17 @@ def main(argv=None) -> None:
                     help="seconds between death and relaunch")
     ap.add_argument("--resume-flag", default="--resume",
                     help="flag appended to the command on relaunch")
+    ap.add_argument("--check", action="store_true",
+                    help="run the command once with --check appended (its preflight) "
+                         "and exit with its code")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="-- command to supervise")
     args = ap.parse_args(argv)
     cmd = args.cmd[1:] if args.cmd and args.cmd[0] == "--" else args.cmd
     if not cmd:
         ap.error("no command given (use: supervise.py [options] -- cmd ...)")
+    if args.check:
+        sys.exit(subprocess.call(build_restart_cmd(cmd, "--check")))
     sys.exit(supervise(cmd, args.max_restarts, args.backoff, args.resume_flag))
 
 

@@ -13,10 +13,11 @@ grid point is trained into ``<analysis>/<sweep>/run-<k>/``::
   python -m multimodal_supernovae_tpu_torch.cli.train analysis/maven-lite --resume
 
 ``--device`` defaults to ``cuda`` and training refuses to start without it
-(pass ``--device cpu`` for the CPU). Not ported yet, and raising
-``NotImplementedError``: ``--check`` (ROADMAP.md item 16),
-``--parallel-folds``/``--parallel-members`` (item 15), ``--profile-dir``
-(item 19); the post-fit plots are not made (item 18).
+(pass ``--device cpu`` for the CPU). ``--check`` validates every grid point
+on the meta device instead of training (``training/preflight.py``; no data,
+no card). Not ported yet, and raising ``NotImplementedError``:
+``--parallel-folds``/``--parallel-members`` (ROADMAP.md item 15),
+``--profile-dir`` (item 19); the post-fit plots are not made (item 18b).
 """
 
 from __future__ import annotations
@@ -41,17 +42,21 @@ def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
     common.refuse_unported(args)
-    common.check_device(args.device)
 
     from ..config import load_sweep
     from ..data.folds import stratified_kfolds
     from ..training.experiment import make_sweep_dir, run_sweep
 
-    if os.path.isdir(args.config):  # continue an existing sweep
+    resuming = os.path.isdir(args.config)  # continue an existing sweep
+    sweep = load_sweep(os.path.join(args.config, "sweep_config.yaml") if resuming
+                       else args.config)
+    nband = 2 if "lightcurve" in sweep.extra_args["combinations"] else 1
+    if args.check:
+        common.run_check(args, sweep, nband, 1000)
+    common.check_device(args.device)
+    if resuming:
         sweep_dir = args.config
-        sweep = load_sweep(os.path.join(sweep_dir, "sweep_config.yaml"))
     else:
-        sweep = load_sweep(args.config)
         name = os.path.splitext(os.path.basename(args.config))[0]
         sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
 
@@ -63,7 +68,7 @@ def main(argv=None) -> None:
     kfolds = extra.get("kfolds")
     folds = stratified_kfolds(dataset.arrays["label"], kfolds) if kfolds else None
     results = run_sweep(
-        sweep, dataset, 2 if "lightcurve" in combinations else 1, folds, sweep_dir,
+        sweep, dataset, nband, folds, sweep_dir,
         use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
         epochs_override=args.epochs, resume=args.resume, device=args.device)
     common.print_results(results)

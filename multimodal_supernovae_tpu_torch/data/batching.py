@@ -61,6 +61,18 @@ class ArrayDataset:
                  else [self.filenames[i] for i in indices])
         return ArrayDataset({k: v[indices] for k, v in self.arrays.items()}, names)
 
+    def subset_by_filenames(self, names: Sequence[str]) -> "ArrayDataset":
+        """The rows named in a split manifest, in the dataset's order; raises
+        when a name is not in the dataset."""
+        if self.filenames is None:
+            raise ValueError("dataset has no filenames")
+        wanted = set(names)
+        missing = wanted - set(self.filenames)
+        if missing:
+            raise ValueError(f"{len(missing)} manifest filenames not in dataset")
+        return self.subset(np.asarray(
+            [i for i, f in enumerate(self.filenames) if f in wanted], dtype=np.int64))
+
     def to_device(self, device="cpu") -> Dict[str, torch.Tensor]:
         """The full dataset as a dict of tensors on ``device``."""
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)

@@ -16,7 +16,7 @@ version of the backward kernel.
 ``attention`` is the entry the encoders call. It goes through
 ``flash_attention`` (ops/flash_attention.py), which launches the CUDA
 kernels (forward, and backward when a gradient is needed) for CUDA tensors
-and takes ``dense_attention`` with torch autograd for CPU tensors. The JAX
+and takes ``dense_attention`` with torch autograd for CPU and meta tensors. The JAX
 config's ``use_pallas`` is a TPU knob; the port reads it and ignores it.
 """
 
@@ -27,6 +27,10 @@ from typing import Optional, Tuple
 import torch
 
 MASK_FILL = -1e7
+# The device types whose tensors take the kernels' plain versions: the CPU,
+# and the meta device, where a call is shape work only (training/preflight.py).
+# A CUDA tensor launches a kernel or raises.
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def dense_attention(

@@ -73,7 +73,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import dense_attention, dense_attention_bwd
+from .attention import PLAIN_DEVICES, dense_attention, dense_attention_bwd
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 BWD_HEAD_DIMS = (8, 16, 32)
@@ -261,7 +261,7 @@ def flash_attention_bwd(
     raise: ``out`` and ``stats`` are the forward's output and row residual
     (``_flash_fwd(..., with_stats=True)``, of any route; the CUDA-core and
     3xTF32 backwards read only ``stats``), head dim in {8, 16, 32}."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return dense_attention_bwd(q, k, v, key_mask, g, emb)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on CUDA or CPU, got {q.device}")
@@ -345,7 +345,7 @@ def flash_attention(
     raise. When autograd
     needs a gradient of a CUDA call it goes through ``FlashAttention``
     (head dim in {8, 16, 32})."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return dense_attention(q, k, v, key_mask, emb)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU, got {q.device}")

@@ -52,6 +52,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .attention import PLAIN_DEVICES
+
 LN_EPS = 1e-6
 ROWS = 32          # rows per block tile in both kernels
 CHUNK_K = 32       # contraction depth of one staged weight chunk
@@ -288,7 +290,7 @@ def _check(att, x, params):
 def _ffn_fwd(att, x, *params, eps):
     """Launch the forward kernel of ``_route``'s choice (CUDA) or run the
     plain version (CPU)."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return fused_ffn_block_plain(att, x, *params, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn_block runs on CUDA or CPU, got {x.device}")
@@ -366,7 +368,7 @@ def fused_ffn_block_bwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, g,
     float32 partials of the parameter gradients, and their reduce), or
     raise."""
     params = (wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return fused_ffn_block_bwd_plain(att, x, *params, g, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn_block_bwd runs on CUDA or CPU, got {x.device}")

@@ -64,6 +64,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .attention import PLAIN_DEVICES
+
 MASK_FILL = -1e7
 MAX_TQ = 256       # one thread per sequence position; longer sequences use the flash kernels
 HEAD_DIMS = (8, 16)
@@ -249,7 +251,7 @@ def _check(x, mask, wqkv, wu, heads):
 
 def _qkv_fwd(x, mask, wqkv, wu, bu, heads):
     """Launch the forward kernel (CUDA) or run the plain version (CPU)."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return fused_qkv_attention_plain(x, mask, wqkv, wu, bu, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention runs on CUDA or CPU, got {x.device}")
@@ -293,7 +295,7 @@ def fused_qkv_attention_bwd(x, mask, wqkv, wu, g, heads: int
     CPU tensors; for CUDA tensors the backward kernel of ``_route``'s route
     (recompute, backward, per-block float32 partials of the parameter
     gradients) and its reduce kernel, counted as one launch, or raise."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return fused_qkv_attention_bwd_plain(x, mask, wqkv, wu, g, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention_bwd runs on CUDA or CPU, got {x.device}")

@@ -67,6 +67,13 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.data.ztfbts\n"
         "import multimodal_supernovae_tpu_torch.utils.io\n"
         "import multimodal_supernovae_tpu_torch.utils.seed\n"
+        "import multimodal_supernovae_tpu_torch.evaluation.metrics\n"
+        "import multimodal_supernovae_tpu_torch.evaluation.probes\n"
+        "import multimodal_supernovae_tpu_torch.evaluation.reports\n"
+        "import multimodal_supernovae_tpu_torch.cli.evaluate\n"
+        "import multimodal_supernovae_tpu_torch.cli.export_embeddings\n"
+        "import multimodal_supernovae_tpu_torch.cli.infer\n"
+        "import multimodal_supernovae_tpu_torch.training.preflight\n"
         f"print(json.dumps(sorted(m for m in {FORBIDDEN!r} if m in sys.modules)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -124,8 +131,8 @@ def test_no_port_file_imports_the_jax_package():
 
 def test_entry_points_default_to_the_card():
     """``load_model``, ``load_live``, the evaluation functions, the sweep
-    runner and the serving and training CLIs run on the card unless the
-    caller asks for the CPU; without one they raise."""
+    runner and the serving, training and evaluation CLIs run on the card
+    unless the caller asks for the CPU; without one they raise."""
     import inspect
 
     import torch
@@ -136,14 +143,23 @@ def test_entry_points_default_to_the_card():
         predict_supervised,
     )
     from multimodal_supernovae_tpu_torch.models import load_model
-    from multimodal_supernovae_tpu_torch.cli import finetune_clip, pretrain_masked, serve, train
+    from multimodal_supernovae_tpu_torch.cli import (
+        evaluate,
+        export_embeddings,
+        finetune_clip,
+        infer,
+        pretrain_masked,
+        serve,
+        train,
+    )
     from multimodal_supernovae_tpu_torch.serving import load_live
     from multimodal_supernovae_tpu_torch.training.experiment import run_sweep
 
     for fn in (load_model, load_live, get_embeddings, predict_supervised,
                masked_reconstruction_mse, run_sweep):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for cli in (serve, train, finetune_clip, pretrain_masked):
+    for cli in (serve, train, finetune_clip, pretrain_masked, evaluate, export_embeddings,
+                infer):
         assert cli.build_parser().get_default("device") == "cuda", cli
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -179,14 +179,14 @@ def test_finetune_and_masked_clis(trained):
 
 
 @pytest.mark.parametrize("main,argv,item", [
-    (train.main, ["--check"], "item 16"),
+    (train.main, ["--check", "--tp", "2"], "item 15"),
     (train.main, ["--parallel-folds"], "item 15"),
     (train.main, ["--parallel-members"], "item 15"),
     (train.main, ["--profile-dir", "prof"], "item 19"),
-    (finetune_clip.main, ["--check"], "item 16"),
+    (finetune_clip.main, ["--check", "--mesh"], "item 15"),
     (finetune_clip.main, ["--parallel-folds"], "item 15"),
     (pretrain_masked.main, ["--source", "sim"], "item 17"),
-    (pretrain_masked.main, ["--source", "real", "--check"], "item 16"),
+    (pretrain_masked.main, ["--source", "real", "--check", "--check-devices", "8"], "item 15"),
 ])
 def test_unported_flags_raise_with_their_item(main, argv, item):
     with pytest.raises(NotImplementedError, match=item):
