@@ -6,7 +6,8 @@ trained from a ZTF BTS data directory through the training CLIs; the
 image and meta towers and the supervised heads: trimodal from its own
 config, quadrimodal, redshift regression and classification; and masked
 pretraining, its graft into a CLIP light-curve tower, and Maven's
-pretraining and fine-tuning, each from its shipped config), through the
+pretraining and fine-tuning, each from its shipped config; and Maven's
+pretraining from a simulated HDF5 corpus through cli.pretrain_sim), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor cores, float32 on the tensor cores in 3xTF32, head dims 32/64 and rows
 off 16 bytes on the CUDA cores), and the same server and
@@ -310,7 +311,29 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      ClipMLPHead, 1 epoch: the frozen encoders bitwise unchanged,
      predict_supervised of load_model of its run dir equal to the
      in-memory head's (1e-6);
-  6g. ingest: a ZTF BTS tree of 4702 transients (the corpus's candidate
+  6g. sim: Maven's first stage from a simulated corpus: 50,000 pairs (5
+     types x 4 models x 2,500; a tenth of Maven's ~0.5M), 220 photometry
+     points a pair in both filters at random and 300 wavelengths, float64,
+     written by write_sim_hdf5 (numpy and struct; h5py's default layout:
+     superblock 0, version-1 object headers, symbol-table groups,
+     contiguous little-endian datasets; the card has no h5py) into the
+     phase's directory; every dataset read by the port's HDF5 reader (timed);
+     load_or_ingest of cli.pretrain_sim's ingest config on a miss (timed,
+     pairs/s), bitwise pack_ragged_rows of the arrays the writer was
+     handed, and on a hit, bitwise the miss. Then cli.pretrain_sim on
+     configs/maven_pretrain.yaml in process (its full width, held to
+     MAVEN_STATED; epochs 1000 -> 1) into run dir S: exactly 18 + 18
+     3xTF32 flash launches a train step and 18 an eval step, no plain call,
+     the cache hit, the run files, the manifests the random split's
+     (val_fraction 0.05); its first 5 float32 steps on the kernel and plain
+     paths within relative 1e-5; its step's host clock (median of 10) and
+     one profile. cli.pretrain_masked --source sim on configs/config_grid.yaml
+     (1 epoch, 1 run) from a legacy TransientTable file of 20,000 light
+     curves (about 10% sentinels): 3xTF32 launches only, finite losses;
+     cli.infer S --hdf5 on a 2,048-pair file: its embeddings equal to
+     get_embeddings of load_model(S) on ingest_simulation of the file, 18
+     forward launches a batch of 256. Run S is kept for phase 6h;
+  6h. ingest: a ZTF BTS tree of 4702 transients (the corpus's candidate
      count) written with numpy and zlib into chiprun_out/ in the corpus's
      layout and formats (_write_tree: the transient table with the
      reference's type strings and about 1% empty redshifts, 10-300
@@ -333,11 +356,11 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      1e-5; its step's host clock (median of 10) and device time and idle
      share (one profile of 5 steps); cli.train --resume: no launch, every
      file of the sweep untouched, the cache hit; cli.finetune_clip on a copy
-     of configs/maven_finetune.yaml whose pretrain_path is phase 6f's run P
+     of configs/maven_finetune.yaml whose pretrain_path is phase 6g's run S
      (1 epoch, 1 run) and cli.pretrain_masked --source real on
      configs/config_grid.yaml (1 epoch, 1 run): 3xTF32 launches only,
      finite losses;
-  6h. evaluate: on phase 6g's tree and run dirs, cli.evaluate on the two
+  6i. evaluate: on phase 6h's tree and run dirs, cli.evaluate on the two
      maven-lite fold runs (--max-spec-len 1024 --rescale 1, their config's;
      the JAX package cannot load their attention aggregation): exactly 18
      3xTF32 flash forwards an embedding batch and no backward, 48 regression
@@ -377,8 +400,8 @@ measured numbers, the shape they were timed at ("shape"; launches are summed
 over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
-runs, and every counted call of the run-dir, towers, maven and ingest
-phases; the CUDA-core fused-QKV entries carry their float32 times, library
+runs, and every counted call of the run-dir, towers, maven, sim, ingest and
+evaluate phases; the CUDA-core fused-QKV entries carry their float32 times, library
 times and bounds at LC and SP under "float32"; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
@@ -440,6 +463,7 @@ from multimodal_supernovae_tpu_torch.cli import export_embeddings as cli_export
 from multimodal_supernovae_tpu_torch.cli import finetune_clip as cli_finetune
 from multimodal_supernovae_tpu_torch.cli import infer as cli_infer
 from multimodal_supernovae_tpu_torch.cli import pretrain_masked as cli_masked
+from multimodal_supernovae_tpu_torch.cli import pretrain_sim as cli_pretrain_sim
 from multimodal_supernovae_tpu_torch.cli import supervise as cli_supervise
 from multimodal_supernovae_tpu_torch.cli import train as cli_train
 from multimodal_supernovae_tpu_torch.config import (
@@ -451,15 +475,21 @@ from multimodal_supernovae_tpu_torch.config import (
 )
 from multimodal_supernovae_tpu_torch.data import (
     epoch_indices,
+    hdf5,
+    ingest_simulation,
     make_synthetic_arrays,
     make_synthetic_dataset,
     take,
 )
 from multimodal_supernovae_tpu_torch.config.yaml_subset import dump as dump_yaml
 from multimodal_supernovae_tpu_torch.data.cache import load_or_ingest
-from multimodal_supernovae_tpu_torch.data.folds import stratified_kfolds
+from multimodal_supernovae_tpu_torch.data.folds import random_split, stratified_kfolds
 from multimodal_supernovae_tpu_torch.data.native import read_csv, read_csv_plain
 from multimodal_supernovae_tpu_torch.data.png import decode, unfilter_numpy
+from multimodal_supernovae_tpu_torch.data.transforms import (
+    pack_ragged_rows,
+    zero_time_origin_rows,
+)
 from multimodal_supernovae_tpu_torch.data.ztfbts import load_images, load_ztfbts
 from multimodal_supernovae_tpu_torch.evaluation import (
     get_embeddings,
@@ -3206,25 +3236,35 @@ def _maven_graft(card, m_dir, grid, data):
     return tuple(a + c for a, c in zip(counts, timed)), (ms, dev_ms)
 
 
+def _maven_pretrain_point(tag, epochs):
+    """maven_pretrain.yaml's first grid point built as run_sweep builds it
+    (epochs cut to ``epochs``), held to MAVEN_STATED. Returns the sweep, the
+    point, the model, its task and its trainer config."""
+    sweep = load_sweep(MAVEN_PRETRAIN)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    model, task, freeze, override, tcfg = _build_run(point, extra, NBAND, None, epochs)
+    cfg, tk, tsk = model.cfg, model.cfg.tk(), model.cfg.tsk()
+    stated = ((tk["emb"], tk["heads"], tk["depth"], tk["agg"]),
+              (tsk["emb"], tsk["heads"], tsk["depth"], tsk["agg"]), cfg.enc_dim,
+              cfg.combinations, cfg.compute_dtype, tcfg.batch_size,
+              int(extra["max_spectral_data_len"]), (task, freeze, override))
+    log(f"{tag}: {MAVEN_PRETRAIN}, first of {sweep.n_points} grid points; LC {tk}; SP {tsk}; "
+        f"enc_dim {cfg.enc_dim}; trainer {tcfg}")
+    if stated != MAVEN_STATED:
+        raise AssertionError(f"{tag}: {MAVEN_PRETRAIN} gives {stated}")
+    return sweep, point, model, task, tcfg
+
+
 def _maven_pretrain(card, tmp):
     """Stage (c): Maven pretraining from maven_pretrain.yaml's first point
     into run dir P."""
-    sweep = load_sweep(MAVEN_PRETRAIN)
-    point, extra = next(expand_grid(sweep)), sweep.extra_args
-    model, task, freeze, override, tcfg = _build_run(point, extra, NBAND, None, MAVEN_EPOCHS)
-    cfg, tk, tsk = model.cfg, model.cfg.tk(), model.cfg.tsk()
+    sweep, point, model, task, tcfg = _maven_pretrain_point("maven pretrain", MAVEN_EPOCHS)
+    extra, cfg = sweep.extra_args, model.cfg
+    tk, tsk = cfg.tk(), cfg.tsk()
     sp_len = int(extra["max_spectral_data_len"])
-    stated = ((tk["emb"], tk["heads"], tk["depth"], tk["agg"]),
-              (tsk["emb"], tsk["heads"], tsk["depth"], tsk["agg"]), cfg.enc_dim,
-              cfg.combinations, cfg.compute_dtype, tcfg.batch_size, sp_len,
-              (task, freeze, override))
-    log(f"maven pretrain: {MAVEN_PRETRAIN}, first of {sweep.n_points} grid points; cuts: "
-        f"epochs {point['epochs']} -> {MAVEN_EPOCHS}, the synthetic set ({MAVEN_N} samples, "
-        f"2 x {LC_LEN} light-curve points, T_sp = {sp_len}) for "
-        f"{extra['filename_trainset']}, nruns {extra['nruns']}; LC {tk}; SP {tsk}; enc_dim "
-        f"{cfg.enc_dim}; trainer {tcfg}")
-    if stated != MAVEN_STATED:
-        raise AssertionError(f"maven pretrain: {MAVEN_PRETRAIN} gives {stated}")
+    log(f"maven pretrain: cuts: epochs {point['epochs']} -> {MAVEN_EPOCHS}, the synthetic set "
+        f"({MAVEN_N} samples, 2 x {LC_LEN} light-curve points, T_sp = {sp_len}) for "
+        f"{extra['filename_trainset']}, nruns {extra['nruns']}")
     train_ds, val_ds = _maven_split(MAVEN_N, sp_len, cfg.combinations, extra["val_fraction"])
     b = tcfg.batch_size
     train_steps, eval_steps = -(-len(train_ds) // b), -(-len(val_ds) // b)
@@ -3353,10 +3393,9 @@ def _maven_finetune(card, tmp, p_dir):
     return tuple(a + c for a, c in zip(total, timed)), times
 
 
-def phase_maven(card, keep_p=None):
+def phase_maven(card):
     """Masked pretraining, the graft, and Maven's two stages from the shipped
-    configs on the card; run dir P (Maven pretraining) is copied to
-    ``keep_p`` when given. Returns the launches of every counted call."""
+    configs on the card. Returns the launches of every counted call."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         masked, m_dir, grid, data, masked_ms = _maven_masked(card, tmp)
@@ -3365,8 +3404,6 @@ def phase_maven(card, keep_p=None):
         del data
         torch.cuda.empty_cache()
         pre, p_dir, pre_ms = _maven_pretrain(card, tmp)
-        if keep_p:
-            shutil.copytree(p_dir, keep_p)
         torch.cuda.empty_cache()
         fine, fine_ms = _maven_finetune(card, tmp, p_dir)
     total = tuple(sum(c) for c in zip(masked, graft, pre, fine))
@@ -3376,6 +3413,271 @@ def phase_maven(card, keep_p=None):
         f"(d) {fine_ms['contrastive']:.3f} / {fine_ms['contrastive device']:.3f}, head (d) "
         f"{fine_ms['head']:.3f} / {fine_ms['head device']:.3f}; card {card}")
     log(f"maven: phase done in {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
+# phase sim: a simulated corpus written in h5py's default layout (write_sim_hdf5),
+# ingested by the port's HDF5 reader and trained from through cli.pretrain_sim
+# (Maven's first stage), cli.pretrain_masked --source sim and cli.infer --hdf5
+SIM_CORPUS = 500_000  # Maven's simulated pairs (configs/maven_pretrain.yaml:1, ~0.5M)
+SIM_SHAPE = (5, 4, 2500)  # types, models a type, pairs a model: 50,000 pairs
+SIM_LC_POINTS, SIM_WAVELENGTHS = 220, 300  # both bands mixed; subsampled to 100 / 220
+SIM_LEGACY_SHAPE, SIM_LEGACY_POINTS = (5, 4, 1000), 150  # TransientTable: 20,000 curves
+SIM_INFER_SHAPE = (2, 2, 512)  # 2,048 pairs for cli.infer --hdf5
+SIM_EPOCHS, SIM_TRAJ_STEPS = 1, 5
+
+
+def _sim_corpus(shape, seed):
+    """{group: {name: array}} of a Photometry/Spectroscopy corpus of ``shape``
+    (types, models, pairs a model): SIM_LC_POINTS photometry points a pair in
+    both filters (1 = g, 2 = R, drawn at random, so a band holds about 110
+    and most exceed the 100 kept), SIM_WAVELENGTHS wavelengths a spectrum."""
+    n_types, n_models, n = shape
+    rng = np.random.default_rng(seed)
+    groups, first = {}, 0
+    for t in range(n_types):
+        for m in range(n_models):
+            tid = np.arange(first, first + n)
+            first += n
+            mag = 19 + 2 * rng.random((n, 1)) + 0.5 * rng.normal(size=(n, SIM_LC_POINTS))
+            flux = 1 + 0.3 * rng.random((n, SIM_WAVELENGTHS))
+            groups[f"Photometry/type{t}/model{m}"] = {
+                "TID": tid, "z": 0.3 * rng.random(n),
+                "mjd": 58000 + np.sort(300 * rng.random((n, SIM_LC_POINTS)), axis=1),
+                "filter": rng.integers(1, 3, (n, SIM_LC_POINTS)),
+                "mag_obs": mag + 0.05 * rng.normal(size=mag.shape), "mag_perfect": mag}
+            groups[f"Spectroscopy/type{t}/model{m}"] = {
+                "TID": tid,
+                "wavelength": np.sort(3000 + 6500 * rng.random((n, SIM_WAVELENGTHS)), axis=1),
+                "flux_obs": flux + 0.02 * rng.normal(size=flux.shape), "flux_perfect": flux}
+    return groups
+
+
+def _sim_legacy(shape, seed):
+    """{group: {name: array}} of a legacy TransientTable corpus: MJD, mag_r and
+    mag_g (about 10% of them the not-observed sentinel 99), mwebv."""
+    n_types, n_models, n = shape
+    rng = np.random.default_rng(seed)
+    groups = {}
+    for t in range(n_types):
+        for m in range(n_models):
+            g = {"MJD": 58000 + np.sort(200 * rng.random((n, SIM_LEGACY_POINTS)), axis=1),
+                 "mwebv": 0.1 * rng.random(n)}
+            for band in ("r", "g"):
+                mag = 23 + rng.normal(size=(n, SIM_LEGACY_POINTS))
+                mag[rng.random(mag.shape) < 0.1] = 99.0
+                g[f"mag_{band}"] = mag
+            groups[f"TransientTable/type{t}/model{m}"] = g
+    return groups
+
+
+def _sim_expected(groups, config):
+    """What ingest_simulation must give for ``groups`` under ``config``,
+    computed on the arrays themselves with the port's pack_ragged_rows: groups
+    in name order, the R band then g, then the spectrum, one generator of
+    seed 0."""
+    rng = np.random.default_rng(0)
+    noise, parts = config["noise"], {}
+    for path in sorted(g for g in groups if g.startswith("Photometry/")):
+        p, sp = groups[path], groups["Spectroscopy/" + path.split("/", 1)[1]]
+        mjd, mag = p["mjd"], p["mag_obs" if noise else "mag_perfect"]
+        lc = [pack_ragged_rows({"t": mjd, "x": mag}, p["filter"] == code, config["n_max_obs"],
+                               rng, sort_by="t") for code in (2, 1)]
+        packed, mask_sp = pack_ragged_rows(
+            {"t": sp["wavelength"], "x": sp["flux_obs" if noise else "flux_perfect"]},
+            np.ones(sp["wavelength"].shape, bool), config["n_max_obs_spec"], rng, sort_by="t")
+        x_lc = np.concatenate([v["x"] for v, _ in lc], axis=1).astype(np.float32)
+        x_sp = packed["x"].astype(np.float32)
+        chunk = {"t_lc": np.concatenate([zero_time_origin_rows(v["t"], m) for v, m in lc],
+                                        axis=1).astype(np.float32),
+                 "x_lc": x_lc, "mask_lc": np.concatenate([m for _, m in lc], axis=1),
+                 "err_lc": np.zeros_like(x_lc), "redshift": p["z"].astype(np.float32),
+                 "t_sp": packed["t"].astype(np.float32), "x_sp": x_sp, "mask_sp": mask_sp,
+                 "err_sp": np.zeros_like(x_sp), "label": np.zeros(len(mjd), np.int32)}
+        for k, v in chunk.items():
+            parts.setdefault(k, []).append(v)
+    return {k: np.concatenate(v) for k, v in parts.items()}
+
+
+def _bitwise(got, want):
+    """The same fields, each of the same dtype and shape and bitwise equal."""
+    return sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).dtype == v.dtype and np.asarray(got[k]).shape == v.shape
+        and np.array_equal(np.asarray(got[k]).view(np.uint8), v.view(np.uint8))
+        for k, v in want.items())
+
+
+def phase_sim(card, tmp):
+    """Maven's first stage from a simulated corpus: a 50,000-pair HDF5 written
+    under ``tmp``, read by the port's reader, ingested (bitwise the packed
+    arrays the writer was handed; the cache hit bitwise the miss), and
+    trained from through cli.pretrain_sim into run dir ``tmp/S`` (launches
+    counted, the first steps against the plain path, the step timed);
+    cli.pretrain_masked --source sim on a legacy file and cli.infer --hdf5
+    on run S. Returns the launches of every counted call."""
+    t_phase = time.perf_counter()
+    sweep, point, model, task, tcfg = _maven_pretrain_point("sim pretrain", SIM_EPOCHS)
+    extra = sweep.extra_args
+    layers = model.cfg.tk()["depth"] + model.cfg.tsk()["depth"]
+    per_step, b = _tf32_flash(layers, layers), tcfg.batch_size
+    del model
+    sim_dir, cache_dir = os.path.join(tmp, "sim"), os.path.join(tmp, "sim-cache")
+    analysis = os.path.join(tmp, "sim-analysis")
+    os.makedirs(sim_dir)
+    path = os.path.join(sim_dir, extra["filename_trainset"])
+
+    # (a) the corpus
+    n_pairs = int(np.prod(SIM_SHAPE))
+    t0 = time.perf_counter()
+    groups = _sim_corpus(SIM_SHAPE, seed=0)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_sim_hdf5(path, groups)
+    wrote = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    log(f"sim: {n_pairs} pairs ({SIM_SHAPE[0]} types x {SIM_SHAPE[1]} models x "
+        f"{SIM_SHAPE[2]}; {SIM_LC_POINTS} photometry points, {SIM_WAVELENGTHS} wavelengths a "
+        f"pair, float64) made in {made:.2f} s, written to {extra['filename_trainset']} "
+        f"({size / 1e9:.3f} GB) in {wrote:.2f} s; cut: Maven's ~{SIM_CORPUS} pairs -> "
+        f"{n_pairs} ({n_pairs / SIM_CORPUS:.3g} of it)")
+    t0 = time.perf_counter()
+    nbytes = 0
+    with hdf5.File(path) as f:
+        for top in ("Photometry", "Spectroscopy"):
+            for t_type in f[top].keys():
+                for m in f[top][t_type].keys():
+                    nbytes += sum(f[top][t_type][m][k][...].nbytes for k in f[top][t_type][m])
+    read_s = time.perf_counter() - t0
+    log(f"sim: the reader: every dataset read, {nbytes / 1e9:.3f} GB in {read_s:.3f} s "
+        f"({nbytes / read_s / 1e9:.3f} GB/s)")
+
+    # (b) the ingest through the cache: a miss (checked against the arrays), then a hit
+    config = cli_pretrain_sim.ingest_config(path, extra)
+    times, sets, ingest_s = {}, {}, []
+
+    def ingest():
+        t0 = time.perf_counter()
+        ds = ingest_simulation(**config)
+        ingest_s.append(time.perf_counter() - t0)
+        return ds
+
+    for tag in ("miss", "hit"):
+        t0 = time.perf_counter()
+        sets[tag], hit = load_or_ingest(cache_dir, ingest, **config)
+        times[tag] = time.perf_counter() - t0
+        if hit != (tag == "hit"):
+            raise AssertionError(f"sim: cache {tag} read hit={hit}")
+    ds, miss = sets["hit"], sets["miss"]
+    want = _sim_expected(groups, config)
+    del groups
+    packed_ok = _bitwise(miss.arrays, want)
+    hit_ok = _bitwise(ds.arrays, miss.arrays) and ds.filenames == miss.filenames
+    log(f"sim: load_or_ingest of pretrain_sim's config ({config}): miss {times['miss']:.3f} s "
+        f"(ingest_simulation {ingest_s[0]:.3f} s), {n_pairs / times['miss']:.1f} pairs/s; hit "
+        f"{times['hit']:.4f} s; {len(ds)} pairs, fields {sorted(ds.arrays)}; the miss bitwise "
+        f"pack_ragged_rows of the written arrays: {packed_ok}; the hit bitwise the miss: "
+        f"{hit_ok}; card {card}")
+    if not packed_ok or not hit_ok or len(ds) != n_pairs:
+        raise AssertionError("sim: the ingest differs from the packed arrays or the cache")
+    del want, miss, sets
+
+    # (c) cli.pretrain_sim: Maven's first stage into run dir S
+    tr, va = random_split(len(ds), float(extra["val_fraction"]), int(point["seed"]))
+    want = _fit_want(per_step, SIM_EPOCHS, -(-len(tr) // b), -(-len(va) // b))
+    log(f"sim pretrain: cli.pretrain_sim {MAVEN_PRETRAIN}; cuts: epochs {point['epochs']} -> "
+        f"{SIM_EPOCHS}, the corpus {SIM_CORPUS} -> {n_pairs} pairs; split {len(tr)} / "
+        f"{len(va)} at val_fraction {extra['val_fraction']}")
+    counts, wall, out = _cli_counted("sim pretrain", cli_pretrain_sim.main, [
+        MAVEN_PRETRAIN, "--data-dir", sim_dir, "--cache-dir", cache_dir, "--analysis-path",
+        analysis, "--device", DEVICE, "--epochs", str(SIM_EPOCHS)])
+    s_dir = os.path.join(analysis, os.path.splitext(os.path.basename(MAVEN_PRETRAIN))[0],
+                         "run-0")
+    files, rows = set(os.listdir(s_dir)), _metric_rows(s_dir)
+    manifests = {}
+    for name in ("train_filenames.txt", "val_filenames.txt"):
+        with open(os.path.join(s_dir, name)) as fh:
+            manifests[name] = fh.read().splitlines()
+    want_names = {"train_filenames.txt": [ds.filenames[i] for i in tr],
+                  "val_filenames.txt": [ds.filenames[i] for i in va]}
+    log(f"sim pretrain: run S files {sorted(files)}; manifests the random split's: "
+        f"{manifests == want_names}; cache hit: {'cache=hit' in out}; " + "; ".join(
+            f"epoch {r['epoch']} train_loss {r['train_loss']:.7f} val_loss {r['val_loss']:.7f} "
+            f"step {r['step_time_s'] * 1e3:.3f} ms" for r in rows))
+    if (counts != want or not set(RUN_DIR_FILES) <= files or manifests != want_names
+            or "cache=hit" not in out or [r["epoch"] for r in rows] != [0]
+            or not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+                       for r in rows)):
+        raise AssertionError(f"sim pretrain: launches {counts} (want {want}), files "
+                             f"{sorted(files)}, rows {rows}")
+    total = counts
+    train = ds.subset(tr)
+    data = train.to_device(DEVICE)
+    plan = epoch_indices(len(train), b, rng=np.random.default_rng(tcfg.seed), shuffle=True,
+                         pad="wrap")[:SIM_TRAJ_STEPS]
+
+    def make():
+        return _build_run(point, extra, NBAND, None, None)[0].to(DEVICE)
+
+    traj = _maven_trajectory("sim pretrain", make, tcfg, data, plan, per_step)
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    timed, step_ms, dev_ms = _maven_timing("sim pretrain", make(), tcfg, one, per_step, card)
+    total = tuple(sum(c) for c in zip(total, traj, timed))
+    del data, one, train, ds
+    shutil.rmtree(cache_dir)
+    os.remove(path)
+    torch.cuda.empty_cache()
+
+    # (d) cli.pretrain_masked --source sim on a legacy TransientTable file
+    grid_extra = load_sweep(GRID).extra_args
+    legacy_dir = os.path.join(tmp, "simlc")
+    os.makedirs(legacy_dir)
+    write_sim_hdf5(os.path.join(legacy_dir, grid_extra.get("filename_trainset",
+                                                           cli_common.SIM_FILE)),
+                   _sim_legacy(SIM_LEGACY_SHAPE, seed=1))
+    n_legacy = int(np.prod(SIM_LEGACY_SHAPE))
+    counts, _, out = _cli_counted("sim masked", cli_masked.main, [
+        GRID, "--source", "sim", "--data-dir", legacy_dir, "--cache-dir", cache_dir,
+        "--analysis-path", analysis, "--device", DEVICE, "--epochs", "1", "--max-runs", "1"])
+    masked_rows = _metric_rows(os.path.join(analysis, "config_grid-masked", "run-0"))
+    log(f"sim masked: {GRID} --source sim on a TransientTable file of {n_legacy} light curves "
+        f"({SIM_LEGACY_POINTS} points, about 10% sentinels); cuts: epochs 3000 -> 1, nruns 20 "
+        f"-> 1: {masked_rows}")
+    _tf32_only("sim masked", counts)
+    if (f"dataset: {n_legacy} samples" not in out
+            or not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+                       for r in masked_rows)):
+        raise AssertionError(f"sim masked: output {out!r}, rows {masked_rows}")
+    total = tuple(a + c for a, c in zip(total, counts))
+    shutil.rmtree(legacy_dir)
+
+    # (e) cli.infer S --hdf5 against get_embeddings of the same model on the same set
+    infer_path, npz = os.path.join(tmp, "infer.hdf5"), os.path.join(tmp, "sim-infer.npz")
+    write_sim_hdf5(infer_path, _sim_corpus(SIM_INFER_SHAPE, seed=2))
+    n_infer = int(np.prod(SIM_INFER_SHAPE))
+    counts, _, _ = _cli_counted("sim infer", cli_infer.main, [
+        s_dir, "--hdf5", infer_path, "--out", npz, "--device", DEVICE,
+        "--batch-size", str(EVAL_B)])
+    want = _tf32_flash(layers * -(-n_infer // EVAL_B), 0)
+    infer_set = ingest_simulation(infer_path, bands=("r", "g"),
+                                  n_max_obs=config["n_max_obs"],
+                                  n_max_obs_spec=config["n_max_obs_spec"],
+                                  combinations=config["combinations"])
+    with _plain_calls() as plain:
+        embs, names = get_embeddings(load_model(s_dir, DEVICE)[0], infer_set, EVAL_B, DEVICE)
+    got = np.load(npz)
+    same = all(np.array_equal(got[f"emb_{nm}"], e) for e, nm in zip(embs, names))
+    log(f"sim infer: cli.infer S --hdf5 ({n_infer} pairs): "
+        + ", ".join(f"emb_{nm} {got[f'emb_{nm}'].shape}" for nm in names)
+        + f"; equal to get_embeddings of load_model(S): {same}; launches {counts} (want "
+        f"{want}), {len(plain)} plain")
+    if not same or counts != want or plain or len(got["filenames"]) != n_infer:
+        raise AssertionError(f"sim infer: embeddings equal {same}, launches {counts}")
+    total = tuple(a + c for a, c in zip(total, counts))
+    shutil.copytree(s_dir, os.path.join(tmp, "S"))
+    log(f"sim: Maven step (B={b}, float32, from the simulated corpus) host clock "
+        f"{step_ms:.3f} ms, device {dev_ms:.3f} ms; launches per route {COUNT_NAMES}: "
+        f"{total}; card {card}")
+    log(f"sim: phase done in {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -3427,6 +3729,109 @@ def write_png(path, pixels, filters=(0,), palette=None, interlace=0):
             + _png_chunk(b"IDAT", zlib.compress(data, 6)) + _png_chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(body)
+
+
+_H5_UNDEF = b"\xff" * 8  # an undefined address
+_H5_LEAF_K, _H5_NODE_K = 4, 16  # symbol table node and group B-tree widths (h5py's)
+
+
+def _h5_put(f, blob):
+    """Write ``blob`` at the next 8-byte boundary; returns its address."""
+    f.write(b"\0" * (-f.tell() % 8))
+    at = f.tell()
+    f.write(blob)
+    return at
+
+
+def _h5_header(msgs):
+    """A version-1 object header of ``msgs``, (type, flags, body) each."""
+    blob = b"".join(struct.pack("<HHB3x", t, len(b) + -len(b) % 8, fl) + b + b"\0" * (-len(b) % 8)
+                    for t, fl, b in msgs)
+    return struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(blob)) + blob
+
+
+def _h5_dtype(dt):
+    """The datatype message of a little-endian integer or IEEE float."""
+    n = dt.itemsize
+    if dt.kind in "iu":
+        return struct.pack("<BBBBIHH", 0x10, 0x08 if dt.kind == "i" else 0, 0, 0, n, 0, 8 * n)
+    exp, mant, bias = {4: (8, 23, 127), 8: (11, 52, 1023)}[n]
+    return struct.pack("<BBBBIHHBBBBI", 0x11, 0x20, 8 * n - 1, 0, n, 0, 8 * n, mant, exp, 0,
+                       mant, bias)
+
+
+def _h5_dataset(f, arr):
+    """The array's data, then its header: dataspace (the dims as the maximum),
+    datatype, fill value (the default) and a contiguous layout."""
+    arr = np.asarray(arr)
+    arr = np.asarray(arr, dtype=arr.dtype.newbyteorder("<"), order="C")
+    if arr.dtype.kind not in "iuf" or arr.size == 0:
+        raise ValueError(f"write_sim_hdf5 writes non-empty numbers, not {arr.dtype} {arr.shape}")
+    f.write(b"\0" * (-f.tell() % 8))
+    data = f.tell()
+    f.write(memoryview(arr).cast("B"))
+    dims = struct.pack(f"<{arr.ndim}Q", *arr.shape)
+    return _h5_put(f, _h5_header([
+        (0x01, 0, struct.pack("<BBB5x", 1, arr.ndim, 1) + dims + dims),
+        (0x03, 1, _h5_dtype(arr.dtype)),
+        (0x05, 1, bytes([2, 2, 2, 1, 0, 0, 0, 0])),
+        (0x08, 0, struct.pack("<BBQQ", 3, 1, data, arr.nbytes))]))
+
+
+def _h5_group(f, tree):
+    """The members of ``tree`` (sub-trees and arrays), then the group: its
+    local heap of names, symbol table nodes of up to 2 x _H5_LEAF_K members
+    in name order, a one-level B-tree over them and its header. Returns the
+    addresses of the header, the B-tree and the heap."""
+    names = sorted(tree, key=str.encode)
+    if not names or len(names) > 4 * _H5_LEAF_K * _H5_NODE_K:
+        raise ValueError(f"write_sim_hdf5 writes groups of 1 to "
+                         f"{4 * _H5_LEAF_K * _H5_NODE_K} members, not {len(names)}")
+    addrs = {n: (_h5_group(f, tree[n])[0] if isinstance(tree[n], dict)
+                 else _h5_dataset(f, tree[n])) for n in names}
+    seg, offsets = bytearray(8), {}  # offset 0: the empty name
+    for n in names:
+        offsets[n] = len(seg)
+        b = n.encode() + b"\0"
+        seg += b + b"\0" * (-len(b) % 8)
+    f.write(b"\0" * (-f.tell() % 8))
+    heap = f.tell()  # the heap's header (no free block), then its data
+    f.write(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(seg), 1, heap + 32) + bytes(seg))
+    width, nodes, keys = 2 * _H5_LEAF_K, [], [0]
+    for i in range(0, len(names), width):
+        part = names[i:i + width]
+        entries = b"".join(struct.pack("<QQII16x", offsets[n], addrs[n], 0, 0) for n in part)
+        nodes.append(_h5_put(f, b"SNOD" + struct.pack("<BBH", 1, 0, len(part)) + entries
+                             + bytes(40 * (width - len(part)))))
+        keys.append(offsets[part[-1]])  # a node's right key: its last name
+    body = b"".join(struct.pack("<QQ", k, c) for k, c in zip(keys, nodes)) + struct.pack(
+        "<Q", keys[-1])
+    full = 16 * 2 * _H5_NODE_K + 8
+    btree = _h5_put(f, b"TREE" + struct.pack("<BBH", 0, 0, len(nodes)) + _H5_UNDEF * 2 + body
+                    + bytes(full - len(body)))
+    return _h5_put(f, _h5_header([(0x11, 0, struct.pack("<QQ", btree, heap))])), btree, heap
+
+
+def write_sim_hdf5(path, groups):
+    """Write ``groups`` ({"Photometry/Ia/model0": {"mjd": array, ...}, ...})
+    as an HDF5 file with numpy and struct, in h5py's default layout:
+    superblock version 0, version-1 object headers, symbol-table groups and
+    contiguous little-endian datasets (integers, floats of 4 or 8 bytes)."""
+    tree = {}
+    for gpath, arrays in groups.items():
+        node = tree
+        for part in gpath.split("/"):
+            node = node.setdefault(part, {})
+        node.update(arrays)
+    with open(path, "wb") as f:
+        f.write(bytes(96))  # the superblock, written once the root is
+        root, btree, heap = _h5_group(f, tree)
+        eof = f.tell()
+        f.seek(0)
+        f.write(b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                + struct.pack("<HHI", _H5_LEAF_K, _H5_NODE_K, 0) + struct.pack("<Q", 0)
+                + _H5_UNDEF + struct.pack("<Q", eof) + _H5_UNDEF
+                + struct.pack("<QQII", 0, root, 1, 0) + struct.pack("<QQ", btree, heap))
 
 
 def _write_tree(root, n, seed=0):
@@ -3605,7 +4010,7 @@ def phase_ingest(card, tmp):
     """A ZTF BTS tree written under ``tmp``; the native reader, the decoder,
     the folds and the cache; then maven-lite trained from it through
     cli.train (2 folds, 2 epochs) and resumed, cli.finetune_clip from run dir
-    ``tmp/P`` (phase maven's Maven pretraining run) and cli.pretrain_masked
+    ``tmp/S`` (phase sim's cli.pretrain_sim run) and cli.pretrain_masked
     --source real. Returns the launches of every counted call."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -3628,10 +4033,7 @@ def phase_ingest(card, tmp):
         if hit != (tag == "hit"):
             raise AssertionError(f"ingest: cache {tag} read hit={hit}")
     ds, miss = sets["hit"], sets["miss"]
-    same = (ds.filenames == miss.filenames and sorted(ds.arrays) == sorted(miss.arrays)
-            and all(ds.arrays[k].dtype == v.dtype and np.array_equal(
-                np.asarray(ds.arrays[k]).view(np.uint8), v.view(np.uint8))
-                for k, v in miss.arrays.items()))
+    same = ds.filenames == miss.filenames and _bitwise(ds.arrays, miss.arrays)
     log(f"ingest: load_or_ingest of maven-lite's config ({config}): miss {times['miss']:.3f} "
         f"s, {INGEST_N / times['miss']:.1f} transients/s; hit {times['hit']:.4f} s; "
         f"{len(ds)} samples, fields {sorted(ds.arrays)}; the hit bitwise the miss: {same}")
@@ -3756,11 +4158,12 @@ def phase_ingest(card, tmp):
     ft_cfg = os.path.join(tmp, "maven_finetune.yaml")
     with open(ft_cfg, "w") as fh:
         fh.write(dump_yaml(dict(raw, extra_args=dict(raw["extra_args"],
-                                                      pretrain_path=os.path.join(tmp, "P")))))
+                                                      pretrain_path=os.path.join(tmp, "S")))))
     counts, _, _ = _cli_counted("ingest finetune", cli_finetune.main, [
         ft_cfg, *argv, "--epochs", "1", "--max-runs", "1"])
     rows = _metric_rows(os.path.join(analysis, "maven_finetune", "run-0"))
-    log(f"ingest finetune: a copy of {MAVEN_FINETUNE} with pretrain_path = P; cuts: epochs "
+    log(f"ingest finetune: a copy of {MAVEN_FINETUNE} with pretrain_path = S (phase sim's "
+        f"cli.pretrain_sim run: pretrain_sim, then finetune_clip); cuts: epochs "
         f"1000 -> 1, nruns 5 -> 1: {rows}")
     _tf32_only("ingest finetune", counts)
     total = tuple(a + c for a, c in zip(total, counts))
@@ -4042,7 +4445,7 @@ def phase_evaluate(card, tmp):
             raise AssertionError(f"evaluate infer {tag}: the .npz differs from the direct call")
 
     # (e) --check of the four training CLIs on their shipped configs
-    ft_cfg = os.path.join(tmp, "maven_finetune.yaml")  # phase ingest's copy, pretrain_path P
+    ft_cfg = os.path.join(tmp, "maven_finetune.yaml")  # phase ingest's copy, pretrain_path S
     sup_check = [sys.executable, "-m", "multimodal_supernovae_tpu_torch.cli.supervise",
                  "--check", "--", *sup_argv[:4]]
     checks = (("train", cli_train.main, [MAVEN_LITE, "--check"], models[0]),
@@ -4254,16 +4657,17 @@ def main():
     towers = phase_towers(card)
     os.makedirs("chiprun_out", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="chiprun_out", prefix="ingest-") as tmp:
-        maven = phase_maven(card, keep_p=os.path.join(tmp, "P"))
+        maven = phase_maven(card)
+        sim = phase_sim(card, tmp)
         ingest = phase_ingest(card, tmp)
         evaluation = phase_evaluate(card, tmp)
     phase_profile()
     runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            maven, ingest, evaluation)
+            maven, sim, ingest, evaluation)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, maven, ingest, evaluate, summed in the line: {runs}; "
-        f"card {card}")
+        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, summed in the line: "
+        f"{runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
     maven_lc, maven_sp = (4 * BATCH, 8, NBAND * LC_LEN, 8), (4 * BATCH, 2, TRAIN_SP_LEN, 16)

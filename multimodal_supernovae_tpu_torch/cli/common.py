@@ -1,6 +1,6 @@
 """What the training CLIs share: their arguments, the flags whose modules
 are not ported yet, the ``--check`` preflight, the data directories and the
-cached ZTF BTS ingest."""
+cached ingest (ZTF BTS, or a simulated HDF5 corpus)."""
 
 from __future__ import annotations
 
@@ -13,17 +13,21 @@ import torch
 
 DATA_DIRS = ("ZTFBTS/", "data/ZTFBTS/", "../data/ZTFBTS/")
 SPECTRA_DIRS = ("ZTFBTS_spectra/", "data/ZTFBTS_spectra/", "../data/ZTFBTS_spectra/")
+SIM_DIRS = ("data/sim_data/", "sim_data/", "../data/sim_data/")
+SIM_FILE = "ZTF_Pretrain_5Class.hdf5"  # the reference's filename_trainset
 
 
-def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True) -> None:
+def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True,
+                   data_help: Optional[str] = None) -> None:
     """The arguments of every training CLI (those of the JAX CLIs, with
     ``--device`` for ``--platform``; ``--mesh``, ``--tp`` and
     ``--check-devices`` are refused)."""
     from ..training.preflight import add_check_args
 
     ap.add_argument("--analysis-path", default="./analysis")
-    ap.add_argument("--data-dir", default=None, help="ZTF BTS directory (default: ZTFBTS/, "
-                    "data/ZTFBTS/ or ../data/ZTFBTS/, the first that exists)")
+    ap.add_argument("--data-dir", default=None, help=data_help or (
+        "ZTF BTS directory (default: ZTFBTS/, data/ZTFBTS/ or ../data/ZTFBTS/, the first "
+        "that exists)"))
     if spectra:
         ap.add_argument("--spectra-dir", default=None,
                         help="spectra directory (default: ZTFBTS_spectra/ beside ZTFBTS/)")
@@ -98,6 +102,18 @@ def data_dirs(ap: argparse.ArgumentParser, args: argparse.Namespace,
     return data_dir, spectra_dir
 
 
+def sim_path(ap: argparse.ArgumentParser, args: argparse.Namespace, extra: Dict[str, Any],
+             dirs: Sequence[str] = SIM_DIRS) -> str:
+    """The simulated corpus: ``extra_args.filename_trainset`` in
+    ``--data-dir`` or the first of ``dirs`` that exists."""
+    from ..utils.io import get_valid_dir
+
+    if args.data_dir and not os.path.isdir(args.data_dir):
+        ap.error(f"--data-dir {args.data_dir} does not exist")
+    return os.path.join(args.data_dir or get_valid_dir(dirs),
+                        extra.get("filename_trainset", SIM_FILE))
+
+
 def ingest_config(data_dir: str, spectra_dir, extra: Dict[str, Any],
                   sp_default: int) -> Dict[str, Any]:
     """The ingest configuration the cache key hashes (the JAX CLIs')."""
@@ -112,14 +128,20 @@ def ingest_config(data_dir: str, spectra_dir, extra: Dict[str, Any],
     )
 
 
-def load_cached(cache_dir: str, config: Dict[str, Any], **key_extra):
-    """The ZTF BTS dataset of ``config`` through the ingest cache; prints its
-    size and whether the cache hit."""
+def load_cached(cache_dir: str, config: Dict[str, Any], ingest: Optional[Callable] = None,
+                **key_extra):
+    """The dataset ``ingest(**config)`` (by default the ZTF BTS ingest)
+    through the ingest cache, keyed by ``config`` and ``key_extra``; prints
+    its size and whether the cache hit."""
     from ..data.cache import load_or_ingest
-    from ..data.ztfbts import load_ztfbts
 
-    dataset, hit = load_or_ingest(
-        cache_dir, lambda: load_ztfbts(kfolds=None, **config)[0], **key_extra, **config)
+    if ingest is None:
+        from ..data.ztfbts import load_ztfbts
+
+        def ingest(**c):
+            return load_ztfbts(kfolds=None, **c)[0]
+
+    dataset, hit = load_or_ingest(cache_dir, lambda: ingest(**config), **key_extra, **config)
     print(f"dataset: {len(dataset)} samples (cache={'hit' if hit else 'miss'})", flush=True)
     return dataset
 

@@ -3,9 +3,11 @@
 multimodal_supernovae_tpu/cli/infer.py).
 
 Loads a run directory the port can restore (``models/factory.py:load_model``),
-streams a ZTF BTS dataset (through the ingest cache) through the frozen
-model in fixed-shape batches, and writes one ``.npz`` artifact plus a JSON
-manifest beside it:
+streams a ZTF BTS dataset (through the ingest cache) or, with ``--hdf5``, a
+simulated Photometry/Spectroscopy corpus (ingested with the run's bands,
+lengths and combinations by ``data/simulation.py:ingest_simulation``)
+through the frozen model in fixed-shape batches, and writes one ``.npz``
+artifact plus a JSON manifest beside it:
 
   * contrastive CLIP runs: the L2-normalised per-modality embeddings
     (``emb_<modality>``);
@@ -19,12 +21,12 @@ manifest beside it:
 
   python -m multimodal_supernovae_tpu_torch.cli.infer analysis/maven-lite/run-0 \\
       --data-dir ZTFBTS/ --spectra-dir ZTFBTS_spectra/ --out run0.npz --split val
+  python -m multimodal_supernovae_tpu_torch.cli.infer analysis/maven_pretrain/run-0 \\
+      --hdf5 data/sim_data/ZTF_Pretrain_5Class.hdf5 --out sims.npz
 
 ``--device`` defaults to ``cuda`` and inference refuses to start without it
 (pass ``--device cpu`` for the CPU); the manifest's ``backend`` is the
-device's type. ``--hdf5`` (the simulated corpus) raises
-``NotImplementedError``: the port has no HDF5 reader yet (ROADMAP.md item
-17a).
+device's type.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-dir", default=None, help="ZTFBTS root")
     ap.add_argument("--spectra-dir", default=None)
     ap.add_argument("--hdf5", default=None,
-                    help="simulation corpus instead of real data (not ported yet)")
+                    help="simulated HDF5 corpus instead of real data")
     ap.add_argument("--cache-dir", default="./data_cache")
     ap.add_argument("--out", required=True, help="output .npz path")
     ap.add_argument("--split", choices=["all", "train", "val"], default="all",
@@ -62,10 +64,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.hdf5:
-        raise NotImplementedError(
-            "--hdf5 needs the simulated HDF5 corpus's reader, which is not ported yet "
-            "(ROADMAP.md item 17a: data/simulation.py)")
     common.check_device(args.device)
 
     from ..evaluation.embeddings import (
@@ -80,9 +78,18 @@ def main(argv=None) -> None:
 
     _, extra = load_run_config(args.run_dir)
     combinations = tuple(extra.get("combinations", ("lightcurve",)))
-    data_dir = args.data_dir or get_valid_dir(common.DATA_DIRS)
-    dataset = common.load_cached(args.cache_dir, common.ingest_config(
-        data_dir, args.spectra_dir, dict(extra, combinations=combinations), 1000))
+    if args.hdf5:
+        from ..data.simulation import ingest_simulation
+
+        dataset = ingest_simulation(
+            args.hdf5, bands=("r", "g") if int(extra.get("nband", 2)) == 2 else ("r",),
+            n_max_obs=int(extra.get("max_lightcurve_data_len", 100)),
+            n_max_obs_spec=int(extra.get("max_spectral_data_len", 220)),
+            combinations=combinations)
+    else:
+        data_dir = args.data_dir or get_valid_dir(common.DATA_DIRS)
+        dataset = common.load_cached(args.cache_dir, common.ingest_config(
+            data_dir, args.spectra_dir, dict(extra, combinations=combinations), 1000))
 
     model, _ = load_model(args.run_dir, args.device, which=args.which)
     if args.split != "all":

@@ -3,16 +3,19 @@
 multimodal_supernovae_tpu/cli/pretrain_masked.py): trains a
 ``MaskedLightCurveEncoder`` (``models/factory.py:masked_model_builder``)
 with the StepLR schedule of the sweep's ``step_size`` and ``gamma``, on the
-ZTF BTS light curves (``--source real``) split at random by
+light curves of the legacy simulated corpus (``--source sim``, the default:
+the ``TransientTable`` HDF5 ``extra_args.filename_trainset`` in
+``--data-dir``, else in data/sim_data/ or sim_data/, read by the port's
+HDF5 reader) or of ZTF BTS (``--source real``), split at random by
 ``val_fraction``::
 
   python -m multimodal_supernovae_tpu_torch.cli.pretrain_masked configs/config_grid.yaml \\
+      --source sim --data-dir data/sim_data/
+  python -m multimodal_supernovae_tpu_torch.cli.pretrain_masked configs/config_grid.yaml \\
       --source real --data-dir ZTFBTS/
 
-``--source sim`` (the simulated HDF5 corpus) raises ``NotImplementedError``:
-the port has no HDF5 reader yet (ROADMAP.md item 17; the GPU host has no
-h5py). ``--device`` defaults to ``cuda``. ``--check`` validates every grid
-point on the meta device instead of training (light curves only).
+``--device`` defaults to ``cuda``. ``--check`` validates every grid point on
+the meta device instead of training (light curves only).
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     ap.add_argument("--source", choices=["sim", "real"], default="sim")
-    common.add_sweep_args(ap, spectra=False)
+    common.add_sweep_args(ap, spectra=False, data_help=(
+        "directory of the simulated HDF5 (--source sim; default: data/sim_data/ or "
+        "sim_data/) or of ZTF BTS (--source real; default: ZTFBTS/, data/ZTFBTS/ or "
+        "../data/ZTFBTS/)"))
     return ap
 
 
@@ -45,18 +51,24 @@ def main(argv=None) -> None:
     if args.check:
         common.run_check(args, sweep, 2, 220, model_builder=masked_model_builder(extra),
                          combinations=("lightcurve",))
-    if args.source == "sim":
-        raise NotImplementedError(
-            "--source sim needs the simulated HDF5 corpus's reader, which is not ported yet "
-            "(ROADMAP.md queue 1, item 17: data/simulation.py); use --source real")
     common.check_device(args.device)
 
     name = os.path.splitext(os.path.basename(args.config))[0] + "-masked"
     sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
-    data_dir, _ = common.data_dirs(ap, args, ("lightcurve",))
-    config = dict(data_dir=data_dir, combinations=("lightcurve",),
-                  max_data_len_lc=int(extra.get("max_lightcurve_data_len", 100)))
-    dataset = common.load_cached(args.cache_dir, config, kind="ztfbts-lc")
+    n_max_obs = int(extra.get("max_lightcurve_data_len", 100))
+    if args.source == "sim":
+        from ..data.simulation import ingest_simulation_lightcurves
+
+        config = dict(hdf5_path=common.sim_path(ap, args, extra, common.SIM_DIRS[:2]),
+                      bands=("r", "g"), n_max_obs=n_max_obs,
+                      dataset_length=extra.get("dataset_length"))
+        dataset = common.load_cached(args.cache_dir, config,
+                                     ingest=ingest_simulation_lightcurves, kind="simlc")
+    else:
+        data_dir, _ = common.data_dirs(ap, args, ("lightcurve",))
+        config = dict(data_dir=data_dir, combinations=("lightcurve",),
+                      max_data_len_lc=n_max_obs)
+        dataset = common.load_cached(args.cache_dir, config, kind="ztfbts-lc")
     results = run_sweep(
         sweep, dataset, 2, None, sweep_dir, model_builder=masked_model_builder(extra),
         use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),

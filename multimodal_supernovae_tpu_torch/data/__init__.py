@@ -13,6 +13,12 @@ from .batching import (
     tail_valid_mask,
     take,
 )
+from .simulation import (
+    ingest_simulation,
+    ingest_simulation_lightcurves,
+    iter_simulation_chunks,
+    stream_simulation_to_cache,
+)
 from .synthetic import make_synthetic_arrays, make_synthetic_dataset
 
 __all__ = [
@@ -22,11 +28,15 @@ __all__ = [
     "contiguous_span_mask",
     "epoch_indices",
     "image_uniform_noise",
+    "ingest_simulation",
+    "ingest_simulation_lightcurves",
+    "iter_simulation_chunks",
     "make_synthetic_arrays",
     "make_synthetic_dataset",
     "noise_from_error",
     "random_rot90",
     "random_subset_mask",
+    "stream_simulation_to_cache",
     "tail_valid_mask",
     "take",
 ]

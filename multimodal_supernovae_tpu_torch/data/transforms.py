@@ -14,14 +14,15 @@ Semantics kept from the reference:
     sequence axis, band 0 first (src/dataloader.py:543-546);
   * SN-type merging and sorted factorization (src/dataloader.py:388-405).
 
-The JAX module's vectorised ``pack_ragged_rows`` and ``zero_time_origin_rows``
-serve its HDF5 simulation reader, which is not ported (ROADMAP.md queue 1,
-item 17).
+``pack_ragged_rows`` and ``zero_time_origin_rows`` are the vectorised
+versions over whole (N, L) matrices that the simulation ingest uses
+(``data/simulation.py``); they draw the same numbers as the JAX module's, in
+the same order, so both packages ingest a corpus bitwise alike.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -120,6 +121,69 @@ def process_ragged_series(
     if zero_time:
         t = zero_time_origin_per_band(t, mask)
     return t, v, e, mask
+
+
+def pack_ragged_rows(
+    values: Dict[str, np.ndarray],
+    valid: np.ndarray,
+    n_max: int,
+    rng: np.random.Generator,
+    sort_by: Optional[str] = None,
+) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """Vectorized pad-or-subsample over a whole (N, L) matrix of ragged rows.
+
+    For each row: if it has more than ``n_max`` valid entries, keep a uniform
+    random subset of ``n_max`` (without replacement); pack the kept entries
+    into the first positions; zero-pad the rest. Optionally order kept
+    entries by the ``sort_by`` column (e.g. time).
+
+    This is the batch equivalent of the reference's per-sample
+    ``make_padding_mask`` + ``np.pad`` pipeline (dataloader.py:419-441,
+    :521-546) — one argsort instead of a Python loop per sample. Note the
+    packed order differs from the reference when subsampling (which emits
+    indices in ``np.random.choice`` order); the sequence encoders are
+    permutation-equivariant within a band block (time-value positional
+    encoding, no index PE), so this is output-equivalent.
+
+    Args:
+      values: {name: (N, L) float array} — all packed with the same layout.
+      valid:  (N, L) bool.
+      n_max:  output row length.
+      sort_by: values key whose ascending order defines the packed order of
+        kept entries (None = random order from the subsampling draw).
+
+    Returns ({name: (N, n_max)}, mask (N, n_max) bool).
+    """
+    n, width = valid.shape
+    if n_max > width:  # rows shorter than the target: zero-pad columns
+        pad = n_max - width
+        valid = np.pad(valid, ((0, 0), (0, pad)))
+        values = {k: np.pad(v, ((0, 0), (0, pad))) for k, v in values.items()}
+    # random rank among valid entries -> uniform subset when oversize
+    r = rng.random(valid.shape)
+    rank_order = np.argsort(np.where(valid, r, np.inf), axis=1)
+    rank = np.argsort(rank_order, axis=1)
+    selected = valid & (rank < n_max)
+    if sort_by is not None:
+        key = np.where(selected, values[sort_by], np.inf)
+    else:
+        key = np.where(selected, r, np.inf)
+    order = np.argsort(key, axis=1)[:, :n_max]
+    counts = np.minimum(selected.sum(axis=1), n_max)
+    mask = np.arange(n_max)[None, :] < counts[:, None]
+    packed = {
+        name: np.where(mask, np.take_along_axis(v, order, axis=1), 0.0)
+        for name, v in values.items()
+    }
+    return packed, mask
+
+
+def zero_time_origin_rows(time: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Vectorized per-row time zeroing over packed (N, T) arrays."""
+    has = mask.any(axis=1)
+    tmin = np.where(mask, time, np.inf).min(axis=1)
+    tmin = np.where(has, tmin, 0.0)
+    return np.where(mask, time - tmin[:, None], 0.0)
 
 
 def merge_sn_types(types: Sequence[str]) -> List[str]:

@@ -34,7 +34,7 @@ The weight surgery of the two-stage recipe works on state_dicts:
 puts a masked pretrainer's encoder into a CLIP light-curve tower;
 ``best_ckpt_path`` names the monitored best checkpoint that it loads.
 
-Not ported yet: ``StreamCursor`` (ROADMAP.md queue 1, item 17, streaming).
+Not ported yet: ``StreamCursor`` (ROADMAP.md queue 1, item 17b, streaming).
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ Not ported yet: the post-fit reports (loss history and retrieval-curve
 plots; ROADMAP.md queue 1, item 18: they need matplotlib, which the GPU
 host does not have), so ``run_sweep`` writes none; the parallel folds and
 members (item 15, ``training/ensemble.py``) and ``run_sweep_streaming``
-(item 17, streaming), which raise ``NotImplementedError``.
+(item 17b, streaming), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ def run_sweep(
 
 def run_sweep_streaming(*args, **kwargs):
     raise NotImplementedError(
-        "run_sweep_streaming is not ported yet (ROADMAP.md queue 1, item 17: streaming)")
+        "run_sweep_streaming is not ported yet (ROADMAP.md queue 1, item 17b: streaming)")
 
 
 def task_of(extra: Dict[str, Any]) -> str:

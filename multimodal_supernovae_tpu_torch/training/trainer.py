@@ -35,7 +35,7 @@ the run would have done had it not stopped.
 parameters it picks stay out of the optimizer.
 
 Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
-(ROADMAP.md queue 1, item 17) and a device mesh (item 15).
+(ROADMAP.md queue 1, item 17b) and a device mesh (item 15).
 """
 
 from __future__ import annotations
@@ -279,7 +279,7 @@ class Trainer:
 
     def fit_sharded(self, *args, **kwargs):
         raise NotImplementedError(
-            "fit_sharded is not ported yet (ROADMAP.md queue 1, item 17: streaming)")
+            "fit_sharded is not ported yet (ROADMAP.md queue 1, item 17b: streaming)")
 
 
 def compute_task_metrics(task: str, aux: Dict[str, Any], val_ds: ArrayDataset,

@@ -17,13 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from fixtures import write_mini_ztfbts
+from fixtures import write_mini_sim_hdf5, write_mini_ztfbts
 from multimodal_supernovae_tpu.data import native as jax_native
+from multimodal_supernovae_tpu.data.simulation import ingest_simulation as jax_ingest_simulation
 from multimodal_supernovae_tpu.data.ztfbts import load_ztfbts as jax_load_ztfbts
 from multimodal_supernovae_tpu_torch.cli import evaluate, export_embeddings, infer
 from multimodal_supernovae_tpu_torch.cli import pretrain_masked, train
 from multimodal_supernovae_tpu_torch.config import load_sweep
 from multimodal_supernovae_tpu_torch.config.yaml_subset import dump as dump_yaml
+from multimodal_supernovae_tpu_torch.data.simulation import ingest_simulation
 from multimodal_supernovae_tpu_torch.data.ztfbts import load_ztfbts
 from multimodal_supernovae_tpu_torch.evaluation import (
     get_embeddings,
@@ -306,8 +308,27 @@ def test_infer_masked_and_supervised_equal_the_direct_calls(trained):
     np.testing.assert_array_equal(got["pred_class"], pred.argmax(axis=-1))
 
 
-def test_infer_hdf5_raises_with_its_item(trained):
-    root, data_dir, _, runs = trained
-    with pytest.raises(NotImplementedError, match="item 17a"):
-        infer.main([runs["clip"], "--hdf5", "sims.h5", "--out", str(root / "x.npz"),
-                    "--device", "cpu"])
+def test_infer_hdf5_equals_get_embeddings(trained):
+    """infer --hdf5 on a simulated corpus: the contrastive run's embeddings
+    of ingest_simulation of the file with the run's bands, lengths and
+    combinations, as get_embeddings gives them, and JAX's ingest of it."""
+    root, _, _, runs = trained
+    path = write_mini_sim_hdf5(str(root / "sims.h5"), n_per_type=9, lc_len=40, sp_len=80)
+    out = root / "sims" / "emb.npz"
+    infer.main([runs["clip"], "--hdf5", path, "--out", str(out), "--device", "cpu",
+                "--batch-size", "8"])
+    kw = dict(bands=("r", "g"), n_max_obs=LC_LEN // 2, n_max_obs_spec=SP_LEN,
+              combinations=("lightcurve", "spectral"))
+    ds = ingest_simulation(path, **kw)
+    want = jax_ingest_simulation(path, **kw)
+    for k, v in want.arrays.items():
+        np.testing.assert_array_equal(ds.arrays[k], v, err_msg=k)
+    model, _ = load_model(runs["clip"], "cpu")
+    embs, names = get_embeddings(model, ds, 8, "cpu")
+    got = np.load(out)
+    assert sorted(got.files) == sorted([f"emb_{n}" for n in names] + ["filenames"])
+    for e, n in zip(embs, names):
+        np.testing.assert_array_equal(got[f"emb_{n}"], e)
+    np.testing.assert_array_equal(got["filenames"], [f"SIM{i:07d}" for i in range(18)])
+    manifest = json.loads(out.with_suffix(".json").read_text())
+    assert manifest["task"] == "contrastive_embeddings" and manifest["n_samples"] == 18

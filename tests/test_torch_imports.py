@@ -57,6 +57,7 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.cli.train\n"
         "import multimodal_supernovae_tpu_torch.cli.finetune_clip\n"
         "import multimodal_supernovae_tpu_torch.cli.pretrain_masked\n"
+        "import multimodal_supernovae_tpu_torch.cli.pretrain_sim\n"
         "import multimodal_supernovae_tpu_torch.cli.supervise\n"
         "import multimodal_supernovae_tpu_torch.config.config\n"
         "import multimodal_supernovae_tpu_torch.data.cache\n"
@@ -64,6 +65,8 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.data.folds\n"
         "import multimodal_supernovae_tpu_torch.data.native\n"
         "import multimodal_supernovae_tpu_torch.data.png\n"
+        "import multimodal_supernovae_tpu_torch.data.hdf5\n"
+        "import multimodal_supernovae_tpu_torch.data.simulation\n"
         "import multimodal_supernovae_tpu_torch.data.ztfbts\n"
         "import multimodal_supernovae_tpu_torch.utils.io\n"
         "import multimodal_supernovae_tpu_torch.utils.seed\n"
@@ -149,6 +152,7 @@ def test_entry_points_default_to_the_card():
         finetune_clip,
         infer,
         pretrain_masked,
+        pretrain_sim,
         serve,
         train,
     )
@@ -158,8 +162,8 @@ def test_entry_points_default_to_the_card():
     for fn in (load_model, load_live, get_embeddings, predict_supervised,
                masked_reconstruction_mse, run_sweep):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for cli in (serve, train, finetune_clip, pretrain_masked, evaluate, export_embeddings,
-                infer):
+    for cli in (serve, train, finetune_clip, pretrain_masked, pretrain_sim, evaluate,
+                export_embeddings, infer):
         assert cli.build_parser().get_default("device") == "cuda", cli
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
