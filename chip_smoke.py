@@ -7,7 +7,9 @@ image and meta towers and the supervised heads: trimodal from its own
 config, quadrimodal, redshift regression and classification; and masked
 pretraining, its graft into a CLIP light-curve tower, and Maven's
 pretraining and fine-tuning, each from its shipped config; and Maven's
-pretraining from a simulated HDF5 corpus through cli.pretrain_sim), through the
+pretraining from a simulated HDF5 corpus through cli.pretrain_sim; and the
+five folds of maven-lite, and an lr x seed grid, as one stacked program
+through --parallel-folds / --parallel-members), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor cores, float32 on the tensor cores in 3xTF32, head dims 32/64 and rows
 off 16 bytes on the CUDA cores), and the same server and
@@ -383,7 +385,36 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      cli.supervise -- cli.train (config_grid): exit 0 and run-0's n_params
      the parameters (those that take gradients) of the model trained on the
      card; a copy of maven-lite with heads 3 exits 1, naming run-0 and the
-     key. The tree is deleted after the phase;
+     key;
+  6j. ensemble: on phase 6h's tree, (a) flash_attention under torch.func.vmap
+     with N = 5 members on each route (3xTF32 and the CUDA cores in
+     float32, bf16 on the tensor cores) at maven-lite's (5, 32, 8, 200, 8)
+     and (5, 32, 2, 1024, 16), and once with one key mask for every member:
+     out, dq, dk and dv (and the no_grad out) bitwise those of 5 separate
+     calls, one launch each way per vmapped call (the vmap rule folds the
+     member axis into B); the fused-block and fused-QKV kernels under vmap
+     raise, naming ROADMAP item 15c. (b) cli.train configs/maven-lite.yaml
+     --parallel-folds (its full width, its five folds as members; epochs
+     1000 -> 2): exactly 18 + 18 3xTF32 launches a stacked step and 18 an
+     eval step, no plain call; each member's run dir the contract's files,
+     its grid point, its fold's manifests, a row an epoch with
+     member_samples_per_s; load_model of each run's last.ckpt against the
+     stacked member slice of the last stacked checkpoint through vmap
+     (embeddings within 1e-4); the first 5 stacked steps against each
+     member's sequential kernel-path steps (its plan, its generator): losses
+     within relative 1e-5, the first step's dropout masks bitwise. (c) The
+     same CLI stopped after epoch 0's stacked checkpoint, then --resume:
+     metric rows, last.ckpt state_dicts and RAdam moments bitwise those of
+     (b). (d) --parallel-members on a grid written from maven-lite (lr
+     {3.7e-5, 1e-4} x seed {0, 1} x folds {0, 1}, nruns 8; 1 epoch): run
+     dirs and launches as in (b), and the first 5 steps against sequential
+     runs of each member's lr and seed (StackedRAdam). (e) The stacked step
+     at N = 1, 2, 5, 8 x B = 32 (maven-lite) and N = 5 x B = 256
+     (config_grid.yaml's first point) against N sequential steps on the
+     same batches: host clock medians of 6 (each step ended by a
+     synchronise) and one profile of 5 steps each (device time, idle share,
+     time by kind), samples/s over the members. The tree is deleted after
+     the phase;
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -400,8 +431,8 @@ measured numbers, the shape they were timed at ("shape"; launches are summed
 over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
-runs, and every counted call of the run-dir, towers, maven, sim, ingest and
-evaluate phases; the CUDA-core fused-QKV entries carry their float32 times, library
+runs, and every counted call of the run-dir, towers, maven, sim, ingest,
+evaluate and ensemble phases (the ensemble's vmap checks aside); the CUDA-core fused-QKV entries carry their float32 times, library
 times and bounds at LC and SP under "float32"; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
@@ -483,7 +514,11 @@ from multimodal_supernovae_tpu_torch.data import (
 )
 from multimodal_supernovae_tpu_torch.config.yaml_subset import dump as dump_yaml
 from multimodal_supernovae_tpu_torch.data.cache import load_or_ingest
-from multimodal_supernovae_tpu_torch.data.folds import random_split, stratified_kfolds
+from multimodal_supernovae_tpu_torch.data.folds import (
+    random_split,
+    split_for_run,
+    stratified_kfolds,
+)
 from multimodal_supernovae_tpu_torch.data.native import read_csv, read_csv_plain
 from multimodal_supernovae_tpu_torch.data.png import decode, unfilter_numpy
 from multimodal_supernovae_tpu_torch.data.transforms import (
@@ -520,7 +555,10 @@ from multimodal_supernovae_tpu_torch.training import (
     make_epoch_runner,
     make_train_step,
 )
+from multimodal_supernovae_tpu_torch.training import ensemble as ensemble_mod
 from multimodal_supernovae_tpu_torch.training.experiment import _build_run
+from multimodal_supernovae_tpu_torch.utils.draws import DrawSource
+from multimodal_supernovae_tpu_torch.utils.seed import set_seed
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_attention_fwd": ("multimodal_supernovae_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1824,12 +1862,14 @@ def _train_model(compute_dtype, seed=0, fused=False):
 @contextlib.contextmanager
 def _plain_calls():
     """Records each call of a kernel's plain version (forward or backward)
-    made through the kernels' wrappers."""
+    made through the kernels' wrappers on a device other than meta."""
     calls = []
 
     def counted(fn):
         def wrapped(*args, **kw):
-            calls.append(1)
+            # a meta-device call is shape work (the ensemble's dry run), no fallback
+            if not (args and isinstance(args[0], torch.Tensor) and args[0].is_meta):
+                calls.append(1)
             return fn(*args, **kw)
         return wrapped
 
@@ -4513,6 +4553,482 @@ def _kind(name):
     return "other"
 
 
+# phase ensemble: k-fold, seed and lr members as one stacked program
+# (training/ensemble.py) on phase ingest's tree, and the flash kernels under vmap
+ENSEMBLE_EPOCHS, ENSEMBLE_STEPS, ENSEMBLE_TIMED = 2, 5, 6
+ENSEMBLE_N = (1, 2, 5, 8)  # members of the timed stacked step at B = 32
+ENSEMBLE_GRID_N = 5  # members of the timed stacked step at config_grid's B = 256
+ENSEMBLE_EMBED_TOL = 1e-4  # load_model's embeddings against the stacked member slice
+# --parallel-members: the grid written from maven-lite (8 members)
+ENSEMBLE_MEMBERS = {"lr": [3.716367614864064e-05, 1e-4], "seed": [0, 1], "foldnumber": [0, 1]}
+# (route, dtype, (N, B, H, T, S)) of the vmap checks: maven-lite's LC and SP layers
+ENSEMBLE_VMAP_CASES = tuple(
+    (route, dtype, shape)
+    for route, dtype in (("tf32", torch.float32), ("mma", torch.bfloat16),
+                         ("simt", torch.float32))
+    for shape in ((5, 32, 8, NBAND * LC_LEN, 8), (5, 32, 2, SP_LEN, 16)))
+_ROUTE_PLACE = {"simt": 0, "mma": 2, "tf32": 12}  # the forward's place in _counts()
+
+
+class _Stop(Exception):
+    """Raised after an epoch's stacked checkpoint: a run stopped there."""
+
+
+def _ensemble_vmap_case(route, dtype, shape, gen, shared_mask=False):
+    """flash_attention under vmap (training, then no_grad) against N separate
+    calls of the same route: outputs and dq/dk/dv bitwise, one launch each
+    way per vmapped call on the route. Returns whether every tensor is equal."""
+    n, b, h, t, s = shape
+    emb = h * s
+
+    def heads():  # the encoder's (B, T, H, S) views, a member axis in front
+        return torch.randn((n, b, t, h, s), generator=gen, device=DEVICE).to(
+            dtype).transpose(2, 3).requires_grad_()
+
+    q, k, v = heads(), heads(), heads()
+    mask = torch.rand((n, b, t), generator=gen, device=DEVICE) > 0.3
+    mask[..., 0] = True
+    if shared_mask:
+        mask = mask[:1].expand(n, b, t).contiguous()
+    g = torch.randn((n, b, t, h, s), generator=gen, device=DEVICE).to(dtype).transpose(2, 3)
+    m_arg, m_dim = (mask[0], None) if shared_mask else (mask, 0)
+
+    def call(q, k, v, m):
+        return flash_mod.flash_attention(q, k, v, m, emb)
+
+    place = _ROUTE_PLACE[route]
+    want = tuple(1 if i in (place, place + 1) else 0 for i in range(14))
+    with ROUTES[route]():
+        _zero_counts()
+        out = torch.func.vmap(call, in_dims=(0, 0, 0, m_dim))(q, k, v, m_arg)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        counts = _counts()
+        _zero_counts()
+        with torch.no_grad():
+            ev = torch.func.vmap(call, in_dims=(0, 0, 0, m_dim))(q, k, v, m_arg)
+        ev_counts = _counts()
+        equal = True
+        for i in range(n):
+            qi, ki, vi = (a[i].detach().requires_grad_() for a in (q, k, v))
+            oi = call(qi, ki, vi, mask[i])
+            gi = torch.autograd.grad(oi, (qi, ki, vi), g[i])
+            with torch.no_grad():
+                ei = call(qi, ki, vi, mask[i])
+            equal &= (torch.equal(oi, out[i]) and torch.equal(ei, ev[i])
+                      and all(torch.equal(a, w[i]) for a, w in zip(gi, grads)))
+    ev_want = tuple(1 if i == place else 0 for i in range(14))
+    log(f"ensemble vmap {route} {str(dtype)[6:]} (N, B, H, T, S) = {shape}"
+        f"{', one key mask for every member' if shared_mask else ''}: launches {counts} "
+        f"(want {want}), no_grad {ev_counts} (want {ev_want}); out, dq, dk, dv and the "
+        f"no_grad out bitwise those of {n} separate calls: {equal}")
+    if counts != want or ev_counts != ev_want or not equal:
+        raise AssertionError(f"ensemble vmap {route} {shape}: launches {counts} / "
+                             f"{ev_counts}, bitwise {equal}")
+
+
+def _ensemble_refusals():
+    """The fused kernels under vmap raise, naming item 15c."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    e, f = SEQ_LC["emb"], 4 * SEQ_LC["emb"]
+    shapes = ((e, e), (e,), (e,), (e,), (f, e), (f,), (e, f), (e,), (e,), (e,))
+    params = [torch.randn(sh, generator=gen, device=DEVICE).requires_grad_() for sh in shapes]
+    x = torch.randn((2, 4 * 200, e), generator=gen, device=DEVICE)
+    xq = torch.randn((2, 4, 200, e), generator=gen, device=DEVICE)
+    wq = torch.randn((e, e), generator=gen, device=DEVICE).requires_grad_()
+    for what, fn, arg in (
+            ("fused block", lambda a: ffn_mod.fused_ffn_block(a, a, *params), x),
+            ("fused QKV", lambda a: qkv_mod.fused_qkv_attention(
+                a, None, wq, wq, wq, wq, params[1], SEQ_LC["heads"], e), xq)):
+        try:
+            torch.func.vmap(fn)(arg)
+        except NotImplementedError as err:
+            if "item 15c" not in str(err):
+                raise
+            log(f"ensemble vmap: the {what} under vmap raises: {err}")
+        else:
+            raise AssertionError(f"ensemble vmap: the {what} ran under vmap")
+
+
+def _recording_dropout(seen, n):
+    """``transformer_mod.dropout`` that keeps the first ``n`` keep masks it
+    draws (the draw and the result are dropout's own)."""
+    real = transformer_mod.dropout
+
+    def drop(x, rate, train, generator):
+        if not train or rate == 0.0 or rate >= 1.0:
+            return real(x, rate, train, generator)
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+            1.0 - rate, generator=generator).bool()
+        if len(seen) < n:
+            seen.append(keep)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                               device=x.device))
+    return drop
+
+
+def _ensemble_members(sweep, points, ds, folds):
+    """(members, their models on the card, the task, freeze and trainer config
+    of the first point): run_sweep's parallel path's build of ``points``."""
+    extra = sweep.extra_args
+    members, models, first = [], [], None
+    for k, p in enumerate(points):
+        seed = int(p.get("seed", 0))
+        set_seed(seed)
+        tr, va = split_for_run(len(ds), float(extra.get("val_fraction", 0.2)), seed,
+                               folds=folds, foldnumber=p.get("foldnumber"))
+        model, task, freeze, _, tcfg = _build_run(p, extra, NBAND, None, None)
+        first = first or (task, freeze, tcfg)
+        members.append(ensemble_mod.Member(f"run-{k}", seed, tr, va, lr=float(p["lr"])))
+        models.append(model.to(DEVICE))
+    return (members, models, *first)
+
+
+def _ensemble_first_steps(tag, sweep, points, ds, folds, per_step):
+    """The first ENSEMBLE_STEPS stacked steps of ``points`` (float32, the
+    config's noise and dropout) against each member's sequential kernel-path
+    steps (Trainer.fit's epoch runner on its own split, plan and generator):
+    losses within relative TRAJ_RTOL a step, and the first step's dropout
+    keep masks bitwise. Returns the stacked steps' launches."""
+    extra = sweep.extra_args
+    members, models, _, freeze, tcfg = _ensemble_members(sweep, points, ds, folds)
+    b = tcfg.batch_size
+    own = [-(-len(m.train_indices) // b) for m in members]
+    data = ds.to_device(DEVICE)
+    plans = np.stack([ensemble_mod.member_train_plan(m, b, np.random.default_rng(m.seed),
+                                                     max(own))[:ENSEMBLE_STEPS]
+                      for m in members])
+    recipe = dict(weight_decay=tcfg.weight_decay, step_size=tcfg.step_size,
+                  gamma=tcfg.gamma, steps_per_epoch=max(own), freeze=freeze)
+    state = ensemble_mod.stack_states(models, [m.lr for m in members], **recipe)
+    run = ensemble_mod.make_ensemble_epoch_runner(
+        models[0], tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img,
+        rotate_images=tcfg.rotate_images)
+    gens = [torch.Generator(device=DEVICE).manual_seed(m.seed + 1) for m in members]
+    drawn, real_draw = [], ensemble_mod.draw_stacked_keep_masks
+
+    def recording(specs, generators, device):
+        masks = real_draw(specs, generators, device)
+        if not drawn:
+            drawn.append(masks)
+        return masks
+
+    with mock.patch.object(ensemble_mod, "draw_stacked_keep_masks", recording), \
+            _plain_calls() as plain:
+        _zero_counts()
+        _, stacked = run(state, data, plans, gens)
+        counts = _counts()
+    _check_counts(f"{tag} stacked steps", counts, tuple(c * ENSEMBLE_STEPS for c in per_step))
+    if plain:
+        raise AssertionError(f"{tag}: {len(plain)} plain kernel calls")
+    stacked = stacked.cpu().numpy()
+    optimizer = type(state.optimizer).__name__
+    del state, models, run
+    torch.cuda.empty_cache()
+    worst, masks_equal = 0.0, True
+    for i, (m, p) in enumerate(zip(members, points)):
+        set_seed(m.seed)
+        model = _build_run(p, extra, NBAND, None, None)[0].to(DEVICE)
+        opt, sched = build_optimizer(model.named_parameters(), lr=m.lr,
+                                     **dict(recipe, steps_per_epoch=own[i]))
+        local = epoch_indices(len(m.train_indices), b, rng=np.random.default_rng(m.seed),
+                              shuffle=True, pad="wrap")[:ENSEMBLE_STEPS]
+        seen = []
+        with mock.patch.object(transformer_mod, "dropout",
+                               _recording_dropout(seen, len(drawn[0]))):
+            _, seq = make_epoch_runner(
+                model, tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img,
+                rotate_images=tcfg.rotate_images)(
+                TrainState(model, opt, sched), ds.subset(m.train_indices).to_device(DEVICE),
+                local, torch.Generator(device=DEVICE).manual_seed(m.seed + 1))
+        seq = seq.cpu().numpy()
+        rel = np.abs(stacked[i] - seq) / np.abs(seq)
+        same = len(seen) == len(drawn[0]) and all(
+            torch.equal(a, w[i]) for a, w in zip(seen, drawn[0]))
+        worst, masks_equal = max(worst, float(rel.max())), masks_equal and same
+        log(f"{tag} {m.name} (fold {p.get('foldnumber')}, seed {m.seed}, lr {m.lr:.6g}): "
+            f"stacked {stacked[i].tolist()}, sequential {seq.tolist()}, worst relative "
+            f"{rel.max():.3e} (tol {TRAJ_RTOL}); the first step's {len(seen)} dropout masks "
+            f"(keep {drawn[0][0].float().mean().item():.6f} of the first) bitwise: {same}")
+        del model, opt
+    log(f"{tag}: {len(members)} members ({optimizer} over the stacked leaves), "
+        f"{ENSEMBLE_STEPS} steps, launches {counts}; worst relative {worst:.3e}; masks "
+        f"bitwise {masks_equal}")
+    if worst > TRAJ_RTOL or not masks_equal or not np.all(np.isfinite(stacked)):
+        raise AssertionError(f"{tag}: worst relative {worst}, masks bitwise {masks_equal}")
+    return counts
+
+
+def _ensemble_cli_want(ds, folds, sweep, points, epochs, per_step):
+    extra, b = sweep.extra_args, int(points[0]["batchsize"])
+    splits = [split_for_run(len(ds), float(extra.get("val_fraction", 0.2)),
+                            int(p.get("seed", 0)), folds=folds, foldnumber=p.get("foldnumber"))
+              for p in points]
+    steps = max(-(-len(tr) // b) for tr, _ in splits)
+    val_steps = max(-(-len(va) // b) for _, va in splits)
+    return _fit_want(per_step, epochs, steps, val_steps), splits
+
+
+def _ensemble_check_runs(tag, sweep_dir, points, splits, ds, epochs):
+    """Every member's run dir: the sequential run's files, its config, the
+    fold's manifests, a row an epoch with the member's share of the
+    throughput."""
+    for k, (p, (tr, va)) in enumerate(zip(points, splits)):
+        run = os.path.join(sweep_dir, f"run-{k}")
+        files = set(os.listdir(run))
+        rows = _metric_rows(run)
+        with open(os.path.join(run, "config.yaml")) as fh:
+            dumped = safe_load(fh.read())
+        manifests = []
+        for name, idx in (("train_filenames.txt", tr), ("val_filenames.txt", va)):
+            with open(os.path.join(run, name)) as fh:
+                manifests.append(fh.read().splitlines() == [ds.filenames[i] for i in idx])
+        log(f"{tag} run-{k} (fold {p['foldnumber']}, seed {p['seed']}, lr {p['lr']:.6g}): "
+            f"files {sorted(files)}; config and manifests its own: {dumped == p}, "
+            f"{manifests}; " + "; ".join(
+                f"epoch {r['epoch']} train_loss {r['train_loss']:.7f} val_loss "
+                f"{r['val_loss']:.7f} AUC_val {r['AUC_val']:.4f} step "
+                f"{r['step_time_s'] * 1e3:.3f} ms, {r['samples_per_s']:.1f} samples/s "
+                f"({r['member_samples_per_s']:.1f} the member's)" for r in rows))
+        if (not set(RUN_DIR_FILES) <= files or not any(f.startswith("epoch=") for f in files)
+                or dumped != p or not all(manifests)
+                or [r["epoch"] for r in rows] != list(range(epochs))
+                or not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+                           for r in rows)):
+            raise AssertionError(f"{tag} run-{k}: files {sorted(files)}, config "
+                                 f"{dumped == p}, manifests {manifests}, rows {rows}")
+
+
+def _ensemble_serves(tag, sweep_dir, n, epochs, ds):
+    """Each member's run dir through load_model (last.ckpt) against the
+    stacked state's member slice (the ensemble checkpoint of the last epoch)
+    run through vmap, on one batch: embeddings within ENSEMBLE_EMBED_TOL."""
+    payload = torch.load(os.path.join(sweep_dir, "_ensemble-g0", f"epoch-{epochs - 1}.pt"),
+                         map_location=DEVICE, weights_only=True)["cur"]
+    template, _ = load_model(os.path.join(sweep_dir, "run-0"), device=DEVICE, which="last")
+    wrapper = ensemble_mod._LossOf(template)
+    params = {f"model.{k}": v for k, v in payload["params"].items()}
+    buffers = {f"model.{k}": v for k, v in payload["buffers"].items()}
+    batch = take(ds.to_device(DEVICE), torch.arange(32, device=DEVICE))
+
+    def member(p, bu):
+        return torch.func.functional_call(wrapper, (p, bu), (batch, False, DrawSource()))[1][
+            "embeddings"]
+
+    with torch.no_grad():
+        stacked = torch.func.vmap(member)(params, buffers)
+        worst = 0.0
+        for k in range(n):
+            model, _ = load_model(os.path.join(sweep_dir, f"run-{k}"), device=DEVICE,
+                                  which="last")
+            got = model.encode(batch)
+            worst = max(worst, max(float((a - w[k]).abs().max()) for a, w in zip(got, stacked)))
+    log(f"{tag}: load_model(run-k, which='last').encode of 32 samples against the stacked "
+        f"member slice through vmap: worst {worst:.3e} (tol {ENSEMBLE_EMBED_TOL})")
+    if worst > ENSEMBLE_EMBED_TOL:
+        raise AssertionError(f"{tag}: served embeddings {worst} off the stacked member's")
+
+
+def _ensemble_time(tag, card, members, models, seq_models, tcfg, data, per_step):
+    """Host clock (median of ENSEMBLE_TIMED, each step ended by a synchronise,
+    after 2 warm-up steps) and one profile of PROFILED_STEPS of the stacked
+    step of ``models`` against N sequential steps of ``seq_models`` on the
+    same batches. Returns (stacked ms, sequential ms, launches)."""
+    n, b = len(members), tcfg.batch_size
+    steps = max(-(-len(m.train_indices) // b) for m in members)
+    plans = np.stack([ensemble_mod.member_train_plan(m, b, np.random.default_rng(m.seed),
+                                                     steps)[:1] for m in members])
+    state = ensemble_mod.stack_states(models, [tcfg.lr] * n, weight_decay=tcfg.weight_decay)
+    run = ensemble_mod.make_ensemble_epoch_runner(models[0], tcfg.noise_level_mag)
+    gens = [torch.Generator(device=DEVICE).manual_seed(m.seed + 1) for m in members]
+    seq = [(TrainState(mm, build_optimizer(mm.named_parameters(), lr=tcfg.lr,
+                                           weight_decay=tcfg.weight_decay)[0]),
+            make_train_step(mm, tcfg.noise_level_mag),
+            take(data, torch.from_numpy(plans[i, 0]).to(DEVICE)),
+            torch.Generator(device=DEVICE).manual_seed(members[i].seed + 1))
+           for i, mm in enumerate(seq_models)]
+    results = {}
+    _zero_counts()
+    for kind, fn in (("stacked", lambda: run(state, data, plans, gens)),
+                     ("sequential", lambda: [step(st, bt, g) for st, step, bt, g in seq])):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(ENSEMBLE_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        traced = _trace(fn, PROFILED_STEPS)
+        results[kind] = (float(np.median(times)), times, traced)
+    counts = _counts()
+    calls = 2 + ENSEMBLE_TIMED + PROFILED_STEPS
+    # a stacked step launches each kernel as often as one member's step does
+    _check_counts(f"{tag} timed steps", counts, tuple(c * calls * (1 + n) for c in per_step))
+    (ms, times, traced), (seq_ms, seq_times, seq_traced) = (results["stacked"],
+                                                           results["sequential"])
+    log(f"{tag}: N = {n} x B = {b} float32: the stacked step, host clock median {ms:.3f} ms "
+        f"(quartiles {np.percentile(times, 25):.3f}-{np.percentile(times, 75):.3f}), device "
+        f"{traced[0]:.3f} ms, idle share {traced[3]:.3f}, {traced[4]:.0f} device ops: "
+        f"{n * b / ms * 1e3:.1f} samples/s over the members; {n} sequential steps, host "
+        f"clock median {seq_ms:.3f} ms (quartiles {np.percentile(seq_times, 25):.3f}-"
+        f"{np.percentile(seq_times, 75):.3f}), device {seq_traced[0]:.3f} ms, idle share "
+        f"{seq_traced[3]:.3f}, {seq_traced[4]:.0f} device ops: {n * b / seq_ms * 1e3:.1f} "
+        f"samples/s; stacked / sequential samples/s {seq_ms / ms:.3f}; card {card}")
+    _log_trace(f"{tag} stacked profile", "stacked steps", *traced, at=f"N={n} B={b} float32")
+    del state, run, seq
+    torch.cuda.empty_cache()
+    return ms, seq_ms, counts
+
+
+def _ensemble_timing(card, ds, folds):
+    """The stacked step at N in ENSEMBLE_N x B = 32 on maven-lite, and at N =
+    ENSEMBLE_GRID_N x B = 256 on config_grid.yaml's first point, each against
+    N sequential steps of the same shapes."""
+    total = NONE
+    for config, ns in ((MAVEN_LITE, ENSEMBLE_N), (GRID, (ENSEMBLE_GRID_N,))):
+        sweep = load_sweep(config)
+        point = next(expand_grid(sweep))
+        for n in ns:
+            points = [dict(point, seed=s, foldnumber=s % 5) for s in range(n)]
+            members, models, _, _, tcfg = _ensemble_members(sweep, points, ds, folds)
+            seq_models = _ensemble_members(sweep, points, ds, folds)[1]
+            layers = models[0].cfg.tk()["depth"] + (
+                models[0].cfg.tsk()["depth"] if "spectral" in models[0].cfg.combinations
+                else 0)
+            *_, counts = _ensemble_time(f"ensemble timing {os.path.basename(config)}", card,
+                                        members, models, seq_models, tcfg,
+                                        ds.to_device(DEVICE), _tf32_flash(layers, layers))
+            total = tuple(a + c for a, c in zip(total, counts))
+            del models, seq_models
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_ensemble(card, tmp):
+    """Stacked members on phase ingest's tree: (a) the flash kernels under
+    vmap on every route, bitwise N separate calls, and the fused kernels'
+    refusal; (b) cli.train configs/maven-lite.yaml --parallel-folds, the five
+    folds as one program (epochs 1000 -> ENSEMBLE_EPOCHS), its launches, run
+    dirs and load_model, and the first steps against sequential runs; (c)
+    the same run stopped after epoch 0 and resumed, bitwise; (d)
+    --parallel-members on an lr x seed x fold grid; (e) the stacked step's
+    times against sequential steps. Returns the launches of (b)-(e)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    for route, dtype, shape in ENSEMBLE_VMAP_CASES:
+        _ensemble_vmap_case(route, dtype, shape, gen)
+    _ensemble_vmap_case("tf32", torch.float32, ENSEMBLE_VMAP_CASES[0][2], gen, shared_mask=True)
+    _ensemble_refusals()
+
+    data_dir, spectra_dir = os.path.join(tmp, "ZTFBTS"), os.path.join(tmp, "ZTFBTS_spectra")
+    cache_dir, analysis = os.path.join(tmp, "cache"), os.path.join(tmp, "ensemble")
+    sweep = load_sweep(MAVEN_LITE)
+    extra = sweep.extra_args
+    config = cli_common.ingest_config(data_dir, spectra_dir, extra, 1000)
+    ds, hit = load_or_ingest(cache_dir, lambda: load_ztfbts(kfolds=None, **config)[0], **config)
+    folds = stratified_kfolds(np.asarray(ds.arrays["label"]), int(extra["kfolds"]))
+    points = list(expand_grid(sweep))
+    layers = SEQ_LC["depth"] + SEQ_SP["depth"]
+    per_step = _tf32_flash(layers, layers)
+    argv = ["--data-dir", data_dir, "--spectra-dir", spectra_dir, "--cache-dir", cache_dir,
+            "--device", DEVICE, "--parallel-folds"]
+
+    # (b) the five folds as one program
+    want, splits = _ensemble_cli_want(ds, folds, sweep, points, ENSEMBLE_EPOCHS, per_step)
+    log(f"ensemble folds: cli.train {MAVEN_LITE} --parallel-folds on {len(ds)} samples "
+        f"(cache hit {hit}); {len(points)} members (folds "
+        f"{[p['foldnumber'] for p in points]}), train sizes {[len(s[0]) for s in splits]}, "
+        f"B {points[0]['batchsize']}; cut: epochs {points[0]['epochs']} -> {ENSEMBLE_EPOCHS}")
+    counts, wall, _ = _cli_counted("ensemble folds", cli_train.main, [
+        MAVEN_LITE, *argv, "--analysis-path", os.path.join(analysis, "A"), "--epochs",
+        str(ENSEMBLE_EPOCHS)])
+    _check_counts("ensemble folds", counts, want)
+    log(f"ensemble folds: {counts[12]} + {counts[13]} 3xTF32 flash launches (want {want[12:]})"
+        f": {layers} + {layers} a stacked step for {len(points)} members; {wall:.1f} s")
+    total = counts
+    sweep_a = os.path.join(analysis, "A", "maven-lite")
+    _ensemble_check_runs("ensemble folds", sweep_a, points, splits, ds, ENSEMBLE_EPOCHS)
+    _ensemble_serves("ensemble folds", sweep_a, len(points), ENSEMBLE_EPOCHS, ds)
+    total = tuple(a + c for a, c in zip(
+        total, _ensemble_first_steps("ensemble folds steps", sweep, points, ds, folds,
+                                     per_step)))
+
+    # (c) stopped after epoch 0, resumed
+    real_save = ensemble_mod.EnsembleCheckpoint.save
+
+    def stop_after_first(self, epoch, *args, **kw):
+        real_save(self, epoch, *args, **kw)
+        if epoch == 0:
+            raise _Stop()
+
+    def stopped_main(args):
+        with mock.patch.object(ensemble_mod.EnsembleCheckpoint, "save", stop_after_first):
+            try:
+                cli_train.main(args)
+            except _Stop:
+                print("stopped after epoch 0's stacked checkpoint")
+
+    r_argv = [*argv, "--analysis-path", os.path.join(analysis, "R"), "--epochs",
+              str(ENSEMBLE_EPOCHS)]
+    first, _, _ = _cli_counted("ensemble resume (stopped)", stopped_main, [MAVEN_LITE, *r_argv])
+    sweep_r = os.path.join(analysis, "R", "maven-lite")
+    second, _, _ = _cli_counted("ensemble resume", cli_train.main,
+                                [sweep_r, *r_argv, "--resume"])
+    one = _ensemble_cli_want(ds, folds, sweep, points, 1, per_step)[0]
+    _check_counts("ensemble resume (stopped)", first, one)
+    _check_counts("ensemble resume", second, one)
+    total = tuple(a + b + c for a, b, c in zip(total, first, second))
+    same = True
+    for k in range(len(points)):
+        ra = [(r["train_loss"], r["val_loss"], r["AUC_val"])
+              for r in _metric_rows(os.path.join(sweep_a, f"run-{k}"))]
+        rb = [(r["train_loss"], r["val_loss"], r["AUC_val"])
+              for r in _metric_rows(os.path.join(sweep_r, f"run-{k}"))]
+        a = torch.load(os.path.join(sweep_a, f"run-{k}", "last.ckpt"), weights_only=True)
+        b = torch.load(os.path.join(sweep_r, f"run-{k}", "last.ckpt"), weights_only=True)
+        sd_same = all(torch.equal(v, b["state_dict"][n]) for n, v in a["state_dict"].items())
+        opt_same = all(torch.equal(v[key], b["optimizer_states"][0]["state"][p][key])
+                       for p, v in a["optimizer_states"][0]["state"].items()
+                       for key in ("exp_avg", "exp_avg_sq"))
+        log(f"ensemble resume run-{k}: rows {rb}; the uninterrupted run's {ra}; equal: "
+            f"{ra == rb}; last.ckpt state_dict bitwise {sd_same}, RAdam moments bitwise "
+            f"{opt_same}")
+        same &= ra == rb and sd_same and opt_same
+    if not same:
+        raise AssertionError("ensemble resume: the resumed run differs from the uninterrupted")
+
+    # (d) seeds and learning rates as members too
+    raw = sweep.raw
+    grid = os.path.join(tmp, "maven-lite-members.yaml")
+    with open(grid, "w") as fh:
+        fh.write(dump_yaml(dict(raw, parameters=dict(raw["parameters"], **{
+            k: {"values": v} for k, v in ENSEMBLE_MEMBERS.items()}),
+            extra_args=dict(raw["extra_args"], nruns=8))))
+    m_sweep = load_sweep(grid)
+    m_points = list(expand_grid(m_sweep))
+    want, m_splits = _ensemble_cli_want(ds, folds, m_sweep, m_points, 1, per_step)
+    log(f"ensemble members: cli.train --parallel-members on {grid} (maven-lite with lr "
+        f"{ENSEMBLE_MEMBERS['lr']} x seed {ENSEMBLE_MEMBERS['seed']} x folds "
+        f"{ENSEMBLE_MEMBERS['foldnumber']}, nruns 5 -> 8); cut: epochs 1000 -> 1")
+    counts, wall, _ = _cli_counted("ensemble members", cli_train.main, [
+        grid, *[a for a in argv if a != "--parallel-folds"], "--parallel-members",
+        "--analysis-path", os.path.join(analysis, "M"), "--epochs", "1"])
+    _check_counts("ensemble members", counts, want)
+    total = tuple(a + c for a, c in zip(total, counts))
+    _ensemble_check_runs("ensemble members", os.path.join(analysis, "M", "maven-lite-members"),
+                         m_points, m_splits, ds, 1)
+    total = tuple(a + c for a, c in zip(
+        total, _ensemble_first_steps("ensemble members steps", m_sweep, m_points, ds, folds,
+                                     per_step)))
+
+    # (e) the stacked step against sequential steps
+    total = tuple(a + c for a, c in zip(total, _ensemble_timing(card, ds, folds)))
+    log(f"ensemble: launches per route {COUNT_NAMES}: {total}; card {card}")
+    log(f"ensemble: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def _trace(fn, n):
     """torch.profiler (device activity only) over ``n`` calls of ``fn``;
     returns (device ms, trace wall ms, host-clock ms) per call, the idle
@@ -4661,12 +5177,14 @@ def main():
         sim = phase_sim(card, tmp)
         ingest = phase_ingest(card, tmp)
         evaluation = phase_evaluate(card, tmp)
+        ensemble = phase_ensemble(card, tmp)
     phase_profile()
     runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            maven, sim, ingest, evaluation)
+            maven, sim, ingest, evaluation, ensemble)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, summed in the line: "
+        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, ensemble, summed in the "
+        f"line: "
         f"{runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))

@@ -46,10 +46,10 @@ def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True,
 
 def add_parallel_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--parallel-folds", action="store_true",
-                    help="grid points that differ only in foldnumber as one program "
-                         "(not ported yet)")
+                    help="train the grid points that differ only in foldnumber as one "
+                         "stacked program (training/ensemble.py)")
     ap.add_argument("--parallel-members", action="store_true",
-                    help="like --parallel-folds across seed and lr too (not ported yet)")
+                    help="like --parallel-folds, stacking across seed and lr too")
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
@@ -58,10 +58,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
     from ..training.preflight import refuse_mesh
 
     refuse_mesh(args)
-    if getattr(args, "parallel_folds", False) or getattr(args, "parallel_members", False):
-        raise NotImplementedError(
-            "--parallel-folds/--parallel-members are not ported yet (ROADMAP.md queue 1, "
-            "item 15: training/ensemble.py)")
     if getattr(args, "profile_dir", None):
         raise NotImplementedError(
             "--profile-dir is not ported yet (ROADMAP.md queue 1, item 19: "

@@ -14,8 +14,9 @@ is trained on it (``models/factory.py:finetune_model_builder``)::
 
 ``--device`` defaults to ``cuda``. ``--check`` validates every grid point on
 the meta device instead of training (the pretrained run dir's config and
-weights are read, and the report counts the entries they fill). Not ported
-yet: ``--parallel-folds``/``--parallel-members`` (ROADMAP.md item 15).
+weights are read, and the report counts the entries they fill).
+``--parallel-folds``/``--parallel-members`` stack the grid points as
+``cli.train`` does.
 """
 
 from __future__ import annotations
@@ -59,7 +60,9 @@ def main(argv=None) -> None:
     results = run_sweep(
         sweep, dataset, 2, folds, sweep_dir, model_builder=finetune_model_builder(extra),
         use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
-        epochs_override=args.epochs, resume=args.resume, device=args.device)
+        epochs_override=args.epochs, resume=args.resume,
+        parallel_folds=args.parallel_folds, parallel_members=args.parallel_members,
+        device=args.device)
     common.print_results(results)
 
 

@@ -15,9 +15,11 @@ grid point is trained into ``<analysis>/<sweep>/run-<k>/``::
 ``--device`` defaults to ``cuda`` and training refuses to start without it
 (pass ``--device cpu`` for the CPU). ``--check`` validates every grid point
 on the meta device instead of training (``training/preflight.py``; no data,
-no card). Not ported yet, and raising ``NotImplementedError``:
-``--parallel-folds``/``--parallel-members`` (ROADMAP.md item 15),
-``--profile-dir`` (item 19); the post-fit plots are not made (item 18b).
+no card). ``--parallel-folds`` trains the folds of each grid point as one
+stacked program and ``--parallel-members`` its seeds and learning rates too
+(``training/ensemble.py``), into the same run directories. Not ported yet,
+and raising ``NotImplementedError``: ``--profile-dir`` (ROADMAP.md item
+19); the post-fit plots are not made (item 18b).
 """
 
 from __future__ import annotations
@@ -70,7 +72,9 @@ def main(argv=None) -> None:
     results = run_sweep(
         sweep, dataset, nband, folds, sweep_dir,
         use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
-        epochs_override=args.epochs, resume=args.resume, device=args.device)
+        epochs_override=args.epochs, resume=args.resume,
+        parallel_folds=args.parallel_folds, parallel_members=args.parallel_members,
+        device=args.device)
     common.print_results(results)
 
 

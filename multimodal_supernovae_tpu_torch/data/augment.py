@@ -22,10 +22,14 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from ..utils.draws import DrawSource
+
 
 def _need(generator: Optional[torch.Generator], what: str) -> torch.Generator:
     if generator is None:
         raise ValueError(f"{what} needs a generator or a handed-in draw")
+    if isinstance(generator, DrawSource):
+        generator.refuse(what)
     return generator
 
 

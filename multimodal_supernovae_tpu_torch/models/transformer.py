@@ -52,7 +52,9 @@ from torch import nn
 
 from ..ops import fused_block as _fused
 from ..ops import qkv_attention as _qkv
-from ..ops.attention import attention
+from ..ops.attention import attention, is_batched, refuse_stacked_weights
+from ..ops.linear import linear
+from ..utils.draws import DrawSource
 
 LN_EPS = 1e-6
 
@@ -61,7 +63,9 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: in train mode keep each element with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``; otherwise the identity.
-    The keep mask is drawn from ``generator`` (on ``x``'s device)."""
+    The keep mask is drawn from ``generator`` (on ``x``'s device), or is the
+    next one of a ``utils.draws.DrawSource`` given in its place (stacked
+    ensemble members, whose masks are drawn before the forward)."""
     if not train or rate == 0.0:
         return x
     if generator is None:
@@ -69,8 +73,11 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
-        keep_prob, generator=generator).bool()
+    if isinstance(generator, DrawSource):
+        keep = generator.keep_mask(x, keep_prob)
+    else:
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep_prob, generator=generator).bool()
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -99,7 +106,9 @@ def _fan_in_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` with a torch ``Linear``'s (out, in) weight layout."""
+    """flax ``nn.Dense`` with a torch ``Linear``'s (out, in) weight layout
+    (``ops.linear.linear``: ``F.linear``, with a rule of its own for stacked
+    members under vmap)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -114,7 +123,7 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(x, self.weight, self.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return linear(x.to(dt), self.weight.to(dt), b)
 
 
 class LayerNorm(nn.Module):
@@ -181,8 +190,11 @@ class SelfAttention(nn.Module):
         ``Dense`` weights and the unify bias as they are. The CPU tests reach
         the routed module by patching ``_on_card``, the one device
         predicate."""
-        return bool(os.environ.get("MMSN_FUSED_QKV") == "1" and _on_card(x)
-                    and _qkv.supports(x.shape[1], self.emb, self.heads))
+        use = bool(os.environ.get("MMSN_FUSED_QKV") == "1" and _on_card(x)
+                   and _qkv.supports(x.shape[1], self.emb, self.heads))
+        if use and is_batched(x):
+            refuse_stacked_weights("MMSN_FUSED_QKV=1")
+        return use
 
 
 class TransformerBlock(nn.Module):
@@ -224,8 +236,11 @@ class TransformerBlock(nn.Module):
             use = False  # kill switch, even over an explicit True
         elif use is None:
             use = env == "1" and x.is_cuda
-        return bool(use and self.dropout == 0.0
-                    and _fused.supports(self.emb, self.heads, self.ff_hidden_mult))
+        use = bool(use and self.dropout == 0.0
+                   and _fused.supports(self.emb, self.heads, self.ff_hidden_mult))
+        if use and is_batched(x):
+            refuse_stacked_weights("the fused block (use_fused_block / MMSN_FUSED_BLOCK=1)")
+        return use
 
 
 def fused_transformer_block(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -304,7 +319,7 @@ class TorchStyleMHA(nn.Module):
 
         def proj_heads(x, w, b):
             dt = _compute_dtype(x, w, None)
-            y = F.linear(x.to(dt), w.to(dt), b.to(dt))
+            y = linear(x.to(dt), w.to(dt), b.to(dt))
             return y.view(x.shape[0], x.shape[1], h, s).transpose(1, 2)
 
         qh, kh, vh = (proj_heads(x, w, b) for x, w, b in zip((q, k, v), ws, bs))

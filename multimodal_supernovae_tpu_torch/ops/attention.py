@@ -33,6 +33,24 @@ MASK_FILL = -1e7
 PLAIN_DEVICES = ("cpu", "meta")
 
 
+def is_batched(*tensors) -> bool:
+    """Whether any of ``tensors`` is a ``torch.func.vmap`` BatchedTensor (a
+    stacked ensemble member's, training/ensemble.py): a tensor whose data
+    pointer and strides no kernel wrapper can read."""
+    return any(isinstance(t, torch.Tensor) and torch._C._functorch.is_batchedtensor(t)
+               for t in tensors)
+
+
+STACKED_WEIGHTS_REFUSAL = (
+    "{} under torch.func.vmap: each stacked member has its own weights, and the "
+    "fused kernels take one set (ROADMAP.md queue 1, item 15c: fused kernels with "
+    "stacked weights); train ensembles without MMSN_FUSED_BLOCK / MMSN_FUSED_QKV")
+
+
+def refuse_stacked_weights(what: str):
+    raise NotImplementedError(STACKED_WEIGHTS_REFUSAL.format(what))
+
+
 def dense_attention(
     q: torch.Tensor,
     k: torch.Tensor,

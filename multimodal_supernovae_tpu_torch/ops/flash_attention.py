@@ -73,7 +73,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES, dense_attention, dense_attention_bwd
+from .attention import PLAIN_DEVICES, dense_attention, dense_attention_bwd, is_batched
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 BWD_HEAD_DIMS = (8, 16, 32)
@@ -307,27 +307,83 @@ flash_attention_bwd.mma_launches = 0
 flash_attention_bwd.tf32_launches = 0
 
 
+def _fold_members(info, in_dims, q, k, v, key_mask):
+    """The vmap rule's folding: each batched input's member dim moved to the
+    front, an unbatched one expanded, then (N, B, ...) merged into (N*B, ...).
+    q/k/v of the encoder's (B, T, H, S) views fold with no copy; a key mask
+    that is not batched is copied N times."""
+    n = info.batch_size
+
+    def front(a, d):
+        return a.expand(n, *a.shape) if d is None else a.movedim(d, 0)
+
+    q, k, v = (front(a, d).flatten(0, 1) for a, d in zip((q, k, v), in_dims))
+    if key_mask is not None:
+        key_mask = front(key_mask, in_dims[3]).reshape(-1, key_mask.shape[-1])
+    return n, q, k, v, key_mask
+
+
+def _unfold(n: int, a: torch.Tensor) -> torch.Tensor:
+    return a.unflatten(0, (n, -1))
+
+
 class FlashAttention(torch.autograd.Function):
     """The forward kernel with its row residual, and the backward kernel as
     its gradient (the JAX package's ``custom_vjp`` pair). ``key_mask`` and
-    ``emb`` take no gradient."""
+    ``emb`` take no gradient. Returns (out, stats); stats is the forward's
+    (B, H, T, 2) float32 row residual and takes no gradient.
+
+    Under ``torch.func.vmap`` (stacked ensemble members, training/ensemble.py)
+    the ``vmap`` rule folds the member axis into B: one launch each way for
+    all N members, exactly N separate launches' numbers, since every (b, h)
+    tile is computed alone."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, emb):
+    def forward(q, k, v, key_mask, emb):
         if q.shape[-1] not in BWD_HEAD_DIMS:
             raise ValueError(f"head dim {q.shape[-1]} has no backward kernel "
                              f"{BWD_HEAD_DIMS}")
-        out, stats = _flash_fwd(q, k, v, key_mask, emb, with_stats=True)
+        return _flash_fwd(q, k, v, key_mask, emb, with_stats=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, key_mask, emb = inputs
+        out, stats = output
+        ctx.mark_non_differentiable(stats)
         ctx.save_for_backward(q, k, v, key_mask, out, stats)
         ctx.emb = emb
-        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
+    def backward(ctx, g, g_stats):
         q, k, v, key_mask, out, stats = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, out, stats, g, ctx.emb)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, key_mask, emb):
+        n, q, k, v, key_mask = _fold_members(info, in_dims, q, k, v, key_mask)
+        out, stats = FlashAttention.apply(q, k, v, key_mask, emb)
+        return (_unfold(n, out), _unfold(n, stats)), (0, 0)
+
+
+class FlashForward(torch.autograd.Function):
+    """The forward kernel alone, without the residual, under ``vmap`` where
+    no gradient is taken (evaluation of stacked members), with
+    ``FlashAttention``'s folding rule."""
+
+    @staticmethod
+    def forward(q, k, v, key_mask, emb):
+        return _flash_fwd(q, k, v, key_mask, emb, with_stats=False)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, key_mask, emb):
+        n, q, k, v, key_mask = _fold_members(info, in_dims, q, k, v, key_mask)
+        return _unfold(n, FlashForward.apply(q, k, v, key_mask, emb)), 0
 
 
 def flash_attention(
@@ -344,14 +400,20 @@ def flash_attention(
     any T >= 1, q/k/v with equal strides and a contiguous head dim) or
     raise. When autograd
     needs a gradient of a CUDA call it goes through ``FlashAttention``
-    (head dim in {8, 16, 32})."""
+    (head dim in {8, 16, 32}). Under ``torch.func.vmap`` a CUDA call goes
+    through ``FlashAttention`` while gradients are on and ``FlashForward``
+    under ``no_grad``, whose rules fold the member axis into B."""
     if q.device.type in PLAIN_DEVICES:
         return dense_attention(q, k, v, key_mask, emb)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU, got {q.device}")
+    if is_batched(q, k, v, key_mask):
+        if torch.is_grad_enabled():
+            return FlashAttention.apply(q, k, v, key_mask, emb)[0]
+        return FlashForward.apply(q, k, v, key_mask, emb)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, key_mask, emb)
+        return FlashAttention.apply(q, k, v, key_mask, emb)[0]
     return _flash_fwd(q, k, v, key_mask, emb, with_stats=False)[0]
 
 

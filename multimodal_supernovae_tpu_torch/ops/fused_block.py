@@ -52,7 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES
+from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights
 
 LN_EPS = 1e-6
 ROWS = 32          # rows per block tile in both kernels
@@ -408,19 +408,27 @@ fused_ffn_block_bwd.mma_launches = 0
 class FusedFFNBlock(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient (the JAX
     package's ``custom_vjp``). The residuals are ``att``, ``x`` and the
-    parameters; the backward recomputes the forward from them."""
+    parameters; the backward recomputes the forward from them. Refused under
+    ``torch.func.vmap``: stacked members carry a set of weights each."""
 
     @staticmethod
-    def forward(ctx, att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps):
-        ctx.save_for_backward(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2)
-        ctx.eps = eps
+    def forward(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps):
         return _ffn_fwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps=eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:-1])
+        ctx.eps = inputs[-1]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         grads = fused_ffn_block_bwd(*ctx.saved_tensors, g, eps=ctx.eps)
         return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        refuse_stacked_weights("the fused FFN block")
 
 
 def fused_ffn_block(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
@@ -436,6 +444,8 @@ def fused_ffn_block(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
     gradient to take (``no_grad``, ``inference_mode``, as in serving) the
     forward runs alone and keeps no residuals."""
     args = (att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2)
+    if is_batched(*args):
+        refuse_stacked_weights("the fused FFN block")
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return FusedFFNBlock.apply(*args, eps)
     return _ffn_fwd(*args, eps=eps)

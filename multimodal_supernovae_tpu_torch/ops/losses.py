@@ -13,7 +13,7 @@ multimodal_supernovae_tpu/ops/losses.py, the single-device functions).
     normalisation) and ``mse_loss``.
 
 The global-batch (sharded) variants wait for the port's data-parallel
-slice (ROADMAP.md queue 1, item 15).
+slice (ROADMAP.md queue 1, item 15b: scale-out).
 """
 
 from __future__ import annotations

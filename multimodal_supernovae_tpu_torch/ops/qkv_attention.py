@@ -64,7 +64,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES
+from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights
 
 MASK_FILL = -1e7
 MAX_TQ = 256       # one thread per sequence position; longer sequences use the flash kernels
@@ -334,13 +334,19 @@ class FusedQKVAttention(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient (the JAX
     package's ``custom_vjp``). The residuals are x, the mask and the two
     weights; the backward recomputes the forward from them. The weight
-    gradients are cast to the weights' dtype, as the JAX backward does."""
+    gradients are cast to the weights' dtype, as the JAX backward does.
+    Refused under ``torch.func.vmap``: stacked members carry a set of
+    weights each."""
 
     @staticmethod
-    def forward(ctx, x, mask, wqkv, wu, bu, heads):
+    def forward(x, mask, wqkv, wu, bu, heads):
+        return _qkv_fwd(x, mask, wqkv, wu, bu, heads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, mask, wqkv, wu, bu, heads = inputs
         ctx.save_for_backward(x, mask, wqkv, wu)
         ctx.heads, ctx.bu_dtype = heads, bu.dtype
-        return _qkv_fwd(x, mask, wqkv, wu, bu, heads)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -349,6 +355,10 @@ class FusedQKVAttention(torch.autograd.Function):
         dx, dwqkv, dwu, dbu = fused_qkv_attention_bwd(x, mask, wqkv, wu, g, ctx.heads)
         return (dx, None, dwqkv.to(wqkv.dtype), dwu.to(wu.dtype),
                 dbu.to(ctx.bu_dtype), None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        refuse_stacked_weights("the fused QKV attention")
 
 
 def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -378,6 +388,8 @@ def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
     scale = float(emb) ** -0.25
     wqkv = torch.cat([wq * scale, wk * scale, wv], dim=0)
     args = (x, wqkv, wu, bu)
+    if is_batched(x, mask, *args):
+        refuse_stacked_weights("the fused QKV attention")
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return FusedQKVAttention.apply(x, mask, wqkv, wu, bu, heads)
     return _qkv_fwd(x, mask, wqkv, wu, bu, heads)

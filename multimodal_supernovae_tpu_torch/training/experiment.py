@@ -28,11 +28,17 @@ state_dict, and the caller applies it::
         model.load_state_dict(override(model.state_dict()), strict=True)
     Trainer(model, task, tcfg, freeze=freeze, ...).fit(...)
 
+``parallel_folds`` trains the grid points that differ only in
+``foldnumber`` as one stacked program (``training/ensemble.py``), and
+``parallel_members`` those that differ in ``seed`` and ``lr`` too, into the
+same ``run-<k>`` directories; each member's model is built from its own
+seed with ``_build_run``'s surgery, as the sequential loop builds it.
+
 Not ported yet: the post-fit reports (loss history and retrieval-curve
 plots; ROADMAP.md queue 1, item 18: they need matplotlib, which the GPU
-host does not have), so ``run_sweep`` writes none; the parallel folds and
-members (item 15, ``training/ensemble.py``) and ``run_sweep_streaming``
-(item 17b, streaming), which raise ``NotImplementedError``.
+host does not have), so ``run_sweep`` writes none; a device mesh (item
+15b) and ``run_sweep_streaming`` (item 17b, streaming), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -150,11 +156,12 @@ def run_sweep(
     default is a ``CLIPModel`` of the grid point with the default surgery.
     Runs on the card unless ``device`` says otherwise, and raises when CUDA
     is asked for and absent. The post-fit plots of the JAX runner are not
-    made (they need matplotlib; ROADMAP.md item 18)."""
-    if parallel_folds or parallel_members:
-        raise NotImplementedError(
-            "parallel folds/members are not ported yet (ROADMAP.md queue 1, item 15: "
-            "training/ensemble.py)")
+    made (they need matplotlib; ROADMAP.md item 18).
+
+    ``parallel_folds`` groups the grid points that differ only in
+    ``foldnumber`` and trains each group as one stacked program
+    (``training/ensemble.py``); ``parallel_members`` groups across ``seed``
+    and ``lr`` as well. Both need ``method: grid``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
@@ -162,6 +169,15 @@ def run_sweep(
     n_classes = int(extra.get("n_classes", 5))
     results = []
     scheduler = SweepScheduler(sweep, max_runs=max_runs)
+    if parallel_folds or parallel_members:
+        if use_wandb:
+            import warnings
+
+            warnings.warn("parallel folds/members log metrics.jsonl only; --wandb is ignored")
+        return _run_sweep_parallel_folds(
+            sweep, dataset, nband, folds, sweep_dir, scheduler, model_builder=model_builder,
+            epochs_override=epochs_override, resume=resume, device=device,
+            vary_keys=("foldnumber", "seed", "lr") if parallel_members else ("foldnumber",))
     for k in range(scheduler.n_runs):
         run_cfg = scheduler.suggest()
         if run_cfg is None:
@@ -194,6 +210,72 @@ def run_sweep(
         results.append(res)
         scheduler.observe(run_cfg, _sweep_objective(res, sweep))
     return results
+
+
+def _run_sweep_parallel_folds(sweep: SweepConfig, dataset: ArrayDataset, nband: int, folds,
+                              sweep_dir: str, scheduler: SweepScheduler,
+                              model_builder: Optional[Callable] = None,
+                              epochs_override: Optional[int] = None, resume: bool = False,
+                              device=torch.device("cuda"),
+                              vary_keys: Tuple[str, ...] = ("foldnumber",)):
+    """The grid points as stacked member groups: grouped by their config
+    minus ``vary_keys``, each group trained by one ``fit_members`` call into
+    the ``run-<k>`` directories the sequential loop would write, with its
+    stacked checkpoint in ``<sweep_dir>/_ensemble-g<i>/``. Under ``resume`` a
+    group whose runs all hold ``summary.json`` is skipped; an unfinished one
+    continues from its stacked checkpoint."""
+    from .ensemble import Member, fit_members
+
+    if sweep.method != "grid":
+        raise ValueError("parallel folds/members require method: grid (random/bayes "
+                         "schedules depend on sequential observations)")
+    extra = sweep.extra_args
+    cfgs = []
+    while (c := scheduler.suggest()) is not None:
+        cfgs.append(c)
+    groups: Dict[Any, list] = {}
+    for k, run_cfg in enumerate(cfgs):
+        key = tuple(sorted((kk, repr(v)) for kk, v in run_cfg.items() if kk not in vary_keys))
+        groups.setdefault(key, []).append((k, run_cfg))
+
+    indexed: Dict[int, Dict[str, Any]] = {}
+    for gi, group in enumerate(groups.values()):
+        if resume:
+            summaries = {k: completed_summary(os.path.join(sweep_dir, f"run-{k}"))
+                         for k, _ in group}
+            if all(s is not None for s in summaries.values()):
+                for k, rc in group:  # the whole group completed: skip it
+                    indexed[k] = _skipped_result(os.path.join(sweep_dir, f"run-{k}"), rc,
+                                                 summaries[k])
+                continue
+        members, models = [], []
+        for k, rc in group:
+            seed = int(rc.get("seed", 0))
+            set_seed(seed)
+            # the sequential loop's split rule, model, seed and surgery
+            inds_train, inds_val = split_for_run(
+                len(dataset), float(extra.get("val_fraction", 0.2)), seed,
+                folds=folds, foldnumber=rc.get("foldnumber"))
+            model, task, freeze, override, tcfg = _build_run(
+                rc, extra, nband, model_builder, epochs_override)
+            if override is not None:
+                model.load_state_dict(override(model.state_dict()), strict=True)
+            if not models:  # the group shares all but vary_keys: the first
+                task0, freeze0, tcfg0 = task, freeze, tcfg  # point's stand for all
+            models.append(model.to(device))
+            members.append(Member(f"run-{k}", seed, inds_train, inds_val,
+                                  lr=float(rc["lr"]) if "lr" in rc else None,
+                                  config_dump=dict(rc)))
+        out = fit_members(models, task0, tcfg0, dataset, members, run_dir=sweep_dir,
+                          n_classes=int(extra.get("n_classes", 5)), freeze=freeze0,
+                          resume=resume,
+                          ensemble_dir=os.path.join(sweep_dir, f"_ensemble-g{gi}"))
+        for (k, rc), m in zip(group, members):
+            res = dict(out["members"][m.name])
+            res["run_dir"] = os.path.join(sweep_dir, m.name)
+            res["run_cfg"] = rc
+            indexed[k] = res
+    return [indexed[k] for k in sorted(indexed)]
 
 
 def run_sweep_streaming(*args, **kwargs):

@@ -40,7 +40,7 @@ ROUTE_NAMES = {
 }
 OPTIMIZER_NOTE = ("optimizer state: torch RAdam (exp_avg, exp_avg_sq, a float32 step a "
                   "parameter), not the JAX report's optax state")
-MESH_REFUSAL = ("the port trains on one card and has no device mesh (ROADMAP.md item 15: "
+MESH_REFUSAL = ("the port trains on one card and has no device mesh (ROADMAP.md item 15b: "
                 "scale-out)")
 
 

@@ -35,7 +35,8 @@ the run would have done had it not stopped.
 parameters it picks stay out of the optimizer.
 
 Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
-(ROADMAP.md queue 1, item 17b) and a device mesh (item 15).
+(ROADMAP.md queue 1, item 17b) and a device mesh (item 15b: scale-out).
+Stacked ensemble members train through ``training/ensemble.py``.
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ class Trainer:
             raise ValueError(f"unknown task {task!r}: expected one of {TASKS}")
         if mesh is not None:
             raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md queue 1, item 15)")
+                "a device mesh is not ported yet (ROADMAP.md queue 1, item 15b: scale-out)")
         self.model = model
         self.task = task
         self.cfg = cfg

@@ -1,0 +1,81 @@
+"""Dropout keep masks drawn before the forward, for stacked ensemble members
+(training/ensemble.py).
+
+Inside ``torch.func.vmap`` no member can draw from a generator of its own:
+``randomness="different"`` refuses an in-place draw on an unbatched tensor
+and ``"same"`` gives every member one mask. So each member's masks are drawn
+outside vmap, from that member's generator, in the order its forward
+consumes them, and handed in as batched tensors; a ``DrawSource`` then
+stands in for the generator that ``models/transformer.py:dropout`` reads.
+
+``training/ensemble.py:record_keep_masks`` finds the masks' shapes and keep
+probabilities by running the forward once on the meta device with a
+``DrawRecorder``; ``draw_stacked_keep_masks`` then draws each member's
+with the draw ``dropout`` makes from a generator (``bernoulli_`` of a
+float32 tensor of the mask's shape), so member i's masks equal those of a
+sequential run of its seed, bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+Spec = Tuple[Tuple[int, ...], float]  # (mask shape, keep probability)
+
+
+class DrawSource:
+    """Hands ``dropout`` its keep masks, in order, in place of a
+    ``torch.Generator``. A draw it does not cover (a mask beyond its list, or
+    another kind of draw) raises, naming the draw."""
+
+    def __init__(self, specs: Sequence[Spec] = (), masks: Sequence[torch.Tensor] = ()):
+        if len(specs) != len(masks):
+            raise ValueError(f"{len(specs)} mask specs for {len(masks)} masks")
+        self.specs, self.masks, self.used = list(specs), list(masks), 0
+
+    def keep_mask(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
+        i = self.used
+        if i >= len(self.masks):
+            raise RuntimeError(
+                f"dropout draw {i} (shape {tuple(x.shape)}, keep {keep_prob}) is not "
+                f"covered: the draw source holds {len(self.masks)} masks")
+        shape, p = self.specs[i]
+        if tuple(x.shape) != tuple(shape) or keep_prob != p:
+            raise RuntimeError(
+                f"dropout draw {i} is (shape {tuple(x.shape)}, keep {keep_prob}) but "
+                f"the draw source's mask {i} is (shape {tuple(shape)}, keep {p})")
+        self.used += 1
+        return self.masks[i]
+
+    def refuse(self, what: str):
+        raise RuntimeError(f"{what} draws from a generator, which the draw source "
+                           "does not cover (it holds dropout keep masks only)")
+
+    def check_consumed(self) -> None:
+        if self.used != len(self.masks):
+            raise RuntimeError(f"the forward took {self.used} of the draw source's "
+                               f"{len(self.masks)} dropout masks")
+
+
+class DrawRecorder(DrawSource):
+    """Records each dropout draw's (shape, keep probability) and hands out an
+    all-kept mask on the input's device (the meta device in a dry run)."""
+
+    def keep_mask(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
+        self.specs.append((tuple(x.shape), keep_prob))
+        return torch.ones(x.shape, dtype=torch.bool, device=x.device)
+
+
+def draw_stacked_keep_masks(specs: Sequence[Spec], generators: Sequence[torch.Generator],
+                            device) -> List[torch.Tensor]:
+    """(N, *shape) bool masks, one a site: row i drawn from ``generators[i]``,
+    member by member in site order, so each member's stream advances as in
+    a sequential forward."""
+    n = len(generators)
+    bufs = [torch.empty((n, *shape), device=device) for shape, _ in specs]
+    for i, g in enumerate(generators):
+        for buf, (_, p) in zip(bufs, specs):
+            buf[i].bernoulli_(p, generator=g)
+    return [buf.bool() for buf in bufs]

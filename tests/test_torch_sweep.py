@@ -2,7 +2,8 @@
 schedulers' suggestions, the sweep directory, the split manifests of a
 ``cli.train`` run on the fixture tree (``configs/smoke.yaml`` and the
 maven-lite grid, cut only in epochs and runs), ``--resume``, the fine-tune
-and masked CLIs, the supervisor, and the flags whose modules wait."""
+and masked CLIs, the stacked ``--parallel-folds`` / ``--parallel-members``
+runs, the supervisor, and the flags whose modules wait."""
 
 import json
 import os
@@ -236,11 +237,8 @@ def test_pretrain_masked_trains_from_a_legacy_sim_file(tmp_path, argv):
 
 @pytest.mark.parametrize("main,argv,item", [
     (train.main, ["--check", "--tp", "2"], "item 15"),
-    (train.main, ["--parallel-folds"], "item 15"),
-    (train.main, ["--parallel-members"], "item 15"),
     (train.main, ["--profile-dir", "prof"], "item 19"),
     (finetune_clip.main, ["--check", "--mesh"], "item 15"),
-    (finetune_clip.main, ["--parallel-folds"], "item 15"),
     (pretrain_masked.main, ["--source", "real", "--check", "--check-devices", "8"], "item 15"),
 ])
 def test_unported_flags_raise_with_their_item(main, argv, item):
@@ -250,10 +248,107 @@ def test_unported_flags_raise_with_their_item(main, argv, item):
 
 def test_unported_runners_raise_with_their_item():
     sweep = load_sweep(SMOKE)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        experiment.run_sweep(sweep, None, 2, None, "x", parallel_folds=True)
     with pytest.raises(NotImplementedError, match="item 17"):
         experiment.run_sweep_streaming(sweep, None, None, 2, "x")
+
+
+def _small_maven_lite(path, parameters=None, extra_args=None):
+    """configs/maven-lite.yaml at narrow widths and batch 8 (its dropout,
+    folds, lr, seed and spectrum length kept), with ``parameters`` and
+    ``extra_args`` laid over it."""
+    raw = load_sweep(MAVEN_LITE).raw
+    narrow = {k: {"values": [v]} for k, v in (("emb", 16), ("heads", 2), ("emb_spectral", 16),
+                                              ("transformer_depth", 1), ("batchsize", 8),
+                                              ("transformer_depth_spectral", 1))}
+    path.write_text(dump_yaml(dict(raw, parameters=dict(raw["parameters"], **narrow,
+                                                        **(parameters or {})),
+                                   extra_args=dict(raw["extra_args"], **(extra_args or {})))))
+    return str(path)
+
+
+PARALLEL = {  # sweep name: (CLI, flag, the grid's foldnumber / lr / seed values)
+    "ml-folds": ("train", "--parallel-folds", {}),
+    "ml-members": ("train", "--parallel-members", {"foldnumber": [0, 1],
+                                                   "lr": [3.716367614864064e-05, 1e-4],
+                                                   "seed": [0, 1]}),
+    "ml-finetune": ("finetune_clip", "--parallel-folds", {}),
+}
+
+
+@pytest.fixture(scope="module")
+def parallel(trained):
+    """The stacked CLIs on the fixture tree (1 epoch): cli.train
+    --parallel-folds on the five folds of a small maven-lite, cli.train
+    --parallel-members on its lr x seed x 2-fold grid, and cli.finetune_clip
+    --parallel-folds from the first fold's run."""
+    root, data_dir, spectra_dir, _ = trained
+    common = ["--data-dir", data_dir, "--spectra-dir", spectra_dir, "--device", "cpu",
+              "--analysis-path", str(root / "parallel"), "--cache-dir", str(root / "cache"),
+              "--epochs", "1"]
+    out = {}
+    for name, (cli, flag, grid) in PARALLEL.items():
+        extra = ({"pretrain_path": str(root / "parallel/ml-folds/run-0")}
+                 if cli == "finetune_clip" else {"nruns": 8})
+        path = _small_maven_lite(root / f"{name}.yaml",
+                                 {k: {"values": v} for k, v in grid.items()}, extra)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            {"train": train.main, "finetune_clip": finetune_clip.main}[cli](
+                [path, *common, flag])
+        out[name] = load_sweep(path)
+    return root, common, out
+
+
+@pytest.mark.parametrize("name", sorted(PARALLEL))
+def test_parallel_clis_write_every_member_run_dir(parallel, name):
+    """Every grid point of the stacked group has its run dir, with the
+    sequential run's files, the port's split rule for its fold and seed, and
+    one metrics row carrying the member's share of the throughput."""
+    from multimodal_supernovae_tpu_torch.cli.common import ingest_config
+    from multimodal_supernovae_tpu_torch.data.cache import cache_key, load_dataset
+    from multimodal_supernovae_tpu_torch.data.folds import split_for_run, stratified_kfolds
+
+    root, common, sweeps = parallel
+    sweep = sweeps[name]
+    sweep_dir = root / "parallel" / name
+    points = []
+    scheduler = SweepScheduler(sweep, max_runs=sweep.extra_args["nruns"])
+    while (cfg := scheduler.suggest()) is not None:
+        points.append(cfg)
+    runs = sorted(p for p in os.listdir(sweep_dir) if p.startswith("run-"))
+    assert runs == sorted(f"run-{k}" for k in range(len(points)))
+    assert "_ensemble-g0" in os.listdir(sweep_dir)
+    data_dir, spectra_dir = common[1], common[3]
+    ds = load_dataset(str(root / "cache"), cache_key(**ingest_config(
+        data_dir, spectra_dir, sweep.extra_args, 1000)))
+    folds = stratified_kfolds(ds.arrays["label"], 5)
+    for k, cfg in enumerate(points):
+        run = sweep_dir / f"run-{k}"
+        files = set(os.listdir(run))
+        assert RUN_FILES <= files and any(f.startswith("epoch=") for f in files)
+        assert yaml.safe_load((run / "config.yaml").read_text()) == cfg
+        tr, va = split_for_run(len(ds), 0.2, int(cfg["seed"]), folds=folds,
+                               foldnumber=cfg["foldnumber"])
+        for fname, idx in (("train_filenames.txt", tr), ("val_filenames.txt", va)):
+            assert (run / fname).read_text().splitlines() == [ds.filenames[i] for i in idx]
+        rows = [json.loads(line) for line in open(run / "metrics.jsonl")]
+        assert [r["epoch"] for r in rows] == [0] and np.isfinite(rows[0]["val_loss"])
+        assert rows[0]["samples_per_s"] == pytest.approx(
+            len(points) * rows[0]["member_samples_per_s"])
+
+
+def test_parallel_resume_skips_a_finished_group(parallel, capsys):
+    root, common, _ = parallel
+    sweep_dir = root / "parallel" / "ml-folds"
+    before = {p: (p.stat().st_mtime_ns, p.read_bytes()) for p in sweep_dir.rglob("*")
+              if p.is_file()}
+    capsys.readouterr()
+    train.main([str(sweep_dir), *common, "--parallel-folds", "--resume"])
+    out = capsys.readouterr().out
+    after = {p: (p.stat().st_mtime_ns, p.read_bytes()) for p in sweep_dir.rglob("*")
+             if p.is_file()}
+    assert before == after
+    assert out.count("epochs=0") == 5
 
 
 def test_train_cli_refuses_a_missing_card(tmp_path):
