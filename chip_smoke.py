@@ -9,7 +9,8 @@ pretraining, its graft into a CLIP light-curve tower, and Maven's
 pretraining and fine-tuning, each from its shipped config; and Maven's
 pretraining from a simulated HDF5 corpus through cli.pretrain_sim; and the
 five folds of maven-lite, and an lr x seed grid, as one stacked program
-through --parallel-folds / --parallel-members), through the
+through --parallel-folds / --parallel-members; and data-parallel training
+over two ranks, and the umbrella CLI under torchrun), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor cores, float32 on the tensor cores in 3xTF32, head dims 32/64 and rows
 off 16 bytes on the CUDA cores), and the same server and
@@ -413,8 +414,30 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      (config_grid.yaml's first point) against N sequential steps on the
      same batches: host clock medians of 6 (each step ended by a
      synchronise) and one profile of 5 steps each (device time, idle share,
-     time by kind), samples/s over the members. The tree is deleted after
-     the phase;
+     time by kind), samples/s over the members;
+  6k. dp: data-parallel training (parallel/, Trainer(mesh=...)) on 2 gloo
+     ranks that share cuda:0 (NCCL refuses two ranks on one device),
+     spawned as subprocesses of this script (--dp-rank R TMP) with a
+     timeout, from one set of initial weights: (a) configs/maven-lite.yaml's
+     first point, float32, B = 32 (16 a rank), Trainer.fit for 2 epochs on
+     phase 6h's tree (fold 0); (b) configs/trimodal.yaml's first point on
+     phase 6e's synthetic set (the global BatchNorm statistics and running
+     buffers); (c) configs/maven_pretrain.yaml at B = 1024 (512 a rank), 3
+     steps. Each rank's per-epoch losses (rtol = atol = 2e-5; Maven's per
+     step, relative 1e-5) and every state_dict entry (5e-5) against the
+     one-process run on the card, 18 + 18 3xTF32 flash launches a step on
+     each rank by the counters, no plain call; then each rank's step (host
+     clock median of 10, device time and idle share from one profile of 5)
+     beside the one-process step (the ranks fit while this process fits the
+     references; the steps are timed apart). (d) python -m
+     torch.distributed.run --nproc-per-node 1 -m
+     multimodal_supernovae_tpu_torch train configs/maven-lite.yaml --mesh
+     --epochs 1 --max-runs 1 --profile-dir D (a one-rank NCCL group) on a
+     320-transient tree written as phase 6h's (the trace of a full fold
+     would hold about 7 MB a step): the run dir, the 3xTF32 flash forward,
+     dq and dk/dv kernels in D's trace (18 each a train step, the forward
+     also in eval steps), and the step's MFU by utils/flops.py (its peak
+     and compute type printed). The tree is deleted after the phase;
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -432,7 +455,8 @@ over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
 runs, and every counted call of the run-dir, towers, maven, sim, ingest,
-evaluate and ensemble phases (the ensemble's vmap checks aside); the CUDA-core fused-QKV entries carry their float32 times, library
+evaluate, ensemble and dp phases (the ensemble's vmap checks aside; phase
+dp's ranks count in their own processes and report); the CUDA-core fused-QKV entries carry their float32 times, library
 times and bounds at LC and SP under "float32"; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
@@ -557,7 +581,8 @@ from multimodal_supernovae_tpu_torch.training import (
 )
 from multimodal_supernovae_tpu_torch.training import ensemble as ensemble_mod
 from multimodal_supernovae_tpu_torch.training.experiment import _build_run
-from multimodal_supernovae_tpu_torch.utils.draws import DrawSource
+from multimodal_supernovae_tpu_torch.parallel import batch_stats_over
+from multimodal_supernovae_tpu_torch.utils.draws import DrawSource, RankRows
 from multimodal_supernovae_tpu_torch.utils.seed import set_seed
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -5029,6 +5054,380 @@ def phase_ensemble(card, tmp):
     return total
 
 
+# phase dp: data-parallel training (parallel/, Trainer(mesh=...)) on two gloo
+# ranks that share the card (NCCL refuses two ranks on one device) against the
+# one-process fit, then the umbrella CLI under torchrun (a one-rank NCCL group)
+# with --profile-dir
+DP_RANKS, DP_EPOCHS, DP_MAVEN_STEPS, DP_TIMED = 2, 2, 3, 6
+# JAX tests/test_dp_equivalence.py's tolerances (rtol = atol), and Maven's per step
+DP_LOSS_TOL, DP_PARAM_TOL, DP_MAVEN_RTOL = 2e-5, 5e-5, 1e-5
+DP_TIMEOUT_S, DP_GROUP_TIMEOUT_S = 300, 120  # a rank's subprocess, a collective
+DP_JOBS = {"maven-lite": MAVEN_LITE, "trimodal": TRIMODAL, "maven-pretrain": MAVEN_PRETRAIN}
+DP_CLI_N = 320  # transients of the torchrun run's tree, so that its trace stays short
+DP_FLASH = ("flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
+            "flash_attention_bwd_dkdv_tf32")
+
+
+def _dp_setup(name, tmp):
+    """The model (on the host), task, trainer config and train/val sets of a
+    phase-dp job, built alike in every process from the job's shipped config
+    (first grid point): maven-lite on phase ingest's tree in ``tmp`` (its
+    fold, through the cache), trimodal on phase towers' synthetic set, Maven
+    pretraining on phase maven's."""
+    sweep = load_sweep(DP_JOBS[name])
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    model, task, _, _, tcfg = _build_run(point, extra, NBAND, None, DP_EPOCHS)
+    sp_len = int(extra["max_spectral_data_len"])
+    if name == "maven-lite":
+        config = cli_common.ingest_config(os.path.join(tmp, "ZTFBTS"),
+                                          os.path.join(tmp, "ZTFBTS_spectra"), extra, 1000)
+        ds, _ = load_or_ingest(os.path.join(tmp, "cache"),
+                               lambda: load_ztfbts(kfolds=None, **config)[0], **config)
+        folds = stratified_kfolds(ds.arrays["label"], int(extra["kfolds"]))
+        inds = split_for_run(len(ds), float(extra.get("val_fraction", 0.2)),
+                             int(point.get("seed", 0)), folds=folds,
+                             foldnumber=point.get("foldnumber"))
+        train, val = (ds.subset(i) for i in inds)
+    elif name == "trimodal":
+        ds = make_synthetic_dataset(n=TOWERS_N, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=sp_len,
+                                    image_size=IMAGE_SIZE, modalities=model.cfg.combinations,
+                                    seed=0)
+        train, val = _split(ds, extra["val_fraction"])
+    else:
+        train, val = _maven_split(MAVEN_N, sp_len, model.cfg.combinations,
+                                  extra["val_fraction"])
+    return model, task, tcfg, train, val
+
+
+def _dp_per_step(model):
+    layers = model.cfg.tk()["depth"] + model.cfg.tsk()["depth"]
+    return _tf32_flash(layers, layers)
+
+
+def _dp_fit(name, tmp, mesh=None):
+    """One phase-dp job in this process, as a rank of ``mesh`` or (None) as
+    the one-process reference, from the initial weights in ``tmp/dp``: the
+    counted Trainer.fit (maven-lite, trimodal) or DP_MAVEN_STEPS counted
+    steps (Maven pretraining at B = 1024). Returns the losses, the final
+    state_dict (host), the launches and plain calls, and what ``_dp_time``
+    needs."""
+    model, task, tcfg, train, val = _dp_setup(name, tmp)
+    model.load_state_dict(torch.load(os.path.join(tmp, "dp", f"{name}.init.pt"),
+                                     weights_only=True))
+    model.to(DEVICE)
+    b = tcfg.batch_size
+    cols = slice(None) if mesh is None else mesh.block(b)
+    data = train.to_device(DEVICE)
+    out = {}
+    with _plain_calls() as plain:
+        _zero_counts()
+        t0 = time.perf_counter()
+        if name == "maven-pretrain":
+            plan = epoch_indices(len(train), b, rng=np.random.default_rng(tcfg.seed),
+                                 shuffle=True, pad="wrap")[:DP_MAVEN_STEPS]
+            opt, sched = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                                         weight_decay=tcfg.weight_decay)
+            state = TrainState(model, opt, sched)
+            state, losses = make_epoch_runner(model, tcfg.noise_level_mag, mesh=mesh)(
+                state, data, plan[:, cols], _dp_draws(2, mesh))
+            out["losses"] = losses.cpu().tolist()
+        else:
+            res = Trainer(model, task, tcfg, mesh=mesh).fit(train, val)
+            state = res["state"]
+            out["history"], out["rows"] = res["history"], res["metric_rows"]
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["counts"] = _counts()
+    out["plain"] = len(plain)
+    out["state_dict"] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    out["steps"], out["batch"] = (-(-len(train) // b), -(-len(val) // b)), b
+    one = take(data, torch.arange(b, device=DEVICE)[cols])
+    return out, (model, tcfg, state, one)
+
+
+def _dp_draws(seed, mesh):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return gen if mesh is None else RankRows(gen, mesh)
+
+
+def _dp_time(job, mesh=None):
+    """A step's host clock (median of DP_TIMED), device time and idle share
+    (one profile of PROFILED_STEPS) on the state ``_dp_fit`` left."""
+    model, tcfg, state, one = job
+    step = make_train_step(model, tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img,
+                           mesh=mesh)
+    gen = _dp_draws(3, mesh)
+    with batch_stats_over(model, mesh):  # global BatchNorm statistics, as in the fit
+        host, _ = _host_step_ms(step, state, one, gen, DP_TIMED)
+        dev_ms, _, _, idle, _, kinds = _trace(lambda: step(state, one, gen), PROFILED_STEPS)
+    return {"host_ms": float(np.median(host)), "device_ms": dev_ms, "idle": idle,
+            "kinds": kinds}
+
+
+def _dp_worker(rank, tmp):
+    """Rank ``rank`` of phase dp (``chip_smoke.py --dp-rank R TMP``): joins the
+    gloo group on cuda:0, fits every job, then, once the one-process fits
+    are done (``tmp/dp/refs-done``), times each job's step and writes each
+    job's result to ``tmp/dp``."""
+    from multimodal_supernovae_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = os.path.join(tmp, "dp")
+    distributed.initialize(f"file://{os.path.join(d, 'store')}", DP_RANKS, rank,
+                           device=f"{DEVICE}:0", backend="gloo", timeout=DP_GROUP_TIMEOUT_S)
+    mesh = distributed.make_global_mesh()
+    try:
+        jobs = {name: _dp_fit(name, tmp, mesh) for name in DP_JOBS}
+        deadline = time.perf_counter() + DP_TIMEOUT_S
+        while not os.path.exists(os.path.join(d, "refs-done")):
+            if time.perf_counter() > deadline:
+                raise TimeoutError("dp: the one-process fits did not finish")
+            time.sleep(0.1)
+        mesh.barrier()
+        for name, (out, job) in jobs.items():
+            out.update(_dp_time(job, mesh))
+            torch.save(out, os.path.join(d, f"{name}-{rank}.pt"))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _dp_start(tmp):
+    """The DP_RANKS ranks as subprocesses (their output in tmp/dp/rank<r>.log)."""
+    d = os.path.join(tmp, "dp")
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(DP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               tmp], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(DP_RANKS)]
+    return procs, logs
+
+
+def _dp_wait(tmp, procs, logs):
+    """Wait for the ranks, each within DP_TIMEOUT_S; any left is killed."""
+    try:
+        codes = [p.wait(timeout=DP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(codes):
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, "dp", f"rank{r}.log")) as f:
+                for line in f.read().splitlines()[-30:]:
+                    log(f"dp rank {r}: {line}")
+        raise AssertionError(f"dp: the ranks exited with {codes}")
+
+
+def _dp_compare(name, ref, got, rank, per_step):
+    """One rank's job against the one-process reference."""
+    tag = f"dp {name} rank {rank}"
+    if name == "maven-pretrain":
+        want = tuple(c * DP_MAVEN_STEPS for c in per_step)
+        a, w = np.asarray(got["losses"]), np.asarray(ref["losses"])
+        loss_err = float(np.max(np.abs(a - w) / np.abs(w)))
+        loss_ok = loss_err <= DP_MAVEN_RTOL
+        losses = f"losses {a.tolist()} (one process {w.tolist()}), worst relative {loss_err:.3e}"
+    else:
+        want = _fit_want(per_step, DP_EPOCHS, *got["steps"])
+        a = np.asarray(got["history"]["train_loss"] + got["history"]["val_loss"])
+        w = np.asarray(ref["history"]["train_loss"] + ref["history"]["val_loss"])
+        loss_err = float(np.max(np.abs(a - w) / (DP_LOSS_TOL + DP_LOSS_TOL * np.abs(w))))
+        loss_ok = loss_err <= 1.0
+        losses = (f"train_loss {got['history']['train_loss']} val_loss "
+                  f"{got['history']['val_loss']} (one process {ref['history']}), worst "
+                  f"|diff| / (atol + rtol |want|) {loss_err:.3f}")
+    worst, worst_key, bn = 0.0, None, 0.0
+    for k, v in ref["state_dict"].items():
+        g = got["state_dict"][k]
+        if not v.is_floating_point():
+            if not torch.equal(g, v):
+                worst, worst_key = float("inf"), k
+            continue
+        diff = (g.double() - v.double()).abs()
+        ratio = float((diff / (DP_PARAM_TOL + DP_PARAM_TOL * v.double().abs())).max())
+        if "running" in k:
+            bn = max(bn, float(diff.max()))
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    log(f"{tag}: {losses}; every state_dict entry ({len(ref['state_dict'])}), worst "
+        f"|diff| / (atol + rtol |want|) {worst:.3f} at {worst_key}" +
+        (f", BatchNorm running statistics within {bn:.3e}" if bn else "") +
+        f"; launches {got['counts']} (want {want}), {got['plain']} plain calls")
+    if not loss_ok or worst > 1.0 or got["counts"] != want or got["plain"]:
+        raise AssertionError(f"{tag}: loss check {loss_ok}, parameters {worst:.3f} at "
+                             f"{worst_key}, launches {got['counts']} (want {want}), "
+                             f"{got['plain']} plain calls")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_cli_start(tmp):
+    """Start ``python -m torch.distributed.run --nproc-per-node 1 -m
+    multimodal_supernovae_tpu_torch train configs/maven-lite.yaml --mesh
+    --epochs 1 --max-runs 1 --profile-dir D`` (a one-rank NCCL group) on a
+    DP_CLI_N-transient tree; ``_dp_cli_check`` waits for it."""
+    root = os.path.join(tmp, "dp", "cli")
+    data_dir, spectra_dir, _ = _write_tree(root, DP_CLI_N, seed=1)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+           "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+           "-m", "multimodal_supernovae_tpu_torch", "train", MAVEN_LITE, "--mesh",
+           "--epochs", "1", "--max-runs", "1", "--profile-dir", os.path.join(root, "profile"),
+           "--data-dir", data_dir, "--spectra-dir", spectra_dir,
+           "--cache-dir", os.path.join(root, "cache"),
+           "--analysis-path", os.path.join(root, "analysis")]
+    out = open(os.path.join(root, "torchrun.log"), "w")
+    proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=repo,
+                            env=dict(os.environ, PYTHONPATH=repo))
+    return proc, out, time.perf_counter()
+
+
+def _dp_cli_wait(cli):
+    proc, out, t0 = cli
+    try:
+        code = proc.wait(timeout=DP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    return code, time.perf_counter() - t0
+
+
+def _dp_cli_check(card, tmp, code, wall, step_ms_single):
+    """The torchrun run's exit, its run dir, the 3xTF32 flash kernels in its
+    trace (18 + 18 + 18 a train step) and the step's MFU."""
+    from multimodal_supernovae_tpu_torch.utils import flops
+
+    root = os.path.join(tmp, "dp", "cli")
+    prof, analysis = os.path.join(root, "profile"), os.path.join(root, "analysis")
+    with open(os.path.join(root, "torchrun.log")) as f:
+        output = f.read()
+    for line in output.splitlines()[-8:]:
+        log(f"dp cli: {line}")
+    if code:
+        raise AssertionError(f"dp cli: torchrun exited {code}")
+    if "mesh: {'data': 1, 'model': 1} over 1 process(es), nccl" not in output:
+        raise AssertionError("dp cli: the run did not report a one-rank NCCL mesh")
+    run_dir = os.path.join(analysis, "maven-lite", "run-0")
+    files, rows = set(os.listdir(run_dir)), _metric_rows(run_dir)
+    with open(os.path.join(run_dir, "train_filenames.txt")) as f:
+        n_train = len(f.read().splitlines())
+    with open(os.path.join(run_dir, "val_filenames.txt")) as f:
+        n_val = len(f.read().splitlines())
+    sweep = load_sweep(MAVEN_LITE)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    model, _, _, _, tcfg = _build_run(point, extra, NBAND, None, 1)
+    b, layers = tcfg.batch_size, _dp_per_step(model)[-1]
+    train_steps, eval_steps = -(-n_train // b), -(-n_val // b)
+    if not set(RUN_DIR_FILES) <= files or len(rows) != 1 or not all(
+            np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in rows):
+        raise AssertionError(f"dp cli: run dir files {sorted(files)}, rows {rows}")
+    traces = [f for f in os.listdir(prof) if f.startswith("trace-rank0-")]
+    if len(traces) != 1:
+        raise AssertionError(f"dp cli: traces {os.listdir(prof)}")
+    path = os.path.join(prof, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    seen = {k: sum(k in e["name"] for e in kernels) for k in DP_FLASH}
+    want = dict(zip(DP_FLASH, (layers * (train_steps + eval_steps), layers * train_steps,
+                               layers * train_steps)))
+    nccl = sum("nccl" in e["name"].lower() for e in kernels)
+    log(f"dp cli: torchrun --nproc-per-node 1 ... train {MAVEN_LITE} --mesh --epochs 1 "
+        f"--max-runs 1 --profile-dir: {wall:.1f} s of command (beside the ranks' fits) on a "
+        f"{DP_CLI_N}-transient tree "
+        f"({n_train} train / {n_val} val: {train_steps} + {eval_steps} steps at B={b}); run "
+        f"dir {sorted(files)}; {rows[0]}; trace {traces[0]} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} events, {len(kernels)} "
+        f"device kernels, {nccl} of them NCCL): 3xTF32 flash kernels {seen} (want {want})")
+    if seen != want:
+        raise AssertionError(f"dp cli: the trace's flash kernels {seen}, want {want}")
+    t_lc, t_sp = 2 * int(extra.get("max_lightcurve_data_len", 100)), \
+        int(extra["max_spectral_data_len"])
+    step_flops = flops.clip_train_step_flops(model.cfg, b, t_lc, t_sp)
+    for what, ms in (("the CLI run's epoch mean step (under the profiler, recording host ops)",
+                      rows[0]["step_time_s"] * 1e3),
+                     ("phase dp's one-process step (host clock median)", step_ms_single)):
+        m = flops.mfu(step_flops, ms / 1e3, dtype=torch.float32)
+        log(f"dp cli: MFU of maven-lite's step (B={b}, T_lc={t_lc}, T_sp={t_sp}, "
+            f"{step_flops:.4e} model FLOPs by utils/flops.py) at {what} {ms:.3f} ms: "
+            f"{m['model_tflops_per_s']:.4f} TFLOP/s of a {m['peak_tflops_per_s']:.0f} TFLOP/s "
+            f"peak (compute type {flops.compute_type(torch.float32)}: float32 matmuls with "
+            f"TF32 off; the card {torch.cuda.get_device_name(0)}), {m['mfu_pct']:.4f}%; "
+            f"card {card}")
+
+
+def phase_dp(card, tmp):
+    """Data-parallel training on the card: maven-lite (phase ingest's tree),
+    trimodal (global BatchNorm statistics) and Maven pretraining at B = 1024,
+    each on DP_RANKS gloo ranks sharing cuda:0 against the one-process run
+    from the same weights; then the umbrella CLI under torchrun with
+    --profile-dir. Returns the ranks' launches."""
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "dp")
+    os.makedirs(d, exist_ok=True)
+    per_step = {}
+    for name in DP_JOBS:
+        model = _dp_setup(name, tmp)[0]
+        per_step[name] = _dp_per_step(model)
+        torch.save(model.state_dict(), os.path.join(d, f"{name}.init.pt"))
+        del model
+    # the ranks and the torchrun run go while this process fits the
+    # references; the steps are timed apart, the ranks' once the rest is done
+    t0 = time.perf_counter()
+    cli = _dp_cli_start(tmp)
+    procs, logs, refs = [], [], {}
+    try:
+        procs, logs = _dp_start(tmp)
+        for name in DP_JOBS:
+            refs[name] = _dp_fit(name, tmp)
+            log(f"dp {name}: one process on the card, {refs[name][0]['wall_s']:.2f} s counted "
+                f"(beside the ranks' fits); launches {refs[name][0]['counts']}")
+    finally:
+        cli_code, cli_wall = _dp_cli_wait(cli)
+        open(os.path.join(d, "refs-done"), "w").close()
+        _dp_wait(tmp, procs, logs)
+    log(f"dp: {DP_RANKS} gloo ranks on cuda:0 ran {list(DP_JOBS)} in "
+        f"{time.perf_counter() - t0:.1f} s (subprocesses, start-up included)")
+    for name in DP_JOBS:
+        out, job = refs[name]
+        out.update(_dp_time(job))
+        refs[name] = out
+        del job
+    torch.cuda.empty_cache()
+    total = NONE
+    for name in DP_JOBS:
+        ref = refs[name]
+        for r in range(DP_RANKS):
+            got = torch.load(os.path.join(d, f"{name}-{r}.pt"), weights_only=False)
+            _dp_compare(name, ref, got, r, per_step[name])
+            total = tuple(a + c for a, c in zip(total, got["counts"]))
+            kinds = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                got["kinds"].items(), key=lambda kv: -kv[1])[:4])
+            log(f"dp {name} rank {r}: step at B={got['batch']}/{DP_RANKS} a rank: host "
+                f"clock {got['host_ms']:.3f} ms, device {got['device_ms']:.3f} ms, idle share "
+                f"{got['idle']:.3f} ({kinds} ms); one process at the global B: host clock "
+                f"{ref['host_ms']:.3f} ms, device {ref['device_ms']:.3f} ms, idle share "
+                f"{ref['idle']:.3f}; card {card}")
+    log("dp: two ranks share one card here, so these times say nothing about scaling over "
+        "cards (a 4-card NCCL run is ROADMAP item 8's cell)")
+    _dp_cli_check(card, tmp, cli_code, cli_wall, refs["maven-lite"]["host_ms"])
+    log(f"dp: launches per route {COUNT_NAMES}: {total}; card {card}")
+    log(f"dp: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def _trace(fn, n):
     """torch.profiler (device activity only) over ``n`` calls of ``fn``;
     returns (device ms, trace wall ms, host-clock ms) per call, the idle
@@ -5178,13 +5577,14 @@ def main():
         ingest = phase_ingest(card, tmp)
         evaluation = phase_evaluate(card, tmp)
         ensemble = phase_ensemble(card, tmp)
+        dp = phase_dp(card, tmp)
     phase_profile()
     runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            maven, sim, ingest, evaluation, ensemble)
+            maven, sim, ingest, evaluation, ensemble, dp)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, ensemble, summed in the "
-        f"line: "
+        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, ensemble, dp, summed in "
+        f"the line: "
         f"{runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
@@ -5308,4 +5708,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":  # one rank of phase dp
+        sys.exit(_dp_worker(int(sys.argv[2]), sys.argv[3]))
     main()

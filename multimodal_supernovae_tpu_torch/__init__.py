@@ -28,14 +28,21 @@ directory through the CLIs):
             loops, ``Trainer.fit`` for the contrastive, regression and
             classification tasks with run directories, best-k and last
             checkpoints (BatchNorm buffers included) and resume, the
-            sequential sweep runner (``run_sweep``)
+            sequential sweep runner (``run_sweep``), stacked ensemble
+            members, data-parallel training over ranks (``mesh``)
+  parallel  the data mesh: a process group a card (torchrun), the
+            differentiable all-gather and all-reduce, global BatchNorm
+            statistics, the gradient mean
   evaluation ``get_embeddings``, ``predict_supervised``
   utils     ``MetricsLogger`` (metrics.jsonl, summary.json), IO helpers,
-            seeding
+            seeding, draw sources, device selection, the profiler trace
+            and throughput meter, model FLOPs and the H100's MFU
   serving   ``load_live``: a run directory served through the port's
             numpy-only dynamic batcher and HTTP daemon
-  cli       ``python -m multimodal_supernovae_tpu_torch.cli.<name>``: serve,
-            train, finetune_clip, pretrain_masked, supervise
+  cli       ``python -m multimodal_supernovae_tpu_torch <command>`` over the
+            JAX package's commands (``export-model`` and ``export-torch``
+            refuse), each also ``python -m
+            multimodal_supernovae_tpu_torch.cli.<name>``
 """
 
 __version__ = "0.1.0"

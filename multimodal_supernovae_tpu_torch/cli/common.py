@@ -1,6 +1,11 @@
 """What the training CLIs share: their arguments, the flags whose modules
-are not ported yet, the ``--check`` preflight, the data directories and the
-cached ingest (ZTF BTS, or a simulated HDF5 corpus)."""
+are not ported yet, the ``--check`` preflight, the data mesh, the data
+directories and the cached ingest (ZTF BTS, or a simulated HDF5 corpus).
+
+Under a data mesh (``--mesh`` or a torchrun launch; parallel/distributed.py)
+rank 0 makes the sweep directory and fills the ingest cache first, and the
+other ranks follow once it has (``main_first``); only rank 0 prints the
+results."""
 
 from __future__ import annotations
 
@@ -9,7 +14,6 @@ import os
 import sys
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
-import torch
 
 DATA_DIRS = ("ZTFBTS/", "data/ZTFBTS/", "../data/ZTFBTS/")
 SPECTRA_DIRS = ("ZTFBTS_spectra/", "data/ZTFBTS_spectra/", "../data/ZTFBTS_spectra/")
@@ -20,8 +24,8 @@ SIM_FILE = "ZTF_Pretrain_5Class.hdf5"  # the reference's filename_trainset
 def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True,
                    data_help: Optional[str] = None) -> None:
     """The arguments of every training CLI (those of the JAX CLIs, with
-    ``--device`` for ``--platform``; ``--mesh``, ``--tp`` and
-    ``--check-devices`` are refused)."""
+    ``--device`` for ``--platform``)."""
+    from ..parallel.distributed import add_mesh_args
     from ..training.preflight import add_check_args
 
     ap.add_argument("--analysis-path", default="./analysis")
@@ -40,8 +44,10 @@ def add_sweep_args(ap: argparse.ArgumentParser, spectra: bool = True,
                     help="continue each unfinished run from its last.ckpt; completed "
                          "runs (summary.json present) are skipped")
     add_check_args(ap)
+    add_mesh_args(ap)
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (default: cuda)")
+                    help="torch device to train on (default: cuda; under torchrun each "
+                         "rank takes cuda:LOCAL_RANK)")
 
 
 def add_parallel_args(ap: argparse.ArgumentParser) -> None:
@@ -52,16 +58,53 @@ def add_parallel_args(ap: argparse.ArgumentParser) -> None:
                     help="like --parallel-folds, stacking across seed and lr too")
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError``, naming the ROADMAP item, for a flag
-    whose module is not ported yet."""
-    from ..training.preflight import refuse_mesh
+def refuse_unported(args: argparse.Namespace, mesh=None) -> None:
+    """Raise ``NotImplementedError``, naming the ROADMAP item, for what is
+    not ported yet: the stacked members of ``--parallel-folds`` /
+    ``--parallel-members`` over the ranks of a data mesh (item 15d)."""
+    from ..training.experiment import MEMBER_AXIS_REFUSAL
 
-    refuse_mesh(args)
-    if getattr(args, "profile_dir", None):
-        raise NotImplementedError(
-            "--profile-dir is not ported yet (ROADMAP.md queue 1, item 19: "
-            "utils/profiling.py)")
+    if mesh is not None and (getattr(args, "parallel_folds", False)
+                             or getattr(args, "parallel_members", False)):
+        raise NotImplementedError(MEMBER_AXIS_REFUSAL)
+
+
+def join_mesh(args: argparse.Namespace):
+    """(the data mesh or None, the device to train on): the card unless
+    ``--device`` says otherwise (raising without one), joined to the process
+    group a torchrun launch names (``parallel.distributed.mesh_from_args``;
+    ``--tp`` above 1 raises, item 15d)."""
+    from ..parallel.distributed import mesh_from_args
+    from ..utils.platform import select_device
+
+    device = select_device(args.device)
+    mesh = mesh_from_args(args, device=device)
+    refuse_unported(args, mesh)
+    return mesh, device if mesh is None else mesh.device
+
+
+def main_first(mesh, fn: Callable):
+    """``fn()`` on rank 0 first, then on the other ranks (which find what it
+    wrote: the sweep directory, the ingest cache); just ``fn()`` without a
+    mesh."""
+    if mesh is None:
+        return fn()
+    if mesh.is_main:
+        out = fn()
+        mesh.barrier()
+        return out
+    mesh.barrier()
+    return fn()
+
+
+def finish(results, mesh=None) -> None:
+    """Print the results (rank 0 of a mesh) and leave the process group."""
+    if mesh is None or mesh.is_main:
+        print_results(results)
+    if mesh is not None:
+        from ..parallel.distributed import shutdown
+
+        shutdown()
 
 
 def run_check(args: argparse.Namespace, sweep, nband: int, sp_default: int,
@@ -77,11 +120,6 @@ def run_check(args: argparse.Namespace, sweep, nband: int, sp_default: int,
         sweep, nband=nband, lc_len=2 * int(extra.get("max_lightcurve_data_len", 100)),
         sp_len=int(extra.get("max_spectral_data_len", sp_default)), args=args,
         model_builder=model_builder, combinations=combinations))
-
-
-def check_device(device: str) -> None:
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
 
 
 def data_dirs(ap: argparse.ArgumentParser, args: argparse.Namespace,

@@ -34,6 +34,7 @@ import time
 import numpy as np
 
 from ..evaluation.probes import DEFAULT_KNN_KS as KNN_KS
+from ..utils.platform import select_device
 from . import common
 
 # 5-way class names + plot colors (sorted factorize order)
@@ -210,7 +211,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    common.check_device(args.device)
+    select_device(args.device)
 
     from ..data.ztfbts import load_ztfbts
     from ..evaluation.reports import metrics_to_latex

@@ -20,6 +20,7 @@ import argparse
 
 import numpy as np
 
+from ..utils.platform import select_device
 from . import common
 
 
@@ -43,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    common.check_device(args.device)
+    select_device(args.device)
 
     from ..data.ztfbts import load_ztfbts
     from ..evaluation.embeddings import get_embeddings

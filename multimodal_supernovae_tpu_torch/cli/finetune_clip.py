@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""CLIP fine-tuning on real ZTF BTS data from a pretrained run, on one GPU
+"""CLIP fine-tuning on real ZTF BTS data from a pretrained run, on the GPU
 (port of multimodal_supernovae_tpu/cli/finetune_clip.py, the reference's
 finetune_clip.py).
 
@@ -16,6 +16,7 @@ is trained on it (``models/factory.py:finetune_model_builder``)::
 the meta device instead of training (the pretrained run dir's config and
 weights are read, and the report counts the entries they fill).
 ``--parallel-folds``/``--parallel-members`` stack the grid points as
+``cli.train`` does, and ``--mesh`` under torchrun trains data parallel as
 ``cli.train`` does.
 """
 
@@ -38,7 +39,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    common.refuse_unported(args)
 
     from ..config import load_sweep
     from ..data.folds import stratified_kfolds
@@ -49,21 +49,21 @@ def main(argv=None) -> None:
     extra = sweep.extra_args
     if args.check:
         common.run_check(args, sweep, 2, 220, model_builder=finetune_model_builder(extra))
-    common.check_device(args.device)
+    mesh, device = common.join_mesh(args)
     name = os.path.splitext(os.path.basename(args.config))[0]
-    sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
+    sweep_dir = common.main_first(mesh, lambda: make_sweep_dir(sweep, args.analysis_path, name))
     data_dir, spectra_dir = common.data_dirs(ap, args, tuple(extra["combinations"]))
-    dataset = common.load_cached(
-        args.cache_dir, common.ingest_config(data_dir, spectra_dir, extra, 220))
+    dataset = common.main_first(mesh, lambda: common.load_cached(
+        args.cache_dir, common.ingest_config(data_dir, spectra_dir, extra, 220)))
     kfolds = extra.get("kfolds")
     folds = stratified_kfolds(dataset.arrays["label"], kfolds) if kfolds else None
     results = run_sweep(
         sweep, dataset, 2, folds, sweep_dir, model_builder=finetune_model_builder(extra),
-        use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
+        mesh=mesh, use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
         epochs_override=args.epochs, resume=args.resume,
         parallel_folds=args.parallel_folds, parallel_members=args.parallel_members,
-        device=args.device)
-    common.print_results(results)
+        device=device)
+    common.finish(results, mesh)
 
 
 if __name__ == "__main__":

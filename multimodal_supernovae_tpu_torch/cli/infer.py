@@ -38,6 +38,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils.platform import select_device
 from . import common
 
 
@@ -64,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    common.check_device(args.device)
+    select_device(args.device)
 
     from ..evaluation.embeddings import (
         get_embeddings,

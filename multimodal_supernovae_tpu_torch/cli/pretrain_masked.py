@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Masked (MAE-style) light-curve pretraining on one GPU (port of
+"""Masked (MAE-style) light-curve pretraining on the GPU (port of
 multimodal_supernovae_tpu/cli/pretrain_masked.py): trains a
 ``MaskedLightCurveEncoder`` (``models/factory.py:masked_model_builder``)
 with the StepLR schedule of the sweep's ``step_size`` and ``gamma``, on the
@@ -15,7 +15,8 @@ HDF5 reader) or of ZTF BTS (``--source real``), split at random by
       --source real --data-dir ZTFBTS/
 
 ``--device`` defaults to ``cuda``. ``--check`` validates every grid point on
-the meta device instead of training (light curves only).
+the meta device instead of training (light curves only). ``--mesh`` under
+torchrun trains data parallel as ``cli.train`` does.
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    common.refuse_unported(args)
 
     from ..config import load_sweep
     from ..models.factory import masked_model_builder
@@ -51,10 +51,10 @@ def main(argv=None) -> None:
     if args.check:
         common.run_check(args, sweep, 2, 220, model_builder=masked_model_builder(extra),
                          combinations=("lightcurve",))
-    common.check_device(args.device)
+    mesh, device = common.join_mesh(args)
 
     name = os.path.splitext(os.path.basename(args.config))[0] + "-masked"
-    sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
+    sweep_dir = common.main_first(mesh, lambda: make_sweep_dir(sweep, args.analysis_path, name))
     n_max_obs = int(extra.get("max_lightcurve_data_len", 100))
     if args.source == "sim":
         from ..data.simulation import ingest_simulation_lightcurves
@@ -62,18 +62,19 @@ def main(argv=None) -> None:
         config = dict(hdf5_path=common.sim_path(ap, args, extra, common.SIM_DIRS[:2]),
                       bands=("r", "g"), n_max_obs=n_max_obs,
                       dataset_length=extra.get("dataset_length"))
-        dataset = common.load_cached(args.cache_dir, config,
-                                     ingest=ingest_simulation_lightcurves, kind="simlc")
+        dataset = common.main_first(mesh, lambda: common.load_cached(
+            args.cache_dir, config, ingest=ingest_simulation_lightcurves, kind="simlc"))
     else:
         data_dir, _ = common.data_dirs(ap, args, ("lightcurve",))
         config = dict(data_dir=data_dir, combinations=("lightcurve",),
                       max_data_len_lc=n_max_obs)
-        dataset = common.load_cached(args.cache_dir, config, kind="ztfbts-lc")
+        dataset = common.main_first(mesh, lambda: common.load_cached(
+            args.cache_dir, config, kind="ztfbts-lc"))
     results = run_sweep(
         sweep, dataset, 2, None, sweep_dir, model_builder=masked_model_builder(extra),
-        use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
-        epochs_override=args.epochs, resume=args.resume, device=args.device)
-    common.print_results(results)
+        mesh=mesh, use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
+        epochs_override=args.epochs, resume=args.resume, device=device)
+    common.finish(results, mesh)
 
 
 if __name__ == "__main__":

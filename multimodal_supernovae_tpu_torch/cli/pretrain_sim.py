@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Maven simulation pretraining on one GPU: contrastive CLIP on the
+"""Maven simulation pretraining on the GPU: contrastive CLIP on the
 simulated HDF5 corpus (port of multimodal_supernovae_tpu/cli/pretrain_sim.py,
 the reference's pretraining_clip_wandb.py).
 
@@ -19,7 +19,8 @@ Its run directory is what ``cli.finetune_clip`` grafts from
 ``--device`` defaults to ``cuda`` and training refuses to start without it
 (pass ``--device cpu`` for the CPU). ``--resume`` continues each unfinished
 run from its last.ckpt and skips finished ones. ``--check`` validates every
-grid point on the meta device instead of training (no data, no card). Not
+grid point on the meta device instead of training (no data, no card).
+``--mesh`` under torchrun trains data parallel as ``cli.train`` does. Not
 ported yet: ``--streaming`` (training from a sharded on-disk cache,
 ROADMAP.md queue 1, item 17b) raises ``NotImplementedError``.
 """
@@ -62,7 +63,6 @@ def ingest_config(hdf5_path: str, extra: Dict[str, Any]) -> Dict[str, Any]:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    common.refuse_unported(args)
 
     from ..config import load_sweep
     from ..data.simulation import ingest_simulation
@@ -76,17 +76,18 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--streaming is not ported yet (ROADMAP.md queue 1, item 17b: data/streaming.py, "
             "Trainer.fit_sharded); the corpus is ingested into host memory without it")
-    common.check_device(args.device)
+    mesh, device = common.join_mesh(args)
 
     name = os.path.splitext(os.path.basename(args.config))[0]
-    sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
+    sweep_dir = common.main_first(mesh, lambda: make_sweep_dir(sweep, args.analysis_path, name))
     config = ingest_config(common.sim_path(ap, args, extra), extra)
-    dataset = common.load_cached(args.cache_dir, config, ingest=ingest_simulation)
+    dataset = common.main_first(mesh, lambda: common.load_cached(
+        args.cache_dir, config, ingest=ingest_simulation))
     results = run_sweep(
-        sweep, dataset, 2, None, sweep_dir,
+        sweep, dataset, 2, None, sweep_dir, mesh=mesh,
         use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
-        epochs_override=args.epochs, resume=args.resume, device=args.device)
-    common.print_results(results)
+        epochs_override=args.epochs, resume=args.resume, device=device)
+    common.finish(results, mesh)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Train CLIP or a supervised head on real ZTF BTS data on one GPU (port of
+"""Train CLIP or a supervised head on real ZTF BTS data on the GPU (port of
 multimodal_supernovae_tpu/cli/train.py, the reference's script_wandb.py).
 
 One positional argument: a sweep YAML, or an existing sweep directory under
@@ -17,14 +17,26 @@ grid point is trained into ``<analysis>/<sweep>/run-<k>/``::
 on the meta device instead of training (``training/preflight.py``; no data,
 no card). ``--parallel-folds`` trains the folds of each grid point as one
 stacked program and ``--parallel-members`` its seeds and learning rates too
-(``training/ensemble.py``), into the same run directories. Not ported yet,
-and raising ``NotImplementedError``: ``--profile-dir`` (ROADMAP.md item
-19); the post-fit plots are not made (item 18b).
+(``training/ensemble.py``), into the same run directories.
+
+Data parallel over the cards of a host, one process a card (NCCL; gloo for
+``--device cpu``), the global batch split over the ranks::
+
+  torchrun --nproc-per-node 8 -m multimodal_supernovae_tpu_torch train \
+      configs/maven_pretrain.yaml --mesh
+
+``--profile-dir D`` writes a ``torch.profiler`` Chrome trace of the whole
+sweep into D (one file a rank); it records every operator and kernel, so
+keep such runs short (``--epochs 1 --max-runs 1``). Not ported yet, and
+raising ``NotImplementedError``: ``--tp`` above 1 and ``--parallel-folds``
+/ ``--parallel-members`` under a mesh (ROADMAP.md item 15d); the post-fit
+plots are not made (item 18b).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 from . import common
@@ -36,14 +48,13 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_sweep_args(ap)
     common.add_parallel_args(ap)
     ap.add_argument("--profile-dir", default=None,
-                    help="capture a profiler trace of training here (not ported yet)")
+                    help="capture a torch.profiler trace of training here (short runs)")
     return ap
 
 
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    common.refuse_unported(args)
 
     from ..config import load_sweep
     from ..data.folds import stratified_kfolds
@@ -55,27 +66,35 @@ def main(argv=None) -> None:
     nband = 2 if "lightcurve" in sweep.extra_args["combinations"] else 1
     if args.check:
         common.run_check(args, sweep, nband, 1000)
-    common.check_device(args.device)
+    mesh, device = common.join_mesh(args)
     if resuming:
         sweep_dir = args.config
     else:
         name = os.path.splitext(os.path.basename(args.config))[0]
-        sweep_dir = make_sweep_dir(sweep, args.analysis_path, name)
+        sweep_dir = common.main_first(
+            mesh, lambda: make_sweep_dir(sweep, args.analysis_path, name))
 
     extra = sweep.extra_args
     combinations = tuple(extra["combinations"])
     data_dir, spectra_dir = common.data_dirs(ap, args, combinations)
-    dataset = common.load_cached(
-        args.cache_dir, common.ingest_config(data_dir, spectra_dir, extra, 1000))
+    dataset = common.main_first(mesh, lambda: common.load_cached(
+        args.cache_dir, common.ingest_config(data_dir, spectra_dir, extra, 1000)))
     kfolds = extra.get("kfolds")
     folds = stratified_kfolds(dataset.arrays["label"], kfolds) if kfolds else None
-    results = run_sweep(
-        sweep, dataset, nband, folds, sweep_dir,
-        use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
-        epochs_override=args.epochs, resume=args.resume,
-        parallel_folds=args.parallel_folds, parallel_members=args.parallel_members,
-        device=args.device)
-    common.print_results(results)
+    if args.profile_dir:
+        from ..utils.profiling import profiler_trace
+
+        profile_ctx = profiler_trace(args.profile_dir)
+    else:
+        profile_ctx = contextlib.nullcontext()
+    with profile_ctx:
+        results = run_sweep(
+            sweep, dataset, nband, folds, sweep_dir, mesh=mesh,
+            use_wandb=args.wandb, max_runs=args.max_runs or extra.get("nruns"),
+            epochs_override=args.epochs, resume=args.resume,
+            parallel_folds=args.parallel_folds, parallel_members=args.parallel_members,
+            device=device)
+    common.finish(results, mesh)
 
 
 if __name__ == "__main__":

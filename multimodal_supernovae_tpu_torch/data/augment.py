@@ -22,7 +22,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..utils.draws import DrawSource
+from ..utils.draws import DrawSource, RankRows
 
 
 def _need(generator: Optional[torch.Generator], what: str) -> torch.Generator:
@@ -33,6 +33,30 @@ def _need(generator: Optional[torch.Generator], what: str) -> torch.Generator:
     return generator
 
 
+def _draw(generator, what: str, fn, shape, **kwargs) -> torch.Tensor:
+    """``fn(shape, generator=..., **kwargs)``, or this rank's rows of the
+    global draw under data parallelism (``utils.draws.RankRows``)."""
+    if isinstance(generator, RankRows):
+        return generator.draw(fn, shape, **kwargs)
+    return fn(shape, generator=_need(generator, what), **kwargs)
+
+
+def _randint4(shape, **kwargs) -> torch.Tensor:
+    return torch.randint(0, 4, shape, **kwargs)
+
+
+def batch_std(img: torch.Tensor, generator=None) -> torch.Tensor:
+    """The biased standard deviation of the whole batch; under data
+    parallelism (a ``RankRows`` generator) the GLOBAL batch's, from the
+    all-reduced sum and sum of squared deviations."""
+    if not isinstance(generator, RankRows) or generator.mesh.group is None:
+        return torch.std(img, correction=0)
+    mesh = generator.mesh
+    n = img.numel() * mesh.size
+    mean = mesh.all_reduce(img.sum()) / n
+    return torch.sqrt(mesh.all_reduce(((img - mean) ** 2).sum()) / n)
+
+
 def noise_from_error(x: torch.Tensor, err: torch.Tensor, level,
                      generator: Optional[torch.Generator] = None,
                      normal: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -40,8 +64,8 @@ def noise_from_error(x: torch.Tensor, err: torch.Tensor, level,
     is the standard-normal draw; without it one is drawn from
     ``generator``."""
     if normal is None:
-        normal = torch.randn(x.shape, generator=_need(generator, "noise_from_error"),
-                             dtype=x.dtype, device=x.device)
+        normal = _draw(generator, "noise_from_error", torch.randn, x.shape,
+                       dtype=x.dtype, device=x.device)
     return x + normal * err * level
 
 
@@ -51,10 +75,10 @@ def image_uniform_noise(img: torch.Tensor, level,
     """``img + u * level * std(img)`` with u uniform in [-1, 1) per element
     and the biased standard deviation of the whole batch (``jnp.std``).
     ``uniform`` is u; without it one is drawn from ``generator``."""
-    noise_range = level * torch.std(img, correction=0)
+    noise_range = level * batch_std(img, generator)
     if uniform is None:
-        uniform = torch.rand(img.shape, generator=_need(generator, "image noise"),
-                             dtype=img.dtype, device=img.device) * 2.0 - 1.0
+        uniform = _draw(generator, "image noise", torch.rand, img.shape,
+                        dtype=img.dtype, device=img.device) * 2.0 - 1.0
     return img + uniform * noise_range
 
 
@@ -67,8 +91,7 @@ def random_rot90(img: torch.Tensor, generator: Optional[torch.Generator] = None,
     without leaving the device."""
     b = img.shape[0]
     if k is None:
-        k = torch.randint(0, 4, (b,), generator=_need(generator, "image rotation"),
-                          device=img.device)
+        k = _draw(generator, "image rotation", _randint4, (b,), device=img.device)
     turns = torch.stack([torch.rot90(img, i, dims=(1, 2)) for i in range(4)])
     return turns[k.to(img.device).long(), torch.arange(b, device=img.device)]
 
@@ -130,8 +153,8 @@ def random_subset_mask(padding_mask: torch.Tensor, f_mask: float,
     n_obs = pm.sum(dim=1)
     n_mask = (n_obs.float() * f_mask).int()  # float32, truncated, as JAX's
     if uniform is None:
-        uniform = torch.rand(pm.shape, generator=_need(generator, "random_subset_mask"),
-                             device=pm.device)
+        uniform = _draw(generator, "random_subset_mask", torch.rand, pm.shape,
+                        device=pm.device)
     u = torch.where(pm, uniform, torch.full_like(uniform, float("inf")))
     # the rank of each entry: JAX's argsort of argsort, both stable
     ranks = torch.argsort(torch.argsort(u, dim=1, stable=True), dim=1, stable=True)
@@ -155,8 +178,8 @@ def contiguous_span_mask(padding_mask: torch.Tensor, nband: int, f_mask: float,
     n_obs = bands.sum(dim=2)
     span = (n_obs.float() * f_mask).int()
     if uniform is None:
-        uniform = torch.rand((b, nband), generator=_need(generator, "contiguous_span_mask"),
-                             device=pm.device)
+        uniform = _draw(generator, "contiguous_span_mask", torch.rand, (b, nband),
+                        device=pm.device)
     start = torch.floor(uniform * (n_obs - span + 1).float()).int()
     pos = torch.arange(t // nband, device=pm.device)[None, None, :]
     in_span = (pos >= start[..., None]) & (pos < (start + span)[..., None])

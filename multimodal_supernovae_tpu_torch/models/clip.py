@@ -284,24 +284,33 @@ class CLIPModel(nn.Module):
         return self.encode(batch, train, generator)
 
     def loss_fn(self, batch: Mapping[str, torch.Tensor], train: bool = False,
-                generator: Optional[torch.Generator] = None,
+                generator: Optional[torch.Generator] = None, mesh=None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """The training loss and the auxiliary outputs: regression, the MSE on
         ``redshift`` and ``{"pred": (B,)}``; classification, the
         class-weighted cross entropy on ``label`` and ``{"logits": ...}``;
         otherwise the contrastive loss (``cfg.loss``: 'softmax' for CLIP,
         'sigmoid' for SigLIP) over every modality pair and
-        ``{"embeddings": [...]}``."""
+        ``{"embeddings": [...]}``.
+
+        ``mesh`` (a ``parallel.mesh.DataMesh``; the JAX ``gather_axis``):
+        ``batch`` is this rank's rows, the outputs are all-gathered before
+        the loss, so the loss is the global batch's on every rank, and the
+        auxiliary outputs are the global batch's too."""
         cfg = self.cfg
         out = self(batch, train, generator)
+        gather = (lambda t: t) if mesh is None else mesh.all_gather
         if cfg.regression:
-            pred = out[:, 0]
-            return L.mse_loss(pred, batch["redshift"]), {"pred": pred}
+            pred = gather(out[:, 0])
+            return L.mse_loss(pred, gather(batch["redshift"])), {"pred": pred}
         if cfg.classification:
-            return (L.weighted_cross_entropy(out, batch["label"], self.class_weights),
-                    {"logits": out})
+            out = gather(out)
+            return (L.weighted_cross_entropy(out, gather(batch["label"]),
+                                             self.class_weights), {"logits": out})
         pair_loss = {
             "sigmoid": L.sigmoid_loss_multimodal,
             "softmax": L.clip_loss_multimodal,
         }[cfg.loss]
+        if mesh is not None:
+            out = L.all_gather_embeddings(out, mesh)
         return pair_loss(out, self.logit_scale, self.logit_bias), {"embeddings": out}

@@ -85,14 +85,17 @@ class ClipMLPHead(nn.Module):
         return self.mlp_model(torch.cat(embs, dim=-1), train, generator)
 
     def loss_fn(self, batch: Mapping[str, torch.Tensor], train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, mesh=None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Regression: the MSE on ``redshift`` and ``{"pred": (B,)}``;
         classification: the class-weighted cross entropy on ``label`` and
-        ``{"logits": ...}``."""
+        ``{"logits": ...}``. Under a data ``mesh`` the outputs and targets
+        are all-gathered first (``CLIPModel.loss_fn``)."""
         out = self(batch, train, generator)
+        gather = (lambda t: t) if mesh is None else mesh.all_gather
         if self.cfg.regression:
-            pred = out[:, 0]
-            return L.mse_loss(pred, batch["redshift"]), {"pred": pred}
-        return (L.weighted_cross_entropy(out, batch["label"], self.class_weights),
+            pred = gather(out[:, 0])
+            return L.mse_loss(pred, gather(batch["redshift"])), {"pred": pred}
+        out = gather(out)
+        return (L.weighted_cross_entropy(out, gather(batch["label"]), self.class_weights),
                 {"logits": out})

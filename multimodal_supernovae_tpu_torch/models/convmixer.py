@@ -76,19 +76,47 @@ class BatchNorm(nn.BatchNorm2d):
     statistics and updates the running ones as flax does: ``running =
     momentum * running + (1 - momentum) * batch`` with the biased batch
     variance; ``num_batches_tracked`` counts the updates, as torch's does.
-    Otherwise it normalises by the running statistics."""
+    Otherwise it normalises by the running statistics.
+
+    Under data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` that
+    ``parallel.mesh.batch_stats_over`` sets; the JAX tower's ``axis_name``)
+    the batch statistics are the GLOBAL batch's: one differentiable
+    all-reduce of each channel's sum and sum of squares, taken in float64
+    (flax's ``E[x^2] - E[x]^2``, without its float32 cancellation), and the
+    running statistics move by them on every rank alike.
+    ``nn.SyncBatchNorm`` is no substitute: it refuses CPU tensors and keeps
+    torch's unbiased running variance."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__(features, eps=eps, momentum=1.0 - momentum)
         self.flax_momentum = momentum
+        self.mesh = None
+
+    def _global_stats(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(biased variance, mean) per channel over every rank's rows."""
+        n = x.shape[0] * x.shape[2] * x.shape[3] * self.mesh.size
+        x64 = x.double()
+        sums = self.mesh.all_reduce(torch.stack([x64.sum(dim=(0, 2, 3)),
+                                                 (x64 * x64).sum(dim=(0, 2, 3))])) / n
+        mean = sums[0]
+        var = (sums[1] - mean * mean).clamp_min(0.0)
+        return var.to(x.dtype), mean.to(x.dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.mesh is not None and self.mesh.group is not None:
+            var, mean = self._global_stats(x)
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            y = ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                 + self.bias[None, :, None, None])
+            var, mean = var.detach(), mean.detach()
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             m = self.flax_momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)

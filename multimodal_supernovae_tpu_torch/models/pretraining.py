@@ -105,17 +105,21 @@ class MaskedLightCurveEncoder(nn.Module):
 
     def loss_fn(self, batch: Mapping[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                uniform: Optional[torch.Tensor] = None
+                uniform: Optional[torch.Tensor] = None, mesh=None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """The MSE over the hidden positions, ``se.sum() / max(m.sum(), 1)``,
         and ``{"pred", "mask_pred"}``. The mask needs ``generator`` or a
-        handed-in ``uniform``, in train and eval mode alike."""
+        handed-in ``uniform``, in train and eval mode alike. Under a data
+        ``mesh`` the truth, prediction and mask are all-gathered first, so
+        the MSE is the global batch's (``CLIPModel.loss_fn``)."""
         if generator is None and uniform is None:
             raise ValueError("the masked pretraining loss needs a generator or a "
                              "handed-in uniform draw")
         truth, pred, mask_pred = self.masked_pred(batch["x_lc"], batch["t_lc"],
                                                   batch["mask_lc"], train, generator,
                                                   uniform)
+        if mesh is not None:
+            truth, pred, mask_pred = (mesh.all_gather(t) for t in (truth, pred, mask_pred))
         m = mask_pred.to(pred.dtype)
         se = (truth - pred) ** 2 * m
         return se.sum() / m.sum().clamp_min(1.0), {"pred": pred, "mask_pred": mask_pred}

@@ -1,5 +1,5 @@
 """Contrastive and supervised losses (port of
-multimodal_supernovae_tpu/ops/losses.py, the single-device functions).
+multimodal_supernovae_tpu/ops/losses.py).
 
   * ``clip_loss``: symmetric InfoNCE over the pairwise logit matrix
     ``exp(logit_scale) * (e2 @ e1.T) + logit_bias``, the mean of the row- and
@@ -12,13 +12,16 @@ multimodal_supernovae_tpu/ops/losses.py, the single-device functions).
   * ``weighted_cross_entropy`` (torch ``CrossEntropyLoss(weight=w)``
     normalisation) and ``mse_loss``.
 
-The global-batch (sharded) variants wait for the port's data-parallel
-slice (ROADMAP.md queue 1, item 15b: scale-out).
+The global-batch (sharded) variants take a data mesh
+(``parallel/mesh.py:DataMesh``) where the JAX ones take a mesh axis name:
+each rank's embeddings are all-gathered, in rank order, before the pair
+loss, so the logit matrix spans the global batch and every rank computes
+the same global loss.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +72,28 @@ def clip_loss_multimodal(embeddings, logit_scales, logit_biases) -> torch.Tensor
 
 def sigmoid_loss_multimodal(embeddings, logit_scales, logit_biases) -> torch.Tensor:
     return _pairwise(sigmoid_loss, embeddings, logit_scales, logit_biases)
+
+
+# -- sharded (global-batch) variants --------------------------------------------
+
+
+def all_gather_embeddings(embeddings: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Each (B_local, D) embedding array -> (B_global, D), the global batch in
+    rank order, so positive pairs stay on the diagonal. Differentiable: the
+    backward hands each rank its rows of the all-reduced gradient."""
+    return [mesh.all_gather(e) for e in embeddings]
+
+
+def clip_loss_multimodal_sharded(embeddings, logit_scales, logit_biases, mesh) -> torch.Tensor:
+    """Global-batch CLIP loss from each rank's embedding rows."""
+    return clip_loss_multimodal(all_gather_embeddings(embeddings, mesh), logit_scales,
+                                logit_biases)
+
+
+def sigmoid_loss_multimodal_sharded(embeddings, logit_scales, logit_biases,
+                                    mesh) -> torch.Tensor:
+    return sigmoid_loss_multimodal(all_gather_embeddings(embeddings, mesh), logit_scales,
+                                   logit_biases)
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -104,16 +104,19 @@ class CheckpointManager:
     strictly better than the worst kept one, which is then deleted (ties
     keep the earlier epoch, as Lightning's ``save_top_k`` does). The set is
     read back from the run directory's files, so a manager made after a
-    restart continues it."""
+    restart continues it. ``write=False`` (the ranks of a data mesh other
+    than 0) keeps the same book of the best epochs and writes, and deletes,
+    nothing."""
 
     def __init__(self, run_dir: str, monitor: str = "val_loss", mode: str = "min",
-                 keep_best: int = 2):
+                 keep_best: int = 2, write: bool = True):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
         self.run_dir = run_dir
         self.monitor = monitor
         self.mode = mode
         self.keep_best = keep_best
+        self.write = write
         os.makedirs(run_dir, exist_ok=True)
         self._best: Dict[int, Tuple[float, str]] = {}  # epoch: (value, file)
         for name in os.listdir(run_dir):
@@ -149,14 +152,15 @@ class CheckpointManager:
         ``epoch=`` file. ``metrics`` keep their finite numbers only."""
         metrics = {k: float(v) for k, v in metrics.items()
                    if isinstance(v, (int, float)) and math.isfinite(v)}
-        payload = self._payload(epoch, state, metrics, loop)
+        payload = self._payload(epoch, state, metrics, loop) if self.write else None
         if self.monitor in metrics:
             self._offer(epoch, metrics[self.monitor], state.step, payload)
-        _save(payload, os.path.join(self.run_dir, LAST_NAME))
+        if self.write:
+            _save(payload, os.path.join(self.run_dir, LAST_NAME))
 
     def _offer(self, epoch: int, value: float, step: int, payload: Dict[str, Any]):
         old = self._best.pop(epoch, None)  # a re-done epoch replaces its file
-        if old is not None:
+        if old is not None and self.write:
             os.remove(os.path.join(self.run_dir, old[1]))
         name = f"epoch={epoch}-step={step}.ckpt"
         self._best[epoch] = (value, name)
@@ -164,9 +168,12 @@ class CheckpointManager:
         if epoch not in kept[:self.keep_best]:
             del self._best[epoch]
             return
-        _save(payload, os.path.join(self.run_dir, name))
+        if self.write:
+            _save(payload, os.path.join(self.run_dir, name))
         for dropped in kept[self.keep_best:]:
-            os.remove(os.path.join(self.run_dir, self._best.pop(dropped)[1]))
+            name = self._best.pop(dropped)[1]
+            if self.write:
+                os.remove(os.path.join(self.run_dir, name))
 
     def best_epoch(self) -> Optional[int]:
         return min(self._best, key=self._rank) if self._best else None

@@ -41,8 +41,8 @@ random streams and ``bookkeeping.json``; ``resume=True`` continues from it.
 Where the JAX package replays its host random numbers past the completed
 epochs, the port restores the generators' states, as its ``Trainer`` does.
 
-Not ported: the member axis over a device mesh (ROADMAP.md queue 1, item
-15b); the fused-block and fused-QKV opt-ins raise under vmap (item 15c).
+Not ported: the member axis over the ranks of a data mesh (ROADMAP.md
+queue 1, item 15d); the fused-block and fused-QKV opt-ins raise under vmap (item 15c).
 """
 
 from __future__ import annotations

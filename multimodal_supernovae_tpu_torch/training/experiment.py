@@ -34,11 +34,15 @@ state_dict, and the caller applies it::
 same ``run-<k>`` directories; each member's model is built from its own
 seed with ``_build_run``'s surgery, as the sequential loop builds it.
 
+``mesh`` (a ``parallel.mesh.DataMesh``) trains each grid point data
+parallel over the ranks (``Trainer(mesh=...)``); every rank walks the same
+schedule, since every rank sees the same metrics.
+
 Not ported yet: the post-fit reports (loss history and retrieval-curve
 plots; ROADMAP.md queue 1, item 18: they need matplotlib, which the GPU
-host does not have), so ``run_sweep`` writes none; a device mesh (item
-15b) and ``run_sweep_streaming`` (item 17b, streaming), which raise
-``NotImplementedError``.
+host does not have), so ``run_sweep`` writes none; the stacked members over
+the ranks of a mesh (item 15d) and ``run_sweep_streaming`` (item 17b,
+streaming), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -119,6 +123,11 @@ def _skipped_result(run_dir: str, run_cfg, summary: Dict[str, Any]) -> Dict[str,
     }
 
 
+MEMBER_AXIS_REFUSAL = ("--parallel-folds/--parallel-members over a data mesh (the ensemble "
+                       "member axis over ranks) is not ported yet (ROADMAP.md queue 1, "
+                       "item 15d)")
+
+
 def _sweep_objective(res: Dict[str, Any], sweep: SweepConfig) -> Optional[float]:
     """The value a bayes schedule optimises: the least validation loss for
     ``best_val_loss`` (every shipped config's metric), else the trainer's
@@ -170,6 +179,8 @@ def run_sweep(
     results = []
     scheduler = SweepScheduler(sweep, max_runs=max_runs)
     if parallel_folds or parallel_members:
+        if mesh is not None:
+            raise NotImplementedError(MEMBER_AXIS_REFUSAL)
         if use_wandb:
             import warnings
 

@@ -18,8 +18,11 @@ route each sequence tower takes on the card (``ops/flash_attention.py:_route``)
 and the fused-block and fused-QKV routes where those opt-ins are on, and,
 with a pretrained checkpoint, how many of the model's state_dict entries it
 fills (``merge_params_nonstrict``; 0 raises: the wrong checkpoint). Errors
-name the grid point and the key. The JAX package's mesh options (``--tp``,
-``--mesh``, ``--check-devices``) have no meaning on one card and raise.
+name the grid point and the key. With ``--mesh`` or ``--tp`` and
+``--check-devices N`` (the devices the run will have) the batch's
+divisibility by the data axis is checked, and the feed-forward widths'
+by the model axis noted, in the JAX preflight's words (training with
+``--tp`` above 1 is not ported: item 15d).
 
 The one concrete allocation is RAdam's 0-dim ``step`` counters, which torch
 keeps on the host; every parameter, gradient, moment and the loss are meta.
@@ -40,8 +43,6 @@ ROUTE_NAMES = {
 }
 OPTIMIZER_NOTE = ("optimizer state: torch RAdam (exp_avg, exp_avg_sq, a float32 step a "
                   "parameter), not the JAX report's optax state")
-MESH_REFUSAL = ("the port trains on one card and has no device mesh (ROADMAP.md item 15b: "
-                "scale-out)")
 
 
 def abstract_batch(combinations, batch_size: int, lc_len: int, sp_len: int,
@@ -210,9 +211,12 @@ def preflight_sweep(
     max_runs: Optional[int] = None,
     combinations: Optional[Tuple[str, ...]] = None,
     device="cuda",
+    mesh_shape: Optional[Dict[str, int]] = None,
 ) -> Tuple[List[Dict[str, Any]], List[str]]:
     """Validate every grid point of a sweep. Returns (reports, errors); an
-    empty error list means the sweep is safe to submit."""
+    empty error list means the sweep is safe to submit. ``mesh_shape`` is
+    the requested {'data': N, 'model': M} layout, checked for the JAX
+    preflight's batch divisibility without joining a process group."""
     from ..config.config import SweepScheduler
 
     extra = sweep.extra_args
@@ -242,34 +246,44 @@ def preflight_sweep(
             continue
         rep["name"] = name
         rep["run_cfg"] = dict(run_cfg)
+        if mesh_shape:
+            errors.extend(_mesh_problems(name, rep, run_cfg, mesh_shape))
         reports.append(rep)
         scheduler.observe(run_cfg, None)
     return reports, errors
 
 
+def _mesh_problems(name: str, rep: Dict[str, Any], run_cfg: Dict[str, Any],
+                   mesh_shape: Dict[str, int]) -> List[str]:
+    """The JAX preflight's mesh checks of one grid point: an error when the
+    data axis does not divide the batch, a note on ``rep`` for each
+    feed-forward width the model axis does not divide."""
+    errors = []
+    n_data = int(mesh_shape.get("data", 1))
+    n_model = int(mesh_shape.get("model", 1))
+    if rep["batch_size"] % max(n_data, 1) != 0:
+        errors.append(f"{name}: batch_size {rep['batch_size']} not divisible "
+                      f"by the data mesh axis ({n_data})")
+    if n_model > 1 and "emb" in run_cfg:
+        for tower, emb in (("lightcurve", int(run_cfg["emb"])),
+                           ("spectral", int(run_cfg.get("emb_spectral", run_cfg["emb"])))):
+            if (4 * emb) % n_model != 0:
+                rep["notes"].append(
+                    f"tp={n_model}: {tower} FF hidden {4 * emb} not "
+                    f"divisible — those kernels replicate "
+                    f"(parallel/sharding.py falls back silently)")
+    return errors
+
+
 def add_check_args(ap) -> None:
-    """Attach ``--check`` and the JAX package's mesh flags, which the port
-    refuses (``refuse_mesh``), to an argparse parser."""
+    """Attach the shared --check CLI flags to an argparse parser."""
     ap.add_argument("--check", action="store_true",
                     help="validate the sweep without training: build every grid point's "
                          "model and run one full train step on the meta device (no data, "
                          "no card, no allocation). Exits non-zero on any error")
-    ap.add_argument("--mesh", action="store_true",
-                    help="the JAX package's device mesh (refused: one card)")
-    ap.add_argument("--tp", type=int, default=None,
-                    help="the JAX package's tensor parallelism (refused: one card)")
     ap.add_argument("--check-devices", type=int, default=None,
-                    help="the JAX package's pod device count (refused: one card)")
-
-
-def refuse_mesh(args) -> None:
-    """Raise ``NotImplementedError`` for any of the JAX package's mesh flags."""
-    given = [f for f, v in (("--mesh", getattr(args, "mesh", False)),
-                            ("--tp", getattr(args, "tp", None)),
-                            ("--check-devices", getattr(args, "check_devices", None)))
-             if v]
-    if given:
-        raise NotImplementedError(f"{'/'.join(given)}: {MESH_REFUSAL}")
+                    help="with --check and --mesh/--tp: the device count the run will "
+                         "have, so mesh divisibility is validated too")
 
 
 def run_cli_check(
@@ -284,12 +298,23 @@ def run_cli_check(
 ) -> int:
     """The CLIs' --check entry: preflight the sweep and return the exit
     code (0 = every grid point validated)."""
-    refuse_mesh(args)
+    mesh_shape = None
+    tp = int(getattr(args, "tp", 1) or 1)
+    want_mesh = bool(getattr(args, "mesh", False)) or tp > 1
+    n_devices = getattr(args, "check_devices", None)
+    if want_mesh and n_devices:
+        mesh_shape = {"data": max(1, n_devices // max(tp, 1)), "model": tp}
+    elif want_mesh:
+        print(
+            "--check: pass --check-devices N (the pod's device count) to "
+            "also validate mesh divisibility for --mesh/--tp"
+        )
     reports, errors = preflight_sweep(
         sweep, nband=nband, lc_len=lc_len, sp_len=sp_len, image_size=image_size,
         model_builder=model_builder, epochs_override=getattr(args, "epochs", None),
         max_runs=getattr(args, "max_runs", None) or sweep.extra_args.get("nruns"),
-        combinations=combinations, device=getattr(args, "device", "cuda"))
+        combinations=combinations, device=getattr(args, "device", "cuda"),
+        mesh_shape=mesh_shape)
     print(format_report(reports, errors))
     return 1 if errors else 0
 

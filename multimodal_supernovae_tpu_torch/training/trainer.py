@@ -34,8 +34,21 @@ the run would have done had it not stopped.
 ``freeze`` is a predicate over parameter paths (training/optim.py): the
 parameters it picks stay out of the optimizer.
 
+``mesh`` (a ``parallel.mesh.DataMesh``, one process a card) trains data
+parallel and equals the one-process fit at the global batch: every rank
+builds the same global (steps, B) plan from the shared seed and takes its
+block of columns (the JAX ``P(None, DATA_AXIS)``); its draws come from a
+``utils.draws.RankRows`` over the shared generators, so the noise, the
+image turns, the dropout and the masked-pretraining masks are those of the
+global batch; the losses, validation outputs and BatchNorm statistics span
+the global batch and the gradients are averaged over the ranks
+(training/step.py). B must divide by the ranks. Only rank 0 writes the run
+directory (sidecars, ``metrics.jsonl``, ``summary.json``, checkpoints);
+every rank restores ``last.ckpt`` on resume, and a barrier at the end of
+``fit`` holds the others until rank 0 has written.
+
 Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
-(ROADMAP.md queue 1, item 17b) and a device mesh (item 15b: scale-out).
+(ROADMAP.md queue 1, item 17b) and a model axis in the mesh (item 15d).
 Stacked ensemble members train through ``training/ensemble.py``.
 """
 
@@ -51,6 +64,8 @@ import torch
 from ..data.batching import ArrayDataset, epoch_indices
 from ..models.factory import write_model_config
 from ..ops.metrics import macro_f1, r2_score, retrieval_auc
+from ..parallel.mesh import TP_REFUSAL, batch_stats_over
+from ..utils.draws import RankRows
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, save_run_sidecars
 from .optim import build_optimizer
@@ -91,10 +106,10 @@ class Trainer:
                  use_wandb: bool = False, n_classes: Optional[int] = None):
         if task not in TASKS:
             raise ValueError(f"unknown task {task!r}: expected one of {TASKS}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md queue 1, item 15b: scale-out)")
+        if mesh is not None and mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(TP_REFUSAL)
         self.model = model
+        self.mesh = mesh
         self.task = task
         self.cfg = cfg
         self.run_dir = run_dir
@@ -150,25 +165,47 @@ class Trainer:
         the history, rows and best then cover the whole run."""
         if resume and not self.run_dir:
             raise ValueError("resume=True needs the run_dir of the run to continue")
-        if not self.run_dir:
-            return self._fit(train_ds, val_ds, state, resume, None, None)
+        mesh = self.mesh
+        if mesh is not None:
+            mesh.local(self.cfg.batch_size)  # raises unless the ranks divide B
+        with batch_stats_over(self.model, mesh):
+            if not self.run_dir:
+                result = self._fit(train_ds, val_ds, state, resume, None, None)
+            else:
+                result = self._fit_in_run_dir(train_ds, val_ds, config_dump, state, resume)
+        if mesh is not None:
+            mesh.barrier()  # rank 0 has written everything before any rank returns
+        return result
+
+    def _fit_in_run_dir(self, train_ds, val_ds, config_dump, state, resume):
         cfg = self.cfg
-        save_run_sidecars(self.run_dir, config_dump or dataclasses.asdict(cfg),
-                          train_ds.filenames, val_ds.filenames)
-        write_model_config(self.run_dir, self.model)
-        ckpts = CheckpointManager(self.run_dir, self.monitor, self.mode, cfg.keep_best)
-        logger = MetricsLogger(self.run_dir, use_wandb=self.use_wandb)
+        is_main = self.mesh is None or self.mesh.is_main
+        if is_main:
+            save_run_sidecars(self.run_dir, config_dump or dataclasses.asdict(cfg),
+                              train_ds.filenames, val_ds.filenames)
+            write_model_config(self.run_dir, self.model)
+        if self.mesh is not None:
+            self.mesh.barrier()  # the run dir exists before any rank reads it
+        ckpts = CheckpointManager(self.run_dir, self.monitor, self.mode, cfg.keep_best,
+                                  write=is_main)
+        logger = MetricsLogger(self.run_dir, use_wandb=self.use_wandb) if is_main else None
         try:
             return self._fit(train_ds, val_ds, state, resume, logger, ckpts)
         finally:
-            logger.close()
+            if logger:
+                logger.close()
 
     def _fit(self, train_ds, val_ds, state, resume, logger, ckpts):
         cfg = self.cfg
         device = self.device
+        mesh = self.mesh
         rng = np.random.default_rng(cfg.seed)
         generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         eval_generator = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+        # a rank's columns of a global plan, and its rows of each global draw
+        cols = slice(None) if mesh is None else mesh.block(cfg.batch_size)
+        draws = generator if mesh is None else RankRows(generator, mesh)
+        eval_draws = eval_generator if mesh is None else RankRows(eval_generator, mesh)
         self.set_dataset_size(len(train_ds))
         train_data = train_ds.to_device(device)
         val_data = val_ds.to_device(device)
@@ -192,12 +229,12 @@ class Trainer:
                 best, since_best = loop["best"], loop["since_best"]
         run_epoch = make_epoch_runner(
             self.model, cfg.noise_level_mag, noise_level_img=cfg.noise_level_img,
-            rotate_images=cfg.rotate_images)
-        run_eval = make_eval_runner(self.model, rotate_images=cfg.rotate_images)
+            rotate_images=cfg.rotate_images, mesh=mesh)
+        run_eval = make_eval_runner(self.model, rotate_images=cfg.rotate_images, mesh=mesh)
         # fixed-shape eval plan: sequential, the tail repeats the last sample
         # and is trimmed after flattening
-        val_plan = torch.from_numpy(epoch_indices(
-            len(val_ds), cfg.batch_size, shuffle=False, pad="repeat_last")).to(device)
+        val_plan = torch.from_numpy(np.ascontiguousarray(epoch_indices(
+            len(val_ds), cfg.batch_size, shuffle=False, pad="repeat_last")[:, cols])).to(device)
         n_val = len(val_ds)
         t_start = time.perf_counter()
 
@@ -208,7 +245,7 @@ class Trainer:
             plan = epoch_indices(len(train_ds), cfg.batch_size, rng=rng,
                                  shuffle=True, pad="wrap")
             t0 = time.perf_counter()
-            state, losses = run_epoch(state, train_data, plan, generator)
+            state, losses = run_epoch(state, train_data, plan[:, cols], draws)
             train_loss = float(losses.mean())  # waits for the epoch's steps
             if not np.isfinite(train_loss):
                 if logger:
@@ -226,7 +263,7 @@ class Trainer:
                 "samples_per_s": plan.shape[1] / max(step_time, 1e-9),
             }
             if epoch % cfg.eval_every_epochs == 0:
-                val_losses, aux = run_eval(state, val_data, val_plan, eval_generator)
+                val_losses, aux = run_eval(state, val_data, val_plan, eval_draws)
                 metrics["val_loss"] = float(val_losses.mean())
                 history["val_loss"].append(metrics["val_loss"])
                 metrics.update(compute_task_metrics(self.task, aux, val_ds, n_val,

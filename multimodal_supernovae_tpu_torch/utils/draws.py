@@ -1,5 +1,8 @@
-"""Dropout keep masks drawn before the forward, for stacked ensemble members
-(training/ensemble.py).
+"""Draw sources: what stands in for the ``torch.Generator`` of a forward
+whose draws cannot come straight from one. Two kinds: the dropout keep
+masks of stacked ensemble members (training/ensemble.py), drawn before the
+forward, and ``RankRows``, one rank's rows of each draw of a data-parallel
+step (parallel/mesh.py).
 
 Inside ``torch.func.vmap`` no member can draw from a generator of its own:
 ``randomness="different"`` refuses an in-place draw on an unbatched tensor
@@ -79,3 +82,34 @@ def draw_stacked_keep_masks(specs: Sequence[Spec], generators: Sequence[torch.Ge
         for buf, (_, p) in zip(bufs, specs):
             buf[i].bernoulli_(p, generator=g)
     return [buf.bool() for buf in bufs]
+
+
+class RankRows(DrawSource):
+    """Rank r of a data mesh's stand-in for the generator that every rank
+    shares (seeded alike, advanced alike): each draw is made at the GLOBAL
+    batch's shape (n times the local leading dimension) and this rank keeps
+    its block of rows, so the ranks together draw exactly what one process
+    draws at the global batch: the dropout masks (``keep_mask``), the
+    magnitude noise, the image noise and turns and the masked-pretraining
+    masks (``draw``, through data/augment.py). Every draw site's leading
+    dimension is the batch."""
+
+    def __init__(self, generator: torch.Generator, mesh):
+        super().__init__()
+        self.generator, self.mesh = generator, mesh
+
+    def _global(self, shape) -> Tuple[int, ...]:
+        shape = tuple(shape)
+        return (self.mesh.size * shape[0], *shape[1:])
+
+    def keep_mask(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
+        full = torch.empty(self._global(x.shape), device=x.device).bernoulli_(
+            keep_prob, generator=self.generator)
+        return full[self.mesh.block(full.shape[0])].bool()
+
+    def draw(self, fn, shape, **kwargs) -> torch.Tensor:
+        """``fn(global_shape, generator=..., **kwargs)`` (``torch.randn``,
+        ``torch.rand`` or a ``torch.randint`` with its bounds bound), this
+        rank's rows."""
+        full = fn(self._global(shape), generator=self.generator, **kwargs)
+        return full[self.mesh.block(full.shape[0])]

@@ -22,7 +22,8 @@ from multimodal_supernovae_tpu_torch.serving.batcher import DynamicBatcher
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
-             "multimodal_supernovae_tpu", "pandas", "PIL", "sklearn", "h5py", "matplotlib")
+             "multimodal_supernovae_tpu", "pandas", "PIL", "sklearn", "h5py", "matplotlib",
+             "huggingface_hub")
 
 
 def test_port_imports_no_jax():
@@ -77,6 +78,16 @@ def test_port_imports_no_jax():
         "import multimodal_supernovae_tpu_torch.cli.export_embeddings\n"
         "import multimodal_supernovae_tpu_torch.cli.infer\n"
         "import multimodal_supernovae_tpu_torch.training.preflight\n"
+        "import multimodal_supernovae_tpu_torch.__main__\n"
+        "import multimodal_supernovae_tpu_torch.cli\n"
+        "import multimodal_supernovae_tpu_torch.cli.fetch_data\n"
+        "import multimodal_supernovae_tpu_torch.parallel\n"
+        "import multimodal_supernovae_tpu_torch.parallel.distributed\n"
+        "import multimodal_supernovae_tpu_torch.parallel.mesh\n"
+        "import multimodal_supernovae_tpu_torch.utils.flops\n"
+        "import multimodal_supernovae_tpu_torch.utils.platform\n"
+        "import multimodal_supernovae_tpu_torch.utils.profiling\n"
+        "import multimodal_supernovae_tpu_torch.utils.draws\n"
         f"print(json.dumps(sorted(m for m in {FORBIDDEN!r} if m in sys.modules)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -159,8 +170,10 @@ def test_entry_points_default_to_the_card():
     from multimodal_supernovae_tpu_torch.serving import load_live
     from multimodal_supernovae_tpu_torch.training.experiment import run_sweep
 
+    from multimodal_supernovae_tpu_torch.parallel.distributed import initialize, mesh_from_args
+
     for fn in (load_model, load_live, get_embeddings, predict_supervised,
-               masked_reconstruction_mse, run_sweep):
+               masked_reconstruction_mse, run_sweep, initialize, mesh_from_args):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     for cli in (serve, train, finetune_clip, pretrain_masked, pretrain_sim, evaluate,
                 export_embeddings, infer):

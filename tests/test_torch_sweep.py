@@ -236,10 +236,10 @@ def test_pretrain_masked_trains_from_a_legacy_sim_file(tmp_path, argv):
 
 
 @pytest.mark.parametrize("main,argv,item", [
-    (train.main, ["--check", "--tp", "2"], "item 15"),
-    (train.main, ["--profile-dir", "prof"], "item 19"),
-    (finetune_clip.main, ["--check", "--mesh"], "item 15"),
-    (pretrain_masked.main, ["--source", "real", "--check", "--check-devices", "8"], "item 15"),
+    (train.main, ["--tp", "2"], "item 15"),
+    (train.main, ["--mesh", "--parallel-folds"], "item 15"),
+    (finetune_clip.main, ["--tp", "2"], "item 15"),
+    (pretrain_masked.main, ["--source", "real", "--tp", "2"], "item 15"),
 ])
 def test_unported_flags_raise_with_their_item(main, argv, item):
     with pytest.raises(NotImplementedError, match=item):

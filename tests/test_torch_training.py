@@ -9,6 +9,8 @@ frameworks, a few steps), relative 1e-4 per step for the 20-step loss
 trajectory (summation order in XLA and torch drifts over the steps).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -327,11 +329,12 @@ def test_trainer_stops_early_and_aborts_on_non_finite_loss():
 @pytest.mark.parametrize("kw,match", [
     ({"task": "classification"}, None),
     ({"task": "masked"}, None),
-    ({"mesh": object()}, "item 15"),
+    ({"mesh": types.SimpleNamespace(shape={"data": 1, "model": 2})}, "item 15"),
     ({"task": "regression"}, None),
 ])
 def test_trainer_raises_for_what_is_not_ported(kw, match):
-    """A mesh still raises; the supervised and masked tasks are ported: one
+    """A mesh with a model axis still raises (item 15d; the data axis is
+    tests/test_torch_dp.py's); the supervised and masked tasks are ported: one
     epoch of each reports its metric (f1_val, monitored for the maximum, or
     R2_val), a MaskedLightCurveEncoder the validation loss only."""
     task = kw.get("task")
