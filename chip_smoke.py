@@ -10,7 +10,9 @@ pretraining and fine-tuning, each from its shipped config; and Maven's
 pretraining from a simulated HDF5 corpus through cli.pretrain_sim; and the
 five folds of maven-lite, and an lr x seed grid, as one stacked program
 through --parallel-folds / --parallel-members; and data-parallel training
-over two ranks, and the umbrella CLI under torchrun), through the
+over two ranks, and the umbrella CLI under torchrun; and tensor-parallel
+training over (data, model) meshes of ranks, and the stacked members over
+the ranks' data axis), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
 tensor cores, float32 on the tensor cores in 3xTF32, head dims 32/64 and rows
 off 16 bytes on the CUDA cores), and the same server and
@@ -407,27 +409,30 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      same CLI stopped after epoch 0's stacked checkpoint, then --resume:
      metric rows, last.ckpt state_dicts and RAdam moments bitwise those of
      (b). (d) --parallel-members on a grid written from maven-lite (lr
-     {3.7e-5, 1e-4} x seed {0, 1} x folds {0, 1}, nruns 8; 1 epoch): run
-     dirs and launches as in (b), and the first 5 steps against sequential
-     runs of each member's lr and seed (StackedRAdam). (e) The stacked step
-     at N = 1, 2, 5, 8 x B = 32 (maven-lite) and N = 5 x B = 256
+     {3.7e-5, 1e-4} x seed {0, 1} x folds {0, 1}, nruns 8; 1 epoch, each
+     member's loss a step kept for phase 6l): run dirs and launches as in
+     (b), and the first 5 steps against sequential runs of each member's lr
+     and seed (StackedRAdam); phases 6k's and 6l's torchrun runs go
+     beside (a)-(d). (e) Once they have ended, the stacked step
+     at N = 5 x B = 32 (maven-lite) and N = 5 x B = 256
      (config_grid.yaml's first point) against N sequential steps on the
      same batches: host clock medians of 6 (each step ended by a
      synchronise) and one profile of 5 steps each (device time, idle share,
      time by kind), samples/s over the members;
   6k. dp: data-parallel training (parallel/, Trainer(mesh=...)) on 2 gloo
      ranks that share cuda:0 (NCCL refuses two ranks on one device),
-     spawned as subprocesses of this script (--dp-rank R TMP) with a
-     timeout, from one set of initial weights: (a) configs/maven-lite.yaml's
-     first point, float32, B = 32 (16 a rank), Trainer.fit for 2 epochs on
-     phase 6h's tree (fold 0); (b) configs/trimodal.yaml's first point on
-     phase 6e's synthetic set (the global BatchNorm statistics and running
-     buffers); (c) configs/maven_pretrain.yaml at B = 1024 (512 a rank), 3
-     steps. Each rank's per-epoch losses (rtol = atol = 2e-5; Maven's per
-     step, relative 1e-5) and every state_dict entry (5e-5) against the
+     spawned as subprocesses of this script (--dp-rank GROUP R TMP, the
+     group "2x1") with a timeout, from one set of initial weights: (a)
+     configs/maven-lite.yaml's first point, float32, B = 32 (16 a rank),
+     Trainer.fit for 2 epochs on phase 6h's tree (fold 0); (b)
+     configs/trimodal.yaml's first point on phase 6e's synthetic set (the
+     global BatchNorm statistics and running buffers), 2 epochs; (c)
+     configs/maven_pretrain.yaml at B = 1024 (512 a rank), 3 steps. Each
+     rank's per-epoch losses (rtol = atol = 2e-5; Maven's per step,
+     relative 1e-5) and every state_dict entry (5e-5) against the
      one-process run on the card, 18 + 18 3xTF32 flash launches a step on
      each rank by the counters, no plain call; then each rank's step (host
-     clock median of 10, device time and idle share from one profile of 5)
+     clock median of 6, device time and idle share from one profile of 5)
      beside the one-process step (the ranks fit while this process fits the
      references; the steps are timed apart). (d) python -m
      torch.distributed.run --nproc-per-node 1 -m
@@ -437,7 +442,39 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      would hold about 7 MB a step): the run dir, the 3xTF32 flash forward,
      dq and dk/dv kernels in D's trace (18 each a train step, the forward
      also in eval steps), and the step's MFU by utils/flops.py (its peak
-     and compute type printed). The tree is deleted after the phase;
+     and compute type printed). This torchrun run and phase 6l's (f) start
+     after phase 6i and run beside phase 6j up to its (e), which waits for
+     them; phase 6l's groups start with phase 6k's and run beside them;
+  6l. tp: tensor parallelism (parallel/sharding.py: each FFN and the
+     ConvMixer head split Megatron-style over the model axis) and the
+     ensemble member axis over the data axis, on three more groups of gloo
+     ranks that share cuda:0 (the same workers: --dp-rank GROUP R TMP),
+     from phase 6k's initial weights, against the one-process runs (made
+     in phase 6k while the ranks run):
+     (a) maven-lite at a 2 x 2 mesh, float32, B = 32, Trainer.fit for 1
+     epoch on fold 0 (LC FF hidden 256 -> 128 a model rank, SP 128 -> 64);
+     (b) trimodal at 1 x 2 (the split head and its column-split dropout
+     mask), (c) Maven pretraining at 1 x 2, B = 1024 (phase 6k's
+     one-process steps), (d) maven-lite at dropout 0 under
+     MMSN_FUSED_BLOCK=1 at 1 x 2 (the fused kernels on FFN weights
+     gathered over the model axis), 3 steps each, and (d) also every
+     gradient of one loss, the fused blocks' FFN slices held to the
+     one-process gradient's slices within 5e-4 of the largest. Losses and
+     every gathered state_dict entry (names and shapes the one process's)
+     within rtol = atol = 5e-5 (Maven's losses relative 1e-5 a step), 18 +
+     18 3xTF32 flash launches a step on each rank (and 5 + 5 fused under
+     the opt-in), no plain call; each rank's step (host clock, device time,
+     idle share) beside the one process's. (e) Phase 6j (d)'s 8-member grid
+     through run_sweep(parallel_members=True) over a 2 x 1 mesh, 4 members
+     a rank, 1 epoch: each member's loss a step within relative 1e-5 of a
+     one-process stack of the same 4 members (fit_members; a stack rounds
+     its few-output reductions by its member count, so the distance to
+     (d)'s stack of 8 is logged, not held), its run dir's files (d)'s, the
+     stacked step's launches. (f) python -m torch.distributed.run
+     --nproc-per-node 1 -m multimodal_supernovae_tpu_torch train
+     configs/maven-lite.yaml --mesh --parallel-folds --epochs 1 (a
+     one-rank NCCL group) on phase 6h's tree: the five fold run dirs and
+     _ensemble-g0/. The tree is deleted after the phase;
   7. profile: torch.profiler (device activity) over 5 train steps of each
      path (kernel, kernel-simt: the kernel path on the CUDA-core route,
      plain, fused, fused-simt: the fused path with both fused kernels on the
@@ -455,8 +492,8 @@ over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
 runs, and every counted call of the run-dir, towers, maven, sim, ingest,
-evaluate, ensemble and dp phases (the ensemble's vmap checks aside; phase
-dp's ranks count in their own processes and report); the CUDA-core fused-QKV entries carry their float32 times, library
+evaluate, ensemble, dp and tp phases (the ensemble's vmap checks aside;
+phase dp's and tp's ranks count in their own processes and report); the CUDA-core fused-QKV entries carry their float32 times, library
 times and bounds at LC and SP under "float32"; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
 fused-QKV entries add their and the library call's device time, "device_ms"
@@ -580,8 +617,13 @@ from multimodal_supernovae_tpu_torch.training import (
     make_train_step,
 )
 from multimodal_supernovae_tpu_torch.training import ensemble as ensemble_mod
-from multimodal_supernovae_tpu_torch.training.experiment import _build_run
-from multimodal_supernovae_tpu_torch.parallel import batch_stats_over
+from multimodal_supernovae_tpu_torch.training.experiment import _build_run, run_sweep
+from multimodal_supernovae_tpu_torch.parallel import (
+    batch_stats_over,
+    gather_state_dict,
+    shard_module,
+    spec_for,
+)
 from multimodal_supernovae_tpu_torch.utils.draws import DrawSource, RankRows
 from multimodal_supernovae_tpu_torch.utils.seed import set_seed
 
@@ -4581,7 +4623,10 @@ def _kind(name):
 # phase ensemble: k-fold, seed and lr members as one stacked program
 # (training/ensemble.py) on phase ingest's tree, and the flash kernels under vmap
 ENSEMBLE_EPOCHS, ENSEMBLE_STEPS, ENSEMBLE_TIMED = 2, 5, 6
-ENSEMBLE_N = (1, 2, 5, 8)  # members of the timed stacked step at B = 32
+MEMBER_EPOCHS = 1  # (d)'s lr x seed x fold grid, and phase tp (e)'s
+# members of the timed stacked step at B = 32 (N = 1, 2 and 8 were timed once; PERF.md
+# section 5 keeps those rows)
+ENSEMBLE_N = (5,)
 ENSEMBLE_GRID_N = 5  # members of the timed stacked step at config_grid's B = 256
 ENSEMBLE_EMBED_TOL = 1e-4  # load_model's embeddings against the stacked member slice
 # --parallel-members: the grid written from maven-lite (8 members)
@@ -4691,9 +4736,29 @@ def _recording_dropout(seen, n):
     return drop
 
 
-def _ensemble_members(sweep, points, ds, folds):
+@contextlib.contextmanager
+def _recorded_member_losses():
+    """A context in which every stacked epoch runner appends its epoch's (N,
+    steps) losses (host) to the list it yields."""
+    real, recorded = ensemble_mod.make_ensemble_epoch_runner, []
+
+    def make(*args, **kwargs):
+        run = real(*args, **kwargs)
+
+        def run_epoch(*a):
+            state, losses = run(*a)
+            recorded.append(losses.cpu())
+            return state, losses
+        return run_epoch
+
+    with mock.patch.object(ensemble_mod, "make_ensemble_epoch_runner", make):
+        yield recorded
+
+
+def _ensemble_members(sweep, points, ds, folds, epochs=None):
     """(members, their models on the card, the task, freeze and trainer config
-    of the first point): run_sweep's parallel path's build of ``points``."""
+    of the first point): run_sweep's parallel path's build of ``points``
+    (``epochs``: its epochs_override)."""
     extra = sweep.extra_args
     members, models, first = [], [], None
     for k, p in enumerate(points):
@@ -4701,7 +4766,9 @@ def _ensemble_members(sweep, points, ds, folds):
         set_seed(seed)
         tr, va = split_for_run(len(ds), float(extra.get("val_fraction", 0.2)), seed,
                                folds=folds, foldnumber=p.get("foldnumber"))
-        model, task, freeze, _, tcfg = _build_run(p, extra, NBAND, None, None)
+        model, task, freeze, override, tcfg = _build_run(p, extra, NBAND, None, epochs)
+        if override is not None:
+            model.load_state_dict(override(model.state_dict()), strict=True)
         first = first or (task, freeze, tcfg)
         members.append(ensemble_mod.Member(f"run-{k}", seed, tr, va, lr=float(p["lr"])))
         models.append(model.to(DEVICE))
@@ -4930,7 +4997,7 @@ def _ensemble_timing(card, ds, folds):
     return total
 
 
-def phase_ensemble(card, tmp):
+def phase_ensemble(card, tmp, quiet=None):
     """Stacked members on phase ingest's tree: (a) the flash kernels under
     vmap on every route, bitwise N separate calls, and the fused kernels'
     refusal; (b) cli.train configs/maven-lite.yaml --parallel-folds, the five
@@ -5032,22 +5099,30 @@ def phase_ensemble(card, tmp):
             extra_args=dict(raw["extra_args"], nruns=8))))
     m_sweep = load_sweep(grid)
     m_points = list(expand_grid(m_sweep))
-    want, m_splits = _ensemble_cli_want(ds, folds, m_sweep, m_points, 1, per_step)
+    want, m_splits = _ensemble_cli_want(ds, folds, m_sweep, m_points, MEMBER_EPOCHS,
+                                        per_step)
     log(f"ensemble members: cli.train --parallel-members on {grid} (maven-lite with lr "
         f"{ENSEMBLE_MEMBERS['lr']} x seed {ENSEMBLE_MEMBERS['seed']} x folds "
-        f"{ENSEMBLE_MEMBERS['foldnumber']}, nruns 5 -> 8); cut: epochs 1000 -> 1")
-    counts, wall, _ = _cli_counted("ensemble members", cli_train.main, [
-        grid, *[a for a in argv if a != "--parallel-folds"], "--parallel-members",
-        "--analysis-path", os.path.join(analysis, "M"), "--epochs", "1"])
+        f"{ENSEMBLE_MEMBERS['foldnumber']}, nruns 5 -> 8); cut: epochs 1000 -> "
+        f"{MEMBER_EPOCHS}")
+    with _recorded_member_losses() as recorded:
+        counts, wall, _ = _cli_counted("ensemble members", cli_train.main, [
+            grid, *[a for a in argv if a != "--parallel-folds"], "--parallel-members",
+            "--analysis-path", os.path.join(analysis, "M"), "--epochs", str(MEMBER_EPOCHS)])
+    # each member's per-step losses: phase tp (e) holds the member axis over ranks to them
+    torch.save(torch.cat(recorded, dim=1), os.path.join(tmp, "ensemble-members-losses.pt"))
     _check_counts("ensemble members", counts, want)
     total = tuple(a + c for a, c in zip(total, counts))
     _ensemble_check_runs("ensemble members", os.path.join(analysis, "M", "maven-lite-members"),
-                         m_points, m_splits, ds, 1)
+                         m_points, m_splits, ds, MEMBER_EPOCHS)
     total = tuple(a + c for a, c in zip(
         total, _ensemble_first_steps("ensemble members steps", m_sweep, m_points, ds, folds,
                                      per_step)))
 
-    # (e) the stacked step against sequential steps
+    # (e) the stacked step against sequential steps, once ``quiet`` has waited for
+    # whatever runs beside
+    if quiet is not None:
+        quiet()
     total = tuple(a + c for a, c in zip(total, _ensemble_timing(card, ds, folds)))
     log(f"ensemble: launches per route {COUNT_NAMES}: {total}; card {card}")
     log(f"ensemble: phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -5057,26 +5132,51 @@ def phase_ensemble(card, tmp):
 # phase dp: data-parallel training (parallel/, Trainer(mesh=...)) on two gloo
 # ranks that share the card (NCCL refuses two ranks on one device) against the
 # one-process fit, then the umbrella CLI under torchrun (a one-rank NCCL group)
-# with --profile-dir
-DP_RANKS, DP_EPOCHS, DP_MAVEN_STEPS, DP_TIMED = 2, 2, 3, 6
+# with --profile-dir. Phase tp's groups of ranks run on the same workers
+# (``--dp-rank GROUP R TMP``), started with phase dp's and running beside it.
+DP_EPOCHS, DP_STEPS, DP_TIMED = 2, 3, 6
 # JAX tests/test_dp_equivalence.py's tolerances (rtol = atol), and Maven's per step
 DP_LOSS_TOL, DP_PARAM_TOL, DP_MAVEN_RTOL = 2e-5, 5e-5, 1e-5
 DP_TIMEOUT_S, DP_GROUP_TIMEOUT_S = 300, 120  # a rank's subprocess, a collective
-DP_JOBS = {"maven-lite": MAVEN_LITE, "trimodal": TRIMODAL, "maven-pretrain": MAVEN_PRETRAIN}
+DP_CONFIGS = {"maven-lite": MAVEN_LITE, "trimodal": TRIMODAL, "maven-pretrain": MAVEN_PRETRAIN}
+# job: (its config in DP_CONFIGS, the grid point's overrides, Trainer.fit's epochs, or
+# None for DP_STEPS counted steps); "fused" is maven-lite at dropout 0, the only rate
+# at which MMSN_FUSED_BLOCK=1 routes a block through the fused kernels
+DP_JOBS = {"maven-lite": ("maven-lite", {}, DP_EPOCHS),
+           "trimodal": ("trimodal", {}, DP_EPOCHS),
+           "maven-pretrain": ("maven-pretrain", {}, None),
+           "maven-lite-1": ("maven-lite", {}, 1),
+           "trimodal-steps": ("trimodal", {}, None),
+           "fused": ("maven-lite", {"dropout": 0.0}, None)}
+TP_LOSS_TOL = TP_PARAM_TOL = 5e-5  # JAX tests/test_dp_equivalence.py:test_dp_tp_matches_...
+TP_MEMBER_RTOL = 1e-5  # JAX tests/test_ensemble.py:test_fit_members_sharded_member_axis
+TP_TIMED_STEPS = 3  # host-clock steps and profiled steps of a tp rank (a Maven rank's take 2 s)
+# a phase's (loss, parameter) tolerances and its ranks' (host-clock, profiled) steps
+DP_TOLS = {"dp": (DP_LOSS_TOL, DP_PARAM_TOL), "tp": (TP_LOSS_TOL, TP_PARAM_TOL)}
+DP_TIMING = {"dp": (DP_TIMED, PROFILED_STEPS), "tp": (TP_TIMED_STEPS, TP_TIMED_STEPS)}
+# group: (the phase that checks it, its (n_data, n_model) mesh, its jobs); each group
+# is a process group of its own. "1x2" runs Maven (B = 1024 on each rank) first, while
+# phase dp fits maven-lite, so that its Maven steps and phase dp's (B = 512 on each of
+# two ranks, and B = 1024 in this process) do not meet on the card
+DP_GROUPS = {"2x1": ("dp", (2, 1), ("maven-lite", "trimodal", "maven-pretrain")),
+             "members": ("tp", (2, 1), ("members",)),
+             "2x2": ("tp", (2, 2), ("maven-lite-1",)),
+             "1x2": ("tp", (1, 2), ("maven-pretrain", "trimodal-steps", "fused"))}
+DP_UNTIMED = ("members", "fused")
 DP_CLI_N = 320  # transients of the torchrun run's tree, so that its trace stays short
 DP_FLASH = ("flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
             "flash_attention_bwd_dkdv_tf32")
 
 
-def _dp_setup(name, tmp):
+def _dp_setup(name, tmp, epochs=DP_EPOCHS, **point):
     """The model (on the host), task, trainer config and train/val sets of a
-    phase-dp job, built alike in every process from the job's shipped config
-    (first grid point): maven-lite on phase ingest's tree in ``tmp`` (its
-    fold, through the cache), trimodal on phase towers' synthetic set, Maven
-    pretraining on phase maven's."""
-    sweep = load_sweep(DP_JOBS[name])
-    point, extra = next(expand_grid(sweep)), sweep.extra_args
-    model, task, _, _, tcfg = _build_run(point, extra, NBAND, None, DP_EPOCHS)
+    config in DP_CONFIGS, built alike in every process from its first grid
+    point (with ``point`` laid over it): maven-lite on phase ingest's tree
+    in ``tmp`` (its fold, through the cache), trimodal on phase towers'
+    synthetic set, Maven pretraining on phase maven's."""
+    sweep = load_sweep(DP_CONFIGS[name])
+    point, extra = dict(next(expand_grid(sweep)), **point), sweep.extra_args
+    model, task, _, _, tcfg = _build_run(point, extra, NBAND, None, epochs)
     sp_len = int(extra["max_spectral_data_len"])
     if name == "maven-lite":
         config = cli_common.ingest_config(os.path.join(tmp, "ZTFBTS"),
@@ -5099,48 +5199,82 @@ def _dp_setup(name, tmp):
     return model, task, tcfg, train, val
 
 
-def _dp_per_step(model):
+def _dp_per_step(name, model):
+    """Launches a train step: 18 + 18 3xTF32 flash, and under the fused opt-in
+    the LC tower's fused forward and backward on the tensor cores."""
     layers = model.cfg.tk()["depth"] + model.cfg.tsk()["depth"]
-    return _tf32_flash(layers, layers)
+    c = _tf32_flash(layers, layers)
+    if name != "fused":
+        return c
+    f = model.cfg.tk()["depth"]
+    return (0,) * 10 + (f, f) + c[12:]
+
+
+def _dp_grads(model, batch, mesh):
+    """Every parameter's gradient (this rank's slice where it is split) of one
+    train-mode loss on ``batch`` from the current weights, and its launches."""
+    _zero_counts()
+    loss, _ = model.loss_fn(batch, train=True, generator=_dp_draws(5, mesh),
+                            **({} if mesh is None else {"mesh": mesh}))
+    loss.backward()
+    counts = _counts()
+    grads = {n: p.grad.detach().to("cpu", copy=True) for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return grads, counts
 
 
 def _dp_fit(name, tmp, mesh=None):
-    """One phase-dp job in this process, as a rank of ``mesh`` or (None) as
-    the one-process reference, from the initial weights in ``tmp/dp``: the
-    counted Trainer.fit (maven-lite, trimodal) or DP_MAVEN_STEPS counted
-    steps (Maven pretraining at B = 1024). Returns the losses, the final
-    state_dict (host), the launches and plain calls, and what ``_dp_time``
-    needs."""
-    model, task, tcfg, train, val = _dp_setup(name, tmp)
-    model.load_state_dict(torch.load(os.path.join(tmp, "dp", f"{name}.init.pt"),
+    """One job of DP_JOBS in this process, as a rank of ``mesh`` or (None) as
+    the one-process reference, from ``_dp_init``'s weights of its config:
+    the counted Trainer.fit, or DP_STEPS counted steps (the fused opt-in
+    also every gradient of one loss first). Returns the losses (or the
+    history), the final state_dict gathered whole (host), the launches and
+    plain calls, and what ``_dp_time`` needs."""
+    base, point, epochs = DP_JOBS[name]
+    model, task, tcfg, train, val = _dp_setup(base, tmp, epochs=epochs or DP_EPOCHS, **point)
+    model.load_state_dict(torch.load(os.path.join(tmp, "dp", f"{base}.init.pt"),
                                      weights_only=True))
     model.to(DEVICE)
     b = tcfg.batch_size
     cols = slice(None) if mesh is None else mesh.block(b)
     data = train.to_device(DEVICE)
     out = {}
-    with _plain_calls() as plain:
-        _zero_counts()
-        t0 = time.perf_counter()
-        if name == "maven-pretrain":
-            plan = epoch_indices(len(train), b, rng=np.random.default_rng(tcfg.seed),
-                                 shuffle=True, pad="wrap")[:DP_MAVEN_STEPS]
-            opt, sched = build_optimizer(model.named_parameters(), lr=tcfg.lr,
-                                         weight_decay=tcfg.weight_decay)
-            state = TrainState(model, opt, sched)
-            state, losses = make_epoch_runner(model, tcfg.noise_level_mag, mesh=mesh)(
-                state, data, plan[:, cols], _dp_draws(2, mesh))
-            out["losses"] = losses.cpu().tolist()
-        else:
+    with mock.patch.dict(os.environ, {"MMSN_FUSED_BLOCK": "1"} if name == "fused" else {}), \
+            _plain_calls() as plain:
+        if epochs:
+            _zero_counts()
+            t0 = time.perf_counter()
             res = Trainer(model, task, tcfg, mesh=mesh).fit(train, val)
             state = res["state"]
             out["history"], out["rows"] = res["history"], res["metric_rows"]
+        else:
+            if mesh is not None:
+                shard_module(model, mesh)
+            plan = epoch_indices(len(train), b, rng=np.random.default_rng(tcfg.seed),
+                                 shuffle=True, pad="wrap")[:DP_STEPS, cols]
+            if name == "fused":
+                out["grads"], out["grad_counts"] = _dp_grads(
+                    model, take(data, torch.from_numpy(plan[0]).to(DEVICE)), mesh)
+            opt, sched = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                                         weight_decay=tcfg.weight_decay)
+            state = TrainState(model, opt, sched)
+            _zero_counts()
+            t0 = time.perf_counter()
+            with batch_stats_over(model, mesh):
+                state, losses = make_epoch_runner(
+                    model, tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img,
+                    mesh=mesh)(state, data, plan, _dp_draws(2, mesh))
+            out["losses"] = losses.cpu().tolist()
         torch.cuda.synchronize()
         out["wall_s"] = time.perf_counter() - t0
         out["counts"] = _counts()
     out["plain"] = len(plain)
-    out["state_dict"] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
-    out["steps"], out["batch"] = (-(-len(train) // b), -(-len(val) // b)), b
+    out["state_dict"] = {k: v.detach().to("cpu", copy=True)
+                         for k, v in gather_state_dict(model).items()}
+    out["steps"], out["batch"], out["epochs"] = (-(-len(train) // b), -(-len(val) // b)), b, \
+        epochs
+    out["per_step"] = _dp_per_step(name, model)
     one = take(data, torch.arange(b, device=DEVICE)[cols])
     return out, (model, tcfg, state, one)
 
@@ -5150,97 +5284,209 @@ def _dp_draws(seed, mesh):
     return gen if mesh is None else RankRows(gen, mesh)
 
 
-def _dp_time(job, mesh=None):
-    """A step's host clock (median of DP_TIMED), device time and idle share
-    (one profile of PROFILED_STEPS) on the state ``_dp_fit`` left."""
+def _dp_time(job, mesh=None, timed=DP_TIMED, profiled=PROFILED_STEPS):
+    """A step's host clock (median of ``timed``), device time and idle share
+    (one profile of ``profiled`` steps) on the state ``_dp_fit`` left."""
     model, tcfg, state, one = job
     step = make_train_step(model, tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img,
                            mesh=mesh)
     gen = _dp_draws(3, mesh)
     with batch_stats_over(model, mesh):  # global BatchNorm statistics, as in the fit
-        host, _ = _host_step_ms(step, state, one, gen, DP_TIMED)
-        dev_ms, _, _, idle, _, kinds = _trace(lambda: step(state, one, gen), PROFILED_STEPS)
+        host, _ = _host_step_ms(step, state, one, gen, timed)
+        dev_ms, _, _, idle, _, kinds = _trace(lambda: step(state, one, gen), profiled)
     return {"host_ms": float(np.median(host)), "device_ms": dev_ms, "idle": idle,
             "kinds": kinds}
 
 
-def _dp_worker(rank, tmp):
-    """Rank ``rank`` of phase dp (``chip_smoke.py --dp-rank R TMP``): joins the
-    gloo group on cuda:0, fits every job, then, once the one-process fits
-    are done (``tmp/dp/refs-done``), times each job's step and writes each
-    job's result to ``tmp/dp``."""
+def _members_data(tmp):
+    """Phase ensemble (d)'s lr x seed x fold grid (``maven-lite-members.yaml``
+    in ``tmp``), phase ingest's dataset (through the cache) and its folds."""
+    sweep = load_sweep(os.path.join(tmp, "maven-lite-members.yaml"))
+    extra = sweep.extra_args
+    config = cli_common.ingest_config(os.path.join(tmp, "ZTFBTS"),
+                                      os.path.join(tmp, "ZTFBTS_spectra"), extra, 1000)
+    ds, _ = load_or_ingest(os.path.join(tmp, "cache"),
+                           lambda: load_ztfbts(kfolds=None, **config)[0], **config)
+    folds = stratified_kfolds(np.asarray(ds.arrays["label"]), int(extra["kfolds"]))
+    return sweep, ds, folds
+
+
+def _dp_members(tmp, mesh):
+    """Phase tp (e) on a rank: the grid through ``run_sweep(parallel_members=True,
+    mesh=mesh)``, MEMBER_EPOCHS: this rank's members' losses a step, their
+    run dirs' files and the launches."""
+    sweep, ds, folds = _members_data(tmp)
+    extra = sweep.extra_args
+    sweep_dir = os.path.join(tmp, "dp", "members", "maven-lite-members")
+    os.makedirs(sweep_dir, exist_ok=True)
+    with _recorded_member_losses() as recorded, _plain_calls() as plain:
+        _zero_counts()
+        t0 = time.perf_counter()
+        results = run_sweep(sweep, ds, NBAND, folds, sweep_dir, mesh=mesh,
+                            max_runs=int(extra["nruns"]), epochs_override=MEMBER_EPOCHS,
+                            parallel_members=True, device=DEVICE)
+        torch.cuda.synchronize()
+        wall, counts = time.perf_counter() - t0, _counts()
+    local = [os.path.basename(r["run_dir"]) for r in results if "state" in r]
+    mesh.barrier()  # every member's files are written
+    m_points = list(expand_grid(sweep))
+    layers = SEQ_LC["depth"] + SEQ_SP["depth"]
+    want = _ensemble_cli_want(ds, folds, sweep, m_points, MEMBER_EPOCHS,
+                              _tf32_flash(layers, layers))[0]
+    return {"losses": torch.cat(recorded, dim=1), "local": local, "counts": counts,
+            "want": want, "plain": len(plain), "wall_s": wall,
+            "files": {k: sorted(os.listdir(os.path.join(sweep_dir, k)))
+                      for k in sorted(os.listdir(sweep_dir))}}, None
+
+
+def _members_reference(tmp, n_data):
+    """Phase tp (e)'s reference: each data rank's block of the grid as a
+    one-process stack of the same members (``fit_members`` without a mesh,
+    MEMBER_EPOCHS), their losses a step in grid order. A stack rounds its
+    few-output reductions by its member count (PERF.md section 6), so a
+    rank's stack of N / n_data is held to a stack of as many; it trains on
+    the whole ensemble's plans and optimizer choice, so each block's own
+    must be the same for the reference to be that program."""
+    sweep, ds, folds = _members_data(tmp)
+    extra = sweep.extra_args
+    points = list(expand_grid(sweep))[:int(extra["nruns"])]
+    k, b = len(points) // n_data, int(points[0]["batchsize"])
+    splits = [split_for_run(len(ds), float(extra.get("val_fraction", 0.2)),
+                            int(p.get("seed", 0)), folds=folds, foldnumber=p.get("foldnumber"))
+              for p in points]
+
+    def plan(block):
+        return (max(-(-len(splits[i][0]) // b) for i in block),
+                max(-(-len(splits[i][1]) // b) for i in block),
+                len({float(points[i]["lr"]) for i in block}) > 1)
+
+    whole, losses = plan(range(len(points))), []
+    for d in range(n_data):
+        block = range(d * k, (d + 1) * k)
+        if plan(block) != whole:
+            raise AssertionError(f"tp members: data rank {d}'s members {list(block)} train "
+                                 f"{plan(block)} (steps, val steps, one lr each) alone and "
+                                 f"{whole} in the ensemble: no one-process stack of them "
+                                 "is the rank's program")
+        members, models, task, freeze, tcfg = _ensemble_members(
+            sweep, [points[i] for i in block], ds, folds, MEMBER_EPOCHS)
+        with _recorded_member_losses() as recorded, _plain_calls() as plain:
+            ensemble_mod.fit_members(models, task, tcfg, ds, members,
+                                     n_classes=int(extra.get("n_classes", 5)), freeze=freeze)
+        if plain:
+            raise AssertionError(f"tp members reference: {len(plain)} plain kernel calls")
+        losses.append(torch.cat(recorded, dim=1))
+        del models
+        torch.cuda.empty_cache()
+    return torch.cat(losses)
+
+
+def _dp_worker(group, rank, tmp):
+    """Rank ``rank`` of ``group`` in DP_GROUPS (``chip_smoke.py --dp-rank GROUP
+    R TMP``): joins the group's gloo process group on cuda:0 as its (data,
+    model) mesh, runs the group's jobs, then, once its phase's one-process
+    runs are done (``tmp/dp/<phase>-refs-done``), times each timed job's
+    step and writes each job's result to ``tmp/dp/<group>-<job>-<rank>.pt``."""
     from multimodal_supernovae_tpu_torch.parallel import distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     d = os.path.join(tmp, "dp")
-    distributed.initialize(f"file://{os.path.join(d, 'store')}", DP_RANKS, rank,
-                           device=f"{DEVICE}:0", backend="gloo", timeout=DP_GROUP_TIMEOUT_S)
-    mesh = distributed.make_global_mesh()
+    phase, (n_data, n_model), names = DP_GROUPS[group]
+    distributed.initialize(f"file://{os.path.join(d, f'store-{group}')}", n_data * n_model,
+                           rank, device=f"{DEVICE}:0", backend="gloo",
+                           timeout=DP_GROUP_TIMEOUT_S)
+    mesh = distributed.make_global_mesh(n_model=n_model)
+    timed = [name for name in names if name not in DP_UNTIMED]
     try:
-        jobs = {name: _dp_fit(name, tmp, mesh) for name in DP_JOBS}
+        jobs = {name: _dp_members(tmp, mesh) if name == "members" else _dp_fit(name, tmp, mesh)
+                for name in names}
         deadline = time.perf_counter() + DP_TIMEOUT_S
-        while not os.path.exists(os.path.join(d, "refs-done")):
+        while timed and not os.path.exists(os.path.join(d, f"{phase}-refs-done")):
             if time.perf_counter() > deadline:
-                raise TimeoutError("dp: the one-process fits did not finish")
+                raise TimeoutError(f"{phase}: the one-process runs did not finish")
             time.sleep(0.1)
         mesh.barrier()
         for name, (out, job) in jobs.items():
-            out.update(_dp_time(job, mesh))
-            torch.save(out, os.path.join(d, f"{name}-{rank}.pt"))
+            if name in timed:
+                out.update(_dp_time(job, mesh, *DP_TIMING[phase]))
+            torch.save(out, os.path.join(d, f"{group}-{name}-{rank}.pt"))
     finally:
         distributed.shutdown()
     return 0
 
 
-def _dp_start(tmp):
-    """The DP_RANKS ranks as subprocesses (their output in tmp/dp/rank<r>.log)."""
+def _dp_start(tmp, groups):
+    """The ranks of ``groups`` as subprocesses (output in tmp/dp/<group>-rank<r>.log)."""
     d = os.path.join(tmp, "dp")
-    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(DP_RANKS)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-                               tmp], stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(DP_RANKS)]
-    return procs, logs
+    ranks = [(g, r) for g in groups for r in range(np.prod(DP_GROUPS[g][1]))]
+    logs = [open(os.path.join(d, f"{g}-rank{r}.log"), "w") for g, r in ranks]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", g,
+                               str(r), tmp], stdout=f, stderr=subprocess.STDOUT)
+             for (g, r), f in zip(ranks, logs)]
+    return ranks, procs, logs
 
 
-def _dp_wait(tmp, procs, logs):
-    """Wait for the ranks, each within DP_TIMEOUT_S; any left is killed."""
+def _dp_wait(tmp, run, phase):
+    """Wait for ``phase``'s ranks of ``run``, each within DP_TIMEOUT_S; any
+    left is killed."""
+    mine = [i for i, (g, _) in enumerate(run["ranks"]) if DP_GROUPS[g][0] == phase]
+    codes = []
     try:
-        codes = [p.wait(timeout=DP_TIMEOUT_S) for p in procs]
+        for i in mine:
+            try:
+                codes.append(run["procs"][i].wait(timeout=DP_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
     finally:
-        for p in procs:
+        for i in mine:
+            p = run["procs"][i]
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for f in logs:
-            f.close()
+            run["logs"][i].close()
     if any(codes):
-        for r in range(DP_RANKS):
-            with open(os.path.join(tmp, "dp", f"rank{r}.log")) as f:
-                for line in f.read().splitlines()[-30:]:
-                    log(f"dp rank {r}: {line}")
-        raise AssertionError(f"dp: the ranks exited with {codes}")
+        for i, c in zip(mine, codes):
+            if c:
+                g, r = run["ranks"][i]
+                with open(os.path.join(tmp, "dp", f"{g}-rank{r}.log")) as f:
+                    for line in f.read().splitlines()[-30:]:
+                        log(f"{phase} {g} rank {r}: {line}")
+        raise AssertionError(f"{phase}: the ranks {[run['ranks'][i] for i in mine]} exited "
+                             f"with {codes}")
 
 
-def _dp_compare(name, ref, got, rank, per_step):
-    """One rank's job against the one-process reference."""
-    tag = f"dp {name} rank {rank}"
-    if name == "maven-pretrain":
-        want = tuple(c * DP_MAVEN_STEPS for c in per_step)
+def _dp_compare(name, ref, got, rank, tag, loss_tol, param_tol):
+    """One rank's job against the one-process reference: a fit's epoch
+    losses, or a run of steps' losses (Maven pretraining's relative
+    DP_MAVEN_RTOL a step), every (gathered) state_dict entry, the launches."""
+    tag = f"{tag} {name} rank {rank}"
+    per_step = got["per_step"]
+    if "losses" in got:
+        want = tuple(c * len(got["losses"]) for c in per_step)
         a, w = np.asarray(got["losses"]), np.asarray(ref["losses"])
-        loss_err = float(np.max(np.abs(a - w) / np.abs(w)))
-        loss_ok = loss_err <= DP_MAVEN_RTOL
-        losses = f"losses {a.tolist()} (one process {w.tolist()}), worst relative {loss_err:.3e}"
+        if name == "maven-pretrain":
+            loss_err = float(np.max(np.abs(a - w) / np.abs(w)))
+            loss_ok = loss_err <= DP_MAVEN_RTOL
+            what = "relative"
+        else:
+            loss_err = float(np.max(np.abs(a - w) / (loss_tol + loss_tol * np.abs(w))))
+            loss_ok, what = loss_err <= 1.0, "|diff| / (atol + rtol |want|)"
+        losses = f"losses {a.tolist()} (one process {w.tolist()}), worst {what} {loss_err:.3e}"
     else:
-        want = _fit_want(per_step, DP_EPOCHS, *got["steps"])
+        want = _fit_want(per_step, got["epochs"], *got["steps"])
         a = np.asarray(got["history"]["train_loss"] + got["history"]["val_loss"])
         w = np.asarray(ref["history"]["train_loss"] + ref["history"]["val_loss"])
-        loss_err = float(np.max(np.abs(a - w) / (DP_LOSS_TOL + DP_LOSS_TOL * np.abs(w))))
+        loss_err = float(np.max(np.abs(a - w) / (loss_tol + loss_tol * np.abs(w))))
         loss_ok = loss_err <= 1.0
         losses = (f"train_loss {got['history']['train_loss']} val_loss "
                   f"{got['history']['val_loss']} (one process {ref['history']}), worst "
                   f"|diff| / (atol + rtol |want|) {loss_err:.3f}")
     worst, worst_key, bn = 0.0, None, 0.0
+    if sorted(got["state_dict"]) != sorted(ref["state_dict"]) or any(
+            got["state_dict"][k].shape != v.shape for k, v in ref["state_dict"].items()):
+        raise AssertionError(f"{tag}: the state_dict's names or shapes are not the one "
+                             "process's")
     for k, v in ref["state_dict"].items():
         g = got["state_dict"][k]
         if not v.is_floating_point():
@@ -5248,7 +5494,7 @@ def _dp_compare(name, ref, got, rank, per_step):
                 worst, worst_key = float("inf"), k
             continue
         diff = (g.double() - v.double()).abs()
-        ratio = float((diff / (DP_PARAM_TOL + DP_PARAM_TOL * v.double().abs())).max())
+        ratio = float((diff / (param_tol + param_tol * v.double().abs())).max())
         if "running" in k:
             bn = max(bn, float(diff.max()))
         if ratio > worst:
@@ -5271,28 +5517,23 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _dp_cli_start(tmp):
+def _cli_start(root, args):
     """Start ``python -m torch.distributed.run --nproc-per-node 1 -m
     multimodal_supernovae_tpu_torch train configs/maven-lite.yaml --mesh
-    --epochs 1 --max-runs 1 --profile-dir D`` (a one-rank NCCL group) on a
-    DP_CLI_N-transient tree; ``_dp_cli_check`` waits for it."""
-    root = os.path.join(tmp, "dp", "cli")
-    data_dir, spectra_dir, _ = _write_tree(root, DP_CLI_N, seed=1)
+    ARGS`` (a one-rank NCCL group), its output in ``root/torchrun.log``;
+    ``_cli_wait`` waits for it."""
+    os.makedirs(root, exist_ok=True)
     repo = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
            "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
-           "-m", "multimodal_supernovae_tpu_torch", "train", MAVEN_LITE, "--mesh",
-           "--epochs", "1", "--max-runs", "1", "--profile-dir", os.path.join(root, "profile"),
-           "--data-dir", data_dir, "--spectra-dir", spectra_dir,
-           "--cache-dir", os.path.join(root, "cache"),
-           "--analysis-path", os.path.join(root, "analysis")]
+           "-m", "multimodal_supernovae_tpu_torch", "train", MAVEN_LITE, "--mesh", *args]
     out = open(os.path.join(root, "torchrun.log"), "w")
     proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=repo,
                             env=dict(os.environ, PYTHONPATH=repo))
     return proc, out, time.perf_counter()
 
 
-def _dp_cli_wait(cli):
+def _cli_wait(cli):
     proc, out, t0 = cli
     try:
         code = proc.wait(timeout=DP_TIMEOUT_S)
@@ -5328,7 +5569,7 @@ def _dp_cli_check(card, tmp, code, wall, step_ms_single):
     sweep = load_sweep(MAVEN_LITE)
     point, extra = next(expand_grid(sweep)), sweep.extra_args
     model, _, _, _, tcfg = _build_run(point, extra, NBAND, None, 1)
-    b, layers = tcfg.batch_size, _dp_per_step(model)[-1]
+    b, layers = tcfg.batch_size, _dp_per_step("maven-lite", model)[-1]
     train_steps, eval_steps = -(-n_train // b), -(-n_val // b)
     if not set(RUN_DIR_FILES) <= files or len(rows) != 1 or not all(
             np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in rows):
@@ -5345,7 +5586,7 @@ def _dp_cli_check(card, tmp, code, wall, step_ms_single):
                                layers * train_steps)))
     nccl = sum("nccl" in e["name"].lower() for e in kernels)
     log(f"dp cli: torchrun --nproc-per-node 1 ... train {MAVEN_LITE} --mesh --epochs 1 "
-        f"--max-runs 1 --profile-dir: {wall:.1f} s of command (beside the ranks' fits) on a "
+        f"--max-runs 1 --profile-dir: ended within {wall:.1f} s (beside phase ensemble) on a "
         f"{DP_CLI_N}-transient tree "
         f"({n_train} train / {n_val} val: {train_steps} + {eval_steps} steps at B={b}); run "
         f"dir {sorted(files)}; {rows[0]}; trace {traces[0]} "
@@ -5368,63 +5609,298 @@ def _dp_cli_check(card, tmp, code, wall, step_ms_single):
             f"card {card}")
 
 
-def phase_dp(card, tmp):
-    """Data-parallel training on the card: maven-lite (phase ingest's tree),
-    trimodal (global BatchNorm statistics) and Maven pretraining at B = 1024,
-    each on DP_RANKS gloo ranks sharing cuda:0 against the one-process run
-    from the same weights; then the umbrella CLI under torchrun with
-    --profile-dir. Returns the ranks' launches."""
-    t_phase = time.perf_counter()
+def _folds_cli_check(tmp, code, wall):
+    """The torchrun run's exit, its one-rank NCCL mesh, the five folds' run
+    dirs (one epoch each) and the stacked checkpoint _ensemble-g0/."""
+    root = os.path.join(tmp, "dp", "folds")
+    with open(os.path.join(root, "torchrun.log")) as f:
+        output = f.read()
+    for line in output.splitlines()[-8:]:
+        log(f"tp cli: {line}")
+    if code:
+        raise AssertionError(f"tp cli: torchrun exited {code}")
+    if "mesh: {'data': 1, 'model': 1} over 1 process(es), nccl" not in output:
+        raise AssertionError("tp cli: the run did not report a one-rank NCCL mesh")
+    sweep_dir = os.path.join(root, "analysis", "maven-lite")
+    runs = sorted(n for n in os.listdir(sweep_dir) if n.startswith("run-"))
+    ens = sorted(os.listdir(os.path.join(sweep_dir, "_ensemble-g0")))
+    bad = []
+    for k in runs:
+        files, rows = set(os.listdir(os.path.join(sweep_dir, k))), \
+            _metric_rows(os.path.join(sweep_dir, k))
+        if not set(RUN_DIR_FILES) <= files or len(rows) != 1 or not (
+                np.isfinite(rows[0]["train_loss"]) and np.isfinite(rows[0]["val_loss"])):
+            bad.append((k, sorted(files), rows))
+    log(f"tp cli: torchrun --nproc-per-node 1 ... train {MAVEN_LITE} --mesh --parallel-folds "
+        f"--epochs 1: ended within {wall:.1f} s (beside phase ensemble); run dirs {runs}, each "
+        f"with the sequential run's files and one finite row: {not bad}; _ensemble-g0 "
+        f"{ens}")
+    if runs != [f"run-{k}" for k in range(5)] or bad or "bookkeeping.json" not in ens:
+        raise AssertionError(f"tp cli: runs {runs}, faults {bad}, _ensemble-g0 {ens}")
+
+
+def _dp_grads_check(ref, got, rank, n_model):
+    """The fused job's gradients of one loss: every FFN slice of the fused
+    blocks (the LC tower: their ReLU runs inside the fused kernel on
+    pre-activations the unsplit tower computes alike) held to the same slice
+    of the one-process gradient within GRAD_RTOL of its largest; the other
+    parameters logged."""
+    want, held, other = {}, {}, {}
+    for k, v in ref["grads"].items():
+        dim = spec_for(k, v, n_model)
+        want[k] = v if dim is None else v.narrow(
+            dim, (rank % n_model) * (v.shape[dim] // n_model), v.shape[dim] // n_model)
+        (held if k.startswith("lightcurve_encoder.") and ".ff." in k else other)[k] = want[k]
+    if sorted(got["grads"]) != sorted(want):
+        raise AssertionError(f"tp fused rank {rank}: gradients of "
+                             f"{sorted(set(got['grads']) ^ set(want))}")
+    worst, err = _grad_error({k: got["grads"][k] for k in held}, held)
+    o_worst, o_err = _grad_error({k: got["grads"][k] for k in other}, other)
+    log(f"tp fused rank {rank}: one loss's gradients: the fused blocks' {len(held)} FFN "
+        f"slices worst max|diff|/max|want| {err:.3e} at {worst} (tol {GRAD_RTOL}); the other "
+        f"{len(other)} parameters (not held) {o_err:.3e} at {o_worst}; launches "
+        f"{got['grad_counts']} (one process {ref['grad_counts']})")
+    if err > GRAD_RTOL or got["grad_counts"] != ref["grad_counts"]:
+        raise AssertionError(f"tp fused rank {rank}: FFN gradient slices {err} off, launches "
+                             f"{got['grad_counts']} (want {ref['grad_counts']})")
+
+
+def _members_check(tmp, rank, got, ref):
+    """Phase tp (e), one rank: each of its members' loss a step within
+    relative TP_MEMBER_RTOL of the one-process stack of the same members
+    (``_members_reference``); its run dirs' files those of phase ensemble
+    (d)'s; 18 + 18 launches a stacked step. The distance to (d)'s one-process
+    stack of all 8 is logged beside, not held: that stack rounds its
+    few-output reductions otherwise (PERF.md section 6)."""
+    eight = torch.load(os.path.join(tmp, "ensemble-members-losses.pt"), weights_only=True)
+    m_dir = os.path.join(tmp, "ensemble", "M", "maven-lite-members")
+    idx = [int(k.split("-")[1]) for k in got["local"]]
+    a, want, want8 = got["losses"].double(), ref[idx].double(), eight[idx].double()
+    if a.shape != want.shape or a.shape != want8.shape:
+        raise AssertionError(f"tp members rank {rank}: losses {tuple(a.shape)}, the one "
+                             f"process's {tuple(want.shape)} and (d)'s {tuple(want8.shape)}")
+    rel = float(((a - want).abs() / want.abs()).max())
+    rel8 = float(((a - want8).abs() / want8.abs()).max())
+    same_files = {k: got["files"][k] == sorted(os.listdir(os.path.join(m_dir, k)))
+                  for k in got["local"]}
+    log(f"tp members rank {rank}: members {got['local']} as one stacked program, "
+        f"{a.shape[1]} steps over {MEMBER_EPOCHS} epoch(s) in {got['wall_s']:.1f} s; losses a "
+        f"step against the one-process stack of the same {len(idx)} members: worst relative "
+        f"{rel:.3e} (tol {TP_MEMBER_RTOL}), bitwise {torch.equal(got['losses'], ref[idx])}; "
+        f"against phase ensemble (d)'s stack of {eight.shape[0]} (not held): worst relative "
+        f"{rel8:.3e}; run dirs with (d)'s files: {same_files}; launches {got['counts']} "
+        f"(want {got['want']}), {got['plain']} plain calls")
+    if (rel > TP_MEMBER_RTOL or not all(same_files.values()) or got["counts"] != got["want"]
+            or got["plain"]):
+        raise AssertionError(f"tp members rank {rank}: losses {rel:.3e} relative, files "
+                             f"{same_files}, launches {got['counts']} (want {got['want']})")
+
+
+def _dp_init(tmp):
+    """Each DP_CONFIGS model's initial weights in ``tmp/dp``, from its seed."""
     d = os.path.join(tmp, "dp")
     os.makedirs(d, exist_ok=True)
-    per_step = {}
-    for name in DP_JOBS:
+    for name in DP_CONFIGS:
         model = _dp_setup(name, tmp)[0]
-        per_step[name] = _dp_per_step(model)
         torch.save(model.state_dict(), os.path.join(d, f"{name}.init.pt"))
         del model
-    # the ranks and the torchrun run go while this process fits the
-    # references; the steps are timed apart, the ranks' once the rest is done
-    t0 = time.perf_counter()
-    cli = _dp_cli_start(tmp)
-    procs, logs, refs = [], [], {}
+
+
+def _cli_launch(tmp):
+    """Phase dp's and phase tp's torchrun runs, started once phase ingest's
+    tree and cache exist: phase dp's on a DP_CLI_N-transient tree of its
+    own (--epochs 1 --max-runs 1 --profile-dir), phase tp's (f) on phase
+    ingest's (--parallel-folds --epochs 1). They run beside phase ensemble
+    up to its timing grid, which waits for them (``_cli_results``). Returns
+    the run that ``_dp_launch`` adds the groups of ranks to; ``_dp_stop``
+    ends whatever is left."""
+    root, folds = os.path.join(tmp, "dp", "cli"), os.path.join(tmp, "dp", "folds")
+    data_dir, spectra_dir, _ = _write_tree(root, DP_CLI_N, seed=1)
+    run = {"clis": {}, "cli_results": {}, "ranks": [], "procs": [], "logs": []}
     try:
-        procs, logs = _dp_start(tmp)
-        for name in DP_JOBS:
-            refs[name] = _dp_fit(name, tmp)
-            log(f"dp {name}: one process on the card, {refs[name][0]['wall_s']:.2f} s counted "
-                f"(beside the ranks' fits); launches {refs[name][0]['counts']}")
+        run["clis"]["dp"] = _cli_start(root, [
+            "--epochs", "1", "--max-runs", "1", "--profile-dir", os.path.join(root, "profile"),
+            "--data-dir", data_dir, "--spectra-dir", spectra_dir,
+            "--cache-dir", os.path.join(root, "cache"),
+            "--analysis-path", os.path.join(root, "analysis")])
+        run["clis"]["tp"] = _cli_start(folds, [
+            "--parallel-folds", "--epochs", "1",
+            # the paths phase ingest filled the cache with: a hit
+            "--data-dir", os.path.join(tmp, "ZTFBTS"),
+            "--spectra-dir", os.path.join(tmp, "ZTFBTS_spectra"),
+            "--cache-dir", os.path.join(tmp, "cache"),
+            "--analysis-path", os.path.join(folds, "analysis")])
+    except BaseException:
+        _dp_stop(run)
+        raise
+    return run
+
+
+def _cli_results(run):
+    """Wait for both torchrun runs of ``run``: {phase: (exit code, seconds from
+    its start to the wait's end)}."""
+    for phase, cli in run["clis"].items():
+        if phase not in run["cli_results"]:
+            run["cli_results"][phase] = _cli_wait(cli)
+            log(f"{phase} cli: torchrun ended within {run['cli_results'][phase][1]:.1f} s of "
+                f"its start, exit code {run['cli_results'][phase][0]}")
+    return run["cli_results"]
+
+
+def _dp_launch(tmp, run):
+    """Every group of DP_GROUPS, started together from ``_dp_init``'s weights
+    into ``run``: phase dp collects its group, phase tp the rest."""
+    try:
+        run["ranks"], run["procs"], run["logs"] = _dp_start(tmp, DP_GROUPS)
+    except BaseException:
+        _dp_stop(run)
+        raise
+    run["t0"] = time.perf_counter()
+
+
+def _dp_stop(run):
+    """End every process of ``run`` still running and close its logs."""
+    clis = list(run["clis"].values())
+    for p in (*(c[0] for c in clis), *run["procs"]):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in (*(c[1] for c in clis), *run["logs"]):
+        f.close()
+
+
+def _dp_check(card, tmp, phase, refs, members=None):
+    """Every rank of ``phase``'s groups against the one-process runs
+    (``refs``; ``members``: phase tp (e)'s reference), and each timed
+    step beside the one process's. Every check runs and logs; returns the
+    ranks' launches and the faults."""
+    d = os.path.join(tmp, "dp")
+    total, faults = NONE, []
+    for group, (ph, (n_data, n_model), names) in DP_GROUPS.items():
+        if ph != phase:
+            continue
+        for name in names:
+            for r in range(n_data * n_model):
+                got = torch.load(os.path.join(d, f"{group}-{name}-{r}.pt"), weights_only=False)
+                total = tuple(a + c for a, c in zip(total, got["counts"]))
+                if name == "fused":
+                    total = tuple(a + c for a, c in zip(total, got["grad_counts"]))
+                try:
+                    if name == "members":
+                        _members_check(tmp, r, got, members)
+                    else:
+                        _dp_compare(name, refs[name], got, r, f"{phase} {group}",
+                                    *DP_TOLS[phase])
+                    if name == "fused":
+                        _dp_grads_check(refs[name], got, r, n_model)
+                except AssertionError as e:
+                    log(f"{phase}: FAILED: {e}")
+                    faults.append(str(e))
+                if "host_ms" in got:
+                    ref = refs[name]
+                    kinds = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                        got["kinds"].items(), key=lambda kv: -kv[1])[:4])
+                    log(f"{phase} {group} {name} rank {r}: step at B={got['batch']}/{n_data} a "
+                        f"data rank, FFNs split over {n_model}: host clock "
+                        f"{got['host_ms']:.3f} ms, device {got['device_ms']:.3f} ms, idle share "
+                        f"{got['idle']:.3f} ({kinds} ms); one process at the global B: host "
+                        f"clock {ref['host_ms']:.3f} ms, device {ref['device_ms']:.3f} ms, idle "
+                        f"share {ref['idle']:.3f}; card {card}")
+    return total, faults
+
+
+def _dp_refs(phase, names, tmp, refs):
+    """The one-process runs of ``names`` into ``refs``, keeping what ``_dp_time``
+    needs under ``refs['_jobs'][phase]``; ``phase``'s ranks may time their
+    steps after it (``tmp/dp/<phase>-refs-done``)."""
+    try:
+        for name in names:
+            out, job = _dp_fit(name, tmp)
+            refs[name] = out
+            refs.setdefault("_jobs", {}).setdefault(phase, {})[name] = job
+            log(f"{phase} {name}: one process on the card, {out['wall_s']:.2f} s counted "
+                f"(beside the ranks); launches {out['counts']}")
     finally:
-        cli_code, cli_wall = _dp_cli_wait(cli)
-        open(os.path.join(d, "refs-done"), "w").close()
-        _dp_wait(tmp, procs, logs)
-    log(f"dp: {DP_RANKS} gloo ranks on cuda:0 ran {list(DP_JOBS)} in "
-        f"{time.perf_counter() - t0:.1f} s (subprocesses, start-up included)")
-    for name in DP_JOBS:
-        out, job = refs[name]
-        out.update(_dp_time(job))
-        refs[name] = out
-        del job
+        open(os.path.join(tmp, "dp", f"{phase}-refs-done"), "w").close()
+
+
+def _dp_time_refs(phase, refs):
+    """Time ``phase``'s one-process steps, once its ranks are done."""
+    for name, job in refs["_jobs"].pop(phase).items():
+        if name not in DP_UNTIMED:
+            refs[name].update(_dp_time(job, None, *DP_TIMING[phase]))
     torch.cuda.empty_cache()
-    total = NONE
-    for name in DP_JOBS:
-        ref = refs[name]
-        for r in range(DP_RANKS):
-            got = torch.load(os.path.join(d, f"{name}-{r}.pt"), weights_only=False)
-            _dp_compare(name, ref, got, r, per_step[name])
-            total = tuple(a + c for a, c in zip(total, got["counts"]))
-            kinds = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
-                got["kinds"].items(), key=lambda kv: -kv[1])[:4])
-            log(f"dp {name} rank {r}: step at B={got['batch']}/{DP_RANKS} a rank: host "
-                f"clock {got['host_ms']:.3f} ms, device {got['device_ms']:.3f} ms, idle share "
-                f"{got['idle']:.3f} ({kinds} ms); one process at the global B: host clock "
-                f"{ref['host_ms']:.3f} ms, device {ref['device_ms']:.3f} ms, idle share "
-                f"{ref['idle']:.3f}; card {card}")
-    log("dp: two ranks share one card here, so these times say nothing about scaling over "
-        "cards (a 4-card NCCL run is ROADMAP item 8's cell)")
+
+
+def phase_dp(card, tmp, run):
+    """Data-parallel training on the card, from ``_dp_init``'s weights:
+    maven-lite (phase ingest's tree), trimodal (global BatchNorm statistics)
+    and Maven pretraining at B = 1024, each on the "2x1" group of gloo ranks
+    sharing cuda:0 against the one-process run from the same weights; then
+    the umbrella CLI under torchrun with --profile-dir. Every group of
+    ``_dp_launch`` runs beside, and while the ranks run this process also
+    makes phase tp's one-process runs. Returns the ranks' launches and every
+    one-process result."""
+    t_phase = time.perf_counter()
+    refs = {}
+    try:
+        _dp_refs("dp", DP_GROUPS["2x1"][2], tmp, refs)
+        # phase tp's references, while every group's ranks run
+        _dp_refs("tp", ("maven-lite-1", "trimodal-steps", "fused"), tmp, refs)
+        t0 = time.perf_counter()
+        refs["members"] = _members_reference(tmp, DP_GROUPS["members"][1][0])
+        log(f"tp members: the one-process stacks of each data rank's members, "
+            f"{refs['members'].shape[1]} steps each, in {time.perf_counter() - t0:.1f} s "
+            "(beside the ranks)")
+    finally:
+        for phase in ("dp", "tp"):  # a rank waits for its phase's references
+            open(os.path.join(tmp, "dp", f"{phase}-refs-done"), "w").close()
+        _dp_wait(tmp, run, "dp")
+    cli_code, cli_wall = _cli_results(run)["dp"]
+    log(f"dp: the 2x1 group's gloo ranks on cuda:0 ran {list(DP_GROUPS['2x1'][2])} in "
+        f"{time.perf_counter() - run['t0']:.1f} s (subprocesses, start-up included)")
+    _dp_time_refs("dp", refs)
+    total, faults = _dp_check(card, tmp, "dp", refs)
+    log("dp: two ranks share one card here (and phase tp's ranks run beside them), so these "
+        "times say nothing about scaling over cards (a 4-card NCCL run is ROADMAP item 8's "
+        "cell)")
+    if faults:
+        raise AssertionError(f"dp: {len(faults)} check(s) failed: {faults}")
     _dp_cli_check(card, tmp, cli_code, cli_wall, refs["maven-lite"]["host_ms"])
     log(f"dp: launches per route {COUNT_NAMES}: {total}; card {card}")
     log(f"dp: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return total, refs
+
+
+def phase_tp(card, tmp, refs, run):
+    """Tensor parallelism and the member axis on the card, each group of gloo
+    ranks sharing cuda:0 (``_dp_launch``'s, started with phase dp's) against
+    the one-process run from the same weights (``refs``, made in phase
+    dp): (a) maven-lite at 2 x 2, 1 epoch; (b) trimodal at 1 x 2 (the split
+    ConvMixer head and its dropout), (c) Maven pretraining at 1 x 2 (phase
+    dp's one-process steps), (d) the fused opt-in at 1 x 2, DP_STEPS steps
+    each; (e) phase ensemble's 8 members over a 2 x 1 mesh, 4 a rank,
+    MEMBER_EPOCHS, against one-process stacks of the same 4; (f) cli train
+    --mesh --parallel-folds under torchrun. Returns the ranks' launches."""
+    t_phase = time.perf_counter()
+    _dp_wait(tmp, run, "tp")
+    cli_code, cli_wall = _cli_results(run)["tp"]
+    log(f"tp: the groups {({g: m for g, (ph, m, _) in DP_GROUPS.items() if ph == 'tp'})} of "
+        f"gloo ranks on cuda:0 took {time.perf_counter() - run['t0']:.1f} s from their start "
+        "beside phase dp (subprocesses, start-up included)")
+    _dp_time_refs("tp", refs)
+    total, faults = _dp_check(card, tmp, "tp", refs, refs["members"])
+    log("tp: the ranks of every group share one card here, so these times say nothing about "
+        "scaling over cards (a 2 x 2 NCCL run over 4 cards is ROADMAP item 8's candidate)")
+    try:
+        _folds_cli_check(tmp, cli_code, cli_wall)
+    except AssertionError as e:
+        log(f"tp: FAILED: {e}")
+        faults.append(str(e))
+    if faults:
+        raise AssertionError(f"tp: {len(faults)} check(s) failed: {faults}")
+    log(f"tp: launches per route {COUNT_NAMES}: {total}; card {card}")
+    log(f"tp: phase done in {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -5576,15 +6052,22 @@ def main():
         sim = phase_sim(card, tmp)
         ingest = phase_ingest(card, tmp)
         evaluation = phase_evaluate(card, tmp)
-        ensemble = phase_ensemble(card, tmp)
-        dp = phase_dp(card, tmp)
+        run = _cli_launch(tmp)  # phases dp's and tp's torchrun runs, beside phase ensemble
+        try:
+            ensemble = phase_ensemble(card, tmp, quiet=lambda: _cli_results(run))
+            _dp_init(tmp)
+            _dp_launch(tmp, run)  # every group of ranks
+            dp, refs = phase_dp(card, tmp, run)
+            tp = phase_tp(card, tmp, refs, run)
+        finally:
+            _dp_stop(run)
     phase_profile()
     runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            maven, sim, ingest, evaluation, ensemble, dp)
+            maven, sim, ingest, evaluation, ensemble, dp, tp)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, ensemble, dp, summed in "
-        f"the line: "
+        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, ensemble, dp, tp, summed "
+        f"in the line: "
         f"{runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
@@ -5708,6 +6191,6 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":  # one rank of phase dp
-        sys.exit(_dp_worker(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--dp-rank":  # one rank of phase dp or tp
+        sys.exit(_dp_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     main()

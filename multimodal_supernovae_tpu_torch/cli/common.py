@@ -1,8 +1,8 @@
-"""What the training CLIs share: their arguments, the flags whose modules
-are not ported yet, the ``--check`` preflight, the data mesh, the data
-directories and the cached ingest (ZTF BTS, or a simulated HDF5 corpus).
+"""What the training CLIs share: their arguments, the ``--check``
+preflight, the ``(data, model)`` mesh, the data directories and the cached
+ingest (ZTF BTS, or a simulated HDF5 corpus).
 
-Under a data mesh (``--mesh`` or a torchrun launch; parallel/distributed.py)
+Under a mesh (``--mesh`` or a torchrun launch; parallel/distributed.py)
 rank 0 makes the sweep directory and fills the ingest cache first, and the
 other ranks follow once it has (``main_first``); only rank 0 prints the
 results."""
@@ -58,28 +58,17 @@ def add_parallel_args(ap: argparse.ArgumentParser) -> None:
                     help="like --parallel-folds, stacking across seed and lr too")
 
 
-def refuse_unported(args: argparse.Namespace, mesh=None) -> None:
-    """Raise ``NotImplementedError``, naming the ROADMAP item, for what is
-    not ported yet: the stacked members of ``--parallel-folds`` /
-    ``--parallel-members`` over the ranks of a data mesh (item 15d)."""
-    from ..training.experiment import MEMBER_AXIS_REFUSAL
-
-    if mesh is not None and (getattr(args, "parallel_folds", False)
-                             or getattr(args, "parallel_members", False)):
-        raise NotImplementedError(MEMBER_AXIS_REFUSAL)
-
-
 def join_mesh(args: argparse.Namespace):
-    """(the data mesh or None, the device to train on): the card unless
-    ``--device`` says otherwise (raising without one), joined to the process
-    group a torchrun launch names (``parallel.distributed.mesh_from_args``;
-    ``--tp`` above 1 raises, item 15d)."""
+    """(the ``(data, model)`` mesh or None, the device to train on): the card
+    unless ``--device`` says otherwise (raising without one), joined to the
+    process group a torchrun launch names
+    (``parallel.distributed.mesh_from_args``; ``--tp`` must divide the
+    group's size)."""
     from ..parallel.distributed import mesh_from_args
     from ..utils.platform import select_device
 
     device = select_device(args.device)
     mesh = mesh_from_args(args, device=device)
-    refuse_unported(args, mesh)
     return mesh, device if mesh is None else mesh.device
 
 

@@ -16,8 +16,8 @@ is trained on it (``models/factory.py:finetune_model_builder``)::
 the meta device instead of training (the pretrained run dir's config and
 weights are read, and the report counts the entries they fill).
 ``--parallel-folds``/``--parallel-members`` stack the grid points as
-``cli.train`` does, and ``--mesh`` under torchrun trains data parallel as
-``cli.train`` does.
+``cli.train`` does, and ``--mesh`` (``--tp N`` for a model axis) under
+torchrun trains over the ranks as ``cli.train`` does.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ HDF5 reader) or of ZTF BTS (``--source real``), split at random by
       --source real --data-dir ZTFBTS/
 
 ``--device`` defaults to ``cuda``. ``--check`` validates every grid point on
-the meta device instead of training (light curves only). ``--mesh`` under
-torchrun trains data parallel as ``cli.train`` does.
+the meta device instead of training (light curves only). ``--mesh``
+(``--tp N`` for a model axis) under torchrun trains over the ranks as
+``cli.train`` does.
 """
 
 from __future__ import annotations

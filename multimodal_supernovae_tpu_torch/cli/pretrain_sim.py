@@ -20,7 +20,8 @@ Its run directory is what ``cli.finetune_clip`` grafts from
 (pass ``--device cpu`` for the CPU). ``--resume`` continues each unfinished
 run from its last.ckpt and skips finished ones. ``--check`` validates every
 grid point on the meta device instead of training (no data, no card).
-``--mesh`` under torchrun trains data parallel as ``cli.train`` does. Not
+``--mesh`` (``--tp N`` for a model axis) under torchrun trains over the
+ranks as ``cli.train`` does. Not
 ported yet: ``--streaming`` (training from a sharded on-disk cache,
 ROADMAP.md queue 1, item 17b) raises ``NotImplementedError``.
 """

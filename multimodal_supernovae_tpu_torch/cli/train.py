@@ -19,18 +19,23 @@ no card). ``--parallel-folds`` trains the folds of each grid point as one
 stacked program and ``--parallel-members`` its seeds and learning rates too
 (``training/ensemble.py``), into the same run directories.
 
-Data parallel over the cards of a host, one process a card (NCCL; gloo for
-``--device cpu``), the global batch split over the ranks::
+Over the cards of a host, one process a card (NCCL; gloo for ``--device
+cpu``): data parallel, the global batch split over the ranks; with ``--tp
+N`` a (ranks / N, N) mesh whose model axis splits the FFNs and the ConvMixer
+head (parallel/sharding.py); with ``--parallel-folds`` /
+``--parallel-members`` the stacked members spread over the data axis::
 
   torchrun --nproc-per-node 8 -m multimodal_supernovae_tpu_torch train \
       configs/maven_pretrain.yaml --mesh
+  torchrun --nproc-per-node 4 -m multimodal_supernovae_tpu_torch train \
+      configs/maven-lite.yaml --mesh --tp 2
+  torchrun --nproc-per-node 5 -m multimodal_supernovae_tpu_torch train \
+      configs/maven-lite.yaml --mesh --parallel-folds
 
 ``--profile-dir D`` writes a ``torch.profiler`` Chrome trace of the whole
 sweep into D (one file a rank); it records every operator and kernel, so
-keep such runs short (``--epochs 1 --max-runs 1``). Not ported yet, and
-raising ``NotImplementedError``: ``--tp`` above 1 and ``--parallel-folds``
-/ ``--parallel-members`` under a mesh (ROADMAP.md item 15d); the post-fit
-plots are not made (item 18b).
+keep such runs short (``--epochs 1 --max-runs 1``). The post-fit plots are
+not made (ROADMAP.md item 18b).
 """
 
 from __future__ import annotations

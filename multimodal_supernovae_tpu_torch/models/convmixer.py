@@ -24,6 +24,11 @@ Module names give the reference's Sequential layout, which
 BatchNorm) and ``projection.{2,5}`` (the head's Linears), so an exported
 checkpoint, running statistics and ``num_batches_tracked`` included, loads
 strictly.
+
+Under a model axis (parallel/sharding.py) the head's ``projection.2``
+(``head_fc1``) is column-split and ``projection.5`` (``head_fc2``)
+row-split; the dropout between them then keeps this rank's columns of the
+global batch's mask (``utils.draws.RankRows``).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .transformer import Dense, dropout
+from .transformer import ColumnParallelDense, Dense, dropout
 
 
 def _same_pad(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -170,5 +175,8 @@ class ConvMixer(nn.Module):
             dw = block[0].fn
             x = x + drop(dw[2](F.gelu(dw[0](x)), train))
             x = drop(block[3](F.gelu(block[1](x)), train))
-        h = drop(F.gelu(self.projection[2](x.mean(dim=(2, 3)))))
+        fc1 = self.projection[2]
+        # a head split over a model axis keeps its block of the mask's columns
+        h = dropout(F.gelu(fc1(x.mean(dim=(2, 3)))), self.rate, train, generator,
+                    split_cols=isinstance(fc1, ColumnParallelDense))
         return self.projection[5](h)

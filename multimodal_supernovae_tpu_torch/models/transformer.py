@@ -30,6 +30,11 @@ configured dropout rate is 0 (whatever the ``train`` flag) and whose
 widths ``fused_block.supports`` takes is fused. The parameter tree is the
 same either way.
 
+Under a mesh's model axis (parallel/sharding.py) each block's ``ff.0`` is
+a ``ColumnParallelDense`` and ``ff.2`` a ``RowParallelDense`` holding this
+rank's slice (the Megatron split; attention stays whole); the fused path
+gathers the slices before its kernels.
+
 ``MMSN_FUSED_QKV=1`` routes a ``SelfAttention`` through
 ``ops/qkv_attention.py``'s whole-module kernels (packed q/k/v projection,
 attention and unify in one launch, forward and backward) with the JAX
@@ -60,12 +65,15 @@ LN_EPS = 1e-6
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], split_cols: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: in train mode keep each element with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``; otherwise the identity.
     The keep mask is drawn from ``generator`` (on ``x``'s device), or is the
     next one of a ``utils.draws.DrawSource`` given in its place (stacked
-    ensemble members, whose masks are drawn before the forward)."""
+    ensemble members, whose masks are drawn before the forward; a data
+    mesh's ``RankRows``). ``split_cols``: ``x``'s last dimension is split
+    over a mesh's model axis (a column-split layer's output), and the mask
+    is this rank's block of the global one, which only ``RankRows`` draws."""
     if not train or rate == 0.0:
         return x
     if generator is None:
@@ -74,7 +82,10 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
     if isinstance(generator, DrawSource):
-        keep = generator.keep_mask(x, keep_prob)
+        keep = generator.keep_mask(x, keep_prob, split_cols)
+    elif split_cols:
+        raise ValueError("a dropout over model-split columns draws through "
+                         "utils.draws.RankRows, not a torch.Generator")
     else:
         keep = torch.empty(x.shape, device=x.device).bernoulli_(
             keep_prob, generator=generator).bool()
@@ -124,6 +135,54 @@ class Dense(nn.Module):
         dt = _compute_dtype(x, self.weight, self.dtype)
         b = None if self.bias is None else self.bias.to(dt)
         return linear(x.to(dt), self.weight.to(dt), b)
+
+
+class ColumnParallelDense(Dense):
+    """A ``Dense`` whose outputs are split over a mesh's model axis (the
+    Megatron column split of parallel/sharding.py): this rank holds rows
+    [m c, (m + 1) c) of the weight and of the bias, and its input passes
+    through ``mesh.copy_to_model``, whose backward sums the model ranks'
+    input gradients."""
+
+    split = {"weight": 0, "bias": 0}  # the torch dimension each tensor is split on
+
+    def __init__(self, full: Dense, mesh):
+        nn.Module.__init__(self)
+        self.dtype, self.mesh = full.dtype, mesh
+        self.weight = _slice_param(full.weight, 0, mesh)
+        self.bias = None if full.bias is None else _slice_param(full.bias, 0, mesh)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(self.mesh.copy_to_model(x))
+
+
+class RowParallelDense(Dense):
+    """A ``Dense`` whose inputs are split over a mesh's model axis (the
+    Megatron row split): this rank holds columns [m c, (m + 1) c) of the
+    weight; the partial products are summed over the model ranks
+    (``mesh.reduce_from_model``) and the whole bias is added once, after
+    the sum (adding it on every rank before would add it n_model times)."""
+
+    split = {"weight": 1}
+
+    def __init__(self, full: Dense, mesh):
+        nn.Module.__init__(self)
+        self.dtype, self.mesh = full.dtype, mesh
+        self.weight = _slice_param(full.weight, 1, mesh)
+        self.bias = None if full.bias is None else nn.Parameter(
+            full.bias.detach().clone(), requires_grad=full.bias.requires_grad)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(x, self.weight, self.dtype)
+        y = self.mesh.reduce_from_model(linear(x.to(dt), self.weight.to(dt)))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def _slice_param(p: torch.Tensor, dim: int, mesh) -> nn.Parameter:
+    """This model rank's block of ``p`` along ``dim``, as a new parameter."""
+    c = p.shape[dim] // mesh.n_model
+    return nn.Parameter(p.detach().narrow(dim, mesh.model_rank * c, c).clone(),
+                        requires_grad=p.requires_grad)
 
 
 class LayerNorm(nn.Module):
@@ -250,7 +309,10 @@ def fused_transformer_block(x: torch.Tensor, mask: Optional[torch.Tensor],
     dtype): q/k/v projections (plain ``F.linear``, as the JAX package leaves
     them to XLA), ``attention`` (the flash kernels on CUDA), then
     ``ops.fused_block.fused_ffn_block`` over the parameters of
-    ``attention.unifyheads``, ``norm1``, ``ff.0``, ``ff.2`` and ``norm2``."""
+    ``attention.unifyheads``, ``norm1``, ``ff.0``, ``ff.2`` and ``norm2``.
+    Under a model axis (``ff.0`` / ``ff.2`` split by parallel/sharding.py)
+    the FFN's weights are all-gathered over the model group first, as XLA
+    gathers the JAX package's sharded parameters before its Pallas call."""
     b, t, e = x.shape
     sa = block.attention
     h, s = sa.heads, e // sa.heads
@@ -263,11 +325,18 @@ def fused_transformer_block(x: torch.Tensor, mask: Optional[torch.Tensor],
                     mask, e)                            # (B, H, T, S)
     att = att.transpose(1, 2).reshape(b * t, e)
     ff_in, ff_out = block.ff[0], block.ff[2]
+    w1, b1, w2 = ff_in.weight, ff_in.bias, ff_out.weight
+    if isinstance(ff_in, ColumnParallelDense):
+        # the kernel runs LN2 over the FFN's whole output: under a model
+        # axis every model rank gathers the slices and computes the block;
+        # the gradients come back as this rank's slices
+        w1, b1 = ff_in.mesh.gather_from_model(w1, 0), ff_in.mesh.gather_from_model(b1, 0)
+        w2 = ff_out.mesh.gather_from_model(w2, 1)
     out = _fused.fused_ffn_block(
         att, x.reshape(b * t, e).contiguous(),
         sa.unifyheads.weight, sa.unifyheads.bias,
         block.norm1.weight, block.norm1.bias,
-        ff_in.weight, ff_in.bias, ff_out.weight, ff_out.bias,
+        w1, b1, w2, ff_out.bias,
         block.norm2.weight, block.norm2.bias)
     return out.view(b, t, e)
 

@@ -1,11 +1,13 @@
-"""Joining a process group for data-parallel training (port of
+"""Joining a process group for data- and tensor-parallel training (port of
 multimodal_supernovae_tpu/parallel/distributed.py).
 
 The JAX package runs one controller process a host over that host's chips.
 The port runs one process a card, as ``torchrun`` launches it::
 
   torchrun --nproc-per-node 8 -m multimodal_supernovae_tpu_torch train \\
-      configs/maven_pretrain.yaml --mesh
+      configs/maven_pretrain.yaml --mesh            # an 8 x 1 (data, model) mesh
+  torchrun --nproc-per-node 8 -m multimodal_supernovae_tpu_torch train \\
+      configs/maven_pretrain.yaml --mesh --tp 2     # 4 x 2
 
   * ``initialize()`` joins a ``torch.distributed`` process group when the
     environment names one, and is a no-op (False) otherwise. It reads, in
@@ -17,15 +19,17 @@ The port runs one process a card, as ``torchrun`` launches it::
     two ranks share one card, which NCCL refuses). Each rank's card is
     ``cuda:LOCAL_RANK``. A collective that waits longer than ``timeout``
     seconds fails instead of hanging.
-  * ``make_global_mesh()`` is the data mesh over the group
-    (``parallel/mesh.py:DataMesh``).
+  * ``make_global_mesh(n_model)`` is the ``(data, model)`` mesh over every
+    process of the group (``parallel/mesh.py:DataMesh``), the model axis
+    innermost; n_model must divide the group's size.
   * ``add_mesh_args`` / ``mesh_from_args``: the CLIs' ``--mesh`` and
     ``--tp``, with the JAX meaning: a mesh when ``--mesh`` is given or the
     process was launched as one of several. One rule departs from the JAX
     package: ``--mesh`` in a single process that sees more than one card
     raises, telling the user to launch under torchrun, since the JAX
     single-controller mesh over a host's chips has no torch counterpart.
-    ``--tp`` above 1 raises (ROADMAP.md item 15d).
+    ``--tp N`` (which implies ``--mesh``) is the model axis's size; it must
+    divide the number of ranks.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from .mesh import TP_REFUSAL, DataMesh, make_mesh
+from .mesh import DataMesh, make_mesh
 
 _ENV_COORD = "MMSN_COORDINATOR"
 _ENV_NPROC = "MMSN_NUM_PROCESSES"
@@ -115,7 +119,13 @@ def local_device() -> torch.device:
 
 
 def make_global_mesh(n_model: int = 1, device=None) -> DataMesh:
-    """The data mesh over every process of the group (one rank a card)."""
+    """The ``(data, model)`` mesh over every process of the group (one rank a
+    card), the model axis innermost."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n_model < 1 or n % n_model:
+        raise ValueError(f"{n} global devices not divisible by model={n_model}")
     return make_mesh(n_model=n_model, device=device)
 
 
@@ -132,26 +142,23 @@ def shutdown() -> None:
 def add_mesh_args(ap) -> None:
     """Attach the shared --mesh/--tp CLI flags to an argparse parser."""
     ap.add_argument("--mesh", action="store_true",
-                    help="data-parallel training over the ranks of a torchrun launch "
-                         "(one process a card)")
+                    help="shard training over the ranks of a torchrun launch, one process "
+                         "a card (data x model mesh)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="model (tensor-parallel) axis size; only 1 is ported "
-                         "(ROADMAP.md item 15d)")
+                    help="model (tensor-parallel) axis size; implies --mesh")
 
 
 def mesh_from_args(args, device="cuda", backend: Optional[str] = None
                    ) -> Optional[DataMesh]:
     """Resolve the CLI mesh request: join the process group when the
-    environment names one, then build the data mesh when ``--mesh`` or
-    ``--tp`` asked for it or this process is one of several. Returns None
-    for a plain one-process run."""
+    environment names one, then build the ``(data, model)`` mesh when
+    ``--mesh`` or ``--tp`` above 1 asked for it or this process is one of
+    several. Returns None for a plain one-process run."""
     import torch.distributed as dist
 
     tp = int(getattr(args, "tp", 1) or 1)
-    if tp > 1:
-        raise NotImplementedError(f"--tp {tp}: {TP_REFUSAL}")
     joined = initialize(device=device, backend=backend)
-    if not (getattr(args, "mesh", False) or joined or dist.is_initialized()):
+    if not (getattr(args, "mesh", False) or tp > 1 or joined or dist.is_initialized()):
         return None
     if (not dist.is_initialized() and torch.device(device).type == "cuda"
             and torch.cuda.device_count() > 1):
@@ -160,7 +167,7 @@ def mesh_from_args(args, device="cuda", backend: Optional[str] = None
             "the port trains one process a card; launch under torchrun "
             f"(torchrun --nproc-per-node {torch.cuda.device_count()} -m "
             "multimodal_supernovae_tpu_torch train ... --mesh)")
-    mesh = make_global_mesh(device=None if dist.is_initialized() else device)
+    mesh = make_global_mesh(n_model=tp, device=None if dist.is_initialized() else device)
     if mesh.is_main:
         print(f"mesh: {mesh.shape} over {mesh.size} process(es), "
               f"{mesh.backend or 'no process group'}", flush=True)

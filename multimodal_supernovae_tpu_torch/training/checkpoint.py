@@ -21,6 +21,11 @@ A run directory holds:
     continue the run as if it had not stopped (its random streams and
     early-stopping state).
 
+A model split over a mesh's model axis (parallel/sharding.py) is saved
+whole: the state_dict and the optimizer's moments are gathered over the
+model group, so its files are those of the one-process run, and a restore
+takes this rank's slices of them, under whatever mesh is running.
+
 Files are written to a temporary name and renamed, so a process killed
 mid-save leaves the previous file whole.
 
@@ -50,6 +55,12 @@ from torch import nn
 
 from ..config.yaml_subset import dump as dump_yaml
 from ..config.yaml_subset import load as load_yaml
+from ..parallel.sharding import (
+    gather_optimizer_state,
+    gather_state_dict,
+    shard_optimizer_state,
+    shard_state_dict,
+)
 from .state import TrainState
 
 CONFIG_NAME = "config.yaml"
@@ -138,8 +149,8 @@ class CheckpointManager:
         return {
             "epoch": int(epoch),
             "global_step": int(state.step),
-            "state_dict": state.model.state_dict(),
-            "optimizer_states": [state.optimizer.state_dict()],
+            "state_dict": gather_state_dict(state.model),
+            "optimizer_states": [gather_optimizer_state(state.optimizer, state.model)],
             "lr_schedulers": ([] if state.scheduler is None
                               else [state.scheduler.state_dict()]),
             "metrics": metrics,
@@ -152,7 +163,9 @@ class CheckpointManager:
         ``epoch=`` file. ``metrics`` keep their finite numbers only."""
         metrics = {k: float(v) for k, v in metrics.items()
                    if isinstance(v, (int, float)) and math.isfinite(v)}
-        payload = self._payload(epoch, state, metrics, loop) if self.write else None
+        # every rank builds it: a model split over a model axis is gathered
+        # whole, a collective over the model group
+        payload = self._payload(epoch, state, metrics, loop)
         if self.monitor in metrics:
             self._offer(epoch, metrics[self.monitor], state.step, payload)
         if self.write:
@@ -209,8 +222,12 @@ class CheckpointManager:
 
 
 def _restore_into(state: TrainState, payload: Dict[str, Any]) -> TrainState:
-    state.model.load_state_dict(payload["state_dict"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer_states"][0])
+    """A checkpoint's full tensors into ``state``; a model split over a model
+    axis takes this rank's slices, whatever mesh wrote the file."""
+    model = state.model
+    model.load_state_dict(shard_state_dict(payload["state_dict"], model), strict=True)
+    state.optimizer.load_state_dict(shard_optimizer_state(payload["optimizer_states"][0],
+                                                          state.optimizer, model))
     if state.scheduler is not None:
         state.scheduler.load_state_dict(payload["lr_schedulers"][0])
     state.step = int(payload["global_step"])

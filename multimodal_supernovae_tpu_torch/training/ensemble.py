@@ -41,8 +41,25 @@ random streams and ``bookkeeping.json``; ``resume=True`` continues from it.
 Where the JAX package replays its host random numbers past the completed
 epochs, the port restores the generators' states, as its ``Trainer`` does.
 
-Not ported: the member axis over the ranks of a data mesh (ROADMAP.md
-queue 1, item 15d); the fused-block and fused-QKV opt-ins raise under vmap (item 15c).
+With ``mesh`` (a ``parallel.mesh.DataMesh``) the member axis goes over the
+mesh's data axis, as the JAX ``P(DATA_AXIS)`` places it: the member count
+must be a multiple of n_data, and data rank d trains members [d k, (d + 1)
+k) (k = N / n_data) as one stacked program on its own card, with no
+collective in a step; the whole dataset is on every rank. The plans are the
+whole ensemble's (its most steps), so each member trains as it would in the
+one-process stacked run. Members are not split over a model axis: the model
+ranks of a data group repeat their group's members. Files: the FIRST MODEL
+RANK of data rank d (global rank d * n_model) writes its members'
+``<run_dir>/<name>/`` (exactly the one-process run's files) and the stacked
+checkpoint ``<ensemble_dir>/data-<d>/`` (``<ensemble_dir>`` itself when
+n_data is 1), which a resume under the same mesh reads; every other rank
+writes nothing. The members' host results (histories, rows, best, epochs)
+are gathered over the data group, so every rank returns every member's;
+``state`` and the snapshots are the local members' (``local`` names them).
+A barrier stands before the return.
+
+Not ported: the fused-block and fused-QKV opt-ins raise under vmap (ROADMAP.md
+queue 1, item 15c).
 """
 
 from __future__ import annotations
@@ -179,17 +196,21 @@ class StackedState:
         return len(self.lrs)
 
 
-def stack_states(models: Sequence[nn.Module], lrs: Sequence[float],
-                 **recipe) -> StackedState:
+def stack_states(models: Sequence[nn.Module], lrs: Sequence[float], *,
+                 per_member_lr: Optional[bool] = None, **recipe) -> StackedState:
     """Stack ``models`` (one architecture, on one device) and build the
     optimizer over the stacked leaves: ``torch.optim.RAdam`` with StepLR
-    (training/optim.py) when every lr is the same, else ``StackedRAdam``.
-    ``recipe``: ``weight_decay``, ``step_size``, ``gamma``,
-    ``steps_per_epoch`` and ``freeze``, as ``build_optimizer`` takes them."""
+    (training/optim.py) when every lr is the same, else ``StackedRAdam``
+    (``per_member_lr`` decides instead where given: a data rank's members
+    take the whole ensemble's choice). ``recipe``: ``weight_decay``,
+    ``step_size``, ``gamma``, ``steps_per_epoch`` and ``freeze``, as
+    ``build_optimizer`` takes them."""
     params, buffers = torch.func.stack_module_state(list(models))
     lrs = [float(lr) for lr in lrs]
     named = list(params.items())
-    if len(set(lrs)) == 1:
+    if per_member_lr is None:
+        per_member_lr = len(set(lrs)) > 1
+    if not per_member_lr:
         opt, sched = build_optimizer(named, lr=lrs[0], **recipe)
     else:
         if recipe.get("freeze") is not None:
@@ -520,6 +541,21 @@ def _to(tree, device):
     return {k: v.to(device) for k, v in tree.items()}
 
 
+def _same_layout(ensemble_dir: str, n_data: int) -> None:
+    """Raise when ``ensemble_dir`` holds a stacked checkpoint written under
+    another data axis than ``n_data``: it resumes under its own mesh."""
+    if not os.path.isdir(ensemble_dir):
+        return
+    one = os.path.exists(os.path.join(ensemble_dir, "bookkeeping.json"))
+    ranks = [int(name[len("data-"):]) for name in os.listdir(ensemble_dir)
+             if name.startswith("data-")
+             and os.path.exists(os.path.join(ensemble_dir, name, "bookkeeping.json"))]
+    if (ranks and n_data == 1) or (n_data > 1 and (one or any(d >= n_data for d in ranks))):
+        raise RuntimeError(
+            f"{ensemble_dir} holds a stacked checkpoint of another data axis than this "
+            f"run's ({n_data}): resume it under the mesh that wrote it")
+
+
 # -- the stacked fit -------------------------------------------------------------
 
 
@@ -527,7 +563,7 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
                 dataset: ArrayDataset, members: Sequence[Member],
                 run_dir: Optional[str] = None, n_classes: Optional[int] = None,
                 freeze=None, resume: bool = False,
-                ensemble_dir: Optional[str] = None) -> Dict[str, Any]:
+                ensemble_dir: Optional[str] = None, mesh=None) -> Dict[str, Any]:
     """Train ``members`` as one stacked program; ``models[i]`` is member i's
     model with its initial weights (its seed's, after any surgery), all on
     one device. Per member this is ``Trainer(models[i], task, cfg with
@@ -538,7 +574,9 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
     Returns ``{"members": {name: {history, metric_rows, best, epochs_run,
     wall_time_s, state (its TrainState), best_ckpt_epoch with a run dir}},
     "wall_time_s", "states" (the final snapshot: each early-stopped member
-    at its stop epoch), "best_states" (the best snapshot, or None)}``."""
+    at its stop epoch), "best_states" (the best snapshot, or None), "local"
+    (the names of this rank's members, all of them without a mesh)}``.
+    ``mesh``: the member axis over the data axis (the module doc)."""
     if not members:
         raise ValueError("no members")
     if len(models) != len(members):
@@ -552,14 +590,14 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
                 f"member {m.name} has an empty "
                 f"{'train' if len(m.train_indices) == 0 else 'val'} index set: every "
                 "member needs at least one sample per split")
-    n = len(members)
-    model0 = models[0]
-    device = next(model0.parameters()).device
-    own = getattr(getattr(model0, "cfg", None), "n_classes", None)
-    n_classes = n_classes or own or 5
-    d_monitor, d_mode = ("f1_val", "max") if task == "classification" else ("val_loss", "min")
-    monitor, mode = cfg.monitor or d_monitor, cfg.mode or d_mode
-
+    n_all = len(members)
+    n_data = 1 if mesh is None else mesh.size
+    if n_all % n_data:
+        raise ValueError(
+            f"{n_all} members cannot shard over the mesh's 'data' axis of size {n_data}: "
+            "the member count must be a multiple of the axis size (members are placed "
+            "whole, one or more per device)")
+    # the ensemble-wide step counts, whichever members this rank trains
     own_steps = [-(-len(m.train_indices) // cfg.batch_size) for m in members]
     steps = max(own_steps)
     short = [m.name for m, s in zip(members, own_steps) if s != steps]
@@ -569,8 +607,22 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
             "and are wrap-extended with extra batches from their own permutation: their "
             "trajectories will not match a sequential run exactly (equal-sized folds "
             "avoid this)")
+    val_steps = max(-(-len(m.val_indices) // cfg.batch_size) for m in members)
+    writes = mesh is None or mesh.model_rank == 0
+    all_members = list(members)
+    all_lrs = {cfg.lr if m.lr is None else float(m.lr) for m in members}
+    if mesh is not None:  # this data rank's members
+        k = n_all // n_data
+        local = slice(mesh.data_rank * k, (mesh.data_rank + 1) * k)
+        members, models = list(members)[local], list(models)[local]
+    n = len(members)
+    model0 = models[0]
+    device = next(model0.parameters()).device
+    own = getattr(getattr(model0, "cfg", None), "n_classes", None)
+    n_classes = n_classes or own or 5
+    d_monitor, d_mode = ("f1_val", "max") if task == "classification" else ("val_loss", "min")
+    monitor, mode = cfg.monitor or d_monitor, cfg.mode or d_mode
     val_steps_i = [-(-len(m.val_indices) // cfg.batch_size) for m in members]
-    val_steps = max(val_steps_i)
     n_val_i = [len(m.val_indices) for m in members]
     val_subsets = [dataset.subset(m.val_indices) for m in members]
 
@@ -580,7 +632,8 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
     eval_gens = [torch.Generator(device=device).manual_seed(m.seed + 2) for m in members]
 
     lrs = [cfg.lr if m.lr is None else float(m.lr) for m in members]
-    state = stack_states(models, lrs, weight_decay=cfg.weight_decay,
+    state = stack_states(models, lrs, per_member_lr=len(set(all_lrs)) > 1,
+                         weight_decay=cfg.weight_decay,
                          step_size=cfg.step_size, gamma=cfg.gamma,
                          steps_per_epoch=steps, freeze=freeze)
 
@@ -590,14 +643,15 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
         for i, m in enumerate(members):
             mdir = os.path.join(run_dir, m.name)
             fns = dataset.filenames
-            save_run_sidecars(
-                mdir, m.config_dump or dataclasses.asdict(
-                    dataclasses.replace(cfg, seed=m.seed, lr=lrs[i])),
-                None if fns is None else [fns[j] for j in m.train_indices],
-                None if fns is None else [fns[j] for j in m.val_indices])
-            write_model_config(mdir, models[i])
-            loggers[i] = MetricsLogger(mdir)
-            ckpts[i] = CheckpointManager(mdir, monitor, mode, cfg.keep_best)
+            if writes:
+                save_run_sidecars(
+                    mdir, m.config_dump or dataclasses.asdict(
+                        dataclasses.replace(cfg, seed=m.seed, lr=lrs[i])),
+                    None if fns is None else [fns[j] for j in m.train_indices],
+                    None if fns is None else [fns[j] for j in m.val_indices])
+                write_model_config(mdir, models[i])
+                loggers[i] = MetricsLogger(mdir)
+            ckpts[i] = CheckpointManager(mdir, monitor, mode, cfg.keep_best, write=writes)
 
     data = dataset.to_device(device)
     run_epoch = make_ensemble_epoch_runner(
@@ -619,6 +673,10 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
 
     if ensemble_dir is None and run_dir:
         ensemble_dir = os.path.join(run_dir, "_ensemble")
+    if ensemble_dir and resume:
+        _same_layout(ensemble_dir, n_data)
+    if ensemble_dir and n_data > 1:
+        ensemble_dir = os.path.join(ensemble_dir, f"data-{mesh.data_rank}")
     ens_ckpt = EnsembleCheckpoint(ensemble_dir) if ensemble_dir else None
     start_epoch = 0
     if resume and ens_ckpt is not None:
@@ -672,7 +730,7 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
                 "step_time_s": step_time,
                 # every member advances together: the ensemble's samples per
                 # second, and this member's share
-                "samples_per_s": n * cfg.batch_size / max(step_time, 1e-9),
+                "samples_per_s": n_all * cfg.batch_size / max(step_time, 1e-9),
                 "member_samples_per_s": cfg.batch_size / max(step_time, 1e-9),
             }
             if do_eval:
@@ -714,7 +772,7 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
                 "eval_torch_rng": eval_gens[i].get_state(),
                 "history": history[i], "metric_rows": metric_rows[i],
                 "best": best[i], "since_best": int(since_best[i])})
-        if ens_ckpt is not None:
+        if ens_ckpt is not None and writes:
             ens_ckpt.save(
                 epoch, state, best_snap, last_snap,
                 {"numpy_rng": [r.bit_generator.state for r in rngs],
@@ -749,9 +807,19 @@ def fit_members(models: Sequence[nn.Module], task: str, cfg: TrainerConfig,
             aucs = [r["AUC_val"] for r in metric_rows[i] if "AUC_val" in r]
             if aucs:
                 summary["best_auc"] = float(np.max(aucs))
-            loggers[i].set_summary(**summary)
-            loggers[i].close()
+            if loggers[i]:
+                loggers[i].set_summary(**summary)
+                loggers[i].close()
         results["members"][m.name] = res
     results["states"] = final
     results["best_states"] = best_snap
+    results["local"] = [m.name for m in members]
+    if mesh is not None:
+        host = {name: {k: v for k, v in r.items() if k != "state"}
+                for name, r in results["members"].items()}
+        for part in mesh.gather_objects(host):
+            for name, r in part.items():
+                results["members"].setdefault(name, r)
+        results["members"] = {m.name: results["members"][m.name] for m in all_members}
+        mesh.barrier()  # every member's files are written before any rank returns
     return results

@@ -34,15 +34,17 @@ state_dict, and the caller applies it::
 same ``run-<k>`` directories; each member's model is built from its own
 seed with ``_build_run``'s surgery, as the sequential loop builds it.
 
-``mesh`` (a ``parallel.mesh.DataMesh``) trains each grid point data
-parallel over the ranks (``Trainer(mesh=...)``); every rank walks the same
-schedule, since every rank sees the same metrics.
+``mesh`` (a ``parallel.mesh.DataMesh``) trains each grid point over the
+ranks' ``(data, model)`` mesh (``Trainer(mesh=...)``), or, with
+``parallel_folds`` / ``parallel_members``, each group's members over its
+data axis (``fit_members(mesh=...)``); every rank walks the same schedule,
+since every rank sees the same metrics.
 
 Not ported yet: the post-fit reports (loss history and retrieval-curve
 plots; ROADMAP.md queue 1, item 18: they need matplotlib, which the GPU
-host does not have), so ``run_sweep`` writes none; the stacked members over
-the ranks of a mesh (item 15d) and ``run_sweep_streaming`` (item 17b,
-streaming), which raise ``NotImplementedError``.
+host does not have), so ``run_sweep`` writes none; and
+``run_sweep_streaming`` (item 17b, streaming), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -123,11 +125,6 @@ def _skipped_result(run_dir: str, run_cfg, summary: Dict[str, Any]) -> Dict[str,
     }
 
 
-MEMBER_AXIS_REFUSAL = ("--parallel-folds/--parallel-members over a data mesh (the ensemble "
-                       "member axis over ranks) is not ported yet (ROADMAP.md queue 1, "
-                       "item 15d)")
-
-
 def _sweep_objective(res: Dict[str, Any], sweep: SweepConfig) -> Optional[float]:
     """The value a bayes schedule optimises: the least validation loss for
     ``best_val_loss`` (every shipped config's metric), else the trainer's
@@ -179,15 +176,13 @@ def run_sweep(
     results = []
     scheduler = SweepScheduler(sweep, max_runs=max_runs)
     if parallel_folds or parallel_members:
-        if mesh is not None:
-            raise NotImplementedError(MEMBER_AXIS_REFUSAL)
         if use_wandb:
             import warnings
 
             warnings.warn("parallel folds/members log metrics.jsonl only; --wandb is ignored")
         return _run_sweep_parallel_folds(
             sweep, dataset, nband, folds, sweep_dir, scheduler, model_builder=model_builder,
-            epochs_override=epochs_override, resume=resume, device=device,
+            epochs_override=epochs_override, resume=resume, device=device, mesh=mesh,
             vary_keys=("foldnumber", "seed", "lr") if parallel_members else ("foldnumber",))
     for k in range(scheduler.n_runs):
         run_cfg = scheduler.suggest()
@@ -227,14 +222,15 @@ def _run_sweep_parallel_folds(sweep: SweepConfig, dataset: ArrayDataset, nband: 
                               sweep_dir: str, scheduler: SweepScheduler,
                               model_builder: Optional[Callable] = None,
                               epochs_override: Optional[int] = None, resume: bool = False,
-                              device=torch.device("cuda"),
+                              device=torch.device("cuda"), mesh=None,
                               vary_keys: Tuple[str, ...] = ("foldnumber",)):
     """The grid points as stacked member groups: grouped by their config
     minus ``vary_keys``, each group trained by one ``fit_members`` call into
     the ``run-<k>`` directories the sequential loop would write, with its
     stacked checkpoint in ``<sweep_dir>/_ensemble-g<i>/``. Under ``resume`` a
     group whose runs all hold ``summary.json`` is skipped; an unfinished one
-    continues from its stacked checkpoint."""
+    continues from its stacked checkpoint. ``mesh``: each group's members
+    over the data axis (``fit_members``)."""
     from .ensemble import Member, fit_members
 
     if sweep.method != "grid":
@@ -279,7 +275,7 @@ def _run_sweep_parallel_folds(sweep: SweepConfig, dataset: ArrayDataset, nband: 
                                   config_dump=dict(rc)))
         out = fit_members(models, task0, tcfg0, dataset, members, run_dir=sweep_dir,
                           n_classes=int(extra.get("n_classes", 5)), freeze=freeze0,
-                          resume=resume,
+                          resume=resume, mesh=mesh,
                           ensemble_dir=os.path.join(sweep_dir, f"_ensemble-g{gi}"))
         for (k, rc), m in zip(group, members):
             res = dict(out["members"][m.name])

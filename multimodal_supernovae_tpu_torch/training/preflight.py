@@ -21,8 +21,7 @@ fills (``merge_params_nonstrict``; 0 raises: the wrong checkpoint). Errors
 name the grid point and the key. With ``--mesh`` or ``--tp`` and
 ``--check-devices N`` (the devices the run will have) the batch's
 divisibility by the data axis is checked, and the feed-forward widths'
-by the model axis noted, in the JAX preflight's words (training with
-``--tp`` above 1 is not ported: item 15d).
+by the model axis noted, in the JAX preflight's words.
 
 The one concrete allocation is RAdam's 0-dim ``step`` counters, which torch
 keeps on the host; every parameter, gradient, moment and the loss are meta.

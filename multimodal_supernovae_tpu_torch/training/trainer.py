@@ -34,22 +34,27 @@ the run would have done had it not stopped.
 ``freeze`` is a predicate over parameter paths (training/optim.py): the
 parameters it picks stay out of the optimizer.
 
-``mesh`` (a ``parallel.mesh.DataMesh``, one process a card) trains data
-parallel and equals the one-process fit at the global batch: every rank
-builds the same global (steps, B) plan from the shared seed and takes its
-block of columns (the JAX ``P(None, DATA_AXIS)``); its draws come from a
-``utils.draws.RankRows`` over the shared generators, so the noise, the
-image turns, the dropout and the masked-pretraining masks are those of the
-global batch; the losses, validation outputs and BatchNorm statistics span
-the global batch and the gradients are averaged over the ranks
-(training/step.py). B must divide by the ranks. Only rank 0 writes the run
-directory (sidecars, ``metrics.jsonl``, ``summary.json``, checkpoints);
+``mesh`` (a ``parallel.mesh.DataMesh``, one process a card) trains over a
+``(data, model)`` mesh and equals the one-process fit at the global batch:
+every rank builds the same global (steps, B) plan from the shared seed and
+takes its data rank's block of columns (the JAX ``P(None, DATA_AXIS)``); its
+draws come from a ``utils.draws.RankRows`` over the shared generators, so
+the noise, the image turns, the dropout and the masked-pretraining masks are
+those of the global batch; the losses, validation outputs and BatchNorm
+statistics span the global batch and the gradients are averaged over the
+data ranks (training/step.py). B must divide by the data ranks. Under a
+model axis the model is sharded at construction (``parallel.sharding.
+shard_module``: the FFNs and the ConvMixer head split Megatron-style), so
+the optimizer's moments are per slice. Only rank 0 writes the run
+directory (sidecars, ``metrics.jsonl``, ``summary.json``, checkpoints; the
+checkpoints hold the full tensors, gathered over the model group, so a
+tensor-parallel run dir loads in one process and resumes under any mesh);
 every rank restores ``last.ckpt`` on resume, and a barrier at the end of
 ``fit`` holds the others until rank 0 has written.
 
 Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
-(ROADMAP.md queue 1, item 17b) and a model axis in the mesh (item 15d).
-Stacked ensemble members train through ``training/ensemble.py``.
+(ROADMAP.md queue 1, item 17b). Stacked ensemble members train through
+``training/ensemble.py``.
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ import torch
 from ..data.batching import ArrayDataset, epoch_indices
 from ..models.factory import write_model_config
 from ..ops.metrics import macro_f1, r2_score, retrieval_auc
-from ..parallel.mesh import TP_REFUSAL, batch_stats_over
+from ..parallel.mesh import batch_stats_over
+from ..parallel.sharding import shard_module
 from ..utils.draws import RankRows
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, save_run_sidecars
@@ -106,8 +112,10 @@ class Trainer:
                  use_wandb: bool = False, n_classes: Optional[int] = None):
         if task not in TASKS:
             raise ValueError(f"unknown task {task!r}: expected one of {TASKS}")
-        if mesh is not None and mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(TP_REFUSAL)
+        if mesh is not None:
+            # the full weights every rank built from the shared seed, sliced
+            # over the model axis before any optimizer sees them
+            shard_module(model, mesh)
         self.model = model
         self.mesh = mesh
         self.task = task

@@ -1,8 +1,9 @@
 """Draw sources: what stands in for the ``torch.Generator`` of a forward
 whose draws cannot come straight from one. Two kinds: the dropout keep
 masks of stacked ensemble members (training/ensemble.py), drawn before the
-forward, and ``RankRows``, one rank's rows of each draw of a data-parallel
-step (parallel/mesh.py).
+forward, and ``RankRows``, one rank's rows (and, where a layer is split over the
+model axis, columns) of each draw of a data- or tensor-parallel step
+(parallel/mesh.py).
 
 Inside ``torch.func.vmap`` no member can draw from a generator of its own:
 ``randomness="different"`` refuses an in-place draw on an unbatched tensor
@@ -38,7 +39,10 @@ class DrawSource:
             raise ValueError(f"{len(specs)} mask specs for {len(masks)} masks")
         self.specs, self.masks, self.used = list(specs), list(masks), 0
 
-    def keep_mask(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
+    def keep_mask(self, x: torch.Tensor, keep_prob: float,
+                  split_cols: bool = False) -> torch.Tensor:
+        if split_cols:
+            self.refuse("a dropout over model-split columns")
         i = self.used
         if i >= len(self.masks):
             raise RuntimeError(
@@ -66,7 +70,10 @@ class DrawRecorder(DrawSource):
     """Records each dropout draw's (shape, keep probability) and hands out an
     all-kept mask on the input's device (the meta device in a dry run)."""
 
-    def keep_mask(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
+    def keep_mask(self, x: torch.Tensor, keep_prob: float,
+                  split_cols: bool = False) -> torch.Tensor:
+        if split_cols:
+            self.refuse("a dropout over model-split columns")
         self.specs.append((tuple(x.shape), keep_prob))
         return torch.ones(x.shape, dtype=torch.bool, device=x.device)
 
@@ -85,31 +92,43 @@ def draw_stacked_keep_masks(specs: Sequence[Spec], generators: Sequence[torch.Ge
 
 
 class RankRows(DrawSource):
-    """Rank r of a data mesh's stand-in for the generator that every rank
-    shares (seeded alike, advanced alike): each draw is made at the GLOBAL
-    batch's shape (n times the local leading dimension) and this rank keeps
-    its block of rows, so the ranks together draw exactly what one process
-    draws at the global batch: the dropout masks (``keep_mask``), the
-    magnitude noise, the image noise and turns and the masked-pretraining
+    """Rank r of a mesh's stand-in for the generator that every rank shares
+    (seeded alike, advanced alike): each draw is made at the GLOBAL batch's
+    shape (n_data times the local leading dimension) and this rank keeps its
+    data rank's block of rows, so the ranks together draw exactly what one
+    process draws at the global batch: the dropout masks (``keep_mask``),
+    the magnitude noise, the image noise and turns and the masked-pretraining
     masks (``draw``, through data/augment.py). Every draw site's leading
-    dimension is the batch."""
+    dimension is the batch. The ranks of one model group draw alike; where a
+    tensor's last dimension is split over the model axis (``split_cols``:
+    a column-split layer's output), the draw is n_model times as wide there
+    too and each model rank keeps its block of columns."""
 
     def __init__(self, generator: torch.Generator, mesh):
         super().__init__()
         self.generator, self.mesh = generator, mesh
 
-    def _global(self, shape) -> Tuple[int, ...]:
+    def _global(self, shape, split_cols: bool = False) -> Tuple[int, ...]:
         shape = tuple(shape)
+        if split_cols:
+            shape = (*shape[:-1], self.mesh.n_model * shape[-1])
         return (self.mesh.size * shape[0], *shape[1:])
 
-    def keep_mask(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
-        full = torch.empty(self._global(x.shape), device=x.device).bernoulli_(
+    def _local(self, full: torch.Tensor, split_cols: bool = False) -> torch.Tensor:
+        full = full[self.mesh.block(full.shape[0])]
+        if split_cols:
+            c = full.shape[-1] // self.mesh.n_model
+            full = full.narrow(-1, self.mesh.model_rank * c, c)
+        return full
+
+    def keep_mask(self, x: torch.Tensor, keep_prob: float,
+                  split_cols: bool = False) -> torch.Tensor:
+        full = torch.empty(self._global(x.shape, split_cols), device=x.device).bernoulli_(
             keep_prob, generator=self.generator)
-        return full[self.mesh.block(full.shape[0])].bool()
+        return self._local(full, split_cols).bool()
 
     def draw(self, fn, shape, **kwargs) -> torch.Tensor:
         """``fn(global_shape, generator=..., **kwargs)`` (``torch.randn``,
         ``torch.rand`` or a ``torch.randint`` with its bounds bound), this
         rank's rows."""
-        full = fn(self._global(shape), generator=self.generator, **kwargs)
-        return full[self.mesh.block(full.shape[0])]
+        return self._local(fn(self._global(shape), generator=self.generator, **kwargs))

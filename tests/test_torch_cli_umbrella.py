@@ -2,7 +2,7 @@
 CLIs' --mesh, --tp and --profile-dir on the CPU: the command table against
 the JAX package's, the usage text and exit codes, ``train --mesh`` under
 ``torch.distributed.run --nproc-per-node 2`` (gloo, --device cpu) against
-the one-process CLI run, the refusals naming ROADMAP item 15d, the
+the one-process CLI run, --tp and the stacked members under --mesh, the
 preflight's mesh checks string for string against the JAX preflight's, and
 a --profile-dir run that trains exactly as one without it."""
 
@@ -117,9 +117,22 @@ def _free_port():
 
 @pytest.mark.parametrize("argv", [["--tp", "2"], ["--mesh", "--parallel-folds"],
                                   ["--mesh", "--parallel-members"]])
-def test_unported_axes_raise_naming_item_15d(argv):
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        train.main([SMOKE, *argv, "--device", "cpu"])
+def test_unported_axes_raise_naming_item_15d(argv, tree, tmp_path):
+    """The axes ROADMAP item 15d ported: ``--tp 2`` over one process raises
+    the JAX package's indivisibility error (a 2-rank model axis needs 2
+    processes: tests/test_torch_tp.py); ``--parallel-folds`` /
+    ``--parallel-members`` under a one-process ``--mesh`` train the stacked
+    group into its run dirs."""
+    if "--tp" in argv:
+        with pytest.raises(ValueError, match="1 global devices not divisible by model=2"):
+            train.main([SMOKE, *argv, "--device", "cpu"])
+        return
+    analysis = str(tmp_path / "analysis")
+    train.main([SMOKE, *tree, *argv, "--analysis-path", analysis,
+                "--cache-dir", str(tmp_path / "cache")])
+    sweep_dir = os.path.join(analysis, "smoke")
+    assert {"run-0", "_ensemble-g0"} <= set(os.listdir(sweep_dir))
+    assert len(_rows(analysis)) == 2
 
 
 def _sweep_with(tmp_path, **params):

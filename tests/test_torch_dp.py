@@ -155,5 +155,8 @@ def test_the_ranks_must_divide_the_batch():
     with pytest.raises(ValueError, match=r"global batch 8 is not divisible by the data mesh "
                                          r"axis \(3\)"):
         Trainer(model, task, tcfg, mesh=DataMesh(0, 3)).fit(train, val)
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        Trainer(model, task, TrainerConfig(), mesh=type("M", (), {"shape": {"model": 2}})())
+    # a model axis whose ranks do not divide the processes: the JAX package's words
+    from multimodal_supernovae_tpu_torch.parallel import make_global_mesh
+
+    with pytest.raises(ValueError, match="1 global devices not divisible by model=2"):
+        Trainer(model, task, TrainerConfig(), mesh=make_global_mesh(n_model=2))

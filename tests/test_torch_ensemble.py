@@ -675,3 +675,91 @@ def test_linear_under_vmap_matches_each_member(rows, bias):
         wgrads = torch.autograd.grad(want, (xi, wi, bi) if bias else (xi, wi), g[i])
         for got, w_ in zip(grads, wgrads):
             torch.testing.assert_close(got[i], w_, atol=1e-4, rtol=1e-5)
+
+
+# -- the member axis over a data mesh ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def member_axis(tmp_path_factory):
+    """tests/torch_dp_worker.py's member scenarios on 2 gloo ranks (a 2 x 1
+    mesh), and the unsharded stacked run of the same members here."""
+    import torch_dp_worker as W
+
+    out = str(tmp_path_factory.mktemp("members"))
+    procs = W.start(out, W.MEMBER_SCENARIOS, world=2)
+    try:
+        one = str(tmp_path_factory.mktemp("members-one"))
+        ref = W.fit_members_on(None, run_dir=one)
+    finally:
+        W.wait(procs)
+    return out, one, ref, W
+
+
+def test_fit_members_sharded_member_axis(member_axis):
+    """4 members over 2 ranks, 2 a rank, as one stacked program each: every
+    rank returns every member's results, each within atol = rtol = 1e-5 of
+    the unsharded ensemble (JAX test_fit_members_sharded_member_axis), and
+    its own members' weights too."""
+    out, _, ref, W = member_axis
+    for r in range(2):
+        got = W.load(out, "members", r)
+        assert got["local"] == [f"run-{2 * r}", f"run-{2 * r + 1}"]
+        assert list(got["members"]) == list(ref["members"])
+        for name, want in ref["members"].items():
+            g = got["members"][name]
+            for k in ("train_loss", "val_loss"):
+                np.testing.assert_allclose(g["history"][k], want["history"][k], rtol=1e-5,
+                                           atol=1e-5, err_msg=f"{name} {k}")
+            assert (g["epochs_run"], g["best_ckpt_epoch"]) == (want["epochs_run"],
+                                                               want["best_ckpt_epoch"])
+        for name in got["local"]:
+            for k, v in ref["state_dicts"][name].items():
+                np.testing.assert_allclose(got["state_dicts"][name][k].numpy(), v.numpy(),
+                                           rtol=1e-5, atol=1e-5, err_msg=f"{name} {k}")
+
+
+def test_member_axis_run_dirs_hold_the_one_process_files(member_axis):
+    """Each member's run dir holds exactly the unsharded run's files, written
+    by the rank that trains it; each data rank's stacked checkpoint is its
+    own directory under _ensemble/."""
+    out, one, _, W = member_axis
+    root = os.path.join(out, "members")
+    for k in range(4):
+        name = f"run-{k}"
+        assert sorted(os.listdir(os.path.join(root, name))) == \
+            sorted(os.listdir(os.path.join(one, name)))
+        with open(os.path.join(root, name, "metrics.jsonl")) as f, \
+                open(os.path.join(one, name, "metrics.jsonl")) as g:
+            got, want = [json.loads(x) for x in f], [json.loads(x) for x in g]
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a["train_loss"], b["train_loss"], rtol=1e-5, atol=1e-5)
+    assert sorted(os.listdir(os.path.join(root, "_ensemble"))) == ["data-0", "data-1"]
+    for r in range(2):
+        assert W.load(out, "members", r)["writes"]["sidecars"] == 2  # its own members
+
+
+def test_member_axis_resumes_under_the_same_mesh(member_axis):
+    """1 epoch, then resumed to 2 under the same 2 x 1 mesh: the
+    uninterrupted run's results; a 1-process resume of that run dir raises."""
+    out, _, _, W = member_axis
+    for r in range(2):
+        full, resumed = W.load(out, "members", r), W.load(out, "members-resume", r)
+        assert resumed["local"] == full["local"]
+        for name, want in full["members"].items():
+            assert resumed["members"][name]["history"] == want["history"]
+        for name in full["local"]:
+            for k, v in full["state_dicts"][name].items():
+                assert torch.equal(resumed["state_dicts"][name][k], v), (name, k)
+    with pytest.raises(RuntimeError, match=r"another data axis than this run's \(1\)"):
+        W.fit_members_on(None, run_dir=os.path.join(out, "members-R"), epochs=3)
+
+
+def test_member_count_must_divide_by_the_data_axis():
+    import torch_dp_worker as W
+    from multimodal_supernovae_tpu_torch.parallel import DataMesh
+
+    models, tcfg, ds, members = W.members_setup()
+    with pytest.raises(ValueError, match=r"4 members cannot shard over the mesh's 'data' axis "
+                                         r"of size 3: the member count must be a multiple"):
+        fit_members(models, "contrastive", tcfg, ds, members, mesh=DataMesh(0, 3))

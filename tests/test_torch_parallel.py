@@ -142,8 +142,8 @@ def test_mesh_from_args_cli_glue(no_cluster, monkeypatch):
     mesh = mesh_from_args(_args("--mesh"), device="cpu")
     assert isinstance(mesh, DataMesh) and mesh.shape == {DATA_AXIS: 1, MODEL_AXIS: 1}
     assert mesh.group is None and mesh.is_main and mesh.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        mesh_from_args(_args("--tp", "2"), device="cpu")
+    with pytest.raises(ValueError, match="1 global devices not divisible by model=2"):
+        mesh_from_args(_args("--tp", "2"), device="cpu")  # a model axis of 2 over 1 process
     # one process that sees several cards: --mesh must come from torchrun
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(RuntimeError, match="torchrun"):
@@ -155,7 +155,7 @@ def test_mesh_shape_rows_and_refusals():
     assert mesh.local(32) == 8 and mesh.block(32) == slice(8, 16) and not mesh.is_main
     with pytest.raises(ValueError, match="not divisible by the data mesh axis"):
         mesh.local(30)
-    with pytest.raises(NotImplementedError, match="item 15d"):
+    with pytest.raises(ValueError, match="1 devices not divisible by model axis 2"):
         make_mesh(n_model=2)
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(n_data=2)

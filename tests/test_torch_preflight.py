@@ -176,16 +176,17 @@ def test_a_broken_config_names_its_grid_point_and_key(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--tp", "2"], ["--mesh"], ["--check-devices", "8"]])
 def test_mesh_flags_are_refused(argv, capsys, monkeypatch):
-    """What the mesh flags still refuse: training with a model axis (--tp
-    above 1, ROADMAP item 15d). Under --check every one is taken as the JAX
-    preflight takes it (maven-lite's B = 32 divides every data axis here)."""
+    """Under --check every mesh flag is taken as the JAX preflight takes it
+    (maven-lite's B = 32 divides every data axis here); training with --tp 2
+    in one process raises the JAX package's indivisibility error (a model
+    axis of 2 needs 2 ranks)."""
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "MMSN_COORDINATOR",
               "MMSN_NUM_PROCESSES", "MMSN_PROCESS_ID"):
         monkeypatch.delenv(k, raising=False)
     code, out = _check(train.main, [CONFIGS["maven-lite"], "--check", "--max-runs", "1",
                                     *argv], capsys)
     assert code == 0 and "ERROR" not in out
-    with pytest.raises(NotImplementedError, match="item 15d"):
+    with pytest.raises(ValueError, match="1 global devices not divisible by model=2"):
         train.main([CONFIGS["maven-lite"], *argv, "--tp", "2", "--device", "cpu"])
 
 

@@ -241,9 +241,19 @@ def test_pretrain_masked_trains_from_a_legacy_sim_file(tmp_path, argv):
     (finetune_clip.main, ["--tp", "2"], "item 15"),
     (pretrain_masked.main, ["--source", "real", "--tp", "2"], "item 15"),
 ])
-def test_unported_flags_raise_with_their_item(main, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main([SMOKE, *argv, "--device", "cpu"])
+def test_unported_flags_raise_with_their_item(main, argv, item, trained, tmp_path):
+    """The flags of ``item`` (ROADMAP item 15d, ported): ``--tp 2`` in one
+    process raises the JAX package's indivisibility error in every training
+    CLI; ``--mesh --parallel-folds`` trains the stacked group."""
+    if "--tp" in argv:
+        with pytest.raises(ValueError, match="1 global devices not divisible by model=2"):
+            main([SMOKE, *argv, "--device", "cpu"])
+        return
+    root, data_dir, spectra_dir, _ = trained
+    main([SMOKE, *argv, "--data-dir", data_dir, "--spectra-dir", spectra_dir, "--device", "cpu",
+          "--analysis-path", str(tmp_path), "--cache-dir", str(root / "cache"), "--epochs", "1"])
+    assert RUN_FILES <= set(os.listdir(tmp_path / "smoke" / "run-0"))
+    assert "_ensemble-g0" in os.listdir(tmp_path / "smoke")
 
 
 def test_unported_runners_raise_with_their_item():

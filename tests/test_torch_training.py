@@ -9,7 +9,6 @@ frameworks, a few steps), relative 1e-4 per step for the 20-step loss
 trajectory (summation order in XLA and torch drifts over the steps).
 """
 
-import types
 
 import jax
 import jax.numpy as jnp
@@ -329,12 +328,13 @@ def test_trainer_stops_early_and_aborts_on_non_finite_loss():
 @pytest.mark.parametrize("kw,match", [
     ({"task": "classification"}, None),
     ({"task": "masked"}, None),
-    ({"mesh": types.SimpleNamespace(shape={"data": 1, "model": 2})}, "item 15"),
+    pytest.param({"mesh": "model axis 2"}, "item 15", id="kw2-item 15"),
     ({"task": "regression"}, None),
 ])
 def test_trainer_raises_for_what_is_not_ported(kw, match):
-    """A mesh with a model axis still raises (item 15d; the data axis is
-    tests/test_torch_dp.py's); the supervised and masked tasks are ported: one
+    """A model axis of 2 over one process raises the JAX package's words
+    (item 15d ported it: tests/test_torch_tp.py trains it over 2 ranks, the
+    data axis is tests/test_torch_dp.py's); the supervised and masked tasks are ported: one
     epoch of each reports its metric (f1_val, monitored for the maximum, or
     R2_val), a MaskedLightCurveEncoder the validation loss only."""
     task = kw.get("task")
@@ -349,8 +349,10 @@ def test_trainer_raises_for_what_is_not_ported(kw, match):
     args.update(kw)
     ds = make_synthetic_dataset(n=8, seed=0, **SYN)
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(model, **args).fit(ds, ds)
+        from multimodal_supernovae_tpu_torch.parallel import make_mesh
+
+        with pytest.raises(ValueError, match="1 devices not divisible by model axis 2"):
+            Trainer(model, **dict(args, mesh=make_mesh(n_model=2))).fit(ds, ds)
         return
     trainer = Trainer(model, **args)
     row = trainer.fit(ds, ds)["metric_rows"][0]

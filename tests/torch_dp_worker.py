@@ -1,8 +1,10 @@
-"""The port's data-parallel fits, as one rank of a gloo process group on the
-CPU (tests/test_torch_dp.py spawns the ranks; it imports no jax).
+"""The port's data- and tensor-parallel fits and the ensemble member axis, as
+one rank of a gloo process group on the CPU (tests/test_torch_dp.py,
+tests/test_torch_tp.py and tests/test_torch_ensemble.py spawn the ranks; it
+imports no jax).
 
-  python tests/torch_dp_worker.py --rank R --world N --init file:///tmp/store \\
-      --out DIR --scenarios bimodal,trimodal,...
+  python tests/torch_dp_worker.py --rank R --world N --tp M \\
+      --init file:///tmp/store --out DIR --scenarios bimodal,trimodal,...
 
 Each scenario builds its model, data and trainer config from fixed seeds
 (``build``), the same on every rank and in the single process the test
@@ -40,20 +42,29 @@ TRI = ("host_galaxy", "lightcurve", "spectral")
 N, N_TRAIN = 40, 28
 SCENARIOS = ("bimodal", "sigmoid", "trimodal", "regression", "classification", "masked",
              "fused", "jaxmatch", "resume", "skew")
+# the (data, model) meshes' scenarios: 1 x 2 on 2 ranks, 2 x 2 on 4
+TP_SCENARIOS = {2: ("bimodal", "sigmoid", "trimodal", "masked", "fused", "masks", "tp-rundir"),
+                4: ("bimodal", "sigmoid", "trimodal", "regression", "masked", "fused",
+                    "jaxmatch", "masks", "members")}
+MEMBER_SCENARIOS = ("members", "members-resume")  # the member axis over 2 x 1
 TIMEOUT_S = 120  # a rank's subprocess; its process group's collectives time out at 60 s
 
 
-def spawn(out, scenarios, world=2):
-    """Run ``scenarios`` on ``world`` gloo ranks (subprocesses of this file,
-    rendezvous through a FileStore in ``out``); raises with the ranks'
-    output unless every rank exits 0 within TIMEOUT_S."""
+def start(out, scenarios, world=2, tp=1):
+    """Start ``scenarios`` on ``world`` gloo ranks (subprocesses of this file,
+    rendezvous through a FileStore in ``out``) laid out as a (world / tp,
+    tp) mesh; ``wait`` collects them."""
     import subprocess
 
     store = os.path.join(out, "store")
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "--rank", str(r), "--world", str(world),
+    return [subprocess.Popen(
+        [sys.executable, __file__, "--rank", str(r), "--world", str(world), "--tp", str(tp),
          "--init", f"file://{store}", "--out", out, "--scenarios", ",".join(scenarios)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def wait(procs):
+    """Raise with the ranks' output unless every rank exits 0 within TIMEOUT_S."""
     outs = []
     try:
         for p in procs:
@@ -66,6 +77,11 @@ def spawn(out, scenarios, world=2):
     codes = [p.returncode for p in procs]
     if any(codes):
         raise AssertionError(f"ranks exited {codes}:\n" + "\n".join(o[-3000:] for o in outs))
+
+
+def spawn(out, scenarios, world=2, tp=1):
+    """``start`` then ``wait``."""
+    wait(start(out, scenarios, world, tp))
 
 
 def load(out, name, rank):
@@ -155,9 +171,13 @@ class fused_opt_ins:
 
 
 def summarize(res) -> dict:
+    """A fit's rows and history, its full (gathered) state_dict and the
+    parameters the loss did not reach."""
+    from multimodal_supernovae_tpu_torch.parallel import gather_state_dict
+
     model = res["state"].model
     return {"rows": res["metric_rows"], "history": res["history"],
-            "state_dict": {k: v.detach().clone() for k, v in model.state_dict().items()},
+            "state_dict": {k: v.detach().clone() for k, v in gather_state_dict(model).items()},
             "grad_none": sorted(n for n, p in model.named_parameters() if p.grad is None)}
 
 
@@ -247,11 +267,116 @@ def autograd_collectives(mesh) -> dict:
             "labels": mesh.all_gather(torch.tensor([mesh.rank, 7]))}
 
 
+def keep_masks(mesh, seed=5) -> list:
+    """(split_cols, keep mask) of every dropout draw of one train-mode loss of
+    the (sharded) trimodal model on this rank's rows, drawn through
+    ``RankRows`` (a one-process mesh: the global draws)."""
+    from multimodal_supernovae_tpu_torch.data.batching import take
+    from multimodal_supernovae_tpu_torch.parallel import batch_stats_over, shard_module
+    from multimodal_supernovae_tpu_torch.utils.draws import RankRows
+
+    model, _, _, train, _ = build("trimodal")
+    shard_module(model, mesh)
+    seen = []
+
+    class Recording(RankRows):
+        def keep_mask(self, x, keep_prob, split_cols=False):
+            keep = super().keep_mask(x, keep_prob, split_cols)
+            seen.append((split_cols, keep.clone()))
+            return keep
+
+    batch = take(train.to_device("cpu"), torch.arange(8)[mesh.block(8)])
+    with batch_stats_over(model, mesh):
+        model.loss_fn(batch, train=True, mesh=mesh,
+                      generator=Recording(torch.Generator().manual_seed(seed), mesh))
+    return seen
+
+
+def members_setup():
+    """(models, TrainerConfig, dataset, members) of the member-axis
+    scenarios: 4 members of the small CLIP model (dropout and noise on),
+    two learning rates, each its own seed and rolled split."""
+    from multimodal_supernovae_tpu_torch.training.ensemble import Member
+
+    ds = make_synthetic_dataset(n=32, seed=4, modalities=("lightcurve", "spectral"),
+                                image_size=12, **SYN)
+    idx = np.arange(32)
+    members = [Member(f"run-{i}", i, np.roll(idx, 8 * i)[:24], np.roll(idx, 8 * i)[24:],
+                      lr=3e-3 if i % 2 else 1e-3) for i in range(4)]
+    models = [CLIPModel(CLIPConfig.create(**clip_kwargs()),
+                        generator=torch.Generator().manual_seed(m.seed)) for m in members]
+    return models, TrainerConfig(epochs=2, batch_size=8, lr=1e-3, noise_level_mag=1.0), ds, \
+        members
+
+
+def fit_members_on(mesh=None, run_dir=None, **tcfg_overrides) -> dict:
+    """``fit_members`` of ``members_setup`` (over ``mesh``'s data axis):
+    every member's host results, this rank's members' state_dicts."""
+    from multimodal_supernovae_tpu_torch.training.ensemble import fit_members
+
+    models, tcfg, ds, members = members_setup()
+    for k, v in tcfg_overrides.items():
+        setattr(tcfg, k, v)
+    res = fit_members(models, "contrastive", tcfg, ds, members, run_dir=run_dir, mesh=mesh,
+                      resume=bool(tcfg_overrides))
+    return {"members": {n: {k: r.get(k) for k in ("history", "metric_rows", "best",
+                                                   "epochs_run", "best_ckpt_epoch")}
+                        for n, r in res["members"].items()},
+            "local": res["local"],
+            "state_dicts": {n: {k: v.detach().clone() for k, v in
+                                res["members"][n]["state"].model.state_dict().items()}
+                            for n in res["local"]}}
+
+
+def _member_writes():
+    """Counts this process's writes of member run dirs and stacked checkpoints."""
+    from multimodal_supernovae_tpu_torch.training import checkpoint
+    from multimodal_supernovae_tpu_torch.training import ensemble as ensemble_mod
+
+    counts = {"ckpt": 0, "sidecars": 0, "logger": 0, "stacked": 0}
+
+    def counted(key, fn):
+        def wrapped(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    checkpoint._save = counted("ckpt", checkpoint._save)
+    ensemble_mod.save_run_sidecars = counted("sidecars", ensemble_mod.save_run_sidecars)
+    ensemble_mod.MetricsLogger = counted("logger", ensemble_mod.MetricsLogger)
+    ensemble_mod.EnsembleCheckpoint.save = counted("stacked", ensemble_mod.EnsembleCheckpoint.save)
+    return counts
+
+
+def tp_run_dirs(mesh, out) -> dict:
+    """The bimodal fit into run dirs: A (3 epochs), B (2, then resumed to 3)
+    and C (2 epochs, which the test resumes in one process)."""
+    full = fit("bimodal", mesh, run_dir=os.path.join(out, "tp-A"), epochs=3)
+    fit("bimodal", mesh, run_dir=os.path.join(out, "tp-B"), epochs=2)
+    fit("bimodal", mesh, run_dir=os.path.join(out, "tp-C"), epochs=2)
+    model, task, tcfg, train, val = build("bimodal")
+    tcfg.epochs = 3
+    resumed = summarize(Trainer(model, task, tcfg, run_dir=os.path.join(out, "tp-B"),
+                                mesh=mesh).fit(train, val, resume=True))
+    return {"full": full, "resumed": resumed}
+
+
 def run_scenario(name: str, mesh, out: str) -> dict:
     if name == "losses":
         return sharded_losses(mesh)
     if name == "autograd":
         return autograd_collectives(mesh)
+    if name == "masks":
+        return {"masks": keep_masks(mesh)}
+    if name == "tp-rundir":
+        return tp_run_dirs(mesh, out)
+    if name == "members":
+        writes = _member_writes()
+        got = fit_members_on(mesh, run_dir=os.path.join(out, "members"))
+        return dict(got, writes=writes)
+    if name == "members-resume":  # 1 epoch, then resumed to 2, under the same mesh
+        fit_members_on(mesh, run_dir=os.path.join(out, "members-R"), epochs=1)
+        return fit_members_on(mesh, run_dir=os.path.join(out, "members-R"), epochs=2)
     if name == "jaxmatch":
         return fit(name, mesh, state_dict=torch.load(os.path.join(out, "jaxmatch.init.pt")))
     if name == "resume":
@@ -286,6 +411,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--tp", type=int, default=1, help="the model axis's size")
     ap.add_argument("--init", required=True, help="the process group's init URL")
     ap.add_argument("--out", required=True)
     ap.add_argument("--scenarios", default=",".join(SCENARIOS))
@@ -296,7 +422,7 @@ def main(argv=None) -> int:
     torch.set_num_threads(1)
     distributed.initialize(args.init, args.world, args.rank, device="cpu",
                            timeout=args.timeout)
-    mesh = distributed.make_global_mesh()
+    mesh = distributed.make_global_mesh(n_model=args.tp)
     try:
         for name in args.scenarios.split(","):
             torch.save(run_scenario(name, mesh, args.out),
