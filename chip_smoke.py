@@ -4,10 +4,12 @@ server and the maven-lite contrastive trainer end to end (and maven-lite
 from its own config, trained into run directories, resumed and served, and
 trained from a ZTF BTS data directory through the training CLIs; the
 image and meta towers and the supervised heads: trimodal from its own
-config, quadrimodal, redshift regression and classification; and masked
+config, quadrimodal, redshift regression and classification, and the ViT
+image tower in trimodal, its run dir rebuilt without a sidecar; and masked
 pretraining, its graft into a CLIP light-curve tower, and Maven's
 pretraining and fine-tuning, each from its shipped config; and Maven's
-pretraining from a simulated HDF5 corpus through cli.pretrain_sim; and the
+pretraining from a simulated HDF5 corpus through cli.pretrain_sim, in
+memory and streamed shard by shard (--streaming); and the
 five folds of maven-lite, and an lr x seed grid, as one stacked program
 through --parallel-folds / --parallel-members; and data-parallel training
 over two ranks, and the umbrella CLI under torchrun; and tensor-parallel
@@ -198,7 +200,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      Prints the median train-step time and paired samples/s of the kernel
      path, the plain path and the kernel path on the CUDA-core route (bf16,
      the same batch, host clock around synchronised steps, alternating
-     rounds of 20 steps each: three of the plain path, seven of each flash
+     rounds of 20 steps each: three of the plain path, five of each flash
      route) and their peak device memory;
   6b. train-fused: the same trainer with use_fused_block in the LC tower's
      kwargs: 5 fused forward + 5 fused backward (all on the tensor cores) +
@@ -280,6 +282,27 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      head's output (9 launches a call), every parameter's float32
      gradient at B = 256 held to the plain path's as above, the step's
      host time;
+  6e'. vit: the same trimodal grid point with extra_args.image_encoder vit
+     at the JAX ViT defaults (emb 128, depth 6, 4 heads, patch 10, mlp 4;
+     60 x 60 images: 36 tokens at head dim 32, the CUDA-core flash
+     route), B = 32, float32, on a 320-sample set: Trainer.fit (2 epochs)
+     into a sweep's run-0 with 6 + 6 CUDA-core and 18 + 18 3xTF32 flash
+     launches a train step; the run dir loaded by its sidecar, then,
+     model_config.json removed and the sweep's sweep_config.yaml beside
+     it, rebuilt from its config files (initialize_from_run_dir's schema
+     path) within 1e-6 of the sidecar path, and served by load_live
+     (the image side from pos_emb) within 1e-6 of the encode; 6 float32
+     steps (noise and rotation on) within relative 1e-5 of the plain
+     path's; every float32 gradient within 5e-4 on the plain path's ReLU
+     masks, with the dq x 0.99 control; the tower alone in bf16 (each
+     attention layer's output, dk and dv against the plain versions on its
+     own inputs within 0.05 and NORM_TOL, dq within 0.05 and no farther
+     from float64 than VIT_BF16_DQ_RATIO x the plain version, with the dq x
+     0.99 control; the tower's output within 0.05 and NORM_TOL); the step's
+     host time and profile; rows 1a/2a timed at (B, 4, 36, 32), B = 32 and
+     256, both dtypes, no mask (events, device sums, host time, the plain
+     version, SDPA at scale S**-0.5) after a check against the plain
+     versions;
   6f. maven: four stages from the shipped configs, each through
      training/experiment.py:_build_run, float32, every attention layer on
      the 3xTF32 flash route, no plain call, launches counted and asserted
@@ -337,7 +360,23 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      curves (about 10% sentinels): 3xTF32 launches only, finite losses;
      cli.infer S --hdf5 on a 2,048-pair file: its embeddings equal to
      get_embeddings of load_model(S) on ingest_simulation of the file, 18
-     forward launches a batch of 256. Run S is kept for phase 6h;
+     forward launches a batch of 256. Run S is kept for phase 6h, the
+     corpus for phase 6g';
+  6g'. stream: Maven's first stage from phase 6g's corpus through
+     cli.pretrain_sim --streaming --rows-per-shard 10240 (the validation
+     rows held out at val_fraction, the training rows cut into 4 full
+     shards and a partial one, 10 steps of B = 1024 each) for 1 epoch:
+     launches counted, the run files with ckpt_cursor/, prefetch on; every
+     shard's rows and the validation split bitwise an in-memory
+     ValHoldout of iter_simulation_chunks; the first scheduled shard's
+     first 5 float32 steps within relative 1e-5 of the plain path's; a
+     run cut after its third shard's cursor and resumed from it, its
+     last.ckpt within 1e-5 of the uninterrupted run's (bitwise tensors
+     counted) and its losses within relative 1e-5; the cut run under
+     torch.profiler (the pinned copies' share of time under kernels, the
+     idle share); an epoch with prefetch off beside the CLI run's (each
+     shard's upload device ms, staging and wait ms, each cursor save's ms).
+     Deletes the corpus;
   6h. ingest: a ZTF BTS tree of 4702 transients (the corpus's candidate
      count) written with numpy and zlib into chiprun_out/ in the corpus's
      layout and formats (_write_tree: the transient table with the
@@ -371,8 +410,9 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      3xTF32 flash forwards an embedding batch and no backward, 48 regression
      and 96 classification rows in the pickles, finite, the LaTeX logged;
      the kernel path's embeddings of each split against the plain path's
-     (float32 tolerance 1e-4), and every probe (linear, LinearSVC, KNN; each
-     modality and the pair; redshift, 5-way, 3-way) on both: regression
+     (float32 tolerance 1e-4), and every probe of run-0 (linear, LinearSVC,
+     KNN; each modality and the pair; redshift, 5-way, 3-way; run-1's are
+     left out for the time limit) on both: regression
      within 1e-4 of the largest prediction, the classifiers equal, except on
      rows near a tie on the kernel path (LinearSVC top-two margin under
      1e-4, k-th and (k+1)-th distances within 1e-5), whose number is
@@ -491,8 +531,8 @@ measured numbers, the shape they were timed at ("shape"; launches are summed
 over every shape the main paths gave the kernel: the serve phases' requests,
 and of the train phases Trainer.fit, the timed train-step rounds (the
 CUDA-core route patches included) and the float32 trajectory and gradient
-runs, and every counted call of the run-dir, towers, maven, sim, ingest,
-evaluate, ensemble, dp and tp phases (the ensemble's vmap checks aside;
+runs, and every counted call of the run-dir, towers, vit, maven, sim,
+stream, ingest, evaluate, ensemble, dp and tp phases (the ensemble's vmap checks aside;
 phase dp's and tp's ranks count in their own processes and report); the CUDA-core fused-QKV entries carry their float32 times, library
 times and bounds at LC and SP under "float32"; the flash and fused-QKV
 entries carry the times and bound at their second shape under "also_at"; the
@@ -505,7 +545,10 @@ TF32 being off, and for the 3xTF32 kernels three times their operations
 at 495 TFLOP/s); the flash entries of the CUDA cores and of 3xTF32 carry
 their float32 times under "float32" (the 3xTF32 ones at the top level),
 with the trimodal spectral shape under "also_at_trimodal" and Maven
-pretraining's under "also_at_maven_lc" and "also_at_maven_sp"; the flash
+pretraining's under "also_at_maven_lc" and "also_at_maven_sp"; the
+CUDA-core flash entries add the ViT tower's shape at B = 32 and 256 under
+"also_at_vit_b32" and "also_at_vit_b256" in both dtypes (with
+"exp_floor_ms"); the flash
 backward and fused-block entries add
 "device_ms" (profiler sums), the flash backward "library_device_ms", the
 fused-block entries "norm_err" (float32, its route's worst case), and the
@@ -545,9 +588,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import multimodal_supernovae_tpu_torch.models.transformer as transformer_mod
+import multimodal_supernovae_tpu_torch.models.vit as vit_mod
 import multimodal_supernovae_tpu_torch.ops.flash_attention as flash_mod
 import multimodal_supernovae_tpu_torch.ops.fused_block as ffn_mod
 import multimodal_supernovae_tpu_torch.ops.qkv_attention as qkv_mod
+import multimodal_supernovae_tpu_torch.training.checkpoint as ckpt_mod
+import multimodal_supernovae_tpu_torch.training.experiment as experiment_mod
 import multimodal_supernovae_tpu_torch.training.trainer as trainer_mod
 from multimodal_supernovae_tpu_torch.cli import common as cli_common
 from multimodal_supernovae_tpu_torch.cli import evaluate as cli_evaluate
@@ -581,6 +627,13 @@ from multimodal_supernovae_tpu_torch.data.folds import (
     stratified_kfolds,
 )
 from multimodal_supernovae_tpu_torch.data.native import read_csv, read_csv_plain
+from multimodal_supernovae_tpu_torch.data.simulation import iter_simulation_chunks
+from multimodal_supernovae_tpu_torch.data.streaming import (
+    ShardedDataset,
+    ValHoldout,
+    load_val_split,
+    shard_epoch_schedule,
+)
 from multimodal_supernovae_tpu_torch.data.png import decode, unfilter_numpy
 from multimodal_supernovae_tpu_torch.data.transforms import (
     pack_ragged_rows,
@@ -598,7 +651,9 @@ from multimodal_supernovae_tpu_torch.models import (
     CLIPConfig,
     CLIPModel,
     ClipMLPHead,
+    ViT,
     finetune_model_builder,
+    init_weights,
     load_model,
     load_run_config,
     masked_model_builder,
@@ -947,6 +1002,20 @@ def _tf32_matmuls():
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _device_spans(prof):
+    """(start us, end us, name) of each device op of a finished
+    torch.profiler run, in the order they started, read from its raw
+    (kineto) events, times from the first op: the same ops ``prof.events()``
+    lists, without building its event tree, which takes seconds on a trace
+    of an epoch. User annotations (``Optimizer.step#...``) span idle gaps
+    and are left out."""
+    ops = sorted((e.start_ns(), e.duration_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    t0 = ops[0][0] if ops else 0  # times from the first op: integers before floats
+    return [((s - t0) / 1e3, (s - t0 + d) / 1e3, name) for s, d, name in ops]
+
+
 def _device_ops(fn, iters=25):
     """(kernel name, ms) of each device op of ``iters`` calls of ``fn``
     under torch.profiler, in the order they started, after a warm-up."""
@@ -956,9 +1025,7 @@ def _device_ops(fn, iters=25):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in
-            sorted(prof.events(), key=lambda e: e.time_range.start)
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return [(name, (s1 - s0) / 1e3) for s0, s1, name in _device_spans(prof)]
 
 
 def _device_ms(fn, iters=25):
@@ -1987,13 +2054,15 @@ def _counts():
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """Every kernel replaced by its plain version: the encoders' attention by
-    dense_attention (with torch autograd), the fused block's forward and
+    """Every kernel replaced by its plain version: the encoders' attention
+    (the sequence towers' and the ViT's) by dense_attention (with torch
+    autograd), the fused block's forward and
     backward by fused_ffn_block_plain and fused_ffn_block_bwd_plain, the
     fused-QKV forward and backward by fused_qkv_attention_plain and
     fused_qkv_attention_bwd_plain."""
     plain_bwd = ffn_mod.fused_ffn_block_bwd_plain
     with mock.patch.object(transformer_mod, "attention", dense_attention), \
+            mock.patch.object(vit_mod, "attention", dense_attention), \
             mock.patch.object(ffn_mod, "_ffn_fwd", lambda *a, eps: (
                 ffn_mod.fused_ffn_block_plain(*a, eps=eps))), \
             mock.patch.object(ffn_mod, "fused_ffn_block_bwd", plain_bwd), \
@@ -2255,8 +2324,8 @@ def phase_train(variant="kernel"):
     data = ds.to_device(DEVICE)
     batch = take(data, torch.arange(BATCH, device=DEVICE))
     order = (main_path, *others, *others[::-1], main_path, main_path, *others)
-    if variant == "kernel":  # the two flash routes: four more rounds each
-        order += ("kernel-simt", "kernel", "kernel", "kernel-simt") * 2
+    if variant == "kernel":  # the two flash routes: two more rounds each
+        order += ("kernel-simt", "kernel", "kernel", "kernel-simt")
     times = {main_path: [], **{p: [] for p in others}}
     round_ms = {p: [] for p in times}
     timed_counts = NONE
@@ -3068,6 +3137,364 @@ def phase_towers(card):
     return total
 
 
+# phase vit: configs/trimodal.yaml's first grid point with image_encoder vit at
+# the JAX ViT defaults (its extra_args name no vit_* key: emb 128, depth 6, 4
+# heads, the patch its cnn_patch_size 10, mlp 4), 60 x 60 images: 36 tokens at
+# head dim 32, which the flash kernels take on the CUDA cores (rows 1a and 2a)
+VIT_N, VIT_EPOCHS, VIT_TRAJ_STEPS, VIT_TIMED = 320, 2, 6, 10
+VIT_TIMED_B = (32, 256)  # the flash rows' times at the tower's shape, B = 32 and 256
+# (emb, depth, heads, patch, mlp_mult, n_out), tokens, head dim, B
+VIT_STATED = ((128, 6, 4, 10, 4, 32), 36, 32, 32)
+
+
+def _vit_setup():
+    """The trimodal ViT grid point: (sweep, point, extra, clip config, trainer
+    config), held to VIT_STATED."""
+    sweep = load_sweep(TRIMODAL)
+    point = next(expand_grid(sweep))
+    extra = dict(sweep.extra_args, image_encoder="vit")
+    clip_cfg = build_clip_config(point, extra, nband=NBAND)
+    tcfg = dataclasses.replace(build_trainer_config(point, extra), epochs=VIT_EPOCHS)
+    vk = clip_cfg.vk()
+    stated = ((vk["emb"], vk["depth"], vk["heads"], vk["patch_size"], vk["mlp_mult"],
+               vk["n_out"]), (IMAGE_SIZE // vk["patch_size"]) ** 2, vk["emb"] // vk["heads"],
+              tcfg.batch_size)
+    log(f"vit: {TRIMODAL}'s first grid point with extra_args.image_encoder vit; ViT {vk}; "
+        f"LC {clip_cfg.tk()}; SP {clip_cfg.tsk()}; trainer {tcfg}; cut: epochs "
+        f"{point['epochs']} -> {VIT_EPOCHS}")
+    if stated != VIT_STATED:
+        raise AssertionError(f"vit: the grid point gives {stated}, not {VIT_STATED}")
+    return sweep, point, extra, clip_cfg, tcfg
+
+
+def _vit_flash_times(gen, b, dtype_name):
+    """The flash forward and backward at the ViT's (B, 4, 36, 32), no mask, in
+    the encoder's layout: both on the CUDA-core route, held to
+    dense_attention and its autograd (TOL / GRAD_TOL; bf16 also NORM_TOL),
+    then timed as phases kernel and kernel-bwd time every flash row (CUDA
+    events, device sums, the wrapper's host time, the plain version, and
+    scaled_dot_product_attention at scale S**-0.5 with its autograd).
+    Returns ({"fwd": times, "bwd": times}, max|err|)."""
+    h, t, s = VIT_STATED[0][2], VIT_STATED[1], VIT_STATED[2]
+    dtype = getattr(torch, dtype_name)
+    fwd, bwd = flash_mod._flash_fwd, flash_mod.flash_attention_bwd
+    flash_attention = flash_mod.flash_attention
+    q, k, v = _heads(gen, b, h, t, s, dtype, True)
+    g = torch.randn((b, t, h, s), generator=gen).to("cuda", dtype).transpose(1, 2)
+    if flash_mod._route(dtype, s, (q, k, v)) != "simt":
+        raise AssertionError(f"vit {dtype_name}: head dim {s} is not on the CUDA-core route")
+    out, stats = fwd(q, k, v, None, s, with_stats=True)
+    want = dense_attention(q, k, v, None, s)
+    got = bwd(q, k, v, None, out, stats, g, s)
+    want_g = dense_attention_bwd(q, k, v, None, g, s)
+    errs = {}
+    for name, a, w, tol in (("out", out, want, TOL[dtype_name]),
+                            *((n, a, w, GRAD_TOL[dtype_name])
+                              for n, a, w in zip(("dq", "dk", "dv"), got, want_g))):
+        errs[name] = float((a.float() - w.float()).abs().max())
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"vit flash {b} {dtype_name} {name}: {m}")
+        rel, ntol = _route_norm(a, w, dtype, "simt", f"vit flash {b} {dtype_name} {name}")
+        errs[name + "_norm"] = rel
+    times = {"fwd": {}, "bwd": {}}
+    tf, tb = times["fwd"], times["bwd"]
+    tf["simt"] = _time_ms(lambda: flash_attention(q, k, v, None, s))
+    tf["simt_device"] = _device_ms(lambda: flash_attention(q, k, v, None, s))
+    tf["simt_host"] = _host_ms(lambda: flash_attention(q, k, v, None, s))
+    tf["plain"] = _time_ms(lambda: dense_attention(q, k, v, None, s))
+    tf["library"] = _time_ms(lambda: _sdpa(q, k, v, None, s))
+    tf["library_device"] = _device_ms(lambda: _sdpa(q, k, v, None, s))
+    tb["simt"] = _time_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
+    tb["simt_device"] = _device_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
+    tb["simt_host"] = _host_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    plain_out, lib_out = dense_attention(*leaves, None, s), _sdpa(*leaves, None, s)
+    tb["plain"] = _time_ms(lambda: torch.autograd.grad(plain_out, leaves, g,
+                                                       retain_graph=True))
+    tb["library"] = _time_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                         retain_graph=True))
+    tb["library_device"] = _device_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                                  retain_graph=True))
+    shape = (b, h, t, s)
+    log(f"vit flash {shape} {dtype_name}, no mask, CUDA cores: max|err| " + ", ".join(
+        f"{n} {e:.3e}" if not n.endswith("_norm") else f"{n} {_fmt(e)}"
+        for n, e in errs.items()) + f" (tol {TOL[dtype_name]} / {GRAD_TOL[dtype_name]}"
+        f"{', norm ' + str(NORM_TOL) if dtype == torch.bfloat16 else ''})")
+    for part in ("fwd", "bwd"):
+        log(f"time-vit {part} {shape} {dtype_name}: " + ", ".join(
+            f"{r} {ms:.4f} ms" for r, ms in times[part].items()) + " " + TIMING_NOTE)
+    return times, max(v for n, v in errs.items() if not n.endswith("_norm"))
+
+
+@contextlib.contextmanager
+def _recorded_attention():
+    """Every attention call of the ViT recorded: (q, k, v, head dim, its
+    output, and after the backward the cotangent and the q, k, v
+    gradients), the call itself going through ``vit_mod.attention`` as it
+    is."""
+    calls, real = [], vit_mod.attention
+
+    def recording(q, k, v, mask, emb):
+        out = real(q, k, v, mask, emb)
+        rec = {"qkv": (q.detach(), k.detach(), v.detach()), "emb": emb, "out": out.detach()}
+        calls.append(rec)
+        out.register_hook(lambda g: rec.__setitem__("g", g))
+        for name, a in zip("qkv", (q, k, v)):
+            a.register_hook(lambda g, name=name: rec.__setitem__("d" + name, g))
+        return out
+
+    with mock.patch.object(vit_mod, "attention", recording):
+        yield calls
+
+
+# bf16 dq of the ViT's layers: its distance to the float64 gradient over the
+# plain bf16 version's. At the tower's own activations (36 near-uniform keys)
+# dP - D cancels, and both bf16 paths sit about 1e-2 from float64 in
+# ||err|| / ||ref|| (a CPU model of the kernel's arithmetic, dS rounded to bf16
+# as the TPU kernel rounds it, against the plain version's dP rounded to bf16:
+# 0.90-1.06 of it over the six layers); dq x 0.99 reads about 1.4
+VIT_BF16_DQ_RATIO = 1.2
+
+
+def _vit_layer_errors(calls):
+    """Each recorded attention call's output and its q, k, v gradients against
+    dense_attention and its autograd on the same inputs and cotangent:
+    {name: (max|diff| / max|plain|, ||diff|| / ||plain||)}, the worst over
+    the layers, and "dq_ratio": the worst ratio of dq's distance to the
+    float64 gradient to the plain version's (||.|| / ||ref||)."""
+    worst = {}
+    for rec in calls:
+        q, k, v = rec["qkv"]
+        want = dense_attention(q, k, v, None, rec["emb"])
+        grads = dense_attention_bwd(q, k, v, None, rec["g"], rec["emb"])
+        for name, got, ref in (("out", rec["out"], want),
+                               *((n, rec[n], w) for n, w in zip(("dq", "dk", "dv"), grads))):
+            err = (float((got.float() - ref.float()).abs().max())
+                   / float(ref.float().abs().max()), _norm_err(got, ref) or 0.0)
+            worst[name] = tuple(max(a, b) for a, b in zip(worst.get(name, (0.0, 0.0)), err))
+        ref64 = _attention_f64_grads(q, k, v, None, rec["g"], rec["emb"])[0]
+        ratio = _norm_err(rec["dq"], ref64) / _norm_err(grads[0], ref64)
+        worst["dq_ratio"] = max(worst.get("dq_ratio", 0.0), ratio)
+    return worst
+
+
+def _vit_bf16_tower(vk, gen_seed=5):
+    """The ViT tower of ``vk`` alone in bf16 (B = 32, 60 x 60 images), one
+    forward and backward on the kernel path, from the same weights as the
+    plain path's and a float32 plain run's. Held: each of its 6 attention
+    layers' output, dk and dv against dense_attention and its autograd on
+    the layer's own inputs and cotangent, and the tower's output against the
+    plain path's, within 0.05 of the largest and NORM_TOL in ||got - want||
+    / ||want||; dq within 0.05 and, in place of NORM_TOL (both bf16 paths sit
+    about 1e-2 from float64 there), no farther from the float64 gradient than
+    VIT_BF16_DQ_RATIO x the plain version; the dq x 0.99 control must fail
+    the dq check. The parameter gradients, which two bf16 runs of the same
+    math spread by up to 6e-2 normalised (a CPU probe: the plain path
+    against itself with attention rounded once from float32), are held to
+    be no farther from the float32 run's than 2x the plain bf16 path's.
+    Returns the launches (6 + 6 on the CUDA cores)."""
+    b = VIT_STATED[3]
+    x = torch.rand((b, IMAGE_SIZE, IMAGE_SIZE, 3),
+                   generator=torch.Generator().manual_seed(gen_seed)).to(DEVICE)
+    w = torch.randn((b, vk["n_out"]),
+                    generator=torch.Generator().manual_seed(gen_seed + 1)).to(DEVICE)
+    outs, grads, counts, layers = {}, {}, {}, {}
+    for path, dtype in (("float32", None), ("plain", torch.bfloat16),
+                        ("kernel", torch.bfloat16), (WRONG_DQ, torch.bfloat16)):
+        tower = ViT(dtype=dtype, image_size=IMAGE_SIZE, **vk)
+        init_weights(tower, torch.Generator().manual_seed(0))
+        tower = tower.to(DEVICE)
+        ctx = PATHS["plain" if path == "float32" else path][1]
+        with ctx(), _plain_calls() as plain, _recorded_attention() as calls:
+            _zero_counts()
+            out = tower(x)
+            (out.float() * w).sum().backward()
+            counts[path] = _counts()
+        if path in ("kernel", WRONG_DQ):
+            if plain:
+                raise AssertionError(f"vit bf16 {path}: {len(plain)} plain calls")
+            layers[path] = _vit_layer_errors(calls)
+        outs[path] = out.detach()
+        grads[path] = {n: p.grad for n, p in tower.named_parameters()}
+        del tower, calls
+    depth = vk["depth"]
+    _check_counts("vit bf16 tower", counts["kernel"], (depth, depth) + (0,) * 12)
+    _check_counts("vit bf16 tower plain", counts["plain"], NONE)
+    out_err = (float((outs["kernel"].float() - outs["plain"].float()).abs().max())
+               / float(outs["plain"].float().abs().max()), _norm_err(outs["kernel"], outs["plain"]))
+    held = {n: e for n, e in layers["kernel"].items() if n != "dq_ratio"}
+    held["tower_out"] = out_err
+    bad = {n: e for n, e in held.items() if not (e[0] <= GRAD_TOL["bfloat16"] and (
+        e[1] <= NORM_TOL or n == "dq"))}
+    if not layers["kernel"]["dq_ratio"] <= VIT_BF16_DQ_RATIO:
+        bad["dq_ratio"] = layers["kernel"]["dq_ratio"]
+    control = layers[WRONG_DQ]["dq_ratio"]
+    ratio = {}
+    for n, g32 in grads["float32"].items():
+        ratio[n] = ((_norm_err(grads["kernel"][n], g32) or 0.0)
+                    / max(_norm_err(grads["plain"][n], g32) or 0.0, 1e-30))
+    top = max(ratio, key=ratio.get)
+    spread = max(grads["plain"], key=lambda n: _norm_err(grads["kernel"][n], grads["plain"][n]))
+    log(f"vit bf16 tower (B={b}): each of {depth} attention layers against the plain "
+        f"versions on its own inputs (max|diff|/max|plain|, normalised): " + ", ".join(
+            f"{n} {e[0]:.3e} / {e[1]:.3e}" for n, e in held.items())
+        + f" (tol {GRAD_TOL['bfloat16']} / {NORM_TOL}, dq's normalised not held); dq's "
+        f"distance to float64 over the plain version's, the worst {layers['kernel']['dq_ratio']:.3f} "
+        f"(tol {VIT_BF16_DQ_RATIO}); {WRONG_DQ}: {control:.3f} (must exceed "
+        f"{VIT_BF16_DQ_RATIO}); {len(ratio)} parameter gradients: the "
+        f"kernel path's distance to the float32 run over the plain bf16 path's, the worst "
+        f"{ratio[top]:.3f} at {top} (tol 2); kernel against plain bf16, the widest "
+        f"{_norm_err(grads['kernel'][spread], grads['plain'][spread]):.3e} at {spread} "
+        f"(not held); launches {counts['kernel']}")
+    if bad or not control > VIT_BF16_DQ_RATIO or ratio[top] > 2.0:
+        raise AssertionError(f"vit bf16 tower: {bad}, control {control:.3e}, gradient ratio "
+                             f"{ratio[top]:.3f} at {top}")
+    return counts["kernel"]
+
+
+def phase_vit(card):
+    """The ViT image tower in a trimodal model on the card: Trainer.fit into a
+    run dir, the run dir rebuilt without its sidecar, served, the float32
+    trajectory and gradients against the plain path, the tower in bf16, the
+    step's time and profile, and the flash rows 1a/2a timed at its shape.
+    Returns the launches of every counted call and the timings."""
+    t_phase = time.perf_counter()
+    sweep, point, extra, clip_cfg, tcfg = _vit_setup()
+    depth, seq = clip_cfg.vk()["depth"], clip_cfg.tk()["depth"] + clip_cfg.tsk()["depth"]
+    # float32: the ViT's layers on the CUDA cores, the sequence towers' on 3xTF32
+    per_step = (depth, depth) + (0,) * 10 + (seq, seq)
+    sp_len = int(extra["max_spectral_data_len"])
+    ds = make_synthetic_dataset(n=VIT_N, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=sp_len,
+                                image_size=IMAGE_SIZE, modalities=clip_cfg.combinations, seed=0)
+    train_ds, val_ds = _split(ds, extra["val_fraction"])
+    b = tcfg.batch_size
+    train_steps, eval_steps = -(-len(train_ds) // b), -(-len(val_ds) // b)
+    total = NONE
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) Trainer.fit into a run dir of a sweep directory
+        run_dir = os.path.join(tmp, "trimodal-vit", "run-0")
+        model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        result, counts = _fit_counted(
+            "vit fit", Trainer(model, "contrastive", tcfg, run_dir=run_dir), train_ds, val_ds,
+            _fit_want(per_step, VIT_EPOCHS, train_steps, eval_steps),
+            config_dump=dict(point, epochs=VIT_EPOCHS))
+        total = tuple(a + c for a, c in zip(total, counts))
+        keys = ("train_loss", "val_loss", "AUC_val1", "AUC_val2", "AUC_val3")
+        if not all(np.isfinite(r[k]) for r in result["metric_rows"] for k in keys):
+            raise AssertionError(f"vit fit: {result['metric_rows']}")
+
+        # (b) the sidecar path, then the schema path: no model_config.json, the
+        # sweep's sweep_config.yaml beside the run
+        fields = ("x_img", "x_lc", "t_lc", "mask_lc", "x_sp", "t_sp", "mask_sp")
+        feed = {k: val_ds.arrays[k][:b] for k in fields}
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in feed.items()}
+        trained = result["state"].model.eval()
+        with torch.no_grad():
+            live = [e.cpu().numpy() for e in trained.encode(batch)]
+            side_model, _ = load_model(run_dir, DEVICE, which="last")
+            side = [e.cpu().numpy() for e in side_model.encode(batch)]
+        os.remove(os.path.join(run_dir, "model_config.json"))
+        with open(os.path.join(tmp, "trimodal-vit", "sweep_config.yaml"), "w") as f:
+            f.write(dump_yaml(dict(sweep.raw, extra_args=extra)))
+        schema_model, _ = load_model(run_dir, DEVICE, which="last")
+        with torch.no_grad():
+            schema = [e.cpu().numpy() for e in schema_model.encode(batch)]
+        err = max(float(np.abs(a - w).max()) for a, w in zip(schema, side))
+        err_live = max(float(np.abs(a - w).max()) for a, w in zip(side, live))
+        same_cfg = schema_model.cfg == side_model.cfg
+        log(f"vit run dir: load_model by the sidecar (within {err_live:.3e} of the trained "
+            f"model), then without it from config.yaml + sweep_config.yaml: max|schema - "
+            f"sidecar| {err:.3e} (tol {RUN_DIR_EMBED_TOL}); the same CLIPConfig: {same_cfg}")
+        if err > RUN_DIR_EMBED_TOL or err_live > RUN_DIR_EMBED_TOL:
+            raise AssertionError(f"vit run dir: schema {err:.3e}, sidecar {err_live:.3e}")
+
+        # (c) served through load_live (the schema path), against the encode
+        served = load_live(run_dir, b, device=DEVICE, which="last", lc_len=LC_LEN,
+                           sp_len=sp_len)
+        with _plain_calls() as plain, torch.no_grad():
+            _zero_counts()
+            got = served.fn(feed)
+            counts = _counts()
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, live))
+        log(f"vit serve: load_live (x_img {served.input_spec['x_img'][0]}), {b} "
+            f"samples: max|served - encode| {err:.3e} (tol {RUN_DIR_EMBED_TOL}); launches "
+            f"{counts}, {len(plain)} plain calls")
+        _check_counts("vit serve", counts, per_step[:1] + (0,) * 11 + (seq, 0))
+        if err > RUN_DIR_EMBED_TOL or plain:
+            raise AssertionError(f"vit serve: {err:.3e}, {len(plain)} plain calls")
+        total = tuple(a + c for a, c in zip(total, counts))
+        del result, model, trained, side_model, schema_model, served
+
+    # (d) the float32 trajectory on the kernel path against the plain path
+    plan = epoch_indices(len(train_ds), b, rng=np.random.default_rng(1), shuffle=True,
+                         pad="wrap")[:VIT_TRAJ_STEPS]
+    data = train_ds.to_device(DEVICE)
+    losses = {}
+    for path in ("kernel", "plain"):
+        model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                                 weight_decay=tcfg.weight_decay)
+        run = make_epoch_runner(model, tcfg.noise_level_mag,
+                                noise_level_img=tcfg.noise_level_img)
+        with PATHS[path][1](), _plain_calls() as plain:
+            _zero_counts()
+            _, got = run(TrainState(model, opt), data, plan,
+                         torch.Generator(device=DEVICE).manual_seed(2))
+            counts = _counts()
+        want = NONE if path == "plain" else tuple(c * len(plan) for c in per_step)
+        if counts != want or (plain and path == "kernel"):
+            raise AssertionError(f"vit trajectory {path}: launches {counts}, want {want}")
+        losses[path] = got.cpu().numpy()
+        total = tuple(a + c for a, c in zip(total, counts))
+    rel = np.abs(losses["kernel"] - losses["plain"]) / np.abs(losses["plain"])
+    log(f"vit trajectory: {len(plan)} float32 steps (noise and rotation on, the same draws), "
+        f"kernel {losses['kernel'].tolist()}, plain {losses['plain'].tolist()}, worst "
+        f"relative difference {rel.max():.3e} (tol {TRAJ_RTOL})")
+    if not np.all(np.isfinite(losses["kernel"])) or rel.max() > TRAJ_RTOL:
+        raise AssertionError(f"vit: the kernel path's trajectory leaves the plain path's: {rel}")
+
+    # (e) every parameter's float32 gradient, with the dq x 0.99 control
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    counts = _towers_grads("vit", clip_cfg, one, per_step)
+    total = tuple(a + c for a, c in zip(total, counts))
+
+    # (f) the tower alone in bf16
+    counts = _vit_bf16_tower(clip_cfg.vk())
+    total = tuple(a + c for a, c in zip(total, counts))
+
+    # (g) the step's host clock and one profile
+    model = CLIPModel(clip_cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr)
+    state = TrainState(model, opt)
+    step = make_train_step(model, tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    tbatch = take(data, torch.arange(b, device=DEVICE))
+    _zero_counts()
+    times, loss = _host_step_ms(step, state, tbatch, gen, VIT_TIMED)
+    traced = _trace(lambda: step(state, tbatch, gen), PROFILED_STEPS)
+    counts = _counts()
+    _check_counts("vit timed steps", counts,
+                  tuple(c * (VIT_TIMED + 2 + PROFILED_STEPS) for c in per_step))
+    total = tuple(a + c for a, c in zip(total, counts))
+    log(f"vit: train step (B={b}, float32, ViT image tower) host clock median "
+        f"{np.median(times):.3f} ms (quartiles {np.percentile(times, 25):.3f}-"
+        f"{np.percentile(times, 75):.3f}) over {VIT_TIMED}; loss {float(loss):.5f}; card {card}")
+    _log_trace("vit profile", "train steps", *traced, at=f"B={b} float32")
+    del model, opt, state, data, one, tbatch
+
+    # (h) rows 1a and 2a at the tower's shape, B = 32 and 256, both dtypes
+    gen = torch.Generator().manual_seed(11)
+    timing, worst = {}, 0.0
+    for bb in VIT_TIMED_B:
+        for dtype_name in ("float32", "bfloat16"):
+            timing[(bb, dtype_name)], err = _vit_flash_times(gen, bb, dtype_name)
+            worst = max(worst, err)
+    torch.cuda.empty_cache()
+    log(f"vit: launches {COUNT_NAMES} {total}; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, timing, worst
+
+
 def _maven_split(n, sp_len, modalities, val_fraction):
     """The synthetic set of a stage (2 x LC_LEN light-curve points, T_sp =
     ``sp_len``), split at the config's val_fraction."""
@@ -3730,8 +4157,7 @@ def phase_sim(card, tmp):
     timed, step_ms, dev_ms = _maven_timing("sim pretrain", make(), tcfg, one, per_step, card)
     total = tuple(sum(c) for c in zip(total, traj, timed))
     del data, one, train, ds
-    shutil.rmtree(cache_dir)
-    os.remove(path)
+    shutil.rmtree(cache_dir)  # the corpus stays for phase stream, which deletes it
     torch.cuda.empty_cache()
 
     # (d) cli.pretrain_masked --source sim on a legacy TransientTable file
@@ -3785,6 +4211,230 @@ def phase_sim(card, tmp):
         f"{step_ms:.3f} ms, device {dev_ms:.3f} ms; launches per route {COUNT_NAMES}: "
         f"{total}; card {card}")
     log(f"sim: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# phase stream: Maven's first stage from phase sim's corpus through
+# cli.pretrain_sim --streaming: the corpus held out and cut into shards of
+# STREAM_ROWS_PER_SHARD rows on disk, trained shard by shard, each shard's
+# upload under the previous shard's steps
+STREAM_ROWS_PER_SHARD = 10_240  # 10 steps of B = 1024: 4 full shards and a partial one
+STREAM_CUT_AFTER = 2  # the cut run's cursor save raises after its third shard
+
+
+def _stream_profile(run):
+    """``run()`` under torch.profiler (device activity): (its result, the
+    share of the pinned host-to-device copies' time that overlaps a kernel,
+    the device idle share over the trace, the copies' count and ms)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    dev = _device_spans(prof)
+    if not dev:
+        raise AssertionError("stream profile: the trace holds no device op")
+    uploads = [(a, b) for a, b, n in dev if "HtoD" in n and "Pinned" in n]
+    kernels = sorted((a, b) for a, b, n in dev if "Memcpy" not in n and "Memset" not in n)
+
+    def union(spans):
+        merged = []
+        for a, b in sorted(spans):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        return merged
+
+    busy_k = union(kernels)
+    hidden = sum(max(0, min(b, kb) - max(a, ka)) for a, b in uploads for ka, kb in busy_k)
+    up = sum(b - a for a, b in uploads)
+    busy = sum(b - a for a, b in union((a, b) for a, b, _ in dev))
+    wall = max(b for _, b, _ in dev) - min(a for a, _, _ in dev)
+    return out, (hidden / up if up else None), 1 - busy / wall, len(uploads), up / 1e3
+
+
+def _stream_fit(sds, val, point, extra, run_dir, prefetch=None, resume=False):
+    """One epoch of fit_sharded of maven_pretrain's point (run_sweep_streaming's
+    model, weights and trainer config) into ``run_dir``."""
+    model, task, _, _, tcfg = _build_run(point, extra, NBAND, None, SIM_EPOCHS)
+    trainer = Trainer(model.to(DEVICE), task, tcfg, run_dir=run_dir)
+    return trainer.fit_sharded(sds, val, config_dump=dict(point), resume=resume,
+                               prefetch=prefetch)
+
+
+def phase_stream(card, tmp):
+    """Maven's first stage trained from a sharded cache of phase sim's corpus
+    (``tmp/sim``): cli.pretrain_sim --streaming (the cache written, one
+    epoch, launches counted), the shards' rows bitwise the in-memory
+    holdout's, the first steps against the plain path, a run cut after its
+    third shard's cursor (profiled: the uploads' share hidden under kernels,
+    the idle share) and resumed against the uninterrupted run, and the
+    epoch with prefetch off. Deletes the corpus. Returns the launches of
+    every counted call."""
+    t_phase = time.perf_counter()
+    sweep, point, model, task, tcfg = _maven_pretrain_point("stream", SIM_EPOCHS)
+    extra, b = sweep.extra_args, tcfg.batch_size
+    layers = model.cfg.tk()["depth"] + model.cfg.tsk()["depth"]
+    per_step = _tf32_flash(layers, layers)
+    del model
+    sim_dir = os.path.join(tmp, "sim")
+    path = os.path.join(sim_dir, extra["filename_trainset"])
+    cache_dir, analysis = os.path.join(tmp, "stream-cache"), os.path.join(tmp, "stream-analysis")
+    config = cli_pretrain_sim.ingest_config(path, extra)
+    val_fraction = float(extra["val_fraction"])
+    on_card = torch.device(DEVICE).type == "cuda"  # prefetch is the card's: a CPU run reads in turn
+
+    # (a) cli.pretrain_sim --streaming: the cache written, then one epoch
+    results = []
+    real_runner = experiment_mod.run_sweep_streaming
+
+    def kept(*args, **kw):
+        results.extend(real_runner(*args, **kw))
+        return results
+
+    with mock.patch.object(experiment_mod, "run_sweep_streaming", kept):
+        counts, wall, out = _cli_counted("stream pretrain", cli_pretrain_sim.main, [
+            MAVEN_PRETRAIN, "--data-dir", sim_dir, "--cache-dir", cache_dir, "--analysis-path",
+            analysis, "--device", DEVICE, "--epochs", str(SIM_EPOCHS), "--streaming",
+            "--rows-per-shard", str(STREAM_ROWS_PER_SHARD)])
+    (stream_dir,) = [os.path.join(cache_dir, d) for d in os.listdir(cache_dir)]
+    sds, val = ShardedDataset(stream_dir), load_val_split(stream_dir)
+    sizes, steps_full = sds.shard_sizes, -(-sds.shard_sizes[0] // b)
+    n_steps, eval_steps = len(sizes) * steps_full, -(-len(val) // b)
+    want = _fit_want(per_step, SIM_EPOCHS, n_steps, eval_steps)
+    res = results[0]
+    run_dir = res["run_dir"]
+    files = set(os.listdir(run_dir))
+    feed = res["shard_feed"]
+    on_s = res["metric_rows"][0]["step_time_s"] * n_steps
+    log(f"stream pretrain: {os.path.basename(stream_dir)}: {len(sds)} train rows in shards of "
+        f"{sizes} ({feed['shard_bytes'] / 1e6:.1f} MB the first), {len(val)} validation rows "
+        f"held out at {val_fraction}; {n_steps} train steps ({steps_full} a shard) + "
+        f"{eval_steps} eval steps at B={b}; run files {sorted(files)}")
+    if (len(sizes) < 5 or not sizes[-1] < STREAM_ROWS_PER_SHARD or counts != want
+            or not set(RUN_DIR_FILES) <= files or "ckpt_cursor" not in files
+            or feed["prefetch"] != on_card or not np.isfinite(res["history"]["val_loss"][0])):
+        raise AssertionError(f"stream pretrain: shards {sizes}, launches {counts} (want "
+                             f"{want}), files {sorted(files)}, prefetch {feed['prefetch']}")
+    total = counts
+
+    # (b) the shards and the held-out rows bitwise the in-memory holdout's
+    t0 = time.perf_counter()
+    holdout = ValHoldout(val_fraction, seed=0)
+    parts = list(holdout.wrap(iter_simulation_chunks(**config)))
+    in_memory = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    shards_ok = _bitwise(sds.materialize().arrays, in_memory)
+    val_ok = _bitwise(val.arrays, holdout.dataset().arrays)
+    log(f"stream cache: every shard's rows bitwise the in-memory holdout of "
+        f"iter_simulation_chunks: {shards_ok}; the validation split: {val_ok} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not shards_ok or not val_ok:
+        raise AssertionError("stream cache: the shards differ from the in-memory holdout")
+    del parts, in_memory, holdout
+
+    # (c) the first steps of the epoch's first shard against the plain path
+    si, plan = shard_epoch_schedule(sds, b, np.random.default_rng(tcfg.seed))[0]
+    data = {k: torch.from_numpy(np.array(v)).to(DEVICE)
+            for k, v in sds.load_shard(si).arrays.items()}
+
+    def make():
+        return _build_run(point, extra, NBAND, None, None)[0].to(DEVICE)
+
+    counts = _maven_trajectory("stream", make, tcfg, data, plan[:SIM_TRAJ_STEPS], per_step)
+    total = tuple(a + c for a, c in zip(total, counts))
+    del data
+
+    # (d) a run cut after its third shard's cursor, resumed, against (a)'s run
+    real_save = ckpt_mod.StreamCursor.save
+
+    def save_then_cut(self, state, epoch, shard_pos, *args, **kw):
+        real_save(self, state, epoch, shard_pos, *args, **kw)
+        if shard_pos == STREAM_CUT_AFTER:
+            raise _Stop()
+
+    def cut_run():
+        try:
+            with mock.patch.object(ckpt_mod.StreamCursor, "save", save_then_cut):
+                _stream_fit(sds, val, point, extra, cut_dir)
+        except _Stop:
+            return True
+        return False
+
+    # the cut run under torch.profiler: its three shards, the first uploaded in
+    # turn, the second, third and fourth prefetched
+    cut_dir = os.path.join(tmp, "stream-cut", "run-0")
+    with _plain_calls() as plain:
+        _zero_counts()
+        was_cut, hidden, idle, n_up, up_ms = _stream_profile(cut_run)
+        if not was_cut:
+            raise AssertionError("stream cut: the run was not cut")
+        cut_counts = _counts()
+        _zero_counts()
+        resumed = _stream_fit(sds, val, point, extra, cut_dir, resume=True)
+        counts = _counts()
+    want_cut = tuple(c * (STREAM_CUT_AFTER + 1) * steps_full for c in per_step)
+    if (plain or cut_counts != want_cut
+            or tuple(a + c for a, c in zip(cut_counts, counts)) != want):
+        raise AssertionError(f"stream cut: launches {cut_counts} then {counts} (want "
+                             f"{want_cut}, together {want}), {len(plain)} plain")
+    total = tuple(a + c + d for a, c, d in zip(total, cut_counts, counts))
+    ref = torch.load(os.path.join(run_dir, "last.ckpt"), map_location="cpu",
+                     weights_only=True)["state_dict"]
+    got = torch.load(os.path.join(cut_dir, "last.ckpt"), map_location="cpu",
+                     weights_only=True)["state_dict"]
+    errs = {k: float((got[k].float() - v.float()).abs().max()) / max(
+        float(v.float().abs().max()), 1e-30) for k, v in ref.items()}
+    bitwise = sum(torch.equal(got[k], v) for k, v in ref.items())
+    loss_rel = max(abs(a - w) / abs(w) for a, w in zip(
+        resumed["history"]["train_loss"] + resumed["history"]["val_loss"],
+        res["history"]["train_loss"] + res["history"]["val_loss"]))
+    worst = max(errs, key=errs.get)
+    log(f"stream cut: the run cut after shard {STREAM_CUT_AFTER} of {len(sizes)}, resumed from "
+        f"its cursor: losses within {loss_rel:.3e} of the uninterrupted run's (tol "
+        f"{RESUME_RTOL}), {bitwise} of {len(ref)} state_dict tensors bitwise, the worst "
+        f"max|diff|/max|want| {errs[worst]:.3e} at {worst} (tol {RESUME_PARAM_TOL})")
+    if loss_rel > RESUME_RTOL or errs[worst] > RESUME_PARAM_TOL:
+        raise AssertionError(f"stream cut: the resumed run leaves the uninterrupted one: "
+                             f"{loss_rel:.3e}, {errs[worst]:.3e}")
+    shutil.rmtree(os.path.dirname(cut_dir))
+
+    log(f"stream profile: the cut run ({STREAM_CUT_AFTER + 1} shards, prefetch on, from "
+        f"its model's build to the cut) under torch.profiler (device activity): {n_up} "
+        f"pinned copies, {up_ms:.3f} ms, {100 * hidden:.1f}% of their time under kernels; "
+        f"device idle share {idle:.3f}")
+
+    # (e) the epoch with prefetch off (the CLI's run had it on)
+    run = os.path.join(tmp, "stream-off", "run-0")
+    save_ms = []
+
+    def timed_save(self, *args, **kw):
+        t0 = time.perf_counter()
+        real_save(self, *args, **kw)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    with _plain_calls() as plain, mock.patch.object(ckpt_mod.StreamCursor, "save", timed_save):
+        _zero_counts()
+        off = _stream_fit(sds, val, point, extra, run, prefetch=False)
+        counts = _counts()
+    if plain or counts != want or off["shard_feed"]["prefetch"]:
+        raise AssertionError(f"stream off: launches {counts}, {len(plain)} plain")
+    total = tuple(a + c for a, c in zip(total, counts))
+    shutil.rmtree(os.path.dirname(run))
+    for tag, f, s_ms in (("on (the CLI's run)", feed, None), ("off", off["shard_feed"],
+                                                             save_ms)):
+        log(f"stream prefetch {tag}: epoch "
+            f"{(on_s if f is feed else off['metric_rows'][0]['step_time_s'] * n_steps):.3f} s "
+            f"by the host clock ({n_steps} steps, B={b}); uploads "
+            f"{[round(u, 3) for u in f['upload_ms']]} ms on the side stream, staging "
+            f"{[round(s, 2) for s in f['stage_ms']]} ms, the trainer's wait for each shard "
+            f"{[round(w, 2) for w in f['wait_ms']]} ms on the host"
+            + ("" if s_ms is None else
+               f", each cursor save {[round(c, 2) for c in s_ms]} ms") + f"; card {card}")
+    shutil.rmtree(cache_dir)
+    shutil.rmtree(sim_dir)
+    torch.cuda.empty_cache()
+    log(f"stream: launches {COUNT_NAMES} {total}; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -4299,6 +4949,9 @@ EVAL_B = 256  # the evaluation CLIs' default batch
 # rows that sit near a tie on the kernel path's embeddings
 EVAL_REG_RTOL, EVAL_MARGIN, EVAL_GAP = 1e-4, 1e-4, 1e-5
 EVAL_SEED = 7  # infer --seed of the masked run's anomaly scores
+# runs whose every probe is fitted on both paths' embeddings (run-0; run-1's
+# embeddings are still held to the plain path's): the smoke's time limit
+EVAL_PROBE_RUNS = 1
 _PARAMS_LINE = re.compile(r"^run-0: .*\| ([\d,]+) params", re.M)
 
 
@@ -4391,8 +5044,8 @@ def _probes_against_plain(tag, names, kern, plain, z, y, seconds):
 def phase_evaluate(card, tmp):
     """Phase ingest's run dirs and tree evaluated through the evaluation
     CLIs: cli.evaluate on the two maven-lite fold runs (every embedding batch
-    18 3xTF32 flash forwards, the kernel path's embeddings and every probe
-    against the plain path's), a 1-epoch cli.supervise run of
+    18 3xTF32 flash forwards, the kernel path's embeddings against the
+    plain path's, and every probe of run-0 on both), a 1-epoch cli.supervise run of
     configs/config_grid.yaml and cli.evaluate on it (the supervised
     branch), cli.export_embeddings and cli.infer against the direct calls,
     and --check of the four training CLIs. Returns the launches of every
@@ -4458,6 +5111,8 @@ def phase_evaluate(card, tmp):
                                          f"path's")
             kern.append(embs)
             plain.append(want_embs)
+        if k >= EVAL_PROBE_RUNS:
+            continue
         z = (train_ds.arrays["redshift"], val_ds.arrays["redshift"])
         y = (train_ds.arrays["label"], val_ds.arrays["label"])
         got = _probes_against_plain(f"evaluate run-{k}", names, kern, plain, z, y, seconds)
@@ -4466,11 +5121,11 @@ def phase_evaluate(card, tmp):
         f"{TOL['float32']}), normalised {worst_norm:.3e}; host clock an embedding batch "
         f"(B = {EVAL_B}, float32, the split's tail batch included) median "
         f"{np.median(emb_ms):.3f} ms ({', '.join(f'{m:.3f}' for m in emb_ms)}); card {card}")
-    log(f"evaluate: every probe on both paths' embeddings: {probe_rows[0]} predictions, "
+    log(f"evaluate: every probe on both paths' embeddings of run-0: {probe_rows[0]} predictions, "
         f"{probe_rows[1]} of them near a tie (LinearSVC margin < {EVAL_MARGIN}, KNN gap <= "
         f"{EVAL_GAP}), {probe_rows[2]} differing, all near ties; regression within "
-        f"{EVAL_REG_RTOL} of the largest; host seconds by probe family (both runs, three "
-        f"inputs each): " + ", ".join(f"{f} {s:.3f}" for f, s in seconds.items()))
+        f"{EVAL_REG_RTOL} of the largest; host seconds by probe family ({EVAL_PROBE_RUNS} "
+        f"of {len(runs)} runs, three inputs each): " + ", ".join(f"{f} {s:.3f}" for f, s in seconds.items()))
 
     # (c) a 1-epoch supervised run through the supervisor, then its evaluation
     grid = load_sweep(GRID)
@@ -5917,8 +6572,7 @@ def _trace(fn, n):
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
-    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    dev = _device_spans(prof)
     if not dev:
         raise AssertionError("the trace holds no device op")
     busy, lo, hi = 0.0, dev[0][0], dev[0][1]
@@ -6046,10 +6700,12 @@ def main():
     train_qkv = phase_train("qkv")
     run_dir = phase_run_dir()
     towers = phase_towers(card)
+    vit, vit_timing, vit_err = phase_vit(card)
     os.makedirs("chiprun_out", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="chiprun_out", prefix="ingest-") as tmp:
         maven = phase_maven(card)
         sim = phase_sim(card, tmp)
+        stream = phase_stream(card, tmp)
         ingest = phase_ingest(card, tmp)
         evaluation = phase_evaluate(card, tmp)
         run = _cli_launch(tmp)  # phases dp's and tp's torchrun runs, beside phase ensemble
@@ -6063,17 +6719,19 @@ def main():
             _dp_stop(run)
     phase_profile()
     runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            maven, sim, ingest, evaluation, ensemble, dp, tp)
+            vit, maven, sim, stream, ingest, evaluation, ensemble, dp, tp)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
         f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, maven, sim, ingest, evaluate, ensemble, dp, tp, summed "
-        f"in the line: "
+        f"train-qkv, run-dir, towers, vit, maven, sim, stream, ingest, evaluate, ensemble, dp, "
+        f"tp, summed in the line: "
         f"{runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
     maven_lc, maven_sp = (4 * BATCH, 8, NBAND * LC_LEN, 8), (4 * BATCH, 2, TRAIN_SP_LEN, 16)
+    vit_shapes = {bb: (bb, VIT_STATED[0][2], VIT_STATED[1], VIT_STATED[2]) for bb in VIT_TIMED_B}
     for name, shape in (("LC", lc), ("SP serving", sp_fwd), ("SP training", sp_bwd),
-                        ("SP trimodal", tri), ("Maven LC", maven_lc), ("Maven SP", maven_sp)):
+                        ("SP trimodal", tri), ("Maven LC", maven_lc), ("Maven SP", maven_sp),
+                        *((f"ViT B={bb}", sh) for bb, sh in vit_shapes.items())):
         e_fwd, e_bwd = _exp_floor_ms(*shape[:3], exp_per_s)
         for peak in ("bfloat16", "tf32x3", "float32"):
             (f_ms, f_by), (b_ms, b_by) = _flash_bounds(*shape, peak)
@@ -6120,13 +6778,31 @@ def main():
             top[other] = entry("sp_t1024" if bwd else "sp_train")
         return top
 
+    def vit_entries(bwd, dtype):
+        """The CUDA-core flash entry at the ViT tower's shapes (phase vit),
+        under also_at_vit_b32 and also_at_vit_b256."""
+        peak = "bfloat16" if dtype == "bfloat16" else "float32"
+        out = {}
+        for bb, shape in vit_shapes.items():
+            t = vit_timing[(bb, dtype)]["bwd" if bwd else "fwd"]
+            bound = _flash_bounds(*shape, peak)[bwd]
+            out[f"also_at_vit_b{bb}"] = {
+                "ms": t["simt"], "device_ms": t["simt_device"], "host_ms": t["simt_host"],
+                "plain_ms": t["plain"], "bound_ms": bound[0], "bound_by": bound[1],
+                "exp_floor_ms": _exp_floor_ms(*shape[:3], exp_per_s)[bwd],
+                "library_ms": t["library"], "library_device_ms": t["library_device"],
+                "shape": f"(B, H, T, S) = {shape} {dtype}, no mask (the ViT tower)"}
+        return out
+
     measured = {  # name: (launches, max_abs_err, the rest of the entry)
         "flash_attention_fwd": (0, fwd_err["simt"], {
-            **flash("simt", 0), "float32": flash("simt", 0, "float32"),
-            "norm_err_float32": fwd_norm[("simt", "float32")]}),
+            **flash("simt", 0), **vit_entries(0, "bfloat16"),
+            "float32": {**flash("simt", 0, "float32"), **vit_entries(0, "float32")},
+            "norm_err_float32": fwd_norm[("simt", "float32")], "vit_max_abs_err": vit_err}),
         "flash_attention_bwd": (1, bwd_err["simt"], {
-            **flash("simt", 1), "float32": flash("simt", 1, "float32"),
-            "norm_err_float32": bwd_norm[("simt", "float32")]}),
+            **flash("simt", 1), **vit_entries(1, "bfloat16"),
+            "float32": {**flash("simt", 1, "float32"), **vit_entries(1, "float32")},
+            "norm_err_float32": bwd_norm[("simt", "float32")], "vit_max_abs_err": vit_err}),
         "flash_attention_fwd_mma": (2, fwd_err["mma"], {
             **flash("mma", 0), "norm_err": fwd_norm[("mma", "bfloat16")]}),
         "flash_attention_bwd_mma": (3, bwd_err["mma"], {

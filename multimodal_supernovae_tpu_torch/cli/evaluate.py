@@ -215,13 +215,14 @@ def main(argv=None) -> None:
 
     from ..data.ztfbts import load_ztfbts
     from ..evaluation.reports import metrics_to_latex
-    from ..models.factory import read_model_config
+    from ..models.factory import load_run_config
 
     datasets = {}  # towers: the dataset of their modalities
 
     def dataset_of(run_dir):
-        combos = tuple(read_model_config(run_dir)[1].get("combinations",
-                                                         ("lightcurve", "spectral")))
+        # the sidecar's extra, or the sweep config's extra_args without one
+        combos = tuple(load_run_config(run_dir)[1].get("combinations",
+                                                       ("lightcurve", "spectral")))
         if combos not in datasets:
             datasets[combos] = load_ztfbts(
                 args.data_dir,

@@ -4,8 +4,10 @@
 no device code).
 
 Wraps any of the port's training CLIs (train, finetune_clip,
-pretrain_masked), all of which accept ``--resume`` (continue each
-unfinished run from its ``last.ckpt``, skip grid points that completed)::
+pretrain_masked, pretrain_sim), all of which accept ``--resume`` (continue
+each unfinished run from its ``last.ckpt``, or under ``pretrain_sim
+--streaming`` from the shard after its ``StreamCursor``; skip grid points
+that completed)::
 
   python -m multimodal_supernovae_tpu_torch.cli.supervise [options] -- \
       python -m multimodal_supernovae_tpu_torch.cli.train cfg.yaml --data-dir ZTFBTS/
@@ -14,7 +16,7 @@ Behaviour: run the command; exit 0 ends supervision with 0. Any other exit
 (including signals: a killed child returns negative) relaunches the command
 after ``--backoff`` seconds with ``--resume`` appended (once), up to
 ``--max-restarts`` times. The resumed run redoes at most the epoch in
-flight when the child died.
+flight when the child died (a streaming run, at most the shard).
 
 ``--check`` preflights the supervised sweep instead: the command runs once
 with ``--check`` appended (the training CLIs' meta-device preflight, no

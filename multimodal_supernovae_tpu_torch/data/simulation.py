@@ -21,9 +21,9 @@ JAX package's, in its order, so both packages ingest a file bitwise alike.
 TID alignment between photometry and spectroscopy is checked group-wise,
 like the reference's per-item assert (dataloader.py:1191-1193).
 
-Not ported yet: ``stream_simulation_to_cache`` (the sharded cache of corpora
-larger than host memory; ROADMAP.md queue 1, item 17b) raises
-``NotImplementedError``.
+``stream_simulation_to_cache`` writes the same rows into a sharded cache
+(``data/streaming.py``) group by group instead, for a corpus larger than
+host or device memory, which ``Trainer.fit_sharded`` trains over.
 """
 
 from __future__ import annotations
@@ -133,9 +133,13 @@ def ingest_simulation(
 
 def stream_simulation_to_cache(hdf5_path: str, cache_dir: str, rows_per_shard: int = 65536,
                                **ingest_kwargs):
-    raise NotImplementedError(
-        "stream_simulation_to_cache is not ported yet (ROADMAP.md queue 1, item 17b: "
-        "data/streaming.py); ingest_simulation materialises the corpus instead")
+    """``iter_simulation_chunks(hdf5_path, **ingest_kwargs)`` into a sharded
+    cache of ``rows_per_shard`` rows a shard; returns its
+    ``ShardedDataset``. Holds at most a shard and a group in host memory."""
+    from .streaming import write_sharded_cache
+
+    return write_sharded_cache(cache_dir, iter_simulation_chunks(hdf5_path, **ingest_kwargs),
+                               rows_per_shard)
 
 
 def _ingest_group(

@@ -5,6 +5,7 @@ from .convert import (
     mlp_state_dict,
     seq_encoder_state_dict,
     state_dict_from_jax,
+    vit_state_dict,
 )
 from .convmixer import ConvMixer
 from .factory import (
@@ -28,6 +29,7 @@ from .transformer import (
     init_weights,
     time_positional_encoding,
 )
+from .vit import ViT, ViTBlock
 
 __all__ = [
     "CLIPConfig",
@@ -43,6 +45,8 @@ __all__ = [
     "TorchStyleMHA",
     "Transformer",
     "TransformerBlock",
+    "ViT",
+    "ViTBlock",
     "init_weights",
     "convmixer_state_dict",
     "finetune_model_builder",
@@ -56,5 +60,6 @@ __all__ = [
     "seq_encoder_state_dict",
     "state_dict_from_jax",
     "time_positional_encoding",
+    "vit_state_dict",
     "write_model_config",
 ]

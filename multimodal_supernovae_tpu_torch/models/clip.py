@@ -18,9 +18,10 @@ the repeated redshift, through an MLP). Three modes, as in the JAX package:
 and puts the image tower's BatchNorm in batch-statistics mode, updating its
 running statistics; eval mode (the default) uses the running ones. The
 image and meta towers and the head compute in float32 whatever
-``compute_dtype`` says (the JAX package builds them without a dtype). The
-ViT image tower is not ported yet (ROADMAP.md queue 1, item 14) and raises
-``NotImplementedError``.
+``compute_dtype`` says (the JAX package builds them without a dtype). With
+``image_encoder="vit"`` the image tower is the ViT (models/vit.py), whose
+blocks compute in ``compute_dtype`` as the JAX tower's do; ``image_size``
+sizes its positional embedding (a loaded state_dict brings its own).
 
 ``CLIPConfig`` is a jax-free copy of the JAX dataclass, with the same fields
 and defaults, so a ``model_config.json`` written by either side parses. Its
@@ -43,6 +44,7 @@ from ..ops import losses as L
 from .convmixer import ConvMixer
 from .mlp import MLP
 from .transformer import Dense, SequenceEncoder, init_weights
+from .vit import DEFAULT_IMAGE_SIZE, ViT
 
 MODALITIES = ("host_galaxy", "lightcurve", "spectral", "meta")
 
@@ -152,6 +154,9 @@ class CLIPConfig:
     def mk(self) -> Dict[str, Any]:
         return dict(self.meta_kwargs)
 
+    def vk(self) -> Dict[str, Any]:
+        return dict(self.vit_kwargs)
+
     @property
     def head_out(self) -> int:
         return self.n_classes if self.classification else 1
@@ -168,9 +173,12 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
 class CLIPModel(nn.Module):
     """The towers of ``cfg.combinations``, each with its float32 projection
     to ``enc_dim``, and, for a supervised config, the ``linear`` head.
-    Parameters are drawn from ``generator``."""
+    Parameters are drawn from ``generator``. ``image_size`` is the side of
+    the images a ViT tower takes (its ``pos_emb`` rows; default 60); the
+    ConvMixer takes any."""
 
-    def __init__(self, cfg: CLIPConfig, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: CLIPConfig, generator: Optional[torch.Generator] = None,
+                 image_size: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         combos = set(cfg.combinations)
@@ -189,15 +197,17 @@ class CLIPModel(nn.Module):
             self.spectral_projection = Dense(tsk["n_out"], cfg.enc_dim)
         if "host_galaxy" in combos:
             if cfg.image_encoder == "vit":
-                raise NotImplementedError(
-                    "image_encoder='vit' is not ported yet (ROADMAP.md queue 1, "
-                    "item 14: the ViT tower)")
-            if cfg.image_encoder != "convmixer":
+                vk = cfg.vk()
+                self.image_encoder = ViT(dtype=cfg.dtype,
+                                         image_size=image_size or DEFAULT_IMAGE_SIZE, **vk)
+                self.image_projection = Dense(vk["n_out"], cfg.enc_dim)
+            elif cfg.image_encoder == "convmixer":
+                ck = cfg.ck()
+                self.image_encoder = ConvMixer(**ck)
+                self.image_projection = Dense(ck["n_out"], cfg.enc_dim)
+            else:
                 raise ValueError(f"unknown image_encoder {cfg.image_encoder!r}: "
                                  "expected 'convmixer' or 'vit'")
-            ck = cfg.ck()
-            self.image_encoder = ConvMixer(**ck)
-            self.image_projection = Dense(ck["n_out"], cfg.enc_dim)
         if "meta" in combos:
             mk = cfg.mk()
             half = mk["input_dim"] // 2

@@ -2,7 +2,9 @@
 
 A copy of ``multimodal_supernovae_tpu/models/torch_export.py``
 (``_export_seq_encoder``, ``_export_convmixer``, ``_export_mlp`` and
-``export_reference_state_dict``) for the three model families: a flax
+``export_reference_state_dict``) for the three model families, and, beyond
+it, the ViT image tower (``vit_state_dict``; the JAX exporter refuses a
+ViT, so this is its only bridge): a flax
 parameter tree (and, for a ConvMixer, its ``batch_stats`` collection), as
 nested dicts of arrays, becomes the reference-layout state_dict that the
 port's ``CLIPModel``, ``MaskedLightCurveEncoder`` (``net.*`` and
@@ -22,7 +24,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 __all__ = ["convmixer_state_dict", "mlp_state_dict", "seq_encoder_state_dict",
-           "state_dict_from_jax"]
+           "state_dict_from_jax", "vit_state_dict"]
 
 
 def _w(kernel) -> np.ndarray:
@@ -119,6 +121,30 @@ def convmixer_state_dict(p: Dict[str, Any], stats: Dict[str, Any],
     return sd
 
 
+def vit_state_dict(p: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """ViT params -> ``ViT`` state_dict entries (models/vit.py keeps the flax
+    names; LayerNorm ``scale`` becomes ``weight``)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def norm(key: str, q: Dict[str, Any]):
+        sd[key + ".weight"] = _a(q["scale"])
+        sd[key + ".bias"] = _a(q["bias"])
+
+    _dense(sd, prefix + "patch_embed", p["patch_embed"])
+    sd[prefix + "pos_emb"] = _a(p["pos_emb"])
+    i = 0
+    while f"block_{i}" in p:
+        blk, b = p[f"block_{i}"], f"{prefix}block_{i}."
+        for name in ("toqueries", "tokeys", "tovalues", "unifyheads", "mlp_in", "mlp_out"):
+            _dense(sd, b + name, blk[name])
+        norm(b + "norm1", blk["norm1"])
+        norm(b + "norm2", blk["norm2"])
+        i += 1
+    norm(prefix + "norm_out", p["norm_out"])
+    _dense(sd, prefix + "head", p["head"])
+    return sd
+
+
 def mlp_state_dict(p: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     """MLP params (hidden_0 .. hidden_{n-1}, out) -> ``MLP`` state_dict
     entries (Linears at layers.0, 3, 6, ..., the head last)."""
@@ -154,15 +180,14 @@ def state_dict_from_jax(params: Dict[str, Any],
         "logit_bias": _a(params["logit_bias"]),
     }
     if "image_encoder" in params:
-        if "patch_bn" not in params["image_encoder"]:
-            raise NotImplementedError(
-                "the image tower is not a ConvMixer: the ViT is not ported yet "
-                "(ROADMAP.md queue 1, item 14)")
-        stats = (batch_stats or {}).get("image_encoder")
-        if stats is None:
-            raise ValueError("a ConvMixer image tower needs the batch_stats "
-                             "collection (BatchNorm running statistics)")
-        sd.update(convmixer_state_dict(params["image_encoder"], stats, "image_encoder."))
+        if "patch_bn" not in params["image_encoder"]:  # a ViT: no batch statistics
+            sd.update(vit_state_dict(params["image_encoder"], "image_encoder."))
+        else:
+            stats = (batch_stats or {}).get("image_encoder")
+            if stats is None:
+                raise ValueError("a ConvMixer image tower needs the batch_stats "
+                                 "collection (BatchNorm running statistics)")
+            sd.update(convmixer_state_dict(params["image_encoder"], stats, "image_encoder."))
         _dense(sd, "image_projection", params["image_projection"])
     for tower in ("lightcurve", "spectral"):
         if f"{tower}_encoder" in params:

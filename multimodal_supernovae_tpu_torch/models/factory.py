@@ -13,7 +13,9 @@ A servable run directory holds:
 best epochs, ``last.ckpt`` for the latest), so a run the port trained serves
 as it is. A run trained by the JAX package becomes one in two steps:
 ``mmsn-export-torch`` writes the ``.ckpt`` into an output directory, then the
-run's ``model_config.json`` is copied beside it.
+run's ``model_config.json`` is copied beside it. A reference run dir, which
+has no sidecar, rebuilds from its ``config.yaml`` and the sweep directory's
+``sweep_config.yaml`` (``initialize_from_run_dir``).
 
 "Best" means two things. ``pick_reference_ckpt(which="best")``, and so
 ``load_model``, keeps the reference's rule, the smallest-epoch ``epoch=``
@@ -96,39 +98,77 @@ def model_of(cfg, generator: Optional[torch.Generator] = None):
 
 def initialize_from_run_dir(run_dir: str, combinations=None
                             ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
-    """(a model with fresh weights, the run config, the sidecar's extra) from
-    a run directory's ``model_config.json``: the exact configuration of any
-    of the three families, no sweep directory needed. ``combinations``
-    rebuilds a ``CLIPModel`` with other towers; the other families must
-    already have them. The run config is the run's ``config.yaml`` (empty
-    without one) with the facts the JAX package fills in: ``enc_dim`` from
-    the CLIP config, and for a masked run ``f_mask`` and ``n_out``.
+    """(a model with fresh weights, the run config, the extra args) of a run
+    directory, as the JAX package's ``initialize_from_run_dir`` rebuilds it.
 
-    Run directories without the sidecar (the reference's own, rebuilt from
-    their sweep config) are not ported yet (ROADMAP.md queue 1, item 14)."""
-    if not os.path.exists(os.path.join(run_dir, MODEL_CONFIG_SIDECAR)):
-        raise NotImplementedError(
-            f"{run_dir} has no {MODEL_CONFIG_SIDECAR}: rebuilding a reference run "
-            "dir from its sweep config is not ported yet (ROADMAP.md queue 1, item 14)")
-    cfg, extra = read_model_config(run_dir)
+    A run dir with a ``model_config.json`` sidecar rebuilds from it: the
+    exact configuration of any of the three families, no sweep directory
+    needed. ``combinations`` rebuilds a ``CLIPModel`` with other towers; a
+    masked or ``ClipMLPHead`` run asked for other towers than its own is
+    rebuilt from its sweep config instead. The run config is the run's
+    ``config.yaml`` (empty without one) with the facts the JAX package fills
+    in: ``enc_dim`` from the CLIP config, and for a masked run ``f_mask``
+    and ``n_out``.
+
+    A run dir without the sidecar (the reference's own) rebuilds from its
+    ``config.yaml`` and the sweep's ``sweep_config.yaml`` (the reference's
+    ``initialize_model``: nband 2, the softmax loss): a masked-pretraining
+    run (``f_mask``, no ``pretrain_path``) as a ``MaskedLightCurveEncoder``;
+    a supervised run with a ``pretrain_path`` as a ``ClipMLPHead`` over the
+    CLIP config of the pretrained run, rebuilt the same way; a contrastive
+    fine-tune without ``n_out`` as its pretrained run's model; anything else
+    through ``build_clip_config``."""
+    if os.path.exists(os.path.join(run_dir, MODEL_CONFIG_SIDECAR)):
+        cfg, extra = read_model_config(run_dir)
+        if combinations is not None:
+            if isinstance(cfg, CLIPConfig):
+                cfg = dataclasses.replace(cfg, combinations=tuple(combinations))
+                extra = dict(extra, combinations=list(combinations))
+            elif sorted(combinations) != sorted(extra.get("combinations", [])):
+                cfg = None  # other towers: the sweep-schema rebuild below
+        if cfg is not None:
+            cfg_path = os.path.join(run_dir, "config.yaml")
+            run_cfg = (load_yaml(cfg_path) or {}) if os.path.exists(cfg_path) else {}
+            base = getattr(cfg, "clip", cfg)
+            if hasattr(base, "enc_dim"):
+                run_cfg.setdefault("enc_dim", int(base.enc_dim))
+            if hasattr(cfg, "f_mask"):
+                run_cfg.setdefault("f_mask", float(cfg.f_mask))
+                run_cfg.setdefault("n_out", int(cfg.tk().get("n_out", 1)))
+            return model_of(cfg), run_cfg, extra
+    return _initialize_from_sweep_schema(run_dir, combinations)
+
+
+def _initialize_from_sweep_schema(run_dir: str, combinations=None):
+    """``initialize_from_run_dir`` from ``config.yaml`` and the sweep's
+    ``sweep_config.yaml``."""
+    from ..config.config import build_clip_config
+
+    run_cfg, extra = load_run_config(run_dir)
     if combinations is not None:
-        if isinstance(cfg, CLIPConfig):
-            cfg = dataclasses.replace(cfg, combinations=tuple(combinations))
-            extra = dict(extra, combinations=list(combinations))
-        elif sorted(combinations) != sorted(extra.get("combinations", [])):
-            raise NotImplementedError(
-                f"{run_dir} holds a {type(cfg).__name__} of {extra.get('combinations')}; "
-                f"rebuilding it with {list(combinations)} from its sweep config is not "
-                "ported yet (ROADMAP.md queue 1, item 14)")
-    cfg_path = os.path.join(run_dir, "config.yaml")
-    run_cfg = (load_yaml(cfg_path) or {}) if os.path.exists(cfg_path) else {}
-    base = getattr(cfg, "clip", cfg)
-    if hasattr(base, "enc_dim"):
-        run_cfg.setdefault("enc_dim", int(base.enc_dim))
-    if hasattr(cfg, "f_mask"):
-        run_cfg.setdefault("f_mask", float(cfg.f_mask))
-        run_cfg.setdefault("n_out", int(cfg.tk().get("n_out", 1)))
-    return model_of(cfg), run_cfg, extra
+        extra = dict(extra, combinations=list(combinations))
+    extra = dict(extra, loss="softmax")
+    pretrain = extra.get("pretrain_path")
+    if "f_mask" in run_cfg and not pretrain:
+        cfg = _masked_config(run_cfg, 2, n_out=int(run_cfg.get("n_out", 1)))
+        return MaskedLightCurveEncoder(cfg), run_cfg, extra
+    if pretrain and (extra.get("regression") or extra.get("classification")):
+        clip_model, _, _ = initialize_from_run_dir(pretrain, combinations=extra["combinations"])
+        head = ClipMLPHead(ClipMLPConfig(
+            clip=clip_model.cfg, combinations=tuple(extra["combinations"]),
+            hidden_dim=int(run_cfg.get("hidden_dim", 32)),
+            num_layers=int(run_cfg.get("num_layers", 2)),
+            dropout=float(run_cfg.get("dropout", 0.0)),
+            regression=bool(extra.get("regression", False)),
+            classification=bool(extra.get("classification", False)),
+            n_classes=int(extra.get("n_classes", 5))))
+        return head, run_cfg, extra
+    if pretrain and "n_out" not in run_cfg:
+        # a contrastive fine-tune's sweep may leave out the architecture:
+        # it is the pretrained run's
+        model, _, _ = initialize_from_run_dir(pretrain, combinations=extra["combinations"])
+        return model, run_cfg, extra
+    return CLIPModel(build_clip_config(run_cfg, extra, nband=2)), run_cfg, extra
 
 
 def write_model_config(run_dir: str, model) -> bool:
@@ -171,16 +211,16 @@ def pick_reference_ckpt(run_dir: str, which: str = "best") -> str:
 
 
 def load_model(run_dir: str, device="cuda", which: str = "best") -> Tuple[Any, Dict[str, Any]]:
-    """(model in eval mode on ``device``, sidecar extra) from a run dir: the
-    ``CLIPModel``, ``MaskedLightCurveEncoder`` or ``ClipMLPHead`` its sidecar
-    names, from ``pick_reference_ckpt(run_dir, which)`` loaded with
+    """(model in eval mode on ``device``, extra) from a run dir: the
+    ``CLIPModel``, ``MaskedLightCurveEncoder`` or ``ClipMLPHead`` that
+    ``initialize_from_run_dir`` rebuilds (from the sidecar, else from the
+    sweep config), from ``pick_reference_ckpt(run_dir, which)`` loaded with
     ``strict=True``. Runs on the card unless the caller asks for the CPU,
     and raises when CUDA is asked for and absent."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
-    cfg, extra = read_model_config(run_dir)
-    model = model_of(cfg)
+    model, _, extra = initialize_from_run_dir(run_dir)
     ckpt = torch.load(pick_reference_ckpt(run_dir, which), map_location="cpu",
                       weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
@@ -256,16 +296,23 @@ def masked_model_builder(extra: Dict[str, Any]):
     weights drawn from the run's seed."""
 
     def builder(run_cfg, _extra, nband):
-        cfg = MaskedEncoderConfig.create(
-            f_mask=float(run_cfg.get("f_mask", 0.15)), nband=nband,
-            transformer_kwargs={
-                "n_out": 1,
-                "emb": int(run_cfg.get("emb", 128)),
-                "heads": int(run_cfg.get("heads", 2)),
-                "depth": int(run_cfg.get("transformer_depth", 4)),
-                "dropout": float(run_cfg.get("dropout", 0.0)),
-                "time_norm": float(run_cfg.get("time_norm", 10000.0)),
-            })
-        return MaskedLightCurveEncoder(cfg, _seeded(run_cfg)), "masked", None, None
+        return (MaskedLightCurveEncoder(_masked_config(run_cfg, nband), _seeded(run_cfg)),
+                "masked", None, None)
 
     return builder
+
+
+def _masked_config(run_cfg: Dict[str, Any], nband: int, n_out: int = 1) -> MaskedEncoderConfig:
+    """The masked pretrainer's config from a grid point's ``f_mask`` (0.15
+    when absent), ``emb``, ``heads``, ``transformer_depth``, ``dropout`` and
+    ``time_norm`` keys."""
+    return MaskedEncoderConfig.create(
+        f_mask=float(run_cfg.get("f_mask", 0.15)), nband=nband,
+        transformer_kwargs={
+            "n_out": n_out,
+            "emb": int(run_cfg.get("emb", 128)),
+            "heads": int(run_cfg.get("heads", 2)),
+            "depth": int(run_cfg.get("transformer_depth", 4)),
+            "dropout": float(run_cfg.get("dropout", 0.0)),
+            "time_norm": float(run_cfg.get("time_norm", 10000.0)),
+        })

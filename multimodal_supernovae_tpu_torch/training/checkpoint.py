@@ -39,7 +39,8 @@ The weight surgery of the two-stage recipe works on state_dicts:
 puts a masked pretrainer's encoder into a CLIP light-curve tower;
 ``best_ckpt_path`` names the monitored best checkpoint that it loads.
 
-Not ported yet: ``StreamCursor`` (ROADMAP.md queue 1, item 17b, streaming).
+``StreamCursor`` is ``Trainer.fit_sharded``'s resume point within an epoch:
+one file, ``<run_dir>/ckpt_cursor/cursor.pt``, rewritten after every shard.
 """
 
 from __future__ import annotations
@@ -219,6 +220,41 @@ class CheckpointManager:
         if epoch is not None and payload["epoch"] != epoch:
             raise FileNotFoundError(f"{name} holds epoch {payload['epoch']}, not {epoch}")
         return _restore_into(state, payload)
+
+
+class StreamCursor:
+    """The resume point of ``Trainer.fit_sharded`` after a shard: the model
+    (with its buffers), optimizer and scheduler states, the epoch and the
+    shard position within it, the in-flight epoch's per-step losses as an
+    (n_shards, steps_per_shard) float32 tensor padded with NaN, and ``loop``,
+    the trainer's random streams and early-stopping state (the JAX cursor
+    replays its key splits; this one stores the generators' states, as
+    ``last.ckpt`` does). One file, ``<run_dir>/ckpt_cursor/cursor.pt``,
+    written to a temporary name and renamed, so state and bookkeeping never
+    tear and only the latest cursor is kept."""
+
+    NAME = "cursor.pt"
+
+    def __init__(self, run_dir: str):
+        self.dir = os.path.join(os.path.abspath(run_dir), "ckpt_cursor")
+        self.path = os.path.join(self.dir, self.NAME)
+
+    def save(self, state: TrainState, epoch: int, shard_pos: int, losses,
+             loop: Dict[str, Any]) -> None:
+        payload = CheckpointManager._payload(epoch, state, {}, loop)
+        payload["shard_pos"] = int(shard_pos)
+        payload["losses"] = torch.as_tensor(losses, dtype=torch.float32)
+        os.makedirs(self.dir, exist_ok=True)
+        _save(payload, self.path)
+
+    def try_restore(self, state: TrainState):
+        """The cursor into ``state``: (state, epoch, shard_pos, losses as a
+        numpy array, loop), or None when the run has none yet."""
+        if not os.path.exists(self.path):
+            return None
+        payload = _load(self.path)
+        return (_restore_into(state, payload), payload["epoch"], payload["shard_pos"],
+                payload["losses"].numpy(), payload["loop"])
 
 
 def _restore_into(state: TrainState, payload: Dict[str, Any]) -> TrainState:

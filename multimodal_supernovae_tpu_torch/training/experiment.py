@@ -40,11 +40,12 @@ ranks' ``(data, model)`` mesh (``Trainer(mesh=...)``), or, with
 data axis (``fit_members(mesh=...)``); every rank walks the same schedule,
 since every rank sees the same metrics.
 
+``run_sweep_streaming`` walks a sweep over a sharded cache
+(data/streaming.py) through ``Trainer.fit_sharded``.
+
 Not ported yet: the post-fit reports (loss history and retrieval-curve
-plots; ROADMAP.md queue 1, item 18: they need matplotlib, which the GPU
-host does not have), so ``run_sweep`` writes none; and
-``run_sweep_streaming`` (item 17b, streaming), which raises
-``NotImplementedError``.
+plots; ROADMAP.md queue 1, item 18b: they need matplotlib, which the GPU
+host does not have), so neither runner writes them.
 """
 
 from __future__ import annotations
@@ -204,7 +205,8 @@ def run_sweep(
         train_ds, val_ds = dataset.subset(inds_train), dataset.subset(inds_val)
 
         model, task, freeze, override, tcfg = _build_run(
-            run_cfg, extra, nband, model_builder, epochs_override)
+            run_cfg, extra, nband, model_builder, epochs_override,
+            image_size=image_size_of(dataset.arrays))
         if override is not None:
             model.load_state_dict(override(model.state_dict()), strict=True)
         trainer = Trainer(model.to(device), task=task, cfg=tcfg, run_dir=run_dir,
@@ -264,7 +266,8 @@ def _run_sweep_parallel_folds(sweep: SweepConfig, dataset: ArrayDataset, nband: 
                 len(dataset), float(extra.get("val_fraction", 0.2)), seed,
                 folds=folds, foldnumber=rc.get("foldnumber"))
             model, task, freeze, override, tcfg = _build_run(
-                rc, extra, nband, model_builder, epochs_override)
+                rc, extra, nband, model_builder, epochs_override,
+                image_size=image_size_of(dataset.arrays))
             if override is not None:
                 model.load_state_dict(override(model.state_dict()), strict=True)
             if not models:  # the group shares all but vary_keys: the first
@@ -285,9 +288,52 @@ def _run_sweep_parallel_folds(sweep: SweepConfig, dataset: ArrayDataset, nband: 
     return [indexed[k] for k in sorted(indexed)]
 
 
-def run_sweep_streaming(*args, **kwargs):
-    raise NotImplementedError(
-        "run_sweep_streaming is not ported yet (ROADMAP.md queue 1, item 17b: streaming)")
+def run_sweep_streaming(sweep: SweepConfig, train_sds, val_ds: ArrayDataset, nband: int,
+                        sweep_dir: str, mesh=None, use_wandb: bool = False,
+                        max_runs: Optional[int] = None, epochs_override: Optional[int] = None,
+                        resume: bool = False, device="cuda"):
+    """``run_sweep`` over a sharded cache (``data.streaming.ShardedDataset``,
+    with ``val_ds`` the validation split held out at ingest): each grid
+    point's model, task and surgery from ``_build_run``, then
+    ``Trainer.fit_sharded`` into ``sweep_dir/run-<k>`` on ``device``. No
+    folds: the split is the ingest's. With ``resume`` a completed run is
+    skipped (its objective still observed by the scheduler) and an
+    unfinished one continues from its ``StreamCursor``. The surgery works on
+    the state_dict, so no example batch is drawn. The JAX runner's loss-history
+    plot is not made: matplotlib is absent on the GPU host (ROADMAP.md queue
+    1, item 18b, the reports). ``mesh`` raises (item 17c)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    extra = sweep.extra_args
+    image_size = image_size_of(train_sds.load_shard(0).arrays)
+    results = []
+    scheduler = SweepScheduler(sweep, max_runs=max_runs)
+    for k in range(scheduler.n_runs):
+        run_cfg = scheduler.suggest()
+        if run_cfg is None:
+            break
+        run_dir = os.path.join(sweep_dir, f"run-{k}")
+        if resume:
+            summary = completed_summary(run_dir)
+            if summary is not None:
+                results.append(_skipped_result(run_dir, run_cfg, summary))
+                scheduler.observe(run_cfg, _objective_from_summary(summary, sweep))
+                continue
+        set_seed(int(run_cfg.get("seed", 0)))
+        model, task, freeze, override, tcfg = _build_run(
+            run_cfg, extra, nband, None, epochs_override, image_size=image_size)
+        if override is not None:
+            model.load_state_dict(override(model.state_dict()), strict=True)
+        trainer = Trainer(model.to(device), task=task, cfg=tcfg, run_dir=run_dir, mesh=mesh,
+                          freeze=freeze, use_wandb=use_wandb,
+                          n_classes=int(extra.get("n_classes", 5)))
+        res = trainer.fit_sharded(train_sds, val_ds, config_dump=dict(run_cfg), resume=resume)
+        res["run_dir"] = run_dir
+        res["run_cfg"] = run_cfg
+        results.append(res)
+        scheduler.observe(run_cfg, _sweep_objective(res, sweep))
+    return results
 
 
 def task_of(extra: Dict[str, Any]) -> str:
@@ -298,19 +344,28 @@ def task_of(extra: Dict[str, Any]) -> str:
     return "contrastive"
 
 
+def image_size_of(arrays) -> Optional[int]:
+    """The side of a dataset's images (``x_img`` (n, H, W, C)), or None."""
+    x = arrays.get("x_img")
+    return None if x is None else int(x.shape[1])
+
+
 def _build_run(run_cfg: Dict[str, Any], extra: Dict[str, Any], nband: int,
-               model_builder: Optional[Callable], epochs_override: Optional[int]
+               model_builder: Optional[Callable], epochs_override: Optional[int],
+               image_size: Optional[int] = None
                ) -> Tuple[Any, str, Optional[Callable], Optional[Callable], Any]:
     """(model, task, freeze, override, trainer config) for one grid point.
     ``model_builder(run_cfg, extra, nband)`` (models.factory's builders)
     gives the first four; without one the model is a ``CLIPModel`` of the
     grid point, its weights drawn from the run's seed, with the default
-    surgery (``_default_pretrain_surgery``)."""
+    surgery (``_default_pretrain_surgery``); ``image_size``, the side of the
+    run's images, sizes a ViT tower."""
     if model_builder is not None:
         model, task, freeze, override = model_builder(run_cfg, extra, nband)
     else:
         model = CLIPModel(build_clip_config(run_cfg, extra, nband),
-                          generator=torch.Generator().manual_seed(int(run_cfg.get("seed", 0))))
+                          generator=torch.Generator().manual_seed(int(run_cfg.get("seed", 0))),
+                          image_size=image_size)
         task = task_of(extra)
         freeze, override = _default_pretrain_surgery(run_cfg, extra, model)
     tcfg = build_trainer_config(run_cfg, extra)

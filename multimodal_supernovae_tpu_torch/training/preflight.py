@@ -14,8 +14,9 @@ optimizer state's bytes (the port's torch RAdam: ``exp_avg`` and
 ``exp_avg_sq`` of each trained parameter and a float32 ``step`` tensor a
 parameter, which differs from optax's state in the JAX report), the static
 train-memory floor (2 x params + optimizer state), the flash-attention
-route each sequence tower takes on the card (``ops/flash_attention.py:_route``)
-and the fused-block and fused-QKV routes where those opt-ins are on, and,
+route each sequence tower and a ViT image tower take on the card
+(``ops/flash_attention.py:_route``; a head dim the flash backward does not
+take fails the check, as training on the card would) and the fused-block and fused-QKV routes where those opt-ins are on, and,
 with a pretrained checkpoint, how many of the model's state_dict entries it
 fills (``merge_params_nonstrict``; 0 raises: the wrong checkpoint). Errors
 name the grid point and the key. With ``--mesh`` or ``--tp`` and
@@ -122,6 +123,33 @@ def _dispatch_note(tower: str, t: int, encoder, device_type: str = "cuda") -> st
     return head + ", ".join(parts)
 
 
+def _vit_note(model, image_size: int, device_type: str) -> Optional[str]:
+    """The ViT image tower's attention route on ``device_type``, or None
+    without a ViT. Its blocks attend over (image_size / patch)^2 tokens at
+    head dim vit_emb / vit_heads with no mask; training on the card needs a
+    head dim the flash backward takes (raises otherwise, naming it)."""
+    from ..models.vit import ViT
+    from ..ops import flash_attention as flash
+
+    vit = next((m for m in model.modules() if isinstance(m, ViT)), None)
+    if vit is None:
+        return None
+    head_dim = vit.emb // vit.heads
+    t = (image_size // vit.patch_size) ** 2
+    dtype = vit.dtype or torch.float32
+    head = (f"image (ViT): T={t} emb={vit.emb} heads={vit.heads} "
+            f"{str(dtype).replace('torch.', '')} -> ")
+    if device_type != "cuda":
+        return head + f"plain versions ({device_type})"
+    if head_dim not in flash.BWD_HEAD_DIMS:
+        raise ValueError(f"image (ViT): head dim {vit.emb} / {vit.heads} = {head_dim}: the flash "
+                         f"kernels train at head dims {flash.BWD_HEAD_DIMS} (forward "
+                         f"{flash.SUPPORTED_HEAD_DIMS})")
+    # the tower's q/k/v are views of separate projections: 16-byte rows
+    route = flash._route(dtype, head_dim, ())
+    return head + f"flash {route} ({ROUTE_NAMES['flash'][route]})"
+
+
 def preflight_run(
     run_cfg: Dict[str, Any],
     extra: Dict[str, Any],
@@ -147,7 +175,7 @@ def preflight_run(
 
     with torch.device(META):
         model, task, freeze, params_override, tcfg = _build_run(
-            run_cfg, extra, nband, model_builder, epochs_override)
+            run_cfg, extra, nband, model_builder, epochs_override, image_size=image_size)
     model.to(META)  # buffers made from numpy (the class weights) start on the host
     if combinations is None:
         combinations = tuple(extra["combinations"])
@@ -183,6 +211,10 @@ def preflight_run(
         if tower in combinations and tower in towers:
             report["notes"].append(_dispatch_note(tower, t, towers[tower],
                                                   torch.device(device).type))
+    if "host_galaxy" in combinations:
+        note = _vit_note(model, image_size, torch.device(device).type)
+        if note is not None:
+            report["notes"].append(note)
     report["notes"].append(OPTIMIZER_NOTE)
 
     # The surgery on the meta state_dict: merge_params_nonstrict copies

@@ -52,16 +52,24 @@ tensor-parallel run dir loads in one process and resumes under any mesh);
 every rank restores ``last.ckpt`` on resume, and a barrier at the end of
 ``fit`` holds the others until rank 0 has written.
 
-Not ported yet, and raising ``NotImplementedError``: ``fit_sharded``
-(ROADMAP.md queue 1, item 17b). Stacked ensemble members train through
-``training/ensemble.py``.
+``fit_sharded`` trains over a sharded on-disk cache (data/streaming.py), a
+corpus larger than the card's memory, shard by shard: per epoch a shuffled
+shard order, each shard's steps over that shard alone on the device, the
+next shard's upload under the current one's steps (training/shard_feed.py),
+and the validation split on the device throughout; the evaluation,
+checkpoint and early-stopping cadence is ``fit``'s. After every shard a
+``StreamCursor`` (training/checkpoint.py) records where the epoch stands, and
+``fit_sharded(resume=True)`` continues from the next shard. It runs in one
+process: under a mesh it raises (ROADMAP.md queue 1, item 17c).
+
+Stacked ensemble members train through ``training/ensemble.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -73,7 +81,7 @@ from ..parallel.mesh import batch_stats_over
 from ..parallel.sharding import shard_module
 from ..utils.draws import RankRows
 from ..utils.logging import MetricsLogger
-from .checkpoint import CheckpointManager, save_run_sidecars
+from .checkpoint import CheckpointManager, StreamCursor, save_run_sidecars
 from .optim import build_optimizer
 from .state import TrainState
 from .step import make_epoch_runner, make_eval_runner
@@ -219,10 +227,7 @@ class Trainer:
         val_data = val_ds.to_device(device)
         if state is None:
             state = self.init_state()
-        history: Dict[str, List[float]] = {"train_loss": [], "val_loss": []}
-        metric_rows: List[Dict[str, float]] = []
-        best = {"value": None, "epoch": -1}
-        since_best = 0
+        book = _new_book()
         start_epoch = 0
         if resume:
             restored = ckpts.try_restore_last(state)
@@ -233,8 +238,7 @@ class Trainer:
                 generator.set_state(loop["torch_rng"])
                 if "eval_torch_rng" in loop:
                     eval_generator.set_state(loop["eval_torch_rng"])
-                history, metric_rows = loop["history"], loop["metric_rows"]
-                best, since_best = loop["best"], loop["since_best"]
+                book = {k: loop[k] for k in book}
         run_epoch = make_epoch_runner(
             self.model, cfg.noise_level_mag, noise_level_img=cfg.noise_level_img,
             rotate_images=cfg.rotate_images, mesh=mesh)
@@ -246,86 +250,232 @@ class Trainer:
         n_val = len(val_ds)
         t_start = time.perf_counter()
 
+        def rng_states():
+            return {"numpy_rng": rng.bit_generator.state, "torch_rng": generator.get_state(),
+                    "eval_torch_rng": eval_generator.get_state()}
+
+        def evaluate():
+            val_losses, aux = run_eval(state, val_data, val_plan, eval_draws)
+            return float(val_losses.mean()), compute_task_metrics(
+                self.task, aux, val_ds, n_val, self.n_classes)
+
         epoch = start_epoch - 1  # when already complete, no epochs run
         # a run that had stopped early stays stopped
-        epochs = range(start_epoch, cfg.epochs if since_best < cfg.patience else 0)
-        for epoch in epochs:
+        for epoch in range(start_epoch, cfg.epochs if not self._stopped(book) else 0):
             plan = epoch_indices(len(train_ds), cfg.batch_size, rng=rng,
                                  shuffle=True, pad="wrap")
             t0 = time.perf_counter()
             state, losses = run_epoch(state, train_data, plan[:, cols], draws)
             train_loss = float(losses.mean())  # waits for the epoch's steps
-            if not np.isfinite(train_loss):
-                if logger:
-                    logger.log({"epoch": epoch, "train_loss": train_loss,
-                                "aborted": "non-finite loss"}, step=epoch)
-                raise FloatingPointError(
-                    f"non-finite training loss at epoch {epoch}; last finite "
-                    f"epoch metrics: {metric_rows[-1] if metric_rows else None}")
             step_time = (time.perf_counter() - t0) / plan.shape[0]
-            history["train_loss"].append(train_loss)
-            metrics: Dict[str, float] = {
-                "epoch": epoch,
-                "train_loss": train_loss,
-                "step_time_s": step_time,
-                "samples_per_s": plan.shape[1] / max(step_time, 1e-9),
-            }
-            if epoch % cfg.eval_every_epochs == 0:
-                val_losses, aux = run_eval(state, val_data, val_plan, eval_draws)
-                metrics["val_loss"] = float(val_losses.mean())
-                history["val_loss"].append(metrics["val_loss"])
-                metrics.update(compute_task_metrics(self.task, aux, val_ds, n_val,
-                                                    self.n_classes))
-            metric_rows.append(metrics)
-            if logger:
-                logger.log(metrics, step=epoch)
-
-            # early stopping on the monitored metric
-            if self.monitor in metrics:
-                if self._better(metrics[self.monitor], best["value"]):
-                    best = {"value": metrics[self.monitor], "epoch": epoch}
-                    since_best = 0
-                else:
-                    since_best += 1
-            if ckpts:
-                ckpts.save(epoch, state, metrics, loop={
-                    "numpy_rng": rng.bit_generator.state,
-                    "torch_rng": generator.get_state(),
-                    "eval_torch_rng": eval_generator.get_state(),
-                    "history": history, "metric_rows": metric_rows,
-                    "best": best, "since_best": since_best})
-            if since_best >= cfg.patience:  # Lightning's wait_count >= patience
+            if self._close_epoch(book, epoch, train_loss, step_time, plan.shape[1], evaluate,
+                                 state, logger, ckpts, rng_states):
                 break
+        return self._result(book, state, epoch, t_start, logger, ckpts)
 
+    def _close_epoch(self, book, epoch: int, train_loss: float, step_time: float,
+                     samples: int, evaluate, state, logger, ckpts, rng_states) -> bool:
+        """The end of an epoch of ``fit`` or ``fit_sharded``: abort on a
+        non-finite loss (after logging a row), append the epoch's metrics
+        (on evaluation epochs also ``evaluate()``'s validation loss and task
+        metrics) to ``book`` and the log, keep the early-stopping state,
+        and save the checkpoints with ``rng_states()`` (taken after the
+        evaluation's draws) and ``book`` as their ``loop``. Returns whether
+        early stopping ends the run."""
+        if not np.isfinite(train_loss):
+            if logger:
+                logger.log({"epoch": epoch, "train_loss": train_loss,
+                            "aborted": "non-finite loss"}, step=epoch)
+            rows = book["metric_rows"]
+            raise FloatingPointError(
+                f"non-finite training loss at epoch {epoch}; last finite "
+                f"epoch metrics: {rows[-1] if rows else None}")
+        book["history"]["train_loss"].append(train_loss)
+        metrics: Dict[str, float] = {
+            "epoch": epoch,
+            "train_loss": train_loss,
+            "step_time_s": step_time,
+            "samples_per_s": samples / max(step_time, 1e-9),
+        }
+        if epoch % self.cfg.eval_every_epochs == 0:
+            metrics["val_loss"], task_metrics = evaluate()
+            book["history"]["val_loss"].append(metrics["val_loss"])
+            metrics.update(task_metrics)
+        book["metric_rows"].append(metrics)
+        if logger:
+            logger.log(metrics, step=epoch)
+        # early stopping on the monitored metric
+        if self.monitor in metrics:
+            if self._better(metrics[self.monitor], book["best"]["value"]):
+                book["best"] = {"value": metrics[self.monitor], "epoch": epoch}
+                book["since_best"] = 0
+            else:
+                book["since_best"] += 1
+        if ckpts:
+            ckpts.save(epoch, state, metrics, loop={**rng_states(), **book})
+        return self._stopped(book)
+
+    def _stopped(self, book) -> bool:
+        return book["since_best"] >= self.cfg.patience  # Lightning's wait_count >= patience
+
+    def _result(self, book, state, epoch: int, t_start: float, logger, ckpts) -> Dict[str, Any]:
+        """A fit's result; with a run directory also the best checkpoint's
+        epoch and ``summary.json``."""
         result = {
             "state": state,
-            "history": history,
-            "metric_rows": metric_rows,
-            "best": best,
+            "history": book["history"],
+            "metric_rows": book["metric_rows"],
+            "best": book["best"],
             "epochs_run": epoch + 1,
             "wall_time_s": time.perf_counter() - t_start,
         }
         if ckpts:
             result["best_ckpt_epoch"] = ckpts.best_epoch()
         if logger:
-            # the run summary of the JAX trainer (the reference's
-            # script_wandb.py:248-253)
-            summary = {
-                f"best_{self.monitor}": best["value"],
-                "best_epoch": best["epoch"],
-                "best_ckpt_epoch": result["best_ckpt_epoch"],
-            }
-            if history["val_loss"]:
-                summary["best_val_loss"] = float(np.min(history["val_loss"]))
-            aucs = [m["AUC_val"] for m in metric_rows if "AUC_val" in m]
-            if aucs:
-                summary["best_auc"] = float(np.max(aucs))
-            logger.set_summary(**summary)
+            self._summarize(logger, result)
         return result
 
-    def fit_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fit_sharded is not ported yet (ROADMAP.md queue 1, item 17b: streaming)")
+    def _summarize(self, logger, result) -> None:
+        """``summary.json``: the run summary of the JAX trainer (the
+        reference's script_wandb.py:248-253), also the sweep's mark of a
+        completed run."""
+        history = result["history"]
+        summary = {
+            f"best_{self.monitor}": result["best"]["value"],
+            "best_epoch": result["best"]["epoch"],
+            "best_ckpt_epoch": result["best_ckpt_epoch"],
+        }
+        if history["val_loss"]:
+            summary["best_val_loss"] = float(np.min(history["val_loss"]))
+        aucs = [m["AUC_val"] for m in result["metric_rows"] if "AUC_val" in m]
+        if aucs:
+            summary["best_auc"] = float(np.max(aucs))
+        logger.set_summary(**summary)
+
+    def fit_sharded(self, train_sds, val_ds: ArrayDataset,
+                    config_dump: Optional[Dict[str, Any]] = None,
+                    state: Optional[TrainState] = None, resume: bool = False,
+                    prefetch: Optional[bool] = None) -> Dict[str, Any]:
+        """``fit`` over ``train_sds`` (a ``data.streaming.ShardedDataset``):
+        each epoch walks ``shard_epoch_schedule``'s shuffled shard order,
+        one shard on the device at a time with the next one's upload under
+        its steps (two at the peak; ``prefetch=False``, or two shards over
+        75% of the card's memory, uploads each in its turn). ``val_ds`` stays
+        on the device. Returns ``fit``'s result and ``shard_feed``, the
+        feed's ``stats()`` (whether prefetch was on, each upload's device ms
+        and host staging ms). With a run directory its files are ``fit``'s,
+        with ``SHARD{i:05d}x{n}`` as the training manifest's names, and a
+        ``StreamCursor`` is saved after every shard; ``resume=True``
+        continues from it, at the shard after the last one saved."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "fit_sharded over a mesh is not ported yet (ROADMAP.md queue 1, item 17c: "
+                "streaming over ranks); train in one process")
+        if resume and not self.run_dir:
+            raise ValueError("resume=True needs the run_dir of the run to continue")
+        if not self.run_dir:
+            return self._fit_sharded(train_sds, val_ds, state, resume, prefetch,
+                                     None, None, None)
+        save_run_sidecars(self.run_dir, config_dump or dataclasses.asdict(self.cfg),
+                          [f"SHARD{i:05d}x{n}" for i, n in enumerate(train_sds.shard_sizes)],
+                          val_ds.filenames or [])
+        write_model_config(self.run_dir, self.model)
+        ckpts = CheckpointManager(self.run_dir, self.monitor, self.mode, self.cfg.keep_best)
+        logger = MetricsLogger(self.run_dir, use_wandb=self.use_wandb)
+        try:
+            return self._fit_sharded(train_sds, val_ds, state, resume, prefetch, logger,
+                                     ckpts, StreamCursor(self.run_dir))
+        finally:
+            logger.close()
+
+    def _fit_sharded(self, train_sds, val_ds, state, resume, prefetch, logger, ckpts, cursor):
+        from ..data.streaming import shard_epoch_schedule
+        from .shard_feed import ShardFeed
+
+        cfg = self.cfg
+        device = self.device
+        rng = np.random.default_rng(cfg.seed)
+        generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        eval_generator = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+        self.set_dataset_size(len(train_sds))
+        val_data = val_ds.to_device(device)
+        if state is None:
+            state = self.init_state()
+        feed = ShardFeed(train_sds, device, prefetch)
+        n_shards = train_sds.n_shards
+        steps_full = -(-train_sds.shard_sizes[0] // cfg.batch_size)
+        book = _new_book()
+        start_epoch = 0
+        resume_mid = None  # (the epoch's start rng state, losses so far, next shard)
+        if resume:
+            restored = cursor.try_restore(state)
+            if restored is not None:
+                state, start_epoch, shard_pos, rows, loop = restored
+                generator.set_state(loop["torch_rng"])
+                eval_generator.set_state(loop["eval_torch_rng"])
+                book = {k: loop[k] for k in book}
+                resume_mid = (loop["epoch_numpy_rng"], list(rows[:shard_pos + 1]),
+                              shard_pos + 1)
+        run_epoch = make_epoch_runner(
+            self.model, cfg.noise_level_mag, noise_level_img=cfg.noise_level_img,
+            rotate_images=cfg.rotate_images)
+        run_eval = make_eval_runner(self.model, rotate_images=cfg.rotate_images)
+        val_plan = torch.from_numpy(epoch_indices(
+            len(val_ds), cfg.batch_size, shuffle=False, pad="repeat_last")).to(device)
+        n_val = len(val_ds)
+        t_start = time.perf_counter()
+
+        def rng_states():
+            return {"numpy_rng": rng.bit_generator.state, "torch_rng": generator.get_state(),
+                    "eval_torch_rng": eval_generator.get_state()}
+
+        def evaluate():
+            val_losses, aux = run_eval(state, val_data, val_plan, eval_generator)
+            return float(val_losses.mean()), compute_task_metrics(
+                self.task, aux, val_ds, n_val, self.n_classes)
+
+        epoch = start_epoch - 1
+        try:
+            for epoch in range(start_epoch, cfg.epochs if not self._stopped(book) else 0):
+                start_shard, epoch_losses = 0, []
+                if resume_mid is not None:  # the schedule the cut epoch drew
+                    rng.bit_generator.state, epoch_losses, start_shard = resume_mid
+                    resume_mid = None
+                epoch_rng = rng.bit_generator.state
+                schedule = shard_epoch_schedule(train_sds, cfg.batch_size, rng)
+                remaining = schedule[start_shard:]
+                t0 = time.perf_counter()
+                n_steps = 0
+                shards = feed.shards([si for si, _ in remaining])
+                try:
+                    for pos, (_, plan) in enumerate(remaining, start=start_shard):
+                        data = next(shards)
+                        state, losses = run_epoch(state, data, plan, generator)
+                        del data  # no reference left: at most two shards on the device
+                        epoch_losses.append(losses.cpu().numpy())
+                        n_steps += plan.shape[0]
+                        if cursor is not None:
+                            rows = np.full((n_shards, steps_full), np.nan, np.float32)
+                            rows[:pos + 1] = np.stack(epoch_losses)
+                            cursor.save(state, epoch, pos, rows,
+                                        {**rng_states(), "epoch_numpy_rng": epoch_rng, **book})
+                finally:
+                    shards.close()
+                train_loss = float(np.mean(np.concatenate(epoch_losses)))
+                step_time = (time.perf_counter() - t0) / max(n_steps, 1)
+                if self._close_epoch(book, epoch, train_loss, step_time, cfg.batch_size,
+                                     evaluate, state, logger, ckpts, rng_states):
+                    break
+        finally:
+            feed.close()
+        return dict(self._result(book, state, epoch, t_start, logger, ckpts),
+                    shard_feed=feed.stats())
+
+def _new_book() -> Dict[str, Any]:
+    """A fit's running record: the per-epoch history, the metric rows and
+    the early-stopping state (what ``loop`` carries across a resume)."""
+    return {"history": {"train_loss": [], "val_loss": []}, "metric_rows": [],
+            "best": {"value": None, "epoch": -1}, "since_best": 0}
 
 
 def compute_task_metrics(task: str, aux: Dict[str, Any], val_ds: ArrayDataset,

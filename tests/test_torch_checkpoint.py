@@ -155,8 +155,36 @@ def test_run_dir_rebuilds_from_its_own_files(run_dir):
     model, _, extra = initialize_from_run_dir(path, combinations=["lightcurve"])
     assert model.cfg.combinations == ("lightcurve",) and extra["combinations"] == [
         "lightcurve"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        initialize_from_run_dir(os.path.dirname(path))
+    # without the sidecar: the reference's layout, rebuilt from config.yaml and
+    # the sweep's sweep_config.yaml; the run's checkpoint loads strictly into
+    # it and serves what the sidecar rebuild serves
+    import shutil
+
+    sweep = os.path.join(os.path.dirname(os.path.dirname(path)), "schema_sweep")
+    copy = os.path.join(sweep, "run-0")
+    shutil.copytree(path, copy)
+    os.remove(os.path.join(copy, "model_config.json"))
+    arch = {"n_out": 8, "emb": 16, "heads": 2, "transformer_depth": 1, "time_norm": 1000.0,
+            "dropout": 0.1, "logit_scale": 19.55, "enc_dim": 8}
+    save_run_sidecars(copy, dict(dump, **arch))
+    save_run_sidecars(sweep, {})
+    os.replace(os.path.join(sweep, "config.yaml"), os.path.join(sweep, "sweep_config.yaml"))
+    with open(os.path.join(sweep, "sweep_config.yaml"), "w") as f:
+        json.dump({"extra_args": {"combinations": ["lightcurve", "spectral"]}}, f)
+    with pytest.raises(FileNotFoundError):
+        initialize_from_run_dir(os.path.dirname(path))  # no config.yaml there
+    schema, run_cfg, extra = initialize_from_run_dir(copy)
+    assert run_cfg == dict(dump, **arch) and extra["loss"] == "softmax"
+    sidecar = read_model_config(path)[0]
+    for name in ("combinations", "enc_dim", "logit_scale_init", "nband", "loss",
+                 "transformer_kwargs", "transformer_spectral_kwargs"):
+        assert getattr(schema.cfg, name) == getattr(sidecar, name), name
+    got, _ = load_model(copy, "cpu")
+    want, _ = load_model(path, "cpu")
+    batch = _data()[1].to_device("cpu")
+    with torch.no_grad():
+        for a, b in zip(got.encode(batch), want.encode(batch)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_port_run_dir_loads_in_the_jax_package(run_dir):

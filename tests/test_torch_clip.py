@@ -123,14 +123,21 @@ def test_seeded_init_is_reproducible():
                                  "image_encoder": "vit"},
                                 {"regression": True}])
 def test_unported_towers_and_heads_raise(kw):
-    """The ViT image tower still raises (item 14); the supervised heads are
-    ported: a regression model builds its head over both towers."""
+    """Both are ported: the ViT image tower builds (item 14;
+    tests/test_torch_vit.py holds it to the JAX ViT) and embeds a 60 x 60
+    image, and an unknown tower still raises; a regression model builds its
+    head over both towers."""
     base = small_cfg_kwargs()
     base.update(kw)
     cfg = CLIPConfig.create(**base)
     if cfg.image_encoder == "vit":
-        with pytest.raises(NotImplementedError, match="item 14"):
-            CLIPModel(cfg)
+        model = CLIPModel(cfg)
+        assert model.image_encoder.pos_emb.shape == (1, 36, 128)  # 60 x 60, patch 10
+        with torch.no_grad():
+            img = model.embed_image(torch.rand(2, 60, 60, 3))
+        assert img.shape == (2, cfg.enc_dim) and torch.isfinite(img).all()
+        with pytest.raises(ValueError, match="unknown image_encoder"):
+            CLIPModel(CLIPConfig.create(**dict(base, image_encoder="resnet")))
         return
     model = CLIPModel(cfg)
     assert model.linear.weight.shape == (1, 2 * cfg.enc_dim)

@@ -221,9 +221,24 @@ def test_ingest_simulation_lightcurves_is_jax_bitwise(legacy_file, kw):
     assert got.filenames == want.filenames
 
 
-def test_stream_simulation_to_cache_raises_with_its_item(sim_files):
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        simulation.stream_simulation_to_cache(sim_files[0]["plain"], "cache")
+def test_stream_simulation_to_cache_raises_with_its_item(sim_files, tmp_path):
+    """Ported (item 17b): the sharded cache of each corpus variant byte for
+    byte the JAX package's, its rows the in-memory ingest's
+    (tests/test_torch_streaming.py holds the writer)."""
+    files, _ = sim_files
+    for name, path in files.items():
+        kw = CASES["both-noise"]
+        jax_sim.stream_simulation_to_cache(path, str(tmp_path / f"jax-{name}"),
+                                           rows_per_shard=5, **kw)
+        sds = simulation.stream_simulation_to_cache(path, str(tmp_path / f"port-{name}"),
+                                                    rows_per_shard=5, **kw)
+        for root, _, names in os.walk(tmp_path / f"jax-{name}"):
+            for f in names:
+                want = os.path.join(root, f)
+                got = want.replace(f"jax-{name}", f"port-{name}")
+                assert open(got, "rb").read() == open(want, "rb").read(), (name, f)
+        assert_bitwise(sds.materialize().arrays,
+                       simulation.ingest_simulation(path, **kw).arrays)
 
 
 # ---- cli.pretrain_sim against the JAX CLI -------------------------------------
@@ -319,7 +334,18 @@ def test_pretrain_sim_check_exits_0():
     assert exc.value.code == 0
 
 
-def test_pretrain_sim_streaming_raises_with_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        pretrain_sim.main([str(MAVEN_PRETRAIN), "--streaming", "--data-dir", str(tmp_path),
-                           "--device", "cpu"])
+def test_pretrain_sim_streaming_raises_with_its_item(sim_runs, tmp_path, capsys):
+    """Ported (item 17b): --streaming on the mini corpus writes the stream-<key>
+    cache beside the in-memory one and trains run-0 from its shards; a shard
+    cache written by the JAX package is read (tests/test_torch_streaming.py
+    holds the CLI to the JAX CLI)."""
+    root, common = sim_runs
+    capsys.readouterr()
+    pretrain_sim.main([*common, "--cache-dir", str(tmp_path / "cache"), "--analysis-path",
+                       str(tmp_path / "runs"), "--device", "cpu", "--streaming",
+                       "--rows-per-shard", "9"])
+    out = capsys.readouterr().out
+    assert "sharded cache written" in out and "epochs=1" in out
+    assert [n for n in os.listdir(tmp_path / "cache") if n.startswith("stream-")]
+    run = tmp_path / "runs" / "maven_pretrain" / "run-0"
+    assert RUN_FILES <= set(os.listdir(run)) and "ckpt_cursor" in os.listdir(run)

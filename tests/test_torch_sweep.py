@@ -27,6 +27,7 @@ from multimodal_supernovae_tpu.training.experiment import make_sweep_dir as jax_
 from multimodal_supernovae_tpu_torch.cli import finetune_clip, pretrain_masked, supervise, train
 from multimodal_supernovae_tpu_torch.config import SweepConfig, SweepScheduler, load_sweep
 from multimodal_supernovae_tpu_torch.config.yaml_subset import dump as dump_yaml
+from multimodal_supernovae_tpu_torch.data import make_synthetic_dataset
 from multimodal_supernovae_tpu_torch.training import experiment
 
 REPO = Path(__file__).resolve().parent.parent
@@ -256,10 +257,28 @@ def test_unported_flags_raise_with_their_item(main, argv, item, trained, tmp_pat
     assert "_ensemble-g0" in os.listdir(tmp_path / "smoke")
 
 
-def test_unported_runners_raise_with_their_item():
+def test_unported_runners_raise_with_their_item(tmp_path):
+    """run_sweep_streaming is ported (item 17b): the smoke sweep over a sharded
+    copy of a synthetic set trains run-0 through fit_sharded and a resumed
+    walk skips it; over a mesh it raises (item 17c)."""
+    from multimodal_supernovae_tpu_torch.data.streaming import write_sharded_cache
+    from multimodal_supernovae_tpu_torch.parallel.mesh import DataMesh
+
     sweep = load_sweep(SMOKE)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        experiment.run_sweep_streaming(sweep, None, None, 2, "x")
+    ds = make_synthetic_dataset(n=24, seed=0, n_max_lc=8, nband=2, n_max_sp=12,
+                                modalities=tuple(sweep.extra_args["combinations"]))
+    sds = write_sharded_cache(str(tmp_path / "shards"), iter([ds.arrays]), 10)
+    val = ds.subset(np.arange(8))
+    sweep_dir = str(tmp_path / "smoke")
+    res = experiment.run_sweep_streaming(sweep, sds, val, 2, sweep_dir, epochs_override=1,
+                                         max_runs=1, device="cpu")
+    assert res[0]["epochs_run"] == 1 and RUN_FILES <= set(os.listdir(res[0]["run_dir"]))
+    again = experiment.run_sweep_streaming(sweep, sds, val, 2, sweep_dir, epochs_override=1,
+                                           max_runs=1, resume=True, device="cpu")
+    assert again[0]["skipped"]
+    with pytest.raises(NotImplementedError, match="item 17c"):
+        experiment.run_sweep_streaming(sweep, sds, val, 2, str(tmp_path / "m"),
+                                       mesh=DataMesh(0, 1), max_runs=1, device="cpu")
 
 
 def _small_maven_lite(path, parameters=None, extra_args=None):

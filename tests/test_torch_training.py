@@ -369,13 +369,20 @@ def test_trainer_raises_for_what_is_not_ported(kw, match):
 
 def test_trainer_resume_and_fit_sharded_raise():
     """Resume needs a run directory (tests/test_torch_checkpoint.py resumes
-    one); the streaming fit is not ported."""
+    one), in fit and in the streaming fit
+    (tests/test_torch_streaming.py trains it); the streaming fit over a mesh
+    is not ported (item 17c)."""
+    from multimodal_supernovae_tpu_torch.parallel.mesh import DataMesh
+
     trainer = Trainer(CLIPModel(CLIPConfig.create(**small_cfg_kwargs())), "contrastive",
                       TrainerConfig(epochs=1))
     ds = make_synthetic_dataset(n=8, seed=0, **SYN)
     with pytest.raises(ValueError, match="run_dir"):
         trainer.fit(ds, ds, resume=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="run_dir"):
+        trainer.fit_sharded(ds, ds, resume=True)
+    trainer.mesh = DataMesh(0, 1)
+    with pytest.raises(NotImplementedError, match="item 17c"):
         trainer.fit_sharded(ds, ds)
 
 
