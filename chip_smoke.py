@@ -9,7 +9,9 @@ image tower in trimodal, its run dir rebuilt without a sidecar; and masked
 pretraining, its graft into a CLIP light-curve tower, and Maven's
 pretraining and fine-tuning, each from its shipped config; and Maven's
 pretraining from a simulated HDF5 corpus through cli.pretrain_sim, in
-memory and streamed shard by shard (--streaming); and the
+memory and streamed shard by shard (--streaming), in one process and over
+two ranks; and the serving artifact (cli.export_model, serve --artifact)
+reloaded without the model code; and the
 five folds of maven-lite, and an lr x seed grid, as one stacked program
 through --parallel-folds / --parallel-members; and data-parallel training
 over two ranks, and the umbrella CLI under torchrun; and tensor-parallel
@@ -169,6 +171,25 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      device call, no plain
      call, and answers within SERVE_TOL of the same model through the plain
      versions of all kernels;
+  5d. export: the serving artifact. Phase 5's run dir (bf16), the same
+     under MMSN_FUSED_BLOCK=1 and under MMSN_FUSED_QKV=1, and a float32
+     one (the 3xTF32 route), each exported by cli.export_model --batch-size
+     256 --check in process (the check's two calls counted, the trace
+     launching nothing): the graph must hold one registered op node
+     (mmsn_torch::flash_attention_fwd, fused_ffn_block_fwd,
+     fused_qkv_attention_fwd) for every forward launch of the live call;
+     each artifact reloaded in a fresh process (python -c ARTIFACT_HOST,
+     no MMSN_FUSED_* in its environment) that must import no module of
+     the port's models or of JAX, launch exactly the live call's kernels
+     a call, and give embeddings within ARTIFACT_TOL (1e-4) of
+     load_live's (bitwise logged); meanwhile, in this process,
+     load_artifact's embeddings against load_live's and the artifact
+     served by EmbedServer to phase 5's requests, launches counted per
+     device call, within SERVE_TOL of the plain path; once the fresh
+     processes have ended, the artifact's call against load_live's (host
+     clock in rounds of consecutive calls, device time and idle share by
+     torch.profiler) and the flash forward through its op against the
+     direct launcher at LC and SP (host time a call, CUDA events);
   6. train: maven-lite at bench.py's shapes (B = 256, T_lc = 2 x 100,
      T_sp = 220, bf16, lr 5e-4, noise_level_mag 1.0, dropout 0) on the
      2048-sample synthetic set, through Trainer.fit for 3 epochs. Checks:
@@ -200,8 +221,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      Prints the median train-step time and paired samples/s of the kernel
      path, the plain path and the kernel path on the CUDA-core route (bf16,
      the same batch, host clock around synchronised steps, alternating
-     rounds of 20 steps each: three of the plain path, five of each flash
-     route) and their peak device memory;
+     rounds of 20 steps each, in the order main, the others, main) and
+     their peak device memory;
   6b. train-fused: the same trainer with use_fused_block in the LC tower's
      kwargs: 5 fused forward + 5 fused backward (all on the tensor cores) +
      18 flash forward + 18 flash backward launches per train step (5 + 18
@@ -376,7 +397,21 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      torch.profiler (the pinned copies' share of time under kernels, the
      idle share); an epoch with prefetch off beside the CLI run's (each
      shard's upload device ms, staging and wait ms, each cursor save's ms).
-     Deletes the corpus;
+     Leaves the corpus and the cache to phase 6g'';
+  6g''. stream-dp: Maven pretraining (its full width, B = 1024 global)
+     streamed by Trainer.fit_sharded over two gloo ranks sharing cuda:0 (B
+     = 512 each; the DP_GROUPS "stream" group of phase dp's workers,
+     chip_smoke.py --dp-rank stream R TMP, started before the one-process
+     run and waiting for it) from a cut of phase 6g''s cache
+     (11,264 training rows in shards of 4096, 4096 and 3072; 2,048
+     validation rows): run A (2 epochs) on each rank against the same fit
+     in this process, phase dp's tolerances (losses rtol = atol = 2e-5,
+     every state_dict entry 5e-5) and launches; run B (1 epoch, then
+     resumed from its last.ckpt at the epoch boundary under the mesh)
+     against A within 1e-5 (bitwise tensors counted); ckpt_cursor/ in the
+     one-process run dir and in neither mesh run dir; each rank's step
+     against one process's by the host clock. Deletes the corpus and the
+     caches;
   6h. ingest: a ZTF BTS tree of 4702 transients (the corpus's candidate
      count) written with numpy and zlib into chiprun_out/ in the corpus's
      layout and formats (_write_tree: the transient table with the
@@ -454,8 +489,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      (b), and the first 5 steps against sequential runs of each member's lr
      and seed (StackedRAdam); phases 6k's and 6l's torchrun runs go
      beside (a)-(d). (e) Once they have ended, the stacked step
-     at N = 5 x B = 32 (maven-lite) and N = 5 x B = 256
-     (config_grid.yaml's first point) against N sequential steps on the
+     at N = 5 x B = 32 (maven-lite) against N sequential steps on the
      same batches: host clock medians of 6 (each step ended by a
      synchronise) and one profile of 5 steps each (device time, idle share,
      time by kind), samples/s over the members;
@@ -516,10 +550,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      one-rank NCCL group) on phase 6h's tree: the five fold run dirs and
      _ensemble-g0/. The tree is deleted after the phase;
   7. profile: torch.profiler (device activity) over 5 train steps of each
-     path (kernel, kernel-simt: the kernel path on the CUDA-core route,
-     plain, fused, fused-simt: the fused path with both fused kernels on the
-     CUDA cores, qkv, qkv-simt: the opt-in on the CUDA-core QKV kernels;
-     bf16, one batch, after 3 warm-up steps):
+     path (kernel, plain, fused, qkv; bf16, one batch, after 3 warm-up
+     steps):
      device time per step
      (the union of device ops), the trace's wall per step (first device
      op's start to the last one's end), one minus their ratio as the device
@@ -563,6 +595,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -598,6 +631,7 @@ import multimodal_supernovae_tpu_torch.training.trainer as trainer_mod
 from multimodal_supernovae_tpu_torch.cli import common as cli_common
 from multimodal_supernovae_tpu_torch.cli import evaluate as cli_evaluate
 from multimodal_supernovae_tpu_torch.cli import export_embeddings as cli_export
+from multimodal_supernovae_tpu_torch.cli import export_model as cli_export_model
 from multimodal_supernovae_tpu_torch.cli import finetune_clip as cli_finetune
 from multimodal_supernovae_tpu_torch.cli import infer as cli_infer
 from multimodal_supernovae_tpu_torch.cli import pretrain_masked as cli_masked
@@ -632,7 +666,9 @@ from multimodal_supernovae_tpu_torch.data.streaming import (
     ShardedDataset,
     ValHoldout,
     load_val_split,
+    save_val_split,
     shard_epoch_schedule,
+    write_sharded_cache,
 )
 from multimodal_supernovae_tpu_torch.data.png import decode, unfilter_numpy
 from multimodal_supernovae_tpu_torch.data.transforms import (
@@ -646,6 +682,7 @@ from multimodal_supernovae_tpu_torch.evaluation import (
     predict_supervised,
     probes,
 )
+from multimodal_supernovae_tpu_torch.evaluation.export import kernel_ops, load_exported
 from multimodal_supernovae_tpu_torch.kernels import build, library_path
 from multimodal_supernovae_tpu_torch.models import (
     CLIPConfig,
@@ -661,7 +698,7 @@ from multimodal_supernovae_tpu_torch.models import (
     write_model_config,
 )
 from multimodal_supernovae_tpu_torch.ops import dense_attention, dense_attention_bwd
-from multimodal_supernovae_tpu_torch.serving import EmbedServer, load_live
+from multimodal_supernovae_tpu_torch.serving import EmbedServer, load_artifact, load_live
 from multimodal_supernovae_tpu_torch.training import (
     Trainer,
     TrainerConfig,
@@ -1170,11 +1207,11 @@ def _seq_lc(fused):
     return {**SEQ_LC, "use_fused_block": True} if fused else SEQ_LC
 
 
-def _run_dir(tmp, fused=False):
+def _run_dir(tmp, fused=False, compute_dtype="bfloat16"):
     cfg = CLIPConfig.create(
         combinations=("lightcurve", "spectral"), enc_dim=32, nband=NBAND,
         logit_scale_init=19.55, loss="softmax", transformer_kwargs=_seq_lc(fused),
-        transformer_spectral_kwargs=SEQ_SP, compute_dtype="bfloat16")
+        transformer_spectral_kwargs=SEQ_SP, compute_dtype=compute_dtype)
     model = CLIPModel(cfg, generator=torch.Generator().manual_seed(0))
     write_model_config(tmp, model)
     torch.save({"epoch": 0, "global_step": 0, "state_dict": model.state_dict()},
@@ -1855,16 +1892,97 @@ def phase_kernel_qkv():
     return fwd_err, bwd_err, timing
 
 
+SERVE_SIZES = ((1, False), (37, True), (256, False), (300, False))  # (n, as JSON)
+SERVE_FIELDS = ("x_lc", "t_lc", "mask_lc", "x_sp", "t_sp", "mask_sp")
+
+
+def _serve_feeds():
+    """The synthetic arrays of the serve phases' requests and one feed a
+    request of SERVE_SIZES."""
+    syn = make_synthetic_arrays(n=sum(n for n, _ in SERVE_SIZES), n_max_lc=LC_LEN,
+                                nband=NBAND, n_max_sp=SP_LEN, seed=1)
+    feeds, lo = [], 0
+    for n, _ in SERVE_SIZES:
+        feeds.append({k: syn[k][lo:lo + n] for k in SERVE_FIELDS})
+        lo += n
+    return syn, feeds
+
+
+def _serve_requests(tag, srv, feeds):
+    """The requests of SERVE_SIZES sent to ``srv`` at once from threads,
+    their launches counted from zero, then /healthz and /stats read. Returns
+    the answers, the launches, the device calls and the plain calls."""
+    srv.start_background()
+    results = [None] * len(SERVE_SIZES)
+    barrier = threading.Barrier(len(SERVE_SIZES))
+
+    def client(i):
+        barrier.wait()
+        results[i] = _post(srv.port, feeds[i], SERVE_SIZES[i][1])
+
+    with _plain_calls() as plain_calls:
+        _zero_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(SERVE_SIZES))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    if any(th.is_alive() for th in threads) or None in results:
+        raise RuntimeError("a client did not finish")
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+        if r.status != 200 or health["status"] != "ok":
+            raise AssertionError(f"/healthz: {r.status} {health}")
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/stats", timeout=60) as r:
+        stats = json.loads(r.read())
+        if r.status != 200:
+            raise AssertionError(f"/stats: {r.status}")
+    calls = stats["device_calls"]
+    n_all = sum(n for n, _ in SERVE_SIZES)
+    log(f"{tag}: {len(SERVE_SIZES)} concurrent requests, {n_all} samples in {wall:.3f} s "
+        f"wall, {calls} device calls, batch_fill {stats.get('batch_fill')}, launches "
+        f"{COUNT_NAMES} {launches}, {len(plain_calls)} plain kernel calls")
+    if calls < -(-n_all // BATCH):
+        raise AssertionError(f"too few device calls: {calls}")
+    return results, launches, calls, plain_calls
+
+
+def _served_vs_plain(tag, run_dir, feeds, results):
+    """Every answer of ``_serve_requests`` (status 200, finite unit-norm (n,
+    32) embeddings) within SERVE_TOL of the run dir's model through the
+    plain versions of every kernel, in the caller's environment."""
+    ref_model, _ = load_model(run_dir, DEVICE)
+    max_err = 0.0
+    with _plain_kernels(), torch.inference_mode():
+        for (n, as_json), feed, (status, out) in zip(SERVE_SIZES, feeds, results):
+            if status != 200:
+                raise AssertionError(f"request n={n}: status {status}")
+            ref = ref_model.encode({k: torch.from_numpy(v).to(DEVICE)
+                                    for k, v in feed.items()})
+            for name, r in zip(("emb_lightcurve", "emb_spectral"), ref):
+                got = out[name]
+                if got.shape != (n, 32) or not np.isfinite(got).all():
+                    raise AssertionError(f"{name} n={n}: shape {got.shape} "
+                                         "or non-finite values")
+                norms = np.linalg.norm(got, axis=-1)
+                if np.abs(norms - 1).max() > 1e-3:
+                    raise AssertionError(f"{name} n={n}: norms {norms.min()}"
+                                         f"..{norms.max()}")
+                err = float(np.abs(got - r.float().cpu().numpy()).max())
+                max_err = max(max_err, err)
+                if err > SERVE_TOL:
+                    raise AssertionError(f"{tag} {name} n={n} ({'json' if as_json else 'npz'}): "
+                                         f"max|served - plain| {err}")
+    log(f"{tag}: every answer matches the model through the plain versions, "
+        f"max|err| {max_err:.3e} (tol {SERVE_TOL})")
+
+
 def phase_serve(fused=False, qkv=False):
     tag = "serve-fused" if fused else "serve-qkv" if qkv else "serve"
-    sizes = [(1, False), (37, True), (256, False), (300, False)]  # (n, as JSON)
-    syn = make_synthetic_arrays(n=sum(n for n, _ in sizes), n_max_lc=LC_LEN,
-                                nband=NBAND, n_max_sp=SP_LEN, seed=1)
-    fields = ("x_lc", "t_lc", "mask_lc", "x_sp", "t_sp", "mask_sp")
-    feeds, lo = [], 0
-    for n, _ in sizes:
-        feeds.append({k: syn[k][lo:lo + n] for k in fields})
-        lo += n
+    syn, feeds = _serve_feeds()
 
     with tempfile.TemporaryDirectory() as tmp, (_qkv_env if qkv else contextlib.nullcontext)():
         _run_dir(tmp, fused)
@@ -1872,46 +1990,8 @@ def phase_serve(fused=False, qkv=False):
                                   sp_len=SP_LEN)
         srv = EmbedServer(serving_model, host="127.0.0.1", port=0,
                           max_wait_ms=50.0)  # warms up: one device call
-        results = [None] * len(sizes)
         try:
-            srv.start_background()
-            barrier = threading.Barrier(len(sizes))
-
-            def client(i):
-                barrier.wait()
-                results[i] = _post(srv.port, feeds[i], sizes[i][1])
-
-            with _plain_calls() as plain_calls:
-                _zero_counts()
-                t0 = time.perf_counter()
-                threads = [threading.Thread(target=client, args=(i,))
-                           for i in range(len(sizes))]
-                for th in threads:
-                    th.start()
-                for th in threads:
-                    th.join(timeout=600)
-                wall = time.perf_counter() - t0
-                launches = _counts()
-            if any(th.is_alive() for th in threads) or None in results:
-                raise RuntimeError("a client did not finish")
-            with urllib.request.urlopen(
-                    f"http://127.0.0.1:{srv.port}/healthz", timeout=60) as r:
-                health = json.loads(r.read())
-                if r.status != 200 or health["status"] != "ok":
-                    raise AssertionError(f"/healthz: {r.status} {health}")
-            with urllib.request.urlopen(
-                    f"http://127.0.0.1:{srv.port}/stats", timeout=60) as r:
-                stats = json.loads(r.read())
-                if r.status != 200:
-                    raise AssertionError(f"/stats: {r.status}")
-            calls = stats["device_calls"]
-            log(f"{tag}: {len(sizes)} concurrent requests, "
-                f"{sum(n for n, _ in sizes)} samples in {wall:.3f} s wall, "
-                f"{calls} device calls, batch_fill {stats.get('batch_fill')}, "
-                f"launches {COUNT_NAMES} {launches}, "
-                f"{len(plain_calls)} plain kernel calls")
-            if calls < -(-sum(n for n, _ in sizes) // BATCH):
-                raise AssertionError(f"too few device calls: {calls}")
+            results, launches, calls, plain_calls = _serve_requests(tag, srv, feeds)
             # under the opt-in the LC tower (T = 200) takes the fused-QKV kernel and
             # the SP tower (T = 1024 > 256) falls back to the flash kernel; the fused
             # LC blocks compute in float32 (their attention on the 3xTF32 route),
@@ -1928,7 +2008,7 @@ def phase_serve(fused=False, qkv=False):
 
             # per-call time of the served batch (fn ends in a host copy); the
             # kernel path on both flash routes, in alternating rounds
-            full = {k: syn[k][:BATCH] for k in fields}
+            full = {k: syn[k][:BATCH] for k in SERVE_FIELDS}
             serving_model.fn(full)
             rounds = ("mma", "simt", "simt", "mma") if tag == "serve" else ("mma",)
             per_call = {}
@@ -1957,32 +2037,300 @@ def phase_serve(fused=False, qkv=False):
             srv.close()
 
         # answers against the same model run through the plain versions
-        ref_model, _ = load_model(tmp, DEVICE)
-        tol = SERVE_TOL
-        max_err = 0.0
-        with _plain_kernels(), torch.inference_mode():
-            for (n, as_json), feed, (status, out) in zip(sizes, feeds, results):
-                if status != 200:
-                    raise AssertionError(f"request n={n}: status {status}")
-                ref = ref_model.encode({k: torch.from_numpy(v).to(DEVICE)
-                                        for k, v in feed.items()})
-                for name, r in zip(("emb_lightcurve", "emb_spectral"), ref):
-                    got = out[name]
-                    if got.shape != (n, 32) or not np.isfinite(got).all():
-                        raise AssertionError(f"{name} n={n}: shape {got.shape} "
-                                             "or non-finite values")
-                    norms = np.linalg.norm(got, axis=-1)
-                    if np.abs(norms - 1).max() > 1e-3:
-                        raise AssertionError(f"{name} n={n}: norms {norms.min()}"
-                                             f"..{norms.max()}")
-                    err = float(np.abs(got - r.float().cpu().numpy()).max())
-                    max_err = max(max_err, err)
-                    if err > tol:
-                        raise AssertionError(f"{name} n={n} ({'json' if as_json else 'npz'}): "
-                                             f"max|served - plain| {err}")
-        log(f"{tag}: every answer matches the model through the plain versions, "
-            f"max|err| {max_err:.3e} (tol {tol})")
+        _served_vs_plain(tag, tmp, feeds, results)
     return launches
+
+
+# phase export: the serving artifact (cli/export_model.py, evaluation/export.py,
+# serving/server.py:load_artifact)
+EXPORT_CASES = (  # (tag, the run dir's compute dtype, the environment of its export)
+    ("bf16", "bfloat16", {}),
+    ("fused-block", "bfloat16", {"MMSN_FUSED_BLOCK": "1"}),
+    ("fused-qkv", "bfloat16", {"MMSN_FUSED_QKV": "1"}),
+    ("float32", None, {}),
+)
+# the registered op that each forward place of _counts() launches through
+EXPORT_OPS = {0: "flash_attention_fwd", 2: "flash_attention_fwd", 12: "flash_attention_fwd",
+              4: "fused_ffn_block_fwd", 10: "fused_ffn_block_fwd",
+              6: "fused_qkv_attention_fwd", 8: "fused_qkv_attention_fwd"}
+ARTIFACT_CALLS = 3   # counted calls of each artifact in its fresh process
+ARTIFACT_TOL = 1e-4  # an artifact's embeddings against load_live's (the JAX CLI's --check)
+EXPORT_TIMED = 5     # host-clock calls a round: artifact, load_live, load_live, artifact
+ARTIFACT_HOST_TIMEOUT_S = 300
+# a serving host in a fresh process (python -c, argv: artifact, feed .npz, output
+# stem, calls): load_artifact on the card, one warm-up call, then the counted
+# calls of the feed; writes the last call's embeddings, the forward launch
+# counters, the graph's kernel op nodes and the modules of the model code and of
+# JAX it imported
+ARTIFACT_HOST = r"""
+import json, sys, time
+import numpy as np
+t0 = time.perf_counter()
+from multimodal_supernovae_tpu_torch.serving import load_artifact
+from multimodal_supernovae_tpu_torch.evaluation.export import kernel_ops, load_exported
+from multimodal_supernovae_tpu_torch.ops import flash_attention as fa
+from multimodal_supernovae_tpu_torch.ops import fused_block as fb
+from multimodal_supernovae_tpu_torch.ops import qkv_attention as qa
+art, feed_path, out, calls = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+model = load_artifact(art)
+with np.load(feed_path) as z:
+    feed = {k: z[k] for k in z.files}
+model.fn(feed)
+load_s = time.perf_counter() - t0
+flash, ffn, qkv = fa.flash_attention, fb.fused_ffn_block, qa.fused_qkv_attention
+for c in (flash, ffn, qkv):
+    c.launches = c.mma_launches = 0
+flash.tf32_launches = 0
+outs = [model.fn(feed) for _ in range(calls)]
+np.savez(out + ".npz", *outs[-1])
+with open(art, "rb") as f:
+    nodes = kernel_ops(load_exported(f.read())[1])
+with open(out + ".json", "w") as f:
+    json.dump({"flash": [flash.launches, flash.mma_launches, flash.tf32_launches],
+               "ffn": [ffn.launches, ffn.mma_launches],
+               "qkv": [qkv.launches, qkv.mma_launches],
+               "models": sorted(m for m in sys.modules
+                                if m.startswith("multimodal_supernovae_tpu_torch.models")),
+               "jax": sorted(m for m in sys.modules
+                             if m == "jax" or m.startswith("multimodal_supernovae_tpu.")),
+               "load_s": load_s, "batch": model.batch_size,
+               "modalities": model.modalities, "nodes": nodes}, f)
+"""
+
+
+def _host_counts(raw):
+    """The 14 numbers of COUNT_NAMES from a fresh process's forward counters."""
+    (fl, fm, ft), (bl, bm), (ql, qm) = raw["flash"], raw["ffn"], raw["qkv"]
+    return (fl - fm - ft, 0, fm, 0, bl - bm, 0, ql - qm, 0, qm, 0, bm, 0, ft, 0)
+
+
+def _artifact_ops(per_call):
+    """{op: nodes} an artifact must hold for a live call's launches."""
+    want = {}
+    for i, op in EXPORT_OPS.items():
+        if per_call[i]:
+            want[op] = want.get(op, 0) + per_call[i]
+    return want
+
+
+def _dispatch_times():
+    """The flash forward through its registered op against the direct
+    launcher (``_flash_fwd``) at the LC and SP serving shapes in bf16, the
+    encoder's head-split views, in inference mode as served: host ms a call
+    and CUDA-event ms a call.
+    Both must give the same bits."""
+    out = {}
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    for name, (b, h, t, s) in (("LC", (BATCH, 8, NBAND * LC_LEN, 8)),
+                               ("SP", (BATCH, 2, SP_LEN, 16))):
+        x = torch.randn(b, t, 3 * h * s, device=DEVICE, generator=g).to(torch.bfloat16)
+        q, k, v = (a.view(b, t, h, s).transpose(1, 2) for a in x.split(h * s, dim=-1))
+        mask = torch.rand(b, t, device=DEVICE, generator=g) > 0.2
+
+        def op():
+            return flash_mod.flash_attention_fwd(q, k, v, mask, h * s)
+
+        def direct():
+            return flash_mod._flash_fwd(q, k, v, mask, h * s, with_stats=False)[0]
+
+        if not torch.equal(op(), direct()):
+            raise AssertionError(f"export dispatch {name}: the op and the launcher differ")
+        times = {}
+        with torch.inference_mode():  # as served
+            for _ in range(2):  # in turns
+                for tag, fn in (("op", op), ("direct", direct)):
+                    times.setdefault(f"{tag}_host_ms", []).append(_host_ms(fn))
+                    times.setdefault(f"{tag}_ms", []).append(_time_ms(fn))
+        out[name] = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"export dispatch {name} (B, H, T, S) = {(b, h, t, s)} bf16, inference mode: host "
+            f"{out[name]['op_host_ms'] * 1e3:.1f} us a call through the op, "
+            f"{out[name]['direct_host_ms'] * 1e3:.1f} us through the launcher; events "
+            f"{out[name]['op_ms']:.4f} ms against {out[name]['direct_ms']:.4f} ms (medians of "
+            "two rounds in turns)")
+    return out
+
+
+def phase_export(card):
+    """The serving artifact on the card: serve's maven-lite run dir (B = 256,
+    LC 2 x 100, SP 1024, bf16), the same under MMSN_FUSED_BLOCK=1 and under
+    MMSN_FUSED_QKV=1, and a float32 one, each exported by cli.export_model
+    --check, then reloaded in a fresh process that imports no model code:
+    its graph must hold one op node a launch of the live call, its launches
+    a call must equal the live call's and its embeddings lie within
+    ARTIFACT_TOL of load_live's. While those processes run, each artifact
+    is served here over HTTP to phase serve's requests, within SERVE_TOL of
+    the plain path; once they have ended (they would share the host with
+    the timings), each artifact's call is timed against load_live's and the
+    op's dispatch against the launcher. Returns the launches of every
+    counted call and the dispatch times."""
+    t_phase = time.perf_counter()
+    syn, feeds = _serve_feeds()
+    full = {k: syn[k][:BATCH] for k in SERVE_FIELDS}
+    total, cases, hosts = NONE, [], []
+    root = os.path.dirname(os.path.abspath(__file__))
+    host_env = {k: v for k, v in os.environ.items() if not k.startswith("MMSN_FUSED")}
+    host_env["PYTHONPATH"] = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH"))
+                                             if p)
+    with tempfile.TemporaryDirectory() as tmp:
+        feed_path = os.path.join(tmp, "feed.npz")
+        np.savez(feed_path, **full)
+        try:
+            for tag, dtype, env in EXPORT_CASES:
+                run_dir, art = os.path.join(tmp, tag), os.path.join(tmp, f"{tag}.pt2")
+                os.makedirs(run_dir)
+                _run_dir(run_dir, compute_dtype=dtype)
+                with mock.patch.dict(os.environ, env):
+                    live = load_live(run_dir, BATCH, device=DEVICE, lc_len=LC_LEN,
+                                     sp_len=SP_LEN)
+                    live.fn(full)
+                    _zero_counts()
+                    want = live.fn(full)
+                    per_call = _counts()
+                    counts, _, printed = _cli_counted(f"export {tag}", cli_export_model.main, [
+                        run_dir, "--out", art, "--batch-size", str(BATCH), "--lc-len",
+                        str(LC_LEN), "--sp-len", str(SP_LEN), "--device", DEVICE, "--check"])
+                check = tuple(2 * c for c in per_call)  # the artifact's and the live call
+                if "CHECK OK" not in printed or counts != check or sum(per_call[1::2]):
+                    raise AssertionError(f"export {tag}: launches {counts} (want {check}, "
+                                         "the check's two calls; the trace launches none)")
+                total = tuple(a + c for a, c in zip(total, counts))
+                hosts.append(subprocess.Popen(
+                    [sys.executable, "-c", ARTIFACT_HOST, art, feed_path,
+                     os.path.join(tmp, f"{tag}-host"), str(ARTIFACT_CALLS)],
+                    cwd=root, env=host_env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+                cases.append([tag, env, run_dir, art, live, want, per_call])
+            for case in cases:  # beside the fresh processes: nothing timed
+                tag, env, run_dir, art, live, want, per_call = case
+                with mock.patch.dict(os.environ, env):  # the plain path's dispatch reads it
+                    model, launches = _export_serve(tag, run_dir, art, full, want, per_call,
+                                                    feeds)
+                total = tuple(a + c for a, c in zip(total, launches))
+                case.append(model)
+            for (tag, _, _, _, _, want, per_call, _), proc in zip(cases, hosts):
+                total = tuple(a + c for a, c in zip(total, _export_host(
+                    tag, proc, os.path.join(tmp, f"{tag}-host"), want, per_call)))
+        finally:
+            for proc in hosts:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for tag, env, _, _, live, _, _, model in cases:
+            with mock.patch.dict(os.environ, env):  # the live call's dispatch reads it
+                _export_time(tag, model, live, full, card)
+        del cases
+        dispatch = _dispatch_times()
+    log(f"export: launches {COUNT_NAMES} {total}; card {card}; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, dispatch
+
+
+def _export_serve(tag, run_dir, art, full, want, per_call, feeds):
+    """One artifact through load_artifact in this process: its embeddings
+    against load_live's, then served by EmbedServer to phase serve's
+    requests (launches a device call the live call's, answers within
+    SERVE_TOL of the plain path). Returns the ServingModel and the served
+    launches."""
+    model = load_artifact(art, device=DEVICE)
+    got = model.fn(full)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    bitwise = all(np.array_equal(g, w) for g, w in zip(got, want))
+    log(f"export {tag}: load_artifact in this process: max|artifact - load_live| "
+        f"{err:.3e} (tol {ARTIFACT_TOL}), bitwise {bitwise}")
+    if err > ARTIFACT_TOL:
+        raise AssertionError(f"export {tag}: max|artifact - load_live| {err}")
+    srv = EmbedServer(model, host="127.0.0.1", port=0, max_wait_ms=50.0)
+    try:
+        results, launches, calls, plain = _serve_requests(f"export {tag} serve", srv, feeds)
+    finally:
+        srv.close()
+    if launches != tuple(calls * c for c in per_call) or plain:
+        raise AssertionError(f"export {tag} serve: launches {launches} for {calls} device "
+                             f"calls of {per_call}, {len(plain)} plain calls")
+    _served_vs_plain(f"export {tag} serve", run_dir, feeds, results)
+    return model, launches
+
+
+def _export_host(tag, proc, stem, want, per_call):
+    """The fresh process's report on one artifact: its exit, the graph's op
+    nodes against the live call's launches, its launches, the modules it
+    imported and its embeddings against load_live's. Returns its launches."""
+    out, _ = proc.communicate(timeout=ARTIFACT_HOST_TIMEOUT_S)
+    if proc.returncode:
+        for line in out.splitlines()[-30:]:
+            log(f"export {tag} host: {line}")
+        raise AssertionError(f"export {tag}: the fresh process exited {proc.returncode}")
+    with open(stem + ".json") as f:
+        rep = json.load(f)
+    with np.load(stem + ".npz") as z:
+        got = [z[f"arr_{i}"] for i in range(len(z.files))]
+    counts = _host_counts(rep)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    bitwise = all(np.array_equal(g, w) for g, w in zip(got, want))
+    log(f"export {tag} host: a fresh process loaded the artifact and made its first call "
+        f"in {rep['load_s']:.2f} s; the graph's kernel ops {rep['nodes']} (the live call "
+        f"launches {per_call}); {ARTIFACT_CALLS} calls launched {counts}; max|artifact - "
+        f"load_live| {err:.3e} (tol {ARTIFACT_TOL}), bitwise {bitwise}; model modules "
+        f"imported {rep['models']}, JAX modules {rep['jax']}")
+    if (rep["nodes"] != _artifact_ops(per_call)
+            or counts != tuple(ARTIFACT_CALLS * c for c in per_call) or rep["models"]
+            or rep["jax"] or err > ARTIFACT_TOL or len(got) != len(want)
+            or rep["batch"] != BATCH):
+        raise AssertionError(f"export {tag} host: nodes {rep['nodes']}, launches {counts}, "
+                             f"modules {rep['models']} {rep['jax']}, error {err}")
+    return counts
+
+
+def _export_time(tag, model, live, full, card):
+    """An artifact's call against load_live's at B = 256: the host clock
+    (copies in and out included) in rounds of EXPORT_TIMED consecutive
+    calls, artifact, live, live, artifact; device time and idle share by
+    torch.profiler; and, as diagnostics, three calls of each in
+    alternation and the garbage collector's runs inside the timed calls."""
+    fns = {"artifact": model.fn, "load_live": live.fn}
+    host = {name: [] for name in fns}
+    gc_ms = {name: [] for name in fns}  # the collector's pauses inside each timed call
+    now = {"call": None, "t0": 0.0}
+
+    def collected(phase, info):
+        if phase == "start":
+            now["t0"] = time.perf_counter()
+        elif now["call"] is not None:
+            gc_ms[now["call"]].append((info["generation"],
+                                       round((time.perf_counter() - now["t0"]) * 1e3, 3)))
+
+    gc.callbacks.append(collected)
+    try:
+        for name in ("artifact", "load_live", "load_live", "artifact"):
+            for _ in range(EXPORT_TIMED):
+                torch.cuda.synchronize()
+                now["call"] = name
+                t0 = time.perf_counter()
+                fns[name](full)
+                host[name].append((time.perf_counter() - t0) * 1e3)
+                now["call"] = None
+    finally:
+        gc.callbacks.remove(collected)
+    alternating = {name: [] for name in fns}
+    for _ in range(3):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(full)
+            alternating[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+    traced = {name: _trace(lambda fn=fn: fn(full), PROFILED_STEPS) for name, fn in fns.items()}
+    log(f"export {tag}: a call at B={BATCH} (host clock, copies in and out included, median "
+        f"of {2 * EXPORT_TIMED} in rounds A, L, L, A): artifact "
+        f"{np.median(host['artifact']):.3f} ms, load_live {np.median(host['load_live']):.3f} "
+        f"ms; device time {traced['artifact'][0]:.3f} ms against "
+        f"{traced['load_live'][0]:.3f} ms, idle share {traced['artifact'][3]:.3f} against "
+        f"{traced['load_live'][3]:.3f}; in alternation (a diagnostic) {alternating}; the "
+        f"garbage collector's runs inside the timed calls (generation, ms) {gc_ms}, "
+        f"{len(gc.get_objects())} objects tracked, {threading.active_count()} threads; card "
+        f"{card}")
+    for name in fns:
+        _log_trace(f"profile export {tag} {name}", "calls", *traced[name],
+                   at=f"B={BATCH}, the {tag} run dir")
 
 
 def _train_model(compute_dtype, seed=0, fused=False):
@@ -2323,9 +2671,7 @@ def phase_train(variant="kernel"):
     # train-step time against the other path, on one batch, alternating rounds
     data = ds.to_device(DEVICE)
     batch = take(data, torch.arange(BATCH, device=DEVICE))
-    order = (main_path, *others, *others[::-1], main_path, main_path, *others)
-    if variant == "kernel":  # the two flash routes: two more rounds each
-        order += ("kernel-simt", "kernel", "kernel", "kernel-simt")
+    order = (main_path, *others, main_path)
     times = {main_path: [], **{p: [] for p in others}}
     round_ms = {p: [] for p in times}
     timed_counts = NONE
@@ -4269,8 +4615,8 @@ def phase_stream(card, tmp):
     holdout's, the first steps against the plain path, a run cut after its
     third shard's cursor (profiled: the uploads' share hidden under kernels,
     the idle share) and resumed against the uninterrupted run, and the
-    epoch with prefetch off. Deletes the corpus. Returns the launches of
-    every counted call."""
+    epoch with prefetch off. Leaves the corpus and the cache to phase
+    stream-dp. Returns the launches of every counted call."""
     t_phase = time.perf_counter()
     sweep, point, model, task, tcfg = _maven_pretrain_point("stream", SIM_EPOCHS)
     extra, b = sweep.extra_args, tcfg.batch_size
@@ -4430,10 +4776,151 @@ def phase_stream(card, tmp):
             f"{[round(w, 2) for w in f['wait_ms']]} ms on the host"
             + ("" if s_ms is None else
                f", each cursor save {[round(c, 2) for c in s_ms]} ms") + f"; card {card}")
-    shutil.rmtree(cache_dir)
-    shutil.rmtree(sim_dir)
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # the cache and the corpus stay for phase stream-dp
     log(f"stream: launches {COUNT_NAMES} {total}; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# phase stream-dp: Trainer.fit_sharded over two gloo ranks sharing the card
+STREAM_DP_ROWS = 4096     # rows a shard of the phase's cache: 4 steps of B = 1024
+STREAM_DP_TRAIN = 11_264  # phase stream's first training rows: shards of 4096, 4096, 3072
+STREAM_DP_VAL = 2048      # phase stream's first validation rows
+STREAM_DP_EPOCHS = 2      # the uninterrupted runs; the cut one stops after the first
+# the jobs of DP_GROUPS' "stream" group, run in this order on each rank: job: (run dir,
+# epochs, resume)
+STREAM_DP_JOBS = {"stream-A": ("A-mesh", STREAM_DP_EPOCHS, False),
+                  "stream-B-first": ("B-mesh", 1, False),
+                  "stream-B": ("B-mesh", STREAM_DP_EPOCHS, True)}
+
+
+def _stream_dp_cache(tmp):
+    """The phase's sharded cache in ``tmp/stream-dp/cache``: phase stream's
+    first STREAM_DP_TRAIN training rows in shards of STREAM_DP_ROWS and its
+    first STREAM_DP_VAL validation rows (the widths, the batch and the
+    model are Maven pretraining's; the rows and shards are cut)."""
+    (src,) = [os.path.join(tmp, "stream-cache", d) for d in
+              os.listdir(os.path.join(tmp, "stream-cache"))]
+    sds, val = ShardedDataset(src), load_val_split(src)
+    parts, rows = [], 0
+    for i in range(sds.n_shards):
+        parts.append(sds.load_shard(i, mmap=False).arrays)
+        rows += sds.shard_sizes[i]
+        if rows >= STREAM_DP_TRAIN:
+            break
+    chunk = {k: np.concatenate([p[k] for p in parts])[:STREAM_DP_TRAIN] for k in parts[0]}
+    out = os.path.join(tmp, "stream-dp", "cache")
+    cut = write_sharded_cache(out, iter([chunk]), STREAM_DP_ROWS)
+    save_val_split(out, val.subset(np.arange(STREAM_DP_VAL)))
+    return cut.shard_sizes
+
+
+def _stream_dp_fit(tmp, run, mesh=None, epochs=STREAM_DP_EPOCHS, resume=False):
+    """fit_sharded of maven_pretrain's first point (run_sweep_streaming's
+    model, weights and trainer config, epochs cut to ``epochs``) over the
+    phase's cache into ``tmp/stream-dp/<run>``, counted, on a rank of
+    ``mesh`` or (None) in this process. Returns what ``_dp_compare`` reads,
+    the run's files and the steps' host clock."""
+    d = os.path.join(tmp, "stream-dp")
+    sweep = load_sweep(MAVEN_PRETRAIN)
+    point, extra = next(expand_grid(sweep)), sweep.extra_args
+    model, task, _, _, tcfg = _build_run(point, extra, NBAND, None, epochs)
+    layers = model.cfg.tk()["depth"] + model.cfg.tsk()["depth"]
+    sds, val = ShardedDataset(os.path.join(d, "cache")), load_val_split(os.path.join(d, "cache"))
+    run_dir = os.path.join(d, run)
+    trainer = Trainer(model.to(DEVICE), task, tcfg, run_dir=run_dir, mesh=mesh)
+    with _plain_calls() as plain:
+        _zero_counts()
+        res = trainer.fit_sharded(sds, val, config_dump=dict(point), resume=resume)
+        torch.cuda.synchronize()
+        counts = _counts()
+    b = tcfg.batch_size
+    return {"history": res["history"], "rows": res["metric_rows"],
+            "state_dict": {k: v.detach().to("cpu", copy=True)
+                           for k, v in gather_state_dict(res["state"].model).items()},
+            "counts": counts, "plain": len(plain), "per_step": _tf32_flash(layers, layers),
+            "epochs": epochs - (1 if resume else 0), "batch": b,
+            "steps": (sds.n_shards * -(-sds.shard_sizes[0] // b), -(-len(val) // b)),
+            "step_ms": [r["step_time_s"] * 1e3 for r in res["metric_rows"]],
+            "files": sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []}
+
+
+def phase_stream_dp(card, tmp):
+    """Maven pretraining (configs/maven_pretrain.yaml, B = 1024 global)
+    streamed by Trainer.fit_sharded over two gloo ranks sharing cuda:0 (B =
+    512 each), from a cut of phase stream's cache, against the one-process
+    fit_sharded on the same shards (phase dp's tolerances), and a run cut
+    at its first epoch's end and resumed under the mesh from last.ckpt
+    against the uninterrupted mesh run; rank 0 alone writes, and no shard
+    cursor is kept over several processes. Deletes phase sim's corpus and
+    phase stream's cache. Returns the launches of the one-process run and
+    of one rank."""
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "stream-dp")
+    os.makedirs(d)
+    os.makedirs(os.path.join(tmp, "dp"), exist_ok=True)  # the group's store and results
+    sizes = _stream_dp_cache(tmp)
+    shutil.rmtree(os.path.join(tmp, "stream-cache"))
+    shutil.rmtree(os.path.join(tmp, "sim"))
+    _, mesh_shape, jobs = DP_GROUPS["stream"]
+    n_ranks = int(np.prod(mesh_shape))
+    run = {"clis": {}, "ranks": [], "procs": [], "logs": []}
+    try:
+        run["ranks"], run["procs"], run["logs"] = _dp_start(tmp, ["stream"])
+        t_ranks = time.perf_counter()
+        try:
+            ref = _stream_dp_fit(tmp, "A-one")  # while the ranks start
+        finally:
+            open(os.path.join(tmp, "dp", "stream-dp-refs-done"), "w").close()
+        _dp_wait(tmp, run, "stream-dp")
+    finally:
+        _dp_stop(run)
+    log(f"stream-dp: {len(sizes)} shards of {sizes} rows, {STREAM_DP_VAL} validation rows, "
+        f"B={ref['batch']}; two gloo ranks on cuda:0 ran A ({STREAM_DP_EPOCHS} epochs) and B "
+        f"(1, then resumed) in {time.perf_counter() - t_ranks:.1f} s (start-up included)")
+    ranks = [{job: torch.load(os.path.join(tmp, "dp", f"stream-{job}-{r}.pt"),
+                              weights_only=False) for job in jobs} for r in range(n_ranks)]
+    ref_files, files = set(ref["files"]), set(ranks[0]["stream-A"]["files"])
+    for r, got in enumerate(ranks):
+        _dp_compare("maven-pretrain-stream", ref, got["stream-A"], r, "stream-dp",
+                    DP_LOSS_TOL, DP_PARAM_TOL)
+        full, resumed = got["stream-A"], got["stream-B"]
+        a = full["history"]["train_loss"] + full["history"]["val_loss"]
+        w = resumed["history"]["train_loss"] + resumed["history"]["val_loss"]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(w, a))
+        errs = {k: float((resumed["state_dict"][k].double() - v.double()).abs().max())
+                / max(float(v.double().abs().max()), 1e-30)
+                for k, v in full["state_dict"].items() if v.is_floating_point()}
+        worst = max(errs, key=errs.get)
+        bitwise = sum(torch.equal(resumed["state_dict"][k], v)
+                      for k, v in full["state_dict"].items())
+        want_b = _fit_want(resumed["per_step"], 1, *resumed["steps"])
+        log(f"stream-dp resume rank {r}: B cut after epoch 0 and resumed from last.ckpt under "
+            f"the mesh: losses within {loss_rel:.3e} of A's (tol {RESUME_RTOL}), {bitwise} of "
+            f"{len(full['state_dict'])} state_dict tensors bitwise, the worst "
+            f"max|diff|/max|want| {errs[worst]:.3e} at {worst} (tol {RESUME_PARAM_TOL}); the "
+            f"resumed epoch's launches {resumed['counts']} (want {want_b})")
+        if (len(w) != len(a) or loss_rel > RESUME_RTOL or errs[worst] > RESUME_PARAM_TOL
+                or resumed["counts"] != want_b or resumed["plain"]):
+            raise AssertionError(f"stream-dp resume rank {r}: {loss_rel:.3e}, "
+                                 f"{errs[worst]:.3e}, launches {resumed['counts']}")
+    log(f"stream-dp: run files, one process {sorted(ref_files)}; the mesh's {sorted(files)}")
+    if "ckpt_cursor" not in ref_files or "ckpt_cursor" in files or not set(
+            RUN_DIR_FILES) - {"val_filenames.txt"} <= files:
+        raise AssertionError("stream-dp: a cursor over several processes, or run files "
+                             "missing")
+    rank_ms = [float(np.mean(g["stream-A"]["step_ms"])) for g in ranks]
+    log(f"stream-dp: a step (host clock, the epochs' means, evaluation left out): one process "
+        f"at B={ref['batch']} {[round(x, 3) for x in ref['step_ms']]} ms; the ranks at "
+        f"B={ref['batch'] // n_ranks} each, sharing the card, "
+        f"{[[round(x, 3) for x in g['stream-A']['step_ms']] for g in ranks]} ms (means "
+        f"{[round(x, 3) for x in rank_ms]}); card {card}")
+    total = tuple(sum(c) for c in zip(ref["counts"], *(ranks[0][j]["counts"] for j in jobs)))
+    shutil.rmtree(d)
+    for f in os.listdir(os.path.join(tmp, "dp")):  # the group's store, logs and results
+        os.remove(os.path.join(tmp, "dp", f))
+    torch.cuda.empty_cache()
+    log(f"stream-dp: launches {COUNT_NAMES} {total}; phase done in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -4449,7 +4936,7 @@ INGEST_TYPES = (("SN Ia", 0.70), ("SN II", 0.10), ("SN IIP", 0.03), ("SN Ib", 0.
                 ("SN Ic", 0.015), ("SN Ib/c", 0.01), ("SN IIn", 0.03), ("SLSN-I", 0.02),
                 ("SN Ia-91T", 0.02), ("SN IIb", 0.02), ("TDE", 0.02), ("SLSN-II", 0.01),
                 ("CV", 0.01))
-INGEST_UNFILTER_SAMPLE = 100  # images decoded by both unfilters for their times
+INGEST_UNFILTER_SAMPLE = 25  # images decoded by both unfilters for their times
 _PNG_COLOUR = {1: 0, 2: 4, 3: 2, 4: 6}  # samples a pixel -> colour type
 
 
@@ -5282,7 +5769,6 @@ MEMBER_EPOCHS = 1  # (d)'s lr x seed x fold grid, and phase tp (e)'s
 # members of the timed stacked step at B = 32 (N = 1, 2 and 8 were timed once; PERF.md
 # section 5 keeps those rows)
 ENSEMBLE_N = (5,)
-ENSEMBLE_GRID_N = 5  # members of the timed stacked step at config_grid's B = 256
 ENSEMBLE_EMBED_TOL = 1e-4  # load_model's embeddings against the stacked member slice
 # --parallel-members: the grid written from maven-lite (8 members)
 ENSEMBLE_MEMBERS = {"lr": [3.716367614864064e-05, 1e-4], "seed": [0, 1], "foldnumber": [0, 1]}
@@ -5629,11 +6115,11 @@ def _ensemble_time(tag, card, members, models, seq_models, tcfg, data, per_step)
 
 
 def _ensemble_timing(card, ds, folds):
-    """The stacked step at N in ENSEMBLE_N x B = 32 on maven-lite, and at N =
-    ENSEMBLE_GRID_N x B = 256 on config_grid.yaml's first point, each against
-    N sequential steps of the same shapes."""
+    """The stacked step at N in ENSEMBLE_N x B = 32 on maven-lite against N
+    sequential steps of the same shapes (config_grid's N = 5 x B = 256 is
+    no longer timed here, for the smoke's time limit)."""
     total = NONE
-    for config, ns in ((MAVEN_LITE, ENSEMBLE_N), (GRID, (ENSEMBLE_GRID_N,))):
+    for config, ns in ((MAVEN_LITE, ENSEMBLE_N),):
         sweep = load_sweep(config)
         point = next(expand_grid(sweep))
         for n in ns:
@@ -5810,14 +6296,19 @@ TP_TIMED_STEPS = 3  # host-clock steps and profiled steps of a tp rank (a Maven 
 DP_TOLS = {"dp": (DP_LOSS_TOL, DP_PARAM_TOL), "tp": (TP_LOSS_TOL, TP_PARAM_TOL)}
 DP_TIMING = {"dp": (DP_TIMED, PROFILED_STEPS), "tp": (TP_TIMED_STEPS, TP_TIMED_STEPS)}
 # group: (the phase that checks it, its (n_data, n_model) mesh, its jobs); each group
-# is a process group of its own. "1x2" runs Maven (B = 1024 on each rank) first, while
-# phase dp fits maven-lite, so that its Maven steps and phase dp's (B = 512 on each of
-# two ranks, and B = 1024 in this process) do not meet on the card
+# is a process group of its own; phase stream-dp starts and checks "stream" alone.
+# "1x2" runs Maven (B = 1024 on each rank) first, while phase dp fits maven-lite, so
+# that its Maven steps and phase dp's (B = 512 on each of two ranks, and B = 1024 in
+# this process) do not meet on the card
 DP_GROUPS = {"2x1": ("dp", (2, 1), ("maven-lite", "trimodal", "maven-pretrain")),
              "members": ("tp", (2, 1), ("members",)),
              "2x2": ("tp", (2, 2), ("maven-lite-1",)),
-             "1x2": ("tp", (1, 2), ("maven-pretrain", "trimodal-steps", "fused"))}
-DP_UNTIMED = ("members", "fused")
+             "1x2": ("tp", (1, 2), ("maven-pretrain", "trimodal-steps", "fused")),
+             "stream": ("stream-dp", (2, 1), tuple(STREAM_DP_JOBS))}
+# groups whose jobs start only once their phase's one-process runs are done (so
+# that their steps' host clock does not meet the one process's on the card)
+DP_AFTER_REFS = ("stream",)
+DP_UNTIMED = ("members", "fused", *STREAM_DP_JOBS)
 DP_CLI_N = 320  # transients of the torchrun run's tree, so that its trace stays short
 DP_FLASH = ("flash_attention_fwd_tf32", "flash_attention_bwd_dq_tf32",
             "flash_attention_bwd_dkdv_tf32")
@@ -6036,12 +6527,23 @@ def _members_reference(tmp, n_data):
     return torch.cat(losses)
 
 
+def _dp_job(name, tmp, mesh):
+    """One job of a rank: (its result, what ``_dp_time`` needs or None)."""
+    if name == "members":
+        return _dp_members(tmp, mesh)
+    if name in STREAM_DP_JOBS:
+        run, epochs, resume = STREAM_DP_JOBS[name]
+        return _stream_dp_fit(tmp, run, mesh, epochs=epochs, resume=resume), None
+    return _dp_fit(name, tmp, mesh)
+
+
 def _dp_worker(group, rank, tmp):
     """Rank ``rank`` of ``group`` in DP_GROUPS (``chip_smoke.py --dp-rank GROUP
     R TMP``): joins the group's gloo process group on cuda:0 as its (data,
     model) mesh, runs the group's jobs, then, once its phase's one-process
-    runs are done (``tmp/dp/<phase>-refs-done``), times each timed job's
-    step and writes each job's result to ``tmp/dp/<group>-<job>-<rank>.pt``."""
+    runs are done (``tmp/dp/<phase>-refs-done``; a group of DP_AFTER_REFS
+    waits for them before its jobs), times each timed job's step and writes
+    each job's result to ``tmp/dp/<group>-<job>-<rank>.pt``."""
     from multimodal_supernovae_tpu_torch.parallel import distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6053,14 +6555,21 @@ def _dp_worker(group, rank, tmp):
                            timeout=DP_GROUP_TIMEOUT_S)
     mesh = distributed.make_global_mesh(n_model=n_model)
     timed = [name for name in names if name not in DP_UNTIMED]
-    try:
-        jobs = {name: _dp_members(tmp, mesh) if name == "members" else _dp_fit(name, tmp, mesh)
-                for name in names}
+
+    def wait_for_refs():
         deadline = time.perf_counter() + DP_TIMEOUT_S
-        while timed and not os.path.exists(os.path.join(d, f"{phase}-refs-done")):
+        while not os.path.exists(os.path.join(d, f"{phase}-refs-done")):
             if time.perf_counter() > deadline:
                 raise TimeoutError(f"{phase}: the one-process runs did not finish")
             time.sleep(0.1)
+
+    try:
+        if group in DP_AFTER_REFS:
+            wait_for_refs()
+            mesh.barrier()
+        jobs = {name: _dp_job(name, tmp, mesh) for name in names}
+        if timed:
+            wait_for_refs()
         mesh.barrier()
         for name, (out, job) in jobs.items():
             if name in timed:
@@ -6403,10 +6912,12 @@ def _cli_results(run):
 
 
 def _dp_launch(tmp, run):
-    """Every group of DP_GROUPS, started together from ``_dp_init``'s weights
-    into ``run``: phase dp collects its group, phase tp the rest."""
+    """Every group of phases dp and tp in DP_GROUPS, started together from
+    ``_dp_init``'s weights into ``run``: phase dp collects its group, phase
+    tp the rest."""
     try:
-        run["ranks"], run["procs"], run["logs"] = _dp_start(tmp, DP_GROUPS)
+        run["ranks"], run["procs"], run["logs"] = _dp_start(
+            tmp, [g for g, (phase, _, _) in DP_GROUPS.items() if phase in ("dp", "tp")])
     except BaseException:
         _dp_stop(run)
         raise
@@ -6617,7 +7128,7 @@ def phase_profile():
     ds = make_synthetic_dataset(n=BATCH, n_max_lc=LC_LEN, nband=NBAND,
                                 n_max_sp=TRAIN_SP_LEN, seed=0)
     batch = ds.to_device(DEVICE)
-    for path in ("kernel", "kernel-simt", "plain", "fused", "fused-simt", "qkv", "qkv-simt"):
+    for path in ("kernel", "plain", "fused", "qkv"):
         _log_trace(f"profile {path}", "train steps", *_profile_steps(path, batch))
 
 
@@ -6694,6 +7205,7 @@ def main():
     serve = phase_serve()
     serve_fused = phase_serve(fused=True)
     serve_qkv = phase_serve(qkv=True)
+    export, dispatch = phase_export(card)
     train = phase_train()
     phase_grad_probe()
     train_fused = phase_train("fused")
@@ -6706,6 +7218,7 @@ def main():
         maven = phase_maven(card)
         sim = phase_sim(card, tmp)
         stream = phase_stream(card, tmp)
+        stream_dp = phase_stream_dp(card, tmp)
         ingest = phase_ingest(card, tmp)
         evaluation = phase_evaluate(card, tmp)
         run = _cli_launch(tmp)  # phases dp's and tp's torchrun runs, beside phase ensemble
@@ -6718,12 +7231,12 @@ def main():
         finally:
             _dp_stop(run)
     phase_profile()
-    runs = (serve, serve_fused, serve_qkv, train, train_fused, train_qkv, run_dir, towers,
-            vit, maven, sim, stream, ingest, evaluation, ensemble, dp, tp)
+    runs = (serve, serve_fused, serve_qkv, export, train, train_fused, train_qkv, run_dir,
+            towers, vit, maven, sim, stream, stream_dp, ingest, evaluation, ensemble, dp, tp)
     log(f"kernels line: each entry's \"shape\" is what its times and bound are at; "
-        f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, train, train-fused, "
-        f"train-qkv, run-dir, towers, vit, maven, sim, stream, ingest, evaluate, ensemble, dp, "
-        f"tp, summed in the line: "
+        f"launches {COUNT_NAMES} of serve, serve-fused, serve-qkv, export, train, train-fused, "
+        f"train-qkv, run-dir, towers, vit, maven, sim, stream, stream-dp, ingest, evaluate, "
+        f"ensemble, dp, tp, summed in the line: "
         f"{runs}; card {card}")
     lc, sp_fwd, sp_bwd, tri = ((BATCH, 8, NBAND * LC_LEN, 8), (BATCH, 2, SP_LEN, 16),
                                (BATCH, 2, TRAIN_SP_LEN, 16), (32, 2, SP_LEN, 16))
@@ -6804,7 +7317,8 @@ def main():
             "float32": {**flash("simt", 1, "float32"), **vit_entries(1, "float32")},
             "norm_err_float32": bwd_norm[("simt", "float32")], "vit_max_abs_err": vit_err}),
         "flash_attention_fwd_mma": (2, fwd_err["mma"], {
-            **flash("mma", 0), "norm_err": fwd_norm[("mma", "bfloat16")]}),
+            **flash("mma", 0), "norm_err": fwd_norm[("mma", "bfloat16")],
+            "registered_op_dispatch": dispatch}),
         "flash_attention_bwd_mma": (3, bwd_err["mma"], {
             **flash("mma", 1), "norm_err": bwd_norm[("mma", "bfloat16")]}),
         "flash_attention_fwd_tf32": (12, fwd_err["tf32"], {
@@ -6867,6 +7381,6 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 5 and sys.argv[1] == "--dp-rank":  # one rank of phase dp or tp
+    if len(sys.argv) == 5 and sys.argv[1] == "--dp-rank":  # one rank of phase dp, tp or stream-dp
         sys.exit(_dp_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     main()

@@ -33,16 +33,19 @@ directory through the CLIs):
   parallel  the data mesh: a process group a card (torchrun), the
             differentiable all-gather and all-reduce, global BatchNorm
             statistics, the gradient mean
-  evaluation ``get_embeddings``, ``predict_supervised``
+  evaluation ``get_embeddings``, ``predict_supervised``, the probes and
+            reports, and the serving artifact (``export_encoder`` /
+            ``load_exported`` over ``torch.export``, the kernels' forwards
+            as registered ops)
   utils     ``MetricsLogger`` (metrics.jsonl, summary.json), IO helpers,
             seeding, draw sources, device selection, the profiler trace
             and throughput meter, model FLOPs and the H100's MFU
-  serving   ``load_live``: a run directory served through the port's
+  serving   ``load_live`` (a run directory) and ``load_artifact`` (an
+            exported encoder, no model code) served through the port's
             numpy-only dynamic batcher and HTTP daemon
   cli       ``python -m multimodal_supernovae_tpu_torch <command>`` over the
-            JAX package's commands (``export-model`` and ``export-torch``
-            refuse), each also ``python -m
-            multimodal_supernovae_tpu_torch.cli.<name>``
+            JAX package's commands (``export-torch`` refuses), each also
+            ``python -m multimodal_supernovae_tpu_torch.cli.<name>``
 """
 
 __version__ = "0.1.0"

@@ -9,12 +9,13 @@ umbrella command with the JAX package's command names::
   torchrun --nproc-per-node 8 -m multimodal_supernovae_tpu_torch train \\
       configs/maven_pretrain.yaml --mesh
 
-The pyproject's ``mmsn`` console scripts stay the JAX package's. Two
-commands refuse: ``export-model`` (the JAX package's AOT serving artifact;
-ROADMAP.md queue 1, item 18b) and ``export-torch`` (the port writes torch
-checkpoints already; a JAX run dir reaches it through the JAX package's
-``mmsn-export-torch``). The usage text and exit codes are the JAX
-command's: 0 for help, 2 for an unknown (or refused) command.
+The pyproject's ``mmsn`` console scripts stay the JAX package's. One
+command refuses: ``export-torch`` (the port writes torch checkpoints
+already; a JAX run dir reaches it through the JAX package's
+``mmsn-export-torch``). ``export-model`` writes the port's serving artifact
+through ``torch.export`` in place of the JAX package's StableHLO. The usage
+text and exit codes are the JAX command's: 0 for help, 2 for an unknown (or
+refused) command.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ COMMANDS = {
                              "(evaluate_models.py)"),
     "infer": ("infer", "batch inference / embedding export over a run dir"),
     "serve": ("serve", "HTTP embedding service with dynamic micro-batching"),
-    "export-model": (None, "not ported (ROADMAP.md item 18b)"),
+    "export-model": ("export_model",
+                     "export a trained encoder to a torch.export serving artifact"),
     "export-embeddings": ("export_embeddings",
                           "embed a dataset with a finished run"),
     "export-torch": (None, "not needed: the port writes torch checkpoints"),
@@ -52,9 +54,6 @@ COMMANDS = {
 }
 
 REFUSALS = {
-    "export-model": (
-        "export-model (the JAX package's AOT StableHLO serving artifact) is not ported "
-        "yet (ROADMAP.md queue 1, item 18b); serve a run dir with `serve`"),
     "export-torch": (
         "export-torch is not needed here: the port's run dirs hold torch checkpoints "
         "already (last.ckpt, epoch=E-step=S.ckpt); a JAX run dir reaches the port "

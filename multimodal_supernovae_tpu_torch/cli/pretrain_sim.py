@@ -31,11 +31,15 @@ validation split, ``val_fraction`` of the rows, held out as they pass; the
 key is the JAX CLI's, so either package's cache serves the other), and
 every grid point trains shard by shard (``run_sweep_streaming``);
 ``--resume`` continues a cut run from the shard after its last
-``StreamCursor``. It runs in one process (``--mesh`` raises, ROADMAP.md
-queue 1, item 17c)::
+``StreamCursor``. With ``--mesh`` (and ``--tp N``) under torchrun every rank
+streams the same shards and trains its block of each global batch (rank 0
+writes the cache and the run directories; a cut run of several ranks
+resumes from its last epoch's ``last.ckpt``)::
 
   python -m multimodal_supernovae_tpu_torch.cli.pretrain_sim configs/maven_pretrain.yaml \\
       --data-dir data/sim_data/ --streaming --rows-per-shard 65536
+  torchrun --nproc-per-node 4 -m multimodal_supernovae_tpu_torch pretrain-sim \\
+      configs/maven_pretrain.yaml --data-dir data/sim_data/ --streaming --mesh
 """
 
 from __future__ import annotations
@@ -128,8 +132,8 @@ def main(argv=None) -> None:
     sweep_dir = common.main_first(mesh, lambda: make_sweep_dir(sweep, args.analysis_path, name))
     config = ingest_config(common.sim_path(ap, args, extra), extra)
     if args.streaming:
-        sds, val_ds = stream_cache(args.cache_dir, config, args.rows_per_shard,
-                                   float(extra.get("val_fraction", 0.2)))
+        sds, val_ds = common.main_first(mesh, lambda: stream_cache(
+            args.cache_dir, config, args.rows_per_shard, float(extra.get("val_fraction", 0.2))))
         results = run_sweep_streaming(
             sweep, sds, val_ds, 2, sweep_dir, mesh=mesh, use_wandb=args.wandb,
             max_runs=args.max_runs or extra.get("nruns"), epochs_override=args.epochs,

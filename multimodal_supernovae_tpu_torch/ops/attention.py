@@ -51,6 +51,26 @@ def refuse_stacked_weights(what: str):
     raise NotImplementedError(STACKED_WEIGHTS_REFUSAL.format(what))
 
 
+# The namespace of the kernel forwards' registered ops (flash_attention.py,
+# fused_block.py, qkv_attention.py); kept alive with this module.
+_KERNEL_OPS = torch.library.Library("mmsn_torch", "DEF")
+
+
+def register_kernel_op(name: str, schema: str, impl, fake):
+    """Define ``mmsn_torch::<name><schema>`` with ``impl`` as its CUDA
+    kernel and ``fake`` as its fake (shape) implementation; returns the op's
+    default overload. A plain ``torch.library.Library`` registration rather
+    than ``torch.library.custom_op``: the dispatcher calls ``impl`` with no
+    Python wrapper around it, which takes most of ``custom_op``'s host cost
+    a call over a direct launch away (probe_artifact_host.py). There
+    is no CPU implementation and no autograd formula: a CPU call raises, and
+    only calls without a gradient to take reach the op."""
+    _KERNEL_OPS.define(name + schema)
+    _KERNEL_OPS.impl(name, impl, "CUDA")
+    torch.library.register_fake(f"mmsn_torch::{name}", fake, lib=_KERNEL_OPS)
+    return getattr(torch.ops.mmsn_torch, name).default
+
+
 def dense_attention(
     q: torch.Tensor,
     k: torch.Tensor,

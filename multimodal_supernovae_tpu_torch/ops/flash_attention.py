@@ -58,12 +58,17 @@ torch autograd is the plain backward; a CUDA tensor launches the kernels or
 raises. On CUDA, a call that needs a gradient goes through
 ``FlashAttention``: the forward also stores each row's softmax (max, sum)
 and the backward launches ``flash_attention_bwd``; under ``no_grad`` or
-``inference_mode`` the forward runs alone, as in serving.
-``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches of every route, ``.mma_launches`` those of the bf16
-tensor-core route and ``.tf32_launches`` those of the 3xTF32 route (each
-bumped only after a launch the runtime accepted); the CUDA-core route's are
-``launches - mma_launches - tf32_launches``.
+``inference_mode`` the forward runs alone, as in serving, through the
+registered op ``mmsn_torch::flash_attention_fwd`` (``flash_attention_fwd``),
+so that ``torch.export`` keeps it as one node of an exported encoder
+(evaluation/export.py) and a loaded artifact launches the same kernel on the
+same route as the live call: the route is picked inside the op's body, from
+the real tensors. ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count kernel launches of every route,
+``.mma_launches`` those of the bf16 tensor-core route and ``.tf32_launches``
+those of the 3xTF32 route (each bumped only after a launch the runtime
+accepted); the CUDA-core route's are ``launches - mma_launches -
+tf32_launches``.
 """
 
 from __future__ import annotations
@@ -73,7 +78,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES, dense_attention, dense_attention_bwd, is_batched
+from .attention import (
+    PLAIN_DEVICES,
+    dense_attention,
+    dense_attention_bwd,
+    is_batched,
+    register_kernel_op,
+)
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 BWD_HEAD_DIMS = (8, 16, 32)
@@ -307,6 +318,27 @@ flash_attention_bwd.mma_launches = 0
 flash_attention_bwd.tf32_launches = 0
 
 
+def _flash_attention_fwd_impl(q, k, v, key_mask, emb):
+    """The op's CUDA implementation: ``_flash_fwd``, so ``_route`` reads the
+    real tensors' pointers at each call and the launch counters count as for
+    a direct call."""
+    return _flash_fwd(q, k, v, key_mask, emb, with_stats=False)[0]
+
+
+def _flash_attention_fwd_fake(q, k, v, key_mask, emb):
+    """The kernel's output as the real call makes it: (B, H, T, S) in (B, T,
+    H, S) memory order, so that a traced graph sees the real strides."""
+    _check(q, k, v, key_mask, emb)
+    return _empty_heads(q)
+
+
+# The forward kernel alone as a registered op (CUDA only): the no-grad call
+# of ``flash_attention`` and the node an exported encoder holds.
+flash_attention_fwd = register_kernel_op(
+    "flash_attention_fwd", "(Tensor q, Tensor k, Tensor v, Tensor? key_mask, int emb) -> Tensor",
+    _flash_attention_fwd_impl, _flash_attention_fwd_fake)
+
+
 def _fold_members(info, in_dims, q, k, v, key_mask):
     """The vmap rule's folding: each batched input's member dim moved to the
     front, an unbatched one expanded, then (N, B, ...) merged into (N*B, ...).
@@ -400,7 +432,8 @@ def flash_attention(
     any T >= 1, q/k/v with equal strides and a contiguous head dim) or
     raise. When autograd
     needs a gradient of a CUDA call it goes through ``FlashAttention``
-    (head dim in {8, 16, 32}). Under ``torch.func.vmap`` a CUDA call goes
+    (head dim in {8, 16, 32}); without one it goes through the registered
+    op ``flash_attention_fwd``. Under ``torch.func.vmap`` a CUDA call goes
     through ``FlashAttention`` while gradients are on and ``FlashForward``
     under ``no_grad``, whose rules fold the member axis into B."""
     if q.device.type in PLAIN_DEVICES:
@@ -414,7 +447,7 @@ def flash_attention(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, key_mask, emb)[0]
-    return _flash_fwd(q, k, v, key_mask, emb, with_stats=False)[0]
+    return flash_attention_fwd(q, k, v, key_mask, emb)
 
 
 flash_attention.launches = 0

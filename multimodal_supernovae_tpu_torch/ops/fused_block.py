@@ -32,6 +32,11 @@ chosen from dtype and widths alone: float32 at the widths the tensor-core
 kernels take goes to them, everything else (bfloat16 included) to the
 CUDA-core kernels; a failed build or launch raises and never falls back to
 the other route.
+Without a gradient to take, a CUDA call goes through the registered op
+``mmsn_torch::fused_ffn_block_fwd`` (``fused_ffn_block_fwd``), which
+``torch.export`` keeps as one node of an exported encoder
+(evaluation/export.py); its body picks the route and launches as a direct
+call does.
 ``fused_ffn_block.launches`` and ``fused_ffn_block_bwd.launches`` (both
 routes) and their ``.mma_launches`` (the tensor cores) count kernel calls
 (bumped only after a launch the runtime accepted).
@@ -52,7 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights
+from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights, register_kernel_op
 
 LN_EPS = 1e-6
 ROWS = 32          # rows per block tile in both kernels
@@ -405,6 +410,24 @@ fused_ffn_block_bwd.launches = 0
 fused_ffn_block_bwd.mma_launches = 0
 
 
+def _fused_ffn_block_fwd_impl(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps):
+    return _ffn_fwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps=eps)
+
+
+def _fused_ffn_block_fwd_fake(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps):
+    _check(att, x, (wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2))
+    return torch.empty_like(x)
+
+
+# The forward kernel alone as a registered op (CUDA only): the no-grad call
+# of ``fused_ffn_block`` and the node an exported encoder holds.
+fused_ffn_block_fwd = register_kernel_op(
+    "fused_ffn_block_fwd",
+    "(Tensor att, Tensor x, Tensor wu, Tensor bu, Tensor g1, Tensor b1, Tensor wf1, "
+    "Tensor bf1, Tensor wf2, Tensor bf2, Tensor g2, Tensor b2, float eps) -> Tensor",
+    _fused_ffn_block_fwd_impl, _fused_ffn_block_fwd_fake)
+
+
 class FusedFFNBlock(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient (the JAX
     package's ``custom_vjp``). The residuals are ``att``, ``x`` and the
@@ -442,12 +465,15 @@ def fused_ffn_block(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
     LayerNorm scales. CPU tensors take the plain versions; CUDA tensors
     launch the kernels (``supports`` gives the widths) or raise. Without a
     gradient to take (``no_grad``, ``inference_mode``, as in serving) the
-    forward runs alone and keeps no residuals."""
+    forward runs alone and keeps no residuals, on CUDA through the registered
+    op ``fused_ffn_block_fwd``."""
     args = (att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2)
     if is_batched(*args):
         refuse_stacked_weights("the fused FFN block")
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return FusedFFNBlock.apply(*args, eps)
+    if x.device.type == "cuda":
+        return fused_ffn_block_fwd(*args, eps)
     return _ffn_fwd(*args, eps=eps)
 
 

@@ -47,7 +47,11 @@ and ``fused_qkv_attention_bwd_plain``); CUDA tensors launch the kernels of
 ``_route``'s route or raise. ``fused_qkv_attention.launches`` and
 ``fused_qkv_attention_bwd.launches`` count kernel launches of both routes,
 ``.mma_launches`` those of the tensor-core route (bumped only after a launch
-the runtime accepted).
+the runtime accepted). Without a gradient to take, a CUDA call goes through
+the registered op ``mmsn_torch::fused_qkv_attention_fwd``
+(``fused_qkv_attention_fwd``), which ``torch.export`` keeps as one node of an
+exported encoder (evaluation/export.py); its body launches as a direct call
+does.
 
 The TPU kernel's (NB, 3E, Tp) sublane layout, its samples-per-program choice
 and VMEM budgets, the mask pre-broadcast to head rows and the padding of T to
@@ -64,7 +68,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights
+from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights, register_kernel_op
 
 MASK_FILL = -1e7
 MAX_TQ = 256       # one thread per sequence position; longer sequences use the flash kernels
@@ -249,16 +253,21 @@ def _check(x, mask, wqkv, wu, heads):
     return b, t, e
 
 
+def _check_fwd(x, mask, wqkv, wu, bu, heads):
+    b, t, e = _check(x, mask, wqkv, wu, heads)
+    if (tuple(bu.shape) != (e,) or bu.dtype != torch.float32 or bu.device != x.device
+            or not bu.is_contiguous()):
+        raise ValueError(f"bu must be contiguous float32 ({e},) on {x.device}")
+    return b, t, e
+
+
 def _qkv_fwd(x, mask, wqkv, wu, bu, heads):
     """Launch the forward kernel (CUDA) or run the plain version (CPU)."""
     if x.device.type in PLAIN_DEVICES:
         return fused_qkv_attention_plain(x, mask, wqkv, wu, bu, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention runs on CUDA or CPU, got {x.device}")
-    b, t, e = _check(x, mask, wqkv, wu, heads)
-    if (tuple(bu.shape) != (e,) or bu.dtype != torch.float32 or bu.device != x.device
-            or not bu.is_contiguous()):
-        raise ValueError(f"bu must be contiguous float32 ({e},) on {x.device}")
+    b, t, e = _check_fwd(x, mask, wqkv, wu, bu, heads)
     out = torch.empty_like(x)
     mma = _route(x.dtype, e // heads) == "mma"
     name = "fused_qkv_fwd_mma" if mma else "fused_qkv_fwd"
@@ -330,6 +339,19 @@ fused_qkv_attention_bwd.launches = 0
 fused_qkv_attention_bwd.mma_launches = 0
 
 
+def _fused_qkv_attention_fwd_fake(x, mask, wqkv, wu, bu, heads):
+    _check_fwd(x, mask, wqkv, wu, bu, heads)
+    return torch.empty_like(x)
+
+
+# The forward kernel alone as a registered op (CUDA only): the no-grad call
+# of ``fused_qkv_attention`` and the node an exported encoder holds.
+fused_qkv_attention_fwd = register_kernel_op(
+    "fused_qkv_attention_fwd",
+    "(Tensor x, Tensor? mask, Tensor wqkv, Tensor wu, Tensor bu, int heads) -> Tensor",
+    _qkv_fwd, _fused_qkv_attention_fwd_fake)
+
+
 class FusedQKVAttention(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient (the JAX
     package's ``custom_vjp``). The residuals are x, the mask and the two
@@ -379,7 +401,8 @@ def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
     weight here, in autograd. CPU tensors take the plain versions; CUDA
     tensors launch the kernels (``supports`` gives the shapes) or raise.
     Without a gradient to take (``no_grad``, ``inference_mode``, as in
-    serving) the forward runs alone and keeps no residuals."""
+    serving) the forward runs alone and keeps no residuals, on CUDA through
+    the registered op ``fused_qkv_attention_fwd``."""
     e = x.shape[-1]
     if x.shape[1] > MAX_TQ:
         raise ValueError(f"T = {x.shape[1]} > {MAX_TQ}: use the flash kernels")
@@ -392,6 +415,8 @@ def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
         refuse_stacked_weights("the fused QKV attention")
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return FusedQKVAttention.apply(x, mask, wqkv, wu, bu, heads)
+    if x.device.type == "cuda":
+        return fused_qkv_attention_fwd(x, mask, wqkv, wu, bu, heads)
     return _qkv_fwd(x, mask, wqkv, wu, bu, heads)
 
 

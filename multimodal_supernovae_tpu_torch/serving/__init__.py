@@ -1,5 +1,5 @@
 from .batcher import BatcherStats, DynamicBatcher
-from .server import EmbedServer, ServingModel, input_spec, load_live, serve
+from .server import EmbedServer, ServingModel, input_spec, load_artifact, load_live, serve
 
 __all__ = ["BatcherStats", "DynamicBatcher", "EmbedServer", "ServingModel",
-           "input_spec", "load_live", "serve"]
+           "input_spec", "load_artifact", "load_live", "serve"]

@@ -14,14 +14,22 @@ Stdlib-only HTTP host (http.server + npz/json wire formats) over the
     tower. Any leading dim n >= 1 is accepted: the batcher chunks and
     coalesces onto the fixed device batch.
 
-``load_live`` returns a ``ServingModel`` whose ``fn`` runs
-``CLIPModel.encode`` on ``device``. The input contract is the JAX one, per
-modality: ``x_img`` (image_size, image_size, channels) float32 NHWC;
-``x_lc, t_lc, mask_lc`` of width ``nband * lc_len`` and ``x_sp, t_sp,
-mask_sp`` of width ``sp_len`` (float32, float32, bool); ``label`` int32
-and ``redshift`` float32 per sample for the meta tower; one float32
-``(n, enc_dim)`` output per modality. The JAX package's StableHLO artifact
-is not served here (``torch.export`` takes its place later).
+Two model sources (cli/serve.py), as in the JAX package:
+
+  * ``load_artifact(path)``: the ``cli/export_model.py`` artifact (the bytes
+    of ``torch.export.save`` + the ``<path>.json`` manifest). No model code
+    is imported (``evaluation/export.py:load_exported`` needs only the
+    registered kernel ops of ``ops``), and no checkpoint is read.
+  * ``load_live(run_dir, batch_size)``: a run directory, whose ``fn`` runs
+    ``CLIPModel.encode`` on ``device``.
+
+Both load on the card unless the caller asks for the CPU, and neither falls
+back to it. The input contract is the JAX one, per modality: ``x_img``
+(image_size, image_size, channels) float32 NHWC; ``x_lc, t_lc, mask_lc`` of
+width ``nband * lc_len`` and ``x_sp, t_sp, mask_sp`` of width ``sp_len``
+(float32, float32, bool); ``label`` int32 and ``redshift`` float32 per
+sample for the meta tower; one float32 ``(n, enc_dim)`` output per
+modality.
 """
 
 from __future__ import annotations
@@ -35,11 +43,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.clip import MODALITIES, CLIPModel
-from ..models.factory import load_model
 from .batcher import DynamicBatcher
 
-__all__ = ["EmbedServer", "ServingModel", "input_spec", "load_live", "serve"]
+__all__ = ["EmbedServer", "ServingModel", "input_spec", "load_artifact", "load_live", "serve"]
 
 
 class ServingModel:
@@ -85,6 +91,39 @@ def input_spec(combinations, nband: int, lc_len: int, sp_len: int,
     return spec
 
 
+def _host_outputs(fn):
+    """``fn`` whose outputs come back as float32 host numpy arrays, which
+    the batcher's fetcher needs (the copy back is synchronous)."""
+    def host(feed: Dict[str, np.ndarray]) -> List[np.ndarray]:
+        return [o.float().cpu().numpy() for o in fn(feed)]
+
+    return host
+
+
+def load_artifact(path: str, device="cuda") -> ServingModel:
+    """A ServingModel from ``cli/export_model.py``'s artifact and its
+    ``<path>.json`` manifest, on ``device`` (the card unless the caller asks
+    for the CPU; raises when CUDA is asked for and absent). The artifact's
+    batch size and input contract are the manifest's. Imports no model
+    code."""
+    from ..evaluation.export import load_exported
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    with open(path, "rb") as f:
+        fn, _ = load_exported(f.read(), device=device)
+    with open(path + ".json") as f:
+        manifest = json.load(f)
+    spec = {k: (tuple(v["shape"][1:]), v["dtype"])
+            for k, v in manifest["input"].items()}
+    return ServingModel(
+        _host_outputs(fn), spec, manifest["batch_size"], manifest["output_modalities"],
+        meta={"source": "artifact", "path": path, "platforms": list(manifest["platforms"]),
+              "backend": "torch", "device": str(device)},
+    )
+
+
 def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
               lc_len: Optional[int] = None, sp_len: Optional[int] = None,
               image_size: Optional[int] = None) -> ServingModel:
@@ -98,6 +137,9 @@ def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
     own thread and inference mode is thread-local) and returns host numpy
     arrays, which the batcher's fetcher needs (it calls ``np.asarray`` on
     each output). The copy back is synchronous."""
+    from ..models.clip import MODALITIES, CLIPModel
+    from ..models.factory import load_model
+
     device = torch.device(device)
     model, extra = load_model(run_dir, device, which=which)  # raises without CUDA
     if not isinstance(model, CLIPModel):
@@ -111,14 +153,14 @@ def load_live(run_dir: str, batch_size: int, device="cuda", which: str = "best",
         image_size or int(extra.get("image_size", 60)),
         int(model.cfg.ck().get("channels", 3)))
 
-    def fn(feed: Dict[str, np.ndarray]) -> List[np.ndarray]:
+    def fn(feed: Dict[str, np.ndarray]) -> List[torch.Tensor]:
         with torch.inference_mode():
             batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                      for k, v in feed.items()}
-            return [o.float().cpu().numpy() for o in model.encode(batch)]
+            return model.encode(batch)
 
     return ServingModel(
-        fn, spec, batch_size, [m for m in MODALITIES if m in combos],
+        _host_outputs(fn), spec, batch_size, [m for m in MODALITIES if m in combos],
         meta={"source": "run_dir", "path": run_dir, "which": which,
               "backend": "torch", "device": str(device)},
     )

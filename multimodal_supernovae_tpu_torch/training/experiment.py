@@ -301,7 +301,8 @@ def run_sweep_streaming(sweep: SweepConfig, train_sds, val_ds: ArrayDataset, nba
     unfinished one continues from its ``StreamCursor``. The surgery works on
     the state_dict, so no example batch is drawn. The JAX runner's loss-history
     plot is not made: matplotlib is absent on the GPU host (ROADMAP.md queue
-    1, item 18b, the reports). ``mesh`` raises (item 17c)."""
+    1, item 18b, the reports). ``mesh`` trains each grid point over the
+    ranks (``Trainer.fit_sharded`` under a mesh)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")

@@ -59,8 +59,14 @@ next shard's upload under the current one's steps (training/shard_feed.py),
 and the validation split on the device throughout; the evaluation,
 checkpoint and early-stopping cadence is ``fit``'s. After every shard a
 ``StreamCursor`` (training/checkpoint.py) records where the epoch stands, and
-``fit_sharded(resume=True)`` continues from the next shard. It runs in one
-process: under a mesh it raises (ROADMAP.md queue 1, item 17c).
+``fit_sharded(resume=True)`` continues from the next shard. Under a mesh
+every rank walks the same shard order and holds each whole shard on its card,
+as ``fit`` holds its dataset, and takes its data rank's block of each step's
+columns, with ``fit``'s draws, collectives and gradient mean, so the fit
+equals the one-process ``fit_sharded`` at the global batch. As in the JAX
+package the cursor is kept in one process only: a mesh of several processes
+resumes from ``last.ckpt`` at the epoch boundary, with the random streams
+(shard orders and draws) of the finished epochs restored from it.
 
 Stacked ensemble members train through ``training/ensemble.py``.
 """
@@ -193,23 +199,44 @@ class Trainer:
             mesh.barrier()  # rank 0 has written everything before any rank returns
         return result
 
-    def _fit_in_run_dir(self, train_ds, val_ds, config_dump, state, resume):
-        cfg = self.cfg
+    def _open_run_dir(self, config_dump, train_names, val_names):
+        """(checkpoints, logger or None) of the run directory, whose sidecars
+        rank 0 (or the one process) writes first; only it writes."""
         is_main = self.mesh is None or self.mesh.is_main
         if is_main:
-            save_run_sidecars(self.run_dir, config_dump or dataclasses.asdict(cfg),
-                              train_ds.filenames, val_ds.filenames)
+            save_run_sidecars(self.run_dir, config_dump or dataclasses.asdict(self.cfg),
+                              train_names, val_names)
             write_model_config(self.run_dir, self.model)
         if self.mesh is not None:
             self.mesh.barrier()  # the run dir exists before any rank reads it
-        ckpts = CheckpointManager(self.run_dir, self.monitor, self.mode, cfg.keep_best,
+        ckpts = CheckpointManager(self.run_dir, self.monitor, self.mode, self.cfg.keep_best,
                                   write=is_main)
         logger = MetricsLogger(self.run_dir, use_wandb=self.use_wandb) if is_main else None
+        return ckpts, logger
+
+    def _fit_in_run_dir(self, train_ds, val_ds, config_dump, state, resume):
+        ckpts, logger = self._open_run_dir(config_dump, train_ds.filenames, val_ds.filenames)
         try:
             return self._fit(train_ds, val_ds, state, resume, logger, ckpts)
         finally:
             if logger:
                 logger.close()
+
+    @staticmethod
+    def _restore_last(ckpts, state, rng, generator, eval_generator, book):
+        """The epoch-boundary resume: ``last.ckpt`` into ``state`` and the
+        random streams (the shuffles' ``rng``, the draws, the validation
+        draws) and the book as they stood after its epoch. Returns (state,
+        the epoch to start at, book); (state, 0, book) without a checkpoint."""
+        restored = ckpts.try_restore_last(state)
+        if restored is None:
+            return state, 0, book
+        state, last_epoch, loop = restored
+        rng.bit_generator.state = loop["numpy_rng"]
+        generator.set_state(loop["torch_rng"])
+        if "eval_torch_rng" in loop:
+            eval_generator.set_state(loop["eval_torch_rng"])
+        return state, last_epoch + 1, {k: loop[k] for k in book}
 
     def _fit(self, train_ds, val_ds, state, resume, logger, ckpts):
         cfg = self.cfg
@@ -230,15 +257,8 @@ class Trainer:
         book = _new_book()
         start_epoch = 0
         if resume:
-            restored = ckpts.try_restore_last(state)
-            if restored is not None:
-                state, last_epoch, loop = restored
-                start_epoch = last_epoch + 1
-                rng.bit_generator.state = loop["numpy_rng"]
-                generator.set_state(loop["torch_rng"])
-                if "eval_torch_rng" in loop:
-                    eval_generator.set_state(loop["eval_torch_rng"])
-                book = {k: loop[k] for k in book}
+            state, start_epoch, book = self._restore_last(ckpts, state, rng, generator,
+                                                          eval_generator, book)
         run_epoch = make_epoch_runner(
             self.model, cfg.noise_level_mag, noise_level_img=cfg.noise_level_img,
             rotate_images=cfg.rotate_images, mesh=mesh)
@@ -366,27 +386,40 @@ class Trainer:
         and host staging ms). With a run directory its files are ``fit``'s,
         with ``SHARD{i:05d}x{n}`` as the training manifest's names, and a
         ``StreamCursor`` is saved after every shard; ``resume=True``
-        continues from it, at the shard after the last one saved."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "fit_sharded over a mesh is not ported yet (ROADMAP.md queue 1, item 17c: "
-                "streaming over ranks); train in one process")
+        continues from it, at the shard after the last one saved. Under a
+        mesh of several processes (the module doc) rank 0 writes the run
+        directory, no cursor is kept and ``resume=True`` continues from
+        ``last.ckpt``."""
         if resume and not self.run_dir:
             raise ValueError("resume=True needs the run_dir of the run to continue")
-        if not self.run_dir:
-            return self._fit_sharded(train_sds, val_ds, state, resume, prefetch,
-                                     None, None, None)
-        save_run_sidecars(self.run_dir, config_dump or dataclasses.asdict(self.cfg),
-                          [f"SHARD{i:05d}x{n}" for i, n in enumerate(train_sds.shard_sizes)],
-                          val_ds.filenames or [])
-        write_model_config(self.run_dir, self.model)
-        ckpts = CheckpointManager(self.run_dir, self.monitor, self.mode, self.cfg.keep_best)
-        logger = MetricsLogger(self.run_dir, use_wandb=self.use_wandb)
+        mesh = self.mesh
+        if mesh is not None:
+            mesh.local(self.cfg.batch_size)  # raises unless the ranks divide B
+        with batch_stats_over(self.model, mesh):
+            if not self.run_dir:
+                result = self._fit_sharded(train_sds, val_ds, state, resume, prefetch,
+                                           None, None, None)
+            else:
+                result = self._fit_sharded_in_run_dir(train_sds, val_ds, config_dump, state,
+                                                      resume, prefetch)
+        if mesh is not None:
+            mesh.barrier()  # rank 0 has written everything before any rank returns
+        return result
+
+    def _fit_sharded_in_run_dir(self, train_sds, val_ds, config_dump, state, resume, prefetch):
+        mesh = self.mesh
+        ckpts, logger = self._open_run_dir(
+            config_dump, [f"SHARD{i:05d}x{n}" for i, n in enumerate(train_sds.shard_sizes)],
+            val_ds.filenames or [])
+        # the JAX package keeps the shard cursor only in one process
+        one_process = mesh is None or mesh.size * mesh.n_model == 1
+        cursor = StreamCursor(self.run_dir) if one_process else None
         try:
             return self._fit_sharded(train_sds, val_ds, state, resume, prefetch, logger,
-                                     ckpts, StreamCursor(self.run_dir))
+                                     ckpts, cursor)
         finally:
-            logger.close()
+            if logger:
+                logger.close()
 
     def _fit_sharded(self, train_sds, val_ds, state, resume, prefetch, logger, ckpts, cursor):
         from ..data.streaming import shard_epoch_schedule
@@ -394,9 +427,14 @@ class Trainer:
 
         cfg = self.cfg
         device = self.device
+        mesh = self.mesh
         rng = np.random.default_rng(cfg.seed)
         generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         eval_generator = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+        # a rank's columns of each global plan, and its rows of each global draw
+        cols = slice(None) if mesh is None else mesh.block(cfg.batch_size)
+        draws = generator if mesh is None else RankRows(generator, mesh)
+        eval_draws = eval_generator if mesh is None else RankRows(eval_generator, mesh)
         self.set_dataset_size(len(train_sds))
         val_data = val_ds.to_device(device)
         if state is None:
@@ -407,7 +445,12 @@ class Trainer:
         book = _new_book()
         start_epoch = 0
         resume_mid = None  # (the epoch's start rng state, losses so far, next shard)
-        if resume:
+        if resume and cursor is None:
+            # several processes: fit's epoch-boundary resume; the saved streams
+            # are those after the finished epochs' shard orders and draws
+            state, start_epoch, book = self._restore_last(ckpts, state, rng, generator,
+                                                          eval_generator, book)
+        elif resume:
             restored = cursor.try_restore(state)
             if restored is not None:
                 state, start_epoch, shard_pos, rows, loop = restored
@@ -418,10 +461,10 @@ class Trainer:
                               shard_pos + 1)
         run_epoch = make_epoch_runner(
             self.model, cfg.noise_level_mag, noise_level_img=cfg.noise_level_img,
-            rotate_images=cfg.rotate_images)
-        run_eval = make_eval_runner(self.model, rotate_images=cfg.rotate_images)
-        val_plan = torch.from_numpy(epoch_indices(
-            len(val_ds), cfg.batch_size, shuffle=False, pad="repeat_last")).to(device)
+            rotate_images=cfg.rotate_images, mesh=mesh)
+        run_eval = make_eval_runner(self.model, rotate_images=cfg.rotate_images, mesh=mesh)
+        val_plan = torch.from_numpy(np.ascontiguousarray(epoch_indices(
+            len(val_ds), cfg.batch_size, shuffle=False, pad="repeat_last")[:, cols])).to(device)
         n_val = len(val_ds)
         t_start = time.perf_counter()
 
@@ -430,7 +473,7 @@ class Trainer:
                     "eval_torch_rng": eval_generator.get_state()}
 
         def evaluate():
-            val_losses, aux = run_eval(state, val_data, val_plan, eval_generator)
+            val_losses, aux = run_eval(state, val_data, val_plan, eval_draws)
             return float(val_losses.mean()), compute_task_metrics(
                 self.task, aux, val_ds, n_val, self.n_classes)
 
@@ -450,7 +493,7 @@ class Trainer:
                 try:
                     for pos, (_, plan) in enumerate(remaining, start=start_shard):
                         data = next(shards)
-                        state, losses = run_epoch(state, data, plan, generator)
+                        state, losses = run_epoch(state, data, plan[:, cols], draws)
                         del data  # no reference left: at most two shards on the device
                         epoch_losses.append(losses.cpu().numpy())
                         n_steps += plan.shape[0]

@@ -55,8 +55,10 @@ def test_usage_and_exit_codes(capsys):
     assert all(f"  {name}" in usage for name in JAX_COMMANDS)
     assert cli.main(["no-such-command"]) == 2
     assert "unknown command 'no-such-command'" in capsys.readouterr().err
-    assert cli.main(["export-model"]) == 2
-    assert "item 18b" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exit_:  # ported: export-model's own usage error
+        cli.main(["export-model"])
+    assert exit_.value.code == 2 and "export-model" not in cli.REFUSALS
+    assert "the following arguments are required: run_dir, --out" in capsys.readouterr().err
     assert cli.main(["export-torch"]) == 2
     err = capsys.readouterr().err
     assert "torch checkpoints already" in err and "mmsn-export-torch" in err

@@ -334,6 +334,8 @@ def test_a_cuda_tensor_never_takes_the_plain_version(monkeypatch, module, call):
 
     monkeypatch.setattr(module, "_check", reached)
     monkeypatch.setattr(module, "_flash_fwd" if module is flash_mod else "_check", reached)
+    if module is flash_mod:  # a no-grad CUDA call enters the kernel path at its registered op
+        monkeypatch.setattr(module, "flash_attention_fwd", reached)
     for name in ("dense_attention", "dense_attention_bwd", "fused_ffn_block_plain",
                  "fused_ffn_block_bwd_plain", "fused_qkv_attention_plain",
                  "fused_qkv_attention_bwd_plain"):

@@ -307,8 +307,9 @@ def test_fit_sharded_refusals(h5, tmp_path):
     with pytest.raises(ValueError, match="run_dir"):
         _port_trainer(None, 1).fit_sharded(sds, val, resume=True)
     trainer = _port_trainer(None, 1)
-    trainer.mesh = DataMesh(0, 1)
-    with pytest.raises(NotImplementedError, match="item 17c"):
+    trainer.mesh = DataMesh(0, 3)  # streaming over ranks: the ranks must divide B
+    with pytest.raises(ValueError, match=r"global batch 4 is not divisible by the data "
+                                         r"mesh axis \(3\)"):
         trainer.fit_sharded(sds, val)
 
 

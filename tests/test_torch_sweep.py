@@ -260,7 +260,9 @@ def test_unported_flags_raise_with_their_item(main, argv, item, trained, tmp_pat
 def test_unported_runners_raise_with_their_item(tmp_path):
     """run_sweep_streaming is ported (item 17b): the smoke sweep over a sharded
     copy of a synthetic set trains run-0 through fit_sharded and a resumed
-    walk skips it; over a mesh it raises (item 17c)."""
+    walk skips it; over a mesh (item 17c, ported) a one-process mesh trains
+    the same run, its shard cursor kept (the ranks' cases:
+    tests/test_torch_stream_dp.py)."""
     from multimodal_supernovae_tpu_torch.data.streaming import write_sharded_cache
     from multimodal_supernovae_tpu_torch.parallel.mesh import DataMesh
 
@@ -276,9 +278,11 @@ def test_unported_runners_raise_with_their_item(tmp_path):
     again = experiment.run_sweep_streaming(sweep, sds, val, 2, sweep_dir, epochs_override=1,
                                            max_runs=1, resume=True, device="cpu")
     assert again[0]["skipped"]
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        experiment.run_sweep_streaming(sweep, sds, val, 2, str(tmp_path / "m"),
-                                       mesh=DataMesh(0, 1), max_runs=1, device="cpu")
+    meshed = experiment.run_sweep_streaming(sweep, sds, val, 2, str(tmp_path / "m"),
+                                            epochs_override=1, mesh=DataMesh(0, 1),
+                                            max_runs=1, device="cpu")
+    assert meshed[0]["history"] == res[0]["history"]
+    assert "ckpt_cursor" in os.listdir(meshed[0]["run_dir"])
 
 
 def _small_maven_lite(path, parameters=None, extra_args=None):

@@ -371,7 +371,8 @@ def test_trainer_resume_and_fit_sharded_raise():
     """Resume needs a run directory (tests/test_torch_checkpoint.py resumes
     one), in fit and in the streaming fit
     (tests/test_torch_streaming.py trains it); the streaming fit over a mesh
-    is not ported (item 17c)."""
+    (item 17c, ported: tests/test_torch_stream_dp.py) needs data ranks that
+    divide the batch, as fit does."""
     from multimodal_supernovae_tpu_torch.parallel.mesh import DataMesh
 
     trainer = Trainer(CLIPModel(CLIPConfig.create(**small_cfg_kwargs())), "contrastive",
@@ -381,8 +382,9 @@ def test_trainer_resume_and_fit_sharded_raise():
         trainer.fit(ds, ds, resume=True)
     with pytest.raises(ValueError, match="run_dir"):
         trainer.fit_sharded(ds, ds, resume=True)
-    trainer.mesh = DataMesh(0, 1)
-    with pytest.raises(NotImplementedError, match="item 17c"):
+    trainer.mesh = DataMesh(0, 3)
+    with pytest.raises(ValueError, match=r"global batch 32 is not divisible by the data "
+                                         r"mesh axis \(3\)"):
         trainer.fit_sharded(ds, ds)
 
 

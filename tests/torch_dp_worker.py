@@ -1,7 +1,7 @@
-"""The port's data- and tensor-parallel fits and the ensemble member axis, as
-one rank of a gloo process group on the CPU (tests/test_torch_dp.py,
-tests/test_torch_tp.py and tests/test_torch_ensemble.py spawn the ranks; it
-imports no jax).
+"""The port's data- and tensor-parallel fits, the streaming fit over ranks and
+the ensemble member axis, as one rank of a gloo process group on the CPU
+(tests/test_torch_dp.py, tests/test_torch_tp.py, tests/test_torch_stream_dp.py
+and tests/test_torch_ensemble.py spawn the ranks; it imports no jax).
 
   python tests/torch_dp_worker.py --rank R --world N --tp M \\
       --init file:///tmp/store --out DIR --scenarios bimodal,trimodal,...
@@ -47,6 +47,8 @@ TP_SCENARIOS = {2: ("bimodal", "sigmoid", "trimodal", "masked", "fused", "masks"
                 4: ("bimodal", "sigmoid", "trimodal", "regression", "masked", "fused",
                     "jaxmatch", "masks", "members")}
 MEMBER_SCENARIOS = ("members", "members-resume")  # the member axis over 2 x 1
+STREAM_SCENARIOS = ("stream", "stream-resume", "stream-jaxmatch")  # fit_sharded over 2 x 1
+STREAM_ROWS = 10  # the 28 training rows in shards of 10, 10 and 8
 TIMEOUT_S = 120  # a rank's subprocess; its process group's collectives time out at 60 s
 
 
@@ -348,6 +350,31 @@ def _member_writes():
     return counts
 
 
+def write_stream_cache(out) -> None:
+    """The bimodal scenario's training rows as the sharded cache
+    ``<out>/stream-cache`` (data/streaming.py)."""
+    from multimodal_supernovae_tpu_torch.data.streaming import write_sharded_cache
+
+    train = build("bimodal")[3]
+    write_sharded_cache(os.path.join(out, "stream-cache"), iter([train.arrays]), STREAM_ROWS)
+
+
+def fit_stream(out, mesh=None, run_dir=None, resume=False, name="bimodal", state_dict=None,
+               **tcfg_overrides) -> dict:
+    """``fit_sharded`` of the bimodal (or ``name``'s) scenario over
+    ``<out>/stream-cache``."""
+    from multimodal_supernovae_tpu_torch.data.streaming import ShardedDataset
+
+    model, task, tcfg, _, val = build(name)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    for k, v in tcfg_overrides.items():
+        setattr(tcfg, k, v)
+    sds = ShardedDataset(os.path.join(out, "stream-cache"))
+    trainer = Trainer(model, task, tcfg, run_dir=run_dir, mesh=mesh)
+    return summarize(trainer.fit_sharded(sds, val, resume=resume))
+
+
 def tp_run_dirs(mesh, out) -> dict:
     """The bimodal fit into run dirs: A (3 epochs), B (2, then resumed to 3)
     and C (2 epochs, which the test resumes in one process)."""
@@ -377,6 +404,18 @@ def run_scenario(name: str, mesh, out: str) -> dict:
     if name == "members-resume":  # 1 epoch, then resumed to 2, under the same mesh
         fit_members_on(mesh, run_dir=os.path.join(out, "members-R"), epochs=1)
         return fit_members_on(mesh, run_dir=os.path.join(out, "members-R"), epochs=2)
+    if name == "stream":
+        return fit_stream(out, mesh)
+    if name == "stream-resume":  # A 3 epochs; B 2, then resumed to 3 under the same mesh
+        writes = _Writes()
+        full = fit_stream(out, mesh, run_dir=os.path.join(out, "stream-A"), epochs=3)
+        fit_stream(out, mesh, run_dir=os.path.join(out, "stream-B"), epochs=2)
+        resumed = fit_stream(out, mesh, run_dir=os.path.join(out, "stream-B"), resume=True,
+                             epochs=3)
+        return {"full": full, "resumed": resumed, "writes": writes.counts}
+    if name == "stream-jaxmatch":
+        return fit_stream(out, mesh, name="jaxmatch",
+                          state_dict=torch.load(os.path.join(out, "jaxmatch.init.pt")))
     if name == "jaxmatch":
         return fit(name, mesh, state_dict=torch.load(os.path.join(out, "jaxmatch.init.pt")))
     if name == "resume":
