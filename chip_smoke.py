@@ -18,8 +18,9 @@ over two ranks, and the umbrella CLI under torchrun; and tensor-parallel
 training over (data, model) meshes of ranks, and the stacked members over
 the ranks' data axis), through the
 hand-written flash-attention kernels (forward and backward; bf16 on the
-tensor cores, float32 on the tensor cores in 3xTF32, head dims 32/64 and rows
-off 16 bytes on the CUDA cores), and the same server and
+tensor cores, float32 on the tensor cores in 3xTF32, every other head dim
+from 1 to 64 and rows off 16 bytes on the CUDA cores; the backward also at
+head dim 32 on the tensor cores), and the same server and
 trainer under ``use_fused_block``, through the fused-block kernels (forward
 and backward) as well, and under ``MMSN_FUSED_QKV=1``, through the
 whole-SelfAttention kernels (forward and backward; bf16 on the tensor-core
@@ -41,6 +42,8 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      fused_qkv_fwd, fused_qkv_bwd and their tensor-core versions
      fused_qkv_{fwd,bwd}_mma) with nvcc for sm_90a, one nvcc each, all
      started together, and echoes ptxas's entry, register and spill lines;
+     every build ends before phase 3, so no compiler runs beside a timed
+     kernel;
   3. kernel: the forward kernels against their plain version
      (dense_attention) on the card, float32 (atol = rtol = 1e-4: another
      summation order and the online rescale) and bfloat16 (0.05, and the
@@ -53,8 +56,11 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      T = 1 and T = 77 at head dims 8 and 16, the trimodal spectral shape
      (32, 2, 1024, 16), Maven pretraining's float32 light curve (1024, 8,
      200, 8) and spectrum (1024, 2, 220, 16), and the other head
-     dims. Every case at head dim 8
-     or 16 runs on both of its dtype's routes (the tensor cores as routed:
+     dims: 32 (contiguous, and with rows off 16 bytes), the ViT's (B, 4,
+     36, 32) at B = 32 and 256, and 4, 24 and 64 at (B, H, 36, S) with no
+     mask and at a ragged T = 77 with a fully masked row. Every case at
+     head dim 8 or 16 (the backward also 32)
+     runs on both of its dtype's routes (the tensor cores as routed:
      bf16, or 3xTF32 for float32; the CUDA cores through a patch of
      flash_attention._route) and must show one launch on the first's
      counter; every other case runs on the CUDA cores. The 3xTF32 route is
@@ -66,8 +72,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      F.scaled_dot_product_attention (scale emb**-0.5, boolean key mask) as
      the library yardstick (timed only; it differs on fully masked rows,
      where it gives NaN), in both dtypes (float32 with TF32 off), and in
-     float32 at the training, trimodal and Maven shapes too, each route
-     and the library call also by device time (profiler sums);
+     float32 at the training, trimodal and Maven shapes too, the CUDA
+     cores at head dims 4 and 64 ((256, 2, 36, S), no mask) in both
+     dtypes, each route and the library call also by device time
+     (profiler sums);
   4. kernel-bwd: the backward kernels' dq/dk/dv against torch autograd
      through dense_attention on the card, float32 (atol = rtol = 5e-4, the
      JAX kernel tests' gradient tolerance) and bfloat16 (0.05 and NORM_TOL
@@ -221,7 +229,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      Prints the median train-step time and paired samples/s of the kernel
      path, the plain path and the kernel path on the CUDA-core route (bf16,
      the same batch, host clock around synchronised steps, alternating
-     rounds of 20 steps each, in the order main, the others, main) and
+     rounds of 10 steps each, in the order main, the others, main) and
      their peak device memory;
   6b. train-fused: the same trainer with use_fused_block in the LC tower's
      kwargs: 5 fused forward + 5 fused backward (all on the tensor cores) +
@@ -290,7 +298,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      unit at the kink takes either side on two float32 forwards), and the
      same check failing with every dq off by 1%;
      the step's host
-     time (median of 10) and one torch.profiler breakdown (ConvMixer
+     time (median of 6) and one torch.profiler breakdown (ConvMixer
      convolutions and BatchNorm, flash, the rest). Then quadrimodal (the
      conv and meta kwargs of benchmarks/profile_tpu.py, maven-lite's
      towers, bf16, B = 256, 60 x 60 images): image and meta towers and
@@ -305,30 +313,35 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      host time;
   6e'. vit: the same trimodal grid point with extra_args.image_encoder vit
      at the JAX ViT defaults (emb 128, depth 6, 4 heads, patch 10, mlp 4;
-     60 x 60 images: 36 tokens at head dim 32, the CUDA-core flash
-     route), B = 32, float32, on a 320-sample set: Trainer.fit (2 epochs)
-     into a sweep's run-0 with 6 + 6 CUDA-core and 18 + 18 3xTF32 flash
-     launches a train step; the run dir loaded by its sidecar, then,
-     model_config.json removed and the sweep's sweep_config.yaml beside
-     it, rebuilt from its config files (initialize_from_run_dir's schema
-     path) within 1e-6 of the sidecar path, and served by load_live
+     60 x 60 images: 36 tokens at head dim 32: the flash forward on the
+     CUDA cores, the backward on the tensor cores), B = 32, float32, on a
+     320-sample set: Trainer.fit (2 epochs) into a sweep's run-0 with 6
+     CUDA-core forward and 18 + 24 3xTF32 flash launches a train step;
+     the run dir loaded by its sidecar, then, model_config.json removed
+     and the sweep's sweep_config.yaml beside it, rebuilt from its config
+     files (initialize_from_run_dir's schema path) within 1e-6 of the
+     sidecar path, and served by load_live
      (the image side from pos_emb) within 1e-6 of the encode; 6 float32
      steps (noise and rotation on) within relative 1e-5 of the plain
      path's; every float32 gradient within 5e-4 on the plain path's ReLU
-     masks, with the dq x 0.99 control; the tower alone in bf16 (each
+     masks, with the dq x 0.99 control; the grid point at vit_heads 2
+     (head dim 64): --check's preflight for the card (the CUDA cores both
+     ways), 3 float32 steps within relative 1e-5 of the plain path's and
+     every gradient within 5e-4 with the dq x 0.99 control, 6 + 6
+     CUDA-core launches a step; the tower alone in bf16 (each
      attention layer's output, dk and dv against the plain versions on its
      own inputs within 0.05 and NORM_TOL, dq within 0.05 and no farther
      from float64 than VIT_BF16_DQ_RATIO x the plain version, with the dq x
      0.99 control; the tower's output within 0.05 and NORM_TOL); the step's
-     host time and profile; rows 1a/2a timed at (B, 4, 36, 32), B = 32 and
-     256, both dtypes, no mask (events, device sums, host time, the plain
-     version, SDPA at scale S**-0.5) after a check against the plain
-     versions;
+     host time and profile; rows 1a, 2a and the tensor-core backward (2b
+     in bf16, 2c in float32) timed at (B, 4, 36, 32), B = 32 and 256, both
+     dtypes, no mask (events, device sums, host time, the plain version,
+     SDPA at scale S**-0.5) after a check against the plain versions;
   6f. maven: four stages from the shipped configs, each through
      training/experiment.py:_build_run, float32, every attention layer on
      the 3xTF32 flash route, no plain call, launches counted and asserted
      per fit (forwards a train and an eval step, backwards a train step);
-     each stage's train-step host time (median of 10) and one
+     each stage's train-step host time (median of 6) and one
      torch.profiler breakdown. Cuts, and nothing else: the epochs (3000 to
      3 for (a), 1000 to 2 for (c) and (d), the head 1), synthetic sets for
      the corpora, val_fraction for the fold split, nruns 1.
@@ -375,7 +388,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      3xTF32 flash launches a train step and 18 an eval step, no plain call,
      the cache hit, the run files, the manifests the random split's
      (val_fraction 0.05); its first 5 float32 steps on the kernel and plain
-     paths within relative 1e-5; its step's host clock (median of 10) and
+     paths within relative 1e-5; its step's host clock (median of 6) and
      one profile. cli.pretrain_masked --source sim on configs/config_grid.yaml
      (1 epoch, 1 run) from a legacy TransientTable file of 20,000 light
      curves (about 10% sentinels): 3xTF32 launches only, finite losses;
@@ -414,7 +427,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      caches;
   6h. ingest: a ZTF BTS tree of 4702 transients (the corpus's candidate
      count) written with numpy and zlib into chiprun_out/ in the corpus's
-     layout and formats (_write_tree: the transient table with the
+     layout and formats, by a spawned process started before phase 6f that
+     also runs the reader and decoder checks below and fills the ingest
+     caches of maven_finetune.yaml and smoke.yaml (start_tree; it touches
+     no CUDA) (_write_tree: the transient table with the
      reference's type strings and about 1% empty redshifts, 10-300
      light-curve points a band, 400-4000 spectral rows for about 90%, half
      with error columns holding empty cells, 60 x 60 host PNGs for about
@@ -432,13 +448,16 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      every attention launch on the 3xTF32 route (exactly 18 + 18 a train
      step, 18 an eval step), no plain call; fold 0's first 5 steps on the
      kernel and plain paths from the run's initial weights within relative
-     1e-5; its step's host clock (median of 10) and device time and idle
+     1e-5; its step's host clock (median of 6) and device time and idle
      share (one profile of 5 steps); cli.train --resume: no launch, every
      file of the sweep untouched, the cache hit; cli.finetune_clip on a copy
      of configs/maven_finetune.yaml whose pretrain_path is phase 6g's run S
      (1 epoch, 1 run) and cli.pretrain_masked --source real on
      configs/config_grid.yaml (1 epoch, 1 run): 3xTF32 launches only,
-     finite losses;
+     finite losses; then configs/smoke.yaml (emb 8, 2 heads: head dim 4)
+     through cli.train: --check for the card (the CUDA-core flash route),
+     then 1 epoch of its 3 on the whole tree, every flash launch on the
+     CUDA cores and counted, finite losses;
   6i. evaluate: on phase 6h's tree and run dirs, cli.evaluate on the two
      maven-lite fold runs (--max-spec-len 1024 --rescale 1, their config's;
      the JAX package cannot load their attention aggregation): exactly 18
@@ -580,7 +599,9 @@ with the trimodal spectral shape under "also_at_trimodal" and Maven
 pretraining's under "also_at_maven_lc" and "also_at_maven_sp"; the
 CUDA-core flash entries add the ViT tower's shape at B = 32 and 256 under
 "also_at_vit_b32" and "also_at_vit_b256" in both dtypes (with
-"exp_floor_ms"); the flash
+"exp_floor_ms"), and head dims 4 and 64 at (256, 2, 36, S) under
+"also_at_h4" and "also_at_h64"; the bf16 and 3xTF32 backward entries add
+the ViT's shapes under "also_at_vit_b32" and "also_at_vit_b256" too; the flash
 backward and fused-block entries add
 "device_ms" (profiler sums), the flash backward "library_device_ms", the
 fused-block entries "norm_err" (float32, its route's worst case), and the
@@ -593,12 +614,14 @@ rate). The last line is {"ok": true,
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
 import hashlib
 import io
 import json
+import multiprocessing
 import os
 import pickle
 import re
@@ -611,7 +634,7 @@ import threading
 import time
 import urllib.request
 import zlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -709,6 +732,7 @@ from multimodal_supernovae_tpu_torch.training import (
     make_train_step,
 )
 from multimodal_supernovae_tpu_torch.training import ensemble as ensemble_mod
+from multimodal_supernovae_tpu_torch.training import preflight
 from multimodal_supernovae_tpu_torch.training.experiment import _build_run, run_sweep
 from multimodal_supernovae_tpu_torch.parallel import (
     batch_stats_over,
@@ -777,7 +801,7 @@ PEAK_BYTES_S = 3.35e12
 # "tf32x3": 495 TFLOP/s of TF32 over the three products of each 3xTF32 one
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 LC_LEN, NBAND, SP_LEN, BATCH = 100, 2, 1024, 256
-TRAIN_SP_LEN, TRAIN_N, TRAIN_EPOCHS, TRAJ_STEPS, TIMED_STEPS = 220, 2048, 3, 12, 20
+TRAIN_SP_LEN, TRAIN_N, TRAIN_EPOCHS, TRAJ_STEPS, TIMED_STEPS = 220, 2048, 3, 12, 10
 PROFILED_STEPS = 5
 DEVICE = "cuda"
 # maven-lite (configs/maven-lite.yaml; bench.py's model at serving shapes)
@@ -824,7 +848,7 @@ RUN_DIR_FILES = ("config.yaml", "train_filenames.txt", "val_filenames.txt",
 # configs/config_grid.yaml
 TRIMODAL, GRID = "configs/trimodal.yaml", "configs/config_grid.yaml"
 TOWERS_N, TOWERS_EPOCHS, IMAGE_SIZE, HEADS_EPOCHS = 640, 2, 60, 1
-TOWERS_TRAJ_STEPS, TOWERS_TIMED = 6, 10
+TOWERS_TRAJ_STEPS, TOWERS_TIMED = 6, 6
 QUAD = ("host_galaxy", "lightcurve", "spectral", "meta")
 QUAD_CONV = {"dim": 32, "depth": 8, "kernel_size": 5, "patch_size": 10, "n_out": 32,
              "dropout_prob": 0.0}
@@ -841,7 +865,7 @@ HEADS_STATED = ((32, 2, 9, "mean"), ("lightcurve",), True, 256, None)
 MAVEN_PRETRAIN, MAVEN_FINETUNE = "configs/maven_pretrain.yaml", "configs/maven_finetune.yaml"
 MASKED_N, MASKED_EPOCHS, GRAFT_EPOCHS = 2048, 3, 2
 MAVEN_N, MAVEN_EPOCHS, FINETUNE_N, HEAD_EPOCHS = 4096, 2, 640, 1
-MAVEN_TRAJ_STEPS, MAVEN_TIMED = 6, 10
+MAVEN_TRAJ_STEPS, MAVEN_TIMED = 6, 6
 # masked_reconstruction_mse of load_model(M) against the in-memory model
 MSE_TOL = 1e-6
 # what the configs must give: the masked model (emb, heads, depth, n_out, f_mask,
@@ -902,11 +926,16 @@ def phase_build():
 
 def _heads(gen, b, h, t, s, dtype, model_layout):
     """q, k, v on the card; in the encoder's layout (views of (B, T, H, S)
-    buffers) or contiguous (B, H, T, S)."""
+    buffers, ``model_layout`` True), contiguous (B, H, T, S) (False), or
+    contiguous one element past a 16-byte boundary ("offset": rows off 16
+    bytes, which only the CUDA-core kernels take)."""
     def one():
-        shape = (b, t, h, s) if model_layout else (b, h, t, s)
+        shape = (b, t, h, s) if model_layout is True else (b, h, t, s)
         a = torch.randn(shape, generator=gen).to("cuda", dtype)
-        return a.transpose(1, 2) if model_layout else a
+        if model_layout == "offset":
+            return torch.zeros(a.numel() + 1, dtype=dtype, device="cuda")[1:].view(
+                shape).copy_(a)
+        return a.transpose(1, 2) if model_layout is True else a
     return one(), one(), one()
 
 
@@ -1010,10 +1039,11 @@ def _simt_route():
 ROUTES = {"mma": contextlib.nullcontext, "tf32": contextlib.nullcontext, "simt": _simt_route}
 
 
-def _routes(dtype, s, tensors):
-    """The routes a case is checked on: both where ``_route`` takes the
-    tensor cores (bf16 or 3xTF32), the CUDA cores alone elsewhere."""
-    route = flash_mod._route(dtype, s, tensors)
+def _routes(dtype, s, tensors, backward=False):
+    """The routes a case is checked on (the forward's, or the backward's):
+    both where ``_route`` takes the tensor cores (bf16 or 3xTF32), the CUDA
+    cores alone elsewhere."""
+    route = flash_mod._route(dtype, s, tensors, backward)
     return (route, "simt") if route != "simt" else ("simt",)
 
 
@@ -1053,16 +1083,23 @@ def _device_spans(prof):
     return [((s - t0) / 1e3, (s - t0 + d) / 1e3, name) for s, d, name in ops]
 
 
-def _device_ops(fn, iters=25):
+def _device_ops(fn, iters=25, tries=3):
     """(kernel name, ms) of each device op of ``iters`` calls of ``fn``
-    under torch.profiler, in the order they started, after a warm-up."""
+    under torch.profiler, in the order they started, after a warm-up. A
+    trace that recorded no device op (seen once on the card, among many
+    traces of a call that launches two kernels) is taken again, up to
+    ``tries`` times; raises if none records one."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return [(name, (s1 - s0) / 1e3) for s0, s1, name in _device_spans(prof)]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = _device_spans(prof)
+        if spans:
+            return [(name, (s1 - s0) / 1e3) for s0, s1, name in spans]
+    raise AssertionError(f"torch.profiler recorded no device op in {tries} traces")
 
 
 def _device_ms(fn, iters=25):
@@ -1073,11 +1110,17 @@ def _device_ms(fn, iters=25):
 
 
 def _flash_cases(mask_lc, mask_sp, t_sp):
-    """(name, (B, H, T, S), mask, encoder layout) of the flash checks: the
+    """(name, (B, H, T, S), mask, layout) of the flash checks (layout: the
+    encoder's, True; contiguous, False; "offset", rows off 16 bytes): the
     two towers' shapes in the encoder's layout and contiguous, the light
     curve at config_grid's 2 heads of 16, a fully
     masked row with leading masked key tiles, no mask, ragged T = 1 and 77
-    at both head dims, and the CUDA-core kernels' other head dims."""
+    at both head dims, and the CUDA-core kernels' other head dims: 32 (the
+    backward's tensor cores beside the CUDA cores; rows off 16 bytes on the
+    CUDA cores alone), the ViT tower's (B, 4, 36, 32) at B = 32 and 256, and
+    head dims 4 (configs/smoke.yaml), 24 and 64 (a ViT at vit_emb 128, 2
+    heads) at T = 36 with no mask and at a ragged T = 77 with a fully masked
+    row."""
     masked = mask_sp[:16].clone()
     masked[0] = False          # a fully masked row: uniform over its T keys
     masked[1, :100] = False    # leading key tiles masked, later ones valid
@@ -1097,7 +1140,21 @@ def _flash_cases(mask_lc, mask_sp, t_sp):
         ("t77_s8", (16, 8, 77, 8), m77, False),
         ("t77_s16", (16, 2, 77, 16), m77, True),
         ("s32", (8, 2, 77, 32), mask_sp[:8, :77].contiguous(), False),
+        ("s32_off", (8, 2, 77, 32), m77[:8].contiguous(), "offset"),
+        ("vit_b32", (32, 4, 36, 32), None, True),
+        ("vit_b256", (BATCH, 4, 36, 32), None, True),
+        ("h4", (BATCH, 2, 36, 4), None, True),
+        ("h4_t77", (16, 2, 77, 4), m77, False),
+        ("h24", (BATCH, 4, 36, 24), None, True),
+        ("h24_t77", (16, 2, 77, 24), m77, True),
+        ("h64", (BATCH, 2, 36, 64), None, True),
+        ("h64_t77", (16, 2, 77, 64), m77, False),
     ]
+
+
+# the cases whose row 0 is fully masked: dq = dk = 0 there, dv not
+FULLY_MASKED_ROW = ("masked_rows", "t77_s8", "t77_s16", "s32_off", "h4_t77", "h24_t77",
+                    "h64_t77")
 
 
 def _maven_cases(mask_lc, mask_sp):
@@ -1113,12 +1170,15 @@ MAVEN_CASES = ("maven_lc", "maven_sp")
 # serving and training shapes in both dtypes; the trimodal spectral shape, the
 # backward's spectral serving T and Maven pretraining's shapes in float32, the
 # dtype of those steps)
+# the CUDA-core kernels' head dims 4 and 64 at (B, H, 36, S), no mask, in both
+# dtypes (the ViT's head dim 32 is timed in phase vit)
+HEAD_DIM_TIMED = {(c, d) for c in ("h4", "h64") for d in ("float32", "bfloat16")}
 FWD_TIMED = {("lc", "bfloat16"), ("sp", "bfloat16"), ("lc", "float32"), ("sp", "float32"),
              ("sp_train", "float32"), ("sp_tri", "float32"), ("maven_lc", "float32"),
-             ("maven_sp", "float32")}
+             ("maven_sp", "float32")} | HEAD_DIM_TIMED
 BWD_TIMED = {("lc", "bfloat16"), ("sp", "bfloat16"), ("lc", "float32"), ("sp", "float32"),
              ("sp_t1024", "float32"), ("sp_tri", "float32"), ("maven_lc", "float32"),
-             ("maven_sp", "float32")}
+             ("maven_sp", "float32")} | HEAD_DIM_TIMED
 TIMING_NOTE = ("(plain: dense_attention, its autograd for the backward; library: "
                "scaled_dot_product_attention, its autograd for the backward; *_device: the "
                "sum of its device kernels under torch.profiler, 25 calls; *_host: the "
@@ -1271,7 +1331,7 @@ def phase_kernel_bwd():
             emb = h * s
             out, stats = fwd(q, k, v, mask, emb, with_stats=True)
             want = dense_attention_bwd(q, k, v, mask, g, emb)
-            routes = _routes(dtype, s, (q, k, v, out, g))
+            routes = _routes(dtype, s, (q, k, v, out, g), True)
             for route in routes:
                 before = _route_counts(flash_mod.flash_attention_bwd)
                 with ROUTES[route]():
@@ -1291,7 +1351,7 @@ def phase_kernel_bwd():
                     rel, ntol = _route_norm(a, w, dtype, route,
                                             f"{name} {dtype_name} {route} {gname}")
                     norms.append(rel)
-                if (name in ("masked_rows", "t77_s8", "t77_s16")
+                if (name in FULLY_MASKED_ROW
                         and (got[0][0].any() or got[1][0].any() or not got[2][0].any())):
                     raise AssertionError(f"{name} {route}: fully masked row: want dq = dk = 0, "
                                          "dv != 0")
@@ -1302,7 +1362,7 @@ def phase_kernel_bwd():
                     f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {tol}); "
                     f"||err||/||plain|| dq {_fmt(norms[0])} dk {_fmt(norms[1])} dv "
                     f"{_fmt(norms[2])} (tol {ntol})")
-                if route != "simt" and name in ("lc", "sp"):
+                if route != "simt" and name in ("lc", "sp", "vit_b32", "vit_b256"):
                     # negative control: the tensor-core dq off by 1% must fail
                     with _wrong_dq() as wrong_bwd:
                         wrong = wrong_bwd(q, k, v, mask, out, stats, g, emb)
@@ -3486,8 +3546,9 @@ def phase_towers(card):
 # phase vit: configs/trimodal.yaml's first grid point with image_encoder vit at
 # the JAX ViT defaults (its extra_args name no vit_* key: emb 128, depth 6, 4
 # heads, the patch its cnn_patch_size 10, mlp 4), 60 x 60 images: 36 tokens at
-# head dim 32, which the flash kernels take on the CUDA cores (rows 1a and 2a)
-VIT_N, VIT_EPOCHS, VIT_TRAJ_STEPS, VIT_TIMED = 320, 2, 6, 10
+# head dim 32, which the flash forward takes on the CUDA cores (row 1a) and the
+# backward on the tensor cores (rows 2b and 2c)
+VIT_N, VIT_EPOCHS, VIT_TRAJ_STEPS, VIT_TIMED = 320, 2, 6, 6
 VIT_TIMED_B = (32, 256)  # the flash rows' times at the tower's shape, B = 32 and 256
 # (emb, depth, heads, patch, mlp_mult, n_out), tokens, head dim, B
 VIT_STATED = ((128, 6, 4, 10, 4, 32), 36, 32, 32)
@@ -3515,33 +3576,46 @@ def _vit_setup():
 
 def _vit_flash_times(gen, b, dtype_name):
     """The flash forward and backward at the ViT's (B, 4, 36, 32), no mask, in
-    the encoder's layout: both on the CUDA-core route, held to
-    dense_attention and its autograd (TOL / GRAD_TOL; bf16 also NORM_TOL),
-    then timed as phases kernel and kernel-bwd time every flash row (CUDA
-    events, device sums, the wrapper's host time, the plain version, and
-    scaled_dot_product_attention at scale S**-0.5 with its autograd).
-    Returns ({"fwd": times, "bwd": times}, max|err|)."""
+    the encoder's layout: the forward on the CUDA cores (row 1a), the
+    backward on the tensor cores as routed (2b in bf16, 2c in float32) and
+    on the CUDA cores (2a, through a patch of _route), each held to
+    dense_attention and its autograd (TOL / GRAD_TOL; bf16 also NORM_TOL,
+    3xTF32 FP32_NORM_TOL), then timed as phases kernel and kernel-bwd time
+    every flash row (CUDA events, device sums, the wrapper's host time, the
+    plain version, and scaled_dot_product_attention at scale S**-0.5 with
+    its autograd). Returns ({"fwd": times, "bwd": times}, max|err|)."""
     h, t, s = VIT_STATED[0][2], VIT_STATED[1], VIT_STATED[2]
     dtype = getattr(torch, dtype_name)
     fwd, bwd = flash_mod._flash_fwd, flash_mod.flash_attention_bwd
     flash_attention = flash_mod.flash_attention
     q, k, v = _heads(gen, b, h, t, s, dtype, True)
     g = torch.randn((b, t, h, s), generator=gen).to("cuda", dtype).transpose(1, 2)
-    if flash_mod._route(dtype, s, (q, k, v)) != "simt":
-        raise AssertionError(f"vit {dtype_name}: head dim {s} is not on the CUDA-core route")
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
     out, stats = fwd(q, k, v, None, s, with_stats=True)
+    routes = (flash_mod._route(dtype, s, (q, k, v)),
+              flash_mod._route(dtype, s, (q, k, v, out, g), True))
+    if routes != ("simt", tc):
+        raise AssertionError(f"vit {dtype_name}: head dim {s} takes {routes}, not the CUDA "
+                             f"cores forward and the {tc} backward")
     want = dense_attention(q, k, v, None, s)
-    got = bwd(q, k, v, None, out, stats, g, s)
     want_g = dense_attention_bwd(q, k, v, None, g, s)
     errs = {}
-    for name, a, w, tol in (("out", out, want, TOL[dtype_name]),
-                            *((n, a, w, GRAD_TOL[dtype_name])
-                              for n, a, w in zip(("dq", "dk", "dv"), got, want_g))):
-        errs[name] = float((a.float() - w.float()).abs().max())
-        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol,
-                                   msg=lambda m: f"vit flash {b} {dtype_name} {name}: {m}")
-        rel, ntol = _route_norm(a, w, dtype, "simt", f"vit flash {b} {dtype_name} {name}")
-        errs[name + "_norm"] = rel
+    for route in (tc, "simt"):
+        before = _route_counts(bwd)
+        with ROUTES[route]():
+            got = bwd(q, k, v, None, out, stats, g, s)
+        torch.cuda.synchronize()
+        if not _on_route(bwd, before, route):
+            raise AssertionError(f"vit flash {b} {dtype_name}: not on the {route} route")
+        checked = (("out", out, want, TOL[dtype_name]),) if route == tc else ()
+        for name, a, w, tol in (*checked, *((f"{n} {route}", a, w, GRAD_TOL[dtype_name])
+                                            for n, a, w in zip(("dq", "dk", "dv"), got, want_g))):
+            errs[name] = float((a.float() - w.float()).abs().max())
+            torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol,
+                                       msg=lambda m: f"vit flash {b} {dtype_name} {name}: {m}")
+            rel, ntol = _route_norm(a, w, dtype, "simt" if name == "out" else route,
+                                    f"vit flash {b} {dtype_name} {name}")
+            errs[name + "_norm"] = rel
     times = {"fwd": {}, "bwd": {}}
     tf, tb = times["fwd"], times["bwd"]
     tf["simt"] = _time_ms(lambda: flash_attention(q, k, v, None, s))
@@ -3550,9 +3624,11 @@ def _vit_flash_times(gen, b, dtype_name):
     tf["plain"] = _time_ms(lambda: dense_attention(q, k, v, None, s))
     tf["library"] = _time_ms(lambda: _sdpa(q, k, v, None, s))
     tf["library_device"] = _device_ms(lambda: _sdpa(q, k, v, None, s))
-    tb["simt"] = _time_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
-    tb["simt_device"] = _device_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
-    tb["simt_host"] = _host_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
+    for route in (tc, "simt"):
+        with ROUTES[route]():
+            tb[route] = _time_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
+            tb[f"{route}_device"] = _device_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
+            tb[f"{route}_host"] = _host_ms(lambda: bwd(q, k, v, None, out, stats, g, s))
     leaves = [a.detach().requires_grad_() for a in (q, k, v)]
     plain_out, lib_out = dense_attention(*leaves, None, s), _sdpa(*leaves, None, s)
     tb["plain"] = _time_ms(lambda: torch.autograd.grad(plain_out, leaves, g,
@@ -3562,13 +3638,18 @@ def _vit_flash_times(gen, b, dtype_name):
     tb["library_device"] = _device_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
                                                                   retain_graph=True))
     shape = (b, h, t, s)
-    log(f"vit flash {shape} {dtype_name}, no mask, CUDA cores: max|err| " + ", ".join(
-        f"{n} {e:.3e}" if not n.endswith("_norm") else f"{n} {_fmt(e)}"
-        for n, e in errs.items()) + f" (tol {TOL[dtype_name]} / {GRAD_TOL[dtype_name]}"
-        f"{', norm ' + str(NORM_TOL) if dtype == torch.bfloat16 else ''})")
+    log(f"vit flash {shape} {dtype_name}, no mask, forward on the CUDA cores, backward on the "
+        f"{tc} tensor cores and the CUDA cores: max|err| " + ", ".join(
+            f"{n} {e:.3e}" if not n.endswith("_norm") else f"{n} {_fmt(e)}"
+            for n, e in errs.items()) + f" (tol {TOL[dtype_name]} / {GRAD_TOL[dtype_name]}, "
+        f"norm {NORM_TOL if dtype == torch.bfloat16 else FP32_NORM_TOL} where held)")
     for part in ("fwd", "bwd"):
         log(f"time-vit {part} {shape} {dtype_name}: " + ", ".join(
             f"{r} {ms:.4f} ms" for r, ms in times[part].items()) + " " + TIMING_NOTE)
+    log(f"time-vit bwd {shape} {dtype_name}: device time {tc} {tb[f'{tc}_device']:.4f} ms "
+        f"against the CUDA cores' (row 2a) {tb['simt_device']:.4f} ms "
+        f"({tb['simt_device'] / tb[f'{tc}_device']:.2f}x) and SDPA autograd's "
+        f"{tb['library_device']:.4f} ms ({tb[f'{tc}_device'] / tb['library_device']:.2f}x of it)")
     return times, max(v for n, v in errs.items() if not n.endswith("_norm"))
 
 
@@ -3638,7 +3719,8 @@ def _vit_bf16_tower(vk, gen_seed=5):
     math spread by up to 6e-2 normalised (a CPU probe: the plain path
     against itself with attention rounded once from float32), are held to
     be no farther from the float32 run's than 2x the plain bf16 path's.
-    Returns the launches (6 + 6 on the CUDA cores)."""
+    Returns the launches (6 forwards on the CUDA cores, 6 backwards on the
+    bf16 tensor cores)."""
     b = VIT_STATED[3]
     x = torch.rand((b, IMAGE_SIZE, IMAGE_SIZE, 3),
                    generator=torch.Generator().manual_seed(gen_seed)).to(DEVICE)
@@ -3664,7 +3746,7 @@ def _vit_bf16_tower(vk, gen_seed=5):
         grads[path] = {n: p.grad for n, p in tower.named_parameters()}
         del tower, calls
     depth = vk["depth"]
-    _check_counts("vit bf16 tower", counts["kernel"], (depth, depth) + (0,) * 12)
+    _check_counts("vit bf16 tower", counts["kernel"], (depth, 0, 0, depth) + (0,) * 10)
     _check_counts("vit bf16 tower plain", counts["plain"], NONE)
     out_err = (float((outs["kernel"].float() - outs["plain"].float()).abs().max())
                / float(outs["plain"].float().abs().max()), _norm_err(outs["kernel"], outs["plain"]))
@@ -3698,6 +3780,63 @@ def _vit_bf16_tower(vk, gen_seed=5):
     return counts["kernel"]
 
 
+VIT64_HEADS, VIT64_STEPS = 2, 3  # vit_emb 128 / 2 heads: head dim 64; its float32 steps
+
+
+def _vit_head_dim_64(point, extra, data, plan, seq, sp_len):
+    """The trimodal ViT grid point at vit_heads 2 (head dim 128 / 2 = 64,
+    above the ViT's shipped 32): --check's preflight for the card, which
+    must pass and name the CUDA-core route both ways, then VIT64_STEPS
+    float32 steps of the kernel path against the plain path (relative
+    TRAJ_RTOL a step) and every parameter's gradient (GRAD_RTOL, with the dq
+    x 0.99 control), as phase vit holds the shipped ViT. Returns the
+    launches: the ViT's forwards and backwards on the CUDA cores."""
+    point64 = dict(point, vit_heads=VIT64_HEADS)
+    rep = preflight.preflight_run(point64, extra, NBAND, 2 * LC_LEN, sp_len,
+                                  image_size=IMAGE_SIZE)
+    note = next(n for n in rep["notes"] if n.startswith("image (ViT)"))
+    log(f"vit head dim 64: --check's preflight of the grid point at vit_heads "
+        f"{VIT64_HEADS}: {note}")
+    if not note.endswith("-> flash simt (CUDA cores)"):
+        raise AssertionError(f"vit head dim 64: the preflight names {note!r}")
+    cfg = build_clip_config(point64, extra, nband=NBAND)
+    vk = cfg.vk()
+    if vk["emb"] // vk["heads"] != 64:
+        raise AssertionError(f"vit head dim 64: the config gives {vk}")
+    tcfg = build_trainer_config(point64, extra)
+    depth = vk["depth"]
+    per_step = (depth, depth) + (0,) * 10 + (seq, seq)
+    plan = plan[:VIT64_STEPS]
+    losses, total = {}, NONE
+    for path in ("kernel", "plain"):
+        model = CLIPModel(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        opt, _ = build_optimizer(model.named_parameters(), lr=tcfg.lr,
+                                 weight_decay=tcfg.weight_decay)
+        run = make_epoch_runner(model, tcfg.noise_level_mag,
+                                noise_level_img=tcfg.noise_level_img)
+        with PATHS[path][1](), _plain_calls() as plain:
+            _zero_counts()
+            _, got = run(TrainState(model, opt), data, plan,
+                         torch.Generator(device=DEVICE).manual_seed(2))
+            counts = _counts()
+        want = NONE if path == "plain" else tuple(c * len(plan) for c in per_step)
+        if counts != want or (plain and path == "kernel"):
+            raise AssertionError(f"vit head dim 64 {path}: launches {counts}, want {want}")
+        losses[path] = got.cpu().numpy()
+        total = tuple(a + c for a, c in zip(total, counts))
+        del model, opt
+    rel = np.abs(losses["kernel"] - losses["plain"]) / np.abs(losses["plain"])
+    log(f"vit head dim 64: ViT {vk}; {len(plan)} float32 steps, kernel "
+        f"{losses['kernel'].tolist()}, plain {losses['plain'].tolist()}, worst relative "
+        f"difference {rel.max():.3e} (tol {TRAJ_RTOL}); launches a step {per_step}: the ViT's "
+        f"{depth} backwards on the CUDA cores (row 2a)")
+    if not np.all(np.isfinite(losses["kernel"])) or rel.max() > TRAJ_RTOL:
+        raise AssertionError(f"vit head dim 64: the trajectory leaves the plain path's: {rel}")
+    one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
+    counts = _towers_grads("vit head dim 64", cfg, one, per_step)
+    return tuple(a + c for a, c in zip(total, counts))
+
+
 def phase_vit(card):
     """The ViT image tower in a trimodal model on the card: Trainer.fit into a
     run dir, the run dir rebuilt without its sidecar, served, the float32
@@ -3707,8 +3846,9 @@ def phase_vit(card):
     t_phase = time.perf_counter()
     sweep, point, extra, clip_cfg, tcfg = _vit_setup()
     depth, seq = clip_cfg.vk()["depth"], clip_cfg.tk()["depth"] + clip_cfg.tsk()["depth"]
-    # float32: the ViT's layers on the CUDA cores, the sequence towers' on 3xTF32
-    per_step = (depth, depth) + (0,) * 10 + (seq, seq)
+    # float32: the ViT's forwards on the CUDA cores and its backwards on 3xTF32,
+    # the sequence towers' both ways on 3xTF32
+    per_step = (depth, 0) + (0,) * 10 + (seq, seq + depth)
     sp_len = int(extra["max_spectral_data_len"])
     ds = make_synthetic_dataset(n=VIT_N, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=sp_len,
                                 image_size=IMAGE_SIZE, modalities=clip_cfg.combinations, seed=0)
@@ -3802,6 +3942,10 @@ def phase_vit(card):
     # (e) every parameter's float32 gradient, with the dq x 0.99 control
     one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
     counts = _towers_grads("vit", clip_cfg, one, per_step)
+    total = tuple(a + c for a, c in zip(total, counts))
+
+    # (e') a ViT at head dim 64
+    counts = _vit_head_dim_64(point, extra, data, plan, seq, sp_len)
     total = tuple(a + c for a, c in zip(total, counts))
 
     # (f) the tower alone in bf16
@@ -4928,7 +5072,7 @@ def phase_stream_dp(card, tmp):
 # phase ingest: a ZTF BTS tree in the corpus's layout, written here, ingested
 # by the port's reader and trained from through the port's CLIs
 INGEST_N = 4702  # the corpus's candidates (SURVEY.md section 0; its data/AAA_README.txt:2)
-INGEST_EPOCHS, INGEST_RUNS, INGEST_TRAJ_STEPS, INGEST_TIMED = 2, 2, 5, 10
+INGEST_EPOCHS, INGEST_RUNS, INGEST_TRAJ_STEPS, INGEST_TIMED = 2, 2, 5, 6
 INGEST_IMAGE = 60  # the side phase towers uses
 # the reference's type strings (its merges included) at rough BTS shares; the
 # last five fall outside the 5-way classes and are dropped
@@ -4937,6 +5081,9 @@ INGEST_TYPES = (("SN Ia", 0.70), ("SN II", 0.10), ("SN IIP", 0.03), ("SN Ib", 0.
                 ("SN Ia-91T", 0.02), ("SN IIb", 0.02), ("TDE", 0.02), ("SLSN-II", 0.01),
                 ("CV", 0.01))
 INGEST_UNFILTER_SAMPLE = 25  # images decoded by both unfilters for their times
+# configs/smoke.yaml (emb 8, 2 heads: head dim 4, the CUDA-core flash kernels
+# both ways) trained on the tree through cli.train, its 3 epochs cut to 1
+SMOKE, SMOKE_EPOCHS = "configs/smoke.yaml", 1
 _PNG_COLOUR = {1: 0, 2: 4, 3: 2, 4: 6}  # samples a pixel -> colour type
 
 
@@ -5250,18 +5397,62 @@ def _metric_rows(run_dir):
         return [json.loads(line) for line in f]
 
 
-def phase_ingest(card, tmp):
-    """A ZTF BTS tree written under ``tmp``; the native reader, the decoder,
-    the folds and the cache; then maven-lite trained from it through
-    cli.train (2 folds, 2 epochs) and resumed, cli.finetune_clip from run dir
-    ``tmp/S`` (phase sim's cli.pretrain_sim run) and cli.pretrain_masked
-    --source real. Returns the launches of every counted call."""
-    t_phase = time.perf_counter()
+# the CLI runs of phase ingest whose ingest cache the tree's process fills
+# beforehand: (config, the CLI's spectral default); cli.pretrain_masked's stays
+# a miss, so a CLI still ingests on a miss
+PREFILLED = ((MAVEN_FINETUNE, 220), (SMOKE, 1000))
+
+
+def _tree_job(tmp, t0_smoke):
+    """Phase ingest's tree written under ``tmp``, its host checks
+    (_ingest_checks: the native reader and the PNG decoder), then the ingest
+    cache of each PREFILLED config as its CLI keys it: (data dir, spectra
+    dir, the images written, the decode seconds). Logs on the smoke's clock
+    (``t0_smoke``: the monotonic clock is the same in every process)."""
+    global _T0
+    _T0 = t0_smoke
     t0 = time.perf_counter()
     data_dir, spectra_dir, images = _write_tree(tmp, INGEST_N)
     log(f"ingest: wrote a tree of {INGEST_N} transients ({len(os.listdir(spectra_dir))} "
-        f"spectra, {len(images)} images) in {time.perf_counter() - t0:.2f} s")
+        f"spectra, {len(images)} images) in {time.perf_counter() - t0:.2f} s (a spawned "
+        f"process, beside the phases before ingest)")
     decode_s = _ingest_checks(data_dir, spectra_dir, images)
+    t0 = time.perf_counter()
+    for path, sp_default in PREFILLED:
+        config = cli_common.ingest_config(data_dir, spectra_dir,
+                                          load_sweep(path).extra_args, sp_default)
+        load_or_ingest(os.path.join(tmp, "cache"),
+                       lambda c=config: load_ztfbts(kfolds=None, **c)[0], **config)
+    log(f"ingest: the ingest caches of {[p for p, _ in PREFILLED]} filled in "
+        f"{time.perf_counter() - t0:.2f} s (the spawned process)")
+    return data_dir, spectra_dir, images, decode_s
+
+
+def start_tree(tmp):
+    """_tree_job in one spawned process, started before the phases that
+    precede phase ingest and taken by it (``.result()``): numpy, zlib, file
+    and native-reader work of about a minute that touches no CUDA, so it
+    overlaps the card's phases instead of adding to the smoke's time. Its
+    failure raises in phase ingest. Spawned, not forked: this process has
+    CUDA and worker threads by then."""
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    future = pool.submit(_tree_job, tmp, _T0)
+    pool.shutdown(wait=False)  # the worker exits once the job is done
+    return future
+
+
+def phase_ingest(card, tmp, tree):
+    """The ZTF BTS tree under ``tmp`` (``tree``: start_tree's future; the
+    native reader and the decoder checked there); the folds and the cache;
+    then maven-lite trained from it through
+    cli.train (2 folds, 2 epochs) and resumed, cli.finetune_clip from run dir
+    ``tmp/S`` (phase sim's cli.pretrain_sim run), cli.pretrain_masked
+    --source real, and configs/smoke.yaml through cli.train (--check, then 1
+    epoch). Returns the launches of every counted call."""
+    t_phase = time.perf_counter()
+    data_dir, spectra_dir, images, decode_s = tree.result()
+    log(f"ingest: the tree and its reader and decoder checks taken from the spawned process "
+        f"after {time.perf_counter() - t_phase:.2f} s of waiting")
 
     # the cache: a miss, then a hit that must equal it
     sweep = load_sweep(MAVEN_LITE)
@@ -5420,9 +5611,25 @@ def phase_ingest(card, tmp):
     log(f"ingest masked: {GRID} --source real; cuts: epochs 3000 -> 1, nruns 20 -> 1: "
         f"{masked_rows}")
     _tf32_only("ingest masked", counts)
+    total = tuple(a + c for a, c in zip(total, counts))
+
+    # cli.train of configs/smoke.yaml at head dim 4, --check for the card first
+    code, text = _exit_code("ingest smoke check", cli_train.main, [SMOKE, "--check"])
+    if code != 0 or "flash simt (CUDA cores)" not in text:
+        raise AssertionError(f"ingest smoke check: exit {code}, {text!r}")
+    counts, wall, _ = _cli_counted("ingest smoke", cli_train.main, [
+        SMOKE, *argv, "--epochs", str(SMOKE_EPOCHS)])
+    smoke_rows = _metric_rows(os.path.join(analysis, "smoke", "run-0"))
+    log(f"ingest smoke: {SMOKE} (head dim 4) on the tree through cli.train; cuts: epochs 3 "
+        f"-> {SMOKE_EPOCHS}, the tree's {INGEST_N} transients kept; {wall:.3f} s; flash "
+        f"launches at head dim 4, all on the CUDA cores: forward {counts[0]}, backward "
+        f"{counts[1]}; {smoke_rows}")
+    if (counts[2:] != (0,) * 12 or not counts[0] > counts[1] > 0
+            or len(smoke_rows) != SMOKE_EPOCHS):
+        raise AssertionError(f"ingest smoke: launches {counts}, rows {smoke_rows}")
     if not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
-               for r in rows + masked_rows):
-        raise AssertionError(f"ingest: a non-finite loss: {rows + masked_rows}")
+               for r in rows + masked_rows + smoke_rows):
+        raise AssertionError(f"ingest: a non-finite loss: {rows + masked_rows + smoke_rows}")
     total = tuple(a + c for a, c in zip(total, counts))
     log(f"ingest: launches per route {COUNT_NAMES}: {total}; card {card}")
     log(f"ingest: phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -5440,6 +5647,13 @@ EVAL_SEED = 7  # infer --seed of the masked run's anomaly scores
 # embeddings are still held to the plain path's): the smoke's time limit
 EVAL_PROBE_RUNS = 1
 _PARAMS_LINE = re.compile(r"^run-0: .*\| ([\d,]+) params", re.M)
+
+
+def _reap(proc):
+    """Kill ``proc`` if it still runs (atexit: a failed phase leaves no child)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
 
 
 def _exit_code(tag, main, argv):
@@ -5619,6 +5833,12 @@ def phase_evaluate(card, tmp):
     sup_argv = [sys.executable, "-m", "multimodal_supernovae_tpu_torch.cli.train", GRID,
                 "--data-dir", data_dir, "--spectra-dir", spectra_dir, "--cache-dir",
                 cache_dir, "--analysis-path", analysis, "--device", DEVICE]
+    # (e)'s supervisor --check: the training CLI's preflight in a child of a
+    # child on the meta device, started now and read in (e)
+    sup_check = subprocess.Popen(
+        [sys.executable, "-m", "multimodal_supernovae_tpu_torch.cli.supervise", "--check",
+         "--", *sup_argv[:4]], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(_reap, sup_check)
     t0 = time.perf_counter()
     code, _ = _exit_code("evaluate supervise", cli_supervise.main, [
         "--max-restarts", "0", "--", *sup_argv, "--epochs", "1", "--max-runs", "1"])
@@ -5695,8 +5915,6 @@ def phase_evaluate(card, tmp):
 
     # (e) --check of the four training CLIs on their shipped configs
     ft_cfg = os.path.join(tmp, "maven_finetune.yaml")  # phase ingest's copy, pretrain_path S
-    sup_check = [sys.executable, "-m", "multimodal_supernovae_tpu_torch.cli.supervise",
-                 "--check", "--", *sup_argv[:4]]
     checks = (("train", cli_train.main, [MAVEN_LITE, "--check"], models[0]),
               ("finetune_clip", cli_finetune.main, [ft_cfg, "--check"],
                load_model(ft_run, DEVICE)[0]),
@@ -5706,16 +5924,17 @@ def phase_evaluate(card, tmp):
     for name, main, argv, model in checks:
         t0 = time.perf_counter()
         if main is None:  # the supervisor runs the training CLI's preflight in a child
-            proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
-            code, text = proc.returncode, proc.stdout
+            text, _ = argv.communicate(timeout=600)
+            code = argv.returncode
             for line in text.splitlines():
                 log(f"evaluate check {name}: | {line}")
         else:
             code, text = _exit_code(f"evaluate check {name}", main, argv)
         m = _PARAMS_LINE.search(text)
         n_params = int(m.group(1).replace(",", "")) if m else None
-        log(f"evaluate check {name}: exit {code} in {time.perf_counter() - t0:.2f} s; run-0 "
-            f"n_params {n_params}, the card's model {_trained_params(model)}")
+        waited = " waited for (started in (c))" if main is None else ""
+        log(f"evaluate check {name}: exit {code} in {time.perf_counter() - t0:.2f} s"
+            f"{waited}; run-0 n_params {n_params}, the card's model {_trained_params(model)}")
         if code != 0 or n_params != _trained_params(model):
             raise AssertionError(f"evaluate check {name}: exit {code}, n_params {n_params}")
     broken = os.path.join(tmp, "broken.yaml")
@@ -7215,11 +7434,12 @@ def main():
     vit, vit_timing, vit_err = phase_vit(card)
     os.makedirs("chiprun_out", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="chiprun_out", prefix="ingest-") as tmp:
+        tree = start_tree(tmp)  # phase ingest's tree, written beside phases maven to stream-dp
         maven = phase_maven(card)
         sim = phase_sim(card, tmp)
         stream = phase_stream(card, tmp)
         stream_dp = phase_stream_dp(card, tmp)
-        ingest = phase_ingest(card, tmp)
+        ingest = phase_ingest(card, tmp, tree)
         evaluation = phase_evaluate(card, tmp)
         run = _cli_launch(tmp)  # phases dp's and tp's torchrun runs, beside phase ensemble
         try:
@@ -7291,40 +7511,62 @@ def main():
             top[other] = entry("sp_t1024" if bwd else "sp_train")
         return top
 
-    def vit_entries(bwd, dtype):
-        """The CUDA-core flash entry at the ViT tower's shapes (phase vit),
+    def vit_entries(bwd, dtype, route="simt"):
+        """The flash entry of ``route`` at the ViT tower's shapes (phase vit),
         under also_at_vit_b32 and also_at_vit_b256."""
-        peak = "bfloat16" if dtype == "bfloat16" else "float32"
+        peak = ("bfloat16" if dtype == "bfloat16" else "tf32x3" if route == "tf32"
+                else "float32")
         out = {}
         for bb, shape in vit_shapes.items():
             t = vit_timing[(bb, dtype)]["bwd" if bwd else "fwd"]
             bound = _flash_bounds(*shape, peak)[bwd]
             out[f"also_at_vit_b{bb}"] = {
-                "ms": t["simt"], "device_ms": t["simt_device"], "host_ms": t["simt_host"],
+                "ms": t[route], "device_ms": t[f"{route}_device"], "host_ms": t[f"{route}_host"],
                 "plain_ms": t["plain"], "bound_ms": bound[0], "bound_by": bound[1],
                 "exp_floor_ms": _exp_floor_ms(*shape[:3], exp_per_s)[bwd],
                 "library_ms": t["library"], "library_device_ms": t["library_device"],
                 "shape": f"(B, H, T, S) = {shape} {dtype}, no mask (the ViT tower)"}
         return out
 
+    def head_dim_entries(bwd, dtype):
+        """The CUDA-core flash entry at head dims 4 and 64 (phases kernel and
+        kernel-bwd, (B, H, 36, S), no mask), under also_at_h4 and
+        also_at_h64."""
+        tm, peak, out = bwd_timing if bwd else timing, dtype, {}
+        for case, shape in (("h4", (BATCH, 2, 36, 4)), ("h64", (BATCH, 2, 36, 64))):
+            t = tm[(case, dtype)]
+            bound = _flash_bounds(*shape, peak)[bwd]
+            out[f"also_at_{case}"] = {
+                "ms": t["simt"], "device_ms": t["simt_device"], "host_ms": t["simt_host"],
+                "plain_ms": t["plain"], "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": t["library"], "library_device_ms": t["library_device"],
+                "shape": f"(B, H, T, S) = {shape} {dtype}, no mask"}
+        return out
+
     measured = {  # name: (launches, max_abs_err, the rest of the entry)
         "flash_attention_fwd": (0, fwd_err["simt"], {
-            **flash("simt", 0), **vit_entries(0, "bfloat16"),
-            "float32": {**flash("simt", 0, "float32"), **vit_entries(0, "float32")},
+            **flash("simt", 0), **vit_entries(0, "bfloat16"), **head_dim_entries(0, "bfloat16"),
+            "float32": {**flash("simt", 0, "float32"), **vit_entries(0, "float32"),
+                        **head_dim_entries(0, "float32")},
             "norm_err_float32": fwd_norm[("simt", "float32")], "vit_max_abs_err": vit_err}),
         "flash_attention_bwd": (1, bwd_err["simt"], {
-            **flash("simt", 1), **vit_entries(1, "bfloat16"),
-            "float32": {**flash("simt", 1, "float32"), **vit_entries(1, "float32")},
+            **flash("simt", 1), **vit_entries(1, "bfloat16"), **head_dim_entries(1, "bfloat16"),
+            "float32": {**flash("simt", 1, "float32"), **vit_entries(1, "float32"),
+                        **head_dim_entries(1, "float32")},
             "norm_err_float32": bwd_norm[("simt", "float32")], "vit_max_abs_err": vit_err}),
         "flash_attention_fwd_mma": (2, fwd_err["mma"], {
             **flash("mma", 0), "norm_err": fwd_norm[("mma", "bfloat16")],
             "registered_op_dispatch": dispatch}),
         "flash_attention_bwd_mma": (3, bwd_err["mma"], {
-            **flash("mma", 1), "norm_err": bwd_norm[("mma", "bfloat16")]}),
+            **flash("mma", 1), **vit_entries(1, "bfloat16", "mma"),
+            "norm_err": bwd_norm[("mma", "bfloat16")],
+            "wrong_dq_norm_err": {n: e for (n, d), e in bwd_control.items()
+                                  if d == "bfloat16"}}),
         "flash_attention_fwd_tf32": (12, fwd_err["tf32"], {
             **flash("tf32", 0, "float32"), "norm_err": fwd_norm[("tf32", "float32")]}),
         "flash_attention_bwd_tf32": (13, bwd_err["tf32"], {
-            **flash("tf32", 1, "float32"), "norm_err": bwd_norm[("tf32", "float32")],
+            **flash("tf32", 1, "float32"), **vit_entries(1, "float32", "tf32"),
+            "norm_err": bwd_norm[("tf32", "float32")],
             "wrong_dq_norm_err": {n: e for (n, d), e in bwd_control.items()
                                   if d == "float32"}}),
     }

@@ -43,10 +43,20 @@
 // What bounds it on this card: CUDA-core compute, like the forward. Per (query,
 // key) pair the dq kernel does 3*S FMAs and one exponential, the dk/dv kernel
 // 4*S and one exponential; device memory sees q/k/v/g once per tile. The
-// D pass adds 2*S FMAs and one exponential a pair to the dq kernel. bf16 at
-// head dims 8 and 16 takes csrc/flash_attention_bwd_mma.cu instead. Head dims
-// 8, 16 and 32: at 64 the dk/dv kernel's four S-wide accumulators would
-// exceed the 255-register limit.
+// D pass adds 2*S FMAs and one exponential a pair to the dq kernel. At head
+// dims 8, 16 and 32 with 16-byte rows, bf16 takes csrc/flash_attention_bwd_mma.cu
+// and float32 csrc/flash_attention_bwd_tf32.cu instead.
+//
+// Head dims. Both kernels are instantiated at a capacity S in {4, 8, 16, 32,
+// 64} and take the true head dim s <= S at run time: loads past s read 0 and
+// stores past s are skipped, and the zero columns change no q . k and no
+// g . v, so every head dim from 1 to 64 gives the dense results with no
+// padded copy. At S = 64 one thread's four S-wide rows (k, v, dk, dv in the
+// dk/dv kernel; q, g, dq in the dq kernel) would pass the 255-register limit,
+// so each row is split over two neighbouring threads of a warp, each owning
+// S/2 columns: the two halves of a score and of dP are joined by one
+// __shfl_xor_sync, both threads then take the same P and dS, and each
+// updates its own columns. A block then covers 64 rows.
 //
 // Plain C interface, loaded with ctypes (kernels/build.py): the entry launches
 // both kernels on the given stream and returns cudaGetLastError(), or
@@ -105,32 +115,50 @@ struct Args {
   void* dk;
   void* dv;
   float* dsum;          // (B*H*T) scratch: D = rowsum(P o dP) of each row
-  int H, T_len;
+  int H, T_len, S;  // S: the true head dim, at most the kernels' capacity
   float scale;
   Strides sqkv, sg, sgrad;  // sgrad: dq, dk and dv
 };
 
+// Threads a row at capacity S: two at 64, each owning S/2 columns (see the
+// design note above), one below.
+template <int S>
+struct Split {
+  static constexpr int N = S == 64 ? 2 : 1;
+  static constexpr int W = S / N;  // columns a thread owns
+};
+
+// The sum of a row's partial dot products over the threads that share it.
+template <int N>
+__device__ __forceinline__ float row_sum(float x) {
+  if constexpr (N == 2) x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x;
+}
+
 template <typename T, int S>
 __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a) {
-  static_assert(S % 4 == 0, "head dim must be a multiple of 4");
+  static_assert(S % 4 == 0, "head dim capacity must be a multiple of 4");
+  using SP = Split<S>;
+  constexpr int W = SP::W;
   __shared__ __align__(16) float ks[BK][S];
   __shared__ __align__(16) float vs[BK][S];
   __shared__ uint8_t kind[BK];  // 0 valid key, 1 masked key, 2 past T
 
-  const int T_len = a.T_len;
+  const int T_len = a.T_len, s_dim = a.S;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int row = blockIdx.y * BQ + threadIdx.x;
+  const int row = blockIdx.y * (BQ / SP::N) + threadIdx.x / SP::N;
+  const int col0 = (threadIdx.x % SP::N) * W;  // this thread's first column
   const bool active = row < T_len;
   const T* q = static_cast<const T*>(a.q);
   const T* kb = static_cast<const T*>(a.k) + a.sqkv.at(b, h, 0);
   const T* vb = static_cast<const T*>(a.v) + a.sqkv.at(b, h, 0);
 
-  float qr[S], gr[S], acc[S];
+  float qr[W], gr[W], acc[W];
   float m = 0.f, inv_l = 0.f, D = 0.f, c0 = 0.f;  // inactive rows: p = 0 below
 #pragma unroll
-  for (int d = 0; d < S; ++d) {
+  for (int d = 0; d < W; ++d) {
     qr[d] = 0.f;
     gr[d] = 0.f;
     acc[d] = 0.f;
@@ -139,16 +167,21 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
     const T* qrow = q + a.sqkv.at(b, h, row);
     const T* grow = static_cast<const T*>(a.g) + a.sg.at(b, h, row);
 #pragma unroll
-    for (int d = 0; d < S; ++d) {
-      qr[d] = round_to<T>(to_float(qrow[d]) * a.scale) * LOG2E;
-      gr[d] = to_float(grow[d]);
+    for (int d = 0; d < W; ++d) {
+      if (col0 + d < s_dim) {
+        qr[d] = round_to<T>(to_float(qrow[col0 + d]) * a.scale) * LOG2E;
+        gr[d] = to_float(grow[col0 + d]);
+      }
     }
     const float2 st = a.stats[(int64_t)bh * T_len + row];
     m = st.x;
     inv_l = 1.f / st.y;
 #pragma unroll
-    for (int d = 0; d < S; ++d) c0 = fmaf(gr[d], to_float(vb[d]), c0);  // dP of key 0
+    for (int d = 0; d < W; ++d) {
+      if (col0 + d < s_dim) c0 = fmaf(gr[d], to_float(vb[col0 + d]), c0);  // dP of key 0
+    }
   }
+  c0 = row_sum<SP::N>(c0);
 
   // pass 0: D = rowsum(P o dP), summed as c0 + rowsum(P o (dP - c0)); pass
   // 1: dS and dq. A masked key adds nothing: P is 0 there unless the whole row
@@ -163,7 +196,7 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
         const int d = idx - j * S;
         const int key = j0 + j;
         float kv = 0.f, vv = 0.f;
-        if (key < T_len) {
+        if (key < T_len && d < s_dim) {
           kv = round_to<T>(to_float(kb[key * a.sqkv.t + d]) * a.scale);
           vv = to_float(vb[key * a.sqkv.t + d]);
         }
@@ -184,9 +217,9 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
         if (kind[j] != 0) continue;
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int d = 0; d < S; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-          const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
+        for (int d = 0; d < W; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][col0 + d]);
+          const float4 vv = *reinterpret_cast<const float4*>(&vs[j][col0 + d]);
           s = fmaf(qr[d], kk.x, s);
           s = fmaf(qr[d + 1], kk.y, s);
           s = fmaf(qr[d + 2], kk.z, s);
@@ -196,6 +229,8 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
           dp = fmaf(gr[d + 2], vv.z, dp);
           dp = fmaf(gr[d + 3], vv.w, dp);
         }
+        s = row_sum<SP::N>(s);
+        dp = row_sum<SP::N>(dp);
         const float p = exp2f(s - m) * inv_l;
         if (pass == 0) {
           D = fmaf(p, dp - c0, D);
@@ -203,8 +238,8 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
         }
         const float ds = round_to<T>(p * (dp - D));
 #pragma unroll
-        for (int d = 0; d < S; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
+        for (int d = 0; d < W; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][col0 + d]);
           acc[d] = fmaf(ds, kk.x, acc[d]);
           acc[d + 1] = fmaf(ds, kk.y, acc[d + 1]);
           acc[d + 2] = fmaf(ds, kk.z, acc[d + 2]);
@@ -215,25 +250,30 @@ __global__ void __launch_bounds__(BQ) flash_attention_bwd_dq_kernel(const Args a
   }
 
   if (active) {
-    a.dsum[(int64_t)bh * T_len + row] = D;
+    if (col0 == 0) a.dsum[(int64_t)bh * T_len + row] = D;
     T* o = static_cast<T*>(a.dq) + a.sgrad.at(b, h, row);
 #pragma unroll
-    for (int d = 0; d < S; ++d) o[d] = from_float<T>(acc[d] * a.scale);
+    for (int d = 0; d < W; ++d) {
+      if (col0 + d < s_dim) o[col0 + d] = from_float<T>(acc[d] * a.scale);
+    }
   }
 }
 
 template <typename T, int S>
 __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Args a) {
-  static_assert(S % 4 == 0, "head dim must be a multiple of 4");
+  static_assert(S % 4 == 0, "head dim capacity must be a multiple of 4");
+  using SP = Split<S>;
+  constexpr int W = SP::W;
   __shared__ __align__(16) float qs[BQT][S];
   __shared__ __align__(16) float gs[BQT][S];
   __shared__ float row_m[BQT], row_inv_l[BQT], row_d[BQT];
 
-  const int T_len = a.T_len;
+  const int T_len = a.T_len, s_dim = a.S;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int key = blockIdx.y * BKV + threadIdx.x;
+  const int key = blockIdx.y * (BKV / SP::N) + threadIdx.x / SP::N;
+  const int col0 = (threadIdx.x % SP::N) * W;  // this thread's first column
   const bool active = key < T_len;
   // A masked key (or one past T) keeps the fill score: P there is 0 unless the
   // whole row is masked, where it is 1/T like every other key of the row.
@@ -241,9 +281,9 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
   const T* qb = static_cast<const T*>(a.q) + a.sqkv.at(b, h, 0);
   const T* gb = static_cast<const T*>(a.g) + a.sg.at(b, h, 0);
 
-  float kr[S], vr[S], dk[S], dv[S];
+  float kr[W], vr[W], dk[W], dv[W];
 #pragma unroll
-  for (int d = 0; d < S; ++d) {
+  for (int d = 0; d < W; ++d) {
     kr[d] = 0.f;
     vr[d] = 0.f;
     dk[d] = 0.f;
@@ -253,9 +293,11 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
     const T* krow = static_cast<const T*>(a.k) + a.sqkv.at(b, h, key);
     const T* vrow = static_cast<const T*>(a.v) + a.sqkv.at(b, h, key);
 #pragma unroll
-    for (int d = 0; d < S; ++d) {
-      kr[d] = round_to<T>(to_float(krow[d]) * a.scale) * LOG2E;
-      vr[d] = to_float(vrow[d]);
+    for (int d = 0; d < W; ++d) {
+      if (col0 + d < s_dim) {
+        kr[d] = round_to<T>(to_float(krow[col0 + d]) * a.scale) * LOG2E;
+        vr[d] = to_float(vrow[col0 + d]);
+      }
     }
   }
 
@@ -266,7 +308,7 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
       const int d = idx - i * S;
       const int row = i0 + i;
       float qv = 0.f, gv = 0.f;
-      if (row < T_len) {
+      if (row < T_len && d < s_dim) {
         qv = round_to<T>(to_float(qb[row * a.sqkv.t + d]) * a.scale);
         gv = to_float(gb[row * a.sg.t + d]);
       }
@@ -292,9 +334,9 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
     for (int i = 0; i < BQT; ++i) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < S; d += 4) {
-        const float4 qq = *reinterpret_cast<const float4*>(&qs[i][d]);
-        const float4 gg = *reinterpret_cast<const float4*>(&gs[i][d]);
+      for (int d = 0; d < W; d += 4) {
+        const float4 qq = *reinterpret_cast<const float4*>(&qs[i][col0 + d]);
+        const float4 gg = *reinterpret_cast<const float4*>(&gs[i][col0 + d]);
         s = fmaf(kr[d], qq.x, s);
         s = fmaf(kr[d + 1], qq.y, s);
         s = fmaf(kr[d + 2], qq.z, s);
@@ -304,12 +346,14 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
         dp = fmaf(vr[d + 2], gg.z, dp);
         dp = fmaf(vr[d + 3], gg.w, dp);
       }
+      s = row_sum<SP::N>(s);
+      dp = row_sum<SP::N>(dp);
       if (!valid) s = MASK_FILL_LOG2;
       const float p = exp2f(s - row_m[i]) * row_inv_l[i];
       const float pr = round_to<T>(p);
 #pragma unroll
-      for (int d = 0; d < S; d += 4) {
-        const float4 gg = *reinterpret_cast<const float4*>(&gs[i][d]);
+      for (int d = 0; d < W; d += 4) {
+        const float4 gg = *reinterpret_cast<const float4*>(&gs[i][col0 + d]);
         dv[d] = fmaf(pr, gg.x, dv[d]);
         dv[d + 1] = fmaf(pr, gg.y, dv[d + 1]);
         dv[d + 2] = fmaf(pr, gg.z, dv[d + 2]);
@@ -318,8 +362,8 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
       if (valid) {  // dS is zero at a masked key
         const float ds = round_to<T>(p * (dp - row_d[i]));
 #pragma unroll
-        for (int d = 0; d < S; d += 4) {
-          const float4 qq = *reinterpret_cast<const float4*>(&qs[i][d]);
+        for (int d = 0; d < W; d += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(&qs[i][col0 + d]);
           dk[d] = fmaf(ds, qq.x, dk[d]);
           dk[d + 1] = fmaf(ds, qq.y, dk[d + 1]);
           dk[d + 2] = fmaf(ds, qq.z, dk[d + 2]);
@@ -334,43 +378,44 @@ __global__ void __launch_bounds__(BKV) flash_attention_bwd_dkdv_kernel(const Arg
     T* dko = static_cast<T*>(a.dk) + off;
     T* dvo = static_cast<T*>(a.dv) + off;
 #pragma unroll
-    for (int d = 0; d < S; ++d) {
-      dko[d] = from_float<T>(dk[d] * a.scale);
-      dvo[d] = from_float<T>(dv[d]);
+    for (int d = 0; d < W; ++d) {
+      if (col0 + d < s_dim) {
+        dko[col0 + d] = from_float<T>(dk[d] * a.scale);
+        dvo[col0 + d] = from_float<T>(dv[d]);
+      }
     }
   }
 }
 
 template <typename T, int S>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const dim3 grid_q(B * a.H, (a.T_len + BQ - 1) / BQ);
+  constexpr int N = Split<S>::N;
+  const dim3 grid_q(B * a.H, (a.T_len + BQ / N - 1) / (BQ / N));
   flash_attention_bwd_dq_kernel<T, S><<<grid_q, BQ, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv(B * a.H, (a.T_len + BKV - 1) / BKV);
+  const dim3 grid_kv(B * a.H, (a.T_len + BKV / N - 1) / (BKV / N));
   flash_attention_bwd_dkdv_kernel<T, S><<<grid_kv, BKV, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+// The smallest capacity that holds the head dim a.S.
 template <typename T>
-cudaError_t dispatch_head_dim(int S, const Args& a, int B, cudaStream_t stream) {
-  switch (S) {
-    case 8:
-      return launch<T, 8>(a, B, stream);
-    case 16:
-      return launch<T, 16>(a, B, stream);
-    case 32:
-      return launch<T, 32>(a, B, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_head_dim(const Args& a, int B, cudaStream_t stream) {
+  if (a.S < 1) return cudaErrorInvalidValue;
+  if (a.S <= 4) return launch<T, 4>(a, B, stream);
+  if (a.S <= 8) return launch<T, 8>(a, B, stream);
+  if (a.S <= 16) return launch<T, 16>(a, B, stream);
+  if (a.S <= 32) return launch<T, 32>(a, B, stream);
+  if (a.S <= 64) return launch<T, 64>(a, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v share the (b, h, t) strides
-// (sib, sih, sit); g and the gradients have their own; the S dim is
-// contiguous in all. dq, dk and dv share (sdb, sdh, sdt). mask is (B, T) bytes,
+// dtype: 0 = float32, 1 = bfloat16; S is the head dim, 1 to 64. q, k, v
+// share the (b, h, t) strides (sib, sih, sit); g and the gradients have their
+// own; the S dim is contiguous in all. dq, dk and dv share (sdb, sdh, sdt). mask is (B, T) bytes,
 // contiguous, or null for "all valid"; stats is the forward's (B*H*T, 2)
 // float32 residual; dsum is a (B*H*T) float32 scratch.
 extern "C" int mmsn_flash_attention_bwd(
@@ -395,6 +440,7 @@ extern "C" int mmsn_flash_attention_bwd(
   a.dsum = static_cast<float*>(dsum);
   a.H = H;
   a.T_len = T_len;
+  a.S = S;
   a.scale = scale;
   a.sqkv = Strides{sib, sih, sit};
   a.sg = Strides{sgb, sgh, sgt};
@@ -402,9 +448,9 @@ extern "C" int mmsn_flash_attention_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_head_dim<float>(S, a, B, st);
+      return dispatch_head_dim<float>(a, B, st);
     case 1:
-      return dispatch_head_dim<__nv_bfloat16>(S, a, B, st);
+      return dispatch_head_dim<__nv_bfloat16>(a, B, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,14 +1,16 @@
 // Masked multi-head attention backward for Hopper (sm_90a) on the tensor cores,
-// bf16 at head dims 8 and 16.
+// bf16 at head dims 8, 16 and 32.
 //
 // Replaces the Pallas TPU kernel multimodal_supernovae_tpu/ops/pallas_attention.py
 // (_bwd_kernel, reached through _flash_bwd) on the bf16 main path, and computes
-// what csrc/flash_attention_bwd.cu (the CUDA-core kernels, which keep float32
-// and head dim 32) computes, the gradient of ops/attention.py:dense_attention.
+// what csrc/flash_attention_bwd.cu (the CUDA-core kernels, which keep the
+// other head dims and rows off 16 bytes) computes, the gradient of
+// ops/attention.py:dense_attention.
 // With c = emb**-0.25, qs = bf16(q * c), ks = bf16(k * c), P rebuilt from the
 // forward's per-row (max, sum) residual:
 //   dP = g . v^T                          (float32 accumulation)
-//   D  = g . out                          (one float32 per row, see below)
+//   D  = g . out at S = 8 and 16,         (one float32 per row, see below)
+//        c0 + rowsum(P o (dP - c0)) at S = 32, c0 = dP at key 0
 //   dS = P o (dP - D), zeroed at masked keys, rounded to bf16
 //   dq = dS . ks * c,  dk = dS^T . qs * c,  dv = bf16(P)^T . g
 // In a fully masked row P is uniform over its T keys, so dv at a masked key is
@@ -17,8 +19,15 @@
 // D = g . out takes one dot product a row. The CUDA-core kernel takes
 // rowsum(P o dP) instead, as the reference does: in float32, where a row's
 // values are nearly equal across its keys, the output's rounding in g . out
-// shows in dq (csrc/flash_attention_bwd.cu). Here the bf16 limits hold it
-// (PERF.md section 6). Either forward's stats and output feed this backward.
+// shows in dq (csrc/flash_attention_bwd.cu). At S = 8 and 16 the bf16 limits
+// hold it, and a second walk of the keys would add a third to the backward's
+// device time at the training shapes (PERF.md section 6, ROADMAP.md section
+// 3b). At S = 32 the user path is the ViT image
+// tower, whose 36 keys are near-uniform, exactly where dP - D cancels and
+// the bf16 rounding of out in g . out would come through whole; there the dq
+// kernel walks the keys twice, as the CUDA-core and 3xTF32 kernels do: D =
+// c0 + rowsum(P o (dP - c0)) in float32 first, then dS and dq. Either
+// forward's stats and output feed this backward.
 //
 // What bounds it on this card: as in the forward, not the products: per
 // (query, key) pair each of the two kernels rebuilds P with one exponential
@@ -33,6 +42,8 @@
 //     (mma, B fragments by ldmatrix), P and dS on the C fragments, then
 //     dq += bf16(dS) . ks (dS's C fragments as the A fragment, ks by
 //     ldmatrix.trans). It also writes D for its rows to a float32 scratch.
+//     At S = 32 (two chained m16n8k16 a head-dim product) a first walk over
+//     the key tiles sums D; shared tiles grow to 20 KB.
 //   * dk/dv kernel, launched after it on the same stream, grid (B*H,
 //     ceil(T/64)), 4 warps of 16 key rows keeping ks and v as A fragments;
 //     query tiles of 64 (qs, g, and each row's max, 1/sum and D) stream through
@@ -69,7 +80,7 @@ struct BwdArgs {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* dsum;          // (B*H*T) scratch: D = g . out of each row
+  float* dsum;          // (B*H*T) scratch: D of each row
   int H, T_len;
   float scale;
   Strides sin, sout, sg, sgrad;  // q/k/v; out; g; dq, dk and dv
@@ -123,8 +134,43 @@ __device__ __forceinline__ void dq_tile(float (&acc)[S / 8][4], const uint32_t (
   }
 }
 
+// One TILE-key tile of the dq kernel's first walk at S = 32 (SUM_D): this
+// lane's share of rowsum(P o (dP - c0)) for its two rows, over the tile's
+// valid keys. Selects, not products, drop the rest (P may be infinite there:
+// a fully masked row's max is -1e7 * log2e).
+template <int S>
+__device__ __forceinline__ void dsum_tile(float (&dd)[2], const uint32_t (&qa)[S / 4],
+                                          const uint32_t (&ga)[S / 4], const float (&m)[2],
+                                          const float (&inv_l)[2], const float (&c0)[2],
+                                          const bf16* ks, const bf16* vs, const uint8_t* kind,
+                                          int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 keys a step
+    uint32_t kf[2][S / 8], vf[2][S / 8];
+    ldsm_rows<S>(kf, ks, 16 * kk, lane);
+    ldsm_rows<S>(vf, vs, 16 * kk, lane);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float s[4], dp[4];
+      mma_head<S>(s, qa, kf[i]);
+      mma_head<S>(dp, ga, vf[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = exp2_approx(s[e] * LOG2E - m[r]) * inv_l[r];
+        const bool valid = kind[16 * kk + 8 * i + 2 * t + (e & 1)] == 0;
+        dd[r] += valid ? p * (dp[e] - c0[r]) : 0.f;
+      }
+    }
+  }
+}
+
 template <int S>
 __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma_kernel(const BwdArgs a) {
+  // D summed over the keys (a first walk) rather than g . out: see the note
+  // at the top
+  constexpr bool SUM_D = S == 32;
   using L = Layout<S>;
   __shared__ __align__(16) bf16 ks[2][TILE * L::RS];
   __shared__ __align__(16) bf16 vs[2][TILE * L::RS];
@@ -149,18 +195,21 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma_kernel(con
   load_a<S>(ga, gb, a.sg.t, row0, T_len, 1.f, false, lane);
 
   // Rows past T get m = 0, 1/sum = 0, -(m + log2 sum) = -inf and D = 0: P and
-  // dS vanish there.
+  // dS vanish there. D starts as g . out, or under SUM_D as c0 = g . v0, the
+  // dP of key 0, to which the first walk adds rowsum(P o (dP - c0)).
   float m[2], inv_l[2], nlse[2], D[2];
+  float dd[2] = {0.f, 0.f};  // SUM_D: this lane's share of rowsum(P o (dP - c0))
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g_ + 8 * r;
+    const bf16* dref = SUM_D ? vb : ob + row * a.sout.t;
     float part = 0.f;
     if (row < T_len) {
 #pragma unroll
       for (int kh = 0; kh < S / 8; ++kh) {
         const float2 gv = unpack_bf16(ga[2 * kh + r]);
-        const float2 ov = unpack_bf16(
-            *reinterpret_cast<const uint32_t*>(ob + row * a.sout.t + 8 * kh + 2 * t));
+        const float2 ov =
+            unpack_bf16(*reinterpret_cast<const uint32_t*>(dref + 8 * kh + 2 * t));
         part = fmaf(gv.x, ov.x, part);
         part = fmaf(gv.y, ov.y, part);
       }
@@ -174,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma_kernel(con
       m[r] = st.x;
       inv_l[r] = 1.f / st.y;
       nlse[r] = -(st.x + log2f(st.y));
-      if (t == 0) a.dsum[(int64_t)bh * T_len + row] = D[r];
+      if (!SUM_D && t == 0) a.dsum[(int64_t)bh * T_len + row] = D[r];
     }
   }
 
@@ -182,29 +231,44 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma_kernel(con
 #pragma unroll
   for (int n = 0; n < S / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
+  // the key tiles once, or under SUM_D twice: D first, then dS and dq
   const int n_tiles = (T_len + TILE - 1) / TILE;
+  const int n_iter = SUM_D ? 2 * n_tiles : n_tiles;
   issue_tile<S>(ks[0], vs[0], kb, vb, a.sin.t, a.sin.t, 0, T_len, tid);
   cp_async_commit();
   uint8_t my_kind = tid < TILE ? key_kind(mrow, tid, T_len) : 0;
   if (tid < TILE) kind[0][tid] = my_kind;
 
-  for (int it = 0; it < n_tiles; ++it) {
+  for (int it = 0; it < n_iter; ++it) {
     const int buf = it & 1;
-    const bool more = it + 1 < n_tiles;
-    const int next_key = (it + 1) * TILE + tid;
+    const bool more = it + 1 < n_iter;
+    const int next_key = ((it + 1) % n_tiles) * TILE + tid;
     uint8_t next_byte = 1;
     if (more) {
-      issue_tile<S>(ks[buf ^ 1], vs[buf ^ 1], kb, vb, a.sin.t, a.sin.t, (it + 1) * TILE,
-                    T_len, tid);
+      issue_tile<S>(ks[buf ^ 1], vs[buf ^ 1], kb, vb, a.sin.t, a.sin.t,
+                    ((it + 1) % n_tiles) * TILE, T_len, tid);
       if (tid < TILE) next_byte = mask_byte(mrow, next_key, T_len);
     }
     cp_async_commit();
     cp_async_wait<1>();
     scale_own_chunks<S>(ks[buf], a.scale, tid);
-    if (__syncthreads_and(my_kind == 0)) {
-      dq_tile<S, true>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], lane);
+    if (SUM_D && it < n_tiles) {
+      __syncthreads();
+      dsum_tile<S>(dd, qa, ga, m, inv_l, D, ks[buf], vs[buf], kind[buf], lane);
     } else {
-      dq_tile<S, false>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], lane);
+      if (SUM_D && it == n_tiles) {  // D of each row, from its four lanes' shares
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          D[r] += quad_sum(dd[r]);
+          const int row = row0 + g_ + 8 * r;
+          if (t == 0 && row < T_len) a.dsum[(int64_t)bh * T_len + row] = D[r];
+        }
+      }
+      if (__syncthreads_and(my_kind == 0)) {
+        dq_tile<S, true>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], lane);
+      } else {
+        dq_tile<S, false>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], lane);
+      }
     }
     my_kind = tid < TILE ? kind_of(next_byte, next_key, T_len) : 0;
     if (more && tid < TILE) kind[buf ^ 1][tid] = my_kind;
@@ -438,6 +502,8 @@ extern "C" int mmsn_flash_attention_bwd_mma(
       return launch<8>(a, B, st);
     case 16:
       return launch<16>(a, B, st);
+    case 32:
+      return launch<32>(a, B, st);
     default:
       return cudaErrorInvalidValue;
   }

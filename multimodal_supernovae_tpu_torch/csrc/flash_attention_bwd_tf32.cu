@@ -1,10 +1,11 @@
 // Masked multi-head attention backward for Hopper (sm_90a) on the tensor cores,
-// float32 at head dims 8 and 16, every product in 3xTF32.
+// float32 at head dims 8, 16 and 32, every product in 3xTF32.
 //
 // Replaces the Pallas TPU kernel multimodal_supernovae_tpu/ops/pallas_attention.py
 // (_bwd_kernel, reached through _flash_bwd) on the float32 path every shipped
 // configuration trains on, and computes what csrc/flash_attention_bwd.cu (the
-// CUDA-core kernels, which keep head dim 32 and rows off 16 bytes) computes
+// CUDA-core kernels, which keep the other head dims and rows off 16 bytes)
+// computes
 // for float32, the gradient of ops/attention.py:dense_attention. With c =
 // emb**-0.25, qs = q * c, ks = k * c, P rebuilt from the forward's per-row
 // (max in the log2 domain, sum) residual:
@@ -47,12 +48,13 @@
 //     of shared memory at S = 16. It walks the keys twice: first D, then per
 //     8 keys S = qs . ks^T and dP - c0 = g . (v - v0)^T, P and dS on the C
 //     fragments, dq += dS . ks (the C fragment as the A fragment with the key
-//     index permuted).
+//     index permuted). At S = 32 the tiles take 72 KB.
 //   * dk/dv kernel, launched after it on the same stream, grid (B*H,
 //     ceil(T/64)), 4 warps of 16 key rows keeping ks * log2(e) and v - v0 as
 //     split A fragments; query tiles of 64 (qs and g, row and transposed, and
 //     each row's max, 1/sum and D - c0) stream through 49 KB of shared
-//     memory at S = 16. Per 8 queries: S^T = ks . qs^T and (dP - c0)^T = (v -
+//     memory at S = 16, 91 KB at S = 32 (the ViT image tower's head dim;
+//     launch_dyn raises the block's limit above 48 KB). Per 8 queries: S^T = ks . qs^T and (dP - c0)^T = (v -
 //     v0) . g^T, then dv += P^T . g and dk += dS^T . qs, the query index
 //     permuted.
 //
@@ -440,6 +442,8 @@ extern "C" int mmsn_flash_attention_bwd_tf32(
       return launch<8>(a, B, st);
     case 16:
       return launch<16>(a, B, st);
+    case 32:
+      return launch<32>(a, B, st);
     default:
       return cudaErrorInvalidValue;
   }

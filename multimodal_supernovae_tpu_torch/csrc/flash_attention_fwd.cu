@@ -22,6 +22,13 @@
 // online. Scores are kept in the log2 domain (q carries a factor log2(e)) so
 // every exponential is one exp2f.
 //
+// Head dims. The kernel is instantiated at a capacity S in {4, 8, 16, 32, 64}
+// and takes the true head dim s <= S at run time: loads past s read 0 and
+// stores past s are skipped. The zero columns add nothing to any q . k or
+// P . V, so every head dim from 1 to 64 gives the dense results, and q, k, v
+// and out are read and written in place at their own strides (no padded
+// copy).
+//
 // What bounds it on this card: compute on the CUDA cores. Per query row and
 // key it does 2*S FMAs and one exponential and reads only shared memory; at
 // the serving shapes the device-memory traffic is q/k/v/out once per q-tile.
@@ -75,7 +82,7 @@ template <typename T, int S>
 __global__ void __launch_bounds__(BQ) flash_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint8_t* __restrict__ mask, T* __restrict__ out,
-    float2* __restrict__ stats, int H, int T_len, float scale, int64_t sib,
+    float2* __restrict__ stats, int H, int T_len, int s_dim, float scale, int64_t sib,
     int64_t sih, int64_t sit, int64_t sob, int64_t soh, int64_t sot) {
   static_assert(S % 4 == 0, "head dim must be a multiple of 4");
   __shared__ __align__(16) float ks[BK][S];
@@ -95,7 +102,7 @@ __global__ void __launch_bounds__(BQ) flash_attention_fwd_kernel(
   float qr[S];
 #pragma unroll
   for (int d = 0; d < S; ++d) {
-    qr[d] = active ? round_to<T>(to_float(qb[row * sit + d]) * scale) * LOG2E : 0.f;
+    qr[d] = active && d < s_dim ? round_to<T>(to_float(qb[row * sit + d]) * scale) * LOG2E : 0.f;
   }
   float acc[S];
 #pragma unroll
@@ -110,7 +117,7 @@ __global__ void __launch_bounds__(BQ) flash_attention_fwd_kernel(
       const int d = idx - j * S;
       const int key = j0 + j;
       float kv = 0.f, vv = 0.f;
-      if (key < T_len) {
+      if (key < T_len && d < s_dim) {
         kv = round_to<T>(to_float(kb[key * sit + d]) * scale);
         vv = to_float(vb[key * sit + d]);
       }
@@ -169,7 +176,9 @@ __global__ void __launch_bounds__(BQ) flash_attention_fwd_kernel(
     T* o = out + b * sob + h * soh + row * sot;
     const float inv = 1.f / l;
 #pragma unroll
-    for (int d = 0; d < S; ++d) o[d] = from_float<T>(acc[d] * inv);
+    for (int d = 0; d < S; ++d) {
+      if (d < s_dim) o[d] = from_float<T>(acc[d] * inv);
+    }
     if (stats != nullptr) stats[(int64_t)bh * T_len + row] = make_float2(m, l);
   }
 }
@@ -177,12 +186,12 @@ __global__ void __launch_bounds__(BQ) flash_attention_fwd_kernel(
 template <typename T, int S>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* mask, void* out, float2* stats, int B, int H, int T_len,
-                   float scale, int64_t sib, int64_t sih, int64_t sit,
+                   int s_dim, float scale, int64_t sib, int64_t sih, int64_t sit,
                    int64_t sob, int64_t soh, int64_t sot, cudaStream_t stream) {
   const dim3 grid(B * H, (T_len + BQ - 1) / BQ);
   flash_attention_fwd_kernel<T, S><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), stats, H, T_len, scale,
+      static_cast<const T*>(v), mask, static_cast<T*>(out), stats, H, T_len, s_dim, scale,
       sib, sih, sit, sob, soh, sot);
   return cudaGetLastError();
 }
@@ -195,24 +204,26 @@ cudaError_t dispatch_head_dim(int S, const void* q, const void* k,
                               int64_t sib, int64_t sih, int64_t sit,
                               int64_t sob, int64_t soh, int64_t sot,
                               cudaStream_t stream) {
-  switch (S) {
-    case 8:
-      return launch<T, 8>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
-    case 16:
-      return launch<T, 16>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, mask, out, stats, B, H, T_len, scale, sib, sih, sit, sob, soh, sot, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  // the smallest capacity that holds the head dim
+  if (S < 1) return cudaErrorInvalidValue;
+  if (S <= 4)
+    return launch<T, 4>(q, k, v, mask, out, stats, B, H, T_len, S, scale, sib, sih, sit, sob, soh, sot, stream);
+  if (S <= 8)
+    return launch<T, 8>(q, k, v, mask, out, stats, B, H, T_len, S, scale, sib, sih, sit, sob, soh, sot, stream);
+  if (S <= 16)
+    return launch<T, 16>(q, k, v, mask, out, stats, B, H, T_len, S, scale, sib, sih, sit, sob, soh, sot, stream);
+  if (S <= 32)
+    return launch<T, 32>(q, k, v, mask, out, stats, B, H, T_len, S, scale, sib, sih, sit, sob, soh, sot, stream);
+  if (S <= 64)
+    return launch<T, 64>(q, k, v, mask, out, stats, B, H, T_len, S, scale, sib, sih, sit, sob, soh, sot, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v share the strides (sib, sih, sit)
-// of their (B, H, T) dims and out has (sob, soh, sot); the S dim is contiguous
+// dtype: 0 = float32, 1 = bfloat16; S is the head dim, 1 to 64. q, k, v share
+// the strides (sib, sih, sit) of their (B, H, T) dims and out has (sob, soh,
+// sot); the S dim is contiguous
 // in all four. mask is (B, T) bytes, contiguous, or null for "all valid".
 // stats is null or (B*H*T, 2) float32, contiguous: the rows' (max, sum).
 extern "C" int mmsn_flash_attention_fwd(

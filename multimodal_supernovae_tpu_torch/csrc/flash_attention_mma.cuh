@@ -18,8 +18,10 @@
 // Shared tiles hold TILE rows of a (T, S) bf16 matrix. At S = 16 a row is
 // padded from 32 to 48 bytes: the 8 rows one ldmatrix phase reads then start
 // in 8 distinct groups of 4 banks (32-byte rows would put rows r and r + 4 on
-// the same banks, a 2-way conflict). At S = 8 the 16-byte rows of a phase
-// are contiguous and conflict-free already.
+// the same banks, a 2-way conflict). At S = 32 a row is padded from 64 to 80
+// bytes for the same reason (row r starts on 16-byte chunk 5r mod 8). At S = 8
+// the 16-byte rows of a phase are contiguous and conflict-free already. The
+// forward kernels take S = 8 and 16, the backward kernels 8, 16 and 32.
 
 #pragma once
 
@@ -42,8 +44,9 @@ constexpr float MASK_FILL_LOG2 = -1e7f * LOG2E;
 
 template <int S>
 struct Layout {
-  static_assert(S == 8 || S == 16, "tensor-core flash kernels take head dims 8 and 16");
-  static constexpr int RS = S == 16 ? 24 : 8;  // shared row stride, elements
+  static_assert(S == 8 || S == 16 || S == 32,
+                "tensor-core flash kernels take head dims 8, 16 and 32");
+  static constexpr int RS = S == 8 ? 8 : S + 8;  // shared row stride, elements
   static constexpr int CPR = S / 8;            // 16-byte chunks a row
 };
 
@@ -115,12 +118,17 @@ __device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4], u
 
 // c = A . B over the head dim, from a zero accumulator: A is a 16 x S
 // fragment, B the S x 8 fragment of 8 shared rows taken as columns
-// (m16n8k16 at S = 16, m16n8k8 at S = 8).
+// (two chained m16n8k16 at S = 32, one at S = 16, m16n8k8 at S = 8).
 template <int S>
 __device__ __forceinline__ void mma_head(float (&c)[4], const uint32_t (&a)[S / 4],
                                          const uint32_t (&b)[S / 8]) {
   const float z = 0.f;
-  if constexpr (S == 16) {
+  if constexpr (S == 32) {
+    c[0] = c[1] = c[2] = c[3] = z;
+    const uint32_t a0[4] = {a[0], a[1], a[2], a[3]}, a1[4] = {a[4], a[5], a[6], a[7]};
+    mma_k16(c, a0, b[0], b[1]);
+    mma_k16(c, a1, b[2], b[3]);
+  } else if constexpr (S == 16) {
     asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
         "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
         : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
@@ -244,9 +252,10 @@ template <int S>
 __device__ __forceinline__ void scale_own_chunks(bf16* xs, float scale, int tid) {
   using L = Layout<S>;
   constexpr int N = TILE * L::CPR;
-  static_assert(N <= THREADS, "at most one chunk of xs a thread");
-  if (tid < N) {
-    uint4* p = reinterpret_cast<uint4*>(xs + (tid / L::CPR) * L::RS + 8 * (tid % L::CPR));
+  static_assert(N <= THREADS || N % THREADS == 0, "whole chunks of xs a thread");
+#pragma unroll
+  for (int c = tid; c < N; c += THREADS) {
+    uint4* p = reinterpret_cast<uint4*>(xs + (c / L::CPR) * L::RS + 8 * (c % L::CPR));
     uint4 w = *p;
     w.x = scale_bf16x2(w.x, scale);
     w.y = scale_bf16x2(w.y, scale);
@@ -263,13 +272,17 @@ __device__ __forceinline__ void scale_own_chunks(bf16* xs, float scale, int tid)
 template <int S>
 __device__ __forceinline__ void ldsm_rows(uint32_t (&b)[2][S / 8], const bf16* tile, int r0,
                                           int lane, int rs = Layout<S>::RS) {
-  if constexpr (S == 16) {
-    uint32_t r[4];
-    ldsm_x4(r, tile + (r0 + ((lane >> 4) << 3) + (lane & 7)) * rs + 8 * ((lane >> 3) & 1));
-    b[0][0] = r[0];
-    b[0][1] = r[1];
-    b[1][0] = r[2];
-    b[1][1] = r[3];
+  if constexpr (S >= 16) {  // one ldmatrix.x4 a 16 columns of the head dim
+#pragma unroll
+    for (int kh = 0; kh < S / 16; ++kh) {
+      uint32_t r[4];
+      ldsm_x4(r, tile + (r0 + ((lane >> 4) << 3) + (lane & 7)) * rs + 16 * kh +
+                     8 * ((lane >> 3) & 1));
+      b[0][2 * kh] = r[0];
+      b[0][2 * kh + 1] = r[1];
+      b[1][2 * kh] = r[2];
+      b[1][2 * kh + 1] = r[3];
+    }
   } else {
     uint32_t r[2];
     ldsm_x2(r, tile + (r0 + (lane & 15)) * rs);
@@ -284,13 +297,16 @@ __device__ __forceinline__ void ldsm_rows(uint32_t (&b)[2][S / 8], const bf16* t
 template <int S>
 __device__ __forceinline__ void ldsm_cols(uint32_t (&b)[S / 8][2], const bf16* tile, int r0,
                                           int lane, int rs = Layout<S>::RS) {
-  if constexpr (S == 16) {
-    uint32_t r[4];
-    ldsm_x4_trans(r, tile + (r0 + (lane & 15)) * rs + 8 * (lane >> 4));
-    b[0][0] = r[0];
-    b[0][1] = r[1];
-    b[1][0] = r[2];
-    b[1][1] = r[3];
+  if constexpr (S >= 16) {  // one ldmatrix.x4.trans a 16 columns of the head dim
+#pragma unroll
+    for (int nh = 0; nh < S / 16; ++nh) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, tile + (r0 + (lane & 15)) * rs + 16 * nh + 8 * (lane >> 4));
+      b[2 * nh][0] = r[0];
+      b[2 * nh][1] = r[1];
+      b[2 * nh + 1][0] = r[2];
+      b[2 * nh + 1][1] = r[3];
+    }
   } else {
     uint32_t r[2];
     ldsm_x2_trans(r, tile + (r0 + (lane & 15)) * rs);

@@ -24,8 +24,8 @@
 //     tile's rows as its 8 columns and the head dim as k (Q . K^T) reads a
 //     B fragment, (row n0 + g, columns k0 + t and k0 + t + 4) of hi and of
 //     lo, with one ldmatrix.x4: four 8 x 4-word matrices, 8 rows of 16 bytes
-//     each, whose rows start on 16-byte chunks 3r (S = 8) or 5r (S = 16)
-//     mod 8, 8 distinct chunks;
+//     each, whose rows start on 16-byte chunks 3r (S = 8), 5r (S = 16) or
+//     9r (S = 32) mod 8, 8 distinct chunks;
 //   * transposed tiles: for each head-dim column, the (hi, lo) pairs of the
 //     TILE rows in row order, a column RT = 2 TILE + 16 words apart. A
 //     product that sums over the tile's rows (P . V) reads its B fragment,
@@ -63,7 +63,8 @@ static_assert(THREADS == 2 * TILE, "two threads a tile row");
 
 template <int S>
 struct LayoutF {
-  static_assert(S == 8 || S == 16, "3xTF32 flash kernels take head dims 8 and 16");
+  static_assert(S == 8 || S == 16 || S == 32,
+                "3xTF32 flash kernels take head dims 8 and 16 (forward) and 32 (backward)");
   static constexpr int RS = S + 4;          // row tiles: floats a row
   static constexpr int TS = TILE * RS;      // words a row tile
   static constexpr int RT = 2 * TILE + 16;  // transposed tiles: words a column

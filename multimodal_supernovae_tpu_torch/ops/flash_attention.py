@@ -3,21 +3,24 @@ kernels, paired in one ``torch.autograd.Function``. Three routes:
 
   * ``"mma"``, the tensor cores in bf16: ``csrc/flash_attention_fwd_mma.cu``
     and ``csrc/flash_attention_bwd_mma.cu`` (shared
-    ``csrc/flash_attention_mma.cuh``), for bfloat16 at head dims 8 and 16
-    with 16-byte rows: both towers of maven-lite under ``compute_dtype``
-    bfloat16;
+    ``csrc/flash_attention_mma.cuh``), for bfloat16 with 16-byte rows at
+    head dims 8 and 16 (the backward also at 32): both towers of maven-lite
+    under ``compute_dtype`` bfloat16, and the ViT image tower's backward;
   * ``"tf32"``, the tensor cores in 3xTF32: ``csrc/flash_attention_fwd_tf32.cu``
     and ``csrc/flash_attention_bwd_tf32.cu`` (shared
     ``csrc/flash_attention_tf32.cuh`` and ``csrc/tf32x3.cuh``), for float32
-    at head dims 8 and 16 with 16-byte rows: the route every shipped
-    configuration (float32, heads 64/8 and 32/2) trains on;
+    with 16-byte rows at head dims 8 and 16 (the backward also at 32): the
+    route every shipped configuration (float32, heads 64/8 and 32/2) trains
+    on;
   * ``"simt"``, the CUDA cores: ``csrc/flash_attention_fwd.cu`` and
-    ``csrc/flash_attention_bwd.cu``, for everything else (head dims 32 and
-    64, rows off 16 bytes).
+    ``csrc/flash_attention_bwd.cu``, for everything else: every head dim
+    from 1 to 64 (instantiated at capacities 4, 8, 16, 32 and 64, the true
+    head dim passed at run time) and rows off 16 bytes.
 
 ``_route`` is the one rule that picks among them, a pure function of the
-dtype, the head dim and the tensors' pointers and strides; there is no
-fallback from one route to another, and a failed build or launch raises.
+direction, the dtype, the head dim and the tensors' pointers and strides;
+there is no fallback from one route to another, and a failed build or launch
+raises. Head dims above ``MAX_HEAD_DIM`` (64) raise.
 
 Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
 pallas_attention.py:_fwd_kernel`` and ``_bwd_kernel`` (the ``custom_vjp``
@@ -86,9 +89,9 @@ from .attention import (
     register_kernel_op,
 )
 
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
-BWD_HEAD_DIMS = (8, 16, 32)
-MMA_HEAD_DIMS = (8, 16)  # both tensor-core routes
+MAX_HEAD_DIM = 64  # every head dim from 1 to this, forward and backward
+MMA_HEAD_DIMS = (8, 16)  # both tensor-core routes, forward
+MMA_BWD_HEAD_DIMS = (8, 16, 32)  # both tensor-core routes, backward
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {  # the C entry points' ctypes signatures
     "flash_attention_fwd": (
@@ -154,15 +157,17 @@ def _rows_aligned(a: torch.Tensor) -> bool:
             and st * es % 16 == 0)
 
 
-def _route(dtype: torch.dtype, s: int, tensors) -> str:
-    """At head dim 8 or 16, when every tensor of ``tensors`` (q, k, v; the
-    backward adds out and g) has 16-byte rows, which the encoder's (B, T, H,
-    S) views and contiguous (B, H, T, S) tensors both have: ``"mma"`` (the
-    bf16 tensor-core kernels) for bfloat16, ``"tf32"`` (the 3xTF32
-    tensor-core kernels) for float32. ``"simt"`` (the CUDA-core kernels)
-    otherwise. The tensor-core entry points check the same conditions and
-    refuse a launch without them (the wrapper then raises)."""
-    if s in MMA_HEAD_DIMS and all(_rows_aligned(a) for a in tensors):
+def _route(dtype: torch.dtype, s: int, tensors, backward: bool = False) -> str:
+    """At head dim 8 or 16 (the backward also at 32), when every tensor of
+    ``tensors`` (q, k, v; the backward adds out and g) has 16-byte rows,
+    which the encoder's (B, T, H, S) views and contiguous (B, H, T, S)
+    tensors both have: ``"mma"`` (the bf16 tensor-core kernels) for
+    bfloat16, ``"tf32"`` (the 3xTF32 tensor-core kernels) for float32.
+    ``"simt"`` (the CUDA-core kernels) otherwise. The tensor-core entry
+    points check the same conditions and refuse a launch without them (the
+    wrapper then raises)."""
+    dims = MMA_BWD_HEAD_DIMS if backward else MMA_HEAD_DIMS
+    if s in dims and all(_rows_aligned(a) for a in tensors):
         if dtype == torch.bfloat16:
             return "mma"
         if dtype == torch.float32:
@@ -185,8 +190,9 @@ def _check(q, k, v, key_mask, emb):
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
     b, h, t, s = q.shape
-    if s not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {s} not supported {SUPPORTED_HEAD_DIMS}")
+    if not 1 <= s <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {s} not supported: the flash kernels take 1 to "
+                         f"{MAX_HEAD_DIM}")
     if min(b, h, t) < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
     if q.stride(-1) != 1:
@@ -205,8 +211,9 @@ def _check(q, k, v, key_mask, emb):
 
 def _check_bwd(q, out, stats, g):
     s = q.shape[-1]
-    if s not in BWD_HEAD_DIMS:
-        raise ValueError(f"head dim {s} not supported by the backward {BWD_HEAD_DIMS}")
+    if not 1 <= s <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {s} not supported by the backward: it takes 1 to "
+                         f"{MAX_HEAD_DIM}")
     for name, a in (("out", out), ("g", g)):
         if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
@@ -270,8 +277,9 @@ def flash_attention_bwd(
     CPU tensors go to ``dense_attention_bwd`` (``out`` and ``stats`` are not
     read). CUDA tensors launch the backward kernels of ``_route``'s route or
     raise: ``out`` and ``stats`` are the forward's output and row residual
-    (``_flash_fwd(..., with_stats=True)``, of any route; the CUDA-core and
-    3xTF32 backwards read only ``stats``), head dim in {8, 16, 32}."""
+    (``_flash_fwd(..., with_stats=True)``, of any route; only the bf16
+    tensor-core backward at head dims 8 and 16 reads ``out``), head dim from
+    1 to 64."""
     if q.device.type in PLAIN_DEVICES:
         return dense_attention_bwd(q, k, v, key_mask, g, emb)
     if q.device.type != "cuda":
@@ -282,12 +290,12 @@ def flash_attention_bwd(
     _check_bwd(q, out, stats, g)
     b, h, t, s = q.shape
     dq, dk, dv = _empty_heads(q), _empty_heads(q), _empty_heads(q)
-    # D of each row (bf16 tensor cores: g . out; CUDA cores: rowsum(P o dP);
-    # 3xTF32: rowsum(P o dP) less key 0's dP), written by the dq kernel, read
-    # by the dk/dv kernel
+    # D of each row (bf16 tensor cores: g . out at head dims 8 and 16,
+    # rowsum(P o dP) at 32; CUDA cores: rowsum(P o dP); 3xTF32: rowsum(P o
+    # dP) less key 0's dP), written by the dq kernel, read by the dk/dv kernel
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     mask = None if key_mask is None else key_mask.data_ptr()
-    route = _route(q.dtype, s, (q, k, v, out, g))
+    route = _route(q.dtype, s, (q, k, v, out, g), True)  # the backward
     if route == "mma":
         name = "flash_attention_bwd_mma"
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask, out.data_ptr(),
@@ -372,9 +380,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, key_mask, emb):
-        if q.shape[-1] not in BWD_HEAD_DIMS:
-            raise ValueError(f"head dim {q.shape[-1]} has no backward kernel "
-                             f"{BWD_HEAD_DIMS}")
+        if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+            raise ValueError(f"head dim {q.shape[-1]} has no backward kernel: the flash "
+                             f"kernels take 1 to {MAX_HEAD_DIM}")
         return _flash_fwd(q, k, v, key_mask, emb, with_stats=True)
 
     @staticmethod
@@ -428,11 +436,10 @@ def flash_attention(
     """Masked attention forward, (B, H, T, S) in and out, differentiable.
 
     CPU tensors go to ``dense_attention``; CUDA tensors launch the kernel
-    of ``_route``'s route (float32 or bfloat16, head dim in {8, 16, 32, 64},
-    any T >= 1, q/k/v with equal strides and a contiguous head dim) or
-    raise. When autograd
-    needs a gradient of a CUDA call it goes through ``FlashAttention``
-    (head dim in {8, 16, 32}); without one it goes through the registered
+    of ``_route``'s route (float32 or bfloat16, head dim from 1 to 64, any
+    T >= 1, q/k/v with equal strides and a contiguous head dim) or raise.
+    When autograd needs a gradient of a CUDA call it goes through
+    ``FlashAttention``; without one it goes through the registered
     op ``flash_attention_fwd``. Under ``torch.func.vmap`` a CUDA call goes
     through ``FlashAttention`` while gradients are on and ``FlashForward``
     under ``no_grad``, whose rules fold the member axis into B."""

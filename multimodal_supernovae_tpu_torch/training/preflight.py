@@ -14,9 +14,10 @@ optimizer state's bytes (the port's torch RAdam: ``exp_avg`` and
 ``exp_avg_sq`` of each trained parameter and a float32 ``step`` tensor a
 parameter, which differs from optax's state in the JAX report), the static
 train-memory floor (2 x params + optimizer state), the flash-attention
-route each sequence tower and a ViT image tower take on the card
-(``ops/flash_attention.py:_route``; a head dim the flash backward does not
-take fails the check, as training on the card would) and the fused-block and fused-QKV routes where those opt-ins are on, and,
+routes each sequence tower and a ViT image tower take on the card
+(``ops/flash_attention.py:_route``, forward and backward; a head dim above
+the kernels' 64 fails the check, as training on the card would) and the
+fused-block and fused-QKV routes where those opt-ins are on, and,
 with a pretrained checkpoint, how many of the model's state_dict entries it
 fills (``merge_params_nonstrict``; 0 raises: the wrong checkpoint). Errors
 name the grid point and the key. With ``--mesh`` or ``--tp`` and
@@ -88,13 +89,29 @@ def _towers(model) -> Dict[str, Any]:
     return out
 
 
+def _flash_note(what: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The flash routes of ``head_dim`` on the card (``ops/flash_attention.py:
+    _route``, 16-byte rows): one route, or the forward's and then the
+    backward's where they differ (the backward takes the tensor cores at head
+    dim 32 too). Raises above the kernels' limit, naming it and ``what``."""
+    from ..ops import flash_attention as flash
+
+    if not 1 <= head_dim <= flash.MAX_HEAD_DIM:
+        raise ValueError(f"{what}: the flash kernels take head dims 1 to {flash.MAX_HEAD_DIM}")
+    fwd = flash._route(dtype, head_dim, ())
+    bwd = flash._route(dtype, head_dim, (), True)  # the backward
+    note = f"flash {fwd} ({ROUTE_NAMES['flash'][fwd]})"
+    if bwd != fwd:
+        note += f", flash backward {bwd} ({ROUTE_NAMES['flash'][bwd]})"
+    return note
+
+
 def _dispatch_note(tower: str, t: int, encoder, device_type: str = "cuda") -> str:
     """The routes this tower's layers take on ``device_type``: on the card
-    the flash-attention route of ``ops/flash_attention.py:_route`` for its
+    the flash-attention routes of ``ops/flash_attention.py:_route`` for its
     dtype and head dim, and the fused block's and fused QKV's when their
-    opt-ins are on (raises on a head dim the flash backward does not take);
+    opt-ins are on (raises on a head dim above the flash kernels' 64);
     elsewhere the plain versions."""
-    from ..ops import flash_attention as flash
     from ..ops import fused_block, qkv_attention
 
     block = encoder.transformer.tblocks[0]
@@ -105,11 +122,7 @@ def _dispatch_note(tower: str, t: int, encoder, device_type: str = "cuda") -> st
     head = f"{tower}: T={t} emb={emb} heads={heads} {str(dtype).replace('torch.', '')} -> "
     if device_type != "cuda":
         return head + f"plain versions ({device_type})"
-    if head_dim not in flash.BWD_HEAD_DIMS:
-        raise ValueError(f"{tower}: head dim {emb} / {heads} = {head_dim}: the flash "
-                         f"kernels train at head dims {flash.BWD_HEAD_DIMS}")
-    route = flash._route(dtype, head_dim, ())
-    parts = [f"flash {route} ({ROUTE_NAMES['flash'][route]})"]
+    parts = [_flash_note(f"{tower}: head dim {emb} / {heads} = {head_dim}", dtype, head_dim)]
     env = os.environ.get("MMSN_FUSED_BLOCK")
     fused = block.use_fused_block if env != "0" else False
     if fused is None:
@@ -127,9 +140,8 @@ def _vit_note(model, image_size: int, device_type: str) -> Optional[str]:
     """The ViT image tower's attention route on ``device_type``, or None
     without a ViT. Its blocks attend over (image_size / patch)^2 tokens at
     head dim vit_emb / vit_heads with no mask; training on the card needs a
-    head dim the flash backward takes (raises otherwise, naming it)."""
+    head dim the flash kernels take, 1 to 64 (raises otherwise, naming it)."""
     from ..models.vit import ViT
-    from ..ops import flash_attention as flash
 
     vit = next((m for m in model.modules() if isinstance(m, ViT)), None)
     if vit is None:
@@ -141,13 +153,9 @@ def _vit_note(model, image_size: int, device_type: str) -> Optional[str]:
             f"{str(dtype).replace('torch.', '')} -> ")
     if device_type != "cuda":
         return head + f"plain versions ({device_type})"
-    if head_dim not in flash.BWD_HEAD_DIMS:
-        raise ValueError(f"image (ViT): head dim {vit.emb} / {vit.heads} = {head_dim}: the flash "
-                         f"kernels train at head dims {flash.BWD_HEAD_DIMS} (forward "
-                         f"{flash.SUPPORTED_HEAD_DIMS})")
     # the tower's q/k/v are views of separate projections: 16-byte rows
-    route = flash._route(dtype, head_dim, ())
-    return head + f"flash {route} ({ROUTE_NAMES['flash'][route]})"
+    return head + _flash_note(f"image (ViT): head dim {vit.emb} / {vit.heads} = {head_dim}",
+                              dtype, head_dim)
 
 
 def preflight_run(

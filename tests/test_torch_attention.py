@@ -18,6 +18,7 @@ import torch
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
+from multimodal_supernovae_tpu.ops.attention import attention as jax_attention
 from multimodal_supernovae_tpu.ops.attention import dense_attention as jax_dense
 from multimodal_supernovae_tpu.ops.pallas_attention import (
     flash_attention as jax_flash,
@@ -73,6 +74,28 @@ def _np(x):
 @pytest.mark.parametrize("t", [13, 200])
 def test_dense_matches_jax_dense(dtype, mask, t):
     q, k, v, m = _inputs(t, t=t, mask=mask)
+    emb = q.shape[1] * q.shape[3]
+    (jq, jk, jv), jm = _to_jax(q, k, v, m, dtype)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, dtype)
+    want = jax_dense(jq, jk, jv, jm, emb)
+    got = dense_attention(tq, tk, tv, tm, emb)
+    assert got.dtype == getattr(torch, dtype) and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# Head dims beyond the shipped 8 and 16 that the CUDA kernels now take: 4
+# (configs/smoke.yaml), 12 (no multiple of 8: the JAX dispatcher's dense
+# path), 24 and 64 (a ViT at vit_emb 128, 2 heads)
+OTHER_HEAD_DIMS = [4, 12, 24, 64]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", ["ragged", "full_row", None])
+@pytest.mark.parametrize("s", OTHER_HEAD_DIMS)
+def test_dense_matches_jax_dense_at_other_head_dims(dtype, mask, s):
+    """test_dense_matches_jax_dense at the ViT's T = 36 and at head dims the
+    flash kernels' capacities (4, 8, 16, 32, 64) hold with zero columns."""
+    q, k, v, m = _inputs(300 + s, b=2, h=2, t=36, s=s, mask=mask)
     emb = q.shape[1] * q.shape[3]
     (jq, jk, jv), jm = _to_jax(q, k, v, m, dtype)
     (tq, tk, tv), tm = _to_torch(q, k, v, m, dtype)
@@ -175,6 +198,36 @@ def test_attention_grads_match_jax_flash_kernel(dtype, mask, t):
         assert np.any(_np(got[2])[-1] != 0)  # dv is not zero: P is uniform
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", ["ragged", "full_row", None])
+@pytest.mark.parametrize("s", OTHER_HEAD_DIMS)
+def test_attention_grads_match_jax_at_other_head_dims(dtype, mask, s):
+    """test_attention_grads_match_jax_flash_kernel at head dims 4, 12, 24 and
+    64: the port's gradients against ``jax.vjp`` through the JAX package's
+    dispatcher with use_pallas on, in interpret mode (the Pallas kernels at
+    24 and 64, B * H = 8; its dense path at 4 and 12, which are no
+    multiple of 8), and through JAX ``dense_attention``."""
+    q, k, v, m = _inputs(400 + s, b=2, h=4, t=40, s=s, mask=mask)
+    g = np.random.default_rng(s).normal(size=q.shape).astype(np.float32)
+    emb = q.shape[1] * q.shape[3]
+    (jq, jk, jv), jm = _to_jax(q, k, v, m, dtype)
+    jg = jnp.asarray(g).astype(jq.dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want_kernel = _jax_grads(lambda a, b, c: jax_attention(a, b, c, jm, emb, use_pallas=True),
+                                 jq, jk, jv, jg)
+    want_dense = _jax_grads(lambda a, b, c: jax_dense(a, b, c, jm, emb), jq, jk, jv, jg)
+    (tq, tk, tv), tm = _to_torch(q, k, v, m, dtype)
+    _, got = _torch_grads(tq, tk, tv, tm, torch.from_numpy(g).to(tq.dtype), emb)
+    for name, gt, wk, wd in zip("qkv", got, want_kernel, want_dense):
+        assert gt.dtype == tq.dtype and gt.shape == tq.shape
+        for want in (wk, wd):
+            np.testing.assert_allclose(_np(gt), _np(want), rtol=GRAD_TOL[dtype],
+                                       atol=GRAD_TOL[dtype], err_msg=f"d{name}")
+    if mask == "full_row":  # no gradient reaches q or k through masked scores
+        assert np.all(_np(got[0])[-1] == 0) and np.all(_np(got[1])[-1] == 0)
+        assert np.any(_np(got[2])[-1] != 0)
+
+
 def test_flash_attention_bwd_on_cpu_is_the_plain_backward():
     q, k, v, m = _inputs(7, t=19, mask="full_row")
     (tq, tk, tv), tm = _to_torch(q, k, v, m, "float32")
@@ -198,7 +251,8 @@ def test_no_grad_calls_and_cpu_grads_launch_nothing():
 
 
 def test_function_rejects_head_dims_without_a_backward():
-    q, k, v, m = _inputs(10, b=1, h=1, t=5, s=64)
+    """Above the kernels' 64 the Function refuses, naming the limit."""
+    q, k, v, m = _inputs(10, b=1, h=1, t=5, s=72)
     (tq, tk, tv), tm = _to_torch(q, k, v, m, "float32")
-    with pytest.raises(ValueError, match="no backward kernel"):
-        FlashAttention.apply(tq, tk, tv, tm, 64)
+    with pytest.raises(ValueError, match="no backward kernel: the flash kernels take 1 to 64"):
+        FlashAttention.apply(tq, tk, tv, tm, 72)

@@ -2,8 +2,9 @@
 
 The ``gpu`` tests hold the kernels of the three routes (the bf16 tensor
 cores for bfloat16 and the 3xTF32 tensor cores for float32 at head dims 8
-and 16, the CUDA cores otherwise) against their plain versions on the card
-and skip without one. Forward against
+and 16, and in the backward also 32; the CUDA cores otherwise, every head
+dim from 1 to 64) against their plain versions on the card and skip without
+one. Forward against
 ``dense_attention``: float32 at atol = rtol = 1e-4 (another summation order
 and the online-softmax rescale), bfloat16 at 0.05. Backward against torch
 autograd through ``dense_attention``: float32 at 5e-4 (the JAX kernel tests'
@@ -102,13 +103,13 @@ def _launch_counts():
                  for fn in (flash_attention, flash_attention_bwd))
 
 
-def _route_of(monkeypatch, route, q, k, v):
+def _route_of(monkeypatch, route, q, k, v, backward=False):
     """Patch ``_route`` to the CUDA cores for route "simt"; returns the route
-    the call takes."""
+    the call (the forward, or the backward) takes."""
     if route == "simt":
-        monkeypatch.setattr(flash_mod, "_route", lambda *a: "simt")
+        monkeypatch.setattr(flash_mod, "_route", lambda *a, **kw: "simt")
         return "simt"
-    return _route(q.dtype, q.shape[-1], (q, k, v))
+    return _route(q.dtype, q.shape[-1], (q, k, v), backward=backward)
 
 
 def _count_of(route):
@@ -141,6 +142,15 @@ DTYPE_ROUTES = [("float32", "routed"), ("float32", "simt"), ("bfloat16", "routed
     ((3, 2, 77, 32), "masked_rows", False),
     ((2, 1, 5, 64), "ragged", False),
     ((2, 2, 1, 8), None, False),                # a single key
+    ((32, 2, 36, 4), None, True),               # smoke.yaml's head dim, the ViT's T
+    ((3, 2, 77, 4), "masked_rows", False),
+    ((8, 4, 36, 24), None, True),
+    ((3, 2, 77, 24), "masked_rows", False),
+    ((32, 2, 36, 64), None, True),              # a ViT at vit_emb 128, 2 heads
+    ((3, 2, 77, 64), "masked_rows", True),
+    ((2, 3, 19, 12), "ragged", False),
+    ((2, 2, 40, 1), "ragged", True),
+    ((2, 1, 33, 48), None, False),
 ])
 def test_kernel_matches_plain(monkeypatch, dtype, route, shape, mask, layout):
     _needs_cuda()
@@ -159,9 +169,9 @@ def test_kernel_matches_plain(monkeypatch, dtype, route, shape, mask, layout):
 @pytest.mark.gpu
 def test_kernel_rejects_unsupported_on_cuda():
     _needs_cuda()
-    q, k, v, m = _inputs(0, 2, 2, 16, 12, "ragged", "float32", "cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q, k, v, m, 24)
+    q, k, v, m = _inputs(0, 2, 2, 16, 72, "ragged", "float32", "cuda")
+    with pytest.raises(ValueError, match="head dim 72 not supported: the flash kernels take 1 to 64"):
+        flash_attention(q, k, v, m, 144)
     q, k, v, m = _inputs(0, 2, 2, 16, 8, "ragged", "float32", "cuda")
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q.half(), k.half(), v.half(), m, 16)
@@ -180,9 +190,9 @@ def test_kernel_rejects_unsupported_on_cuda():
 def test_wrapper_validation(bad, match):
     q, k, v, m = _inputs(1, 2, 2, 16, 8, "ragged", "float32")
     emb = 16
-    if bad == "head_dim":
-        q, k, v, m = _inputs(1, 2, 2, 16, 12, "ragged", "float32")
-        emb = 24
+    if bad == "head_dim":  # above the kernels' 64
+        q, k, v, m = _inputs(1, 2, 2, 16, 72, "ragged", "float32")
+        emb = 144
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "stride":
@@ -210,11 +220,23 @@ def test_wrapper_validation(bad, match):
     ((4, 8, 200, 8), None, True),               # key_mask=None
     ((3, 2, 77, 32), "ragged", False),
     ((2, 2, 1, 8), None, False),                # a single key
+    ((32, 4, 36, 32), None, True),              # the ViT image tower
+    ((32, 2, 36, 4), None, True),               # smoke.yaml's head dim
+    ((3, 2, 77, 4), "masked_rows", False),
+    ((8, 4, 36, 24), None, True),
+    ((3, 2, 77, 24), "masked_rows", True),
+    ((32, 2, 36, 64), None, True),              # a ViT at vit_emb 128, 2 heads
+    ((3, 2, 77, 64), "masked_rows", False),
+    ((2, 2, 150, 64), "ragged", True),          # key rows over two dk/dv blocks
+    ((2, 3, 19, 12), "ragged", False),
+    ((2, 2, 40, 1), "ragged", True),
 ])
 def test_backward_kernel_matches_autograd(monkeypatch, dtype, route, shape, mask, layout):
     """dq, dk, dv through ``flash_attention``'s autograd Function against
     torch autograd through ``dense_attention``, with the cotangent in the
-    head merge's (B, T, H, S) memory order, as the encoder hands it back."""
+    head merge's (B, T, H, S) memory order, as the encoder hands it back.
+    The forward and the backward each take their own route (at head dim 32
+    the backward takes the tensor cores, the forward the CUDA cores)."""
     _needs_cuda()
     b, h, t, s = shape
     q, k, v, m = _inputs(sum(shape) + 1, b, h, t, s, mask, dtype, "cuda", layout)
@@ -222,17 +244,19 @@ def test_backward_kernel_matches_autograd(monkeypatch, dtype, route, shape, mask
     g = torch.from_numpy(rng.normal(size=(b, t, h, s)).astype(np.float32))
     g = g.to("cuda", q.dtype).transpose(1, 2)
     want = dense_attention_bwd(q, k, v, m, g, h * s)
-    route = _route_of(monkeypatch, route, q, k, v)
+    routes = (_route_of(monkeypatch, route, q, k, v),
+              _route_of(monkeypatch, route, q, k, v, backward=True))
     leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
     before = _launch_counts()
     out = flash_attention(*leaves, m, h * s)
     out.backward(g)
     torch.cuda.synchronize()
-    assert _launch_counts() == tuple(tuple(a + c for a, c in zip(x, _count_of(route)))
-                                     for x in before)
+    assert _launch_counts() == tuple(tuple(a + c for a, c in zip(x, _count_of(r)))
+                                     for x, r in zip(before, routes))
     for name, leaf, w in zip("qkv", leaves, want):
         assert leaf.grad.dtype == q.dtype and leaf.grad.shape == q.shape
-        _assert_close(leaf.grad, w, dtype, GRAD_TOL[dtype], f"d{name}", _tf32_norm(route))
+        _assert_close(leaf.grad, w, dtype, GRAD_TOL[dtype], f"d{name}",
+                      _tf32_norm(routes[1]))
     if mask == "masked_rows":  # row 0 is fully masked: no dq/dk, uniform dv
         assert torch.count_nonzero(leaves[0].grad[0]) == 0
         assert torch.count_nonzero(leaves[1].grad[0]) == 0
@@ -312,10 +336,10 @@ def test_float32_backward_dq_as_accurate_as_plain_on_near_equal_values(monkeypat
 @pytest.mark.gpu
 def test_backward_wrapper_rejects_unsupported_on_cuda():
     _needs_cuda()
-    q, k, v, m = _inputs(0, 2, 1, 16, 64, "ragged", "float32", "cuda")
+    q, k, v, m = _inputs(0, 2, 1, 16, 72, "ragged", "float32", "cuda")
     leaves = [a.requires_grad_() for a in (q, k, v)]
-    with pytest.raises(ValueError, match="no backward kernel"):
-        flash_attention(*leaves, m, 64)
+    with pytest.raises(ValueError, match="no backward kernel: the flash kernels take 1 to 64"):
+        flash_attention(*leaves, m, 72)
     q, k, v, m = _inputs(0, 2, 2, 16, 8, "ragged", "float32", "cuda")
     out, stats = _flash_fwd(q, k, v, m, 16, with_stats=True)
     with pytest.raises(ValueError, match="stats"):
@@ -336,8 +360,8 @@ def test_backward_wrapper_validation(bad, match):
     q, _, _, _ = _inputs(3, b, h, t, s, None, "float32")
     out, g = q.clone(), q.clone()
     stats = torch.zeros(b, h, t, 2)
-    if bad == "head_dim":
-        q, _, _, _ = _inputs(3, b, h, t, 64, None, "float32")
+    if bad == "head_dim":  # above the kernels' 64
+        q, _, _, _ = _inputs(3, b, h, t, 72, None, "float32")
         out, g = q.clone(), q.clone()
     elif bad == "out_shape":
         out = out[:, :, :8]
@@ -475,7 +499,86 @@ def test_either_forward_feeds_either_backward(monkeypatch, dtype, fwd_route, bwd
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape", [(16, 8, 200, 8), (16, 2, 220, 16)])
+@pytest.mark.parametrize("shape,mask,layout", [
+    ((32, 4, 36, 32), None, True),              # the ViT image tower, B = 32
+    ((256, 4, 36, 32), None, True),             # and B = 256
+    ((3, 2, 77, 32), "masked_rows", False),     # ragged T, a fully masked row
+    ((4, 2, 220, 32), "ragged", True),          # key tiles past the first
+    ((2, 2, 1, 32), None, False),               # a single key
+])
+def test_tensor_core_backward_at_head_dim_32(dtype, shape, mask, layout):
+    """At head dim 32 with 16-byte rows the backward takes the tensor cores
+    (bf16 mma.sync for bfloat16, 3xTF32 for float32: one launch on its
+    counter) while the forward stays on the CUDA cores, and dq, dk, dv match
+    torch autograd through ``dense_attention`` under the route's limits."""
+    _needs_cuda()
+    b, h, t, s = shape
+    q, k, v, m = _inputs(sum(shape) + 9, b, h, t, s, mask, dtype, "cuda", layout)
+    g = _cotangent(sum(shape) + 10, b, h, t, s, dtype)
+    fwd_route, bwd_route = _route(q.dtype, s, (q, k, v)), _route(q.dtype, s, (q, k, v), True)
+    assert (fwd_route, bwd_route) == ("simt", "mma" if dtype == "bfloat16" else "tf32")
+    before = _launch_counts()
+    out, grads = _grads_through_flash(q, k, v, m, g, h * s)
+    assert _launch_counts() == tuple(tuple(a + c for a, c in zip(x, _count_of(r)))
+                                     for x, r in zip(before, (fwd_route, bwd_route)))
+    _assert_close(out, dense_attention(q, k, v, m, h * s), dtype, TOL[dtype], "out")
+    for name, got, want in zip("qkv", grads, dense_attention_bwd(q, k, v, m, g, h * s)):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        _assert_close(got, want, dtype, GRAD_TOL[dtype], f"d{name}", _tf32_norm(bwd_route))
+    if mask == "masked_rows":  # row 0 is fully masked: no dq/dk, uniform dv
+        assert torch.count_nonzero(grads[0][0]) == 0
+        assert torch.count_nonzero(grads[1][0]) == 0
+        assert torch.count_nonzero(grads[2][0]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bwd_route", [("bfloat16", "mma"), ("bfloat16", "simt"),
+                                             ("float32", "tf32"), ("float32", "simt")])
+def test_both_backwards_at_head_dim_32_as_accurate_as_plain_on_near_equal_values(
+        monkeypatch, dtype, bwd_route):
+    """The ViT's case: 36 keys whose values are nearly equal, where dP - D
+    cancels, on each backward at head dim 32 (the tensor cores as routed,
+    the CUDA cores through a patch of _route). bfloat16: dq, dk and dv no
+    farther from the float64 gradient than 1.2x the plain bf16 version in
+    ||.|| / ||ref|| (chip_smoke.py's VIT_BF16_DQ_RATIO). float32: dq, dk and
+    dv within 2x the plain version's largest elementwise distance to
+    float64, plus 1e-7 of the largest value, as the 8/16 pin above (3xTF32
+    drops the lo x lo product, so its norm distance is not held to 1.2x of
+    float32's)."""
+    _needs_cuda()
+    b, h, t, s = 64, 4, 36, 32
+    rng = np.random.default_rng(36)
+    q, k, _, _ = _inputs(37, b, h, t, s, None, dtype, "cuda", True)
+    v0 = rng.normal(size=(b, 1, h, s)) + 0.1 * rng.normal(size=(b, t, h, s))
+    v = torch.from_numpy(v0.astype(np.float32)).to("cuda", getattr(torch, dtype)).transpose(1, 2)
+    g = _cotangent(38, b, h, t, s, dtype)
+    ref = _f64_grads(q, k, v, None, g, h * s)
+    plain = dense_attention_bwd(q, k, v, None, g, h * s)
+    if bwd_route == "simt":
+        monkeypatch.setattr(flash_mod, "_route", lambda *a: "simt")
+    assert flash_mod._route(q.dtype, s, (q, k, v), True) == bwd_route
+    out, stats = _flash_fwd(q, k, v, None, h * s, with_stats=True)
+    before = _launch_counts()[1]
+    grads = flash_attention_bwd(q, k, v, None, out, stats, g, h * s)
+    torch.cuda.synchronize()
+    assert _launch_counts()[1] == tuple(a + c for a, c in zip(before, _count_of(bwd_route)))
+    if dtype == "bfloat16":
+        for name, got, p, r in zip("qkv", grads, plain, ref):
+            ratio = _norm_err(got, r) / _norm_err(p, r)
+            assert ratio <= 1.2, f"d{name}: {ratio:.3f} of the plain version's distance to float64"
+        return
+    for name, got, p, r in zip("qkv", grads, plain, ref):
+        top = float(r.abs().max())
+        err = float((got.double() - r).abs().max()) / top
+        plain_err = float((p.double() - r).abs().max()) / top
+        assert err <= 2 * plain_err + 1e-7, (
+            f"d{name}: kernel {err:.3e}, plain {plain_err:.3e} from float64")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(16, 8, 200, 8), (16, 2, 220, 16), (32, 4, 36, 32),
+                                   (256, 4, 36, 32)])
 def test_mma_dq_one_percent_off_fails_the_check(dtype, shape):
     """Negative control: the tensor-core dq scaled by 0.99 fails the
     normalised check of its route, NORM_TOL for the bf16 kernels (while it
@@ -485,7 +588,7 @@ def test_mma_dq_one_percent_off_fails_the_check(dtype, shape):
     b, h, t, s = shape
     q, k, v, m = _inputs(sum(shape) + 7, b, h, t, s, "ragged", dtype, "cuda", True)
     g = _cotangent(sum(shape) + 8, b, h, t, s, dtype)
-    route = _route(q.dtype, s, (q, k, v))
+    route = _route(q.dtype, s, (q, k, v), backward=True)
     assert route == ("mma" if dtype == "bfloat16" else "tf32")
     norm_tol = NORM_TOL if route == "mma" else FP32_NORM_TOL
     out, stats = _flash_fwd(q, k, v, m, h * s, with_stats=True)
@@ -534,18 +637,20 @@ def _heads_like(layout, dtype, s, b=2, h=2, t=16):
 
 
 @pytest.mark.parametrize("layout", ["encoder", "contiguous", "offset", "row_stride"])
-@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("s", [8, 16, 32, 4, 24, 64])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_route(dtype, s, layout):
-    """The tensor cores take head dim 8 or 16 with 16-byte rows, bfloat16 on
-    the bf16 route and float32 on the 3xTF32 one; the CUDA cores take the
-    rest."""
+    """The tensor cores take head dim 8 or 16 (the backward also 32) with
+    16-byte rows, bfloat16 on the bf16 route and float32 on the 3xTF32 one;
+    the CUDA cores take the rest: every other head dim up to 64, in each
+    direction."""
     tensors = _heads_like(layout, dtype, s)
-    # S + 4 elements apart is 16 bytes apart in float32 (48 or 80), not in bf16
+    # S + 4 elements apart is 16 bytes apart in float32 (32 to 272), not in bf16
     aligned = ("encoder", "contiguous") + (("row_stride",) if dtype == "float32" else ())
-    tensor_cores = s in (8, 16) and layout in aligned
-    want = {"bfloat16": "mma", "float32": "tf32"}[dtype] if tensor_cores else "simt"
-    assert _route(getattr(torch, dtype), s, tensors) == want
+    for backward, dims in ((False, (8, 16)), (True, (8, 16, 32))):
+        tensor_cores = s in dims and layout in aligned
+        want = {"bfloat16": "mma", "float32": "tf32"}[dtype] if tensor_cores else "simt"
+        assert _route(getattr(torch, dtype), s, tensors, backward=backward) == want, backward
 
 
 @pytest.mark.parametrize("which", ["out", "g"])

@@ -187,7 +187,10 @@ def _norm_err(got, want):
     return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
 
 
-CASES = [(t, s, mask) for t in (16, 77, 200) for s in (8, 16) for mask in ("ragged", "full_row")]
+# head dims 8 and 16 (both directions on the 3xTF32 route) and 32 (its
+# backward: the ViT image tower's head dim)
+CASES = [(t, s, mask) for t in (16, 77, 200) for s in (8, 16, 32)
+         for mask in ("ragged", "full_row")]
 
 
 @pytest.mark.parametrize("t,s,mask", CASES)
@@ -208,7 +211,7 @@ def test_tf32_model_matches_the_jax_package(t, s, mask):
         assert not grads[0][-1].any() and not grads[1][-1].any() and grads[2][-1].any()
 
 
-@pytest.mark.parametrize("s", [8, 16])
+@pytest.mark.parametrize("s", [8, 16, 32])
 def test_one_tf32_pass_fails_the_norm_check(s):
     """The control: the same model with one TF32 pass (hi . hi) leaves
     FP32_NORM_TOL, which the three passes keep."""
@@ -221,14 +224,12 @@ def test_one_tf32_pass_fails_the_norm_check(s):
     assert three <= FP32_NORM_TOL < one
 
 
-def test_model_dq_on_near_equal_values_as_accurate_as_plain():
-    """Where a row's values are nearly equal across its keys, dP - D cancels:
-    the model's dq, dk, dv (dP - c0 as g . (v - v0)) sit within 2x the plain
-    float32 backward's distance to float64, plus 1e-7 of the largest value
-    (the card's check, tests/test_torch_flash_kernel.py)."""
-    b, h, t, s = 4, 8, 200, 8
-    rng = np.random.default_rng(33)
-    q, k, _, g, m = _inputs(34, b, h, t, s, "full_row")
+def _near_equal_case(seed, b, h, t, s):
+    """The model's dq, dk, dv on values nearly equal across the keys against
+    the plain float32 backward's, each as a distance to float64 (the largest
+    elementwise over the largest value): [(name, model, plain)]."""
+    rng = np.random.default_rng(seed)
+    q, k, _, g, m = _inputs(seed + 1, b, h, t, s, "full_row")
     v = (rng.normal(size=(b, h, 1, s)) + 0.1 * rng.normal(size=(b, h, t, s))).astype(np.float32)
     emb = h * s
     _, rm, rl = model_fwd(q, k, v, m, emb)
@@ -243,10 +244,27 @@ def test_model_dq_on_near_equal_values_as_accurate_as_plain():
         sc = sc.masked_fill(~tm[:, None, None, :], -1e7)
         out = torch.einsum("bhtu,bhus->bhts", torch.softmax(sc, -1), leaves[2])
         ref = [a.numpy() for a in torch.autograd.grad(out, leaves, tg.double())]
+    errs = []
     for name, a, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
         top = np.abs(r).max()
-        err, plain_err = np.abs(a - r).max() / top, np.abs(p - r).max() / top
-        print(f"{name}: model {err:.3e}, plain {plain_err:.3e} from float64")
+        errs.append((name, np.abs(a - r).max() / top, np.abs(p - r).max() / top))
+        print(f"S = {s}, {name}: model {errs[-1][1]:.3e}, plain {errs[-1][2]:.3e} from float64")
+    return errs
+
+
+def test_model_dq_on_near_equal_values_as_accurate_as_plain():
+    """Where a row's values are nearly equal across its keys, dP - D cancels:
+    the model's dq, dk, dv (dP - c0 as g . (v - v0)) sit within 2x the plain
+    float32 backward's distance to float64, plus 1e-7 of the largest value
+    (the card's check, tests/test_torch_flash_kernel.py)."""
+    for name, err, plain_err in _near_equal_case(33, 4, 8, 200, 8):
+        assert err <= 2 * plain_err + 1e-7, f"{name}: model {err:.3e}, plain {plain_err:.3e}"
+
+
+def test_model_dq_on_near_equal_values_as_accurate_as_plain_at_head_dim_32():
+    """The same at the ViT image tower's head dim 32 and T = 36, where the
+    float32 backward takes the 3xTF32 kernels."""
+    for name, err, plain_err in _near_equal_case(43, 4, 4, 36, 32):
         assert err <= 2 * plain_err + 1e-7, f"{name}: model {err:.3e}, plain {plain_err:.3e}"
 
 
@@ -299,7 +317,7 @@ def test_key_permutation_feeds_c_fragments_to_the_next_product():
     assert not np.allclose(_mma_lanes(plain, b_regs), cmat @ x)
 
 
-@pytest.mark.parametrize("s", [8, 16])
+@pytest.mark.parametrize("s", [8, 16, 32])
 def test_shared_memory_accesses_are_conflict_free(s):
     """The tiles' strides of csrc/flash_attention_tf32.cuh (row tiles S + 4
     floats a row, transposed tiles 2 * 64 + 16 words a column) put every
@@ -346,7 +364,8 @@ def test_shared_memory_accesses_are_conflict_free(s):
 def test_route(dtype, s, layout, want):
     """float32 at head dims 8 and 16 with 16-byte rows takes the 3xTF32
     kernels; head dims 32 and 64 and rows off 16 bytes the CUDA cores;
-    bfloat16 the bf16 tensor cores."""
+    bfloat16 the bf16 tensor cores. The backward also takes the tensor cores
+    at head dim 32."""
     dt = getattr(torch, dtype)
     b, h, t = 2, 2, 16
     if layout == "encoder":
@@ -357,6 +376,8 @@ def test_route(dtype, s, layout, want):
         tensors = [torch.zeros(b * h * t * s + 1, dtype=dt)[1:].view(b, h, t, s)
                    for _ in range(3)]
     assert _route(dt, s, tensors) == want
+    bwd = "tf32" if (s, layout) == (32, "encoder") else want
+    assert _route(dt, s, tensors, True) == bwd
     # the backward's out and g count too
     off = torch.zeros(b * h * t * s + 1, dtype=dt)[1:].view(b, h, t, s)
     assert _route(dt, s, (*tensors, off, tensors[0])) == "simt"

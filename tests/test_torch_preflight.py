@@ -63,7 +63,7 @@ def test_preflight_run_matches_jax(name, path, builder, jax_builder, combos, sp_
     run_cfg = next(iter(expand_grid(sweep)))
     lc_len, sp_len = _shapes(extra, sp_default)
     nband = 2 if "lightcurve" in extra["combinations"] else 1
-    device = "cpu" if name == "smoke" else "cuda"  # smoke's head dim 4 trains on the CPU only
+    device = "cuda"  # smoke's head dim 4 trains on the card's CUDA-core flash kernels
     got = preflight.preflight_run(run_cfg, extra, nband, lc_len, sp_len,
                                   model_builder=builder and builder(extra),
                                   combinations=combos, device=device)
@@ -77,8 +77,8 @@ def test_preflight_run_matches_jax(name, path, builder, jax_builder, combos, sp_
     assert [n.split(":")[0] for n in got["notes"][:-1]] == towers
     assert got["notes"][-1] == preflight.OPTIMIZER_NOTE
     for note in got["notes"][:-1]:
-        assert note.endswith("flash tf32 (3xTF32 tensor cores)" if device == "cuda"
-                             else "plain versions (cpu)"), note
+        assert note.endswith("flash simt (CUDA cores)" if name == "smoke"
+                             else "flash tf32 (3xTF32 tensor cores)"), note
 
 
 def _real_opt_state_bytes(path, builder, combos, sp_default):

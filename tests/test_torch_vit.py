@@ -334,21 +334,25 @@ def test_vit_run_dir_trains_reloads_and_serves(tmp_path):
     assert built.image_encoder.pos_emb.shape == (1, 16, 16)
 
 
-@pytest.mark.parametrize("heads,ok", [(4, True), (2, False)], ids=["head-dim-32",
-                                                                  "head-dim-64"])
-def test_check_fails_at_a_head_dim_the_flash_backward_does_not_take(heads, ok):
+@pytest.mark.parametrize("emb,heads,want", [
+    (128, 4, "flash simt (CUDA cores), flash backward tf32 (3xTF32 tensor cores)"),
+    (128, 2, "flash simt (CUDA cores)"),
+    (256, 2, None)], ids=["head-dim-32", "head-dim-64", "head-dim-128"])
+def test_check_fails_at_a_head_dim_the_flash_backward_does_not_take(emb, heads, want):
     """--check of a ViT grid point for the card: head dim 128 / 4 = 32 trains
-    on the CUDA-core flash kernels; 128 / 2 = 64, which only the forward
-    takes, fails naming the head dim; for the CPU both pass."""
-    point = {"n_out": 8, "emb": 16, "heads": 2, "transformer_depth": 1, "vit_emb": 128,
+    with the forward on the CUDA-core flash kernels and the backward on the
+    3xTF32 tensor cores; 128 / 2 = 64 on the CUDA cores both ways; 256 / 2 =
+    128, above the kernels' 64, fails naming the head dim and the limit; for
+    the CPU all pass."""
+    point = {"n_out": 8, "emb": 16, "heads": 2, "transformer_depth": 1, "vit_emb": emb,
              "vit_heads": heads, "batchsize": 4}
     extra = {"combinations": list(BI), "image_encoder": "vit"}
-    if ok:
+    if want:
         rep = preflight_run(point, extra, 2, 24, 20)
-        assert any("image (ViT): T=36 emb=128 heads=4 float32 -> flash simt" in n
-                   for n in rep["notes"])
+        assert f"image (ViT): T=36 emb={emb} heads={heads} float32 -> {want}" in rep["notes"]
     else:
-        with pytest.raises(ValueError, match="head dim 128 / 2 = 64"):
+        with pytest.raises(ValueError, match="head dim 256 / 2 = 128: the flash kernels take "
+                                             "head dims 1 to 64"):
             preflight_run(point, extra, 2, 24, 20)
     rep = preflight_run(point, extra, 2, 24, 20, device="cpu")
     assert any(n.startswith("image (ViT)") and "plain versions (cpu)" in n
