@@ -17,10 +17,10 @@ through --parallel-folds / --parallel-members; and data-parallel training
 over two ranks, and the umbrella CLI under torchrun; and tensor-parallel
 training over (data, model) meshes of ranks, and the stacked members over
 the ranks' data axis), through the
-hand-written flash-attention kernels (forward and backward; bf16 on the
-tensor cores, float32 on the tensor cores in 3xTF32, every other head dim
-from 1 to 64 and rows off 16 bytes on the CUDA cores; the backward also at
-head dim 32 on the tensor cores), and the same server and
+hand-written flash-attention kernels (forward and backward; at head dims 8,
+16, 32 and 64 bf16 on the tensor cores and float32 on the tensor cores in
+3xTF32, every other head dim from 1 to 64 and rows off 16 bytes on the CUDA
+cores), and the same server and
 trainer under ``use_fused_block``, through the fused-block kernels (forward
 and backward) as well, and under ``MMSN_FUSED_QKV=1``, through the
 whole-SelfAttention kernels (forward and backward; bf16 on the tensor-core
@@ -59,7 +59,7 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      dims: 32 (contiguous, and with rows off 16 bytes), the ViT's (B, 4,
      36, 32) at B = 32 and 256, and 4, 24 and 64 at (B, H, 36, S) with no
      mask and at a ragged T = 77 with a fully masked row. Every case at
-     head dim 8 or 16 (the backward also 32)
+     head dim 8, 16, 32 or 64 with 16-byte rows
      runs on both of its dtype's routes (the tensor cores as routed:
      bf16, or 3xTF32 for float32; the CUDA cores through a patch of
      flash_attention._route) and must show one launch on the first's
@@ -72,9 +72,9 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      F.scaled_dot_product_attention (scale emb**-0.5, boolean key mask) as
      the library yardstick (timed only; it differs on fully masked rows,
      where it gives NaN), in both dtypes (float32 with TF32 off), and in
-     float32 at the training, trimodal and Maven shapes too, the CUDA
-     cores at head dims 4 and 64 ((256, 2, 36, S), no mask) in both
-     dtypes, each route and the library call also by device time
+     float32 at the training, trimodal and Maven shapes too, head dims 4
+     (the CUDA cores) and 64 (both routes) at (256, 2, 36, S), no mask, in
+     both dtypes, each route and the library call also by device time
      (profiler sums);
   4. kernel-bwd: the backward kernels' dq/dk/dv against torch autograd
      through dense_attention on the card, float32 (atol = rtol = 5e-4, the
@@ -313,10 +313,10 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      host time;
   6e'. vit: the same trimodal grid point with extra_args.image_encoder vit
      at the JAX ViT defaults (emb 128, depth 6, 4 heads, patch 10, mlp 4;
-     60 x 60 images: 36 tokens at head dim 32: the flash forward on the
-     CUDA cores, the backward on the tensor cores), B = 32, float32, on a
-     320-sample set: Trainer.fit (2 epochs) into a sweep's run-0 with 6
-     CUDA-core forward and 18 + 24 3xTF32 flash launches a train step;
+     60 x 60 images: 36 tokens at head dim 32, the flash kernels on the
+     tensor cores both ways), B = 32, float32, on a
+     320-sample set: Trainer.fit (2 epochs) into a sweep's run-0 with 24 +
+     24 3xTF32 flash launches a train step;
      the run dir loaded by its sidecar, then, model_config.json removed
      and the sweep's sweep_config.yaml beside it, rebuilt from its config
      files (initialize_from_run_dir's schema path) within 1e-6 of the
@@ -325,18 +325,19 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      steps (noise and rotation on) within relative 1e-5 of the plain
      path's; every float32 gradient within 5e-4 on the plain path's ReLU
      masks, with the dq x 0.99 control; the grid point at vit_heads 2
-     (head dim 64): --check's preflight for the card (the CUDA cores both
-     ways), 3 float32 steps within relative 1e-5 of the plain path's and
-     every gradient within 5e-4 with the dq x 0.99 control, 6 + 6
-     CUDA-core launches a step; the tower alone in bf16 (each
+     (head dim 64): --check's preflight for the card (the 3xTF32 tensor
+     cores), 3 float32 steps within relative 1e-5 of the plain path's and
+     every gradient within 5e-4 with the dq x 0.99 control, 24 + 24
+     3xTF32 launches a step; the tower alone in bf16 (each
      attention layer's output, dk and dv against the plain versions on its
      own inputs within 0.05 and NORM_TOL, dq within 0.05 and no farther
      from float64 than VIT_BF16_DQ_RATIO x the plain version, with the dq x
      0.99 control; the tower's output within 0.05 and NORM_TOL); the step's
-     host time and profile; rows 1a, 2a and the tensor-core backward (2b
-     in bf16, 2c in float32) timed at (B, 4, 36, 32), B = 32 and 256, both
-     dtypes, no mask (events, device sums, host time, the plain version,
-     SDPA at scale S**-0.5) after a check against the plain versions;
+     host time and profile; the forward and backward on the tensor cores
+     (1b/2b in bf16, 1c/2c in float32) and on the CUDA cores (1a/2a)
+     timed at (B, 4, 36, 32), B = 32 and 256, both dtypes, no mask
+     (events, device sums, host time, the plain version, SDPA at scale
+     S**-0.5) after a check against the plain versions;
   6f. maven: four stages from the shipped configs, each through
      training/experiment.py:_build_run, float32, every attention layer on
      the 3xTF32 flash route, no plain call, launches counted and asserted
@@ -600,8 +601,10 @@ pretraining's under "also_at_maven_lc" and "also_at_maven_sp"; the
 CUDA-core flash entries add the ViT tower's shape at B = 32 and 256 under
 "also_at_vit_b32" and "also_at_vit_b256" in both dtypes (with
 "exp_floor_ms"), and head dims 4 and 64 at (256, 2, 36, S) under
-"also_at_h4" and "also_at_h64"; the bf16 and 3xTF32 backward entries add
-the ViT's shapes under "also_at_vit_b32" and "also_at_vit_b256" too; the flash
+"also_at_h4" and "also_at_h64" (with "exp_floor_ms" too); the bf16 and
+3xTF32 forward and backward entries add the ViT's shapes under
+"also_at_vit_b32" and "also_at_vit_b256" and head dim 64 under
+"also_at_h64" too; the flash
 backward and fused-block entries add
 "device_ms" (profiler sums), the flash backward "library_device_ms", the
 fused-block entries "norm_err" (float32, its route's worst case), and the
@@ -1115,12 +1118,12 @@ def _flash_cases(mask_lc, mask_sp, t_sp):
     two towers' shapes in the encoder's layout and contiguous, the light
     curve at config_grid's 2 heads of 16, a fully
     masked row with leading masked key tiles, no mask, ragged T = 1 and 77
-    at both head dims, and the CUDA-core kernels' other head dims: 32 (the
-    backward's tensor cores beside the CUDA cores; rows off 16 bytes on the
-    CUDA cores alone), the ViT tower's (B, 4, 36, 32) at B = 32 and 256, and
-    head dims 4 (configs/smoke.yaml), 24 and 64 (a ViT at vit_emb 128, 2
-    heads) at T = 36 with no mask and at a ragged T = 77 with a fully masked
-    row."""
+    at both head dims, and the other head dims: 32 (the tensor cores beside
+    the CUDA cores; rows off 16 bytes on the CUDA cores alone), the ViT
+    tower's (B, 4, 36, 32) at B = 32 and 256, and head dims 4
+    (configs/smoke.yaml) and 24 (the CUDA cores alone) and 64 (a ViT at
+    vit_emb 128, 2 heads; both routes) at T = 36 with no mask and at a
+    ragged T = 77 with a fully masked row."""
     masked = mask_sp[:16].clone()
     masked[0] = False          # a fully masked row: uniform over its T keys
     masked[1, :100] = False    # leading key tiles masked, later ones valid
@@ -1166,12 +1169,14 @@ def _maven_cases(mask_lc, mask_sp):
 
 
 MAVEN_CASES = ("maven_lc", "maven_sp")
+# the cases whose float32 plain version with TF32 matmuls must fail FP32_NORM_TOL
+TF32_CONTROLLED = ("lc", "sp", "vit_b256", "h64")
 # the flash timings: (case, dtype) of the forward and backward phases (the
 # serving and training shapes in both dtypes; the trimodal spectral shape, the
 # backward's spectral serving T and Maven pretraining's shapes in float32, the
 # dtype of those steps)
-# the CUDA-core kernels' head dims 4 and 64 at (B, H, 36, S), no mask, in both
-# dtypes (the ViT's head dim 32 is timed in phase vit)
+# head dims 4 (the CUDA cores) and 64 (both routes) at (B, H, 36, S), no mask,
+# in both dtypes (the ViT's head dim 32 is timed in phase vit)
 HEAD_DIM_TIMED = {(c, d) for c in ("h4", "h64") for d in ("float32", "bfloat16")}
 FWD_TIMED = {("lc", "bfloat16"), ("sp", "bfloat16"), ("lc", "float32"), ("sp", "float32"),
              ("sp_train", "float32"), ("sp_tri", "float32"), ("maven_lc", "float32"),
@@ -1234,7 +1239,7 @@ def phase_kernel():
                 log(f"kernel {name} {dtype_name} {(b, h, t, s)} {route}: max|err| "
                     f"{err:.3e} (tol {TOL[dtype_name]}), ||err||/||plain|| {_fmt(rel)} (tol "
                     f"{tol})")
-            if dtype == torch.float32 and name in ("lc", "sp"):
+            if dtype == torch.float32 and name in TF32_CONTROLLED:
                 with _tf32_matmuls():
                     control = dense_attention(q, k, v, mask, emb)
                 _tf32_control(f"kernel {name} float32", control, want)
@@ -1362,7 +1367,7 @@ def phase_kernel_bwd():
                     f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {tol}); "
                     f"||err||/||plain|| dq {_fmt(norms[0])} dk {_fmt(norms[1])} dv "
                     f"{_fmt(norms[2])} (tol {ntol})")
-                if route != "simt" and name in ("lc", "sp", "vit_b32", "vit_b256"):
+                if route != "simt" and name in ("lc", "sp", "vit_b32", "vit_b256", "h64"):
                     # negative control: the tensor-core dq off by 1% must fail
                     with _wrong_dq() as wrong_bwd:
                         wrong = wrong_bwd(q, k, v, mask, out, stats, g, emb)
@@ -1375,7 +1380,7 @@ def phase_kernel_bwd():
                     if err <= ctol:
                         raise AssertionError(f"{name}: the normalised check cannot see a 1% "
                                              f"error in dq: {err:.3e}")
-            if dtype == torch.float32 and name in ("lc", "sp"):
+            if dtype == torch.float32 and name in TF32_CONTROLLED:
                 with _tf32_matmuls():
                     ctl = dense_attention_bwd(q, k, v, mask, g, emb)
                 for gname, a, w in zip(("dq", "dk", "dv"), ctl, want):
@@ -3576,14 +3581,14 @@ def _vit_setup():
 
 def _vit_flash_times(gen, b, dtype_name):
     """The flash forward and backward at the ViT's (B, 4, 36, 32), no mask, in
-    the encoder's layout: the forward on the CUDA cores (row 1a), the
-    backward on the tensor cores as routed (2b in bf16, 2c in float32) and
-    on the CUDA cores (2a, through a patch of _route), each held to
-    dense_attention and its autograd (TOL / GRAD_TOL; bf16 also NORM_TOL,
-    3xTF32 FP32_NORM_TOL), then timed as phases kernel and kernel-bwd time
-    every flash row (CUDA events, device sums, the wrapper's host time, the
-    plain version, and scaled_dot_product_attention at scale S**-0.5 with
-    its autograd). Returns ({"fwd": times, "bwd": times}, max|err|)."""
+    the encoder's layout, each on the tensor cores as routed (1b/2b in bf16,
+    1c/2c in float32) and on the CUDA cores (1a/2a, through a patch of
+    _route), each held to dense_attention and its autograd (TOL / GRAD_TOL;
+    bf16 also NORM_TOL, 3xTF32 FP32_NORM_TOL), then timed as phases kernel
+    and kernel-bwd time every flash row (CUDA events, device sums, the
+    wrapper's host time, the plain version, and scaled_dot_product_attention
+    at scale S**-0.5 with its autograd). Returns ({"fwd": times, "bwd":
+    times}, max|err|)."""
     h, t, s = VIT_STATED[0][2], VIT_STATED[1], VIT_STATED[2]
     dtype = getattr(torch, dtype_name)
     fwd, bwd = flash_mod._flash_fwd, flash_mod.flash_attention_bwd
@@ -3591,36 +3596,38 @@ def _vit_flash_times(gen, b, dtype_name):
     q, k, v = _heads(gen, b, h, t, s, dtype, True)
     g = torch.randn((b, t, h, s), generator=gen).to("cuda", dtype).transpose(1, 2)
     tc = "mma" if dtype == torch.bfloat16 else "tf32"
-    out, stats = fwd(q, k, v, None, s, with_stats=True)
-    routes = (flash_mod._route(dtype, s, (q, k, v)),
-              flash_mod._route(dtype, s, (q, k, v, out, g), True))
-    if routes != ("simt", tc):
-        raise AssertionError(f"vit {dtype_name}: head dim {s} takes {routes}, not the CUDA "
-                             f"cores forward and the {tc} backward")
+    # the rule's answer for q, k, v; the calls below show each direction's
+    routes = (flash_mod._route(dtype, s, (q, k, v)), flash_mod._route(dtype, s, (q, k, v), True))
+    if routes != (tc, tc):
+        raise AssertionError(f"vit {dtype_name}: head dim {s} takes {routes}, not the {tc} "
+                             f"tensor cores both ways")
     want = dense_attention(q, k, v, None, s)
     want_g = dense_attention_bwd(q, k, v, None, g, s)
     errs = {}
     for route in (tc, "simt"):
-        before = _route_counts(bwd)
+        before = (_route_counts(flash_mod.flash_attention), _route_counts(bwd))
         with ROUTES[route]():
+            out, stats = fwd(q, k, v, None, s, with_stats=True)
             got = bwd(q, k, v, None, out, stats, g, s)
         torch.cuda.synchronize()
-        if not _on_route(bwd, before, route):
+        if not (_on_route(flash_mod.flash_attention, before[0], route)
+                and _on_route(bwd, before[1], route)):
             raise AssertionError(f"vit flash {b} {dtype_name}: not on the {route} route")
-        checked = (("out", out, want, TOL[dtype_name]),) if route == tc else ()
-        for name, a, w, tol in (*checked, *((f"{n} {route}", a, w, GRAD_TOL[dtype_name])
-                                            for n, a, w in zip(("dq", "dk", "dv"), got, want_g))):
+        for name, a, w, tol in ((f"out {route}", out, want, TOL[dtype_name]),
+                                *((f"{n} {route}", a, w, GRAD_TOL[dtype_name])
+                                  for n, a, w in zip(("dq", "dk", "dv"), got, want_g))):
             errs[name] = float((a.float() - w.float()).abs().max())
             torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol,
                                        msg=lambda m: f"vit flash {b} {dtype_name} {name}: {m}")
-            rel, ntol = _route_norm(a, w, dtype, "simt" if name == "out" else route,
-                                    f"vit flash {b} {dtype_name} {name}")
+            rel, ntol = _route_norm(a, w, dtype, route, f"vit flash {b} {dtype_name} {name}")
             errs[name + "_norm"] = rel
     times = {"fwd": {}, "bwd": {}}
     tf, tb = times["fwd"], times["bwd"]
-    tf["simt"] = _time_ms(lambda: flash_attention(q, k, v, None, s))
-    tf["simt_device"] = _device_ms(lambda: flash_attention(q, k, v, None, s))
-    tf["simt_host"] = _host_ms(lambda: flash_attention(q, k, v, None, s))
+    for route in (tc, "simt"):
+        with ROUTES[route]():
+            tf[route] = _time_ms(lambda: flash_attention(q, k, v, None, s))
+            tf[f"{route}_device"] = _device_ms(lambda: flash_attention(q, k, v, None, s))
+            tf[f"{route}_host"] = _host_ms(lambda: flash_attention(q, k, v, None, s))
     tf["plain"] = _time_ms(lambda: dense_attention(q, k, v, None, s))
     tf["library"] = _time_ms(lambda: _sdpa(q, k, v, None, s))
     tf["library_device"] = _device_ms(lambda: _sdpa(q, k, v, None, s))
@@ -3638,18 +3645,21 @@ def _vit_flash_times(gen, b, dtype_name):
     tb["library_device"] = _device_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
                                                                   retain_graph=True))
     shape = (b, h, t, s)
-    log(f"vit flash {shape} {dtype_name}, no mask, forward on the CUDA cores, backward on the "
-        f"{tc} tensor cores and the CUDA cores: max|err| " + ", ".join(
+    log(f"vit flash {shape} {dtype_name}, no mask, forward and backward on the {tc} tensor "
+        f"cores and on the CUDA cores: max|err| " + ", ".join(
             f"{n} {e:.3e}" if not n.endswith("_norm") else f"{n} {_fmt(e)}"
             for n, e in errs.items()) + f" (tol {TOL[dtype_name]} / {GRAD_TOL[dtype_name]}, "
         f"norm {NORM_TOL if dtype == torch.bfloat16 else FP32_NORM_TOL} where held)")
     for part in ("fwd", "bwd"):
         log(f"time-vit {part} {shape} {dtype_name}: " + ", ".join(
             f"{r} {ms:.4f} ms" for r, ms in times[part].items()) + " " + TIMING_NOTE)
-    log(f"time-vit bwd {shape} {dtype_name}: device time {tc} {tb[f'{tc}_device']:.4f} ms "
-        f"against the CUDA cores' (row 2a) {tb['simt_device']:.4f} ms "
-        f"({tb['simt_device'] / tb[f'{tc}_device']:.2f}x) and SDPA autograd's "
-        f"{tb['library_device']:.4f} ms ({tb[f'{tc}_device'] / tb['library_device']:.2f}x of it)")
+    for part, row in (("fwd", "1a"), ("bwd", "2a")):
+        tp = times[part]
+        log(f"time-vit {part} {shape} {dtype_name}: device time {tc} {tp[f'{tc}_device']:.4f} "
+            f"ms against the CUDA cores' (row {row}) {tp['simt_device']:.4f} ms "
+            f"({tp['simt_device'] / tp[f'{tc}_device']:.2f}x) and SDPA's "
+            f"{tp['library_device']:.4f} ms ({tp[f'{tc}_device'] / tp['library_device']:.2f}x "
+            f"of it)")
     return times, max(v for n, v in errs.items() if not n.endswith("_norm"))
 
 
@@ -3719,8 +3729,8 @@ def _vit_bf16_tower(vk, gen_seed=5):
     math spread by up to 6e-2 normalised (a CPU probe: the plain path
     against itself with attention rounded once from float32), are held to
     be no farther from the float32 run's than 2x the plain bf16 path's.
-    Returns the launches (6 forwards on the CUDA cores, 6 backwards on the
-    bf16 tensor cores)."""
+    Returns the launches (6 forwards and 6 backwards on the bf16 tensor
+    cores)."""
     b = VIT_STATED[3]
     x = torch.rand((b, IMAGE_SIZE, IMAGE_SIZE, 3),
                    generator=torch.Generator().manual_seed(gen_seed)).to(DEVICE)
@@ -3746,7 +3756,7 @@ def _vit_bf16_tower(vk, gen_seed=5):
         grads[path] = {n: p.grad for n, p in tower.named_parameters()}
         del tower, calls
     depth = vk["depth"]
-    _check_counts("vit bf16 tower", counts["kernel"], (depth, 0, 0, depth) + (0,) * 10)
+    _check_counts("vit bf16 tower", counts["kernel"], (0, 0, depth, depth) + (0,) * 10)
     _check_counts("vit bf16 tower plain", counts["plain"], NONE)
     out_err = (float((outs["kernel"].float() - outs["plain"].float()).abs().max())
                / float(outs["plain"].float().abs().max()), _norm_err(outs["kernel"], outs["plain"]))
@@ -3786,18 +3796,19 @@ VIT64_HEADS, VIT64_STEPS = 2, 3  # vit_emb 128 / 2 heads: head dim 64; its float
 def _vit_head_dim_64(point, extra, data, plan, seq, sp_len):
     """The trimodal ViT grid point at vit_heads 2 (head dim 128 / 2 = 64,
     above the ViT's shipped 32): --check's preflight for the card, which
-    must pass and name the CUDA-core route both ways, then VIT64_STEPS
+    must pass and name the 3xTF32 tensor-core route, then VIT64_STEPS
     float32 steps of the kernel path against the plain path (relative
     TRAJ_RTOL a step) and every parameter's gradient (GRAD_RTOL, with the dq
     x 0.99 control), as phase vit holds the shipped ViT. Returns the
-    launches: the ViT's forwards and backwards on the CUDA cores."""
+    launches: the ViT's forwards and backwards on the 3xTF32 tensor cores,
+    beside the sequence towers'."""
     point64 = dict(point, vit_heads=VIT64_HEADS)
     rep = preflight.preflight_run(point64, extra, NBAND, 2 * LC_LEN, sp_len,
                                   image_size=IMAGE_SIZE)
     note = next(n for n in rep["notes"] if n.startswith("image (ViT)"))
     log(f"vit head dim 64: --check's preflight of the grid point at vit_heads "
         f"{VIT64_HEADS}: {note}")
-    if not note.endswith("-> flash simt (CUDA cores)"):
+    if not note.endswith("-> flash tf32 (3xTF32 tensor cores)"):
         raise AssertionError(f"vit head dim 64: the preflight names {note!r}")
     cfg = build_clip_config(point64, extra, nband=NBAND)
     vk = cfg.vk()
@@ -3805,7 +3816,7 @@ def _vit_head_dim_64(point, extra, data, plan, seq, sp_len):
         raise AssertionError(f"vit head dim 64: the config gives {vk}")
     tcfg = build_trainer_config(point64, extra)
     depth = vk["depth"]
-    per_step = (depth, depth) + (0,) * 10 + (seq, seq)
+    per_step = (0,) * 12 + (seq + depth, seq + depth)
     plan = plan[:VIT64_STEPS]
     losses, total = {}, NONE
     for path in ("kernel", "plain"):
@@ -3829,7 +3840,8 @@ def _vit_head_dim_64(point, extra, data, plan, seq, sp_len):
     log(f"vit head dim 64: ViT {vk}; {len(plan)} float32 steps, kernel "
         f"{losses['kernel'].tolist()}, plain {losses['plain'].tolist()}, worst relative "
         f"difference {rel.max():.3e} (tol {TRAJ_RTOL}); launches a step {per_step}: the ViT's "
-        f"{depth} backwards on the CUDA cores (row 2a)")
+        f"{depth} forwards and backwards on the 3xTF32 tensor cores (rows 1c/2c) beside the "
+        f"sequence towers' {seq}")
     if not np.all(np.isfinite(losses["kernel"])) or rel.max() > TRAJ_RTOL:
         raise AssertionError(f"vit head dim 64: the trajectory leaves the plain path's: {rel}")
     one = take(data, torch.from_numpy(plan[0]).to(DEVICE))
@@ -3841,14 +3853,13 @@ def phase_vit(card):
     """The ViT image tower in a trimodal model on the card: Trainer.fit into a
     run dir, the run dir rebuilt without its sidecar, served, the float32
     trajectory and gradients against the plain path, the tower in bf16, the
-    step's time and profile, and the flash rows 1a/2a timed at its shape.
-    Returns the launches of every counted call and the timings."""
+    step's time and profile, and the flash rows timed at its shape on both
+    routes. Returns the launches of every counted call and the timings."""
     t_phase = time.perf_counter()
     sweep, point, extra, clip_cfg, tcfg = _vit_setup()
     depth, seq = clip_cfg.vk()["depth"], clip_cfg.tk()["depth"] + clip_cfg.tsk()["depth"]
-    # float32: the ViT's forwards on the CUDA cores and its backwards on 3xTF32,
-    # the sequence towers' both ways on 3xTF32
-    per_step = (depth, 0) + (0,) * 10 + (seq, seq + depth)
+    # float32: the ViT's and the sequence towers' flash both ways on 3xTF32
+    per_step = (0,) * 12 + (seq + depth, seq + depth)
     sp_len = int(extra["max_spectral_data_len"])
     ds = make_synthetic_dataset(n=VIT_N, n_max_lc=LC_LEN, nband=NBAND, n_max_sp=sp_len,
                                 image_size=IMAGE_SIZE, modalities=clip_cfg.combinations, seed=0)
@@ -3905,7 +3916,7 @@ def phase_vit(card):
         log(f"vit serve: load_live (x_img {served.input_spec['x_img'][0]}), {b} "
             f"samples: max|served - encode| {err:.3e} (tol {RUN_DIR_EMBED_TOL}); launches "
             f"{counts}, {len(plain)} plain calls")
-        _check_counts("vit serve", counts, per_step[:1] + (0,) * 11 + (seq, 0))
+        _check_counts("vit serve", counts, (0,) * 12 + (seq + depth, 0))
         if err > RUN_DIR_EMBED_TOL or plain:
             raise AssertionError(f"vit serve: {err:.3e}, {len(plain)} plain calls")
         total = tuple(a + c for a, c in zip(total, counts))
@@ -3972,7 +3983,8 @@ def phase_vit(card):
     _log_trace("vit profile", "train steps", *traced, at=f"B={b} float32")
     del model, opt, state, data, one, tbatch
 
-    # (h) rows 1a and 2a at the tower's shape, B = 32 and 256, both dtypes
+    # (h) rows 1a/2a and the tensor-core rows at the tower's shape, B = 32 and
+    # 256, both dtypes
     gen = torch.Generator().manual_seed(11)
     timing, worst = {}, 0.0
     for bb in VIT_TIMED_B:
@@ -7528,16 +7540,21 @@ def main():
                 "shape": f"(B, H, T, S) = {shape} {dtype}, no mask (the ViT tower)"}
         return out
 
-    def head_dim_entries(bwd, dtype):
-        """The CUDA-core flash entry at head dims 4 and 64 (phases kernel and
-        kernel-bwd, (B, H, 36, S), no mask), under also_at_h4 and
-        also_at_h64."""
-        tm, peak, out = bwd_timing if bwd else timing, dtype, {}
-        for case, shape in (("h4", (BATCH, 2, 36, 4)), ("h64", (BATCH, 2, 36, 64))):
+    def head_dim_entries(bwd, dtype, route="simt"):
+        """The flash entry of ``route`` at head dims 4 (the CUDA cores only)
+        and 64 (phases kernel and kernel-bwd, (B, H, 36, S), no mask), under
+        also_at_h4 and also_at_h64."""
+        tm, out = bwd_timing if bwd else timing, {}
+        peak = ("bfloat16" if dtype == "bfloat16" else "tf32x3" if route == "tf32"
+                else "float32")
+        cases = (("h4", (BATCH, 2, 36, 4)),) if route == "simt" else ()
+        for case, shape in (*cases, ("h64", (BATCH, 2, 36, 64))):
             t = tm[(case, dtype)]
             bound = _flash_bounds(*shape, peak)[bwd]
             out[f"also_at_{case}"] = {
-                "ms": t["simt"], "device_ms": t["simt_device"], "host_ms": t["simt_host"],
+                "ms": t[route], "device_ms": t[f"{route}_device"],
+                "host_ms": t[f"{route}_host"],
+                "exp_floor_ms": _exp_floor_ms(*shape[:3], exp_per_s)[bwd],
                 "plain_ms": t["plain"], "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": t["library"], "library_device_ms": t["library_device"],
                 "shape": f"(B, H, T, S) = {shape} {dtype}, no mask"}
@@ -7555,18 +7572,20 @@ def main():
                         **head_dim_entries(1, "float32")},
             "norm_err_float32": bwd_norm[("simt", "float32")], "vit_max_abs_err": vit_err}),
         "flash_attention_fwd_mma": (2, fwd_err["mma"], {
-            **flash("mma", 0), "norm_err": fwd_norm[("mma", "bfloat16")],
+            **flash("mma", 0), **vit_entries(0, "bfloat16", "mma"),
+            **head_dim_entries(0, "bfloat16", "mma"), "norm_err": fwd_norm[("mma", "bfloat16")],
             "registered_op_dispatch": dispatch}),
         "flash_attention_bwd_mma": (3, bwd_err["mma"], {
             **flash("mma", 1), **vit_entries(1, "bfloat16", "mma"),
-            "norm_err": bwd_norm[("mma", "bfloat16")],
+            **head_dim_entries(1, "bfloat16", "mma"), "norm_err": bwd_norm[("mma", "bfloat16")],
             "wrong_dq_norm_err": {n: e for (n, d), e in bwd_control.items()
                                   if d == "bfloat16"}}),
         "flash_attention_fwd_tf32": (12, fwd_err["tf32"], {
-            **flash("tf32", 0, "float32"), "norm_err": fwd_norm[("tf32", "float32")]}),
+            **flash("tf32", 0, "float32"), **vit_entries(0, "float32", "tf32"),
+            **head_dim_entries(0, "float32", "tf32"), "norm_err": fwd_norm[("tf32", "float32")]}),
         "flash_attention_bwd_tf32": (13, bwd_err["tf32"], {
             **flash("tf32", 1, "float32"), **vit_entries(1, "float32", "tf32"),
-            "norm_err": bwd_norm[("tf32", "float32")],
+            **head_dim_entries(1, "float32", "tf32"), "norm_err": bwd_norm[("tf32", "float32")],
             "wrong_dq_norm_err": {n: e for (n, d), e in bwd_control.items()
                                   if d == "float32"}}),
     }

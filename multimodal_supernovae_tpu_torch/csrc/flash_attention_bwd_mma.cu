@@ -1,5 +1,5 @@
 // Masked multi-head attention backward for Hopper (sm_90a) on the tensor cores,
-// bf16 at head dims 8, 16 and 32.
+// bf16 at head dims 8, 16, 32 and 64.
 //
 // Replaces the Pallas TPU kernel multimodal_supernovae_tpu/ops/pallas_attention.py
 // (_bwd_kernel, reached through _flash_bwd) on the bf16 main path, and computes
@@ -10,7 +10,7 @@
 // forward's per-row (max, sum) residual:
 //   dP = g . v^T                          (float32 accumulation)
 //   D  = g . out at S = 8 and 16,         (one float32 per row, see below)
-//        c0 + rowsum(P o (dP - c0)) at S = 32, c0 = dP at key 0
+//        c0 + rowsum(P o (dP - c0)) at S = 32 and 64, c0 = dP at key 0
 //   dS = P o (dP - D), zeroed at masked keys, rounded to bf16
 //   dq = dS . ks * c,  dk = dS^T . qs * c,  dv = bf16(P)^T . g
 // In a fully masked row P is uniform over its T keys, so dv at a masked key is
@@ -22,12 +22,12 @@
 // shows in dq (csrc/flash_attention_bwd.cu). At S = 8 and 16 the bf16 limits
 // hold it, and a second walk of the keys would add a third to the backward's
 // device time at the training shapes (PERF.md section 6, ROADMAP.md section
-// 3b). At S = 32 the user path is the ViT image
-// tower, whose 36 keys are near-uniform, exactly where dP - D cancels and
-// the bf16 rounding of out in g . out would come through whole; there the dq
-// kernel walks the keys twice, as the CUDA-core and 3xTF32 kernels do: D =
-// c0 + rowsum(P o (dP - c0)) in float32 first, then dS and dq. Either
-// forward's stats and output feed this backward.
+// 3b). At S = 32 and 64 the user path is the ViT image
+// tower (4 and 2 heads), whose 36 keys are near-uniform, exactly where dP - D
+// cancels and the bf16 rounding of out in g . out would come through whole;
+// there the dq kernel walks the keys twice, as the CUDA-core and 3xTF32
+// kernels do: D = c0 + rowsum(P o (dP - c0)) in float32 first, then dS and
+// dq. Either forward's stats and output feed this backward.
 //
 // What bounds it on this card: as in the forward, not the products: per
 // (query, key) pair each of the two kernels rebuilds P with one exponential
@@ -42,13 +42,24 @@
 //     (mma, B fragments by ldmatrix), P and dS on the C fragments, then
 //     dq += bf16(dS) . ks (dS's C fragments as the A fragment, ks by
 //     ldmatrix.trans). It also writes D for its rows to a float32 scratch.
-//     At S = 32 (two chained m16n8k16 a head-dim product) a first walk over
-//     the key tiles sums D; shared tiles grow to 20 KB.
+//     At S = 32 and 64 (S / 16 chained m16n8k16 a head-dim product) a first
+//     walk over the key tiles sums D; shared tiles grow to 20 and 37 KB.
 //   * dk/dv kernel, launched after it on the same stream, grid (B*H,
 //     ceil(T/64)), 4 warps of 16 key rows keeping ks and v as A fragments;
 //     query tiles of 64 (qs, g, and each row's max, 1/sum and D) stream through
 //     shared memory. Per 16 queries: S^T = ks . qs^T, dP^T = v . g^T, then
 //     dv += bf16(P^T) . g and dk += bf16(dS^T) . qs.
+// At S = 64 the dk/dv kernel keeps ks and v (16 registers each), dk and dv
+// (32 each) and a step's q and g fragments (16 each) in registers; with a
+// tile's four 16-row steps unrolled ptxas spilled 16 bytes at 255
+// registers, so at S = 64 the kernels unroll two steps at a time (245
+// registers, no spill, the same time: probe_flash_tc_steps.py). A warp whose
+// 16 rows all lie past T (the fourth of the ViT's T = 36) keeps to the copies
+// and barriers and skips the compute, and at S = 32 and 64 a tile's 16-row
+// steps whose rows all lie past T (the last of the ViT's four) are skipped:
+// they add zeros. At S = 8 and 16 the exit test raised the dq kernel from 72
+// to 96 registers (7 to 5 blocks an SM) and cost 7% at T = 1024 for nothing
+// at T = 200 (probe_flash_tc_steps.py --parent), so those walk every step.
 // Each kernel owns its outputs: no atomics, deterministic. D is read from the
 // scratch, once per row, instead of being recomputed in every dk/dv block.
 // Where no key is masked (a dq key tile all valid, by the block's vote at the
@@ -97,10 +108,11 @@ __device__ __forceinline__ void dq_tile(float (&acc)[S / 8][4], const uint32_t (
                                         const uint32_t (&ga)[S / 4], const float (&m)[2],
                                         const float (&inv_l)[2], const float (&nlse)[2],
                                         const float (&D)[2], const bf16* ks, const bf16* vs,
-                                        const uint8_t* kind, int lane) {
+                                        const uint8_t* kind, int n_steps, int lane) {
   const int t = lane & 3;
-#pragma unroll
+#pragma unroll (S == 64 ? 2 : TILE / 16)  // registers at S = 64 (see the note at the top)
   for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 keys a step
+    if (S >= 32 && kk >= n_steps) break;  // the rest of the tile lies past T
     uint32_t kf[2][S / 8], vf[2][S / 8];
     ldsm_rows<S>(kf, ks, 16 * kk, lane);
     ldsm_rows<S>(vf, vs, 16 * kk, lane);
@@ -143,10 +155,11 @@ __device__ __forceinline__ void dsum_tile(float (&dd)[2], const uint32_t (&qa)[S
                                           const uint32_t (&ga)[S / 4], const float (&m)[2],
                                           const float (&inv_l)[2], const float (&c0)[2],
                                           const bf16* ks, const bf16* vs, const uint8_t* kind,
-                                          int lane) {
+                                          int n_steps, int lane) {
   const int t = lane & 3;
-#pragma unroll
+#pragma unroll (S == 64 ? 2 : TILE / 16)  // registers at S = 64 (see the note at the top)
   for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 keys a step
+    if (S >= 32 && kk >= n_steps) break;  // the rest of the tile lies past T
     uint32_t kf[2][S / 8], vf[2][S / 8];
     ldsm_rows<S>(kf, ks, 16 * kk, lane);
     ldsm_rows<S>(vf, vs, 16 * kk, lane);
@@ -170,7 +183,7 @@ template <int S>
 __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma_kernel(const BwdArgs a) {
   // D summed over the keys (a first walk) rather than g . out: see the note
   // at the top
-  constexpr bool SUM_D = S == 32;
+  constexpr bool SUM_D = S >= 32;
   using L = Layout<S>;
   __shared__ __align__(16) bf16 ks[2][TILE * L::RS];
   __shared__ __align__(16) bf16 vs[2][TILE * L::RS];
@@ -252,9 +265,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma_kernel(con
     cp_async_commit();
     cp_async_wait<1>();
     scale_own_chunks<S>(ks[buf], a.scale, tid);
+    // 16-key steps of this tile with a key below T; the rest add nothing
+    const int n_steps = (T_len - (it % n_tiles) * TILE + 15) / 16;
     if (SUM_D && it < n_tiles) {
       __syncthreads();
-      dsum_tile<S>(dd, qa, ga, m, inv_l, D, ks[buf], vs[buf], kind[buf], lane);
+      if (row0 < T_len)
+        dsum_tile<S>(dd, qa, ga, m, inv_l, D, ks[buf], vs[buf], kind[buf], n_steps, lane);
     } else {
       if (SUM_D && it == n_tiles) {  // D of each row, from its four lanes' shares
 #pragma unroll
@@ -264,10 +280,14 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma_kernel(con
           if (t == 0 && row < T_len) a.dsum[(int64_t)bh * T_len + row] = D[r];
         }
       }
-      if (__syncthreads_and(my_kind == 0)) {
-        dq_tile<S, true>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], lane);
+      const bool dense = __syncthreads_and(my_kind == 0);
+      if (row0 >= T_len) {  // no row of this warp: copies and barriers only
+      } else if (dense) {
+        dq_tile<S, true>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], n_steps,
+                         lane);
       } else {
-        dq_tile<S, false>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], lane);
+        dq_tile<S, false>(acc, qa, ga, m, inv_l, nlse, D, ks[buf], vs[buf], kind[buf], n_steps,
+                          lane);
       }
     }
     my_kind = tid < TILE ? kind_of(next_byte, next_key, T_len) : 0;
@@ -296,10 +316,11 @@ __device__ __forceinline__ void dkdv_tile(float (&dk)[S / 8][4], float (&dv)[S /
                                           const uint32_t (&ka)[S / 4],
                                           const uint32_t (&va)[S / 4], const bool (&valid)[2],
                                           const bf16* qs, const bf16* gs, const float4* qrow,
-                                          int lane) {
+                                          int n_steps, int lane) {
   const int t = lane & 3;
-#pragma unroll
+#pragma unroll (S == 64 ? 2 : TILE / 16)  // registers at S = 64 (see the note at the top)
   for (int kk = 0; kk < TILE / 16; ++kk) {  // 16 queries a step
+    if (S >= 32 && kk >= n_steps) break;  // the rest of the tile lies past T
     uint32_t qf[2][S / 8], gf[2][S / 8];
     ldsm_rows<S>(qf, qs, 16 * kk, lane);
     ldsm_rows<S>(gf, gs, 16 * kk, lane);
@@ -419,11 +440,14 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_mma_kernel(c
     cp_async_commit();
     cp_async_wait<1>();
     scale_own_chunks<S>(qs[buf], a.scale, tid);
+    // 16-query steps of this tile with a query below T; the rest add nothing
+    const int n_steps = (T_len - it * TILE + 15) / 16;
     __syncthreads();
-    if (dense) {
-      dkdv_tile<S, true>(dk, dv, ka, va, valid, qs[buf], gs[buf], qrow[buf], lane);
+    if (row0 >= T_len) {  // no key row of this warp: copies and barriers only
+    } else if (dense) {
+      dkdv_tile<S, true>(dk, dv, ka, va, valid, qs[buf], gs[buf], qrow[buf], n_steps, lane);
     } else {
-      dkdv_tile<S, false>(dk, dv, ka, va, valid, qs[buf], gs[buf], qrow[buf], lane);
+      dkdv_tile<S, false>(dk, dv, ka, va, valid, qs[buf], gs[buf], qrow[buf], n_steps, lane);
     }
     if (more && tid < TILE) qrow[buf ^ 1][tid] = query_row(next_query, next_st, next_d);
     __syncthreads();
@@ -504,6 +528,8 @@ extern "C" int mmsn_flash_attention_bwd_mma(
       return launch<16>(a, B, st);
     case 32:
       return launch<32>(a, B, st);
+    case 64:
+      return launch<64>(a, B, st);
     default:
       return cudaErrorInvalidValue;
   }

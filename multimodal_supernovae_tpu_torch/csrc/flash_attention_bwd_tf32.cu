@@ -1,5 +1,5 @@
 // Masked multi-head attention backward for Hopper (sm_90a) on the tensor cores,
-// float32 at head dims 8, 16 and 32, every product in 3xTF32.
+// float32 at head dims 8, 16, 32 and 64, every product in 3xTF32.
 //
 // Replaces the Pallas TPU kernel multimodal_supernovae_tpu/ops/pallas_attention.py
 // (_bwd_kernel, reached through _flash_bwd) on the float32 path every shipped
@@ -57,6 +57,34 @@
 //     launch_dyn raises the block's limit above 48 KB). Per 8 queries: S^T = ks . qs^T and (dP - c0)^T = (v -
 //     v0) . g^T, then dv += P^T . g and dk += dS^T . qs, the query index
 //     permuted.
+//   * A warp whose 16 rows all lie past T (the fourth of the ViT's T = 36)
+//     keeps to the copies, splits and barriers and skips the compute, and at
+//     S = 32 and 64 a tile's 8-row steps whose rows all lie past T (three of
+//     eight at T = 36) are skipped: they add zeros. At S = 8 and 16 the exit
+//     test cost 5% at T = 1024 (its unrolled steps no longer one block of
+//     code) for 6-7% at T = 200 and 220 (probe_flash_tc_steps.py --parent),
+//     so those walk every step, as before.
+// Head dim 64 (the ViT image tower at 2 heads) is the hard case: registers.
+// A lane's split A fragments of one side are S registers (64), an
+// accumulator S / 2 (32). The dq kernel keeps its two sides and dq (160) in
+// registers, and at S = 64 reads v0 for v - v0 from device memory at each
+// split instead of holding its chunks (S / 2 registers there). The dk/dv
+// kernel would hold two sides and two accumulators (192) beside a step's
+// temporaries, past the 255 a thread may hold; so at S = 64 each warp
+// writes its v - v0 fragments, split, once into its own 16-row hi and lo
+// tiles of shared memory (8.7 KB a warp) and reads them back by ldmatrix at
+// each use (mma_head_smem), keeping ks, dk and dv in registers. ks is the
+// side both products of a step need first; v - v0 feeds only dP. Both
+// kernels at S = 64 walk a tile's 8-row steps one at a time (no unrolling):
+// unrolled two or eight at a time, ptxas spilled 20-168 bytes at 255
+// registers and the backward ran 5-10% slower (probe_flash_tc_steps.py).
+// Shared memory at S = 64: 141 KB (dq) and 214 KB (dk/dv) of the 227 a
+// block may take, one block an SM; at T <= 64 (one tile, the ViT) the raw
+// tiles are single (raw_buffers): 107 KB (two dq blocks an SM) and 179 KB,
+// and the dq kernel copies and splits its one key tile once for both walks
+// (1.3x faster at (256, 2, 36, 64) than copying it again). Rolled, the dk/dv
+// kernel holds 255 registers with no spill; the dq kernel spills 4 bytes,
+// one value, which its second walk's reuse of the tile costs and is kept.
 //
 // Plain C interface, loaded with ctypes (kernels/build.py): the entry launches
 // both kernels on the given stream and returns cudaGetLastError(), or
@@ -101,10 +129,12 @@ __device__ __forceinline__ void dq_tile(float (&acc)[S / 8][4], float (&dd)[2],
                                         const float (&m)[2], const float (&inv_l)[2],
                                         const uint32_t* khi, const uint32_t* klo,
                                         const uint32_t* ktr, const uint32_t* vhi,
-                                        const uint32_t* vlo, const uint8_t* kind, int lane) {
+                                        const uint32_t* vlo, const uint8_t* kind,
+                                        int n_steps, int lane) {
   const int t = lane & 3;
-#pragma unroll
+#pragma unroll (S == 64 ? 1 : TILE / 8)  // registers at S = 64 (see the note at the top)
   for (int j = 0; j < TILE / 8; ++j) {  // 8 keys a step
+    if (S >= 32 && j >= n_steps) break;  // the rest of the tile lies past T
     float s[4], dp[4];
     mma_head<S>(s, qa, khi, klo, 8 * j, lane);
     mma_head<S>(dp, ga, vhi, vlo, 8 * j, lane);
@@ -123,24 +153,27 @@ __device__ __forceinline__ void dq_tile(float (&acc)[S / 8][4], float (&dd)[2],
   }
 }
 
-// Dynamic shared memory of the dq kernel, in words: K's row tiles (k * c; the
-// cp.async target, TF32 hi after the split) x 2, K's lo tile, K's transposed
-// tile, V's row tiles (v - v0) x 2, V's lo tile, the key kinds x 2.
+// Dynamic shared memory of the dq kernel, in words: K's lo tile, K's
+// transposed tile, V's lo tile, the key kinds x 2, then for each of nbuf =
+// raw_buffers(T) buffers K's row tile (k * c; the cp.async target, TF32 hi
+// after the split) and V's (v - v0). The buffers come last, so every offset
+// is a constant and one buffer is only a shorter allocation.
 template <int S>
-constexpr int dq_smem_words() {
-  return 6 * LayoutF<S>::TS + LayoutF<S>::TT + 2 * TILE / 4;
+int dq_smem_words(int nbuf) {
+  return 2 * LayoutF<S>::TS + LayoutF<S>::TT + 2 * TILE / 4 + nbuf * 2 * LayoutF<S>::TS;
 }
 
 template <int S>
 __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_tf32_kernel(const BwdArgs a) {
   using L = LayoutF<S>;
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* const ks0 = smem;  // + buf * TS: the row tile of buffer buf
-  uint32_t* const ks_lo = smem + 2 * L::TS;
-  uint32_t* const ktr = smem + 3 * L::TS;
-  uint32_t* const vs0 = ktr + L::TT;
-  uint32_t* const vs_lo = ktr + L::TT + 2 * L::TS;
+  constexpr int BS = 2 * L::TS;  // words from one buffer's raw tiles to the next's
+  uint32_t* const ks_lo = smem;
+  uint32_t* const ktr = smem + L::TS;
+  uint32_t* const vs_lo = ktr + L::TT;
   uint8_t(*kind)[TILE] = reinterpret_cast<uint8_t(*)[TILE]>(vs_lo + L::TS);
+  uint32_t* const ks0 = vs_lo + L::TS + 2 * TILE / 4;  // + buf * BS: buffer buf's tiles
+  uint32_t* const vs0 = ks0 + L::TS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g_ = lane >> 2, t = lane & 3;
@@ -168,10 +201,9 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_tf32_kernel(co
 #pragma unroll
     for (int kk = 0; kk < S / 8; ++kk) split_a(ga[kk], x[kk]);
   }
-  float4 v0[L::CH], no_shift[L::CH];
-  own_chunks_of_row0<S>(v0, vb, tid);
-#pragma unroll
-  for (int i = 0; i < L::CH; ++i) no_shift[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this thread's chunks of v0 for v - v0, in registers below head dim 64
+  float4 v0[S < 64 ? LayoutF<S>::CH : 1];
+  if constexpr (S < 64) own_chunks_of_row0<S>(v0, vb, tid);
 
   // Rows past T get m = 0 and 1/sum = 0: P and dS vanish there (q is 0).
   float m[2], inv_l[2];
@@ -192,7 +224,9 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_tf32_kernel(co
   for (int n = 0; n < S / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float dd[2] = {0.f, 0.f};  // this lane's share of D - c0, then the row's
 
-  // the key tiles twice: D first, then dS and dq
+  // the key tiles twice: D first, then dS and dq. A single tile (one raw
+  // buffer, raw_buffers) is copied and split once, the transposed K with it,
+  // and walked twice.
   const int n_tiles = (T_len + TILE - 1) / TILE;
   const int n_iter = 2 * n_tiles;
   issue_rows<S>(ks0, kb, a.sin.t, 0, T_len, tid);
@@ -201,27 +235,38 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_tf32_kernel(co
   if (tid < TILE) kind[0][tid] = key_kind(mrow, tid, T_len);
 
   for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    const bool more = it + 1 < n_iter;
+    const bool reuse = n_tiles == 1 && it == 1;  // the single tile, split in walk one
+    const int buf = n_tiles == 1 ? 0 : it & 1;
+    const bool more = n_tiles > 1 && it + 1 < n_iter;
     const int next_key = ((it + 1) % n_tiles) * TILE + tid;
     uint8_t next_byte = 1;
     if (more) {
-      issue_rows<S>(ks0 + (buf ^ 1) * L::TS, kb, a.sin.t, ((it + 1) % n_tiles) * TILE, T_len,
+      issue_rows<S>(ks0 + (buf ^ 1) * BS, kb, a.sin.t, ((it + 1) % n_tiles) * TILE, T_len,
                     tid);
-      issue_rows<S>(vs0 + (buf ^ 1) * L::TS, vb, a.sin.t, ((it + 1) % n_tiles) * TILE, T_len,
+      issue_rows<S>(vs0 + (buf ^ 1) * BS, vb, a.sin.t, ((it + 1) % n_tiles) * TILE, T_len,
                     tid);
       if (tid < TILE) next_byte = mask_byte(mrow, next_key, T_len);
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    // the transposed K only for the dq pass (dS . ks)
-    uint32_t* const kt = ks0 + buf * L::TS;
-    uint32_t* const vt = vs0 + buf * L::TS;
-    split_chunks<S>(kt, ks_lo, it < n_tiles ? nullptr : ktr, a.scale, no_shift, tid);
-    split_chunks<S>(vt, vs_lo, nullptr, 1.f, v0, tid);
+    uint32_t* const kt = ks0 + buf * BS;
+    uint32_t* const vt = vs0 + buf * BS;
+    if (!reuse) {
+      cp_async_commit();
+      cp_async_wait<1>();
+      // the transposed K only for the dq pass (dS . ks)
+      split_chunks<S>(kt, ks_lo, it < n_tiles && n_tiles > 1 ? nullptr : ktr, a.scale, tid);
+      if constexpr (S < 64) {  // v - v0
+        split_chunks<S>(vt, vs_lo, nullptr, 1.f, v0, tid);
+      } else {
+        split_chunks<S>(vt, vs_lo, nullptr, 1.f, vb, tid);
+      }
+    }
+    // 8-key steps of this tile with a key below T; the rest add nothing
+    const int n_steps = (T_len - (it % n_tiles) * TILE + 7) / 8;
     __syncthreads();
-    if (it < n_tiles) {
-      dq_tile<S, 0>(acc, dd, qa, ga, m, inv_l, kt, ks_lo, ktr, vt, vs_lo, kind[buf], lane);
+    if (row0 >= T_len) {  // no row of this warp: copies, splits and barriers only
+    } else if (it < n_tiles) {
+      dq_tile<S, 0>(acc, dd, qa, ga, m, inv_l, kt, ks_lo, ktr, vt, vs_lo, kind[buf], n_steps,
+                    lane);
     } else {
       if (it == n_tiles) {  // the row's D - c0, from its four lanes' shares
 #pragma unroll
@@ -231,7 +276,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_tf32_kernel(co
           if (t == 0 && row < T_len) a.dsum[(int64_t)bh * T_len + row] = dd[r];
         }
       }
-      dq_tile<S, 1>(acc, dd, qa, ga, m, inv_l, kt, ks_lo, ktr, vt, vs_lo, kind[buf], lane);
+      dq_tile<S, 1>(acc, dd, qa, ga, m, inv_l, kt, ks_lo, ktr, vt, vs_lo, kind[buf], n_steps,
+                    lane);
     }
     if (more && tid < TILE) kind[buf ^ 1][tid] = kind_of(next_byte, next_key, T_len);
     __syncthreads();
@@ -244,19 +290,28 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_tf32_kernel(co
 // key (or one past T) keeps the fill score: P there is 0 unless the whole
 // query row is masked, where it is 1/T like every other key of the row (and
 // then every key of the sample is masked, so no valid key meets that row).
-template <int S>
+// VA_SMEM: v - v0 is read from the warp's shared tiles va_hi, va_lo, not va.
+template <int S, bool VA_SMEM>
 __device__ __forceinline__ void dkdv_tile(float (&dk)[S / 8][4], float (&dv)[S / 8][4],
-                                          const FragA (&ka)[S / 8], const FragA (&va)[S / 8],
+                                          const FragA (&ka)[S / 8],
+                                          const FragA (&va)[VA_SMEM ? 1 : S / 8],
+                                          const uint32_t* va_hi, const uint32_t* va_lo,
                                           const bool (&valid)[2], const uint32_t* qhi,
                                           const uint32_t* qlo, const uint32_t* qtr,
                                           const uint32_t* ghi, const uint32_t* glo,
-                                          const uint32_t* gtr, const float4* qrow, int lane) {
+                                          const uint32_t* gtr, const float4* qrow,
+                                          int n_steps, int lane) {
   const int t = lane & 3;
-#pragma unroll
+#pragma unroll (S == 64 ? 1 : TILE / 8)  // registers at S = 64 (see the note at the top)
   for (int j = 0; j < TILE / 8; ++j) {  // 8 queries a step
+    if (S >= 32 && j >= n_steps) break;  // the rest of the tile lies past T
     float p[4], ds[4];
     mma_head<S>(p, ka, qhi, qlo, 8 * j, lane);   // S^T: keys x queries
-    mma_head<S>(ds, va, ghi, glo, 8 * j, lane);  // (dP - c0)^T
+    if constexpr (VA_SMEM) {
+      mma_head_smem<S>(ds, va_hi, va_lo, ghi, glo, 8 * j, lane);  // (dP - c0)^T
+    } else {
+      mma_head<S>(ds, va, ghi, glo, 8 * j, lane);
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
@@ -272,10 +327,26 @@ __device__ __forceinline__ void dkdv_tile(float (&dk)[S / 8][4], float (&dv)[S /
 
 // Dynamic shared memory of the dk/dv kernel, in words: q's row tiles (q * c;
 // the cp.async target, TF32 hi after the split) x 2, its lo and transposed
-// tiles, the same three for g, then each query's (max, 1/sum, D - c0, unused).
+// Dynamic shared memory of the dk/dv kernel, in words: q's lo and transposed
+// tiles, g's, each query's (max, 1/sum, D - c0, unused), at S = 64 each
+// warp's v - v0 hi and lo tiles (16 rows each), then for each of nbuf =
+// raw_buffers(T) buffers q's row tile (q * c; the cp.async target, TF32 hi
+// after the split) and g's. The buffers come last, so every offset is a
+// constant and one buffer is only a shorter allocation.
 template <int S>
-constexpr int dkdv_smem_words() {
-  return 6 * LayoutF<S>::TS + 2 * LayoutF<S>::TT + 4 * TILE;
+__host__ __device__ constexpr bool va_smem() {
+  return S == 64;
+}
+
+template <int S>
+__host__ __device__ constexpr int va_words() {
+  return va_smem<S>() ? WARPS * 2 * 16 * LayoutF<S>::RS : 0;
+}
+
+template <int S>
+int dkdv_smem_words(int nbuf) {
+  return 2 * LayoutF<S>::TS + 2 * LayoutF<S>::TT + 4 * TILE + va_words<S>() +
+         nbuf * 2 * LayoutF<S>::TS;
 }
 
 template <int S>
@@ -283,13 +354,16 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_tf32_kernel(
     const BwdArgs a) {
   using L = LayoutF<S>;
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* const qs0 = smem;  // + buf * TS: the row tile of buffer buf
-  uint32_t* const qs_lo = smem + 2 * L::TS;
-  uint32_t* const qtr = smem + 3 * L::TS;
-  uint32_t* const gs0 = qtr + L::TT;
-  uint32_t* const gs_lo = qtr + L::TT + 2 * L::TS;
+  constexpr int BS = 2 * L::TS;  // words from one buffer's raw tiles to the next's
+  uint32_t* const qs_lo = smem;
+  uint32_t* const qtr = smem + L::TS;
+  uint32_t* const gs_lo = qtr + L::TT;
   uint32_t* const gtr = gs_lo + L::TS;
   float4* const qrow = reinterpret_cast<float4*>(gtr + L::TT);
+  constexpr bool VA_SMEM = va_smem<S>();
+  // + buf * BS: buffer buf's raw tiles
+  uint32_t* const qs0 = gtr + L::TT + 4 * TILE + va_words<S>();
+  uint32_t* const gs0 = qs0 + L::TS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g_ = lane >> 2;
@@ -302,8 +376,11 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_tf32_kernel(
   const float* gb = a.g + a.sg.at(b, h, 0);
   const uint8_t* mrow = a.mask != nullptr ? a.mask + (int64_t)b * T_len : nullptr;
   const int row0 = blockIdx.y * ROWS + warp * 16;
+  // this warp's v - v0 tiles (VA_SMEM)
+  uint32_t* const va_hi = gtr + L::TT + 4 * TILE + warp * 2 * 16 * L::RS;
+  uint32_t* const va_lo = va_hi + 16 * L::RS;
 
-  FragA ka[S / 8], va[S / 8];
+  FragA ka[S / 8], va[VA_SMEM ? 1 : S / 8];
   {
     float x[S / 8][4];
     load_rows<S>(x, a.k + base, a.sin.t, row0, T_len, lane);
@@ -320,8 +397,14 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_tf32_kernel(
     for (int kk = 0; kk < S / 8; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) x[kk][e] -= a.v[base + 8 * kk + (lane & 3) + 4 * (e >> 1)];
-      split_a(va[kk], x[kk]);
+      if constexpr (VA_SMEM) {
+        split_a(va[0], x[kk]);
+        store_a_smem<S>(va_hi, va_lo, va[0], kk, lane);
+      } else {
+        split_a(va[kk], x[kk]);
+      }
     }
+    if constexpr (VA_SMEM) __syncwarp();  // the warp's own tiles, read by ldmatrix
   }
   bool valid[2];
 #pragma unroll
@@ -347,10 +430,6 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_tf32_kernel(
       d = a.dsum[(int64_t)bh * T_len + row];
     }
   };
-  float4 no_shift[L::CH];
-#pragma unroll
-  for (int i = 0; i < L::CH; ++i) no_shift[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
   const int n_tiles = (T_len + TILE - 1) / TILE;
   issue_rows<S>(qs0, qb, a.sin.t, 0, T_len, tid);
   issue_rows<S>(gs0, gb, a.sg.t, 0, T_len, tid);
@@ -366,19 +445,23 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_tf32_kernel(
     float2 next_st = make_float2(0.f, 1.f);
     float next_d = 0.f;
     if (more) {
-      issue_rows<S>(qs0 + (buf ^ 1) * L::TS, qb, a.sin.t, (it + 1) * TILE, T_len, tid);
-      issue_rows<S>(gs0 + (buf ^ 1) * L::TS, gb, a.sg.t, (it + 1) * TILE, T_len, tid);
+      issue_rows<S>(qs0 + (buf ^ 1) * BS, qb, a.sin.t, (it + 1) * TILE, T_len, tid);
+      issue_rows<S>(gs0 + (buf ^ 1) * BS, gb, a.sg.t, (it + 1) * TILE, T_len, tid);
       if (tid < TILE) read_row(next_query, next_st, next_d);
     }
     cp_async_commit();
     cp_async_wait<1>();
-    uint32_t* const qt = qs0 + buf * L::TS;
-    uint32_t* const gt = gs0 + buf * L::TS;
-    split_chunks<S>(qt, qs_lo, qtr, a.scale, no_shift, tid);
-    split_chunks<S>(gt, gs_lo, gtr, 1.f, no_shift, tid);
+    uint32_t* const qt = qs0 + buf * BS;
+    uint32_t* const gt = gs0 + buf * BS;
+    split_chunks<S>(qt, qs_lo, qtr, a.scale, tid);
+    split_chunks<S>(gt, gs_lo, gtr, 1.f, tid);
     if (tid < TILE) qrow[tid] = query_row(it * TILE + tid, cur_st, cur_d);
+    // 8-query steps of this tile with a query below T; the rest add nothing
+    const int n_steps = (T_len - it * TILE + 7) / 8;
     __syncthreads();
-    dkdv_tile<S>(dk, dv, ka, va, valid, qt, qs_lo, qtr, gt, gs_lo, gtr, qrow, lane);
+    if (row0 < T_len)  // else no key row of this warp: copies, splits and barriers only
+      dkdv_tile<S, VA_SMEM>(dk, dv, ka, va, va_hi, va_lo, valid, qt, qs_lo, qtr, gt, gs_lo,
+                            gtr, qrow, n_steps, lane);
     cur_st = next_st;
     cur_d = next_d;
     __syncthreads();
@@ -391,11 +474,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_tf32_kernel(
 template <int S>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.T_len + ROWS - 1) / ROWS);
+  const int nbuf = raw_buffers(a.T_len);
   cudaError_t err = launch_dyn(flash_attention_bwd_dq_tf32_kernel<S>, grid,
-                               4 * dq_smem_words<S>(), stream, a);
+                               4 * dq_smem_words<S>(nbuf), stream, a);
   if (err != cudaSuccess) return err;
-  return launch_dyn(flash_attention_bwd_dkdv_tf32_kernel<S>, grid, 4 * dkdv_smem_words<S>(),
-                    stream, a);
+  return launch_dyn(flash_attention_bwd_dkdv_tf32_kernel<S>, grid,
+                    4 * dkdv_smem_words<S>(nbuf), stream, a);
 }
 
 }  // namespace
@@ -444,6 +528,8 @@ extern "C" int mmsn_flash_attention_bwd_tf32(
       return launch<16>(a, B, st);
     case 32:
       return launch<32>(a, B, st);
+    case 64:
+      return launch<64>(a, B, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,10 +1,11 @@
 // Masked multi-head attention forward for Hopper (sm_90a) on the tensor cores,
-// bf16 at head dims 8 and 16.
+// bf16 at head dims 8, 16, 32 and 64.
 //
 // Replaces the Pallas TPU kernel multimodal_supernovae_tpu/ops/pallas_attention.py
 // (_fwd_kernel, reached through flash_attention / _flash_fwd_impl) on the
 // bf16 main path, and computes what csrc/flash_attention_fwd.cu (the CUDA-core
-// kernel, which keeps float32 and head dims 32 and 64) computes, which is
+// kernel, which keeps the other head dims and rows off 16 bytes) computes,
+// which is
 // ops/attention.py:dense_attention of this package: qs = bf16(q * c) and
 // ks = bf16(k * c) with c = emb**-0.25 (emb = H * S, the FULL width); float32
 // scores qs . ks; a key j < T with mask[b, j] false gets the score -1e7 (a fully
@@ -30,13 +31,28 @@
 //   * K/V tiles of 64 keys, bf16 in shared memory, double-buffered with
 //     cp.async (zero-filled past T); each thread rounds the K chunks it copied
 //     to bf16(k * c) in place before the barrier that publishes the tile;
-//   * S = qs . ks^T with m16n8k16 (S = 16) or m16n8k8 (S = 8), K fragments by
-//     ldmatrix; masking and the online softmax on the float32 C fragments in
-//     the log2 domain (one ex2.approx per score). A tile whose 64 keys are
-//     all valid (the block's vote at the barrier, __syncthreads_and) skips
-//     the mask's selects and takes each exponent's argument in one FMA;
+//   * S = qs . ks^T with S / 16 chained m16n8k16 (S = 16, 32, 64) or m16n8k8
+//     (S = 8), K fragments by ldmatrix; masking and the online softmax on
+//     the float32 C fragments in the log2 domain (one ex2.approx per
+//     score). A tile whose 64 keys are all valid (the block's vote at the
+//     barrier, __syncthreads_and) skips the mask's selects and takes each
+//     exponent's argument in one FMA;
 //   * P . V with m16n8k16, P's C fragments of two adjacent 8-key tiles packed
-//     to bf16 as the A fragment, V fragments by ldmatrix.trans.
+//     to bf16 as the A fragment, V fragments by ldmatrix.trans;
+//   * a warp whose 16 rows all lie past T (the fourth of the ViT's T = 36)
+//     keeps to the copies and barriers and skips the tile's compute.
+// At head dims 32 and 64 (the ViT image tower at 4 and 2 heads) the same
+// design holds: qs is S / 4 registers a lane and the output accumulator S / 2,
+// so at S = 64 a warp keeps 16 + 32 + the tile's 32 score registers (168 in
+// all, no spill); at S = 32 ptxas holds the kernel to 128 registers and
+// spilled a whole tile's scores, so there the tile is taken in two 32-key
+// steps, each with its own online rescale (no spill, the same time:
+// probe_flash_tc_steps.py). The shared rows are padded to 80 and 144 bytes
+// (csrc/flash_attention_mma.cuh), 37 KB of static shared memory at S = 64.
+// At the ViT's T = 36 one tile covers a row. Each score there costs
+// 2 * S multiply-adds on the tensor cores beside its exponential; the
+// CUDA-core kernel ran them as float32 FMAs, one query row a thread (36 of
+// a block's 128 threads busy at T = 36).
 //
 // Training residual: given a non-null ``stats``, each row also stores its final
 // (max in the log2 domain, sum) in float32 as (B*H*T, 2), the contract of
@@ -67,36 +83,40 @@ struct FwdArgs {
   Strides sin, sout;    // q, k, v share sin
 };
 
-// One 64-key tile of one warp's 16 rows: scores, online softmax, o += P . V.
-// DENSE: every key of the tile is valid (the block agreed at the barrier), so
-// no key needs the mask's fill and each exponent is one FMA off the raw score.
-template <int S, bool DENSE>
+// Keys k0 .. k0 + 8 NJ - 1 of a 64-key tile for one warp's 16 rows: scores,
+// online softmax, o += P . V. NJ is 8 (the whole tile) or 4 (half of it, at
+// head dim 32: 16 score registers fewer). DENSE: every key of the tile is valid (the block agreed
+// at the barrier), so no key needs the mask's fill and each exponent is one
+// FMA off the raw score.
+template <int S, int NJ, bool DENSE>
 __device__ __forceinline__ void fwd_tile(float (&o)[S / 8][4], float (&m)[2], float (&l)[2],
                                          const uint32_t (&qa)[S / 4], const bf16* ks,
-                                         const bf16* vs, const uint8_t* kind, int lane) {
+                                         const bf16* vs, const uint8_t* kind, int k0,
+                                         int lane) {
   const int t = lane & 3;
-  // scores of 16 rows x 64 keys: 8 C fragments, key 8j + 2t + (e & 1)
-  float s[8][4];
+  // scores of 16 rows x 8 NJ keys: NJ C fragments, key k0 + 8j + 2t + (e & 1)
+  float s[NJ][4];
 #pragma unroll
-  for (int j = 0; j < 8; j += 2) {
+  for (int j = 0; j < NJ; j += 2) {
     uint32_t kf[2][S / 8];
-    ldsm_rows<S>(kf, ks, 8 * j, lane);
+    ldsm_rows<S>(kf, ks, k0 + 8 * j, lane);
 #pragma unroll
     for (int i = 0; i < 2; ++i) mma_head<S>(s[j + i], qa, kf[i]);
   }
   if constexpr (!DENSE) {  // to the log2 domain, with the mask's fill
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const uint8_t kd = kind[8 * j + 2 * t + (e & 1)];
+        const uint8_t kd = kind[k0 + 8 * j + 2 * t + (e & 1)];
         s[j][e] = kd == 0 ? s[j][e] * LOG2E : (kd == 1 ? MASK_FILL_LOG2 : -INFINITY);
       }
     }
   }
-  const float mx[2] = {row_max8(s, 0), row_max8(s, 1)};
-  // Key it*64 < T is in every tile, so the new max is finite: exp2 of -inf
-  // drops the empty state, and an all-masked earlier tile (max -1e7 * log2e)
+  const float mx[2] = {row_max<NJ>(s, 0), row_max<NJ>(s, 1)};
+  // The caller skips a step whose keys all lie past T, and key 0 of every
+  // tile's first step is below T, so the new max is finite: exp2 of -inf
+  // drops the empty state, and an all-masked earlier step (max -1e7 * log2e)
   // is wiped by the first valid key, as exp2 underflows. A dense tile's max is
   // rounded from the raw one: rounding is monotonic, so it is the largest
   // rounded score, as the masked path takes it.
@@ -117,22 +137,22 @@ __device__ __forceinline__ void fwd_tile(float (&o)[S / 8][4], float (&m)[2], fl
     o[n][3] *= alpha[1];
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[j][e] = DENSE ? exp2_approx(fmaf(s[j][e], LOG2E, -m[e >> 1]))
                       : exp2_approx(s[j][e] - m[e >> 1]);
     }
   }
-  l[0] += row_sum8(s, 0);
-  l[1] += row_sum8(s, 1);
+  l[0] += row_sum<NJ>(s, 0);
+  l[1] += row_sum<NJ>(s, 1);
   // o += bf16(P) . V, 16 keys a step
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NJ / 2; ++kk) {
     uint32_t pa[4];
     c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
     uint32_t vf[S / 8][2];
-    ldsm_cols<S>(vf, vs, 16 * kk, lane);
+    ldsm_cols<S>(vf, vs, k0 + 16 * kk, lane);
 #pragma unroll
     for (int n = 0; n < S / 8; ++n) mma_k16(o[n], pa, vf[n][0], vf[n][1]);
   }
@@ -142,6 +162,9 @@ template <int S>
 __global__ void __launch_bounds__(THREADS) flash_attention_fwd_mma_kernel(const FwdArgs a) {
   using L = Layout<S>;
   static_assert(TILE == 64, "fwd_tile takes 8 tiles of 8 keys");
+  // 8-key columns a step of fwd_tile: two 32-key steps a tile at S = 32, where
+  // one step spills (ptxas keeps 128 registers there), one elsewhere
+  constexpr int NJ = S == 32 ? 4 : 8;
   __shared__ __align__(16) bf16 ks[2][TILE * L::RS];
   __shared__ __align__(16) bf16 vs[2][TILE * L::RS];
   __shared__ uint8_t kind[2][TILE];
@@ -188,10 +211,23 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fwd_mma_kernel(const 
     cp_async_wait<1>();  // this tile's copies (the next tile's may be in flight)
     scale_own_chunks<S>(ks[buf], a.scale, tid);
     const bool dense = __syncthreads_and(my_kind == 0);
-    if (dense) {
-      fwd_tile<S, true>(o, m, l, qa, ks[buf], vs[buf], kind[buf], lane);
+    if (row0 >= T_len) {  // no row of this warp: copies and barriers only
+    } else if constexpr (NJ == 8) {  // the whole tile in one step
+      if (dense) {
+        fwd_tile<S, NJ, true>(o, m, l, qa, ks[buf], vs[buf], kind[buf], 0, lane);
+      } else {
+        fwd_tile<S, NJ, false>(o, m, l, qa, ks[buf], vs[buf], kind[buf], 0, lane);
+      }
     } else {
-      fwd_tile<S, false>(o, m, l, qa, ks[buf], vs[buf], kind[buf], lane);
+#pragma unroll
+      for (int k0 = 0; k0 < TILE; k0 += 8 * NJ) {
+        if (it * TILE + k0 >= T_len) break;  // the rest of the tile lies past T
+        if (dense) {
+          fwd_tile<S, NJ, true>(o, m, l, qa, ks[buf], vs[buf], kind[buf], k0, lane);
+        } else {
+          fwd_tile<S, NJ, false>(o, m, l, qa, ks[buf], vs[buf], kind[buf], k0, lane);
+        }
+      }
     }
     my_kind = tid < TILE ? kind_of(next_byte, next_key, T_len) : 0;
     if (more && tid < TILE) kind[buf ^ 1][tid] = my_kind;
@@ -258,6 +294,10 @@ extern "C" int mmsn_flash_attention_fwd_mma(
       return launch<8>(a, B, st);
     case 16:
       return launch<16>(a, B, st);
+    case 32:
+      return launch<32>(a, B, st);
+    case 64:
+      return launch<64>(a, B, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -19,9 +19,10 @@
 // padded from 32 to 48 bytes: the 8 rows one ldmatrix phase reads then start
 // in 8 distinct groups of 4 banks (32-byte rows would put rows r and r + 4 on
 // the same banks, a 2-way conflict). At S = 32 a row is padded from 64 to 80
-// bytes for the same reason (row r starts on 16-byte chunk 5r mod 8). At S = 8
-// the 16-byte rows of a phase are contiguous and conflict-free already. The
-// forward kernels take S = 8 and 16, the backward kernels 8, 16 and 32.
+// bytes for the same reason (row r starts on 16-byte chunk 5r mod 8), at S =
+// 64 from 128 to 144 (chunk 9r mod 8). At S = 8 the 16-byte rows of a phase
+// are contiguous and conflict-free already. Both the forward and the backward
+// kernels take S = 8, 16, 32 and 64.
 
 #pragma once
 
@@ -44,8 +45,8 @@ constexpr float MASK_FILL_LOG2 = -1e7f * LOG2E;
 
 template <int S>
 struct Layout {
-  static_assert(S == 8 || S == 16 || S == 32,
-                "tensor-core flash kernels take head dims 8, 16 and 32");
+  static_assert(S == 8 || S == 16 || S == 32 || S == 64,
+                "tensor-core flash kernels take head dims 8, 16, 32 and 64");
   static constexpr int RS = S == 8 ? 8 : S + 8;  // shared row stride, elements
   static constexpr int CPR = S / 8;            // 16-byte chunks a row
 };
@@ -118,16 +119,18 @@ __device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4], u
 
 // c = A . B over the head dim, from a zero accumulator: A is a 16 x S
 // fragment, B the S x 8 fragment of 8 shared rows taken as columns
-// (two chained m16n8k16 at S = 32, one at S = 16, m16n8k8 at S = 8).
+// (S / 16 chained m16n8k16 at S = 32 and 64, one at S = 16, m16n8k8 at S = 8).
 template <int S>
 __device__ __forceinline__ void mma_head(float (&c)[4], const uint32_t (&a)[S / 4],
                                          const uint32_t (&b)[S / 8]) {
   const float z = 0.f;
-  if constexpr (S == 32) {
+  if constexpr (S >= 32) {
     c[0] = c[1] = c[2] = c[3] = z;
-    const uint32_t a0[4] = {a[0], a[1], a[2], a[3]}, a1[4] = {a[4], a[5], a[6], a[7]};
-    mma_k16(c, a0, b[0], b[1]);
-    mma_k16(c, a1, b[2], b[3]);
+#pragma unroll
+    for (int kh = 0; kh < S / 16; ++kh) {
+      const uint32_t ak[4] = {a[4 * kh], a[4 * kh + 1], a[4 * kh + 2], a[4 * kh + 3]};
+      mma_k16(c, ak, b[2 * kh], b[2 * kh + 1]);
+    }
   } else if constexpr (S == 16) {
     asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
         "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
@@ -164,26 +167,29 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// max and sum over the 16 values of one row (r = 0: row g, 1: row g + 8) in
-// a thread's 8 C fragments, as trees (depth 4, not a 16-long chain).
-__device__ __forceinline__ float row_max8(const float (&s)[8][4], int r) {
-  float m[8];
+// max and sum over the 2 NJ values of one row (r = 0: row g, 1: row g + 8)
+// in a thread's NJ C fragments (NJ a power of 2), as trees (depth log2 2 NJ,
+// not a chain).
+template <int NJ>
+__device__ __forceinline__ float row_max(const float (&s)[NJ][4], int r) {
+  float m[NJ];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) m[j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+  for (int j = 0; j < NJ; ++j) m[j] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
 #pragma unroll
-  for (int w = 4; w > 0; w >>= 1) {
+  for (int w = NJ / 2; w > 0; w >>= 1) {
 #pragma unroll
     for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
   }
   return m[0];
 }
 
-__device__ __forceinline__ float row_sum8(const float (&s)[8][4], int r) {
-  float m[8];
+template <int NJ>
+__device__ __forceinline__ float row_sum(const float (&s)[NJ][4], int r) {
+  float m[NJ];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) m[j] = s[j][2 * r] + s[j][2 * r + 1];
+  for (int j = 0; j < NJ; ++j) m[j] = s[j][2 * r] + s[j][2 * r + 1];
 #pragma unroll
-  for (int w = 4; w > 0; w >>= 1) {
+  for (int w = NJ / 2; w > 0; w >>= 1) {
 #pragma unroll
     for (int j = 0; j < w; ++j) m[j] += m[j + w];
   }

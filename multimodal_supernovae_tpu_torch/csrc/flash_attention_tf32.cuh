@@ -24,8 +24,8 @@
 //     tile's rows as its 8 columns and the head dim as k (Q . K^T) reads a
 //     B fragment, (row n0 + g, columns k0 + t and k0 + t + 4) of hi and of
 //     lo, with one ldmatrix.x4: four 8 x 4-word matrices, 8 rows of 16 bytes
-//     each, whose rows start on 16-byte chunks 3r (S = 8), 5r (S = 16) or
-//     9r (S = 32) mod 8, 8 distinct chunks;
+//     each, whose rows start on 16-byte chunks 3r (S = 8), 5r (S = 16), 9r
+//     (S = 32) or 17r (S = 64) mod 8, 8 distinct chunks;
 //   * transposed tiles: for each head-dim column, the (hi, lo) pairs of the
 //     TILE rows in row order, a column RT = 2 TILE + 16 words apart. A
 //     product that sums over the tile's rows (P . V) reads its B fragment,
@@ -63,14 +63,21 @@ static_assert(THREADS == 2 * TILE, "two threads a tile row");
 
 template <int S>
 struct LayoutF {
-  static_assert(S == 8 || S == 16 || S == 32,
-                "3xTF32 flash kernels take head dims 8 and 16 (forward) and 32 (backward)");
+  static_assert(S == 8 || S == 16 || S == 32 || S == 64,
+                "3xTF32 flash kernels take head dims 8, 16, 32 and 64");
   static constexpr int RS = S + 4;          // row tiles: floats a row
   static constexpr int TS = TILE * RS;      // words a row tile
   static constexpr int RT = 2 * TILE + 16;  // transposed tiles: words a column
   static constexpr int TT = S * RT;         // words a transposed tile
   static constexpr int CH = S / 8;          // 16-byte chunks a thread copies
 };
+
+// The cp.async target tiles of each streamed side: two (double-buffered)
+// where a second tile follows the first, one at T <= TILE (the ViT's T = 36),
+// whose smaller dynamic shared memory leaves an SM room for another block
+// (a second at head dim 64, a fourth at 32). The kernels lay their tiles out
+// by it at run time and launch_dyn asks for that much.
+__host__ __device__ __forceinline__ int raw_buffers(int T_len) { return T_len > TILE ? 2 : 1; }
 
 // Thread tid's row of a tile and its i-th column chunk.
 __device__ __forceinline__ int own_row(int tid) { return tid % TILE; }
@@ -93,7 +100,8 @@ __device__ __forceinline__ void issue_rows(uint32_t* dst, const float* x, int64_
 }
 
 // This thread's column chunks of row 0 of a (T, S) float32 matrix with
-// 16-byte rows: the shift split_chunks takes off (v - v0).
+// 16-byte rows: the shift split_chunks takes off (v - v0), held in
+// registers.
 template <int S>
 __device__ __forceinline__ void own_chunks_of_row0(float4 (&v0)[LayoutF<S>::CH], const float* y,
                                                    int tid) {
@@ -103,13 +111,13 @@ __device__ __forceinline__ void own_chunks_of_row0(float4 (&v0)[LayoutF<S>::CH],
 }
 
 // After cp_async_wait: split this thread's chunks of the row tile raw as x *
-// scale - shift: into hi halves in place and lo halves in lo when lo is not
-// null, and into (hi, lo) pairs of the transposed tile tr when tr is not
-// null. The barrier that follows publishes them to the block.
-template <int S>
-__device__ __forceinline__ void split_chunks(uint32_t* raw, uint32_t* lo, uint32_t* tr,
-                                             float scale, const float4 (&shift)[LayoutF<S>::CH],
-                                             int tid) {
+// scale - shift_of(i, c) (chunk i of the thread, column chunk c): into hi
+// halves in place and lo halves in lo when lo is not null, and into (hi, lo)
+// pairs of the transposed tile tr when tr is not null. The barrier that
+// follows publishes the split tiles to the block.
+template <int S, typename ShiftOf>
+__device__ __forceinline__ void split_chunks_by(uint32_t* raw, uint32_t* lo, uint32_t* tr,
+                                                float scale, ShiftOf shift_of, int tid) {
   using L = LayoutF<S>;
   const int r = own_row(tid);
 #pragma unroll
@@ -117,10 +125,11 @@ __device__ __forceinline__ void split_chunks(uint32_t* raw, uint32_t* lo, uint32
     const int c = own_chunk(tid, i);
     const int off = r * L::RS + 4 * c;
     float4 v = *reinterpret_cast<const float4*>(raw + off);
-    v.x = v.x * scale - shift[i].x;
-    v.y = v.y * scale - shift[i].y;
-    v.z = v.z * scale - shift[i].z;
-    v.w = v.w * scale - shift[i].w;
+    const float4 sh = shift_of(i, c);
+    v.x = v.x * scale - sh.x;
+    v.y = v.y * scale - sh.y;
+    v.z = v.z * scale - sh.z;
+    v.w = v.w * scale - sh.w;
     uint4 h, l;
     split_tf32(v.x, h.x, l.x);
     split_tf32(v.y, h.y, l.y);
@@ -138,6 +147,34 @@ __device__ __forceinline__ void split_chunks(uint32_t* raw, uint32_t* lo, uint32
       *reinterpret_cast<uint2*>(p + 3 * L::RT) = make_uint2(h.w, l.w);
     }
   }
+}
+
+// split_chunks_by with no shift, or the shift held in registers
+// (own_chunks_of_row0).
+template <int S>
+__device__ __forceinline__ void split_chunks(uint32_t* raw, uint32_t* lo, uint32_t* tr,
+                                             float scale, int tid) {
+  split_chunks_by<S>(raw, lo, tr, scale, [](int, int) { return make_float4(0.f, 0.f, 0.f, 0.f); },
+                     tid);
+}
+
+template <int S>
+__device__ __forceinline__ void split_chunks(uint32_t* raw, uint32_t* lo, uint32_t* tr,
+                                             float scale, const float4 (&shift)[LayoutF<S>::CH],
+                                             int tid) {
+  split_chunks_by<S>(raw, lo, tr, scale, [&](int i, int) { return shift[i]; }, tid);
+}
+
+// The same with the shift read from row 0 of a (T, S) float32 matrix in
+// device memory (16-byte rows) at each split rather than held in registers
+// across the tile loop: the 3xTF32 dq kernel at head dim 64, whose registers
+// are short (S / 2 of them).
+template <int S>
+__device__ __forceinline__ void split_chunks(uint32_t* raw, uint32_t* lo, uint32_t* tr,
+                                             float scale, const float* shift, int tid) {
+  split_chunks_by<S>(
+      raw, lo, tr, scale,
+      [=](int, int c) { return __ldg(reinterpret_cast<const float4*>(shift + 4 * c)); }, tid);
 }
 
 // The float32 values of an A fragment's places, k-step by k-step, of rows
@@ -176,6 +213,36 @@ __device__ __forceinline__ void load_b_rows(FragB& b, const uint32_t* hi, const 
   b.hi[1] = r[1];
   b.lo[0] = r[2];
   b.lo[1] = r[3];
+}
+
+// A warp's own 16 x S A side kept split in shared memory rather than in
+// registers (hi and lo tiles of 16 rows at the row-tile stride RS): the
+// 3xTF32 kernels at S = 64, whose two A sides as registers (2 x 64 a lane)
+// beside their accumulators would pass the 255 a thread may hold. The lane's
+// places of each k-step (row g + 8 (e & 1), column 8 ks + t + 4 (e >> 1)) are
+// stored once; store_a_smem's banks (4g + t + 8 ks) mod 32 are 32 distinct.
+template <int S>
+__device__ __forceinline__ void store_a_smem(uint32_t* hi, uint32_t* lo, const FragA& a, int ks,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int off = (g + 8 * (e & 1)) * LayoutF<S>::RS + 8 * ks + t + 4 * (e >> 1);
+    hi[off] = a.hi[e];
+    lo[off] = a.lo[e];
+  }
+}
+
+// The split A fragment of k-step ks from those tiles by two ldmatrix.x4 (hi,
+// lo): matrix j of each is rows 8 (j & 1) .., columns 8 ks + 4 (j >> 1) ..,
+// whose (g, t) word is a_j; rows start on chunks 17r mod 8, 8 distinct.
+template <int S>
+__device__ __forceinline__ void load_a_smem(FragA& a, const uint32_t* hi, const uint32_t* lo,
+                                            int ks, int lane) {
+  const int j = lane >> 3;
+  const int off = (8 * (j & 1) + (lane & 7)) * LayoutF<S>::RS + 8 * ks + 4 * (j >> 1);
+  ldsm_x4(a.hi, hi + off);
+  ldsm_x4(a.lo, lo + off);
 }
 
 // The B fragment of a product whose k runs over tile rows r0 .. r0 + 7 in the
@@ -219,6 +286,28 @@ __device__ __forceinline__ void mma_head(float (&c)[4], const FragA (&a)[S / 8],
     mma_tf32(c0, a[ks].lo, b.hi);
     mma_tf32(c1, a[ks].hi, b.lo);
     mma_tf32(c, a[ks].hi, b.hi);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += c0[e] + c1[e];
+}
+
+// mma_head with the A side read from a warp's shared hi and lo tiles
+// (load_a_smem) at each k-step.
+template <int S>
+__device__ __forceinline__ void mma_head_smem(float (&c)[4], const uint32_t* ahi,
+                                              const uint32_t* alo, const uint32_t* hi,
+                                              const uint32_t* lo, int n0, int lane) {
+  float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < S / 8; ++ks) {
+    FragA a;
+    load_a_smem<S>(a, ahi, alo, ks, lane);
+    FragB b;
+    load_b_rows<S>(b, hi, lo, n0, 8 * ks, lane);
+    mma_tf32(c0, a.lo, b.hi);
+    mma_tf32(c1, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += c0[e] + c1[e];

@@ -19,7 +19,8 @@ the flash kernels for CUDA tensors, ``dense_attention`` on the CPU) with
 no key mask, given ``emb = head_dim``: q and k are each scaled by
 head_dim**-0.25, the standard ViT 1/sqrt(head_dim), where the sequence
 towers pass the full emb. At the defaults (emb 128, 4 heads) the head dim
-is 32, which the flash kernels take on the CUDA cores.
+is 32, which the flash kernels take on the tensor cores (bf16, or 3xTF32
+for float32), as they take 64 (2 heads).
 
 Under ``dtype`` (the model's compute dtype) the blocks' Dense layers and
 LayerNorms return that dtype, as flax's do; ``norm_out`` and ``head`` stay

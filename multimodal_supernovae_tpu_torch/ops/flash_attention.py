@@ -4,23 +4,24 @@ kernels, paired in one ``torch.autograd.Function``. Three routes:
   * ``"mma"``, the tensor cores in bf16: ``csrc/flash_attention_fwd_mma.cu``
     and ``csrc/flash_attention_bwd_mma.cu`` (shared
     ``csrc/flash_attention_mma.cuh``), for bfloat16 with 16-byte rows at
-    head dims 8 and 16 (the backward also at 32): both towers of maven-lite
-    under ``compute_dtype`` bfloat16, and the ViT image tower's backward;
+    head dims 8, 16, 32 and 64 (``TC_HEAD_DIMS``): both towers of
+    maven-lite under ``compute_dtype`` bfloat16, and the ViT image tower
+    (head dim 32 at 4 heads, 64 at 2);
   * ``"tf32"``, the tensor cores in 3xTF32: ``csrc/flash_attention_fwd_tf32.cu``
     and ``csrc/flash_attention_bwd_tf32.cu`` (shared
     ``csrc/flash_attention_tf32.cuh`` and ``csrc/tf32x3.cuh``), for float32
-    with 16-byte rows at head dims 8 and 16 (the backward also at 32): the
-    route every shipped configuration (float32, heads 64/8 and 32/2) trains
+    with 16-byte rows at the same head dims: the route every shipped
+    configuration (float32, heads 64/8 and 32/2, the ViT at 128/4) trains
     on;
   * ``"simt"``, the CUDA cores: ``csrc/flash_attention_fwd.cu`` and
-    ``csrc/flash_attention_bwd.cu``, for everything else: every head dim
-    from 1 to 64 (instantiated at capacities 4, 8, 16, 32 and 64, the true
-    head dim passed at run time) and rows off 16 bytes.
+    ``csrc/flash_attention_bwd.cu``, for everything else: every other head
+    dim from 1 to 64 (instantiated at capacities 4, 8, 16, 32 and 64, the
+    true head dim passed at run time) and rows off 16 bytes.
 
 ``_route`` is the one rule that picks among them, a pure function of the
-direction, the dtype, the head dim and the tensors' pointers and strides;
-there is no fallback from one route to another, and a failed build or launch
-raises. Head dims above ``MAX_HEAD_DIM`` (64) raise.
+dtype, the head dim and the tensors' pointers and strides, the same for
+both directions; there is no fallback from one route to another, and a
+failed build or launch raises. Head dims above ``MAX_HEAD_DIM`` (64) raise.
 
 Replaces the Pallas TPU kernels ``multimodal_supernovae_tpu/ops/
 pallas_attention.py:_fwd_kernel`` and ``_bwd_kernel`` (the ``custom_vjp``
@@ -90,8 +91,7 @@ from .attention import (
 )
 
 MAX_HEAD_DIM = 64  # every head dim from 1 to this, forward and backward
-MMA_HEAD_DIMS = (8, 16)  # both tensor-core routes, forward
-MMA_BWD_HEAD_DIMS = (8, 16, 32)  # both tensor-core routes, backward
+TC_HEAD_DIMS = (8, 16, 32, 64)  # both tensor-core routes, both directions
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {  # the C entry points' ctypes signatures
     "flash_attention_fwd": (
@@ -158,21 +158,52 @@ def _rows_aligned(a: torch.Tensor) -> bool:
 
 
 def _route(dtype: torch.dtype, s: int, tensors, backward: bool = False) -> str:
-    """At head dim 8 or 16 (the backward also at 32), when every tensor of
-    ``tensors`` (q, k, v; the backward adds out and g) has 16-byte rows,
+    """At a head dim of ``TC_HEAD_DIMS`` (8, 16, 32, 64), when every tensor
+    of ``tensors`` (q, k, v; the backward adds out and g) has 16-byte rows,
     which the encoder's (B, T, H, S) views and contiguous (B, H, T, S)
     tensors both have: ``"mma"`` (the bf16 tensor-core kernels) for
     bfloat16, ``"tf32"`` (the 3xTF32 tensor-core kernels) for float32.
-    ``"simt"`` (the CUDA-core kernels) otherwise. The tensor-core entry
-    points check the same conditions and refuse a launch without them (the
-    wrapper then raises)."""
-    dims = MMA_BWD_HEAD_DIMS if backward else MMA_HEAD_DIMS
-    if s in dims and all(_rows_aligned(a) for a in tensors):
+    ``"simt"`` (the CUDA-core kernels) otherwise. ``backward`` names the
+    direction (passed positionally by the backward), which takes the same
+    rule. The tensor-core entry points check the same conditions and refuse
+    a launch without them (the wrapper then raises)."""
+    if s in TC_HEAD_DIMS and all(_rows_aligned(a) for a in tensors):
         if dtype == torch.bfloat16:
             return "mma"
         if dtype == torch.float32:
             return "tf32"
     return "simt"
+
+
+def tf32_check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """The card's 3xTF32 arithmetic alone, to hold it bit for bit to a CPU
+    model: ``split_tf32`` of each value of the float32 CUDA tensor ``x`` as
+    (hi, lo) int32 bit patterns, and the three passes (lo . hi, hi . lo,
+    hi . hi) of one m16n8k8 TF32 ``mma.sync`` of ``a`` (16, 8) and ``b`` (8,
+    8), each from a zero accumulator, as a (3, 16, 8) float32 tensor. The
+    entry is ``mmsn_flash_attention_tf32_check`` beside the forward in
+    ``csrc/flash_attention_fwd_tf32.cu``; no path of the port calls it."""
+    from ..kernels.build import load_library
+
+    for name, t, shape in (("x", x, None), ("a", a, (16, 8)), ("b", b, (8, 8))):
+        if (t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous()
+                or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError(f"{name} must be contiguous float32 on CUDA"
+                             + (f" of shape {shape}" if shape else ""))
+    fn = _bound.get("flash_attention_tf32_check")
+    if fn is None:
+        fn = load_library("flash_attention_fwd_tf32").mmsn_flash_attention_tf32_check
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        _bound["flash_attention_tf32_check"] = fn
+    hi, lo = torch.empty_like(x, dtype=torch.int32), torch.empty_like(x, dtype=torch.int32)
+    c = torch.empty((3, 16, 8), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(), a.data_ptr(),
+                b.data_ptr(), c.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_tf32_check launch failed with CUDA error {rc}")
+    return hi, lo, c
 
 
 def _check(q, k, v, key_mask, emb):
@@ -291,7 +322,7 @@ def flash_attention_bwd(
     b, h, t, s = q.shape
     dq, dk, dv = _empty_heads(q), _empty_heads(q), _empty_heads(q)
     # D of each row (bf16 tensor cores: g . out at head dims 8 and 16,
-    # rowsum(P o dP) at 32; CUDA cores: rowsum(P o dP); 3xTF32: rowsum(P o
+    # rowsum(P o dP) at 32 and 64; CUDA cores: rowsum(P o dP); 3xTF32: rowsum(P o
     # dP) less key 0's dP), written by the dq kernel, read by the dk/dv kernel
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     mask = None if key_mask is None else key_mask.data_ptr()

@@ -90,20 +90,16 @@ def _towers(model) -> Dict[str, Any]:
 
 
 def _flash_note(what: str, dtype: torch.dtype, head_dim: int) -> str:
-    """The flash routes of ``head_dim`` on the card (``ops/flash_attention.py:
-    _route``, 16-byte rows): one route, or the forward's and then the
-    backward's where they differ (the backward takes the tensor cores at head
-    dim 32 too). Raises above the kernels' limit, naming it and ``what``."""
+    """The flash route of ``head_dim`` on the card (``ops/flash_attention.py:
+    _route``, 16-byte rows), one rule for the forward and the backward: the
+    tensor cores at head dims 8, 16, 32 and 64, the CUDA cores at the rest.
+    Raises above the kernels' limit, naming it and ``what``."""
     from ..ops import flash_attention as flash
 
     if not 1 <= head_dim <= flash.MAX_HEAD_DIM:
         raise ValueError(f"{what}: the flash kernels take head dims 1 to {flash.MAX_HEAD_DIM}")
-    fwd = flash._route(dtype, head_dim, ())
-    bwd = flash._route(dtype, head_dim, (), True)  # the backward
-    note = f"flash {fwd} ({ROUTE_NAMES['flash'][fwd]})"
-    if bwd != fwd:
-        note += f", flash backward {bwd} ({ROUTE_NAMES['flash'][bwd]})"
-    return note
+    route = flash._route(dtype, head_dim, ())
+    return f"flash {route} ({ROUTE_NAMES['flash'][route]})"
 
 
 def _dispatch_note(tower: str, t: int, encoder, device_type: str = "cuda") -> str:

@@ -1,9 +1,9 @@
 """The flash-attention CUDA kernels and their wrappers, without jax.
 
 The ``gpu`` tests hold the kernels of the three routes (the bf16 tensor
-cores for bfloat16 and the 3xTF32 tensor cores for float32 at head dims 8
-and 16, and in the backward also 32; the CUDA cores otherwise, every head
-dim from 1 to 64) against their plain versions on the card and skip without
+cores for bfloat16 and the 3xTF32 tensor cores for float32 at head dims 8,
+16, 32 and 64 in both directions; the CUDA cores otherwise, every head dim
+from 1 to 64) against their plain versions on the card and skip without
 one. Forward against
 ``dense_attention``: float32 at atol = rtol = 1e-4 (another summation order
 and the online-softmax rescale), bfloat16 at 0.05. Backward against torch
@@ -14,7 +14,8 @@ dv) whose plain value is not all zero is also held to ||got - want|| /
 shapes the values are about 0.05 in size, so 0.05 absolute alone would pass
 an output 20% off, and a tensor-core dq off by 1% must fail this check.
 Every float32 output of the 3xTF32 route is held to FP32_NORM_TOL in the
-same measure, which its dq off by 1% must fail too. The
+same measure, which its dq off by 1% must fail too. The card's TF32 split
+is held bit for bit to the CPU model's (tests/tf32_model.py). The
 rest check the routing rule, the
 wrappers' argument validation, the C entry points' signatures and the build
 module's cache key, which need no card. This file imports no jax, so the GPU
@@ -128,7 +129,8 @@ def _needs_cuda():
 
 
 # float32 on both of its routes (as routed: the 3xTF32 tensor cores at head
-# dims 8 and 16; the CUDA cores through a patch of _route), bfloat16 as routed
+# dims 8, 16, 32 and 64; the CUDA cores through a patch of _route), bfloat16
+# as routed
 DTYPE_ROUTES = [("float32", "routed"), ("float32", "simt"), ("bfloat16", "routed")]
 
 
@@ -235,8 +237,8 @@ def test_backward_kernel_matches_autograd(monkeypatch, dtype, route, shape, mask
     """dq, dk, dv through ``flash_attention``'s autograd Function against
     torch autograd through ``dense_attention``, with the cotangent in the
     head merge's (B, T, H, S) memory order, as the encoder hands it back.
-    The forward and the backward each take their own route (at head dim 32
-    the backward takes the tensor cores, the forward the CUDA cores)."""
+    The forward and the backward each take the route ``_route`` gives them
+    (one rule for both directions)."""
     _needs_cuda()
     b, h, t, s = shape
     q, k, v, m = _inputs(sum(shape) + 1, b, h, t, s, mask, dtype, "cuda", layout)
@@ -497,31 +499,42 @@ def test_either_forward_feeds_either_backward(monkeypatch, dtype, fwd_route, bwd
         _assert_close(a, w, dtype, GRAD_TOL[dtype], f"d{name}", norm_tol)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape,mask,layout", [
+# the ViT image tower's head dims (32 at 4 heads, 64 at 2) on the tensor cores
+VIT_TC_CASES = [
     ((32, 4, 36, 32), None, True),              # the ViT image tower, B = 32
     ((256, 4, 36, 32), None, True),             # and B = 256
     ((3, 2, 77, 32), "masked_rows", False),     # ragged T, a fully masked row
     ((4, 2, 220, 32), "ragged", True),          # key tiles past the first
     ((2, 2, 1, 32), None, False),               # a single key
-])
+    ((32, 2, 36, 64), None, True),              # a ViT at vit_emb 128, 2 heads
+    ((256, 2, 36, 64), None, True),             # and B = 256
+    ((3, 2, 77, 64), "masked_rows", True),      # ragged T, a fully masked row
+    ((4, 2, 220, 64), "ragged", False),         # key tiles past the first
+    ((2, 2, 1, 64), None, True),                # a single key
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,mask,layout", VIT_TC_CASES)
 def test_tensor_core_backward_at_head_dim_32(dtype, shape, mask, layout):
-    """At head dim 32 with 16-byte rows the backward takes the tensor cores
-    (bf16 mma.sync for bfloat16, 3xTF32 for float32: one launch on its
-    counter) while the forward stays on the CUDA cores, and dq, dk, dv match
-    torch autograd through ``dense_attention`` under the route's limits."""
+    """At head dims 32 and 64 with 16-byte rows both directions take the
+    tensor cores (bf16 mma.sync for bfloat16, 3xTF32 for float32: one launch
+    each on its counter), and out, dq, dk, dv match ``dense_attention`` and
+    torch autograd through it under the route's limits."""
     _needs_cuda()
     b, h, t, s = shape
     q, k, v, m = _inputs(sum(shape) + 9, b, h, t, s, mask, dtype, "cuda", layout)
     g = _cotangent(sum(shape) + 10, b, h, t, s, dtype)
     fwd_route, bwd_route = _route(q.dtype, s, (q, k, v)), _route(q.dtype, s, (q, k, v), True)
-    assert (fwd_route, bwd_route) == ("simt", "mma" if dtype == "bfloat16" else "tf32")
+    tc = "mma" if dtype == "bfloat16" else "tf32"
+    assert (fwd_route, bwd_route) == (tc, tc)
     before = _launch_counts()
     out, grads = _grads_through_flash(q, k, v, m, g, h * s)
     assert _launch_counts() == tuple(tuple(a + c for a, c in zip(x, _count_of(r)))
                                      for x, r in zip(before, (fwd_route, bwd_route)))
-    _assert_close(out, dense_attention(q, k, v, m, h * s), dtype, TOL[dtype], "out")
+    _assert_close(out, dense_attention(q, k, v, m, h * s), dtype, TOL[dtype], "out",
+                  _tf32_norm(fwd_route))
     for name, got, want in zip("qkv", grads, dense_attention_bwd(q, k, v, m, g, h * s)):
         assert got.dtype == q.dtype and got.shape == q.shape
         _assert_close(got, want, dtype, GRAD_TOL[dtype], f"d{name}", _tf32_norm(bwd_route))
@@ -532,13 +545,15 @@ def test_tensor_core_backward_at_head_dim_32(dtype, shape, mask, layout):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [32, 64])
 @pytest.mark.parametrize("dtype,bwd_route", [("bfloat16", "mma"), ("bfloat16", "simt"),
                                              ("float32", "tf32"), ("float32", "simt")])
 def test_both_backwards_at_head_dim_32_as_accurate_as_plain_on_near_equal_values(
-        monkeypatch, dtype, bwd_route):
+        monkeypatch, dtype, bwd_route, s):
     """The ViT's case: 36 keys whose values are nearly equal, where dP - D
-    cancels, on each backward at head dim 32 (the tensor cores as routed,
-    the CUDA cores through a patch of _route). bfloat16: dq, dk and dv no
+    cancels, on each backward at head dims 32 and 64 (4 and 2 heads; the
+    tensor cores as routed, the CUDA cores through a patch of _route).
+    bfloat16: dq, dk and dv no
     farther from the float64 gradient than 1.2x the plain bf16 version in
     ||.|| / ||ref|| (chip_smoke.py's VIT_BF16_DQ_RATIO). float32: dq, dk and
     dv within 2x the plain version's largest elementwise distance to
@@ -546,7 +561,7 @@ def test_both_backwards_at_head_dim_32_as_accurate_as_plain_on_near_equal_values
     drops the lo x lo product, so its norm distance is not held to 1.2x of
     float32's)."""
     _needs_cuda()
-    b, h, t, s = 64, 4, 36, 32
+    b, h, t = 64, 128 // s, 36
     rng = np.random.default_rng(36)
     q, k, _, _ = _inputs(37, b, h, t, s, None, dtype, "cuda", True)
     v0 = rng.normal(size=(b, 1, h, s)) + 0.1 * rng.normal(size=(b, t, h, s))
@@ -578,7 +593,7 @@ def test_both_backwards_at_head_dim_32_as_accurate_as_plain_on_near_equal_values
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [(16, 8, 200, 8), (16, 2, 220, 16), (32, 4, 36, 32),
-                                   (256, 4, 36, 32)])
+                                   (256, 4, 36, 32), (256, 2, 36, 64)])
 def test_mma_dq_one_percent_off_fails_the_check(dtype, shape):
     """Negative control: the tensor-core dq scaled by 0.99 fails the
     normalised check of its route, NORM_TOL for the bf16 kernels (while it
@@ -602,6 +617,83 @@ def test_mma_dq_one_percent_off_fails_the_check(dtype, shape):
         torch.testing.assert_close((dq * 0.99).float(), want.float(),
                                    rtol=GRAD_TOL["bfloat16"], atol=GRAD_TOL["bfloat16"])
     assert _norm_err(dq * 0.99, want) > norm_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,mask,layout", VIT_TC_CASES)
+def test_tensor_core_forward_at_head_dims_32_and_64(monkeypatch, dtype, shape, mask, layout):
+    """The forward alone at head dims 32 and 64 (no gradient: the registered
+    op): one launch on its tensor-core counter, out within the route's
+    limits of ``dense_attention``, the same inputs on the CUDA cores (a patch
+    of _route) within them too, and both forwards' residuals feeding the
+    tensor-core backward alike."""
+    _needs_cuda()
+    b, h, t, s = shape
+    q, k, v, m = _inputs(sum(shape) + 11, b, h, t, s, mask, dtype, "cuda", layout)
+    tc = "mma" if dtype == "bfloat16" else "tf32"
+    assert _route(q.dtype, s, (q, k, v)) == tc
+    want = dense_attention(q, k, v, m, h * s)
+    before = _launch_counts()[0]
+    with torch.no_grad():
+        got = flash_attention(q, k, v, m, h * s)
+    torch.cuda.synchronize()
+    assert _launch_counts()[0] == tuple(a + c for a, c in zip(before, _count_of(tc)))
+    _assert_close(got, want, dtype, TOL[dtype], "out", _tf32_norm(tc))
+    out, stats = _flash_fwd(q, k, v, m, h * s, with_stats=True)
+    monkeypatch.setattr(flash_mod, "_route", lambda *a: "simt")
+    simt_out, simt_stats = _flash_fwd(q, k, v, m, h * s, with_stats=True)
+    monkeypatch.undo()
+    _assert_close(simt_out, want, dtype, TOL[dtype], "out simt")
+    torch.testing.assert_close(stats[..., 1], simt_stats[..., 1], rtol=1e-3, atol=0)
+    g = _cotangent(sum(shape) + 12, b, h, t, s, dtype)
+    want_g = dense_attention_bwd(q, k, v, m, g, h * s)
+    for o, st in ((out, stats), (simt_out, simt_stats)):
+        grads = flash_attention_bwd(q, k, v, m, o, st, g, h * s)
+        for name, a, w in zip("qkv", grads, want_g):
+            _assert_close(a, w, dtype, GRAD_TOL[dtype], f"d{name}", _tf32_norm(tc))
+
+
+@pytest.mark.gpu
+def test_tf32_split_and_one_tile_against_the_cpu_model():
+    """The card's split_tf32 (csrc/tf32x3.cuh) is the CPU model's
+    (tests/tf32_model.py) bit for bit, on normal values, values at a
+    rounding tie of the TF32 cut, and powers of two. One m16n8k8 tile's
+    three passes (each from a zero accumulator) against the model's exact
+    products rounded once to float32: printed (bits equal, largest distance
+    in float32 ulps of the exact sum), and held to the float32 accumulation
+    bound |c - exact| <= 8 * 2^-23 * sum |a_k b_k|, the distance a
+    truncating 8-term sum may take. Whether the card's errors over the
+    model's come from the split or the product is then read off (PERF.md
+    section 7)."""
+    _needs_cuda()
+    from tf32_model import split
+
+    rng = np.random.default_rng(41)
+    x = rng.normal(size=4096).astype(np.float32)
+    ties = (rng.integers(1, 1 << 10, 512) << 13 | 0x1000).astype(np.int32)
+    x = np.concatenate([x, (ties | 0x3F800000).view(np.float32),
+                        -(ties | 0x40000000).view(np.float32),
+                        np.float32(2.0) ** np.arange(-20, 20, dtype=np.float32)])
+    a = rng.normal(size=(16, 8)).astype(np.float32)
+    b = rng.normal(size=(8, 8)).astype(np.float32)
+    hi, lo, c = flash_mod.tf32_check(*(torch.from_numpy(z).cuda() for z in (x, a, b)))
+    torch.cuda.synchronize()
+    want_hi, want_lo = split(x)
+    assert np.array_equal(hi.cpu().numpy(), want_hi.view(np.int32))
+    assert np.array_equal(lo.cpu().numpy(), want_lo.view(np.int32))
+    (ah, al), (bh, bl) = split(a), split(b)
+    c = c.cpu().numpy()
+    for i, (x_, y_) in enumerate(((al, bh), (ah, bl), (ah, bh))):
+        exact = x_.astype(np.float64) @ y_.astype(np.float64)
+        model = exact.astype(np.float32)
+        ulp = np.spacing(np.abs(model)).astype(np.float64)
+        dist = np.abs(c[i] - exact) / ulp
+        bound = 8 * 2.0 ** -23 * (np.abs(x_).astype(np.float64) @ np.abs(y_).astype(np.float64))
+        print(f"pass {('lo.hi', 'hi.lo', 'hi.hi')[i]}: {int((c[i] == model).sum())} of 128 "
+              f"bit-equal to the exact product rounded once; largest distance to it "
+              f"{dist.max():.2f} ulp, mean {dist.mean():.3f}")
+        assert np.all(np.abs(c[i] - exact) <= bound), i
 
 
 @pytest.mark.gpu
@@ -640,15 +732,16 @@ def _heads_like(layout, dtype, s, b=2, h=2, t=16):
 @pytest.mark.parametrize("s", [8, 16, 32, 4, 24, 64])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_route(dtype, s, layout):
-    """The tensor cores take head dim 8 or 16 (the backward also 32) with
-    16-byte rows, bfloat16 on the bf16 route and float32 on the 3xTF32 one;
-    the CUDA cores take the rest: every other head dim up to 64, in each
-    direction."""
+    """The tensor cores take head dims 8, 16, 32 and 64 with 16-byte rows in
+    both directions, bfloat16 on the bf16 route and float32 on the 3xTF32
+    one; the CUDA cores take the rest: every other head dim up to 64, and
+    rows off 16 bytes."""
     tensors = _heads_like(layout, dtype, s)
     # S + 4 elements apart is 16 bytes apart in float32 (32 to 272), not in bf16
     aligned = ("encoder", "contiguous") + (("row_stride",) if dtype == "float32" else ())
-    for backward, dims in ((False, (8, 16)), (True, (8, 16, 32))):
-        tensor_cores = s in dims and layout in aligned
+    assert flash_mod.TC_HEAD_DIMS == (8, 16, 32, 64)
+    for backward in (False, True):
+        tensor_cores = s in (8, 16, 32, 64) and layout in aligned
         want = {"bfloat16": "mma", "float32": "tf32"}[dtype] if tensor_cores else "simt"
         assert _route(getattr(torch, dtype), s, tensors, backward=backward) == want, backward
 

@@ -36,6 +36,7 @@ from multimodal_supernovae_tpu_torch.kernels import library_path
 from multimodal_supernovae_tpu_torch.kernels.build import CSRC_DIR
 from multimodal_supernovae_tpu_torch.ops import dense_attention_bwd
 from multimodal_supernovae_tpu_torch.ops.flash_attention import _ARGTYPES, _route
+from tf32_model import split as _split
 
 flash_mod = importlib.import_module("multimodal_supernovae_tpu_torch.ops.flash_attention")
 build_mod = importlib.import_module("multimodal_supernovae_tpu_torch.kernels.build")
@@ -47,21 +48,7 @@ MASK_FILL_LOG2 = np.float32(-1e7) * LOG2E
 TILE = 64
 
 
-# ---- the model -------------------------------------------------------------
-
-def _tf32(a):
-    """cvt.rna.tf32.f32 on the int32 view: 10 mantissa bits, to nearest
-    with ties away from zero, the 13 low bits cleared."""
-    i = np.ascontiguousarray(a, np.float32).view(np.int32)
-    return ((i + 0x1000) & -0x2000).view(np.float32)
-
-
-def _split(a):
-    """(hi, lo), each a TF32 value, as csrc/tf32x3.cuh:split_tf32."""
-    a = np.asarray(a, np.float32)
-    hi = _tf32(a)
-    return hi, _tf32(a - hi)
-
+# ---- the model (_split: tests/tf32_model.py) ------------------------------------
 
 def _mma(a, b, passes=3):
     """a (..., M, K) @ b (..., K, N) as the kernels take it on mma.sync
@@ -187,9 +174,9 @@ def _norm_err(got, want):
     return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
 
 
-# head dims 8 and 16 (both directions on the 3xTF32 route) and 32 (its
-# backward: the ViT image tower's head dim)
-CASES = [(t, s, mask) for t in (16, 77, 200) for s in (8, 16, 32)
+# head dims 8 and 16 (the sequence towers) and 32 and 64 (the ViT image
+# tower at 4 and 2 heads), both directions on the 3xTF32 route
+CASES = [(t, s, mask) for t in (16, 77, 200) for s in (8, 16, 32, 64)
          for mask in ("ragged", "full_row")]
 
 
@@ -211,7 +198,7 @@ def test_tf32_model_matches_the_jax_package(t, s, mask):
         assert not grads[0][-1].any() and not grads[1][-1].any() and grads[2][-1].any()
 
 
-@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("s", [8, 16, 32, 64])
 def test_one_tf32_pass_fails_the_norm_check(s):
     """The control: the same model with one TF32 pass (hi . hi) leaves
     FP32_NORM_TOL, which the three passes keep."""
@@ -268,6 +255,13 @@ def test_model_dq_on_near_equal_values_as_accurate_as_plain_at_head_dim_32():
         assert err <= 2 * plain_err + 1e-7, f"{name}: model {err:.3e}, plain {plain_err:.3e}"
 
 
+def test_model_dq_on_near_equal_values_as_accurate_as_plain_at_head_dim_64():
+    """And at head dim 64 (the ViT at 2 heads), T = 36: each 3xTF32 product
+    sums 64-wide head-dim products in 8 chained k-steps."""
+    for name, err, plain_err in _near_equal_case(53, 4, 2, 36, 64):
+        assert err <= 2 * plain_err + 1e-7, f"{name}: model {err:.3e}, plain {plain_err:.3e}"
+
+
 # ---- fragment layouts and banks -----------------------------------------------
 
 def _a_frag(lane):
@@ -317,7 +311,7 @@ def test_key_permutation_feeds_c_fragments_to_the_next_product():
     assert not np.allclose(_mma_lanes(plain, b_regs), cmat @ x)
 
 
-@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("s", [8, 16, 32, 64])
 def test_shared_memory_accesses_are_conflict_free(s):
     """The tiles' strides of csrc/flash_attention_tf32.cuh (row tiles S + 4
     floats a row, transposed tiles 2 * 64 + 16 words a column) put every
@@ -347,6 +341,46 @@ def test_shared_memory_accesses_are_conflict_free(s):
             assert len(banks) == 32
 
 
+def _ldmatrix_x4(addr_of_lane, words):
+    """ldmatrix.sync.aligned.m8n8.x4.b16 on 32-bit words, as the kernels use
+    it: lane l names row l & 7 of matrix l >> 3 (16 bytes from the word
+    address it gives); register j of lane L holds word L & 3 of row L >> 2
+    of matrix j."""
+    rows = [addr_of_lane(lane) for lane in range(32)]
+    return [[words[rows[8 * j + (lane >> 2)] + (lane & 3)] for j in range(4)]
+            for lane in range(32)]
+
+
+def test_a_side_in_shared_memory_round_trips_conflict_free():
+    """At head dim 64 the dk/dv kernel keeps v - v0 split in each warp's
+    shared hi and lo tiles (row stride 68 words): store_a_smem's stores of
+    a k-step's fragments fall on 32 distinct banks, and load_a_smem's
+    ldmatrix.x4 reads back exactly the A fragment (a0..a3 of every lane), each
+    of its matrices' 8 rows on distinct 16-byte chunks."""
+    s, rs = 64, 64 + 4
+    words = {}
+    for ks in range(s // 8):
+        for e in range(4):  # store_a_smem: one e of every lane at once
+            banks = set()
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                off = (g + 8 * (e & 1)) * rs + 8 * ks + t + 4 * (e >> 1)
+                words[off] = (g + 8 * (e & 1), 8 * ks + t + 4 * (e >> 1))
+                banks.add(off % 32)
+            assert len(banks) == 32
+    for ks in range(s // 8):
+        def addr(lane, ks=ks):
+            j = lane >> 3
+            return (8 * (j & 1) + (lane & 7)) * rs + 8 * ks + 4 * (j >> 1)
+
+        got = _ldmatrix_x4(addr, words)
+        for lane in range(32):
+            want = [(r, 8 * ks + col) for r, col in _a_frag(lane)]
+            assert got[lane] == want
+        for j in range(4):
+            assert len({addr(8 * j + r) // 4 % 8 for r in range(8)}) == 8
+
+
 # ---- routing and build ----------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,s,layout,want", [
@@ -354,18 +388,20 @@ def test_shared_memory_accesses_are_conflict_free(s):
     ("float32", 16, "encoder", "tf32"),
     ("float32", 8, "contiguous", "tf32"),
     ("float32", 16, "contiguous", "tf32"),
-    ("float32", 32, "encoder", "simt"),
-    ("float32", 64, "contiguous", "simt"),
+    ("float32", 32, "encoder", "tf32"),
+    ("float32", 64, "contiguous", "tf32"),
+    ("float32", 24, "encoder", "simt"),
+    ("float32", 32, "offset", "simt"),
     ("float32", 8, "offset", "simt"),
     ("float32", 16, "offset", "simt"),
     ("bfloat16", 8, "encoder", "mma"),
     ("bfloat16", 16, "contiguous", "mma"),
+    ("bfloat16", 64, "encoder", "mma"),
 ])
 def test_route(dtype, s, layout, want):
-    """float32 at head dims 8 and 16 with 16-byte rows takes the 3xTF32
-    kernels; head dims 32 and 64 and rows off 16 bytes the CUDA cores;
-    bfloat16 the bf16 tensor cores. The backward also takes the tensor cores
-    at head dim 32."""
+    """float32 at head dims 8, 16, 32 and 64 with 16-byte rows takes the
+    3xTF32 kernels; other head dims and rows off 16 bytes the CUDA cores;
+    bfloat16 the bf16 tensor cores. The backward takes the same rule."""
     dt = getattr(torch, dtype)
     b, h, t = 2, 2, 16
     if layout == "encoder":
@@ -376,8 +412,7 @@ def test_route(dtype, s, layout, want):
         tensors = [torch.zeros(b * h * t * s + 1, dtype=dt)[1:].view(b, h, t, s)
                    for _ in range(3)]
     assert _route(dt, s, tensors) == want
-    bwd = "tf32" if (s, layout) == (32, "encoder") else want
-    assert _route(dt, s, tensors, True) == bwd
+    assert _route(dt, s, tensors, True) == want
     # the backward's out and g count too
     off = torch.zeros(b * h * t * s + 1, dtype=dt)[1:].view(b, h, t, s)
     assert _route(dt, s, (*tensors, off, tensors[0])) == "simt"

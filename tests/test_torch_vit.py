@@ -335,15 +335,14 @@ def test_vit_run_dir_trains_reloads_and_serves(tmp_path):
 
 
 @pytest.mark.parametrize("emb,heads,want", [
-    (128, 4, "flash simt (CUDA cores), flash backward tf32 (3xTF32 tensor cores)"),
-    (128, 2, "flash simt (CUDA cores)"),
+    (128, 4, "flash tf32 (3xTF32 tensor cores)"),
+    (128, 2, "flash tf32 (3xTF32 tensor cores)"),
     (256, 2, None)], ids=["head-dim-32", "head-dim-64", "head-dim-128"])
 def test_check_fails_at_a_head_dim_the_flash_backward_does_not_take(emb, heads, want):
-    """--check of a ViT grid point for the card: head dim 128 / 4 = 32 trains
-    with the forward on the CUDA-core flash kernels and the backward on the
-    3xTF32 tensor cores; 128 / 2 = 64 on the CUDA cores both ways; 256 / 2 =
-    128, above the kernels' 64, fails naming the head dim and the limit; for
-    the CPU all pass."""
+    """--check of a ViT grid point for the card: head dims 128 / 4 = 32 and
+    128 / 2 = 64 train on the 3xTF32 tensor-core flash kernels both ways;
+    256 / 2 = 128, above the kernels' 64, fails naming the head dim and the
+    limit; for the CPU all pass."""
     point = {"n_out": 8, "emb": 16, "heads": 2, "transformer_depth": 1, "vit_emb": emb,
              "vit_heads": heads, "batchsize": 4}
     extra = {"combinations": list(BI), "image_encoder": "vit"}
