@@ -135,12 +135,13 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      CUDA cores (forward atol = rtol = 1e-4; each gradient within 5e-4 of
      its largest) and bfloat16 on both routes (the tensor cores as routed,
      the CUDA cores through a patch of qkv_attention._route; 0.05, and
-     every output within NORM_TOL in the normalised error), at LC (B, T, E,
+     every output, and each third of dWqkv (query, key, value) on its own,
+     within NORM_TOL in the normalised error), at LC (B, T, E,
      H) = (256, 200, 64, 8), SP (256, 220, 32, 2), a ragged T = 37, T = 256
      (the limit) at both widths, a batch with a fully masked sample, and
      mask=None; each call must show its route's launches. At LC and SP the
-     tensor-core dWqkv with its query third x 0.99 must fail the NORM_TOL
-     check. Times (bf16, CUDA events, median of 25) the kernels of both
+     tensor-core dWqkv with its query third x 0.99 must fail the query
+     third's NORM_TOL check. Times (bf16, CUDA events, median of 25) the kernels of both
      routes (and the wrappers' host time a call, as in phase 3) and the
      plain versions at LC and SP, and the SelfAttention module forward and
      forward + backward on the unfused route (three F.linear, the flash
@@ -491,7 +492,14 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      out, dq, dk and dv (and the no_grad out) bitwise those of 5 separate
      calls, one launch each way per vmapped call (the vmap rule folds the
      member axis into B); the fused-block and fused-QKV kernels under vmap
-     raise, naming ROADMAP item 15c. (b) cli.train configs/maven-lite.yaml
+     on each of their eight routes (3a-6b) at maven-lite's widths, N = 5,
+     B = 32 (the light curve, and the spectra at T = 220 for the fused
+     QKV), every member its own parameters: out and every gradient (and the
+     no_grad out) bitwise those of 5 separate calls, one launch each way on
+     the route's counter, the plain version member by member at the
+     route's tolerance (bf16 dWq, dWk, dWv each at NORM_TOL), and member 0's
+     parameters for every member failing the bitwise check.
+     (b) cli.train configs/maven-lite.yaml
      --parallel-folds (its full width, its five folds as members; epochs
      1000 -> 2): exactly 18 + 18 3xTF32 launches a stacked step and 18 an
      eval step, no plain call; each member's run dir the contract's files,
@@ -507,8 +515,16 @@ Phases (each prints a progress line; any failure raises, exit code != 0):
      {3.7e-5, 1e-4} x seed {0, 1} x folds {0, 1}, nruns 8; 1 epoch, each
      member's loss a step kept for phase 6l): run dirs and launches as in
      (b), and the first 5 steps against sequential runs of each member's lr
-     and seed (StackedRAdam); phases 6k's and 6l's torchrun runs go
-     beside (a)-(d). (e) Once they have ended, the stacked step
+     and seed (StackedRAdam); (f) MMSN_FUSED_BLOCK=1 MMSN_FUSED_QKV=1
+     cli.train --parallel-folds on maven-lite at dropout 0 (1 epoch): 5 + 5
+     fused-block launches on the tensor cores and 18 + 18 3xTF32 flash
+     launches a stacked step, run dirs as in (b); the first 5 stacked steps
+     against sequential runs with the same opt-ins, and with
+     MMSN_FUSED_QKV=1 alone (5 + 5 fused-QKV launches a step); 5 bf16
+     stacked steps of each (launches, finite losses); phases 6k's and 6l's
+     torchrun runs go beside (a)-(d) and (f). (e) Once they have ended, each fused route's
+     stacked launch at N = 5 against 5 separate launches (device time of
+     10 calls, forward and backward), and the stacked step
      at N = 5 x B = 32 (maven-lite) against N sequential steps on the
      same batches: host clock medians of 6 (each step ended by a
      synchronise) and one profile of 5 steps each (device time, idle share,
@@ -724,6 +740,7 @@ from multimodal_supernovae_tpu_torch.models import (
     write_model_config,
 )
 from multimodal_supernovae_tpu_torch.ops import dense_attention, dense_attention_bwd
+from multimodal_supernovae_tpu_torch.ops.attention import per_member
 from multimodal_supernovae_tpu_torch.serving import EmbedServer, load_artifact, load_live
 from multimodal_supernovae_tpu_torch.training import (
     Trainer,
@@ -987,6 +1004,19 @@ def _check_norm(got, want, what, tol=NORM_TOL):
     if err is not None and not err <= tol:
         raise AssertionError(f"{what}: ||got - want|| / ||want|| {err:.3e} (tol {tol})")
     return err
+
+
+QKV_THIRDS = ("query", "key", "value")  # the thirds of dWqkv, rows 0..E, E..2E, 2E..3E
+
+
+def _dwqkv_thirds(got, want, what):
+    """The normalised error of each third of a bf16 dWqkv (3E, E) on its
+    own (a 1% error in one third reads about a third of that over the whole
+    of dWqkv, close to NORM_TOL); raises where one is above NORM_TOL."""
+    e = got.shape[-1]
+    return [_check_norm(got[..., i * e:(i + 1) * e, :], want[..., i * e:(i + 1) * e, :],
+                        f"{what} dWqkv {part} third")
+            for i, part in enumerate(QKV_THIRDS)]
 
 
 def _route_norm(got, want, dtype, route, what):
@@ -1893,9 +1923,12 @@ def phase_kernel_qkv():
                 if dtype == torch.bfloat16:
                     norms = [_check_norm(a, w, f"qkv {name} {route} {gname}")
                              for gname, a, w in outs]
-                    norm_err[route] = max(norm_err[route], *(n or 0.0 for n in norms))
+                    thirds = _dwqkv_thirds(grads[1], want_grads[1], f"qkv {name} {route}")
+                    norm_err[route] = max(norm_err[route], *(n or 0.0 for n in norms + thirds))
                     norm = "; ||err||/||plain|| " + " ".join(
-                        f"{o[0]} {_fmt(n)}" for o, n in zip(outs, norms)) + f" (tol {NORM_TOL})"
+                        f"{o[0]} {_fmt(n)}" for o, n in zip(outs, norms)) + ", dWqkv by third " + (
+                        " ".join(f"{t} {_fmt(n)}" for t, n in zip(QKV_THIRDS, thirds))
+                        + f" (tol {NORM_TOL})")
                 log(f"kernel-qkv {name} {dtype_name} (B, T, E, H) = {(b, t, e, h)} {route}: "
                     f"forward max|err| {err:.3e} (tol {TOL[dtype_name]}); backward "
                     f"max|err|/max|plain| dx {rel[0]:.3e} dWqkv {rel[1]:.3e} dWu {rel[2]:.3e} "
@@ -1903,12 +1936,14 @@ def phase_kernel_qkv():
                 if max(rel) > GRAD_TOL[dtype_name]:
                     raise AssertionError(f"qkv-bwd {name} {dtype_name} {route}: {rel}")
                 if mma and name in ("lc", "sp"):
-                    # negative control: the tensor-core dWqkv's query third off by 1%
+                    # negative control: the tensor-core dWqkv's query third off by 1%,
+                    # which the query third's own check must see
                     wrong = grads[1].clone()
                     wrong[:e] *= 0.99
-                    control[name] = _norm_err(wrong, want_grads[1])
-                    log(f"kernel-qkv {name} {dtype_name} {WRONG_DWQ}: ||err||/||plain|| "
-                        f"{control[name]:.3e} (must exceed {NORM_TOL})")
+                    control[name] = _norm_err(wrong[:e], want_grads[1][:e])
+                    log(f"kernel-qkv {name} {dtype_name} {WRONG_DWQ}: ||err||/||plain|| of "
+                        f"the query third {control[name]:.3e} (must exceed {NORM_TOL}; over "
+                        f"the whole of dWqkv {_norm_err(wrong, want_grads[1]):.3e})")
                     if control[name] <= NORM_TOL:
                         raise AssertionError(f"qkv {name}: the normalised check cannot see "
                                              f"a 1% error in dWqkv: {control[name]:.3e}")
@@ -2472,16 +2507,28 @@ def _plain_kernels():
     autograd), the fused block's forward and
     backward by fused_ffn_block_plain and fused_ffn_block_bwd_plain, the
     fused-QKV forward and backward by fused_qkv_attention_plain and
-    fused_qkv_attention_bwd_plain."""
-    plain_bwd = ffn_mod.fused_ffn_block_bwd_plain
+    fused_qkv_attention_bwd_plain; stacked members (``members``) member by
+    member, as the CPU runs them."""
+    def ffn_fwd(*a, eps, members=None):
+        return per_member(ffn_mod.fused_ffn_block_plain, members, *a, eps=eps)
+
+    def ffn_bwd(*a, eps=ffn_mod.LN_EPS, members=None):
+        return per_member(ffn_mod.fused_ffn_block_bwd_plain, members, *a, eps=eps)
+
+    def qkv_fwd(x, mask, wqkv, wu, bu, heads, members=None):
+        return per_member(qkv_mod.fused_qkv_attention_plain, members, x, mask, wqkv, wu, bu,
+                          heads=heads)
+
+    def qkv_bwd(x, mask, wqkv, wu, g, heads, members=None):
+        return per_member(qkv_mod.fused_qkv_attention_bwd_plain, members, x, mask, wqkv, wu,
+                          g, heads=heads)
+
     with mock.patch.object(transformer_mod, "attention", dense_attention), \
             mock.patch.object(vit_mod, "attention", dense_attention), \
-            mock.patch.object(ffn_mod, "_ffn_fwd", lambda *a, eps: (
-                ffn_mod.fused_ffn_block_plain(*a, eps=eps))), \
-            mock.patch.object(ffn_mod, "fused_ffn_block_bwd", plain_bwd), \
-            mock.patch.object(qkv_mod, "_qkv_fwd", qkv_mod.fused_qkv_attention_plain), \
-            mock.patch.object(qkv_mod, "fused_qkv_attention_bwd",
-                              qkv_mod.fused_qkv_attention_bwd_plain):
+            mock.patch.object(ffn_mod, "_ffn_fwd", ffn_fwd), \
+            mock.patch.object(ffn_mod, "fused_ffn_block_bwd", ffn_bwd), \
+            mock.patch.object(qkv_mod, "_qkv_fwd", qkv_fwd), \
+            mock.patch.object(qkv_mod, "fused_qkv_attention_bwd", qkv_bwd):
         yield
 
 
@@ -2919,7 +2966,7 @@ def _qkv_grad_probe(batch):
     layers, and at which layer."""
     calls = []
 
-    def recording(x, mask, wqkv, wu, g, heads):
+    def recording(x, mask, wqkv, wu, g, heads, members=None):
         calls.append((x.detach(), mask, wqkv.detach(), wu.detach(), g.detach(), heads))
         return qkv_mod.fused_qkv_attention_bwd_plain(x, mask, wqkv, wu, g, heads)
 
@@ -6068,27 +6115,251 @@ def _ensemble_vmap_case(route, dtype, shape, gen, shared_mask=False):
                              f"{ev_counts}, bitwise {equal}")
 
 
-def _ensemble_refusals():
-    """The fused kernels under vmap raise, naming item 15c."""
-    gen = torch.Generator(device=DEVICE).manual_seed(5)
-    e, f = SEQ_LC["emb"], 4 * SEQ_LC["emb"]
-    shapes = ((e, e), (e,), (e,), (e,), (f, e), (f,), (e, f), (e,), (e,), (e,))
-    params = [torch.randn(sh, generator=gen, device=DEVICE).requires_grad_() for sh in shapes]
-    x = torch.randn((2, 4 * 200, e), generator=gen, device=DEVICE)
-    xq = torch.randn((2, 4, 200, e), generator=gen, device=DEVICE)
-    wq = torch.randn((e, e), generator=gen, device=DEVICE).requires_grad_()
-    for what, fn, arg in (
-            ("fused block", lambda a: ffn_mod.fused_ffn_block(a, a, *params), x),
-            ("fused QKV", lambda a: qkv_mod.fused_qkv_attention(
-                a, None, wq, wq, wq, wq, params[1], SEQ_LC["heads"], e), xq)):
-        try:
-            torch.func.vmap(fn)(arg)
-        except NotImplementedError as err:
-            if "item 15c" not in str(err):
-                raise
-            log(f"ensemble vmap: the {what} under vmap raises: {err}")
-        else:
-            raise AssertionError(f"ensemble vmap: the {what} ran under vmap")
+# (kernel, route, dtype, (N, B, T, E, H)) of the fused kernels' stacked checks at
+# maven-lite's widths, N = 5, B = 32: the light-curve blocks (the fused block takes
+# E >= 64) and, for the fused QKV, the spectral tower's at Maven's T = 220 too.
+# float32 reaches 3b/4b and 5a/6a, bf16 3a/4a and 5b/6b: every route of kernels 3-6
+ENSEMBLE_FUSED_CASES = (
+    ("ffn", "mma", torch.float32, (5, 32, NBAND * LC_LEN, 64, 8)),
+    ("ffn", "simt", torch.bfloat16, (5, 32, NBAND * LC_LEN, 64, 8)),
+    *(("qkv", route, dtype, shape)
+      for route, dtype in (("simt", torch.float32), ("mma", torch.bfloat16))
+      for shape in ((5, 32, NBAND * LC_LEN, 64, 8), (5, 32, TRAIN_SP_LEN, 32, 2))))
+# a kernel's forward place in _counts() on each route; the backward's is the next
+_FUSED_PLACE = {("ffn", "simt"): 4, ("ffn", "mma"): 10, ("qkv", "simt"): 6, ("qkv", "mma"): 8}
+# the stacked launch against N separate launches, device time of ENSEMBLE_FUSED_ITERS calls
+ENSEMBLE_FUSED_ITERS = 10
+# device ops of one launch of each fused route, forward and backward: the kernel, and in
+# a backward its reduce (the tensor-core FFN backward: the row kernel, two LayerNorm
+# reduces, three weight-gradient kernels and their reduces), whatever the member count
+_FUSED_OPS = {("ffn", "simt"): (1, 2), ("ffn", "mma"): (1, 9), ("qkv", "simt"): (1, 2),
+              ("qkv", "mma"): (1, 2)}
+WRONG_MEMBER = "member 0's parameters for every member"
+
+
+def _member0_weights(kernel):
+    """``stack_members`` of the fused vmap rules with a broken member offset:
+    every member's parameters replaced by member 0's, as a kernel that
+    ignored the member index for them would read (the control of the
+    bitwise check)."""
+    real, first = ffn_mod.stack_members, 2  # both kernels: x (and att / mask) first
+
+    def broken(info, in_dims, args):
+        n, stacked = real(info, in_dims, args)
+        return n, tuple(a if i < first else a[:1].expand_as(a).contiguous()
+                        for i, a in enumerate(stacked))
+
+    return mock.patch.object(ffn_mod if kernel == "ffn" else qkv_mod, "stack_members", broken)
+
+
+def _fused_stacked_inputs(kernel, dtype, shape, gen):
+    """(args of the public call, the indices of its differentiable leaves,
+    the call, the cotangent) with a member axis in front of every tensor."""
+    n, b, t, e, h = shape
+
+    def r(*sh, scale=1.0, shift=0.0):
+        return torch.randn(sh, generator=gen, device=DEVICE) * scale + shift
+
+    if kernel == "ffn":
+        f = 4 * e
+        params = [r(n, e, e, scale=e ** -0.5), r(n, e, scale=0.1), r(n, e, scale=0.1, shift=1.0),
+                  r(n, e, scale=0.1), r(n, f, e, scale=e ** -0.5), r(n, f, scale=0.1),
+                  r(n, e, f, scale=f ** -0.5), r(n, e, scale=0.1), r(n, e, scale=0.1, shift=1.0),
+                  r(n, e, scale=0.1)]
+        args = (r(n, b * t, e).to(dtype), r(n, b * t, e).to(dtype), *params)
+        return args, tuple(range(12)), ffn_mod.fused_ffn_block, r(n, b * t, e).to(dtype)
+    mask = torch.rand((n, b, t), generator=gen, device=DEVICE) > 0.3
+    mask[..., 0] = True
+    args = (r(n, b, t, e).to(dtype), mask, *(r(n, e, e, scale=e ** -0.5) for _ in range(4)),
+            r(n, e, scale=0.1))
+
+    def call(x, m, wq, wk, wv, wu, bu):
+        return qkv_mod.fused_qkv_attention(x, m, wq, wk, wv, wu, bu, h, e)
+
+    return args, (0, 2, 3, 4, 5, 6), call, r(n, b, t, e).to(dtype)
+
+
+def _whole_trace_ms(fn, iters, ops, tries=3):
+    """``_device_ms`` of a trace that holds all ``ops`` device ops of each of
+    its ``iters`` calls: torch.profiler at times loses some of a trace's
+    ops (seen in this phase: a stacked reading at 0.41x of its others), so
+    a trace short of any is taken again, up to ``tries`` times; raises if
+    none holds them all."""
+    seen = []
+    for _ in range(tries):
+        got = _device_ops(fn, iters)
+        if len(got) == iters * ops:
+            return sum(ms for _, ms in got) / iters
+        seen.append(len(got))
+    raise AssertionError(f"torch.profiler traces held {seen} device ops, want {iters * ops}")
+
+
+def _fused_device_times(kernel, route, args, g, n, h):
+    """Device ms of the stacked launch each way (the wrappers given
+    ``members``) and of n separate launches of the same route, one member
+    each, each from a trace that holds every launch's ops (_FUSED_OPS):
+    {"fwd": (stacked, separate), "bwd": (stacked, separate)}."""
+    if kernel == "ffn":
+        phys = args
+
+        def fwd(a, m=None):
+            return ffn_mod._ffn_fwd(*a, eps=ffn_mod.LN_EPS, members=m)
+
+        def bwd(a, gg, m=None):
+            return ffn_mod.fused_ffn_block_bwd(*a, gg, members=m)
+    else:
+        x, mask, wq, wk, wv, wu, bu = args
+        scale = float(x.shape[-1]) ** -0.25
+        phys = (x, mask, torch.cat([wq * scale, wk * scale, wv], dim=1), wu, bu)
+
+        def fwd(a, m=None):
+            return qkv_mod._qkv_fwd(*a, h, m)
+
+        def bwd(a, gg, m=None):
+            return qkv_mod.fused_qkv_attention_bwd(*a[:4], gg, h, m)
+
+    def member(i):
+        return tuple(a[i] for a in phys)
+
+    iters, (fwd_ops, bwd_ops) = ENSEMBLE_FUSED_ITERS, _FUSED_OPS[(kernel, route)]
+    with torch.no_grad():
+        return {"fwd": (_whole_trace_ms(lambda: fwd(phys, n), iters, fwd_ops),
+                        _whole_trace_ms(lambda: [fwd(member(i)) for i in range(n)], iters,
+                                        n * fwd_ops)),
+                "bwd": (_whole_trace_ms(lambda: bwd(phys, g, n), iters, bwd_ops),
+                        _whole_trace_ms(lambda: [bwd(member(i), g[i]) for i in range(n)], iters,
+                                        n * bwd_ops))}
+
+
+def _members_bitwise(out, grads, ev, separate):
+    """Whether the stacked output, gradients and (unless ``ev`` is None) the
+    no-grad output are bitwise each member's separate call's."""
+    return all(torch.equal(oi, out[i]) and (ev is None or torch.equal(ei, ev[i]))
+               and all(torch.equal(a, w[i]) for a, w in zip(gi, grads))
+               for i, (oi, gi, ei) in enumerate(separate))
+
+
+def _ensemble_fused_case(kernel, route, dtype, shape, gen, control=False):
+    """A fused kernel under vmap (training, then no_grad) through its public
+    call, every member with its own parameters, against N separate calls of
+    the same route: outputs and every gradient bitwise, one launch each way
+    per vmapped call on the route's counter (the no-grad call on the
+    forward's only); the stacked results within the route's tolerance of
+    the plain version, member by member (the tensor-core fused-block
+    backward on the kernel's own ReLU mask; the bf16 fused QKV's dWq, dWk
+    and dWv, the thirds of dWqkv, each held to NORM_TOL). ``control``: the
+    same with WRONG_MEMBER, which must fail the bitwise check. Returns
+    (forward, backward max|err| against the plain version)."""
+    n, b, t, e, h = shape
+    dtype_name = str(dtype)[6:]
+    tag = (f"ensemble fused {kernel} {route} {dtype_name} (N, B, T, E, H) = {shape}")
+    args, leaf_idx, call, g = _fused_stacked_inputs(kernel, dtype, shape, gen)
+    leaves = [args[i].requires_grad_() for i in leaf_idx]
+    place = _FUSED_PLACE[(kernel, route)]
+    want = tuple(1 if i in (place, place + 1) else 0 for i in range(14))
+    ev_want = tuple(1 if i == place else 0 for i in range(14))
+    routes = FFN_ROUTES if kernel == "ffn" else QKV_ROUTES
+
+    def stacked():
+        out = torch.func.vmap(call)(*args)
+        return out, torch.autograd.grad(out, leaves, g)
+
+    with routes[route](), _ffn_kernel_mask() as spied:
+        _zero_counts()
+        out, grads = stacked()
+        counts = _counts()
+        out, h_kernel = out.detach(), spied.get("h")
+        _zero_counts()
+        with torch.no_grad():
+            ev = torch.func.vmap(call)(*args)
+        ev_counts = _counts()
+        separate = []
+        for i in range(n):
+            ai = [a[i].detach() for a in args]
+            li = [ai[j].requires_grad_() for j in leaf_idx]
+            oi = call(*ai)
+            gi = torch.autograd.grad(oi, li, g[i])
+            with torch.no_grad():
+                separate.append((oi, gi, call(*ai)))
+        equal = _members_bitwise(out, grads, ev, separate)
+        wrong = None
+        if control:
+            with _member0_weights(kernel):
+                wrong = _members_bitwise(*stacked(), None, separate)
+    del separate
+    # the plain version, member by member
+    worst, bwd_worst, said = 0.0, 0.0, []
+    if kernel == "ffn":
+        plain, plain_bwd = ffn_mod.fused_ffn_block_plain, ffn_mod.fused_ffn_block_bwd_plain
+        rel_worst, norm_worst = 0.0, None
+        for i in range(n):
+            ai = [a[i].detach() for a in args]
+            want_out = plain(*ai)
+            torch.testing.assert_close(out[i].float(), want_out.float(), rtol=TOL[dtype_name],
+                                       atol=TOL[dtype_name], msg=lambda m: f"{tag}: {m}")
+            worst = max(worst, float((out[i].float() - want_out.float()).abs().max()))
+            if dtype == torch.float32:
+                _check_norm(out[i], want_out, f"{tag} member {i}", FP32_NORM_TOL)
+            mask = None if h_kernel is None else h_kernel[i] > 0
+            want_g = plain_bwd(*ai, g[i], relu_mask=mask)
+            err, rel, ne = _ffn_bwd_check(f"ensemble member {i}", dtype_name, route,
+                                          [gr[i] for gr in grads], want_g)
+            bwd_worst, rel_worst = max(bwd_worst, err), max(rel_worst, max(rel))
+            norm_worst = ne if norm_worst is None or ne is None else max(norm_worst, ne)
+        said.append(f"backward max|err|/max|plain| {rel_worst:.3e} (tol {GRAD_TOL[dtype_name]})"
+                    + ("" if norm_worst is None else
+                       f", ||err||/||plain|| {norm_worst:.3e} (tol {FP32_NORM_TOL})"))
+    else:
+        with _plain_kernels():
+            want_out, want_g = stacked()
+        want_out = want_out.detach()
+        torch.testing.assert_close(out.float(), want_out.float(), rtol=TOL[dtype_name],
+                                   atol=TOL[dtype_name], msg=lambda m: f"{tag}: {m}")
+        worst = float((out.float() - want_out.float()).abs().max())
+        names = ("dx", "dWq", "dWk", "dWv", "dWu", "dbu")
+        rel = {}
+        for name, a, w in zip(names, grads, want_g):
+            rel[name] = max(float((a[i].float() - w[i].float()).abs().max())
+                            / float(w[i].float().abs().max()) for i in range(n))
+            bwd_worst = max(bwd_worst, float((a.float() - w.float()).abs().max()))
+        if max(rel.values()) > GRAD_TOL[dtype_name]:
+            raise AssertionError(f"{tag}: max|err|/max|plain| {rel} (tol {GRAD_TOL[dtype_name]})")
+        said.append("backward max|err|/max|plain| " + " ".join(
+            f"{k} {v:.3e}" for k, v in rel.items()))
+        if dtype == torch.bfloat16:  # dWq, dWk, dWv: the thirds of dWqkv, each on its own
+            norms = {name: max(_check_norm(a[i], w[i], f"{tag} member {i} {name}") or 0.0
+                               for i in range(n))
+                     for name, a, w in (("out", out, want_out), *zip(names, grads, want_g))}
+            said.append("||err||/||plain|| " + " ".join(f"{k} {v:.3e}" for k, v in norms.items())
+                        + f" (tol {NORM_TOL}; dWq, dWk, dWv the thirds of dWqkv)")
+    log(f"{tag}: launches {counts} (want {want}), no_grad {ev_counts} (want {ev_want}); out, "
+        f"every gradient and the no_grad out bitwise those of {n} separate calls: {equal}"
+        + ("" if wrong is None else f"; {WRONG_MEMBER}: bitwise {wrong} (must be False)")
+        + f"; against the plain version forward max|err| {worst:.3e} (tol {TOL[dtype_name]}), "
+        + f"backward max|err| {bwd_worst:.3e}, " + "; ".join(said))
+    if counts != want or ev_counts != ev_want or not equal or wrong:
+        raise AssertionError(f"{tag}: launches {counts} / {ev_counts}, bitwise {equal}, "
+                             f"{WRONG_MEMBER} bitwise {wrong}")
+    return worst, bwd_worst
+
+
+def _ensemble_fused_times(card, gen):
+    """Device ms a call of each fused route's stacked launch (the first
+    shape of ENSEMBLE_FUSED_CASES for it) against N separate launches, on a
+    quiet card: {(kernel, route): {"times", "shape", "dtype"}}."""
+    out = {}
+    for kernel, route, dtype, shape in ENSEMBLE_FUSED_CASES:
+        if (kernel, route) in out:
+            continue
+        args, _, _, g = _fused_stacked_inputs(kernel, dtype, shape, gen)
+        with (FFN_ROUTES if kernel == "ffn" else QKV_ROUTES)[route]():
+            times = _fused_device_times(kernel, route, args, g, shape[0], shape[-1])
+        out[(kernel, route)] = {"times": times, "shape": shape, "dtype": str(dtype)[6:]}
+        log(f"ensemble fused {kernel} {route} {str(dtype)[6:]} (N, B, T, E, H) = {shape}: "
+            f"device ms a call, the stacked launch / {shape[0]} separate launches: forward "
+            f"{times['fwd'][0]:.4f} / {times['fwd'][1]:.4f}, backward {times['bwd'][0]:.4f} / "
+            f"{times['bwd'][1]:.4f} ({ENSEMBLE_FUSED_ITERS} calls each); card {card}")
+    return out
 
 
 def _recording_dropout(seen, n):
@@ -6181,6 +6452,7 @@ def _ensemble_first_steps(tag, sweep, points, ds, folds, per_step):
         _zero_counts()
         _, stacked = run(state, data, plans, gens)
         counts = _counts()
+    first = drawn[0] if drawn else []  # at dropout 0 a step draws no keep mask
     _check_counts(f"{tag} stacked steps", counts, tuple(c * ENSEMBLE_STEPS for c in per_step))
     if plain:
         raise AssertionError(f"{tag}: {len(plain)} plain kernel calls")
@@ -6197,8 +6469,7 @@ def _ensemble_first_steps(tag, sweep, points, ds, folds, per_step):
         local = epoch_indices(len(m.train_indices), b, rng=np.random.default_rng(m.seed),
                               shuffle=True, pad="wrap")[:ENSEMBLE_STEPS]
         seen = []
-        with mock.patch.object(transformer_mod, "dropout",
-                               _recording_dropout(seen, len(drawn[0]))):
+        with mock.patch.object(transformer_mod, "dropout", _recording_dropout(seen, len(first))):
             _, seq = make_epoch_runner(
                 model, tcfg.noise_level_mag, noise_level_img=tcfg.noise_level_img,
                 rotate_images=tcfg.rotate_images)(
@@ -6206,13 +6477,13 @@ def _ensemble_first_steps(tag, sweep, points, ds, folds, per_step):
                 local, torch.Generator(device=DEVICE).manual_seed(m.seed + 1))
         seq = seq.cpu().numpy()
         rel = np.abs(stacked[i] - seq) / np.abs(seq)
-        same = len(seen) == len(drawn[0]) and all(
-            torch.equal(a, w[i]) for a, w in zip(seen, drawn[0]))
+        same = len(seen) == len(first) and all(torch.equal(a, w[i]) for a, w in zip(seen, first))
         worst, masks_equal = max(worst, float(rel.max())), masks_equal and same
         log(f"{tag} {m.name} (fold {p.get('foldnumber')}, seed {m.seed}, lr {m.lr:.6g}): "
             f"stacked {stacked[i].tolist()}, sequential {seq.tolist()}, worst relative "
             f"{rel.max():.3e} (tol {TRAJ_RTOL}); the first step's {len(seen)} dropout masks "
-            f"(keep {drawn[0][0].float().mean().item():.6f} of the first) bitwise: {same}")
+            + (f"(keep {first[0].float().mean().item():.6f} of the first) " if first else "")
+            + f"bitwise: {same}")
         del model, opt
     log(f"{tag}: {len(members)} members ({optimizer} over the stacked leaves), "
         f"{ENSEMBLE_STEPS} steps, launches {counts}; worst relative {worst:.3e}; masks "
@@ -6220,6 +6491,95 @@ def _ensemble_first_steps(tag, sweep, points, ds, folds, per_step):
     if worst > TRAJ_RTOL or not masks_equal or not np.all(np.isfinite(stacked)):
         raise AssertionError(f"{tag}: worst relative {worst}, masks bitwise {masks_equal}")
     return counts
+
+
+def _ensemble_bf16_steps(tag, sweep, points, ds, folds, per_step):
+    """ENSEMBLE_STEPS stacked steps of ``points`` (bf16 compute) from their
+    first plan: the launches of each step, every loss finite. Returns the
+    launches."""
+    members, models, _, freeze, tcfg = _ensemble_members(sweep, points, ds, folds)
+    b = tcfg.batch_size
+    own = [-(-len(m.train_indices) // b) for m in members]
+    plans = np.stack([ensemble_mod.member_train_plan(m, b, np.random.default_rng(m.seed),
+                                                     max(own))[:ENSEMBLE_STEPS]
+                      for m in members])
+    state = ensemble_mod.stack_states(models, [m.lr for m in members],
+                                      weight_decay=tcfg.weight_decay, step_size=tcfg.step_size,
+                                      gamma=tcfg.gamma, steps_per_epoch=max(own), freeze=freeze)
+    run = ensemble_mod.make_ensemble_epoch_runner(models[0], tcfg.noise_level_mag)
+    gens = [torch.Generator(device=DEVICE).manual_seed(m.seed + 1) for m in members]
+    with _plain_calls() as plain:
+        _zero_counts()
+        _, losses = run(state, ds.to_device(DEVICE), plans, gens)
+        counts = _counts()
+    losses = losses.cpu().numpy()
+    log(f"{tag}: {len(members)} members, {ENSEMBLE_STEPS} bf16 steps, losses "
+        f"{losses.tolist()}; launches {counts}")
+    _check_counts(f"{tag} stacked steps", counts, tuple(c * ENSEMBLE_STEPS for c in per_step))
+    if plain or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: {len(plain)} plain kernel calls, losses {losses}")
+    del state, models, run
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ensemble_fused(tmp, sweep, ds, folds, argv, analysis):
+    """(f) the five folds as one stacked program with the fused opt-ins:
+    cli.train --parallel-folds on maven-lite at dropout 0 (the only rate at
+    which the fused block takes a block) with MMSN_FUSED_BLOCK=1
+    MMSN_FUSED_QKV=1, one epoch: the launches (the fused block on the five
+    light-curve blocks, once a layer each way for all members; the
+    spectral tower's T = 1024 stays on the flash kernels, as the attention
+    inside the fused block does), the run dirs; the first steps against
+    sequential fits with the same opt-ins; the same with MMSN_FUSED_QKV=1
+    alone (the light-curve attention on the fused QKV); then the stacked
+    steps of both in bf16. Returns the launches."""
+    raw = sweep.raw
+    lc, sp = SEQ_LC["depth"], SEQ_SP["depth"]
+
+    def per_step(**places):  # launches a step: {forward place: count}, the backward's next
+        return tuple(next((c for p, c in places.items() if i in (int(p[1:]), int(p[1:]) + 1)),
+                          0) for i in range(14))
+
+    # float32: the fused block on 3b/4b, flash on 3xTF32; the fused QKV on 5a/6a. The
+    # fused block computes in its input's dtype, as the JAX package's does: under
+    # compute_dtype bfloat16 the light-curve blocks still take float32 input
+    opt_ins = {  # name: (environment, float32 step, bf16 step)
+        "fused": ({"MMSN_FUSED_BLOCK": "1", "MMSN_FUSED_QKV": "1"},
+                  per_step(p10=lc, p12=lc + sp), per_step(p10=lc, p12=lc, p2=sp)),
+        "qkv": ({"MMSN_FUSED_QKV": "1"}, per_step(p6=lc, p12=sp), per_step(p8=lc, p2=sp))}
+    grids = {}
+    for name, extra in (("maven-lite-fused", {}), ("maven-lite-fused-bf16",
+                                                   {"compute_dtype": "bfloat16"})):
+        grids[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(grids[name], "w") as fh:
+            fh.write(dump_yaml(dict(raw, parameters=dict(raw["parameters"], dropout={
+                "values": [0.0]}), extra_args=dict(raw["extra_args"], **extra))))
+    f_sweep, b_sweep = (load_sweep(grids[k]) for k in grids)
+    points, b_points = list(expand_grid(f_sweep)), list(expand_grid(b_sweep))
+    env, fused, _ = opt_ins["fused"]
+    want, splits = _ensemble_cli_want(ds, folds, f_sweep, points, 1, fused)
+    log(f"ensemble fused: MMSN_FUSED_BLOCK=1 MMSN_FUSED_QKV=1 cli.train "
+        f"{grids['maven-lite-fused']} --parallel-folds (maven-lite; cut: dropout "
+        f"{raw['parameters']['dropout']['values'][0]} -> 0, epochs 1000 -> 1)")
+    with mock.patch.dict(os.environ, env):
+        total, wall, _ = _cli_counted("ensemble fused", cli_train.main, [
+            grids["maven-lite-fused"], *argv, "--analysis-path", os.path.join(analysis, "F"),
+            "--epochs", "1"])
+    _check_counts("ensemble fused", total, want)
+    log(f"ensemble fused: {total[10]} + {total[11]} fused-block launches on the tensor cores "
+        f"({lc} + {lc} a stacked step for {len(points)} members), {total[12]} + {total[13]} "
+        f"3xTF32 flash launches; {wall:.1f} s")
+    _ensemble_check_runs("ensemble fused", os.path.join(analysis, "F", "maven-lite-fused"),
+                         points, splits, ds, 1)
+    for name, (env, f32, bf16) in opt_ins.items():
+        with mock.patch.dict(os.environ, env):
+            counts = _ensemble_first_steps(f"ensemble {name} steps", f_sweep, points, ds, folds,
+                                           f32)
+            counts = tuple(a + c for a, c in zip(counts, _ensemble_bf16_steps(
+                f"ensemble {name} bf16 steps", b_sweep, b_points, ds, folds, bf16)))
+        total = tuple(a + c for a, c in zip(total, counts))
+    return total
 
 
 def _ensemble_cli_want(ds, folds, sweep, points, epochs, per_step):
@@ -6371,19 +6731,28 @@ def _ensemble_timing(card, ds, folds):
 
 def phase_ensemble(card, tmp, quiet=None):
     """Stacked members on phase ingest's tree: (a) the flash kernels under
-    vmap on every route, bitwise N separate calls, and the fused kernels'
-    refusal; (b) cli.train configs/maven-lite.yaml --parallel-folds, the five
-    folds as one program (epochs 1000 -> ENSEMBLE_EPOCHS), its launches, run
-    dirs and load_model, and the first steps against sequential runs; (c)
-    the same run stopped after epoch 0 and resumed, bitwise; (d)
-    --parallel-members on an lr x seed x fold grid; (e) the stacked step's
-    times against sequential steps. Returns the launches of (b)-(e)."""
+    vmap on every route, bitwise N separate calls, and the fused kernels
+    (every route of kernels 3-6) the same way, with a broken member offset
+    as the control; (b) cli.train configs/maven-lite.yaml --parallel-folds,
+    the five folds as one program (epochs 1000 -> ENSEMBLE_EPOCHS), its
+    launches, run dirs and load_model, and the first steps against
+    sequential runs; (c) the same run stopped after epoch 0 and resumed,
+    bitwise; (d) --parallel-members on an lr x seed x fold grid; (f) both
+    fused opt-ins (_ensemble_fused); (e) the stacked step's times against
+    sequential steps. Returns the launches of (b)-(f) and {(kernel, route):
+    the fused stacked checks' max|err| against the plain version and device
+    times}."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     for route, dtype, shape in ENSEMBLE_VMAP_CASES:
         _ensemble_vmap_case(route, dtype, shape, gen)
     _ensemble_vmap_case("tf32", torch.float32, ENSEMBLE_VMAP_CASES[0][2], gen, shared_mask=True)
-    _ensemble_refusals()
+    stacked = {}
+    for kernel, route, dtype, shape in ENSEMBLE_FUSED_CASES:
+        first = (kernel, route) not in stacked
+        err, bwd_err = _ensemble_fused_case(kernel, route, dtype, shape, gen, control=first)
+        entry = stacked.setdefault((kernel, route), {"fwd": 0.0, "bwd": 0.0})
+        entry["fwd"], entry["bwd"] = max(entry["fwd"], err), max(entry["bwd"], bwd_err)
 
     data_dir, spectra_dir = os.path.join(tmp, "ZTFBTS"), os.path.join(tmp, "ZTFBTS_spectra")
     cache_dir, analysis = os.path.join(tmp, "cache"), os.path.join(tmp, "ensemble")
@@ -6491,14 +6860,20 @@ def phase_ensemble(card, tmp, quiet=None):
         total, _ensemble_first_steps("ensemble members steps", m_sweep, m_points, ds, folds,
                                      per_step)))
 
+    # (f) both fused opt-ins, float32 and bf16
+    total = tuple(a + c for a, c in zip(total, _ensemble_fused(
+        tmp, sweep, ds, folds, argv, analysis)))
+
     # (e) the stacked step against sequential steps, once ``quiet`` has waited for
     # whatever runs beside
     if quiet is not None:
         quiet()
+    for key, times in _ensemble_fused_times(card, gen).items():
+        stacked[key].update(times)
     total = tuple(a + c for a, c in zip(total, _ensemble_timing(card, ds, folds)))
     log(f"ensemble: launches per route {COUNT_NAMES}: {total}; card {card}")
     log(f"ensemble: phase done in {time.perf_counter() - t_phase:.1f} s")
-    return total
+    return total, stacked
 
 
 # phase dp: data-parallel training (parallel/, Trainer(mesh=...)) on two gloo
@@ -7455,7 +7830,7 @@ def main():
         evaluation = phase_evaluate(card, tmp)
         run = _cli_launch(tmp)  # phases dp's and tp's torchrun runs, beside phase ensemble
         try:
-            ensemble = phase_ensemble(card, tmp, quiet=lambda: _cli_results(run))
+            ensemble, stacked = phase_ensemble(card, tmp, quiet=lambda: _cli_results(run))
             _dp_init(tmp)
             _dp_launch(tmp, run)  # every group of ranks
             dp, refs = phase_dp(card, tmp, run)
@@ -7628,6 +8003,18 @@ def main():
                        "bound_ms": f32_bounds[case][bwd][0],
                        "bound_by": f32_bounds[case][bwd][1]}
                 for case, shape in (("lc", QKV_LC), ("sp", QKV_SP))}
+    # phase ensemble's stacked checks: the launch for N members against N separate ones
+    for (kernel, route), st in stacked.items():
+        n, bb, t, e, h = st["shape"]
+        for way in ("fwd", "bwd"):
+            name = f"fused_{kernel}_{way}" + ("_mma" if route == "mma" else "")
+            measured[name][2]["stacked"] = {
+                "members": n, "device_ms": st["times"][way][0],
+                "separate_device_ms": st["times"][way][1], "max_abs_err": st[way],
+                "shape": (f"N = {n} members of " + (f"(N, E, F) = {(bb * t, e, 4 * e)}"
+                                                    if kernel == "ffn" else
+                                                    f"(B, T, E, H) = {(bb, t, e, h)}")
+                          + f" {st['dtype']}")}
     bounds = _kernel_bounds()
     log(f"smoke: every phase passed in {time.perf_counter() - _T0:.1f} s of wall")
     print(json.dumps({"kernels": [

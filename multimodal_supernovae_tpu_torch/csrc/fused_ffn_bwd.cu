@@ -29,6 +29,12 @@
 // block's partial; bias and LayerNorm gradients are column sums. Rows past N
 // get a zero cotangent, so they add nothing, and are not stored.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/fused_block.py) are
+// grid.y of both kernels: member m walks its own N rows with the block count a
+// call for m alone takes, reads its own ten parameters (each stacked (M, ...)
+// contiguous), writes its own (blocks, P) partials, and the reduce sums them
+// in block order into its own row of grads: bitwise that call's result.
+//
 // What bounds it on this card: at the light-curve shape (N = 51,200, E = 64,
 // F = 256) a launch does the recompute plus 2*N*(4EF + 2E^2) = 11.3 GFLOP in
 // all against 66 MB (float32) of activations and cotangent, plus the partials'
@@ -140,8 +146,12 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
   float* Ws = RSTD2 + ROWS;     // KC x WS_LD
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // member blockIdx.y's rows and parameters, formed at each use (member_slice)
+  const int64_t NE = (int64_t)N * E;
+  using partials::member_slice;
 
-  float* part = partial + (int64_t)blockIdx.x * (E * E + 2 * E * F + 6 * E + F);
+  const int64_t P = E * E + 2 * E * F + 6 * E + F;
+  float* part = partial + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P;
   // the parameters' order: wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2
   float* p_wu = part;
   float* p_bu = p_wu + E * E;
@@ -159,19 +169,24 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
     const int64_t row0 = (int64_t)tile * ROWS;
     __syncthreads();  // the previous tile's buffers are consumed
+    const T* att_m = member_slice(att, NE);
     for (int idx = threadIdx.x; idx < ROWS * E; idx += THREADS) {
       const int64_t row = row0 + idx / E;
-      ATT[idx] = row < N ? to_float(att[row0 * E + idx]) : 0.f;
+      ATT[idx] = row < N ? to_float(att_m[row0 * E + idx]) : 0.f;
     }
 
     // ---- recompute the forward ----------------------------------------------
-    gemm<T, true>(ATT, E, E, wu, E, Ws, [&](int r, int o, float acc) {
+    const T* x_m = member_slice(x, NE);
+    const float* bu_m = member_slice(bu, E);
+    gemm<T, true>(ATT, E, E, member_slice(wu, E * E), E, Ws, [&](int r, int o, float acc) {
       const int64_t row = row0 + r;
-      const float xv = row < N ? to_float(x[row * E + o]) : 0.f;
-      const float a = round_to<T>(round_to<T>(acc) + round_to<T>(bu[o]));
+      const float xv = row < N ? to_float(x_m[row * E + o]) : 0.f;
+      const float a = round_to<T>(round_to<T>(acc) + round_to<T>(bu_m[o]));
       XH1[r * E + o] = round_to<T>(a + xv);
     });
     __syncthreads();
+    const float* g1_m = member_slice(g1, E);
+    const float* b1_m = member_slice(b1, E);
 #pragma unroll 1
     for (int i = 0; i < RPW; ++i) {  // LN1: xhat1 in place, y1
       const int r = warp * RPW + i;
@@ -183,19 +198,22 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
           const int c = lane + 32 * j;
           const float xh = (v[j] - st.x) * st.y;
           XH1[r * E + c] = xh;
-          Y1[r * E + c] = round_to<T>(xh * g1[c] + b1[c]);
+          Y1[r * E + c] = round_to<T>(xh * g1_m[c] + b1_m[c]);
         }
       }
       if (lane == 0) RSTD1[r] = st.y;
     }
-    gemm<T, true>(Y1, E, E, wf1, F, Ws, [&](int r, int o, float acc) {
-      Hb[r * F + o] = fmaxf(round_to<T>(round_to<T>(acc) + round_to<T>(bf1[o])), 0.f);
+    const float* bf1_m = member_slice(bf1, F);
+    gemm<T, true>(Y1, E, E, member_slice(wf1, F * E), F, Ws, [&](int r, int o, float acc) {
+      Hb[r * F + o] = fmaxf(round_to<T>(round_to<T>(acc) + round_to<T>(bf1_m[o])), 0.f);
     });
-    gemm<T, true>(Hb, F, F, wf2, E, Ws, [&](int r, int o, float acc) {
-      const float f = round_to<T>(round_to<T>(acc) + round_to<T>(bf2[o]));
+    const float* bf2_m = member_slice(bf2, E);
+    gemm<T, true>(Hb, F, F, member_slice(wf2, E * F), E, Ws, [&](int r, int o, float acc) {
+      const float f = round_to<T>(round_to<T>(acc) + round_to<T>(bf2_m[o]));
       XH2[r * E + o] = round_to<T>(f + Y1[r * E + o]);
     });
     __syncthreads();
+    const T* g_m = member_slice(g, NE);
 #pragma unroll 1
     for (int i = 0; i < RPW; ++i) {  // LN2: xhat2 in place; dy2 = g
       const int r = warp * RPW + i;
@@ -207,7 +225,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
         if (32 * j < E) {
           const int c = lane + 32 * j;
           XH2[r * E + c] = (v[j] - st.x) * st.y;
-          DR2[r * E + c] = row < N ? to_float(g[row * E + c]) : 0.f;
+          DR2[r * E + c] = row < N ? to_float(g_m[row * E + c]) : 0.f;
         }
       }
       if (lane == 0) RSTD2[r] = st.y;
@@ -218,6 +236,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
     colsum(DR2, XH2, E, E, p_g2, first);
     colsum(DR2, nullptr, E, E, p_b2, first);
     __syncthreads();
+    const float* g2_m = member_slice(g2, E);
 #pragma unroll 1
     for (int i = 0; i < RPW; ++i) {  // dr2 in place, df = round(dr2)
       const int r = warp * RPW + i;
@@ -227,7 +246,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
       for (int j = 0; j < MAX_EJ; ++j) {
         if (32 * j < E) {
           const int c = lane + 32 * j;
-          dy[j] = DR2[r * E + c] * g2[c];
+          dy[j] = DR2[r * E + c] * g2_m[c];
           xh[j] = XH2[r * E + c];
           s1 += dy[j];
           s2 += dy[j] * xh[j];
@@ -251,7 +270,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
     // ---- FFN backward -------------------------------------------------------
     colsum(DR2, nullptr, E, E, p_bf2, first);
     outer(XH2, E, E, Hb, F, F, p_wf2, first);  // dWf2 (E, F) = df^T h
-    gemm<T, false>(XH2, E, E, wf2, F, Ws, [&](int r, int o, float acc) {
+    gemm<T, false>(XH2, E, E, member_slice(wf2, E * F), F, Ws, [&](int r, int o, float acc) {
       float* h = Hb + r * F + o;  // dh = df @ Wf2 where h > 0
       *h = *h > 0.f ? acc : 0.f;
     });
@@ -263,7 +282,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
       __syncthreads();
     }
     outer(Hb, F, F, Y1, E, E, p_wf1, first);  // dWf1 (F, E) = dhc^T y1
-    gemm<T, false>(Hb, F, F, wf1, E, Ws, [&](int r, int o, float acc) {
+    gemm<T, false>(Hb, F, F, member_slice(wf1, F * E), E, Ws, [&](int r, int o, float acc) {
       DR2[r * E + o] += acc;  // dy1 = dr2 + dhc @ Wf1
     });
     __syncthreads();
@@ -272,6 +291,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
     colsum(DR2, XH1, E, E, p_g1, first);
     colsum(DR2, nullptr, E, E, p_b1, first);
     __syncthreads();
+    const float* g1_b = member_slice(g1, E);
+    T* dx_m = member_slice(dx, NE);
 #pragma unroll 1
     for (int i = 0; i < RPW; ++i) {  // dr1 in place, da = round(dr1), dx
       const int r = warp * RPW + i;
@@ -282,7 +303,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
       for (int j = 0; j < MAX_EJ; ++j) {
         if (32 * j < E) {
           const int c = lane + 32 * j;
-          dy[j] = DR2[r * E + c] * g1[c];
+          dy[j] = DR2[r * E + c] * g1_b[c];
           xh[j] = XH1[r * E + c];
           s1 += dy[j];
           s2 += dy[j] * xh[j];
@@ -298,7 +319,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
           const float dr = rstd * (dy[j] - m1 - xh[j] * m2);
           DR2[r * E + c] = dr;
           XH1[r * E + c] = round_to<T>(dr);
-          if (row < N) dx[row * E + c] = from_float<T>(dr);
+          if (row < N) dx_m[row * E + c] = from_float<T>(dr);
         }
       }
     }
@@ -307,29 +328,31 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_kernel(
     // ---- head unification backward -----------------------------------------
     colsum(DR2, nullptr, E, E, p_bu, first);
     outer(XH1, E, E, ATT, E, E, p_wu, first);  // dWu (E, E) = da^T att
-    gemm<T, false>(XH1, E, E, wu, E, Ws, [&](int r, int o, float acc) {
+    T* datt_m = member_slice(datt, NE);
+    gemm<T, false>(XH1, E, E, member_slice(wu, E * E), E, Ws, [&](int r, int o, float acc) {
       const int64_t row = row0 + r;
-      if (row < N) datt[row * E + o] = from_float<T>(acc);  // da @ Wu
+      if (row < N) datt_m[row * E + o] = from_float<T>(acc);  // da @ Wu
     });
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* att, const void* x, const float* const* p, const void* g,
-                   void* datt, void* dx, float* partial, float* grads, int N, int E, int F,
-                   int blocks, float eps, cudaStream_t stream) {
+                   void* datt, void* dx, float* partial, float* grads, int M, int N, int E,
+                   int F, int blocks, float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)ROWS * (5 * E + F) + 2 * ROWS + KC * WS_LD);
   cudaError_t err = cudaFuncSetAttribute(fused_ffn_bwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  fused_ffn_bwd_kernel<T><<<blocks, THREADS, smem, stream>>>(
+  fused_ffn_bwd_kernel<T><<<dim3(blocks, M), THREADS, smem, stream>>>(
       static_cast<const T*>(att), static_cast<const T*>(x), p[0], p[1], p[2], p[3], p[4],
       p[5], p[6], p[7], p[8], p[9], static_cast<const T*>(g), static_cast<T*>(datt),
       static_cast<T*>(dx), partial, N, E, F, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return partials::reduce(partial, blocks, E * E + 2 * E * F + 6 * E + F, grads, stream);
+  const int P = E * E + 2 * E * F + 6 * E + F;
+  return partials::reduce(partial, blocks, P, grads, stream, M, (int64_t)blocks * P, P);
 }
 
 }  // namespace
@@ -338,16 +361,19 @@ cudaError_t launch(const void* att, const void* x, const float* const* p, const 
 // the ten parameters as in mmsn_fused_ffn_fwd. partial is float32 (blocks, P)
 // scratch, P = E^2 + 2EF + 6E + F, with 1 <= blocks <= ceil(N / 32); grads is
 // float32 (P): dwu (E, E), dbu, dg1, db1 (E each), dwf1 (F, E), dbf1 (F),
-// dwf2 (E, F), dbf2, dg2, db2 (E each), in the order of the parameters.
+// dwf2 (E, F), dbf2, dg2, db2 (E each), in the order of the parameters. M >= 1
+// stacked members: att, x, g, datt, dx (M, N, E), every parameter (M, ...),
+// partial (M, blocks, P) and grads (M, P), one launch of each kernel for all.
 extern "C" int mmsn_fused_ffn_bwd(const void* att, const void* x, const void* wu,
                                   const void* bu, const void* g1, const void* b1,
                                   const void* wf1, const void* bf1, const void* wf2,
                                   const void* bf2, const void* g2, const void* b2,
                                   const void* g, void* datt, void* dx, void* partial,
-                                  void* grads, int N, int E, int F, int dtype, int blocks,
-                                  float eps, void* stream) {
-  if (N < 1 || E < 32 || F < 32 || E % 32 || F % 32 || E > 32 * MAX_EJ || blocks < 1 ||
-      blocks > (N + ROWS - 1) / ROWS) {
+                                  void* grads, int M, int N, int E, int F, int dtype,
+                                  int blocks, float eps, void* stream) {
+  // M is grid.y: at most 65535
+  if (M < 1 || M > 65535 || N < 1 || E < 32 || F < 32 || E % 32 || F % 32 ||
+      E > 32 * MAX_EJ || blocks < 1 || blocks > (N + ROWS - 1) / ROWS) {
     return cudaErrorInvalidValue;
   }
   const float* p[10] = {
@@ -361,10 +387,10 @@ extern "C" int mmsn_fused_ffn_bwd(const void* att, const void* x, const void* wu
   float* out = static_cast<float*>(grads);
   switch (dtype) {
     case 0:
-      return launch<float>(att, x, p, g, datt, dx, part, out, N, E, F, blocks, eps, st);
+      return launch<float>(att, x, p, g, datt, dx, part, out, M, N, E, F, blocks, eps, st);
     case 1:
-      return launch<__nv_bfloat16>(att, x, p, g, datt, dx, part, out, N, E, F, blocks, eps,
-                                   st);
+      return launch<__nv_bfloat16>(att, x, p, g, datt, dx, part, out, M, N, E, F, blocks,
+                                   eps, st);
     default:
       return cudaErrorInvalidValue;
   }

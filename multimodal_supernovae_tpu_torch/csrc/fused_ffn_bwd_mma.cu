@@ -52,6 +52,12 @@
 // partial; reduce_partials sums them in split order. Rows past N are zero on
 // load in both stages and are never stored: deterministic, no atomics.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/fused_block.py) are
+// grid.y of the row kernel and the reduces and grid.z of the weight-gradient
+// kernel: member m reads and writes its own rows, scratch and parameters (each
+// stacked (M, ...) contiguous) and its own partials, with the block and split
+// counts a call for m alone takes, so its results are bitwise that call's.
+//
 // Shared memory, stage 1, floats: 64 (E + 4) [att, y1, dr2, dr1 rows] + 64
 // (32 + 4) [h, dh chunk] + 64 E [xhat1] + 2 max(E (E + 8) [Wu], 32 (E + 4) +
 // E (32 + 4) [Wf1, Wf2 chunk], E (32 + 8) + 32 (E + 8) [the same, k rows of n])
@@ -83,13 +89,13 @@ constexpr int HT = FC / 8;        // n tiles of a chunk
 constexpr int WROWS = 32;         // rows of a weight-gradient step
 constexpr int MAX_WARPS = 16;     // warps of a weight-gradient block
 
-struct Args {
+struct Args {  // member 0's pointers; member m's are (M, ...) stacked after them
   const float *att, *x, *wu, *bu, *g1, *b1, *wf1, *bf1, *wf2, *bf2, *g2, *b2, *g;
   float *datt, *dx, *grads;
   float *dr2, *h, *dh, *y1;  // scratch: (N, E), (N, F), (N, F), (N, E)
   float* ln_partial;         // (2, blocks, 2E): (dg1, db1), then (dg2, db2)
   float* w_partial;          // (splits, E F + F)
-  int N, F, blocks, splits;
+  int M, N, F, blocks, splits;
   float eps;
 };
 
@@ -195,6 +201,10 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int N = a.N, F = a.F;
+  // member blockIdx.y's rows, scratch, parameters and LayerNorm partials, each
+  // formed where it is used (member_slice)
+  using partials::member_slice;
+  const int64_t NE = (int64_t)N * E, NF = (int64_t)N * F;
   float* Xw = Xs + warp * 16 * L::XLD;
   float* Hw = Hs + warp * 16 * L::HLD;
   float* XHw = XH + warp * 16 * E;
@@ -220,14 +230,15 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
     const int64_t row0 = (int64_t)tile * ROWS;
     const int64_t ra = row0 + warp * 16 + g;  // the lane's rows: ra and ra + 8
     __syncthreads();  // the previous tile is done with Xs and the staged weights
+    const float* att = member_slice(a.att, NE);
     for (int idx = threadIdx.x; idx < ROWS * (E / 4); idx += THREADS) {
       const int r = idx / (E / 4);
       const int c = (idx - r * (E / 4)) * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < N) v = __ldg(reinterpret_cast<const float4*>(a.att + (row0 + r) * E + c));
+      if (row0 + r < N) v = __ldg(reinterpret_cast<const float4*>(att + (row0 + r) * E + c));
       *reinterpret_cast<float4*>(Xs + r * L::XLD + c) = v;
     }
-    stage_split<THREADS>(Ws, Ws + L::WU, L::XLD, a.wu, E, E, E);
+    stage_split<THREADS>(Ws, Ws + L::WU, L::XLD, member_slice(a.wu, E * E), E, E, E);
     __syncthreads();
 
     // ---- recompute: LN1 -------------------------------------------------------
@@ -236,15 +247,18 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
     for (int j = 0; j < NT; ++j) f[j][0] = f[j][1] = f[j][2] = f[j][3] = 0.f;
     warp_product<NT, E>(f, Xw, L::XLD, Ws, Ws + L::WU, L::XLD, lane);
     float rstd1[2];
-    residual_norm(f, a.bu, a.eps, t, rstd1, [&](int h, int c) {
+    const float* x = member_slice(a.x, NE);
+    residual_norm(f, member_slice(a.bu, E), a.eps, t, rstd1, [&](int h, int c) {
       const int64_t row = ra + 8 * h;
-      return row < N ? ldg2(a.x + row * E + c) : make_float2(0.f, 0.f);
+      return row < N ? ldg2(x + row * E + c) : make_float2(0.f, 0.f);
     });
     __syncwarp();  // every lane has read its att fragments
+    const float* g1 = member_slice(a.g1, E);
+    const float* b1 = member_slice(a.b1, E);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = 8 * j + 2 * t;
-      const float2 gm = ldg2(a.g1 + c), bt = ldg2(a.b1 + c);
+      const float2 gm = ldg2(g1 + c), bt = ldg2(b1 + c);
 #pragma unroll
       for (int q = 0; q < 4; ++q) XHw[(4 * j + q) * 32 + lane] = f[j][q];
       f[j][0] = f[j][0] * gm.x + bt.x;
@@ -252,7 +266,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
       f[j][2] = f[j][2] * gm.x + bt.x;
       f[j][3] = f[j][3] * gm.y + bt.y;
     }
-    store_rows(f, Xw, L::XLD, a.y1, E, 0, ra, N, lane);  // y1
+    store_rows(f, Xw, L::XLD, member_slice(a.y1, NE), E, 0, ra, N, lane);  // y1
     __syncwarp();
 
     // ---- recompute: the FFN, chunk by chunk, then LN2 --------------------------
@@ -261,17 +275,19 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
 #pragma unroll 1
     for (int c0 = 0, ci = 0; c0 < F; c0 += FC, ++ci) {
       __syncthreads();  // every warp is done with the staged weights and its h rows
-      stage_split<THREADS>(W1hi, W1lo, L::XLD, a.wf1 + (int64_t)c0 * E, E, FC, E);
-      stage_split<THREADS>(W2hi, W2lo, L::HLD, a.wf2 + c0, F, E, FC);
+      stage_split<THREADS>(W1hi, W1lo, L::XLD, member_slice(a.wf1, F * E) + (int64_t)c0 * E,
+                           E, FC, E);
+      stage_split<THREADS>(W2hi, W2lo, L::HLD, member_slice(a.wf2, E * F) + c0, F, E, FC);
       __syncthreads();
       float hv[HT][4];
 #pragma unroll
       for (int j = 0; j < HT; ++j) hv[j][0] = hv[j][1] = hv[j][2] = hv[j][3] = 0.f;
       warp_product<HT, E>(hv, Xw, L::XLD, W1hi, W1lo, L::XLD, lane);
       uint32_t bits = 0;
+      const float* bf1 = member_slice(a.bf1, F);
 #pragma unroll
       for (int j = 0; j < HT; ++j) {
-        const float2 b = ldg2(a.bf1 + c0 + 8 * j + 2 * t);
+        const float2 b = ldg2(bf1 + c0 + 8 * j + 2 * t);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           hv[j][q] = fmaxf(hv[j][q] + ((q & 1) ? b.y : b.x), 0.f);
@@ -279,25 +295,27 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
         }
       }
       Mw[ci * 32 + lane] = (uint16_t)bits;
-      store_rows(hv, Hw, L::HLD, a.h, F, c0, ra, N, lane);  // h
+      store_rows(hv, Hw, L::HLD, member_slice(a.h, NF), F, c0, ra, N, lane);  // h
       __syncwarp();
       warp_product<NT, FC>(f, Hw, L::HLD, W2hi, W2lo, L::HLD, lane);
     }
     float rstd2[2];
-    residual_norm(f, a.bf2, a.eps, t, rstd2, [&](int h, int c) {
+    residual_norm(f, member_slice(a.bf2, E), a.eps, t, rstd2, [&](int h, int c) {
       return *reinterpret_cast<const float2*>(Xw + (g + 8 * h) * L::XLD + c);  // y1
     });
 
     // ---- LN2 backward: dr2 = rstd2 (g g2 - mean(g g2) - xhat2 mean(g g2 xhat2))
+    const float* cg = member_slice(a.g, NE);
+    const float* g2 = member_slice(a.g2, E);
     auto cot = [&](int h, int c) {
       const int64_t row = ra + 8 * h;
-      return row < N ? ldg2(a.g + row * E + c) : make_float2(0.f, 0.f);
+      return row < N ? ldg2(cg + row * E + c) : make_float2(0.f, 0.f);
     };
     float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = 8 * j + 2 * t;
-      const float2 gm = ldg2(a.g2 + c);
+      const float2 gm = ldg2(g2 + c);
       const float2 ga = cot(0, c), gb = cot(1, c);
       s1[0] += ga.x * gm.x + ga.y * gm.y;
       s1[1] += gb.x * gm.x + gb.y * gm.y;
@@ -317,7 +335,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = 8 * j + 2 * t;
-      const float2 gm = ldg2(a.g2 + c);
+      const float2 gm = ldg2(g2 + c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float2 cv = cot(h, c);
@@ -326,15 +344,16 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
       }
     }
     __syncwarp();  // every lane has read its y1 residual
-    store_rows(f, Xw, L::XLD, a.dr2, E, 0, ra, N, lane);  // dr2
+    store_rows(f, Xw, L::XLD, member_slice(a.dr2, NE), E, 0, ra, N, lane);  // dr2
     __syncwarp();
 
     // ---- FFN backward, chunk by chunk: dh, and dy1 = dr2 + dh . Wf1 in f -----
 #pragma unroll 1
     for (int c0 = 0, ci = 0; c0 < F; c0 += FC, ++ci) {
       __syncthreads();  // every warp is done with the staged weights and its dh rows
-      stage_split<THREADS>(V2hi, V2lo, LD2, a.wf2 + c0, F, E, FC);
-      stage_split<THREADS>(V1hi, V1lo, LD1, a.wf1 + (int64_t)c0 * E, E, FC, E);
+      stage_split<THREADS>(V2hi, V2lo, LD2, member_slice(a.wf2, E * F) + c0, F, E, FC);
+      stage_split<THREADS>(V1hi, V1lo, LD1, member_slice(a.wf1, F * E) + (int64_t)c0 * E,
+                           E, FC, E);
       __syncthreads();
       float dv[HT][4];
 #pragma unroll
@@ -348,17 +367,18 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
           if (!((bits >> (4 * j + q)) & 1u)) dv[j][q] = 0.f;
         }
       }
-      store_rows(dv, Hw, L::HLD, a.dh, F, c0, ra, N, lane);  // dh
+      store_rows(dv, Hw, L::HLD, member_slice(a.dh, NF), F, c0, ra, N, lane);  // dh
       __syncwarp();
       warp_product_kn<NT, FC>(f, Hw, L::HLD, V1hi, V1lo, LD1, lane);
     }
 
     // ---- LN1 backward: dr1, written as dx --------------------------------------
+    const float* g1b = member_slice(a.g1, E);
     s1[0] = s1[1] = s2[0] = s2[1] = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = 8 * j + 2 * t;
-      const float2 gm = ldg2(a.g1 + c);
+      const float2 gm = ldg2(g1b + c);
       float xh[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) xh[q] = XHw[(4 * j + q) * 32 + lane];
@@ -381,7 +401,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = 8 * j + 2 * t;
-      const float2 gm = ldg2(a.g1 + c);
+      const float2 gm = ldg2(g1b + c);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const float xh = XHw[(4 * j + q) * 32 + lane];
@@ -389,16 +409,16 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
       }
     }
     __syncwarp();  // every lane has read its dr2 fragments
-    store_rows(f, Xw, L::XLD, a.dx, E, 0, ra, N, lane);  // dr1 = dx
+    store_rows(f, Xw, L::XLD, member_slice(a.dx, NE), E, 0, ra, N, lane);  // dr1 = dx
 
     // ---- datt = dr1 . Wu ----------------------------------------------------
     __syncthreads();  // every warp is done with the staged chunk; Xw holds dr1
-    stage_split<THREADS>(Ws, Ws + L::WU, LD1, a.wu, E, E, E);
+    stage_split<THREADS>(Ws, Ws + L::WU, LD1, member_slice(a.wu, E * E), E, E, E);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < NT; ++j) f[j][0] = f[j][1] = f[j][2] = f[j][3] = 0.f;
     warp_product_kn<NT, E>(f, Xw, L::XLD, Ws, Ws + L::WU, LD1, lane);
-    store_rows(f, nullptr, 0, a.datt, E, 0, ra, N, lane);
+    store_rows(f, nullptr, 0, member_slice(a.datt, NE), E, 0, ra, N, lane);
   }
 
   // the block's partial of (dg1, db1) and (dg2, db2): the warps' rows in order
@@ -408,12 +428,14 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ffn_bwd_mma_rows(const Args 
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) s += LNs[w * 4 * E + i];
     const int half = i / (2 * E);
-    a.ln_partial[((int64_t)half * a.blocks + blockIdx.x) * 2 * E + i - half * 2 * E] = s;
+    member_slice(a.ln_partial, (int64_t)4 * a.blocks * E)[
+        ((int64_t)half * a.blocks + blockIdx.x) * 2 * E + i - half * 2 * E] = s;
   }
 }
 
 // partial[split] = (D^T X over the split's row tiles, colsum(D)): D (N, O) and
 // X (N, C) row-major; the partial is (O, C) row-major, then O column sums.
+// Member m = blockIdx.z: D, X and the partials are (M, ...) stacked.
 // A block of wm x wn warps owns the output rows o0 .. o0 + 32 wm and columns
 // c0 .. c0 + 32 wn; warp (wi, wj) = (w % wm, w / wm) its 32 x 32 piece.
 __global__ void __launch_bounds__(32 * MAX_WARPS) fused_ffn_bwd_mma_wgrad(
@@ -434,6 +456,10 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) fused_ffn_bwd_mma_wgrad(
   const int tiles_c = C / BC;
   const int o0 = (blockIdx.x / tiles_c) * BO, c0 = (blockIdx.x % tiles_c) * BC;
   const bool bias = c0 == 0;  // this block also sums D's columns o0 ..
+  const int64_t m = blockIdx.z;  // the member
+  D += m * N * O;
+  X += m * N * C;
+  partial += m * gridDim.y * ((int64_t)O * C + O);
   const int row_tiles = (N + WROWS - 1) / WROWS;
   const int t_begin = blockIdx.y * per_split;
   const int t_end = min(t_begin + per_split, row_tiles);
@@ -530,9 +556,11 @@ int divisor_at_most(int n, int cap) {
 }
 
 // grads[0 .. O C + O) = (D^T X, colsum(D)) over N rows: the weight-gradient
-// kernel on (output tiles, splits), then the reduce over the splits.
-cudaError_t weight_gradient(const float* D, const float* X, float* partial, int N, int O, int C,
-                            int splits, float* grads, cudaStream_t stream) {
+// kernel on (output tiles, splits, members), then the reduce over the splits;
+// member m's gradients start at grads + m * grads_stride.
+cudaError_t weight_gradient(const float* D, const float* X, float* partial, int M, int N, int O,
+                            int C, int splits, float* grads, int64_t grads_stride,
+                            cudaStream_t stream) {
   const int wm = divisor_at_most(O / 32, 8);
   const int wn = divisor_at_most(C / 32, MAX_WARPS / wm);
   const int smem = 4 * 2 * WROWS * (32 * wm + PAD_KN + 32 * wn + PAD_KN);
@@ -541,12 +569,13 @@ cudaError_t weight_gradient(const float* D, const float* X, float* partial, int 
   if (err != cudaSuccess) return err;
   const int row_tiles = (N + WROWS - 1) / WROWS;
   const int per_split = (row_tiles + splits - 1) / splits;
-  const dim3 grid((O / (32 * wm)) * (C / (32 * wn)), splits);
+  const dim3 grid((O / (32 * wm)) * (C / (32 * wn)), splits, M);
   fused_ffn_bwd_mma_wgrad<<<grid, 32 * wm * wn, smem, stream>>>(D, X, partial, N, O, C, wm, wn,
                                                                  per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return partials::reduce(partial, splits, O * C + O, grads, stream);
+  return partials::reduce(partial, splits, O * C + O, grads, stream, M,
+                          (int64_t)splits * (O * C + O), grads_stride);
 }
 
 template <int E>
@@ -556,32 +585,37 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  fused_ffn_bwd_mma_rows<E><<<a.blocks, THREADS, smem, stream>>>(a);
+  fused_ffn_bwd_mma_rows<E><<<dim3(a.blocks, a.M), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // grads: dwu (E, E), dbu, dg1, db1 (E each), dwf1 (F, E), dbf1 (F), dwf2
   // (E, F), dbf2, dg2, db2 (E each)
-  const int F = a.F, N = a.N;
+  const int F = a.F, N = a.N, M = a.M;
+  const int64_t P = E * E + 2 * E * F + 6 * E + F;  // a member's row of grads
   float* gwu = a.grads;
   float* gg1 = gwu + E * E + E;
   float* gwf1 = gg1 + 2 * E;
   float* gwf2 = gwf1 + F * E + F;
   float* gg2 = gwf2 + E * F + E;
   const float* ln = a.ln_partial;
-  if ((err = partials::reduce(ln, a.blocks, 2 * E, gg1, stream)) != cudaSuccess) return err;
-  if ((err = partials::reduce(ln + (int64_t)a.blocks * 2 * E, a.blocks, 2 * E, gg2, stream)) !=
+  const int64_t ln_stride = (int64_t)2 * a.blocks * 2 * E;  // a member's (2, blocks, 2E)
+  if ((err = partials::reduce(ln, a.blocks, 2 * E, gg1, stream, M, ln_stride, P)) !=
       cudaSuccess) {
     return err;
   }
-  if ((err = weight_gradient(a.dr2, a.h, a.w_partial, N, E, F, a.splits, gwf2, stream)) !=
-      cudaSuccess) {
+  if ((err = partials::reduce(ln + (int64_t)a.blocks * 2 * E, a.blocks, 2 * E, gg2, stream, M,
+                              ln_stride, P)) != cudaSuccess) {
     return err;
   }
-  if ((err = weight_gradient(a.dh, a.y1, a.w_partial, N, F, E, a.splits, gwf1, stream)) !=
-      cudaSuccess) {
+  if ((err = weight_gradient(a.dr2, a.h, a.w_partial, M, N, E, F, a.splits, gwf2, P,
+                             stream)) != cudaSuccess) {
     return err;
   }
-  return weight_gradient(a.dx, a.att, a.w_partial, N, E, E, a.splits, gwu, stream);
+  if ((err = weight_gradient(a.dh, a.y1, a.w_partial, M, N, F, E, a.splits, gwf1, P,
+                             stream)) != cudaSuccess) {
+    return err;
+  }
+  return weight_gradient(a.dx, a.att, a.w_partial, M, N, E, E, a.splits, gwu, P, stream);
 }
 
 }  // namespace
@@ -593,22 +627,24 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // and y1 (N, E), h and dh (N, F), ln_partial (2, blocks, 2E), w_partial
 // (splits, EF + F). E is 64, 96 or 128; F a multiple of 32; 1 <= blocks <=
 // ceil(N / 64) (the row kernel's grid); 1 <= splits <= ceil(N / 32) (the
-// weight-gradient kernel's row splits).
+// weight-gradient kernel's row splits). M >= 1 stacked members: every tensor
+// above gets a leading member axis (M, ...), one launch of each kernel for all.
 extern "C" int mmsn_fused_ffn_bwd_mma(const void* att, const void* x, const void* wu,
                                       const void* bu, const void* g1, const void* b1,
                                       const void* wf1, const void* bf1, const void* wf2,
                                       const void* bf2, const void* g2, const void* b2,
                                       const void* g, void* datt, void* dx, void* grads,
                                       void* dr2, void* h, void* dh, void* y1, void* ln_partial,
-                                      void* w_partial, int N, int E, int F, int blocks,
-                                      int splits, float eps, void* stream) {
+                                      void* w_partial, int M, int N, int E, int F,
+                                      int blocks, int splits, float eps, void* stream) {
   const void* ptrs[22] = {att,  x,  wu,    bu,  g1, b1, wf1, bf1, wf2,        bf2,      g2,
                           b2,   g,  datt,  dx,  grads, dr2, h, dh, y1, ln_partial, w_partial};
   for (const void* q : ptrs) {
     if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorInvalidValue;
   }
-  if (N < 1 || F < FC || F % FC || blocks < 1 || blocks > (N + ROWS - 1) / ROWS || splits < 1 ||
-      splits > (N + WROWS - 1) / WROWS) {
+  // M is grid.y and grid.z: at most 65535
+  if (M < 1 || M > 65535 || N < 1 || F < FC || F % FC || blocks < 1 ||
+      blocks > (N + ROWS - 1) / ROWS || splits < 1 || splits > (N + WROWS - 1) / WROWS) {
     return cudaErrorInvalidValue;
   }
   Args a;
@@ -634,6 +670,7 @@ extern "C" int mmsn_fused_ffn_bwd_mma(const void* att, const void* x, const void
   a.y1 = static_cast<float*>(y1);
   a.ln_partial = static_cast<float*>(ln_partial);
   a.w_partial = static_cast<float*>(w_partial);
+  a.M = M;
   a.N = N;
   a.F = F;
   a.blocks = blocks;

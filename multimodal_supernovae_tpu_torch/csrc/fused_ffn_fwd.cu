@@ -23,6 +23,11 @@
 // conflict-free. LayerNorms are one warp per row with shuffle reductions. The
 // last tile's rows past N are zero and are not stored.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/fused_block.py) are
+// grid.y: member m reads its own N rows of att and x, writes its own rows of
+// out and reads its own ten parameters, each stacked (M, ...) contiguous; a
+// member's tiles are computed as a call for that member alone computes them.
+//
 // What bounds it on this card: at the light-curve shape (N = 51,200, E = 64,
 // F = 256) a launch does 2*N*(E^2 + 2EF) = 3.8 GFLOP against 39 MB (float32)
 // of device traffic, so in float32 it is bound by the CUDA cores (67 TFLOP/s:
@@ -59,6 +64,20 @@ __global__ void __launch_bounds__(THREADS, 2) fused_ffn_fwd_kernel(
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t row0 = (int64_t)blockIdx.x * ROWS;
+  const int64_t m = blockIdx.y;  // the member
+  att += m * N * E;
+  x += m * N * E;
+  out += m * N * E;
+  wu += m * E * E;
+  wf1 += m * F * E;
+  wf2 += m * E * F;
+  bu += m * E;
+  g1 += m * E;
+  b1 += m * E;
+  bf1 += m * F;
+  bf2 += m * E;
+  g2 += m * E;
+  b2 += m * E;
 
   for (int idx = threadIdx.x; idx < ROWS * E; idx += THREADS) {
     const int64_t row = row0 + idx / E;
@@ -110,15 +129,15 @@ __global__ void __launch_bounds__(THREADS, 2) fused_ffn_fwd_kernel(
 }
 
 template <typename T>
-cudaError_t launch(const void* att, const void* x, const float* const* p, void* out, int N,
-                   int E, int F, float eps, cudaStream_t stream) {
+cudaError_t launch(const void* att, const void* x, const float* const* p, void* out, int M,
+                   int N, int E, int F, float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)ROWS * (2 * E + F) + KC * WS_LD);
   cudaError_t err = cudaFuncSetAttribute(fused_ffn_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (N + ROWS - 1) / ROWS;
-  fused_ffn_fwd_kernel<T><<<tiles, THREADS, smem, stream>>>(
+  fused_ffn_fwd_kernel<T><<<dim3(tiles, M), THREADS, smem, stream>>>(
       static_cast<const T*>(att), static_cast<const T*>(x), p[0], p[1], p[2], p[3], p[4],
       p[5], p[6], p[7], p[8], p[9], static_cast<T*>(out), N, E, F, eps);
   return cudaGetLastError();
@@ -129,14 +148,17 @@ cudaError_t launch(const void* att, const void* x, const float* const* p, void* 
 // dtype: 0 = float32, 1 = bfloat16 (att, x and out); the ten parameters are
 // float32, contiguous: wu (E, E), bu (E), g1 (E), b1 (E), wf1 (F, E), bf1 (F),
 // wf2 (E, F), bf2 (E), g2 (E), b2 (E), weights as a Linear's (out, in).
-// att, x and out are contiguous (N, E).
+// att, x and out are contiguous (N, E). M >= 1 stacked members: att, x and out
+// (M, N, E), every parameter (M, ...) contiguous, one launch for all of them.
 extern "C" int mmsn_fused_ffn_fwd(const void* att, const void* x, const void* wu,
                                   const void* bu, const void* g1, const void* b1,
                                   const void* wf1, const void* bf1, const void* wf2,
                                   const void* bf2, const void* g2, const void* b2,
-                                  void* out, int N, int E, int F, int dtype, float eps,
+                                  void* out, int M, int N, int E, int F, int dtype, float eps,
                                   void* stream) {
-  if (N < 1 || E < 32 || F < 32 || E % 32 || F % 32 || E > 32 * MAX_EJ) {
+  // M is grid.y: at most 65535
+  if (M < 1 || M > 65535 || N < 1 || E < 32 || F < 32 || E % 32 || F % 32 ||
+      E > 32 * MAX_EJ) {
     return cudaErrorInvalidValue;
   }
   const float* p[10] = {
@@ -147,8 +169,8 @@ extern "C" int mmsn_fused_ffn_fwd(const void* att, const void* x, const void* wu
       static_cast<const float*>(g2), static_cast<const float*>(b2)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(att, x, p, out, N, E, F, eps, st);
-    case 1: return launch<__nv_bfloat16>(att, x, p, out, N, E, F, eps, st);
+    case 0: return launch<float>(att, x, p, out, M, N, E, F, eps, st);
+    case 1: return launch<__nv_bfloat16>(att, x, p, out, M, N, E, F, eps, st);
     default: return cudaErrorInvalidValue;
   }
 }

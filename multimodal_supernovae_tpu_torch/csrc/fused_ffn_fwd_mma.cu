@@ -35,6 +35,11 @@
 // step), A fragments split as loaded (reused over a row of n tiles). Rows
 // past N are zero on load and never stored.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/fused_block.py) are
+// grid.y: member m reads its own N rows of att and x and its own ten
+// parameters (each stacked (M, ...) contiguous) and writes its own rows of
+// out; its tiles are computed as a call for that member alone computes them.
+//
 // Shared memory, floats: 64 (E + 4) [att, then y1] + 64 (64 + 4) [h chunk] +
 // max(2 E (E + 4) [Wu hi, lo], 2 * 64 (E + 4) + 2 E (64 + 4) [Wf1, Wf2 chunk
 // hi, lo]); 104,448 bytes at E = 64 (two blocks an SM), 188,416 at E = 128.
@@ -133,6 +138,20 @@ __global__ void __launch_bounds__(THREADS, 2) fused_ffn_fwd_mma_kernel(
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int64_t row0 = (int64_t)blockIdx.x * ROWS;
+  const int64_t m = blockIdx.y;  // the member
+  att += m * N * E;
+  x += m * N * E;
+  out += m * N * E;
+  wu += m * E * E;
+  wf1 += m * F * E;
+  wf2 += m * E * F;
+  bu += m * E;
+  g1 += m * E;
+  b1 += m * E;
+  bf1 += m * F;
+  bf2 += m * E;
+  g2 += m * E;
+  b2 += m * E;
   float* Xw = Xs + warp * 16 * L::XLD;  // the warp's 16 rows
   float* Hw = Hs + warp * 16 * L::HLD;
   const int64_t ra = row0 + warp * 16 + g;  // the lane's rows: ra and ra + 8
@@ -210,15 +229,15 @@ __global__ void __launch_bounds__(THREADS, 2) fused_ffn_fwd_mma_kernel(
 }
 
 template <int E>
-cudaError_t launch(const float* att, const float* x, const float* const* p, float* out, int N,
-                   int F, float eps, cudaStream_t stream) {
+cudaError_t launch(const float* att, const float* x, const float* const* p, float* out, int M,
+                   int N, int F, float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Layout<E>::FLOATS;
   cudaError_t err = cudaFuncSetAttribute(fused_ffn_fwd_mma_kernel<E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (N + ROWS - 1) / ROWS;
-  fused_ffn_fwd_mma_kernel<E><<<tiles, THREADS, smem, stream>>>(
+  fused_ffn_fwd_mma_kernel<E><<<dim3(tiles, M), THREADS, smem, stream>>>(
       att, x, p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], out, N, F, eps);
   return cudaGetLastError();
 }
@@ -228,18 +247,21 @@ cudaError_t launch(const float* att, const float* x, const float* const* p, floa
 // float32 throughout, every pointer on 16 bytes: att, x and out contiguous
 // (N, E); the ten parameters contiguous: wu (E, E), bu (E), g1 (E), b1 (E),
 // wf1 (F, E), bf1 (F), wf2 (E, F), bf2 (E), g2 (E), b2 (E), weights as a
-// Linear's (out, in). E is 64, 96 or 128; F a multiple of 64.
+// Linear's (out, in). E is 64, 96 or 128; F a multiple of 64. M >= 1 stacked
+// members: att, x and out (M, N, E), every parameter (M, ...) contiguous, one
+// launch for all of them (a member's offsets keep the 16 bytes).
 extern "C" int mmsn_fused_ffn_fwd_mma(const void* att, const void* x, const void* wu,
                                       const void* bu, const void* g1, const void* b1,
                                       const void* wf1, const void* bf1, const void* wf2,
                                       const void* bf2, const void* g2, const void* b2,
-                                      void* out, int N, int E, int F, float eps,
+                                      void* out, int M, int N, int E, int F, float eps,
                                       void* stream) {
   const void* ptrs[13] = {att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, out};
   for (const void* q : ptrs) {
     if (reinterpret_cast<uintptr_t>(q) % 16) return cudaErrorInvalidValue;
   }
-  if (N < 1 || F < FC || F % FC) return cudaErrorInvalidValue;
+  // M is grid.y: at most 65535
+  if (M < 1 || M > 65535 || N < 1 || F < FC || F % FC) return cudaErrorInvalidValue;
   const float* p[10] = {
       static_cast<const float*>(wu), static_cast<const float*>(bu),
       static_cast<const float*>(g1), static_cast<const float*>(b1),
@@ -251,9 +273,9 @@ extern "C" int mmsn_fused_ffn_fwd_mma(const void* att, const void* x, const void
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (E) {
-    case 64: return launch<64>(a, xx, p, o, N, F, eps, st);
-    case 96: return launch<96>(a, xx, p, o, N, F, eps, st);
-    case 128: return launch<128>(a, xx, p, o, N, F, eps, st);
+    case 64: return launch<64>(a, xx, p, o, M, N, F, eps, st);
+    case 96: return launch<96>(a, xx, p, o, M, N, F, eps, st);
+    case 128: return launch<128>(a, xx, p, o, M, N, F, eps, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -52,6 +52,13 @@
 // thread the walks cost about 12 S multiply-adds and 4 exponentials a key; one
 // block of 256 threads and up to 190 KB of shared memory runs on an SM.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/qkv_attention.py)
+// are grid.y of both kernels: member m walks its own B samples (x, mask, g, dx
+// (M, B, ...) stacked) with the block count a call for m alone takes, reads
+// its own Wqkv and Wu ((M, ...) stacked), writes its own (blocks, P) partials,
+// and the reduce sums them in block order into its own row of grads: bitwise
+// that call's result.
+//
 // Shared memory: 4 * (32 E + 6 T S + 2 T (E + 1) + 4 T) bytes.
 //
 // Plain C interface, loaded with ctypes (kernels/build.py): the entry returns
@@ -90,7 +97,14 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_kernel(
 
   const int t = threadIdx.x;
   const bool row = t < Tn;
-  float* part = partial + (int64_t)blockIdx.x * (4 * E * E + E);
+  const int64_t m = blockIdx.y;  // the member
+  x += m * B * Tn * E;
+  g += m * B * Tn * E;
+  dx += m * B * Tn * E;
+  if (mask != nullptr) mask += m * B * Tn;
+  wqkv += m * 3 * E * E;
+  wu += m * E * E;
+  float* part = partial + (m * gridDim.x + blockIdx.x) * (4 * E * E + E);
   float* p_wqkv = part;               // (3E, E)
   float* p_wu = p_wqkv + 3 * E * E;   // (E, E)
   float* p_bu = p_wu + E * E;         // (E)
@@ -252,31 +266,34 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_kernel(
 
 template <typename T, int S>
 cudaError_t launch(const void* x, const void* mask, const float* wqkv, const float* wu,
-                   const void* g, void* dx, float* partial, float* grads, int B, int Tn,
-                   int E, int blocks, cudaStream_t stream) {
+                   const void* g, void* dx, float* partial, float* grads, int M, int B,
+                   int Tn, int E, int blocks, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)E * EC + 6 * (size_t)Tn * S +
                                        2 * (size_t)Tn * (E + 1) + 4 * (size_t)Tn);
   cudaError_t err = cudaFuncSetAttribute(fused_qkv_bwd_kernel<T, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  fused_qkv_bwd_kernel<T, S><<<blocks, THREADS, smem, stream>>>(
+  fused_qkv_bwd_kernel<T, S><<<dim3(blocks, M), THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(mask), wqkv, wu,
       static_cast<const T*>(g), static_cast<T*>(dx), partial, B, Tn, E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return partials::reduce(partial, blocks, 4 * E * E + E, grads, stream);
+  const int P = 4 * E * E + E;
+  return partials::reduce(partial, blocks, P, grads, stream, M, (int64_t)blocks * P, P);
 }
 
 template <typename T>
 cudaError_t launch_s(int S, const void* x, const void* mask, const float* wqkv,
                      const float* wu, const void* g, void* dx, float* partial, float* grads,
-                     int B, int Tn, int E, int blocks, cudaStream_t stream) {
+                     int M, int B, int Tn, int E, int blocks, cudaStream_t stream) {
   switch (S) {
     case 8:
-      return launch<T, 8>(x, mask, wqkv, wu, g, dx, partial, grads, B, Tn, E, blocks, stream);
+      return launch<T, 8>(x, mask, wqkv, wu, g, dx, partial, grads, M, B, Tn, E, blocks,
+                          stream);
     case 16:
-      return launch<T, 16>(x, mask, wqkv, wu, g, dx, partial, grads, B, Tn, E, blocks, stream);
+      return launch<T, 16>(x, mask, wqkv, wu, g, dx, partial, grads, M, B, Tn, E, blocks,
+                           stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -288,13 +305,16 @@ cudaError_t launch_s(int S, const void* x, const void* mask, const float* wqkv,
 // (B, T), one byte each, or null. wqkv float32 (3E, E), wu float32 (E, E).
 // partial is float32 (blocks, P) scratch, P = 4 E^2 + E, with 1 <= blocks <= B;
 // grads is float32 (P): dwqkv (3E, E), dwu (E, E), dbu (E). 1 <= T <= 256, E a
-// multiple of 32, E / H in {8, 16}.
+// multiple of 32, E / H in {8, 16}. M >= 1 stacked members: x, g, dx (M, B, T,
+// E), mask (M, B, T) or null, wqkv (M, 3E, E), wu (M, E, E), partial (M,
+// blocks, P) and grads (M, P), one launch of each kernel for all of them.
 extern "C" int mmsn_fused_qkv_bwd(const void* x, const void* mask, const void* wqkv,
                                   const void* wu, const void* g, void* dx, void* partial,
-                                  void* grads, int B, int T, int E, int H, int dtype,
+                                  void* grads, int M, int B, int T, int E, int H, int dtype,
                                   int blocks, void* stream) {
-  if (B < 1 || T < 1 || T > THREADS || E < EC || E % EC || H < 1 || E % H || blocks < 1 ||
-      blocks > B) {
+  // M is grid.y: at most 65535
+  if (M < 1 || M > 65535 || B < 1 || T < 1 || T > THREADS || E < EC || E % EC || H < 1 ||
+      E % H || blocks < 1 || blocks > B) {
     return cudaErrorInvalidValue;
   }
   const float* w = static_cast<const float*>(wqkv);
@@ -304,10 +324,10 @@ extern "C" int mmsn_fused_qkv_bwd(const void* x, const void* mask, const void* w
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_s<float>(E / H, x, mask, w, u, g, dx, part, out, B, T, E, blocks, st);
+      return launch_s<float>(E / H, x, mask, w, u, g, dx, part, out, M, B, T, E, blocks, st);
     case 1:
-      return launch_s<__nv_bfloat16>(E / H, x, mask, w, u, g, dx, part, out, B, T, E, blocks,
-                                     st);
+      return launch_s<__nv_bfloat16>(E / H, x, mask, w, u, g, dx, part, out, M, B, T, E,
+                                     blocks, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -54,6 +54,13 @@
 // softmax arithmetic around them are the larger share. One block of 16 warps
 // an SM (193 KB of shared memory at T = 256, E = 64), two barriers a head.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/qkv_attention.py)
+// are grid.y of both kernels: member m walks its own B samples (x, mask, g, dx
+// (M, B, ...) stacked) with the block count a call for m alone takes, reads
+// its own Wqkv and Wu ((M, ...) stacked), writes its own (blocks, P) partials,
+// and the reduce sums them in block order into its own row of grads: bitwise
+// that call's result.
+//
 // Shared memory: 2 (E + 8) (4 Tp + max(4 E, Tp)) + 2 Tp SRS + 16 Tp + Tp
 // bytes, Tp = ceil16(T), SRS = 8 at head dim 8 and 24 at 16.
 //
@@ -71,7 +78,7 @@ namespace {
 
 using namespace qkv_mma;
 
-struct BwdArgs {
+struct BwdArgs {  // each with a leading member axis (M, ...) when stacked
   const bf16* x;        // (B, T, E)
   const uint8_t* mask;  // (B, T) bytes or null
   const float* wqkv;    // (3E, E)
@@ -81,6 +88,20 @@ struct BwdArgs {
   float* partial;       // (blocks, 4 E^2 + E)
   int B, T_len;
 };
+
+// The kernel's arguments for member m (its blocks are gridDim.x).
+template <int E>
+__device__ __forceinline__ BwdArgs member_args(BwdArgs a, int64_t m) {
+  const int64_t rows = m * a.B * a.T_len;
+  a.x += rows * E;
+  a.g += rows * E;
+  a.dx += rows * E;
+  if (a.mask != nullptr) a.mask += rows;
+  a.wqkv += m * 3 * E * E;
+  a.wu += m * E * E;
+  a.partial += m * gridDim.x * (4 * E * E + E);
+  return a;
+}
 
 template <int E, int S>
 struct Smem {
@@ -291,8 +312,9 @@ __device__ __forceinline__ void phase_b(int T_len, int h, int row0, const bf16* 
 }
 
 template <int E, int S>
-__global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_mma_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_mma_kernel(const BwdArgs args) {
   using L = Smem<E, S>;
+  const BwdArgs a = member_args<E>(args, blockIdx.y);
   constexpr int RS = L::RS, SRS = L::SRS, H = E / S;
   constexpr int UQ = (3 * (E / 16) * (E / 16) + WARPS - 1) / WARPS;  // dWqkv tiles a warp
   constexpr int UU = ((E / 16) * (E / 16) + WARPS - 1) / WARPS;      // dWu tiles a warp
@@ -425,15 +447,16 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_bwd_mma_kernel(const Bwd
 }
 
 template <int E, int S>
-cudaError_t launch(const BwdArgs& a, float* grads, int blocks, cudaStream_t stream) {
+cudaError_t launch(const BwdArgs& a, float* grads, int M, int blocks, cudaStream_t stream) {
   const int smem = Smem<E, S>::bytes(pad16(a.T_len));
   cudaError_t err = cudaFuncSetAttribute(fused_qkv_bwd_mma_kernel<E, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fused_qkv_bwd_mma_kernel<E, S><<<blocks, THREADS, smem, stream>>>(a);
+  fused_qkv_bwd_mma_kernel<E, S><<<dim3(blocks, M), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return partials::reduce(a.partial, blocks, 4 * E * E + E, grads, stream);
+  const int P = 4 * E * E + E;
+  return partials::reduce(a.partial, blocks, P, grads, stream, M, (int64_t)blocks * P, P);
 }
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
@@ -445,14 +468,18 @@ bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) %
 // aligned. partial is float32 (blocks, P) scratch, P = 4 E^2 + E, 8-byte
 // aligned, with 1 <= blocks <= B; grads is float32 (P): dwqkv (3E, E), dwu
 // (E, E), dbu (E). 1 <= T <= 256; (E, E / H) one of (32, 8), (32, 16),
-// (64, 8).
+// (64, 8). M >= 1 stacked members: x, g, dx (M, B, T, E), mask (M, B, T) or
+// null, wqkv (M, 3E, E), wu (M, E, E), partial (M, blocks, P) and grads (M, P),
+// one launch of each kernel for all of them (a member's offsets keep the
+// alignment).
 extern "C" int mmsn_fused_qkv_bwd_mma(const void* x, const void* mask, const void* wqkv,
                                       const void* wu, const void* g, void* dx, void* partial,
-                                      void* grads, int B, int T, int E, int H, int blocks,
-                                      void* stream) {
-  if (B < 1 || T < 1 || T > MAX_T || H < 1 || E % H || blocks < 1 || blocks > B ||
-      !aligned(x, 16) || !aligned(g, 16) || !aligned(dx, 16) || !aligned(wqkv, 16) ||
-      !aligned(wu, 16) || !aligned(partial, 8)) {
+                                      void* grads, int M, int B, int T, int E, int H,
+                                      int blocks, void* stream) {
+  // M is grid.y: at most 65535
+  if (M < 1 || M > 65535 || B < 1 || T < 1 || T > MAX_T || H < 1 || E % H || blocks < 1 ||
+      blocks > B || !aligned(x, 16) || !aligned(g, 16) || !aligned(dx, 16) ||
+      !aligned(wqkv, 16) || !aligned(wu, 16) || !aligned(partial, 8)) {
     return cudaErrorInvalidValue;
   }
   BwdArgs a;
@@ -468,8 +495,8 @@ extern "C" int mmsn_fused_qkv_bwd_mma(const void* x, const void* mask, const voi
   float* out = static_cast<float*>(grads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = E / H;
-  if (E == 64 && S == 8) return launch<64, 8>(a, out, blocks, st);
-  if (E == 32 && S == 8) return launch<32, 8>(a, out, blocks, st);
-  if (E == 32 && S == 16) return launch<32, 16>(a, out, blocks, st);
+  if (E == 64 && S == 8) return launch<64, 8>(a, out, M, blocks, st);
+  if (E == 32 && S == 8) return launch<32, 8>(a, out, M, blocks, st);
+  if (E == 32 && S == 16) return launch<32, 16>(a, out, M, blocks, st);
   return cudaErrorInvalidValue;
 }

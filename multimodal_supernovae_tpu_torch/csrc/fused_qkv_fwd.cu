@@ -31,6 +31,11 @@
 // a sample, one block runs on an SM and it is latency-bound at 8 warps. Tensor cores are out: the head dim of 8 is
 // below every MMA tile.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/qkv_attention.py)
+// are grid.y: block (b, m) computes sample b of member m, whose x, mask and out
+// rows follow member m - 1's ((M, B, ...) stacked) and whose Wqkv, Wu and bu
+// are its own ((M, ...) stacked), as a call for member m alone computes it.
+//
 // Shared memory: 4 * (32 E + 3 T S + 2 T (E + 1) + T) bytes.
 //
 // Plain C interface, loaded with ctypes (kernels/build.py): the entry returns
@@ -60,13 +65,17 @@ __global__ void __launch_bounds__(THREADS) fused_qkv_fwd_kernel(
   float* ATT = XS + Tn * ldx;   // Tn x ldx: merged head outputs
   float* VAL = ATT + Tn * ldx;  // Tn: 1 where the key is valid
 
-  const int b = blockIdx.x;
+  const int64_t m = blockIdx.y;  // the member
+  const int64_t b = m * gridDim.x + blockIdx.x;  // its sample, in the stacked rows
+  wqkv += m * 3 * E * E;
+  wu += m * E * E;
+  bu += m * E;
   const int t = threadIdx.x;
   const bool row = t < Tn;
-  const T* xb = x + (int64_t)b * Tn * E;
+  const T* xb = x + b * Tn * E;
   for (int idx = t; idx < Tn * E; idx += THREADS)
     XS[(idx / E) * ldx + idx % E] = to_float(xb[idx]);
-  if (row) VAL[t] = (mask == nullptr || mask[(int64_t)b * Tn + t]) ? 1.f : 0.f;
+  if (row) VAL[t] = (mask == nullptr || mask[b * Tn + t]) ? 1.f : 0.f;
 
 #pragma unroll 1
   for (int h = 0; h < H; ++h) {
@@ -99,7 +108,7 @@ __global__ void __launch_bounds__(THREADS) fused_qkv_fwd_kernel(
   }
 
   // head unification: out = round(att @ Wu^T) + bu, EC columns a pass
-  T* ob = out + ((int64_t)b * Tn + t) * E;
+  T* ob = out + (b * Tn + t) * E;
 #pragma unroll 1
   for (int o0 = 0; o0 < E; o0 += EC) {
     __syncthreads();
@@ -117,14 +126,15 @@ __global__ void __launch_bounds__(THREADS) fused_qkv_fwd_kernel(
 
 template <typename T, int S>
 cudaError_t launch(const void* x, const void* mask, const float* wqkv, const float* wu,
-                   const float* bu, void* out, int B, int Tn, int E, cudaStream_t stream) {
+                   const float* bu, void* out, int M, int B, int Tn, int E,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)E * EC + 3 * (size_t)Tn * S + 2 * (size_t)Tn * (E + 1) + Tn);
   cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_kernel<T, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  fused_qkv_fwd_kernel<T, S><<<B, THREADS, smem, stream>>>(
+  fused_qkv_fwd_kernel<T, S><<<dim3(B, M), THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(mask), wqkv, wu, bu,
       static_cast<T*>(out), Tn, E);
   return cudaGetLastError();
@@ -132,11 +142,11 @@ cudaError_t launch(const void* x, const void* mask, const float* wqkv, const flo
 
 template <typename T>
 cudaError_t launch_s(int S, const void* x, const void* mask, const float* wqkv,
-                     const float* wu, const float* bu, void* out, int B, int Tn, int E,
+                     const float* wu, const float* bu, void* out, int M, int B, int Tn, int E,
                      cudaStream_t stream) {
   switch (S) {
-    case 8: return launch<T, 8>(x, mask, wqkv, wu, bu, out, B, Tn, E, stream);
-    case 16: return launch<T, 16>(x, mask, wqkv, wu, bu, out, B, Tn, E, stream);
+    case 8: return launch<T, 8>(x, mask, wqkv, wu, bu, out, M, B, Tn, E, stream);
+    case 16: return launch<T, 16>(x, mask, wqkv, wu, bu, out, M, B, Tn, E, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -146,11 +156,14 @@ cudaError_t launch_s(int S, const void* x, const void* mask, const float* wqkv,
 // dtype: 0 = float32, 1 = bfloat16 (x, out: contiguous (B, T, E)). mask: bool
 // (B, T), one byte each, or null for all keys valid. wqkv float32 (3E, E), wu
 // float32 (E, E), bu float32 (E). 1 <= T <= 256, E a multiple of 32, E / H in
-// {8, 16}.
+// {8, 16}. M >= 1 stacked members: x and out (M, B, T, E), mask (M, B, T) or
+// null, wqkv (M, 3E, E), wu (M, E, E), bu (M, E), one launch for all of them.
 extern "C" int mmsn_fused_qkv_fwd(const void* x, const void* mask, const void* wqkv,
-                                  const void* wu, const void* bu, void* out, int B, int T,
-                                  int E, int H, int dtype, void* stream) {
-  if (B < 1 || T < 1 || T > THREADS || E < EC || E % EC || H < 1 || E % H) {
+                                  const void* wu, const void* bu, void* out, int M, int B,
+                                  int T, int E, int H, int dtype, void* stream) {
+  // M is grid.y: at most 65535
+  if (M < 1 || M > 65535 || B < 1 || T < 1 || T > THREADS || E < EC || E % EC || H < 1 ||
+      E % H) {
     return cudaErrorInvalidValue;
   }
   const float* w = static_cast<const float*>(wqkv);
@@ -158,8 +171,8 @@ extern "C" int mmsn_fused_qkv_fwd(const void* x, const void* mask, const void* w
   const float* bias = static_cast<const float*>(bu);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_s<float>(E / H, x, mask, w, u, bias, out, B, T, E, st);
-    case 1: return launch_s<__nv_bfloat16>(E / H, x, mask, w, u, bias, out, B, T, E, st);
+    case 0: return launch_s<float>(E / H, x, mask, w, u, bias, out, M, B, T, E, st);
+    case 1: return launch_s<__nv_bfloat16>(E / H, x, mask, w, u, bias, out, M, B, T, E, st);
     default: return cudaErrorInvalidValue;
   }
 }

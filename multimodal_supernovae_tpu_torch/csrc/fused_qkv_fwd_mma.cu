@@ -40,6 +40,11 @@
 // MUFU pipes. One 16-warp block an SM (148 KB of shared memory at T = 256,
 // E = 64), 256 samples in two waves over 132 SMs.
 //
+// Stacked members (torch.func.vmap over an ensemble, ops/qkv_attention.py)
+// are grid.y: block (b, m) computes sample b of member m, whose x, mask and out
+// rows follow member m - 1's ((M, B, ...) stacked) and whose Wqkv, Wu and bu
+// are its own ((M, ...) stacked), as a call for member m alone computes it.
+//
 // Shared memory: 2 (E + 8) (3 Tp + 4 E) + Tp bytes, Tp = ceil16(T).
 //
 // Plain C interface, loaded with ctypes (kernels/build.py): the entry returns
@@ -55,7 +60,7 @@ namespace {
 
 using namespace qkv_mma;
 
-struct FwdArgs {
+struct FwdArgs {  // each with a leading member axis (M, ...) when stacked
   const bf16* x;        // (B, T, E)
   const uint8_t* mask;  // (B, T) bytes or null
   const float* wqkv;    // (3E, E), scaling folded into the q and k rows
@@ -98,11 +103,13 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_fwd_mma_kernel(const Fwd
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int64_t b = blockIdx.x;
+  const int64_t m = blockIdx.y;                  // the member
+  const int64_t b = m * gridDim.x + blockIdx.x;  // its sample, in the stacked rows
+  const float* bu = a.bu + m * E;
   load_rows_async<E>(X, a.x + b * T_len * E, T_len, tid);
   cp_async_commit();
-  stage_weight<E>(WQ, a.wqkv, 3 * E, tid);
-  stage_weight<E>(WU, a.wu, E, tid);
+  stage_weight<E>(WQ, a.wqkv + m * 3 * E * E, 3 * E, tid);
+  stage_weight<E>(WU, a.wu + m * E * E, E, tid);
   write_kinds(kind, a.mask != nullptr ? a.mask + b * T_len : nullptr, T_len, tid);
   cp_async_wait<0>();
   __syncthreads();
@@ -192,7 +199,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_fwd_mma_kernel(const Fwd
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int col = n0 + 8 * i + 2 * t;
-      const float b0 = round_bf16(a.bu[col]), b1 = round_bf16(a.bu[col + 1]);
+      const float b0 = round_bf16(bu[col]), b1 = round_bf16(bu[col + 1]);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + g + 8 * r;
@@ -206,13 +213,13 @@ __global__ void __launch_bounds__(THREADS, 1) fused_qkv_fwd_mma_kernel(const Fwd
 }
 
 template <int E, int S>
-cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
+cudaError_t launch(const FwdArgs& a, int M, int B, cudaStream_t stream) {
   const int Tp = pad16(a.T_len);
   const int smem = 2 * Dims<E>::RS * (3 * Tp + 4 * E) + Tp;
   cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_mma_kernel<E, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fused_qkv_fwd_mma_kernel<E, S><<<B, THREADS, smem, stream>>>(a);
+  fused_qkv_fwd_mma_kernel<E, S><<<dim3(B, M), THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -223,12 +230,15 @@ bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) %
 // x, out: bf16 (B, T, E), contiguous, 16-byte aligned. mask: bool (B, T), one
 // byte each, or null for all keys valid. wqkv float32 (3E, E) and wu float32
 // (E, E), 16-byte aligned; bu float32 (E). 1 <= T <= 256; (E, E / H) one of
-// (32, 8), (32, 16), (64, 8).
+// (32, 8), (32, 16), (64, 8). M >= 1 stacked members: x and out (M, B, T, E),
+// mask (M, B, T) or null, wqkv (M, 3E, E), wu (M, E, E), bu (M, E), one launch
+// for all of them (a member's offsets keep the 16 bytes).
 extern "C" int mmsn_fused_qkv_fwd_mma(const void* x, const void* mask, const void* wqkv,
-                                      const void* wu, const void* bu, void* out, int B, int T,
-                                      int E, int H, void* stream) {
-  if (B < 1 || T < 1 || T > MAX_T || H < 1 || E % H || !aligned(x, 16) || !aligned(out, 16) ||
-      !aligned(wqkv, 16) || !aligned(wu, 16)) {
+                                      const void* wu, const void* bu, void* out, int M, int B,
+                                      int T, int E, int H, void* stream) {
+  // M is grid.y: at most 65535
+  if (M < 1 || M > 65535 || B < 1 || T < 1 || T > MAX_T || H < 1 || E % H || !aligned(x, 16) ||
+      !aligned(out, 16) || !aligned(wqkv, 16) || !aligned(wu, 16)) {
     return cudaErrorInvalidValue;
   }
   FwdArgs a;
@@ -241,8 +251,8 @@ extern "C" int mmsn_fused_qkv_fwd_mma(const void* x, const void* mask, const voi
   a.T_len = T;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = E / H;
-  if (E == 64 && S == 8) return launch<64, 8>(a, B, st);
-  if (E == 32 && S == 8) return launch<32, 8>(a, B, st);
-  if (E == 32 && S == 16) return launch<32, 16>(a, B, st);
+  if (E == 64 && S == 8) return launch<64, 8>(a, M, B, st);
+  if (E == 32 && S == 8) return launch<32, 8>(a, M, B, st);
+  if (E == 32 && S == 16) return launch<32, 16>(a, M, B, st);
   return cudaErrorInvalidValue;
 }

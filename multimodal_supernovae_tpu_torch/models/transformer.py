@@ -57,7 +57,7 @@ from torch import nn
 
 from ..ops import fused_block as _fused
 from ..ops import qkv_attention as _qkv
-from ..ops.attention import attention, is_batched, refuse_stacked_weights
+from ..ops.attention import attention
 from ..ops.linear import linear
 from ..utils.draws import DrawSource
 
@@ -249,11 +249,8 @@ class SelfAttention(nn.Module):
         ``Dense`` weights and the unify bias as they are. The CPU tests reach
         the routed module by patching ``_on_card``, the one device
         predicate."""
-        use = bool(os.environ.get("MMSN_FUSED_QKV") == "1" and _on_card(x)
-                   and _qkv.supports(x.shape[1], self.emb, self.heads))
-        if use and is_batched(x):
-            refuse_stacked_weights("MMSN_FUSED_QKV=1")
-        return use
+        return bool(os.environ.get("MMSN_FUSED_QKV") == "1" and _on_card(x)
+                    and _qkv.supports(x.shape[1], self.emb, self.heads))
 
 
 class TransformerBlock(nn.Module):
@@ -295,11 +292,8 @@ class TransformerBlock(nn.Module):
             use = False  # kill switch, even over an explicit True
         elif use is None:
             use = env == "1" and x.is_cuda
-        use = bool(use and self.dropout == 0.0
-                   and _fused.supports(self.emb, self.heads, self.ff_hidden_mult))
-        if use and is_batched(x):
-            refuse_stacked_weights("the fused block (use_fused_block / MMSN_FUSED_BLOCK=1)")
-        return use
+        return bool(use and self.dropout == 0.0
+                    and _fused.supports(self.emb, self.heads, self.ff_hidden_mult))
 
 
 def fused_transformer_block(x: torch.Tensor, mask: Optional[torch.Tensor],

@@ -41,14 +41,33 @@ def is_batched(*tensors) -> bool:
                for t in tensors)
 
 
-STACKED_WEIGHTS_REFUSAL = (
-    "{} under torch.func.vmap: each stacked member has its own weights, and the "
-    "fused kernels take one set (ROADMAP.md queue 1, item 15c: fused kernels with "
-    "stacked weights); train ensembles without MMSN_FUSED_BLOCK / MMSN_FUSED_QKV")
+def stack_members(info, in_dims, args):
+    """The fused kernels' vmap rules' stacking (fused_block.py,
+    qkv_attention.py): each batched tensor of ``args`` with its member dim
+    moved to the front, an unbatched one expanded to the members (in
+    autograd, so a shared weight's gradient is the sum over them), each made
+    contiguous for the kernels, which read member m at m times a member's
+    size; None stays None. Returns (M, the stacked args)."""
+    n = info.batch_size
+
+    def front(a, d):
+        if a is None:
+            return None
+        return (a.expand(n, *a.shape) if d is None else a.movedim(d, 0)).contiguous()
+
+    return n, tuple(front(a, d) for a, d in zip(args, in_dims))
 
 
-def refuse_stacked_weights(what: str):
-    raise NotImplementedError(STACKED_WEIGHTS_REFUSAL.format(what))
+def per_member(fn, members: Optional[int], *args, **kw):
+    """``fn`` (a plain version) on ``args`` as they are where ``members`` is
+    None, else on each member's slice of them (None stays None) with the
+    results stacked: a stacked call on the CPU."""
+    if members is None:
+        return fn(*args, **kw)
+    outs = [fn(*(None if a is None else a[m] for a in args), **kw) for m in range(members)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
 
 
 # The namespace of the kernel forwards' registered ops (flash_attention.py,

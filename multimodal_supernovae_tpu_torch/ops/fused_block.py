@@ -41,6 +41,18 @@ call does.
 routes) and their ``.mma_launches`` (the tensor cores) count kernel calls
 (bumped only after a launch the runtime accepted).
 
+Under ``torch.func.vmap`` (stacked ensemble members, training/ensemble.py,
+each with its own parameters) the ``vmap`` rule of ``FusedFFNBlock`` moves
+every input's member axis to the front (``attention.stack_members``: an
+unbatched one expanded to the members and copied, so a shared weight's
+gradient is summed over them) and launches each kernel once for all M
+members: the
+member is a grid dimension of every kernel, which offsets its rows and
+parameters, and each member keeps the block and split counts a call for it
+alone takes, so its results are bitwise that call's. The JAX package's
+Pallas batching rule adds a grid dimension in the same way. On the CPU the
+stacked calls run the plain versions member by member.
+
 The whole block (q/k/v projections, attention, then ``fused_ffn_block``) is
 composed in ``models/transformer.py:fused_transformer_block``; this module
 takes tensors only.
@@ -57,7 +69,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights, register_kernel_op
+from .attention import (PLAIN_DEVICES, is_batched, per_member, register_kernel_op,
+                        stack_members)
 
 LN_EPS = 1e-6
 ROWS = 32          # rows per block tile in both kernels
@@ -75,22 +88,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = {}
 _ARGTYPES = {
     "fused_ffn_fwd": ([ctypes.c_void_p] * 13       # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 out
-                      + [ctypes.c_int] * 4          # N, E, F, dtype
+                      + [ctypes.c_int] * 5          # M, N, E, F, dtype
                       + [ctypes.c_float]            # eps
                       + [ctypes.c_void_p]),         # stream
     "fused_ffn_fwd_mma": ([ctypes.c_void_p] * 13   # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 out
-                          + [ctypes.c_int] * 3      # N, E, F
+                          + [ctypes.c_int] * 4      # M, N, E, F
                           + [ctypes.c_float]        # eps
                           + [ctypes.c_void_p]),     # stream
     "fused_ffn_bwd": ([ctypes.c_void_p] * 13       # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 g
                       + [ctypes.c_void_p] * 4       # datt dx partial grads
-                      + [ctypes.c_int] * 5          # N, E, F, dtype, blocks
+                      + [ctypes.c_int] * 6          # M, N, E, F, dtype, blocks
                       + [ctypes.c_float]            # eps
                       + [ctypes.c_void_p]),         # stream
     "fused_ffn_bwd_mma": ([ctypes.c_void_p] * 13   # att x wu bu g1 b1 wf1 bf1 wf2 bf2 g2 b2 g
                           + [ctypes.c_void_p] * 3   # datt dx grads
                           + [ctypes.c_void_p] * 6   # dr2 h dh y1 ln_partial w_partial
-                          + [ctypes.c_int] * 5      # N, E, F, blocks, splits
+                          + [ctypes.c_int] * 6      # M, N, E, F, blocks, splits
                           + [ctypes.c_float]        # eps
                           + [ctypes.c_void_p]),     # stream
 }
@@ -267,18 +280,22 @@ def _entry(name: str):
     return fn
 
 
-def _check(att, x, params):
-    if x.dim() != 2 or att.shape != x.shape:
-        raise ValueError(f"att and x must be (N, E) of one shape, got "
-                         f"{tuple(att.shape)} and {tuple(x.shape)}")
+def _check(att, x, params, members: Optional[int] = None):
+    """(N, E, F) of a call; ``members`` M: stacked members, every tensor
+    with a leading member axis (M, ...)."""
+    lead = () if members is None else (members,)
+    if x.dim() != 2 + len(lead) or att.shape != x.shape or tuple(x.shape[:len(lead)]) != lead:
+        raise ValueError(f"att and x must be {'(M, N, E)' if lead else '(N, E)'} of one "
+                         f"shape, got {tuple(att.shape)} and {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES or att.dtype != x.dtype:
         raise ValueError(f"att and x must share a dtype in (float32, bfloat16), "
                          f"got {att.dtype} and {x.dtype}")
-    n, e = x.shape
+    n, e = x.shape[-2:]
     wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2 = params
-    f = wf1.shape[0]
+    f = wf1.shape[-2]
     shapes = ((e, e), (e,), (e,), (e,), (f, e), (f,), (e, f), (e,), (e,), (e,))
     for i, (p, shape) in enumerate(zip(params, shapes)):
+        shape = lead + shape
         if tuple(p.shape) != shape or p.dtype != torch.float32 or p.device != x.device:
             raise ValueError(f"parameter {i} must be float32 {shape} on {x.device}, "
                              f"got {p.dtype} {tuple(p.shape)} on {p.device}")
@@ -288,30 +305,32 @@ def _check(att, x, params):
         raise ValueError(f"(N, E, F) = ({n}, {e}, {f}) not supported: N >= 1, E and F "
                          "multiples of 32 within the shared-memory limit (supports)")
     if not (att.is_contiguous() and x.is_contiguous()):
-        raise ValueError("att and x must be contiguous (N, E)")
+        raise ValueError("att and x must be contiguous")
     return n, e, f
 
 
-def _ffn_fwd(att, x, *params, eps):
+def _ffn_fwd(att, x, *params, eps, members: Optional[int] = None):
     """Launch the forward kernel of ``_route``'s choice (CUDA) or run the
-    plain version (CPU)."""
+    plain version (CPU). ``members`` M: stacked members, every tensor (M,
+    ...), one launch for all of them."""
     if x.device.type in PLAIN_DEVICES:
-        return fused_ffn_block_plain(att, x, *params, eps=eps)
+        return per_member(fused_ffn_block_plain, members, att, x, *params, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn_block runs on CUDA or CPU, got {x.device}")
-    n, e, f = _check(att, x, params)
+    n, e, f = _check(att, x, params, members)
     out = torch.empty_like(x)
     mma = _route(x.dtype, e, f) == "mma"
     name = "fused_ffn_fwd_mma" if mma else "fused_ffn_fwd"
-    shape = (n, e, f) if mma else (n, e, f, _DTYPE_CODES[x.dtype])
+    m = members or 1
+    shape = (m, n, e, f) if mma else (m, n, e, f, _DTYPE_CODES[x.dtype])
     fn = _entry(name)
     with torch.cuda.device(x.device):
         rc = fn(att.data_ptr(), x.data_ptr(), *(p.data_ptr() for p in params),
                 out.data_ptr(), *shape, eps, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         hint = ", every pointer must be on 16 bytes" if mma else ""
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc} (N, E, F = {n}, {e}, "
-                           f"{f}, {x.dtype}{hint})")
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} (M, N, E, F = {m}, {n}, "
+                           f"{e}, {f}, {x.dtype}{hint})")
     fused_ffn_block.launches += 1
     fused_ffn_block.mma_launches += mma
     return out
@@ -321,7 +340,7 @@ def _bwd_blocks(n: int, device) -> int:
     """Blocks of the backward's fixed grid: one per SM (one fits, at 255
     registers a thread), at most one per row tile. Each writes one float32
     partial of every parameter gradient, which the reduce kernel sums in
-    block order."""
+    block order. A stacked member takes the count of its own N rows."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-n // ROWS), sms))
 
@@ -339,70 +358,77 @@ def _bwd_mma_grid(n: int, e: int, f: int, device) -> Tuple[int, int]:
     return blocks, max(1, min(-(-n // BWD_MMA_ROWS), sms))
 
 
-def _bwd_mma(att, x, params, g, n, e, f, eps):
+def _bwd_mma(att, x, params, g, n, e, f, eps, members=None):
     """Launch the tensor-core backward: row kernel, weight-gradient kernel
     three times and their reduces, with float32 scratch for the row
-    gradients (dr2, h, dh, y1) and the partials. Returns (datt, dx, grads,
+    gradients (dr2, h, dh, y1) and the partials, a member axis in front of
+    each for ``members`` stacked members. Returns (datt, dx, grads (M, P),
     h); h > 0 is the kernel's ReLU mask."""
+    m = members or 1
+    lead = () if members is None else (members,)
     blocks, splits = _bwd_mma_grid(n, e, f, x.device)
     datt, dx = torch.empty_like(att), torch.empty_like(x)
-    grads = torch.empty(sum(p.numel() for p in params), dtype=torch.float32, device=x.device)
+    grads = torch.empty((m, sum(p.numel() for p in params) // m), dtype=torch.float32,
+                        device=x.device)
 
     def scratch(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x.device)
 
-    bufs = (scratch(n, e), scratch(n, f), scratch(n, f), scratch(n, e),
-            scratch(2, blocks, 2 * e), scratch(splits, e * f + f))
+    bufs = (scratch(*lead, n, e), scratch(*lead, n, f), scratch(*lead, n, f),
+            scratch(*lead, n, e), scratch(m, 2, blocks, 2 * e), scratch(m, splits, e * f + f))
     fn = _entry("fused_ffn_bwd_mma")
     with torch.cuda.device(x.device):
         rc = fn(att.data_ptr(), x.data_ptr(), *(p.data_ptr() for p in params), g.data_ptr(),
                 datt.data_ptr(), dx.data_ptr(), grads.data_ptr(),
-                *(b.data_ptr() for b in bufs), n, e, f, blocks, splits, eps,
+                *(b.data_ptr() for b in bufs), m, n, e, f, blocks, splits, eps,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_ffn_bwd_mma launch failed with CUDA error {rc} (N, E, F = "
-                           f"{n}, {e}, {f}, {x.dtype}, every pointer must be on 16 bytes)")
+        raise RuntimeError(f"fused_ffn_bwd_mma launch failed with CUDA error {rc} (M, N, E, F "
+                           f"= {m}, {n}, {e}, {f}, {x.dtype}, every pointer must be on 16 "
+                           "bytes)")
     return datt, dx, grads, bufs[1]
 
 
 def fused_ffn_block_bwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, g,
-                        eps: float = LN_EPS) -> Tuple[torch.Tensor, ...]:
+                        eps: float = LN_EPS, members: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, ...]:
     """(datt, dx, dwu, dbu, dg1, db1, dwf1, dbf1, dwf2, dbf2, dg2, db2) for
     the cotangent ``g``: the plain version for CPU tensors; for CUDA tensors
     the backward kernels of ``_route``'s choice (recompute, backward,
     float32 partials of the parameter gradients, and their reduce), or
-    raise."""
+    raise. ``members`` M: stacked members, every tensor and every result
+    (M, ...), one launch of each kernel for all of them."""
     params = (wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2)
     if x.device.type in PLAIN_DEVICES:
-        return fused_ffn_block_bwd_plain(att, x, *params, g, eps=eps)
+        return per_member(fused_ffn_block_bwd_plain, members, att, x, *params, g, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn_block_bwd runs on CUDA or CPU, got {x.device}")
-    n, e, f = _check(att, x, params)
+    n, e, f = _check(att, x, params, members)
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must be {tuple(x.shape)} on {x.device}")
     g = g.to(x.dtype).contiguous()
+    m = members or 1
+    sizes = [p.numel() // m for p in params]
     mma = _route(x.dtype, e, f) == "mma"
     if mma:
-        datt, dx, grads, _ = _bwd_mma(att, x, params, g, n, e, f, eps)
+        datt, dx, grads, _ = _bwd_mma(att, x, params, g, n, e, f, eps, members)
     else:
         nblk = _bwd_blocks(n, x.device)
         datt, dx = torch.empty_like(att), torch.empty_like(x)
-        total = sum(p.numel() for p in params)
-        partial = torch.empty((nblk, total), dtype=torch.float32, device=x.device)
-        grads = torch.empty(total, dtype=torch.float32, device=x.device)
+        partial = torch.empty((m, nblk, sum(sizes)), dtype=torch.float32, device=x.device)
+        grads = torch.empty((m, sum(sizes)), dtype=torch.float32, device=x.device)
         fn = _entry("fused_ffn_bwd")
         with torch.cuda.device(x.device):
             rc = fn(att.data_ptr(), x.data_ptr(), *(p.data_ptr() for p in params),
                     g.data_ptr(), datt.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                    grads.data_ptr(), n, e, f, _DTYPE_CODES[x.dtype], nblk, eps,
+                    grads.data_ptr(), m, n, e, f, _DTYPE_CODES[x.dtype], nblk, eps,
                     torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"fused_ffn_bwd launch failed with CUDA error {rc} "
-                               f"(N, E, F = {n}, {e}, {f}, {x.dtype})")
+                               f"(M, N, E, F = {m}, {n}, {e}, {f}, {x.dtype})")
     fused_ffn_block_bwd.launches += 1
     fused_ffn_block_bwd.mma_launches += mma
-    sizes = [p.numel() for p in params]
-    pgrads = [gr.view_as(p) for gr, p in zip(grads.split(sizes), params)]
+    pgrads = [gr.reshape(p.shape) for gr, p in zip(grads.split(sizes, dim=1), params)]
     return (datt, dx, *pgrads)
 
 
@@ -431,27 +457,34 @@ fused_ffn_block_fwd = register_kernel_op(
 class FusedFFNBlock(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient (the JAX
     package's ``custom_vjp``). The residuals are ``att``, ``x`` and the
-    parameters; the backward recomputes the forward from them. Refused under
-    ``torch.func.vmap``: stacked members carry a set of weights each."""
+    parameters; the backward recomputes the forward from them. ``members``:
+    None for one call, else M stacked members, every tensor (M, ...).
+
+    Under ``torch.func.vmap`` (stacked ensemble members) the ``vmap`` rule
+    stacks the members (``stack_members``) and applies this Function once
+    with ``members``: one launch each way for all M, each member bitwise
+    its own call."""
 
     @staticmethod
-    def forward(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps):
-        return _ffn_fwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps=eps)
+    def forward(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps, members=None):
+        return _ffn_fwd(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2, eps=eps,
+                        members=members)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs[:-1])
-        ctx.eps = inputs[-1]
+        ctx.save_for_backward(*inputs[:12])
+        ctx.eps, ctx.members = inputs[12], inputs[13] if len(inputs) > 13 else None
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = fused_ffn_block_bwd(*ctx.saved_tensors, g, eps=ctx.eps)
-        return (*grads, None)
+        grads = fused_ffn_block_bwd(*ctx.saved_tensors, g, eps=ctx.eps, members=ctx.members)
+        return (*grads, None, None)
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        refuse_stacked_weights("the fused FFN block")
+        n, stacked = stack_members(info, in_dims[:12], args[:12])
+        return FusedFFNBlock.apply(*stacked, args[12], n), 0
 
 
 def fused_ffn_block(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
@@ -466,11 +499,13 @@ def fused_ffn_block(att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2,
     launch the kernels (``supports`` gives the widths) or raise. Without a
     gradient to take (``no_grad``, ``inference_mode``, as in serving) the
     forward runs alone and keeps no residuals, on CUDA through the registered
-    op ``fused_ffn_block_fwd``."""
+    op ``fused_ffn_block_fwd``. Under ``torch.func.vmap`` (stacked members,
+    any of the inputs batched; a BatchedTensor's ``requires_grad`` reads
+    False) a call goes through ``FusedFFNBlock``, gradients on or off, one
+    launch each way for all members (under ``no_grad`` no residual outlives
+    the call)."""
     args = (att, x, wu, bu, g1, b1, wf1, bf1, wf2, bf2, g2, b2)
-    if is_batched(*args):
-        refuse_stacked_weights("the fused FFN block")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if is_batched(*args) or (torch.is_grad_enabled() and any(a.requires_grad for a in args)):
         return FusedFFNBlock.apply(*args, eps)
     if x.device.type == "cuda":
         return fused_ffn_block_fwd(*args, eps)

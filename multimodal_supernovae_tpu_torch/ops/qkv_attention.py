@@ -53,6 +53,17 @@ the registered op ``mmsn_torch::fused_qkv_attention_fwd``
 exported encoder (evaluation/export.py); its body launches as a direct call
 does.
 
+Under ``torch.func.vmap`` (stacked ensemble members, training/ensemble.py,
+each with its own weights; the packing in ``fused_qkv_attention`` then gives
+each member its own (3E, E) weight) the ``vmap`` rule of
+``FusedQKVAttention`` stacks the members as the fused block's does
+(``attention.stack_members``: a shared mask or weight, or an unbatched x, is
+expanded to the members and copied) and launches each kernel
+once for all M members, the member a grid dimension that offsets its samples
+and weights, each member with the block count a call for it alone takes:
+bitwise that call's results. On the CPU the stacked calls run the plain
+versions member by member.
+
 The TPU kernel's (NB, 3E, Tp) sublane layout, its samples-per-program choice
 and VMEM budgets, the mask pre-broadcast to head rows and the padding of T to
 a multiple of 8 are not carried over: the CUDA kernels take any T <= 256 and
@@ -68,7 +79,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import PLAIN_DEVICES, is_batched, refuse_stacked_weights, register_kernel_op
+from .attention import (PLAIN_DEVICES, is_batched, per_member, register_kernel_op,
+                        stack_members)
 
 MASK_FILL = -1e7
 MAX_TQ = 256       # one thread per sequence position; longer sequences use the flash kernels
@@ -78,16 +90,16 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = {  # the C entry points' ctypes signatures
     "fused_qkv_fwd": ([ctypes.c_void_p] * 6       # x mask wqkv wu bu out
-                      + [ctypes.c_int] * 5         # B, T, E, H, dtype
+                      + [ctypes.c_int] * 6         # M, B, T, E, H, dtype
                       + [ctypes.c_void_p]),        # stream
     "fused_qkv_fwd_mma": ([ctypes.c_void_p] * 6   # x mask wqkv wu bu out
-                          + [ctypes.c_int] * 4     # B, T, E, H
+                          + [ctypes.c_int] * 5     # M, B, T, E, H
                           + [ctypes.c_void_p]),    # stream
     "fused_qkv_bwd": ([ctypes.c_void_p] * 8       # x mask wqkv wu g dx partial grads
-                      + [ctypes.c_int] * 6         # B, T, E, H, dtype, blocks
+                      + [ctypes.c_int] * 7         # M, B, T, E, H, dtype, blocks
                       + [ctypes.c_void_p]),        # stream
     "fused_qkv_bwd_mma": ([ctypes.c_void_p] * 8   # x mask wqkv wu g dx partial grads
-                          + [ctypes.c_int] * 5     # B, T, E, H, blocks
+                          + [ctypes.c_int] * 6     # M, B, T, E, H, blocks
                           + [ctypes.c_void_p]),    # stream
 }
 _bound = {}
@@ -226,61 +238,70 @@ def _route(dtype: torch.dtype, head_dim: int) -> str:
     return "mma" if dtype == torch.bfloat16 and head_dim in HEAD_DIMS else "simt"
 
 
-def _check(x, mask, wqkv, wu, heads):
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, T, E), got shape {tuple(x.shape)}")
+def _check(x, mask, wqkv, wu, heads, members: Optional[int] = None):
+    """(B, T, E) of a call; ``members`` M: stacked members, every tensor
+    with a leading member axis (M, ...)."""
+    lead = () if members is None else (members,)
+    if x.dim() != 3 + len(lead) or tuple(x.shape[:len(lead)]) != lead:
+        raise ValueError(f"x must be {'(M, B, T, E)' if lead else '(B, T, E)'}, got shape "
+                         f"{tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {x.dtype} not supported (float32, bfloat16)")
-    b, t, e = x.shape
+    b, t, e = x.shape[-3:]
     if min(b, t) < 1 or not supports(t, e, heads):
         raise ValueError(f"(B, T, E, heads) = ({b}, {t}, {e}, {heads}) not supported "
                          "(supports: T <= 256, E a multiple of 32 within the "
                          "shared-memory limit, head dim 8 or 16)")
-    for name, p, shape in (("wqkv", wqkv, (3 * e, e)), ("wu", wu, (e, e))):
+    for name, p, shape in (("wqkv", wqkv, lead + (3 * e, e)), ("wu", wu, lead + (e, e))):
         if tuple(p.shape) != shape or p.dtype != torch.float32 or p.device != x.device:
             raise ValueError(f"{name} must be float32 {shape} on {x.device}, got "
                              f"{p.dtype} {tuple(p.shape)} on {p.device}")
         if not p.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if mask is not None:
-        if mask.shape != (b, t) or mask.dtype != torch.bool or mask.device != x.device:
-            raise ValueError(f"mask must be bool ({b}, {t}) on {x.device}, got "
+        if mask.shape != lead + (b, t) or mask.dtype != torch.bool or mask.device != x.device:
+            raise ValueError(f"mask must be bool {lead + (b, t)} on {x.device}, got "
                              f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
         if not mask.is_contiguous():
             raise ValueError("mask must be contiguous")
     if not x.is_contiguous():
-        raise ValueError("x must be contiguous (B, T, E)")
+        raise ValueError("x must be contiguous")
     return b, t, e
 
 
-def _check_fwd(x, mask, wqkv, wu, bu, heads):
-    b, t, e = _check(x, mask, wqkv, wu, heads)
-    if (tuple(bu.shape) != (e,) or bu.dtype != torch.float32 or bu.device != x.device
+def _check_fwd(x, mask, wqkv, wu, bu, heads, members: Optional[int] = None):
+    b, t, e = _check(x, mask, wqkv, wu, heads, members)
+    shape = (e,) if members is None else (members, e)
+    if (tuple(bu.shape) != shape or bu.dtype != torch.float32 or bu.device != x.device
             or not bu.is_contiguous()):
-        raise ValueError(f"bu must be contiguous float32 ({e},) on {x.device}")
+        raise ValueError(f"bu must be contiguous float32 {shape} on {x.device}")
     return b, t, e
 
 
-def _qkv_fwd(x, mask, wqkv, wu, bu, heads):
-    """Launch the forward kernel (CUDA) or run the plain version (CPU)."""
+def _qkv_fwd(x, mask, wqkv, wu, bu, heads, members: Optional[int] = None):
+    """Launch the forward kernel (CUDA) or run the plain version (CPU).
+    ``members`` M: stacked members, every tensor (M, ...), one launch for
+    all of them."""
     if x.device.type in PLAIN_DEVICES:
-        return fused_qkv_attention_plain(x, mask, wqkv, wu, bu, heads)
+        return per_member(fused_qkv_attention_plain, members, x, mask, wqkv, wu, bu,
+                          heads=heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention runs on CUDA or CPU, got {x.device}")
-    b, t, e = _check_fwd(x, mask, wqkv, wu, bu, heads)
+    b, t, e = _check_fwd(x, mask, wqkv, wu, bu, heads, members)
     out = torch.empty_like(x)
     mma = _route(x.dtype, e // heads) == "mma"
     name = "fused_qkv_fwd_mma" if mma else "fused_qkv_fwd"
     dtype = () if mma else (_DTYPE_CODES[x.dtype],)
+    m = members or 1
     fn = _entry(name)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), None if mask is None else mask.data_ptr(),
                 wqkv.data_ptr(), wu.data_ptr(), bu.data_ptr(), out.data_ptr(),
-                b, t, e, heads, *dtype,
+                m, b, t, e, heads, *dtype,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc} "
-                           f"(B, T, E, heads = {b}, {t}, {e}, {heads}, {x.dtype})")
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} (M, B, T, E, heads "
+                           f"= {m}, {b}, {t}, {e}, {heads}, {x.dtype})")
     fused_qkv_attention.launches += 1
     fused_qkv_attention.mma_launches += mma
     return out
@@ -290,7 +311,7 @@ def _bwd_blocks(b: int, device) -> int:
     """Blocks of the backward's fixed grid: one per SM (its shared memory
     leaves room for one), at most one per sample. Each writes one float32
     partial of the parameter gradients, which the reduce kernel sums in block
-    order."""
+    order. A stacked member takes the count of its own B samples."""
     sms = _sm_count.get(device.index)
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -298,25 +319,30 @@ def _bwd_blocks(b: int, device) -> int:
     return max(1, min(b, sms))
 
 
-def fused_qkv_attention_bwd(x, mask, wqkv, wu, g, heads: int
-                            ) -> Tuple[torch.Tensor, ...]:
+def fused_qkv_attention_bwd(x, mask, wqkv, wu, g, heads: int,
+                            members: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """(dx, dwqkv, dwu, dbu) for the cotangent ``g``: the plain version for
     CPU tensors; for CUDA tensors the backward kernel of ``_route``'s route
     (recompute, backward, per-block float32 partials of the parameter
-    gradients) and its reduce kernel, counted as one launch, or raise."""
+    gradients) and its reduce kernel, counted as one launch, or raise.
+    ``members`` M: stacked members, every tensor and every result (M, ...),
+    one launch of each kernel for all of them."""
     if x.device.type in PLAIN_DEVICES:
-        return fused_qkv_attention_bwd_plain(x, mask, wqkv, wu, g, heads)
+        return per_member(fused_qkv_attention_bwd_plain, members, x, mask, wqkv, wu, g,
+                          heads=heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention_bwd runs on CUDA or CPU, got {x.device}")
-    b, t, e = _check(x, mask, wqkv, wu, heads)
+    b, t, e = _check(x, mask, wqkv, wu, heads, members)
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must be {tuple(x.shape)} on {x.device}")
     g = g.to(x.dtype).contiguous()
     nblk = _bwd_blocks(b, x.device)
+    m = members or 1
+    lead = () if members is None else (members,)
     sizes = [3 * e * e, e * e, e]
     dx = torch.empty_like(x)
-    partial = torch.empty((nblk, sum(sizes)), dtype=torch.float32, device=x.device)
-    grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    partial = torch.empty((m, nblk, sum(sizes)), dtype=torch.float32, device=x.device)
+    grads = torch.empty((*lead, sum(sizes)), dtype=torch.float32, device=x.device)
     mma = _route(x.dtype, e // heads) == "mma"
     name = "fused_qkv_bwd_mma" if mma else "fused_qkv_bwd"
     dtype = () if mma else (_DTYPE_CODES[x.dtype],)
@@ -324,15 +350,15 @@ def fused_qkv_attention_bwd(x, mask, wqkv, wu, g, heads: int
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), None if mask is None else mask.data_ptr(),
                 wqkv.data_ptr(), wu.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                partial.data_ptr(), grads.data_ptr(), b, t, e, heads, *dtype, nblk,
+                partial.data_ptr(), grads.data_ptr(), m, b, t, e, heads, *dtype, nblk,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc} "
-                           f"(B, T, E, heads = {b}, {t}, {e}, {heads}, {x.dtype})")
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc} (M, B, T, E, heads "
+                           f"= {m}, {b}, {t}, {e}, {heads}, {x.dtype})")
     fused_qkv_attention_bwd.launches += 1
     fused_qkv_attention_bwd.mma_launches += mma
-    dwqkv, dwu, dbu = grads.split(sizes)
-    return dx, dwqkv.view(3 * e, e), dwu.view(e, e), dbu
+    dwqkv, dwu, dbu = grads.split(sizes, dim=-1)
+    return dx, dwqkv.unflatten(-1, (3 * e, e)), dwu.unflatten(-1, (e, e)), dbu
 
 
 fused_qkv_attention_bwd.launches = 0
@@ -357,30 +383,37 @@ class FusedQKVAttention(torch.autograd.Function):
     package's ``custom_vjp``). The residuals are x, the mask and the two
     weights; the backward recomputes the forward from them. The weight
     gradients are cast to the weights' dtype, as the JAX backward does.
-    Refused under ``torch.func.vmap``: stacked members carry a set of
-    weights each."""
+    ``members``: None for one call, else M stacked members, every tensor
+    (M, ...).
+
+    Under ``torch.func.vmap`` (stacked ensemble members) the ``vmap`` rule
+    stacks the members and applies this Function once with ``members``: one
+    launch each way for all M, each member bitwise its own call."""
 
     @staticmethod
-    def forward(x, mask, wqkv, wu, bu, heads):
-        return _qkv_fwd(x, mask, wqkv, wu, bu, heads)
+    def forward(x, mask, wqkv, wu, bu, heads, members=None):
+        return _qkv_fwd(x, mask, wqkv, wu, bu, heads, members)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, mask, wqkv, wu, bu, heads = inputs
+        x, mask, wqkv, wu, bu, heads = inputs[:6]
         ctx.save_for_backward(x, mask, wqkv, wu)
         ctx.heads, ctx.bu_dtype = heads, bu.dtype
+        ctx.members = inputs[6] if len(inputs) > 6 else None
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, mask, wqkv, wu = ctx.saved_tensors
-        dx, dwqkv, dwu, dbu = fused_qkv_attention_bwd(x, mask, wqkv, wu, g, ctx.heads)
+        dx, dwqkv, dwu, dbu = fused_qkv_attention_bwd(x, mask, wqkv, wu, g, ctx.heads,
+                                                      ctx.members)
         return (dx, None, dwqkv.to(wqkv.dtype), dwu.to(wu.dtype),
-                dbu.to(ctx.bu_dtype), None)
+                dbu.to(ctx.bu_dtype), None, None)
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        refuse_stacked_weights("the fused QKV attention")
+        n, stacked = stack_members(info, in_dims[:5], args[:5])
+        return FusedQKVAttention.apply(*stacked, args[5], n), 0
 
 
 def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -402,7 +435,11 @@ def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
     tensors launch the kernels (``supports`` gives the shapes) or raise.
     Without a gradient to take (``no_grad``, ``inference_mode``, as in
     serving) the forward runs alone and keeps no residuals, on CUDA through
-    the registered op ``fused_qkv_attention_fwd``."""
+    the registered op ``fused_qkv_attention_fwd``. Under ``torch.func.vmap``
+    (stacked members; each member's weights packed into its own (3E, E)) a
+    call goes through ``FusedQKVAttention``, gradients on or off, one launch
+    each way for all members (under ``no_grad`` no residual outlives the
+    call)."""
     e = x.shape[-1]
     if x.shape[1] > MAX_TQ:
         raise ValueError(f"T = {x.shape[1]} > {MAX_TQ}: use the flash kernels")
@@ -411,9 +448,8 @@ def fused_qkv_attention(x: torch.Tensor, mask: Optional[torch.Tensor],
     scale = float(emb) ** -0.25
     wqkv = torch.cat([wq * scale, wk * scale, wv], dim=0)
     args = (x, wqkv, wu, bu)
-    if is_batched(x, mask, *args):
-        refuse_stacked_weights("the fused QKV attention")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if is_batched(x, mask, *args) or (torch.is_grad_enabled()
+                                      and any(a.requires_grad for a in args)):
         return FusedQKVAttention.apply(x, mask, wqkv, wu, bu, heads)
     if x.device.type == "cuda":
         return fused_qkv_attention_fwd(x, mask, wqkv, wu, bu, heads)

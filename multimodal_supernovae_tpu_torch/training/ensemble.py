@@ -58,8 +58,11 @@ are gathered over the data group, so every rank returns every member's;
 ``state`` and the snapshots are the local members' (``local`` names them).
 A barrier stands before the return.
 
-Not ported: the fused-block and fused-QKV opt-ins raise under vmap (ROADMAP.md
-queue 1, item 15c).
+The fused opt-ins (``MMSN_FUSED_BLOCK=1`` / ``use_fused_block``,
+``MMSN_FUSED_QKV=1``) work here too: the fused kernels' ``vmap`` rules
+(ops/fused_block.py, ops/qkv_attention.py) stack the members' weights and
+launch each kernel once a layer for all of them, each way, as the flash
+kernels do; the no-grad evaluation pass launches their forwards alone.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ small size, mirroring tests/test_ensemble.py case by case:
     parallel sweeps' run dirs, config dumps and split manifests;
   * the flash kernels' vmap rule, with the launch functions replaced by
     their plain versions (the kernels themselves are held on the card by
-    chip_smoke.py's phase ensemble), and the fused kernels' refusal.
+    chip_smoke.py's phase ensemble); the fused kernels' vmap rules are
+    tests/test_torch_fused_vmap.py's.
 """
 
 import copy
@@ -55,7 +56,6 @@ from multimodal_supernovae_tpu_torch.models import pick_reference_ckpt
 from multimodal_supernovae_tpu_torch.models import state_dict_from_jax
 from multimodal_supernovae_tpu_torch.models import transformer as transformer_mod
 from multimodal_supernovae_tpu_torch.ops import flash_attention as flash_mod
-from multimodal_supernovae_tpu_torch.ops import fused_block, qkv_attention
 from multimodal_supernovae_tpu_torch.ops import linear as linear_mod
 from multimodal_supernovae_tpu_torch.ops.attention import dense_attention, dense_attention_bwd
 from multimodal_supernovae_tpu_torch.training import Trainer, TrainerConfig
@@ -618,36 +618,6 @@ def test_flash_vmap_rule_folds_members_into_the_batch(plain_launches, mask):
                              in_dims=in_dims)(q, k, v, key_mask)
     assert plain_launches["fwd"][-1][2] is False and len(plain_launches["fwd"]) == 2
     torch.testing.assert_close(ev, out.detach(), atol=0, rtol=0)
-
-
-def test_fused_kernels_refuse_stacked_weights(monkeypatch):
-    rng = np.random.default_rng(1)
-    e, f = 16, 64
-    w = {name: torch.tensor(rng.normal(size=shape).astype(np.float32), requires_grad=True)
-         for name, shape in (("wu", (e, e)), ("bu", (e,)), ("g1", (e,)), ("b1", (e,)),
-                             ("wf1", (f, e)), ("bf1", (f,)), ("wf2", (e, f)), ("bf2", (e,)),
-                             ("g2", (e,)), ("b2", (e,)))}
-    x = torch.tensor(rng.normal(size=(2, 6, e)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        torch.func.vmap(lambda a: fused_block.fused_ffn_block(a, a, *w.values()))(x)
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        torch.func.vmap(lambda a: fused_block.FusedFFNBlock.apply(a, a, *w.values(), 1e-6))(x)
-    wq = torch.tensor(rng.normal(size=(e, e)).astype(np.float32), requires_grad=True)
-    xq = torch.tensor(rng.normal(size=(2, 2, 6, e)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        torch.func.vmap(lambda a: qkv_attention.fused_qkv_attention(
-            a, None, wq, wq, wq, wq, w["bu"], 2, e))(xq)
-    # the routing checks refuse before any kernel is reached (maven-lite's
-    # light-curve width, which both opt-ins take)
-    xb = torch.tensor(rng.normal(size=(2, 2, 6, 64)).astype(np.float32))
-    block = transformer_mod.TransformerBlock(64, 8, use_fused_block=True)
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        torch.func.vmap(lambda a: block(a))(xb)
-    monkeypatch.setenv("MMSN_FUSED_QKV", "1")
-    monkeypatch.setattr(transformer_mod, "_on_card", lambda x: True)
-    sa = transformer_mod.SelfAttention(64, 8)
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        torch.func.vmap(lambda a: sa(a))(xb)
 
 
 @pytest.mark.parametrize("rows,bias", [(1024, True), (1024, False), (7 * 40, True)],

@@ -593,3 +593,32 @@ def test_bwd_mma_smem_formula_matches_the_source():
     assert 2 * (fb._bwd_mma_smem_bytes(64, 256) + 1024) <= fb.SM_SMEM
     assert 2 * (fb._bwd_mma_smem_bytes(128, 512) + 1024) > fb.SM_SMEM
     assert fb._bwd_mma_smem_bytes(128, 512) <= fb.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,dtype", [("mma", "float32"), ("simt", "float32"),
+                                         ("simt", "bfloat16")])
+@pytest.mark.parametrize("n,e,f", [(4096 - 37, 64, 256), (1000, 128, 512)])
+def test_stacked_members_bitwise_their_own_calls(monkeypatch, route, dtype, n, e, f):
+    """Three stacked members (the wrappers given members = 3), each with its
+    own rows and parameters: one launch each way, and every output and
+    gradient bitwise each member's own call on the same route."""
+    _needs_cuda()
+    if route == "simt":
+        monkeypatch.setattr(fb, "_route", lambda *a: "simt")
+    else:
+        assert fb._route(getattr(torch, dtype), e, f) == "mma"
+    members = [_inputs(20 + i, n, e, f, dtype, "cuda") for i in range(3)]
+    att, x, g = (torch.stack([a[k] for a in members]) for k in (0, 1, 3))
+    params = [torch.stack([a[2][j] for a in members]) for j in range(10)]
+    c = (fb.fused_ffn_block, fb.fused_ffn_block_bwd)
+    before = [(fn.launches, fn.mma_launches) for fn in c]
+    out = fb._ffn_fwd(att, x, *params, eps=fb.LN_EPS, members=3)
+    grads = fb.fused_ffn_block_bwd(att, x, *params, g, members=3)
+    torch.cuda.synchronize()
+    mma = route == "mma"
+    assert [(fn.launches, fn.mma_launches) for fn in c] == [(a + 1, b + mma) for a, b in before]
+    for i, (ai, xi, pi, gi) in enumerate(members):
+        assert torch.equal(out[i], fb._ffn_fwd(ai, xi, *pi, eps=fb.LN_EPS))
+        for got, want in zip(grads, fb.fused_ffn_block_bwd(ai, xi, *pi, gi)):
+            assert torch.equal(got[i], want)

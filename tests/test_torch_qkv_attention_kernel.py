@@ -145,7 +145,9 @@ def test_backward_kernel_matches_plain(monkeypatch, dtype, route, shape, mask):
 @pytest.mark.parametrize("shape", [(256, 200, 64, 8), (256, 220, 32, 2)])
 def test_mma_dwqkv_one_percent_off_fails_the_check(shape):
     """Negative control: the tensor-core dWqkv with its query third scaled by
-    0.99 passes the elementwise limit but not NORM_TOL."""
+    0.99 passes the elementwise limit but not NORM_TOL, over the whole of
+    dWqkv and (by a wider margin) over the query third, which the sound
+    kernel's query, key and value thirds each meet on their own."""
     _needs_cuda()
     b, t, e, h = shape
     x, m, wqkv, wu, _, g = _inputs(6, b, t, e, "bfloat16", "cuda")
@@ -155,10 +157,13 @@ def test_mma_dwqkv_one_percent_off_fails_the_check(shape):
     assert qa.fused_qkv_attention_bwd.mma_launches == before + 1
     want = qa.fused_qkv_attention_bwd_plain(x, m, wqkv, wu, g, h)[1]
     assert _norm_err(dwqkv, want) <= NORM_TOL
+    for i in range(3):
+        assert _norm_err(dwqkv[i * e:(i + 1) * e], want[i * e:(i + 1) * e]) <= NORM_TOL
     wrong = dwqkv.clone()
     wrong[:e] *= 0.99
     assert float((wrong - want).abs().max()) <= GRAD_TOL["bfloat16"] * float(want.abs().max())
     assert _norm_err(wrong, want) > NORM_TOL
+    assert _norm_err(wrong[:e], want[:e]) > NORM_TOL
 
 
 def _f64_grads(x, m, wqkv, wu, g, heads):
@@ -356,3 +361,30 @@ def test_library_path_keys_on_the_qkv_mma_header(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = [library_path(n) for n in names]
     assert all(a != b for a, b in zip(before, after))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,dtype", [("simt", "float32"), ("mma", "bfloat16"),
+                                         ("simt", "bfloat16")])
+@pytest.mark.parametrize("shape,mask", [((16, 200, 64, 8), "masked_sample"),
+                                        ((16, 220, 32, 2), "random"), ((8, 37, 32, 2), "none")])
+def test_stacked_members_bitwise_their_own_calls(monkeypatch, route, dtype, shape, mask):
+    """Three stacked members (the wrappers given members = 3), each with its
+    own x, mask and weights: one launch each way, and every output and
+    gradient bitwise each member's own call on the same route."""
+    _needs_cuda()
+    b, t, e, h = shape
+    _on_route(monkeypatch, route, dtype, e // h)
+    members = [_inputs(30 + i, b, t, e, dtype, "cuda", mask) for i in range(3)]
+    x, m, wqkv, wu, bu, g = (None if members[0][k] is None else
+                             torch.stack([a[k] for a in members]) for k in range(6))
+    before = _counts()
+    out = qa._qkv_fwd(x, m, wqkv, wu, bu, h, 3)
+    grads = qa.fused_qkv_attention_bwd(x, m, wqkv, wu, g, h, 3)
+    torch.cuda.synchronize()
+    mma = route == "mma"
+    assert _counts() == (before[0] + 1, before[1] + mma, before[2] + 1, before[3] + mma)
+    for i, (xi, mi, wi, ui, bi, gi) in enumerate(members):
+        assert torch.equal(out[i], qa._qkv_fwd(xi, mi, wi, ui, bi, h))
+        for got, want in zip(grads, qa.fused_qkv_attention_bwd(xi, mi, wi, ui, gi, h)):
+            assert torch.equal(got[i], want)
